@@ -5,8 +5,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming paths of `fastenhancer_tpu_torch` (no JAX anywhere)
-through the hand-written CUDA kernels, in eight phases, each printed on its
-own line:
+through the hand-written CUDA kernels, in eleven phases, each printed on
+its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for the float32 checks;
@@ -15,8 +15,10 @@ own line:
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
      FastEnhancer T/B/S shapes, the dpt stack at the DPT T/B/S block shapes
-     with a wrapped pointer and unwritten cache slots), and each timed with
-     CUDA events at B=256 bfloat16 beside its plain version and its bound;
+     with a wrapped pointer and unwritten cache slots, the BSRNN stack at
+     the BSRNN-XT and -S shapes, the dprnn stack at the DPRNN-T and -B
+     shapes), and each timed with CUDA events at B=256 bfloat16 beside its
+     plain version and its bound (the BSRNN stack at each of its tiles);
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -29,9 +31,12 @@ own line:
   7. whole frame FE_B: streaming_step_fused_frame (one kernel per frame for
      the whole spec->mask model) over 256 streams, against
      streaming_step_fused on the same input, both timed per frame;
-  8. throughput DPT-B: Model.stream(fused_plan=...) over 256 streams.
+  8. throughput DPT-B: Model.stream(fused_plan=...) over 256 streams;
+  9. serving BSRNN-S, as phase 4, through the BSRNN stack kernel;
+ 10. serving DPRNN-B, as phase 4, through the dprnn stack kernel;
+ 11. throughput BSRNN-S: Model.stream(fused_plan=...) over 256 streams.
 
-Each of phases 4 to 8 drives a path: every kernel's launch count is set to
+Each of phases 4 to 11 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran once per frame and no other kernel ran. The line before the
 last holds the kernels' JSON record; the last line is
@@ -53,6 +58,7 @@ STREAMS = 256
 FE_SECONDS = 10.0      # phase 5's audio per stream
 FRAME_SECONDS = 5.0    # phase 7's audio per stream
 DPT_SECONDS = 5.0      # phase 8's audio per stream
+BSRNN_SECONDS = 5.0    # phase 11's audio per stream
 # the H100 SXM's published peaks (NVIDIA H100 datasheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -75,17 +81,21 @@ def main():
     from fastenhancer_tpu_torch import require_cuda
     from fastenhancer_tpu_torch.models import get_model
     from fastenhancer_tpu_torch.ops import _build
+    from fastenhancer_tpu_torch.ops import bsrnn_stack as band
+    from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
     from fastenhancer_tpu_torch.ops import dpt_stack as dpt
     from fastenhancer_tpu_torch.ops import fused_frame as frame
     from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
-    from fastenhancer_tpu_torch.presets import DPT_B, FE_B
+    from fastenhancer_tpu_torch.presets import BSRNN_S, DPRNN_B, DPT_B, FE_B
     from fastenhancer_tpu_torch.serving import StreamingEngine
     from fastenhancer_tpu_torch.utils import cast_floating
 
     dev = require_cuda()
     wrappers = {"rnnformer_stack_step": stack.rnnformer_stack_step,
                 "fused_frame_step": frame.fused_frame_step,
-                "dpt_stack_step": dpt.dpt_stack_step}
+                "dpt_stack_step": dpt.dpt_stack_step,
+                "bsrnn_stack_step": band.bsrnn_stack_step,
+                "dprnn_stack_step": dprnn.dprnn_stack_step}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -108,15 +118,15 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/8] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/11] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
     # -- 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("rnnformer_stack", "fused_frame", "dpt_stack")
+    names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/8] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/11] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against their plain versions ------------------------------------
@@ -174,14 +184,36 @@ def main():
             errs.append((err, tol))
         return errs
 
-    def timed(kernel, plain, err, bound_info):
+    def graphed(fn):
+        """fn captured as one CUDA graph: its replay is one launch for the
+        host, so the sleep kernel can keep the queue ahead of a plain
+        version of thousands of launches."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph.replay
+
+    def timed(kernel, plain, err, bound_info, plain_graph=False):
         ms, host_ms = time_ms(kernel)
-        # few calls: ~130 launches each must fit the card's launch queue
-        # while the sleep kernel holds it
-        plain_ms, plain_host_ms = time_ms(plain, inner=4)
+        if plain_graph:
+            # thousands of launches per call: the device time of the plain
+            # version is timed as a CUDA graph's replay, the host time as
+            # its eager calls
+            plain_ms, _ = time_ms(graphed(plain), inner=4)
+            _, plain_host_ms = time_ms(plain, reps=1, inner=1)
+        else:
+            # few calls: ~130 launches each must fit the card's launch
+            # queue while the sleep kernel holds it
+            plain_ms, plain_host_ms = time_ms(plain, inner=4)
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     host_ms=host_ms, plain_host_ms=plain_host_ms,
-                    **bound_info)
+                    plain_timing="as a CUDA graph" if plain_graph
+                    else "eagerly", **bound_info)
 
     def uniform_plan(shapes, c, dtype, g):
         return {k: ((torch.rand(s, generator=g) * 2 - 1) / c ** 0.5).to(
@@ -214,7 +246,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/8] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/11] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -266,7 +298,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/8] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/11] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -316,7 +348,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/8] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/11] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -333,10 +365,83 @@ def main():
                     lambda: dpt.dpt_stack_reference(plan, x, kc_r, vc_r, p,
                                                     heads),
                     max(e for e, _ in errs), bound_info)
+    # 3d. the BSRNN stack (kernel 3) at the XT and S shapes, 256 streams
+    def band_flops(b, f, c, nl):
+        # multiply-adds per row and layer with H = 2C: the time cell and
+        # both sweep directions 4H (C + H) each, fc_time H C, fc_freq 2H C
+        hd = 2 * c
+        return 2 * b * f * nl * (3 * 4 * hd * (c + hd) + 3 * hd * c)
+
+    for name, c in (("BSRNN_S", 64), ("BSRNN_XT", 16)):
+        nl, f, hd = 6, 31, 2 * c
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(c + 3)
+            plan = uniform_plan(band.plan_shapes(nl, c, hd), c, dtype, g)
+            x = torch.randn(f, STREAMS, c, generator=g).to(dev, dtype)
+            h = (torch.randn(nl, 2, f, STREAMS, hd, generator=g) * 0.5).to(
+                dev, dtype)
+            xo, ho = band.bsrnn_stack_step(plan, x, h)
+            torch.cuda.synchronize()
+            xr, hr = band.bsrnn_stack_reference(plan, x, h)
+            errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
+            print(f"[3/11] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+                  f"H={hd} L={nl} {str(dtype)[6:]}: max abs err x_out "
+                  f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
+                  f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+            if name == "BSRNN_S" and dtype == torch.bfloat16:
+                bound_info = bound(band_flops(STREAMS, f, c, nl),
+                                   nbytes(x, h, xo, ho, *plan.values()),
+                                   dtype)
+                record["bsrnn_stack_step"] = timed(
+                    lambda: band.bsrnn_stack_step(plan, x, h),
+                    lambda: band.bsrnn_stack_reference(plan, x, h),
+                    max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
+                tiles = {s_: time_ms(lambda s_=s_: band.bsrnn_stack_step(
+                    plan, x, h, streams_per_block=s_), reps=3, inner=5)[0]
+                    for s_ in band.STREAMS_PER_BLOCK}
+                print(f"[3/11] time bsrnn_stack BSRNN_S bf16 B={STREAMS} by "
+                      "streams per thread block: " + ", ".join(
+                          f"{s_}: {t:.4f} ms" for s_, t in tiles.items())
+                      + f" (the wrapper's default: "
+                      f"{band.DEFAULT_STREAMS_PER_BLOCK}) on {card}")
+
+    # 3e. the dprnn stack (kernel 6) at the DPRNN-T and -B shapes
+    def dprnn_flops(b, f, c, hd, nb):
+        # multiply-adds per row and block: the time GRU 6 C^2, trnn_fc C^2,
+        # both sweep directions 3Hd (C + Hd) each, frnn_fc 2Hd C
+        return 2 * b * f * nb * (7 * c * c + 6 * hd * (c + hd) + 2 * hd * c)
+
+    for name, (f, c, nb) in (("DPRNN_B", (24, 36, 3)),
+                             ("DPRNN_T", (16, 20, 2))):
+        hd = c // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(f * c + 2)
+            plan = uniform_plan(dprnn.plan_shapes(nb, c, hd), c, dtype, g)
+            x = torch.randn(f, STREAMS, c, generator=g).to(dev, dtype)
+            h = (torch.randn(nb, f, STREAMS, c, generator=g) * 0.5).to(
+                dev, dtype)
+            xo, ho = dprnn.dprnn_stack_step(plan, x, h)
+            torch.cuda.synchronize()
+            xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
+            errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
+            print(f"[3/11] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+                  f"Hd={hd} NB={nb} {str(dtype)[6:]}: max abs err x_out "
+                  f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
+                  f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+            if name == "DPRNN_B" and dtype == torch.bfloat16:
+                bound_info = bound(dprnn_flops(STREAMS, f, c, hd, nb),
+                                   nbytes(x, h, xo, ho, *plan.values()),
+                                   dtype)
+                record["dprnn_stack_step"] = timed(
+                    lambda: dprnn.dprnn_stack_step(plan, x, h),
+                    lambda: dprnn.dprnn_stack_reference(plan, x, h),
+                    max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
+
     for name, r in record.items():
-        print(f"[3/8] time {name} bf16 B={STREAMS}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/11] time {name} bf16 B={STREAMS}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms on the device (CUDA "
-              f"events, median, queue kept ahead); bound "
+              f"events, median, queue kept ahead; plain timed "
+              f"{r['plain_timing']}); bound "
               f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}; "
               f"{r['flops'] / 1e9:.4f} GFLOP, {r['bytes'] / 1e6:.4f} MB); "
               "with the "
@@ -419,7 +524,7 @@ def main():
         _check(f32_err <= STREAM_F32_TOL,
                f"{tag} fused vs unfused float32: {f32_err} > "
                f"{STREAM_F32_TOL}")
-        print(f"[{phase}/8] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/11] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -459,7 +564,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/8] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/11] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -516,7 +621,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/8] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/11] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -530,10 +635,23 @@ def main():
     throughput("fastenhancer.dptransformer", DPT_B, "DPT-B", DPT_SECONDS, 8,
                "dpt_stack_step")
 
+    # -- 9. serving BSRNN-S; 10. serving DPRNN-B; 11. throughput BSRNN-S ----------
+    for model_name, kwargs, tag, phase, kernel in (
+            ("bsrnn", BSRNN_S, "BSRNN-S", 9, "bsrnn_stack_step"),
+            ("fastenhancer.dprnn", DPRNN_B, "DPRNN-B", 10,
+             "dprnn_stack_step")):
+        ticks, counts = serve(model_name, kwargs, tag, phase)
+        check_launches(counts, kernel, ticks, f"{tag} serving")
+        record[kernel]["launches"] = counts[kernel]
+    throughput("bsrnn", BSRNN_S, "BSRNN-S", BSRNN_SECONDS, 11,
+               "bsrnn_stack_step")
+
     sources = {
         "rnnformer_stack_step": ("rnnformer_stack", "rnnformer_stack.py:394"),
         "fused_frame_step": ("fused_frame", "fused_frame.py:303"),
-        "dpt_stack_step": ("dpt_stack", "dpt_stack.py:323")}
+        "dpt_stack_step": ("dpt_stack", "dpt_stack.py:323"),
+        "bsrnn_stack_step": ("bsrnn_stack", "bsrnn_stack.py:249"),
+        "dprnn_stack_step": ("dprnn_stack", "dprnn_stack.py:269")}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -3,10 +3,10 @@
     python -m fastenhancer_tpu_torch.frame_profile
 
 For FastEnhancer_B through the block-stack kernel (`streaming_step_fused`),
-FastEnhancer_B through the whole-frame kernel (`streaming_step_fused_frame`)
-and DPT-B through the dpt-stack kernel (`streaming_step_fused`), all
-bfloat16 with folded random-init weights, over 256 streams and 20 frames,
-it prints per frame:
+FastEnhancer_B through the whole-frame kernel (`streaming_step_fused_frame`),
+and DPT-B, BSRNN-S and DPRNN-B through their stack kernels
+(`streaming_step_fused`), all bfloat16 with folded random-init weights,
+over 256 streams and 20 frames, it prints per frame:
 
 * the wall time of the step loop without the profiler (host clock around
   work that ends in a synchronize);
@@ -25,7 +25,7 @@ import torch
 
 from . import require_cuda
 from .models import get_model
-from .presets import DPT_B, FE_B
+from .presets import BSRNN_S, DPRNN_B, DPT_B, FE_B
 from .utils import cast_floating
 
 STREAMS = 256
@@ -83,7 +83,10 @@ def main() -> None:
     g = torch.Generator().manual_seed(0)
     for model_name, kwargs, tag in (("fastenhancer.default", FE_B, "FE_B"),
                                     ("fastenhancer.dptransformer", DPT_B,
-                                     "DPT-B")):
+                                     "DPT-B"),
+                                    ("bsrnn", BSRNN_S, "BSRNN-S"),
+                                    ("fastenhancer.dprnn", DPRNN_B,
+                                     "DPRNN-B")):
         model = get_model(model_name, **kwargs, stft_method="matmul")
         folded = cast_floating(model.fold(model.init(g, dev)), dt)
         hops = (torch.randn(8, STREAMS, model.hop_size, generator=g)

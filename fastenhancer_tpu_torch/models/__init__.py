@@ -1,18 +1,22 @@
 """Model registry: `get_model(name, **model_kwargs)`.
 
-The port has FastEnhancer's default model and its dptransformer ablation;
-every other name of the JAX package's registry
+The port has FastEnhancer's default model, its dptransformer and dprnn
+ablations, and the BSRNN baseline; every other name of the JAX package's registry
 (fastenhancer_tpu/models/__init__.py) raises NotImplementedError until its
 port lands (ROADMAP queue 1).
 """
 import typing as tp
 
+from . import bsrnn as _bsrnn
 from .fastenhancer import default as _fastenhancer_default
+from .fastenhancer import dprnn as _fastenhancer_dprnn
 from .fastenhancer import dptransformer as _fastenhancer_dptransformer
 
 _MODELS = {
     "fastenhancer.default": _fastenhancer_default.Model,
     "fastenhancer.dptransformer": _fastenhancer_dptransformer.Model,
+    "fastenhancer.dprnn": _fastenhancer_dprnn.Model,
+    "bsrnn": _bsrnn.Model,
 }
 
 

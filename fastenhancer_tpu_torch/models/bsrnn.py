@@ -1,0 +1,453 @@
+"""BSRNN baseline (band-split RNN), inference and streaming, in PyTorch.
+
+Counterpart of fastenhancer_tpu/models/bsrnn.py (reference:
+models/bsrnn/model.py, a re-implementation of Yu et al., "High fidelity
+speech enhancement with band-split RNN", Interspeech 2023):
+
+* 31-subband BandSplit: per-band BN over the (re, im)-interleaved bins and
+  a 1x1 conv to C channels;
+* num_layers x (pre-BN -> time LSTM C->2C -> fc -> +skip; pre-BN ->
+  bidirectional band LSTM C->2C per direction -> fc 4C->C -> +skip);
+* per-band mask and residual GLU MLPs;
+* the full 257-bin compressed spectrum (no last-bin drop), complex mask
+  multiply plus residual add.
+
+The band split and mask decoder run as five batched products, one per run
+of equal-width subbands. `fold()` fuses the pre-norms into the following
+conv and LSTM input weights; folded and unfolded trees run through the same
+code. Streaming carries each layer's time-LSTM (h, c): a list of (h, c)
+[B*F', 2C] (rows batch-major), or stacked [L, 2, F', B, 2C] (rows
+frequency-major) for `streaming_step_fused`, which runs the layer stack as
+one CUDA kernel per frame (ops/bsrnn_stack.py).
+
+Not ported yet (each raises NotImplementedError): training mode
+(train-mode BN and its row mask) and chunked streaming.
+"""
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+
+from .. import nn as fnn
+from ..functional import (
+    STFTConfig,
+    compress,
+    uncompress,
+    compressed_stft,
+    compressed_istft,
+    stft_streaming_step,
+    istft_streaming_step,
+    init_stft_carry,
+    init_istft_carry,
+)
+from ..ops.bsrnn_stack import bsrnn_stack_step, plan_band_stack
+
+Tensor = torch.Tensor
+Params = tp.Dict[str, tp.Any]
+
+SUBBANDS_512 = [2, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+                8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
+                16, 16, 16, 16, 16, 16, 16, 17]  # sum == 257
+
+_TRAIN_TODO = ("training mode is not ported yet (ROADMAP queue 1 item 10: "
+               "train-mode BatchNorm and its row mask)")
+_CHUNK_TODO = ("chunked streaming is not ported yet (ROADMAP queue 1 "
+               "item 4: stream(chunk_frames>1), streaming_chunk)")
+
+
+class Model(torch.nn.Module):
+    """BSRNN. Takes the reference's `model_kwargs` unchanged
+    (configs/others/bsrnn_*.yaml). The module holds the configuration only;
+    weights live in the variables tree that `init` returns."""
+
+    def __init__(
+        self,
+        num_channels: int = 16,
+        num_layers: int = 6,
+        bias: bool = True,
+        affine: bool = True,
+        n_fft: int = 512,
+        hop_size: int = 256,
+        win_size: int = 512,
+        window: str = "hann",
+        input_compression: float = 0.3,
+        stft_method: str = "fft",
+    ):
+        super().__init__()
+        if n_fft != 512:
+            raise ValueError("the reference BandSplit supports n_fft=512 only")
+        self.subbands = list(SUBBANDS_512)
+        self.channels = num_channels
+        self.num_layers = num_layers
+        self.bias = bias
+        self.affine = affine
+        self.n_fft = n_fft
+        self.hop_size = hop_size
+        self.input_compression = input_compression
+        self.stft_cfg = STFTConfig(n_fft=n_fft, hop_size=hop_size,
+                                   win_size=win_size, win_type=window,
+                                   method=stft_method)
+        self.n_bands = len(self.subbands)
+        self._groups = self._band_groups()
+
+    # -- init -----------------------------------------------------------------
+
+    def init(self, generator: torch.Generator,
+             device: tp.Union[str, torch.device]) -> tp.Dict[str, Params]:
+        """Fresh {"params", "stats"} on `device`, with the JAX init's tree
+        and distributions (torch-default uniform inits, identity
+        BatchNorm). Values are drawn on the CPU from `generator`."""
+        c, g, dev = self.channels, generator, torch.device(device)
+        hdim = 2 * c
+        params: Params = {"band_split": [], "layers": [], "mask_decoder": []}
+        stats: Params = {"band_split": [], "layers": [], "mask_decoder": []}
+        for sub in self.subbands:
+            bn_p, bn_s = fnn.init_batch_norm(sub * 2, dev, affine=self.affine)
+            params["band_split"].append({
+                "norm": bn_p,
+                "fc": fnn.torch_conv1d_init(g, c, sub * 2, 1, self.bias, dev)})
+            stats["band_split"].append({"norm": bn_s})
+        for _ in range(self.num_layers):
+            nt_p, nt_s = fnn.init_batch_norm(c, dev, affine=self.affine)
+            nf_p, nf_s = fnn.init_batch_norm(c, dev, affine=self.affine)
+            params["layers"].append({
+                "norm_time": nt_p,
+                "rnn_time": fnn.init_lstm(g, c, hdim, dev),
+                "fc_time": fnn.torch_linear_init(g, c, hdim, self.bias, dev),
+                "norm_freq": nf_p,
+                "rnn_freq": fnn.init_bilstm(g, c, hdim, dev),
+                "fc_freq": fnn.torch_linear_init(g, c, 2 * hdim, self.bias,
+                                                 dev),
+            })
+            stats["layers"].append({"norm_time": nt_s, "norm_freq": nf_s})
+        for sub in self.subbands:
+            entry: Params = {}
+            entry_s: Params = {}
+            for which in ("mask", "residual"):
+                bn_p, bn_s = fnn.init_batch_norm(c, dev, affine=self.bias)
+                entry[which] = {
+                    "norm": bn_p,
+                    "conv1": fnn.torch_conv1d_init(g, 4 * c, c, 1, True, dev),
+                    "conv2": fnn.torch_conv1d_init(g, sub * 4, 4 * c, 1, True,
+                                                   dev),
+                }
+                entry_s[which] = {"norm": bn_s}
+            params["mask_decoder"].append(entry)
+            stats["mask_decoder"].append(entry_s)
+        return {"params": params, "stats": stats}
+
+    # -- pieces ---------------------------------------------------------------
+
+    def _band_groups(self) -> tp.List[tp.Tuple[int, int, int, int]]:
+        """Consecutive runs of equal-width subbands: (band_idx0, n_bands,
+        sub_width, bin_start). The 512-FFT layout gives 5 groups (widths
+        2/3/8/16/17), so the per-band work runs as 5 batched products."""
+        groups = []
+        i = bin0 = 0
+        while i < self.n_bands:
+            sub = self.subbands[i]
+            j = i
+            while j < self.n_bands and self.subbands[j] == sub:
+                j += 1
+            groups.append((i, j - i, sub, bin0))
+            bin0 += (j - i) * sub
+            i = j
+        return groups
+
+    @staticmethod
+    def _bn_eval_grouped(x: Tensor, ps: tp.Sequence[Params],
+                         ss: tp.Sequence[Params],
+                         key: tp.Optional[str] = None) -> Tensor:
+        """Eval-mode BN over a [B, g, T, ch] stack of g bands: the math of
+        g independent batch_norm(train=False) calls (float32, cast back).
+        `key` indexes into nested {mask, residual} entries."""
+        pick = (lambda e: e) if key is None else (lambda e: e[key])
+        mean = torch.stack([pick(s)["norm"]["mean"] for s in ss])
+        var = torch.stack([pick(s)["norm"]["var"] for s in ss])
+        y = (x.float() - mean[None, :, None, :]) * torch.rsqrt(
+            var[None, :, None, :].float() + 1e-5)
+        if pick(ps[0])["norm"] is not None:
+            w = torch.stack([pick(p)["norm"]["weight"] for p in ps])
+            b = torch.stack([pick(p)["norm"]["bias"] for p in ps])
+            y = y * w[None, :, None, :] + b[None, :, None, :]
+        return y.to(x.dtype)
+
+    def _band_split_eval(self, params: tp.Sequence[Params],
+                         stats: tp.Sequence[Params], spec: Tensor) -> Tensor:
+        """spec [B, F, T, 2] -> [T, B, F', C]; one batched product per group
+        of equal-width subbands, whose channels are the (re, im)-interleaved
+        bins of the band."""
+        b, _, t, _ = spec.shape
+        outs = []
+        for i0, g, sub, bin0 in self._groups:
+            x = spec[:, bin0:bin0 + g * sub]                # [B, g*sub, T, 2]
+            x = (x.reshape(b, g, sub, t, 2).permute(0, 1, 3, 2, 4)
+                 .reshape(b, g, t, sub * 2))                # [B, g, T, sub*2]
+            ps, ss = params[i0:i0 + g], stats[i0:i0 + g]
+            if ss[0].get("norm") is not None:               # folded: no norms
+                x = self._bn_eval_grouped(x, ps, ss)
+            wfc = torch.stack([p["fc"]["weight"][:, :, 0] for p in ps])
+            x = torch.einsum("bgts,gcs->bgtc", x, wfc)      # [B, g, T, C]
+            if "bias" in ps[0]["fc"]:
+                x = x + torch.stack([p["fc"]["bias"]
+                                     for p in ps])[None, :, None, :]
+            outs.append(x.transpose(1, 2))                  # [B, T, g, C]
+        return torch.cat(outs, dim=2).transpose(0, 1)       # [T, B, F', C]
+
+    def _mask_decoder_eval(self, params: tp.Sequence[Params],
+                           stats: tp.Sequence[Params], x: Tensor
+                           ) -> tp.Tuple[Tensor, Tensor]:
+        """x [B, F', C, T] -> (mask, residual), each [B, F, T, 2]. The
+        C->4C conv1 batches over all bands, the 4C->sub*4 conv2 and its GLU
+        over each group of equal-width subbands."""
+        b, _, _, t = x.shape
+        xall = x.permute(0, 1, 3, 2)                        # [B, F', T, C]
+        outs = {}
+        for which in ("mask", "residual"):
+            y = xall
+            if stats[0].get(which, {}).get("norm") is not None:
+                y = self._bn_eval_grouped(y, params, stats, key=which)
+            w1 = torch.stack([p[which]["conv1"]["weight"][:, :, 0]
+                              for p in params])             # [F', 4C, C]
+            b1 = torch.stack([p[which]["conv1"]["bias"] for p in params])
+            y = torch.tanh(torch.einsum("bftc,fdc->bftd", y, w1)
+                           + b1[None, :, None, :])
+            pieces = []
+            for i0, g, sub, _ in self._groups:
+                ps = params[i0:i0 + g]
+                w2 = torch.stack([p[which]["conv2"]["weight"][:, :, 0]
+                                  for p in ps])             # [g, sub*4, 4C]
+                b2 = torch.stack([p[which]["conv2"]["bias"] for p in ps])
+                z = (torch.einsum("bgtd,gsd->bgts", y[:, i0:i0 + g], w2)
+                     + b2[None, :, None, :])
+                a, gate = z.chunk(2, dim=-1)                # torch GLU(dim=1)
+                z = a * torch.sigmoid(gate)                 # [B, g, T, sub*2]
+                pieces.append(z.reshape(b, g, t, sub, 2).permute(0, 2, 1, 3, 4)
+                              .reshape(b, t, g * sub, 2))
+            outs[which] = torch.cat(pieces, dim=2).transpose(1, 2)
+        return outs["mask"], outs["residual"]
+
+    @staticmethod
+    def _apply_mask(spec: Tensor, mask: Tensor, res: Tensor) -> Tensor:
+        re = spec[..., 0] * mask[..., 0] - spec[..., 1] * mask[..., 1]
+        im = spec[..., 0] * mask[..., 1] + spec[..., 1] * mask[..., 0]
+        return torch.stack([re, im], dim=-1) + res
+
+    # -- core network -----------------------------------------------------------
+
+    def model_forward(self, params: Params, stats: Params, spec: Tensor,
+                      h0: tp.Optional[tp.List[tp.Tuple[Tensor, Tensor]]] = None,
+                      train: bool = False
+                      ) -> tp.Tuple[Tensor, tp.List[tp.Tuple[Tensor, Tensor]],
+                                    Params]:
+        """Compressed spec [B, F, T, 2] -> (spec_hat, each layer's (h_T,
+        c_T), stats); eval mode."""
+        if train:
+            raise NotImplementedError(_TRAIN_TODO)
+        x = self._band_split_eval(params["band_split"], stats["band_split"],
+                                  spec)
+        t, b, f, c = x.shape
+        carry_out = []
+        for i, (p, s) in enumerate(zip(params["layers"], stats["layers"])):
+            skip = x
+            y = x
+            if s.get("norm_time") is not None:
+                y, _ = fnn.batch_norm(p["norm_time"], s["norm_time"], x,
+                                      train=False)
+            y, hc = fnn.lstm(p["rnn_time"], y.reshape(t, b * f, c),
+                             None if h0 is None else h0[i])
+            carry_out.append(hc)
+            x = fnn.linear(p["fc_time"], y).reshape(t, b, f, c) + skip
+
+            skip = x
+            y = x
+            if s.get("norm_freq") is not None:
+                y, _ = fnn.batch_norm(p["norm_freq"], s["norm_freq"], x,
+                                      train=False)
+            y = fnn.bilstm(p["rnn_freq"],
+                           y.reshape(t * b, f, c).transpose(0, 1))
+            y = y.transpose(0, 1).reshape(t, b, f, 4 * c)
+            x = fnn.linear(p["fc_freq"], y) + skip
+
+        mask, res = self._mask_decoder_eval(
+            params["mask_decoder"], stats["mask_decoder"],
+            x.permute(1, 2, 3, 0))
+        return self._apply_mask(spec, mask, res), carry_out, stats
+
+    # -- offline graph (wav -> wav) ---------------------------------------------
+
+    def stft(self, wav: Tensor) -> Tensor:
+        return compressed_stft(wav, self.stft_cfg, self.input_compression)
+
+    def forward(self, variables: Params, wav: Tensor, train: bool = False
+                ) -> tp.Tuple[Tensor, Tensor, Params]:
+        """wav [B, T] -> (wav_hat [B, T], spec_hat compressed [B, F, T', 2],
+        stats). Inference only."""
+        if train:
+            raise NotImplementedError(_TRAIN_TODO)
+        params, stats = variables["params"], variables["stats"]
+        spec = self.stft(wav)
+        spec_hat, _, stats = self.model_forward(params, stats, spec)
+        wav_hat = compressed_istft(spec_hat, self.stft_cfg,
+                                   self.input_compression,
+                                   length=wav.shape[-1])
+        return wav_hat, spec_hat, stats
+
+    # -- streaming ----------------------------------------------------------------
+
+    def init_streaming_carry(self, batch: int, dtype: torch.dtype,
+                             device: tp.Union[str, torch.device],
+                             fused: bool = False) -> Params:
+        """{"stft", "istft", "h"} for `batch` streams. h is a list of
+        per-layer (h, c) [B*F', 2C] (rows batch-major), or with fused=True
+        the kernel's stacked frequency-major [L, 2, F', B, 2C]."""
+        hdim = 2 * self.channels
+        if fused:
+            h = torch.zeros(self.num_layers, 2, self.n_bands, batch, hdim,
+                            dtype=dtype, device=device)
+        else:
+            h = [tuple(torch.zeros(batch * self.n_bands, hdim, dtype=dtype,
+                                   device=device) for _ in range(2))
+                 for _ in range(self.num_layers)]
+        return {"stft": init_stft_carry(self.stft_cfg, batch, dtype, device),
+                "istft": init_istft_carry(self.stft_cfg, batch, dtype, device),
+                "h": h}
+
+    def _stream_front(self, carry: Params, wav_hop: Tensor
+                      ) -> tp.Tuple[Tensor, Tensor]:
+        """STFT step + compress (all 257 bins) -> (spec [B, F, 1, 2], new
+        stft cache)."""
+        spec, stft_c = stft_streaming_step(wav_hop, carry["stft"],
+                                           self.stft_cfg)
+        return compress(spec[:, :, None, :], self.input_compression), stft_c
+
+    def _stream_back(self, spec_hat: Tensor, carry: Params, stft_c: Tensor,
+                     h) -> tp.Tuple[Params, Tensor]:
+        spec_hat = uncompress(spec_hat, self.input_compression)[:, :, 0, :]
+        wav_out, istft_c = istft_streaming_step(spec_hat, carry["istft"],
+                                                self.stft_cfg)
+        return {"stft": stft_c, "istft": istft_c, "h": h}, wav_out
+
+    def streaming_step(self, variables: Params, carry: Params,
+                       wav_hop: Tensor) -> tp.Tuple[Params, Tensor]:
+        """One hop: wav_hop [B, hop] -> (new_carry, wav_out [B, hop]); the
+        output is delayed n_fft - hop samples."""
+        spec, stft_c = self._stream_front(carry, wav_hop)
+        spec_hat, h_out, _ = self.model_forward(
+            variables["params"], variables["stats"], spec, h0=carry["h"])
+        return self._stream_back(spec_hat, carry, stft_c, h_out)
+
+    def streaming_chunk(self, variables: Params, carry: Params,
+                        wav_chunk: Tensor) -> tp.Tuple[Params, Tensor]:
+        raise NotImplementedError(_CHUNK_TODO)
+
+    # -- fused-stack streaming (CUDA kernel) -------------------------------------
+
+    def build_stack_plan(self, variables: Params,
+                         dtype: tp.Optional[torch.dtype] = None) -> Params:
+        """Pack FOLDED layer params for the band-stack kernel
+        (ops/bsrnn_stack.py); the pre-norm BNs must already be fused into
+        the LSTM input weights."""
+        layers = variables["params"]["layers"]
+        if layers and layers[0].get("norm_time") is not None:
+            raise ValueError("build_stack_plan expects fold() output")
+        return plan_band_stack(layers, dtype)
+
+    def streaming_step_fused(self, variables: Params, plan: Params,
+                             carry: Params, wav_hop: Tensor
+                             ) -> tp.Tuple[Params, Tensor]:
+        """streaming_step with the whole layer stack as one kernel launch;
+        same math as streaming_step on folded variables. carry["h"] is the
+        stacked frequency-major layout (init_streaming_carry(fused=True))."""
+        params, stats = variables["params"], variables["stats"]
+        spec, stft_c = self._stream_front(carry, wav_hop)
+        x = self._band_split_eval(params["band_split"], stats["band_split"],
+                                  spec)                     # [1, B, F', C]
+        xf, h_new = bsrnn_stack_step(plan, x[0].transpose(0, 1).contiguous(),
+                                     carry["h"])            # [F', B, C]
+        mask, res = self._mask_decoder_eval(
+            params["mask_decoder"], stats["mask_decoder"],
+            xf.permute(1, 0, 2)[..., None])                 # [B, F', C, 1]
+        return self._stream_back(self._apply_mask(spec, mask, res), carry,
+                                 stft_c, h_new)
+
+    def stream(self, variables: Params, wav: Tensor, chunk_frames: int = 1,
+               fused_plan: tp.Optional[Params] = None) -> Tensor:
+        """Whole-utterance streaming, one hop per step.
+        wav [B, hop*T] -> [B, hop*T]; `fused_plan` (build_stack_plan() of
+        folded variables) runs the layer stack as one kernel per frame."""
+        if chunk_frames != 1:
+            raise NotImplementedError(_CHUNK_TODO)
+        b, length = wav.shape
+        hop = self.hop_size
+        carry = self.init_streaming_carry(b, wav.dtype, wav.device,
+                                          fused=fused_plan is not None)
+        outs = []
+        for i in range(length // hop):
+            x = wav[:, i * hop:(i + 1) * hop]
+            if fused_plan is None:
+                carry, y = self.streaming_step(variables, carry, x)
+            else:
+                carry, y = self.streaming_step_fused(variables, fused_plan,
+                                                     carry, x)
+            outs.append(y)
+        return torch.cat(outs, dim=1) if outs else wav[:, :0]
+
+    # -- deploy-time folding -------------------------------------------------------
+
+    def fold(self, variables: Params) -> Params:
+        """Fuse the pre-norm BNs into the following conv and LSTM input
+        weights (reference: models/bsrnn/model.py:14-84)."""
+        params, stats = variables["params"], variables["stats"]
+        eps = 1e-5
+
+        def bn_wb(bn_p: tp.Optional[Params], bn_s: Params
+                  ) -> tp.Tuple[Tensor, Tensor]:
+            std = torch.sqrt(bn_s["var"] + eps)
+            w = 1.0 / std
+            b = -bn_s["mean"] / std
+            if bn_p is not None:
+                w = bn_p["weight"] * w
+                b = b * bn_p["weight"] + bn_p["bias"]
+            return w, b
+
+        def fuse_conv(conv: Params, bn_p, bn_s) -> Params:
+            w, b = bn_wb(bn_p, bn_s)
+            bias = (conv["weight"] * b[None, :, None]).sum(dim=(1, 2))
+            if "bias" in conv:
+                bias = bias + conv["bias"]
+            return {"weight": conv["weight"] * w[None, :, None], "bias": bias}
+
+        def fuse_lstm(rnn: Params, bn_p, bn_s) -> Params:
+            w, b = bn_wb(bn_p, bn_s)
+            return dict(rnn, bias_ih=rnn["bias_ih"] + rnn["weight_ih"] @ b,
+                        weight_ih=rnn["weight_ih"] * w)
+
+        out: Params = {"band_split": [], "layers": [], "mask_decoder": []}
+        for p, s in zip(params["band_split"], stats["band_split"]):
+            out["band_split"].append({
+                "norm": None, "fc": fuse_conv(p["fc"], p["norm"], s["norm"])})
+        for p, s in zip(params["layers"], stats["layers"]):
+            out["layers"].append({
+                "norm_time": None,
+                "rnn_time": fuse_lstm(p["rnn_time"], p["norm_time"],
+                                      s["norm_time"]),
+                "fc_time": p["fc_time"],
+                "norm_freq": None,
+                "rnn_freq": {d: fuse_lstm(p["rnn_freq"][d], p["norm_freq"],
+                                          s["norm_freq"])
+                             for d in ("fwd", "bwd")},
+                "fc_freq": p["fc_freq"],
+            })
+        for p, s in zip(params["mask_decoder"], stats["mask_decoder"]):
+            out["mask_decoder"].append({
+                which: {"norm": None,
+                        "conv1": fuse_conv(p[which]["conv1"],
+                                           p[which]["norm"], s[which]["norm"]),
+                        "conv2": p[which]["conv2"]}
+                for which in ("mask", "residual")})
+        folded_stats = {"band_split": [{} for _ in self.subbands],
+                        "layers": [{} for _ in range(self.num_layers)],
+                        "mask_decoder": [{} for _ in self.subbands]}
+        return {"params": out, "stats": folded_stats}

@@ -65,6 +65,43 @@ def gru(params: Params, x: Tensor, h0: tp.Optional[Tensor] = None
     return torch.stack(ys), h
 
 
+def init_bigru(generator: torch.Generator, input_size: int, hidden_size: int,
+               device: torch.device) -> Params:
+    """Bidirectional GRU: {"fwd": gru params, "bwd": gru params} (torch
+    weight_*_l0 / weight_*_l0_reverse)."""
+    return {"fwd": init_gru(generator, input_size, hidden_size, device),
+            "bwd": init_gru(generator, input_size, hidden_size, device)}
+
+
+def bigru(params: Params, x: Tensor) -> Tensor:
+    """Bidirectional full-sequence GRU. x: [T, N, I] -> [T, N, 2H] (forward
+    outputs concatenated with the reversed-scan backward outputs, torch
+    bidirectional=True layout). Both directions run in one loop over
+    direction-stacked rows, T steps rather than 2T, as the JAX function
+    does."""
+    wf_ih, wf_hh, bf_ih, bf_hh = _weights(params["fwd"])
+    wb_ih, wb_hh, bb_ih, bb_hh = _weights(params["bwd"])
+    t, n, _ = x.shape
+    xx = torch.stack([x, x.flip(0)], dim=1)                    # [T, 2, N, I]
+    w_ih = torch.stack([wf_ih, wb_ih])
+    w_hh = torch.stack([wf_hh, wb_hh])
+    b_ih = torch.stack([bf_ih, bb_ih])
+    b_hh = torch.stack([bf_hh, bb_hh])
+    x_proj = torch.einsum("tdni,dgi->tdng", xx, w_ih) + b_ih[:, None]
+    h = x.new_zeros(2, n, wf_hh.shape[1])
+    ys = []
+    for i in range(t):
+        xr, xz, xn = x_proj[i].chunk(3, dim=-1)
+        hh = torch.einsum("dnh,dgh->dng", h, w_hh) + b_hh[:, None]
+        hr, hz, hn = hh.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        h = (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+        ys.append(h)
+    ys = torch.stack(ys)                                       # [T, 2, N, H]
+    return torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1)
+
+
 def gru_step(params: Params, x: Tensor, h: Tensor) -> Tensor:
     """Single streaming step. x: [N, I], h: [N, H] -> h' [N, H]."""
     w_ih, w_hh, b_ih, b_hh = _weights(params)

@@ -32,6 +32,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
+# every source under csrc/ with a kernel, one per ported TPU kernel
+SOURCES = ("rnnformer_stack", "fused_frame", "dpt_stack", "bsrnn_stack",
+           "dprnn_stack")
 # the activation types every kernel takes, and their entry suffixes
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Hopper's largest dynamic shared memory per thread block (227 KB)

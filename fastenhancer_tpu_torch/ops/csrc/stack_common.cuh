@@ -1,7 +1,8 @@
 // Device code shared by the port's CUDA kernels (rnnformer_stack.cu,
-// fused_frame.cu, dpt_stack.cu): type conversion and rounding, the
-// row-wise linear layers, the H-head frequency self-attention, and the
-// whole RNNFormer block stack of one stream for one frame.
+// fused_frame.cu, dpt_stack.cu, bsrnn_stack.cu, dprnn_stack.cu): type
+// conversion and rounding, the row-wise linear layers, the GRU step over a
+// stream's rows, the H-head frequency self-attention, and the whole
+// RNNFormer block stack of one stream for one frame.
 //
 // Every function here is called by all threads of a thread block that owns
 // one stream: work is spread over the block's threads with a stride loop,
@@ -175,6 +176,47 @@ __device__ void freq_attention(float* qs, const float* ks, const float* vs,
   __syncthreads();
 }
 
+// One GRU step (torch gate order r, z, n) on `rows` rows of C channels:
+//   r = sigmoid(x.W_xr + h.W_hr + b_r),  z = sigmoid(x.W_xz + h.W_hz + b_z)
+//   n = tanh(x.W_xn + b_xn + r * (h.W_hn + b_hn)),  h' = (1 - z) n + z h
+// x = xs and h = hs are [rows, C] float32 in shared memory; the weights are
+// [C, C] ([in, out]) and the biases [C]. h' is rounded to T and written to
+// hn (float32 copies, [rows, C]) and to row f of h_out at h_out + f*out_ld.
+// The caller synchronises before reading hn.
+template <typename T>
+__device__ __forceinline__ void gru_rows(
+    const float* xs, const float* hs, float* hn, T* h_out, size_t out_ld,
+    const T* wxr, const T* wxz, const T* wxn, const T* whr, const T* whz,
+    const T* whn, const T* b_r, const T* b_z, const T* b_xn, const T* b_hn,
+    int rows, int ch) {
+  for (int e = threadIdx.x; e < rows * ch; e += blockDim.x) {
+    const int f = e / ch;
+    const int j = e - f * ch;
+    const float* xrow = xs + f * ch;
+    const float* hrow = hs + f * ch;
+    float axr = 0.f, axz = 0.f, axn = 0.f;
+    float ahr = 0.f, ahz = 0.f, ahn = 0.f;
+    for (int k = 0; k < ch; ++k) {
+      const float xv = xrow[k];
+      const float hv = hrow[k];
+      const size_t o = static_cast<size_t>(k) * ch + j;
+      axr = fmaf(xv, load_f(wxr[o]), axr);
+      axz = fmaf(xv, load_f(wxz[o]), axz);
+      axn = fmaf(xv, load_f(wxn[o]), axn);
+      ahr = fmaf(hv, load_f(whr[o]), ahr);
+      ahz = fmaf(hv, load_f(whz[o]), ahz);
+      ahn = fmaf(hv, load_f(whn[o]), ahn);
+    }
+    const float r = sigmoid_f(axr + ahr + load_f(b_r[j]));
+    const float z = sigmoid_f(axz + ahz + load_f(b_z[j]));
+    const float n =
+        tanhf(axn + load_f(b_xn[j]) + r * (ahn + load_f(b_hn[j])));
+    const T h_new = store_t<T>((1.0f - z) * n + z * hrow[j]);
+    hn[e] = load_f(h_new);
+    h_out[f * out_ld + j] = h_new;
+  }
+}
+
 // Stacked plan of the folded RNNFormer blocks
 // (ops/rnnformer_stack.py::plan_stack). Matrices are [in, out]; NB leads
 // every array.
@@ -234,32 +276,9 @@ __device__ void rnnformer_stack_frame(float* smem, const T* h, T* h_out,
       const T* wx = p.w_x + i * 3 * cc;
       const T* wh = p.w_h + i * 3 * cc;
       const T* bg = p.b_gru + static_cast<size_t>(i) * 4 * ch;
-      for (int e = tid; e < fc; e += nt) {
-        const int f = e / ch;
-        const int j = e - f * ch;
-        const float* xrow = xs + f * ch;
-        const float* hrow = hs + f * ch;
-        float axr = 0.f, axz = 0.f, axn = 0.f;
-        float ahr = 0.f, ahz = 0.f, ahn = 0.f;
-        for (int k = 0; k < ch; ++k) {
-          const float xv = xrow[k];
-          const float hv = hrow[k];
-          const size_t o = static_cast<size_t>(k) * ch + j;
-          axr = fmaf(xv, load_f(wx[o]), axr);
-          axz = fmaf(xv, load_f(wx[cc + o]), axz);
-          axn = fmaf(xv, load_f(wx[2 * cc + o]), axn);
-          ahr = fmaf(hv, load_f(wh[o]), ahr);
-          ahz = fmaf(hv, load_f(wh[cc + o]), ahz);
-          ahn = fmaf(hv, load_f(wh[2 * cc + o]), ahn);
-        }
-        const float r = sigmoid_f(axr + ahr + load_f(bg[j]));
-        const float z = sigmoid_f(axz + ahz + load_f(bg[ch + j]));
-        const float n = tanhf(axn + load_f(bg[2 * ch + j]) +
-                              r * (ahn + load_f(bg[3 * ch + j])));
-        const T h_new = store_t<T>((1.0f - z) * n + z * hrow[j]);
-        hn[e] = load_f(h_new);
-        h_out[rows + e] = h_new;
-      }
+      gru_rows<T>(xs, hs, hn, h_out + rows, ch, wx, wx + cc, wx + 2 * cc, wh,
+                  wh + cc, wh + 2 * cc, bg, bg + ch, bg + 2 * ch, bg + 3 * ch,
+                  freq, ch);
     }
     __syncthreads();
 

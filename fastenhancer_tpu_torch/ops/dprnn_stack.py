@@ -1,0 +1,241 @@
+"""The dprnn block stack for one streaming frame: plan, plain version and the
+wrapper of the hand-written CUDA kernel (csrc/dprnn_stack.cu).
+
+Replaces fastenhancer_tpu/ops/dprnn_stack.py::dprnn_stack_step (the Pallas
+TPU kernel) for the folded block form (post-BNs merged into the fcs,
+pre-norms into the GRU input weights). Per block: one time-GRU step on
+every (bin, stream) row with its carry, trnn_fc plus residual, a
+bidirectional GRU sweep across the F' bins (both directions in one loop),
+frnn_fc plus residual.
+
+Rows are frequency-major, as in the Pallas kernel: x is [F', B, C] and the
+carries [NB, F', B, C], so the batch axis is one axis the serving engine
+can infer.
+
+* `plan_dprnn_stack` packs folded rf_blocks params into stacked,
+  pre-transposed arrays with the Pallas plan's keys and shapes.
+* `dprnn_stack_reference` is the plain PyTorch version of the kernel's
+  math, with the Pallas kernel's cast points: float32 accumulation and gate
+  math; the new carry rounded to the activation type; each fc output
+  rounded before its residual and each residual sum rounded; the sweep's
+  input projection (with b_ih) rounded before the recurrent half (with
+  b_hh, in float32) is added; the sweep's h rounded for its product and
+  its output and kept in float32 for the z * h term. The CPU path uses it;
+  the card's checks compare the kernel against it.
+* `dprnn_stack_step` is the wrapper: a CPU tensor goes to the plain
+  version, a CUDA tensor launches the kernel or raises; nothing falls back.
+  `dprnn_stack_step.launches` counts kernel launches.
+
+What bounds the kernel on the H100, and what its design does about it, is
+in the note at the top of csrc/dprnn_stack.cu.
+"""
+from __future__ import annotations
+
+import ctypes
+import typing as tp
+
+import torch
+
+from . import _build
+
+Tensor = torch.Tensor
+Params = tp.Dict[str, tp.Any]
+
+PLAN_KEYS = ("w_xr", "w_hr", "b_r", "w_xz", "w_hz", "b_z",
+             "w_xn", "w_hn", "b_xn", "b_hn", "w_tfc", "b_tfc",
+             "w_fih", "b_fih", "w_fhh", "b_fhh", "w_ffc", "b_ffc")
+MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
+# x, h, x_out, h_out, the plan; B, F, C, Hd, NB; the stream
+_ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
+
+
+# ---------------------------------------------------------------------------
+# Plan: folded block params -> stacked kernel-ready arrays
+# ---------------------------------------------------------------------------
+
+def plan_dprnn_stack(blocks: tp.Sequence[Params],
+                     dtype: tp.Optional[torch.dtype] = None) -> Params:
+    """Pack folded dprnn rf_blocks params (Model.fold() output: weight norm
+    stripped, post-BNs merged into the fcs, pre-norms into the GRU input
+    weights) into stacked, pre-transposed arrays with the block index
+    leading; matrices are [in, out]. dtype=None keeps the blocks' own
+    dtype. The time GRU's r and z biases sum b_ih + b_hh; its n gate keeps
+    b_xn and b_hn apart (b_hn sits inside r * (h W_hn + b_hn))."""
+    w_hh0 = blocks[0]["trnn"]["weight_hh"]
+    if isinstance(w_hh0, dict):
+        raise ValueError("plan_dprnn_stack expects fold() output "
+                         "(weight norm still present)")
+    dtype = w_hh0.dtype if dtype is None else dtype
+    c = w_hh0.shape[1]
+
+    def one(b: Params) -> Params:
+        t = b["trnn"]
+        out: Params = {}
+        for j, g in enumerate("rzn"):
+            rows = slice(j * c, (j + 1) * c)
+            out[f"w_x{g}"] = t["weight_ih"][rows].T
+            out[f"w_h{g}"] = t["weight_hh"][rows].T
+        out["b_r"] = (t["bias_ih"][:c] + t["bias_hh"][:c])[None]
+        out["b_z"] = (t["bias_ih"][c:2 * c] + t["bias_hh"][c:2 * c])[None]
+        out["b_xn"] = t["bias_ih"][2 * c:][None]
+        out["b_hn"] = t["bias_hh"][2 * c:][None]
+        for name, key in (("trnn_fc", "tfc"), ("frnn_fc", "ffc")):
+            fc = b[name]
+            out[f"w_{key}"] = fc["weight"].T
+            out[f"b_{key}"] = fc.get("bias", fc["weight"].new_zeros(c))[None]
+        r = b["frnn"]
+        out["w_fih"] = torch.stack([r[d]["weight_ih"].T for d in ("fwd", "bwd")])
+        out["b_fih"] = torch.stack([r[d]["bias_ih"][None]
+                                    for d in ("fwd", "bwd")])
+        out["w_fhh"] = torch.stack([r[d]["weight_hh"].T for d in ("fwd", "bwd")])
+        out["b_fhh"] = torch.stack([r[d]["bias_hh"][None]
+                                    for d in ("fwd", "bwd")])
+        return out
+
+    per_block = [one(b) for b in blocks]
+    return {k: torch.stack([p[k] for p in per_block]).to(dtype).contiguous()
+            for k in PLAN_KEYS}
+
+
+def plan_shapes(num_blocks: int, channels: int, hidden: int
+                ) -> tp.Dict[str, tp.Tuple[int, ...]]:
+    """Shape of each plan array, as `plan_dprnn_stack` makes it and the
+    kernel reads it; hidden is the sweep's per-direction width."""
+    nb, c, hd = num_blocks, channels, hidden
+    shapes: tp.Dict[str, tp.Tuple[int, ...]] = {}
+    for g in "rzn":
+        shapes[f"w_x{g}"] = shapes[f"w_h{g}"] = (nb, c, c)
+    for k in ("b_r", "b_z", "b_xn", "b_hn", "b_tfc", "b_ffc"):
+        shapes[k] = (nb, 1, c)
+    shapes.update(w_tfc=(nb, c, c), w_fih=(nb, 2, c, 3 * hd),
+                  b_fih=(nb, 2, 1, 3 * hd), w_fhh=(nb, 2, hd, 3 * hd),
+                  b_fhh=(nb, 2, 1, 3 * hd), w_ffc=(nb, 2 * hd, c))
+    return {k: shapes[k] for k in PLAN_KEYS}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the kernel's math
+# ---------------------------------------------------------------------------
+
+def _gru_gates(xp: Tensor, hh: Tensor, h: Tensor) -> Tensor:
+    """xp: input half (b_ih in), hh: recurrent half (b_hh in), h: the
+    float32 state; torch gate order (r, z, n) -> h'."""
+    xr, xz, xn = xp.chunk(3, dim=-1)
+    hr, hz, hn = hh.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    return (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+
+
+def dprnn_stack_reference(plan: Params, x: Tensor, h: Tensor
+                          ) -> tp.Tuple[Tensor, Tensor]:
+    """x: [F, B, C], h: [NB, F, B, C] -> (x_out [F, B, C], h_new like h).
+
+    float32 accumulation and gate math; results rounded to x.dtype where
+    the kernel rounds them (see the module docstring)."""
+    fb, b, c = x.shape
+    nb = h.shape[0]
+    hd = plan["w_fhh"].shape[-2]
+    dt = x.dtype
+    rows = fb * b
+    p = {k: v.float() for k, v in plan.items()}
+    xs = x.reshape(rows, c)
+    h_new = torch.empty_like(h)
+    for i in range(nb):
+        # --- time GRU step, trnn_fc + residual ---
+        xf, hf = xs.float(), h[i].reshape(rows, c).float()
+        r = torch.sigmoid(xf @ p["w_xr"][i] + hf @ p["w_hr"][i] + p["b_r"][i])
+        z = torch.sigmoid(xf @ p["w_xz"][i] + hf @ p["w_hz"][i] + p["b_z"][i])
+        n = torch.tanh(xf @ p["w_xn"][i] + p["b_xn"][i]
+                       + r * (hf @ p["w_hn"][i] + p["b_hn"][i]))
+        ht = ((1.0 - z) * n + z * hf).to(dt)
+        h_new[i] = ht.reshape(fb, b, c)
+        xs = (ht.float() @ p["w_tfc"][i] + p["b_tfc"][i]).to(dt) + xs
+        # --- bidirectional sweep over the bins, both directions at once ---
+        xp = (torch.matmul(xs.float(), p["w_fih"][i]) + p["b_fih"][i]).to(dt)
+        xp = xp.reshape(2, fb, b, 3 * hd)
+        hs = xs.new_zeros(2, b, hd, dtype=torch.float32)
+        ys = torch.empty(fb, b, 2 * hd, dtype=dt, device=x.device)
+        for f in range(fb):
+            xin = torch.stack([xp[0, f], xp[1, fb - 1 - f]]).float()
+            hh = torch.bmm(hs.to(dt).float(), p["w_fhh"][i]) + p["b_fhh"][i]
+            hs = _gru_gates(xin, hh, hs)
+            ys[f, :, :hd] = hs[0].to(dt)
+            ys[fb - 1 - f, :, hd:] = hs[1].to(dt)
+        xs = (ys.reshape(rows, 2 * hd).float() @ p["w_ffc"][i]
+              + p["b_ffc"][i]).to(dt) + xs
+    return xs.reshape(fb, b, c), h_new
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+def smem_bytes(bins: int, channels: int, hidden: int) -> int:
+    """Shared memory of one thread block (one stream): float32 activations,
+    carry and new carry [3, F, C], the sweep output [F, 2Hd] and the
+    sweep's double-buffered h and its state [3, 2, Hd]."""
+    f, c, hd = bins, channels, hidden
+    return 4 * (3 * f * c + f * 2 * hd + 3 * 2 * hd)
+
+
+def _check(plan: Params, x: Tensor, h: Tensor) -> None:
+    if x.ndim != 3 or h.ndim != 4:
+        raise ValueError(f"x must be [F, B, C] and h [NB, F, B, C]; got "
+                         f"{tuple(x.shape)} and {tuple(h.shape)}")
+    fb, b, c = x.shape
+    nb = h.shape[0]
+    if b == 0:
+        raise ValueError("need B >= 1")
+    if tuple(h.shape) != (nb, fb, b, c):
+        raise ValueError(f"h has shape {tuple(h.shape)}, expected "
+                         f"{(nb, fb, b, c)}")
+    shapes = plan_shapes(nb, c, plan["w_fhh"].shape[-2])
+    for name, t in (("x", x), ("h", h), *((k, plan[k]) for k in PLAN_KEYS)):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; every "
+                             f"operand must be {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"plan[{name!r}] has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+
+
+def dprnn_stack_step(plan: Params, x: Tensor, h: Tensor
+                     ) -> tp.Tuple[Tensor, Tensor]:
+    """One streaming frame through every block.
+
+    x: [F, B, C] frame activations (rf_pre output, frequency-major); h:
+    [NB, F, B, C] stacked time-GRU carries -> (x_out [F, B, C], h_new like
+    h), fresh tensors. Every operand has x's dtype (float32 or bfloat16)
+    and device and is contiguous. On the CPU this is the plain version; on
+    a CUDA device it launches the kernel (building it on first use), one
+    thread block per stream, and raises if it cannot."""
+    _check(plan, x, h)
+    if x.device.type == "cpu":
+        return dprnn_stack_reference(plan, x, h)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    fn = _build.entry("dprnn_stack", x.dtype, _ARGTYPES)
+    fb, b, c = x.shape
+    hd = plan["w_fhh"].shape[-2]
+    smem = smem_bytes(fb, c, hd)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"F={fb}, C={c}, Hd={hd} needs {smem} bytes of shared memory "
+            f"per stream; the kernel has {MAX_SMEM_BYTES}")
+    x_out = torch.empty_like(x)
+    h_out = torch.empty_like(h)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
+                 h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
+                 b, fb, c, hd, h.shape[0], stream)
+    _build.check_launch("dprnn_stack", err)
+    dprnn_stack_step.launches += 1
+    return x_out, h_out
+
+
+dprnn_stack_step.launches = 0

@@ -9,8 +9,12 @@ nor a YAML reader (the card's machine has neither):
 * `DPT_B`: the dptransformer ablation at FE_B's widths
   (`fastenhancer.dptransformer`; configs/ablation/dpt_b.yaml's
   model_kwargs).
+* `DPRNN_B`: the dprnn ablation at FE_B's widths (`fastenhancer.dprnn`;
+  configs/ablation/dprnn_b.yaml's model_kwargs).
+* `BSRNN_S`: the BSRNN baseline at C=64, 6 layers, 3.54M parameters
+  (`bsrnn`; configs/others/bsrnn_s.yaml's model_kwargs).
 
-tests/test_torch_presets.py holds both against their sources.
+tests/test_torch_presets.py holds each against its source.
 """
 from __future__ import annotations
 
@@ -49,4 +53,25 @@ DPT_B: tp.Dict[str, tp.Any] = dict(
     ),
 )
 
-__all__ = ["FE_B", "DPT_B"]
+DPRNN_B: tp.Dict[str, tp.Any] = dict(
+    channels=48,
+    kernel_size=[8, 3, 3],
+    stride=4,
+    pre_post_init="linear_fixed",
+    n_fft=512, hop_size=256, win_size=512, window="hann",
+    stft_normalized=False, mask=None, activation="SiLU",
+    activation_kwargs={"inplace": True},
+    input_compression=0.3, normalize_final_conv=True, weight_norm=True,
+    final_scale=True,
+    dprnn_kwargs=dict(
+        num_blocks=3, channels=36, channels_frnn=18, freq=24, eps=1.0e-5,
+        pre_norm=False,
+    ),
+)
+
+BSRNN_S: tp.Dict[str, tp.Any] = dict(
+    num_channels=64, num_layers=6, bias=True, affine=True, n_fft=512,
+    hop_size=256, win_size=512, input_compression=0.3, window="hann",
+)
+
+__all__ = ["FE_B", "DPT_B", "DPRNN_B", "BSRNN_S"]

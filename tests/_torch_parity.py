@@ -8,6 +8,7 @@ import numpy as np
 import jax
 import torch
 
+from fastenhancer_tpu_torch.serving import StreamingEngine
 from fastenhancer_tpu_torch.utils import from_jax
 
 # a tiny FastEnhancer: 2 blocks, C=8, F'=8, n_fft 128 (tests/test_ops_pallas.py)
@@ -98,3 +99,45 @@ def perturb_bn_stats(jax_variables, seed):
     params, stats = walk(to_np_tree(jax_variables["params"]),
                          to_np_tree(jax_variables["stats"]))
     return {"params": params, "stats": stats}
+
+
+def check_engine_fused_matches_unfused(model, folded, atol):
+    """Two CPU engines of capacity 2, fused and unfused, on one schedule: a
+    and b together for 2 ticks, b leaves, c takes b's slot for 4 ticks (its
+    last hop silence). Every stream's raw output equals its isolated
+    `stream()` run through the same path, and the two engines agree."""
+    hop = model.hop_size
+    rng = np.random.default_rng(5)
+    wav = {k: rng.uniform(-0.3, 0.3, n * hop).astype(np.float32)
+           for k, n in (("a", 6), ("b", 2), ("c", 3))}
+    results = []
+    for fused in (False, True):
+        engine = StreamingEngine(model, folded, capacity=2, fused=fused,
+                                 device="cpu")
+        outs = {k: [] for k in wav}
+        ha, hb = engine.open_stream(), engine.open_stream()
+        for i in range(2):
+            o = engine.tick({ha: wav["a"][i * hop:(i + 1) * hop],
+                             hb: wav["b"][i * hop:(i + 1) * hop]})
+            outs["a"].append(o[ha])
+            outs["b"].append(o[hb])
+        engine.close_stream(hb)
+        hc = engine.open_stream()
+        assert engine._slot_of[hc] == 1  # really reusing the freed slot
+        for i in range(2, 6):
+            c = wav["c"][(i - 2) * hop:(i - 1) * hop]
+            o = engine.tick({ha: wav["a"][i * hop:(i + 1) * hop],
+                             hc: c if len(c) else np.zeros(hop, np.float32)})
+            outs["a"].append(o[ha])
+            outs["c"].append(o[hc])
+        plan = model.build_stack_plan(folded) if fused else None
+        got = {k: np.concatenate(v) for k, v in outs.items()}
+        for k, y in got.items():
+            x = np.zeros(len(y), np.float32)
+            x[:min(len(y), len(wav[k]))] = wav[k][:len(y)]
+            want = model.stream(folded, torch.tensor(x[None]),
+                                fused_plan=plan)[0].numpy()
+            np.testing.assert_allclose(y, want, atol=atol, err_msg=k)
+        results.append(got)
+    for k in wav:
+        np.testing.assert_allclose(results[1][k], results[0][k], atol=atol)

@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from fastenhancer_tpu_torch.models import get_model
+from fastenhancer_tpu_torch.ops import bsrnn_stack as band
+from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
 from fastenhancer_tpu_torch.ops import dpt_stack as dpt
 from fastenhancer_tpu_torch.ops import fused_frame as frame
 from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
-from fastenhancer_tpu_torch.presets import DPT_B, FE_B
+from fastenhancer_tpu_torch.presets import DPRNN_B, DPT_B, FE_B
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +234,110 @@ def test_dpt_and_frame_streams_match_unfused_on_card(cuda_device):
         c_plain, y_plain = model.streaming_step(folded, c_plain, x)
         assert (y_frame - y_plain).abs().max() <= 1e-4
     assert frame.fused_frame_step.launches == before + 8
+
+
+def _plan_case(shapes, c, b, x_shape, h_shape, dtype, device, seed):
+    """A random plan (uniform, 1/sqrt(C) scale), frame and carries."""
+    g = torch.Generator().manual_seed(seed)
+    plan = {k: ((torch.rand(sh, generator=g) * 2 - 1) / c ** 0.5).to(
+        device, dtype) for k, sh in shapes.items()}
+    x = torch.randn(x_shape, generator=g).to(device, dtype)
+    h = (torch.randn(h_shape, generator=g) * 0.5).to(device, dtype)
+    return plan, x, h
+
+
+def _band_case(b, c, nl, dtype, device, seed, bands=31):
+    hd = 2 * c
+    return _plan_case(band.plan_shapes(nl, c, hd), c, b, (bands, b, c),
+                      (nl, 2, bands, b, hd), dtype, device, seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,nl,streams", [
+    (3, 16, 6, 2),    # BSRNN-XT widths, a batch no tile divides
+    (3, 64, 2, 1),    # BSRNN-S widths, one stream per block
+    (5, 64, 6, 2),    # BSRNN-S, the last block holds one stream
+    (6, 64, 2, 4)])
+def test_bsrnn_stack_kernel_matches_plain(cuda_device, dtype, b, c, nl,
+                                          streams):
+    plan, x, h = _band_case(b, c, nl, dtype, cuda_device, seed=b + c)
+    before = band.bsrnn_stack_step.launches
+    xo, ho = band.bsrnn_stack_step(plan, x, h, streams_per_block=streams)
+    torch.cuda.synchronize()
+    assert band.bsrnn_stack_step.launches == before + 1
+    xr, hr = band.bsrnn_stack_reference(plan, x, h)
+    for got, want in ((xo, xr), (ho, hr)):
+        assert got.dtype == dtype and got.device == cuda_device
+        _close(got, want, dtype)
+
+
+def test_bsrnn_stack_kernel_rejects_what_it_cannot_take(cuda_device):
+    plan, x, h = _band_case(2, 8, 1, torch.float16, cuda_device, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        band.bsrnn_stack_step(plan, x, h)
+    plan, x, h = _band_case(2, 8, 1, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="streams_per_block"):
+        band.bsrnn_stack_step(plan, x, h, streams_per_block=3)
+    with pytest.raises(ValueError, match="shape"):
+        band.bsrnn_stack_step(plan, x, h[:, :, :, :1].contiguous())
+    plan, x, h = _band_case(1, 128, 1, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        band.bsrnn_stack_step(plan, x, h, streams_per_block=4)
+
+
+def _dprnn_case(b, f, c, nb, dtype, device, seed):
+    hd = c // 2
+    return _plan_case(dprnn.plan_shapes(nb, c, hd), c, b, (f, b, c),
+                      (nb, f, b, c), dtype, device, seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,c,nb", [(3, 24, 36, 3),    # DPRNN-B widths
+                                      (3, 16, 20, 2),    # DPRNN-T
+                                      (64, 24, 36, 3)])
+def test_dprnn_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb):
+    plan, x, h = _dprnn_case(b, f, c, nb, dtype, cuda_device, seed=b + f)
+    before = dprnn.dprnn_stack_step.launches
+    xo, ho = dprnn.dprnn_stack_step(plan, x, h)
+    torch.cuda.synchronize()
+    assert dprnn.dprnn_stack_step.launches == before + 1
+    xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
+    for got, want in ((xo, xr), (ho, hr)):
+        assert got.dtype == dtype and got.device == cuda_device
+        _close(got, want, dtype)
+
+
+def test_dprnn_stack_kernel_rejects_what_it_cannot_take(cuda_device):
+    plan, x, h = _dprnn_case(2, 8, 8, 1, torch.float16, cuda_device, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dprnn.dprnn_stack_step(plan, x, h)
+    plan, x, h = _dprnn_case(2, 8, 8, 1, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="shape"):
+        dprnn.dprnn_stack_step(plan, x, h[:, :, :1].contiguous())
+    plan, x, h = _dprnn_case(1, 256, 64, 1, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        dprnn.dprnn_stack_step(plan, x, h)
+
+
+def test_bsrnn_and_dprnn_streams_match_unfused_on_card(cuda_device):
+    """Each model at full width and reduced depth through its kernel over 6
+    frames of 3 streams, against its unfused plain path in float32 (1e-4 on
+    stream outputs)."""
+    for name, kw, counter in (
+            ("bsrnn", dict(num_channels=64, num_layers=2),
+             band.bsrnn_stack_step),
+            ("fastenhancer.dprnn",
+             dict(DPRNN_B, dprnn_kwargs=dict(DPRNN_B["dprnn_kwargs"],
+                                             num_blocks=1)),
+             dprnn.dprnn_stack_step)):
+        model = get_model(name, **kw, stft_method="matmul")
+        folded = model.fold(model.init(torch.Generator().manual_seed(0),
+                                       cuda_device))
+        wav = torch.randn(3, model.hop_size * 6,
+                          generator=torch.Generator().manual_seed(1))
+        wav = (wav * 0.1).to(cuda_device)
+        before = counter.launches
+        y_fused = model.stream(folded, wav,
+                               fused_plan=model.build_stack_plan(folded))
+        assert counter.launches == before + 6
+        assert (y_fused - model.stream(folded, wav)).abs().max() <= 1e-4

@@ -203,7 +203,7 @@ def test_get_model_registry():
     _, tm = _models()
     m = get_model("fastenhancer.default", **TINY_KWARGS)
     assert isinstance(m, TModel) and m.block_freq == tm.block_freq
-    for name in ("bsrnn", "fastenhancer.dprnn", "no.such.model"):
+    for name in ("fspen", "lisennet", "fastenhancer.ln"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             get_model(name)
 
@@ -248,9 +248,22 @@ model = get_model("fastenhancer.dptransformer", **dkw, dpt_kwargs=dict(
 folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
 y = model.stream(folded, wav, fused_plan=model.build_stack_plan(folded))
 assert y.shape == wav.shape and torch.isfinite(y).all()
-from fastenhancer_tpu_torch.presets import DPT_B, FE_B
+# the bsrnn and dprnn models' fused streams
+model = get_model("bsrnn", num_channels=4, num_layers=1)
+folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
+wav = torch.randn(2, 256 * 3, generator=torch.Generator().manual_seed(1))
+y = model.stream(folded, wav, fused_plan=model.build_stack_plan(folded))
+assert y.shape == wav.shape and torch.isfinite(y).all()
+model = get_model("fastenhancer.dprnn", **dkw, dprnn_kwargs=dict(
+    num_blocks=1, channels=8, channels_frnn=4, freq=8))
+folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
+y = model.stream(folded, wav, fused_plan=model.build_stack_plan(folded))
+assert y.shape == wav.shape and torch.isfinite(y).all()
+from fastenhancer_tpu_torch.presets import BSRNN_S, DPRNN_B, DPT_B, FE_B
 assert get_model("fastenhancer.dptransformer", **DPT_B).dpt.lookbehind == 31
 assert get_model("fastenhancer.default", **FE_B).block_freq == 24
+assert get_model("fastenhancer.dprnn", **DPRNN_B).dp.channels_frnn == 18
+assert get_model("bsrnn", **BSRNN_S).channels == 64
 assert not any(m.split(".")[0] in ("jax", "fastenhancer_tpu") for m in sys.modules)
 print("OK", len(names))
 """
@@ -258,8 +271,9 @@ print("OK", len(names))
 
 def test_port_imports_no_jax():
     """Every port module imports, and the tiny model's init -> fold ->
-    fused stream, its whole-frame step, the dpt model's fused stream and
-    the presets run, with jax and fastenhancer_tpu blocked."""
+    fused stream, its whole-frame step, the dpt, bsrnn and dprnn models'
+    fused streams and the presets run, with jax and fastenhancer_tpu
+    blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

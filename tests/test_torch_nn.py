@@ -1,4 +1,4 @@
-"""PyTorch port of nn/{layers,gru,attention}.py against the JAX package.
+"""PyTorch port of nn/{layers,gru,lstm,attention}.py against the JAX package.
 
 Same numpy weights and inputs through both. Tolerance 1e-5 absolute:
 float32 rounding of short (<= 36-term) dot products on unit-scale values.
@@ -137,6 +137,58 @@ def test_gru_and_gru_step_match_jax(wn):
     np.testing.assert_allclose(y0_t.numpy(), np.asarray(y0_j), atol=ATOL)
 
 
+@pytest.mark.parametrize("wn", [False, True])
+def test_bigru_matches_jax(wn):
+    """Both directions in one loop, torch [fwd | bwd] layout; weight-norm
+    {g, v} input weights in the second case."""
+    rng = np.random.default_rng(7)
+    p = {"fwd": _gru_params(rng, 6, 5, wn), "bwd": _gru_params(rng, 6, 5, wn)}
+    x = _rand(rng, 9, 4, 6)
+    y_j = np.asarray(jnn.bigru(_j(p), jnp.asarray(x)))
+    y_t = tnn.bigru(_t(p), torch.tensor(x)).numpy()
+    assert y_t.shape == (9, 4, 10)
+    np.testing.assert_allclose(y_t, y_j, atol=ATOL)
+
+
+def _lstm_params(rng, i, h):
+    return {"weight_ih": _rand(rng, 4 * h, i, scale=0.3),
+            "weight_hh": _rand(rng, 4 * h, h, scale=0.3),
+            "bias_ih": _rand(rng, 4 * h, scale=0.3),
+            "bias_hh": _rand(rng, 4 * h, scale=0.3)}
+
+
+def test_lstm_and_bilstm_match_jax():
+    """lstm from a given (h, c) and from zeros, one lstm_cell step, and
+    bilstm, in torch gate order i, f, g, o."""
+    rng = np.random.default_rng(8)
+    p = _lstm_params(rng, 6, 8)
+    x = _rand(rng, 9, 4, 6)
+    h0, c0 = _rand(rng, 4, 8, scale=0.5), _rand(rng, 4, 8, scale=0.5)
+    y_j, (h_j, c_j) = jnn.lstm(_j(p), jnp.asarray(x),
+                               (jnp.asarray(h0), jnp.asarray(c0)))
+    y_t, (h_t, c_t) = tnn.lstm(_t(p), torch.tensor(x),
+                               (torch.tensor(h0), torch.tensor(c0)))
+    for got, want in ((y_t, y_j), (h_t, h_j), (c_t, c_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    y0_j, _ = jnn.lstm(_j(p), jnp.asarray(x))
+    y0_t, _ = tnn.lstm(_t(p), torch.tensor(x))
+    np.testing.assert_allclose(y0_t.numpy(), np.asarray(y0_j), atol=ATOL)
+    xp = x[0] @ p["weight_ih"].T + p["bias_ih"]
+    cell_j = jnn.lstm_cell(jnp.asarray(xp), jnp.asarray(h0), jnp.asarray(c0),
+                           jnp.asarray(p["weight_hh"]),
+                           jnp.asarray(p["bias_hh"]))
+    cell_t = tnn.lstm_cell(torch.tensor(xp), torch.tensor(h0),
+                           torch.tensor(c0), torch.tensor(p["weight_hh"]),
+                           torch.tensor(p["bias_hh"]))
+    for got, want in zip(cell_t, cell_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    bp = {"fwd": _lstm_params(rng, 6, 5), "bwd": _lstm_params(rng, 6, 5)}
+    yb_j = np.asarray(jnn.bilstm(_j(bp), jnp.asarray(x)))
+    yb_t = tnn.bilstm(_t(bp), torch.tensor(x)).numpy()
+    assert yb_t.shape == (9, 4, 10)
+    np.testing.assert_allclose(yb_t, yb_j, atol=ATOL)
+
+
 @pytest.mark.parametrize("n,bias", [(5, False), (70, True)])
 def test_attention_matches_jax(n, bias):
     """n=70 takes the JAX package's masked-lane branch (n >= 64), which the
@@ -166,6 +218,10 @@ def test_inits_have_torch_default_bounds():
     gru = tnn.init_gru(g, 4, 9, "cpu")
     assert gru["weight_hh"].shape == (27, 9)
     assert max(t.abs().max() for t in gru.values()) <= 1 / 3
+    lstm = tnn.init_bilstm(g, 4, 9, "cpu")["bwd"]
+    assert lstm["weight_ih"].shape == (36, 4)
+    assert max(t.abs().max() for t in lstm.values()) <= 1 / 3
+    assert tnn.init_bigru(g, 4, 9, "cpu")["fwd"]["weight_hh"].shape == (27, 9)
     # same seed, same weights
     a = tnn.torch_linear_init(torch.Generator().manual_seed(3), 4, 4, False,
                               "cpu")["weight"]

@@ -8,6 +8,8 @@ read with the JAX package's own loader.
 import ast
 import os
 
+import pytest
+
 from fastenhancer_tpu.utils.hparams import get_hparams
 from fastenhancer_tpu_torch import presets
 
@@ -20,11 +22,15 @@ def test_fe_b_is_the_flagship():
     assert presets.FE_B == FLAGSHIP_KWARGS
 
 
-def test_dpt_b_is_the_ablation_config():
-    hps = get_hparams(os.path.join(REPO, "configs", "ablation", "dpt_b.yaml"),
+@pytest.mark.parametrize("name,config,model", [
+    ("DPT_B", "ablation/dpt_b.yaml", "fastenhancer.dptransformer"),
+    ("DPRNN_B", "ablation/dprnn_b.yaml", "fastenhancer.dprnn"),
+    ("BSRNN_S", "others/bsrnn_s.yaml", "bsrnn")])
+def test_preset_is_its_config(name, config, model):
+    hps = get_hparams(os.path.join(REPO, "configs", *config.split("/")),
                       base_dir="")
-    assert hps.model == "fastenhancer.dptransformer"
-    assert presets.DPT_B == hps.model_kwargs.to_dict()
+    assert hps.model == model
+    assert getattr(presets, name) == hps.model_kwargs.to_dict()
 
 
 def test_chip_smoke_imports_only_the_port_torch_and_numpy():

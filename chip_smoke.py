@@ -18,7 +18,7 @@ its own line:
      with a wrapped pointer and unwritten cache slots, the BSRNN stack at
      the BSRNN-XT and -S shapes, the dprnn stack at the DPRNN-T and -B
      shapes), and each timed with CUDA events at B=256 bfloat16 beside its
-     plain version and its bound (the BSRNN stack at each of its tiles);
+     plain version and its bound;
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -396,14 +396,6 @@ def main():
                     lambda: band.bsrnn_stack_step(plan, x, h),
                     lambda: band.bsrnn_stack_reference(plan, x, h),
                     max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
-                tiles = {s_: time_ms(lambda s_=s_: band.bsrnn_stack_step(
-                    plan, x, h, streams_per_block=s_), reps=3, inner=5)[0]
-                    for s_ in band.STREAMS_PER_BLOCK}
-                print(f"[3/11] time bsrnn_stack BSRNN_S bf16 B={STREAMS} by "
-                      "streams per thread block: " + ", ".join(
-                          f"{s_}: {t:.4f} ms" for s_, t in tiles.items())
-                      + f" (the wrapper's default: "
-                      f"{band.DEFAULT_STREAMS_PER_BLOCK}) on {card}")
 
     # 3e. the dprnn stack (kernel 6) at the DPRNN-T and -B shapes
     def dprnn_flops(b, f, c, hd, nb):

@@ -43,13 +43,8 @@ Params = tp.Dict[str, tp.Any]
 PLAN_KEYS = ("w_tih", "w_thh", "b_t", "w_fct", "b_fct",
              "w_fih", "b_fih", "w_fhh", "b_fhh", "w_fcf", "b_fcf")
 MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
-# the streams one thread block owns; the kernel is built for each. One is
-# the fastest at BSRNN-S and 256 streams on the H100 (chip_smoke.py times
-# all three: PERF.md)
-STREAMS_PER_BLOCK = (1, 2, 4)
-DEFAULT_STREAMS_PER_BLOCK = 1
-# x, h, x_out, h_out, the plan; B, F, C, H, L, streams per block; the stream
-_ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 6
+# x, h, x_out, h_out, the plan; B, F, C, H, L; the stream
+_ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 
 
@@ -165,13 +160,13 @@ def bsrnn_stack_reference(plan: Params, x: Tensor, h: Tensor
 # Wrapper
 # ---------------------------------------------------------------------------
 
-def smem_bytes(streams: int, bands: int, channels: int, hidden: int) -> int:
-    """Shared memory of one thread block of `streams` streams: float32
-    activations [S, F, C], the sweep output [S, F, 2H] (which holds the
-    time cell's input and output carries before the sweep), the sweep's
-    double-buffered h and its c [3, S, 2, H]."""
-    s, f, c, hd = streams, bands, channels, hidden
-    return 4 * (s * f * c + s * f * 2 * hd + 3 * s * 2 * hd)
+def smem_bytes(bands: int, channels: int, hidden: int) -> int:
+    """Shared memory of one thread block (one stream): float32 activations
+    [F, C], the sweep output [F, 2H] (which holds the time cell's input and
+    output carries before the sweep), the sweep's double-buffered h and its
+    c [3, 2, H]."""
+    f, c, hd = bands, channels, hidden
+    return 4 * (f * c + f * 2 * hd + 3 * 2 * hd)
 
 
 def _check(plan: Params, x: Tensor, h: Tensor) -> None:
@@ -197,8 +192,7 @@ def _check(plan: Params, x: Tensor, h: Tensor) -> None:
                              f"expected {shapes[name]}")
 
 
-def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor,
-                     streams_per_block: int = DEFAULT_STREAMS_PER_BLOCK
+def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor
                      ) -> tp.Tuple[Tensor, Tensor]:
     """One streaming frame through every layer.
 
@@ -207,33 +201,27 @@ def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor,
     h_new like h), fresh tensors. Every operand has x's dtype (float32 or
     bfloat16) and device and is contiguous. On the CPU this is the plain
     version; on a CUDA device it launches the kernel (building it on first
-    use), with `streams_per_block` streams per thread block (one of
-    STREAMS_PER_BLOCK; any B works, the last block may hold fewer), and
-    raises if it cannot."""
+    use), one thread block per stream, and raises if it cannot."""
     _check(plan, x, h)
     if x.device.type == "cpu":
         return bsrnn_stack_reference(plan, x, h)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if streams_per_block not in STREAMS_PER_BLOCK:
-        raise ValueError(f"streams_per_block must be one of "
-                         f"{STREAMS_PER_BLOCK}, not {streams_per_block}")
     fn = _build.entry("bsrnn_stack", x.dtype, _ARGTYPES)
     fb, b, c = x.shape
     nl, hd = h.shape[0], h.shape[-1]
-    smem = smem_bytes(streams_per_block, fb, c, hd)
+    smem = smem_bytes(fb, c, hd)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"F={fb}, C={c}, H={hd} with {streams_per_block} streams per "
-            f"block needs {smem} bytes of shared memory; the kernel has "
-            f"{MAX_SMEM_BYTES}")
+            f"F={fb}, C={c}, H={hd} needs {smem} bytes of shared memory per "
+            f"stream; the kernel has {MAX_SMEM_BYTES}")
     x_out = torch.empty_like(x)
     h_out = torch.empty_like(h)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
                  h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
-                 b, fb, c, hd, nl, streams_per_block, stream)
+                 b, fb, c, hd, nl, stream)
     _build.check_launch("bsrnn_stack", err)
     bsrnn_stack_step.launches += 1
     return x_out, h_out

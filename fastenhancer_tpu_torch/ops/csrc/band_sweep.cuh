@@ -2,22 +2,22 @@
 // streaming frame, shared by bsrnn_stack.cu (LSTM cells) and
 // dprnn_stack.cu (GRU cells).
 //
-// For each of a thread block's S streams, a forward recurrence runs over
-// bands 0..F-1 and a backward one over bands F-1..0, both from a zero
-// state, at the same time: step f of the loop runs forward band f and
-// backward band F-1-f, so the serial chain is F steps and not 2F. Thread u
-// owns hidden unit j = u mod Hd of direction d = u / Hd for every stream
-// and computes that unit's G gate pre-activations itself, so the cell
-// update needs no exchange between threads; one __syncthreads() per step
-// publishes the new h (double-buffered) to every thread.
+// For the stream a thread block owns, a forward recurrence runs over bands
+// 0..F-1 and a backward one over bands F-1..0, both from a zero state, at
+// the same time: step f of the loop runs forward band f and backward band
+// F-1-f, so the serial chain is F steps and not 2F. Thread u owns hidden
+// unit j = u mod Hd of direction d = u / Hd and computes that unit's G
+// gate pre-activations itself, so the cell update needs no exchange
+// between threads; one __syncthreads() per step publishes the new h
+// (double-buffered) to every thread.
 //
 // The input projection is computed inside each step, [x_band | h] against
 // [W_ih; W_hh], rather than hoisted out of the loop as the Pallas kernels
-// do: the FLOPs are the same and no [2, S, F, G*Hd] buffer is needed,
-// which at BSRNN-S would take 127 KB of shared memory per stream in
-// float32 and cap the streams a block can hold. Its arithmetic is the
-// hoisted one all the same: the input half is summed in float32 and
-// rounded to T, then the float32 recurrent half is added.
+// do: the FLOPs are the same and no [2, F, G*Hd] buffer is needed, which at
+// BSRNN-S would take 127 KB of shared memory in float32, more than half of
+// what a block may use. Its arithmetic is the hoisted one all the same: the
+// input half is summed in float32 and rounded to T, then the float32
+// recurrent half is added.
 //
 // Every thread of the block calls band_sweep; it ends with
 // __syncthreads().
@@ -72,94 +72,70 @@ struct GruCell {
 };
 
 // Floats of shared memory band_sweep uses besides xs and ys: the
-// double-buffered rounded h [2, S, 2, Hd] and the cell state [S, 2, Hd].
-__host__ __device__ inline size_t sweep_smem_floats(int streams, int hd) {
-  return 3 * static_cast<size_t>(streams) * 2 * hd;
+// double-buffered rounded h [2, 2, Hd] and the cell state [2, Hd].
+__host__ __device__ inline size_t sweep_smem_floats(int hd) {
+  return 3 * 2 * static_cast<size_t>(hd);
 }
 
-// xs: [S, F, C] float32 activations (values exact in T; the rows of a
-// stream the block does not hold must be finite, e.g. zero); ys: [S, F,
-// 2Hd] float32 output, band f's row [fwd h | bwd h] (torch bidirectional
-// layout), rounded to T; scratch: sweep_smem_floats(S, Hd) floats.
-// w_ih: [2, C, G*Hd], b_ih: [2, 1, G*Hd], w_hh: [2, Hd, G*Hd], b_hh: [2, 1,
-// G*Hd] for this layer (direction 0 forward, 1 backward; [in, out]).
-template <typename T, class Cell, int S>
+// xs: [F, C] float32 activations (values exact in T); ys: [F, 2Hd] float32
+// output, band f's row [fwd h | bwd h] (torch bidirectional layout),
+// rounded to T; scratch: sweep_smem_floats(Hd) floats. w_ih: [2, C, G*Hd],
+// b_ih: [2, 1, G*Hd], w_hh: [2, Hd, G*Hd], b_hh: [2, 1, G*Hd] for this
+// layer (direction 0 forward, 1 backward; [in, out]).
+template <typename T, class Cell>
 __device__ void band_sweep(const float* xs, float* ys, float* scratch,
                            const T* w_ih, const T* b_ih, const T* w_hh,
                            const T* b_hh, int bands, int ch, int hd) {
   constexpr int G = Cell::kGates;
   const int gh_n = G * hd;                 // gate columns per direction
   const int units = 2 * hd;
-  float* hr = scratch;                     // [2][S][2][Hd] rounded h
-  float* st = scratch + 2 * S * units;     // [S][2][Hd] cell state
-  for (int e = threadIdx.x; e < 2 * S * units + S * units;
-       e += blockDim.x) {
-    scratch[e] = 0.f;
-  }
+  float* hr = scratch;                     // [2][2][Hd] rounded h
+  float* st = scratch + 2 * units;         // [2][Hd] cell state
+  for (int e = threadIdx.x; e < 3 * units; e += blockDim.x) scratch[e] = 0.f;
   __syncthreads();
 
   for (int f = 0; f < bands; ++f) {
-    const float* h_cur = hr + (f & 1) * S * units;
-    float* h_next = hr + ((f + 1) & 1) * S * units;
+    const float* h_cur = hr + (f & 1) * units;
+    float* h_next = hr + ((f + 1) & 1) * units;
     for (int u = threadIdx.x; u < units; u += blockDim.x) {
       const int d = u / hd;
       const int j = u - d * hd;
       const int band = d == 0 ? f : bands - 1 - f;
       const T* wi = w_ih + static_cast<size_t>(d) * ch * gh_n + j;
       const T* wh = w_hh + static_cast<size_t>(d) * hd * gh_n + j;
-      float ax[S][G], ah[S][G];
+      const float* xrow = xs + band * ch;
+      const float* hrow = h_cur + d * hd;
+      float ax[G], ah[G];
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) ax[s][g] = ah[s][g] = 0.f;
-      }
+      for (int g = 0; g < G; ++g) ax[g] = ah[g] = 0.f;
 #pragma unroll 4
       for (int k = 0; k < ch; ++k) {
-        float w[G];
+        const float xv = xrow[k];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          w[g] = load_f(wi[static_cast<size_t>(k) * gh_n + g * hd]);
-        }
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float xv = xs[(s * bands + band) * ch + k];
-#pragma unroll
-          for (int g = 0; g < G; ++g) ax[s][g] = fmaf(xv, w[g], ax[s][g]);
+          ax[g] = fmaf(xv, load_f(wi[static_cast<size_t>(k) * gh_n + g * hd]),
+                       ax[g]);
         }
       }
 #pragma unroll 4
       for (int k = 0; k < hd; ++k) {
-        float w[G];
+        const float hv = hrow[k];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          w[g] = load_f(wh[static_cast<size_t>(k) * gh_n + g * hd]);
-        }
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float hv = h_cur[s * units + d * hd + k];
-#pragma unroll
-          for (int g = 0; g < G; ++g) ah[s][g] = fmaf(hv, w[g], ah[s][g]);
+          ah[g] = fmaf(hv, load_f(wh[static_cast<size_t>(k) * gh_n + g * hd]),
+                       ah[g]);
         }
       }
       const size_t bo = static_cast<size_t>(d) * gh_n + j;
-      float bx[G], bh[G];
+      float gx[G], gr[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        bx[g] = Cell::bias_x(b_ih + bo, b_hh + bo, g * hd);
-        bh[g] = Cell::bias_h(b_hh + bo, g * hd);
+        gx[g] = round_t<T>(ax[g] + Cell::bias_x(b_ih + bo, b_hh + bo, g * hd));
+        gr[g] = ah[g] + Cell::bias_h(b_hh + bo, g * hd);
       }
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        float gx[G], gr[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          gx[g] = round_t<T>(ax[s][g] + bx[g]);
-          gr[g] = ah[s][g] + bh[g];
-        }
-        const float hv = round_t<T>(Cell::update(gx, gr, st[s * units + u]));
-        h_next[s * units + u] = hv;
-        ys[(s * bands + band) * units + u] = hv;
-      }
+      const float hv = round_t<T>(Cell::update(gx, gr, st[u]));
+      h_next[u] = hv;
+      ys[band * units + u] = hv;
     }
     __syncthreads();
   }

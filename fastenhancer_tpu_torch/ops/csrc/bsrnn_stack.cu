@@ -26,27 +26,26 @@
 // TFLOP/s: about 0.45 ms), and with a load for each weight it falls short
 // of that. The serial chain is 6 layers x (1 + 31) dependent steps.
 //
-// The design. A thread block owns S streams (1, 2 or 4; the wrapper picks)
-// and runs the whole stack for them with no grid-wide sync, since each
-// layer's sweep couples the bands of one stream only. The forward and
-// backward sweeps run at the same time on two halves of the block
-// (band_sweep.cuh), so the chain is 31 steps per layer, not 62. The
+// The design. One thread block per stream runs the whole stack with no
+// grid-wide sync, since each layer's sweep couples the bands of one stream
+// only; 256 streams give 256 blocks, two per SM on the 132 SMs. The
+// forward and backward sweeps run at the same time on two halves of the
+// block (band_sweep.cuh), so the chain is 31 steps per layer, not 62. The
 // weights (about 640 KB per layer in bf16) do not fit shared memory and
-// come from L2 (3.9 MB in all): each weight a thread loads serves the S
-// streams of its block, and in the time cell 8 rows at once. Measured at
-// BSRNN-S, 256 streams, bf16: S=1 (256 blocks, two per SM) 3.58 ms, S=2
-// (128 blocks) 3.90 ms, S=4 (64 blocks) 6.17 ms, so the wrapper takes
-// S=1: fewer loads per FMA do not pay for the warps and SMs they idle. The
-// activations, the time cell's carries and the sweep's output stay in
-// shared memory for the whole stack. Tensor cores (mma.sync on 16-row
-// tiles, wgmma) and weights held on chip across the 31 steps are left to
-// later work.
+// come from L2 (3.9 MB in all); in the time cell each weight a thread
+// loads serves 8 rows. Blocks of 2 and 4 streams, where each weight load
+// serves every stream of the block, measured slower at BSRNN-S and 256
+// streams in bf16 (3.90 and 6.17 ms against 3.58 ms for one stream per
+// block): fewer loads per FMA did not pay for the warps and SMs they
+// idled. The stream's activations, the time cell's carries and the sweep's
+// output stay in shared memory (43 KB at BSRNN-S) for the whole stack.
+// Tensor cores (mma.sync on 16-row tiles, wgmma) and weights held on chip
+// across the 31 steps are left to later work.
 //
 // Layouts (frequency-major rows, as the Pallas kernel's): x and x_out
-// [F, B, C]; h and h_out [L, 2 (h, c), F, B, H]; block b owns streams
-// b*S .. b*S+S-1 (the last block may hold fewer). h_out is a separate
-// buffer; each block reads its rows of h[i] before it writes any of
-// h_out[i].
+// [F, B, C]; h and h_out [L, 2 (h, c), F, B, H]; thread block b owns
+// stream b. h_out is a separate buffer; each block reads its rows of h[i]
+// before it writes any of h_out[i].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,19 +80,18 @@ struct BandPlan {
   const T* b_fcf;  // [L, 1, C]
 };
 
-// The time-LSTM step of one layer on the block's `rows` rows (row r is
-// stream r / F, band r mod F): gates = x.W_ih + h.W_hh + b (float32), the
-// cell from c, h' -> hn (float32 copy) and h' and c' rounded to T into
-// h_out_h and h_out_c. xs: [rows, C], ht: [rows, H] in shared memory;
-// c_in, h_out_h, h_out_c: this layer's [F, B, H] carries. Thread item
-// (j, chunk) holds unit j's four gates for kRows rows, so each weight it
-// loads serves kRows rows.
+// The time-LSTM step of one layer on the stream's F band rows: gates =
+// x.W_ih + h.W_hh + b (float32), the cell from c, h' -> hn (float32 copy)
+// and h' and c' rounded to T into row f of h_out_h and h_out_c. xs: [F, C],
+// ht: [F, H] in shared memory; c_in, h_out_h, h_out_c: the stream's rows of
+// this layer's carries, row f at f * row_ld. Thread item (j, chunk) holds
+// unit j's four gates for kRows rows, so each weight it loads serves kRows
+// rows.
 template <typename T>
 __device__ void lstm_time_cell(const float* xs, const float* ht, float* hn,
                                const T* c_in, T* h_out_h, T* h_out_c,
-                               const T* w_ih, const T* w_hh, const T* bias,
-                               int rows, int bands, int batch, int b0, int ch,
-                               int hd) {
+                               size_t row_ld, const T* w_ih, const T* w_hh,
+                               const T* bias, int rows, int ch, int hd) {
   const int g4 = 4 * hd;
   const int chunks = (rows + kRows - 1) / kRows;
   for (int e = threadIdx.x; e < chunks * hd; e += blockDim.x) {
@@ -142,9 +140,7 @@ __device__ void lstm_time_cell(const float* xs, const float* ht, float* hn,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r0 + r >= rows) break;
-      const int s = (r0 + r) / bands;
-      const int f = r0 + r - s * bands;
-      const size_t o = (static_cast<size_t>(f) * batch + b0 + s) * hd + j;
+      const size_t o = (r0 + r) * row_ld + j;
       const float ig = fe::sigmoid_f(acc[r][0] + b[0]);
       const float fg = fe::sigmoid_f(acc[r][1] + b[1]);
       const float gg = tanhf(acc[r][2] + b[2]);
@@ -158,7 +154,7 @@ __device__ void lstm_time_cell(const float* xs, const float* ht, float* hn,
   }
 }
 
-template <typename T, int S>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     bsrnn_stack_kernel(const T* __restrict__ x, const T* __restrict__ h,
                        T* __restrict__ x_out, T* __restrict__ h_out,
@@ -167,97 +163,66 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int b0 = blockIdx.x * S;
-  const int ns = min(S, batch - b0);
-  const int rows = ns * bands;  // the block's real rows, stream-major
+  const int b = blockIdx.x;
   const int fc = bands * ch;
   const int g4 = 4 * hd;
-  float* xs = smem;                   // [S, F, C] activations
-  float* ys = xs + S * fc;            // [S, F, 2H] sweep output
-  float* ht = ys;                     // [rows, H] time cell input h
-  float* hn = ys + S * bands * hd;    // [rows, H] time cell output h
-  float* scratch = ys + S * bands * 2 * hd;  // the sweep's state
+  const size_t x_ld = static_cast<size_t>(batch) * ch;  // between bands
+  const size_t h_ld = static_cast<size_t>(batch) * hd;
+  float* xs = smem;                   // [F, C] activations
+  float* ys = xs + fc;                // [F, 2H] sweep output
+  float* ht = ys;                     // [F, H] time cell input h
+  float* hn = ys + bands * hd;        // [F, H] time cell output h
+  float* scratch = ys + bands * 2 * hd;  // the sweep's state
 
-  // rows of streams the block does not hold stay zero (finite for the
-  // sweep, which runs all S)
-  for (int e = tid; e < S * fc; e += nt) {
-    const int s = e / fc;
-    const int f = (e - s * fc) / ch;
-    const int k = e - s * fc - f * ch;
-    xs[e] = s < ns ? fe::load_f(
-                         x[(static_cast<size_t>(f) * batch + b0 + s) * ch + k])
-                   : 0.f;
+  for (int e = tid; e < fc; e += nt) {
+    const int f = e / ch;
+    xs[e] = fe::load_f(x[f * x_ld + b * ch + (e - f * ch)]);
   }
   __syncthreads();
 
-  const size_t carry = static_cast<size_t>(bands) * batch * hd;  // [F, B, H]
   for (int i = 0; i < layers; ++i) {
-    const size_t lh = static_cast<size_t>(i) * 2 * carry;
-    const size_t lc = lh + carry;
-    for (int e = tid; e < rows * hd; e += nt) {
-      const int r = e / hd;
-      const int j = e - r * hd;
-      const int s = r / bands;
-      const int f = r - s * bands;
-      ht[e] = fe::load_f(
-          h[lh + (static_cast<size_t>(f) * batch + b0 + s) * hd + j]);
+    // this stream's rows of h[i, 0] and h[i, 1]
+    const size_t lh = static_cast<size_t>(i) * 2 * bands * h_ld + b * hd;
+    const size_t lc = lh + bands * h_ld;
+    for (int e = tid; e < bands * hd; e += nt) {
+      const int f = e / hd;
+      ht[e] = fe::load_f(h[lh + f * h_ld + (e - f * hd)]);
     }
     __syncthreads();
 
     // --- time-LSTM step, fc_time + residual ---
-    lstm_time_cell<T>(xs, ht, hn, h + lc, h_out + lh, h_out + lc,
+    lstm_time_cell<T>(xs, ht, hn, h + lc, h_out + lh, h_out + lc, h_ld,
                       p.w_tih + static_cast<size_t>(i) * ch * g4,
                       p.w_thh + static_cast<size_t>(i) * hd * g4,
-                      p.b_t + static_cast<size_t>(i) * g4, rows, bands, batch,
-                      b0, ch, hd);
+                      p.b_t + static_cast<size_t>(i) * g4, bands, ch, hd);
     __syncthreads();
     fe::linear_rows<T>(hn, xs, p.w_fct + static_cast<size_t>(i) * hd * ch,
-                       p.b_fct + static_cast<size_t>(i) * ch, rows, hd, ch,
+                       p.b_fct + static_cast<size_t>(i) * ch, bands, hd, ch,
                        xs);
     __syncthreads();
 
     // --- bidirectional sweep over the bands, fc_freq + residual ---
-    fe::band_sweep<T, fe::LstmCell<T>, S>(
+    fe::band_sweep<T, fe::LstmCell<T>>(
         xs, ys, scratch, p.w_fih + static_cast<size_t>(i) * 2 * ch * g4,
         p.b_fih + static_cast<size_t>(i) * 2 * g4,
         p.w_fhh + static_cast<size_t>(i) * 2 * hd * g4,
         p.b_fhh + static_cast<size_t>(i) * 2 * g4, bands, ch, hd);
     fe::linear_rows<T>(ys, xs, p.w_fcf + static_cast<size_t>(i) * 2 * hd * ch,
-                       p.b_fcf + static_cast<size_t>(i) * ch, rows, 2 * hd,
+                       p.b_fcf + static_cast<size_t>(i) * ch, bands, 2 * hd,
                        ch, xs);
     __syncthreads();
   }
 
-  for (int e = tid; e < rows * ch; e += nt) {
-    const int s = e / fc;
-    const int f = (e - s * fc) / ch;
-    const int k = e - s * fc - f * ch;
-    x_out[(static_cast<size_t>(f) * batch + b0 + s) * ch + k] =
-        fe::store_t<T>(xs[e]);
+  for (int e = tid; e < fc; e += nt) {
+    const int f = e / ch;
+    x_out[f * x_ld + b * ch + (e - f * ch)] = fe::store_t<T>(xs[e]);
   }
 }
 
-size_t smem_bytes(int streams, int bands, int ch, int hd) {
-  return (static_cast<size_t>(streams) * bands * (ch + 2 * hd) +
-          fe::sweep_smem_floats(streams, hd)) *
+size_t smem_bytes(int bands, int ch, int hd) {
+  return (static_cast<size_t>(bands) * (ch + 2 * hd) +
+          fe::sweep_smem_floats(hd)) *
          sizeof(float);
-}
-
-template <typename T, int S>
-int launch_tile(const T* x, const T* h, T* x_out, T* h_out,
-                const BandPlan<T>& plan, int batch, int bands, int ch, int hd,
-                int layers, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, bands, ch, hd);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bsrnn_stack_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (batch + S - 1) / S;
-  bsrnn_stack_kernel<T, S><<<blocks, kThreads, smem, stream>>>(
-      x, h, x_out, h_out, plan, batch, bands, ch, hd, layers);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -266,7 +231,14 @@ int launch(const void* x, const void* h, void* x_out, void* h_out,
            const void* w_fct, const void* b_fct, const void* w_fih,
            const void* b_fih, const void* w_fhh, const void* b_fhh,
            const void* w_fcf, const void* b_fcf, int batch, int bands, int ch,
-           int hd, int layers, int streams, void* stream) {
+           int hd, int layers, void* stream) {
+  const size_t smem = smem_bytes(bands, ch, hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bsrnn_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const BandPlan<T> plan{
       static_cast<const T*>(w_tih), static_cast<const T*>(w_thh),
       static_cast<const T*>(b_t),   static_cast<const T*>(w_fct),
@@ -274,24 +246,12 @@ int launch(const void* x, const void* h, void* x_out, void* h_out,
       static_cast<const T*>(b_fih), static_cast<const T*>(w_fhh),
       static_cast<const T*>(b_fhh), static_cast<const T*>(w_fcf),
       static_cast<const T*>(b_fcf)};
-  const T* xi = static_cast<const T*>(x);
-  const T* hi = static_cast<const T*>(h);
-  T* xo = static_cast<T*>(x_out);
-  T* ho = static_cast<T*>(h_out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (streams) {
-    case 1:
-      return launch_tile<T, 1>(xi, hi, xo, ho, plan, batch, bands, ch, hd,
-                               layers, st);
-    case 2:
-      return launch_tile<T, 2>(xi, hi, xo, ho, plan, batch, bands, ch, hd,
-                               layers, st);
-    case 4:
-      return launch_tile<T, 4>(xi, hi, xo, ho, plan, batch, bands, ch, hd,
-                               layers, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  bsrnn_stack_kernel<T>
+      <<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(h),
+          static_cast<T*>(x_out), static_cast<T*>(h_out), plan, batch, bands,
+          ch, hd, layers);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -304,11 +264,10 @@ int bsrnn_stack_f32(const void* x, const void* h, void* x_out, void* h_out,
                     const void* w_fct, const void* b_fct, const void* w_fih,
                     const void* b_fih, const void* w_fhh, const void* b_fhh,
                     const void* w_fcf, const void* b_fcf, int batch,
-                    int bands, int ch, int hd, int layers, int streams,
-                    void* stream) {
+                    int bands, int ch, int hd, int layers, void* stream) {
   return launch<float>(x, h, x_out, h_out, w_tih, w_thh, b_t, w_fct, b_fct,
                        w_fih, b_fih, w_fhh, b_fhh, w_fcf, b_fcf, batch, bands,
-                       ch, hd, layers, streams, stream);
+                       ch, hd, layers, stream);
 }
 
 int bsrnn_stack_bf16(const void* x, const void* h, void* x_out, void* h_out,
@@ -316,12 +275,10 @@ int bsrnn_stack_bf16(const void* x, const void* h, void* x_out, void* h_out,
                      const void* w_fct, const void* b_fct, const void* w_fih,
                      const void* b_fih, const void* w_fhh, const void* b_fhh,
                      const void* w_fcf, const void* b_fcf, int batch,
-                     int bands, int ch, int hd, int layers, int streams,
-                     void* stream) {
+                     int bands, int ch, int hd, int layers, void* stream) {
   return launch<__nv_bfloat16>(x, h, x_out, h_out, w_tih, w_thh, b_t, w_fct,
                                b_fct, w_fih, b_fih, w_fhh, b_fhh, w_fcf,
-                               b_fcf, batch, bands, ch, hd, layers, streams,
-                               stream);
+                               b_fcf, batch, bands, ch, hd, layers, stream);
 }
 
 const char* bsrnn_stack_error_string(int code) {

@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     __syncthreads();
 
     // --- bidirectional sweep over the bins, frnn_fc + residual ---
-    fe::band_sweep<T, fe::GruCell<T>, 1>(
+    fe::band_sweep<T, fe::GruCell<T>>(
         xs, ys, scratch, p.w_fih + static_cast<size_t>(i) * 2 * ch * g3,
         p.b_fih + static_cast<size_t>(i) * 2 * g3,
         p.w_fhh + static_cast<size_t>(i) * 2 * hd * g3,
@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
 
 size_t smem_bytes(int bins, int ch, int hd) {
   return (3 * static_cast<size_t>(bins) * ch +
-          static_cast<size_t>(bins) * 2 * hd + fe::sweep_smem_floats(1, hd)) *
+          static_cast<size_t>(bins) * 2 * hd + fe::sweep_smem_floats(hd)) *
          sizeof(float);
 }
 

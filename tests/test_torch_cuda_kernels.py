@@ -253,16 +253,18 @@ def _band_case(b, c, nl, dtype, device, seed, bands=31):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,nl,streams", [
-    (3, 16, 6, 2),    # BSRNN-XT widths, a batch no tile divides
-    (3, 64, 2, 1),    # BSRNN-S widths, one stream per block
-    (5, 64, 6, 2),    # BSRNN-S, the last block holds one stream
-    (6, 64, 2, 4)])
+@pytest.mark.parametrize("b,c,nl,bands", [
+    (3, 16, 6, 31),    # BSRNN-XT widths
+    (3, 64, 6, 31),    # BSRNN-S widths
+    (64, 64, 2, 31),
+    (2, 48, 2, 7),     # H=96: the sweep leaves 64 of 256 threads idle
+    (2, 128, 1, 5)])   # H=256: each thread sweeps two units
 def test_bsrnn_stack_kernel_matches_plain(cuda_device, dtype, b, c, nl,
-                                          streams):
-    plan, x, h = _band_case(b, c, nl, dtype, cuda_device, seed=b + c)
+                                          bands):
+    plan, x, h = _band_case(b, c, nl, dtype, cuda_device, seed=b + c,
+                            bands=bands)
     before = band.bsrnn_stack_step.launches
-    xo, ho = band.bsrnn_stack_step(plan, x, h, streams_per_block=streams)
+    xo, ho = band.bsrnn_stack_step(plan, x, h)
     torch.cuda.synchronize()
     assert band.bsrnn_stack_step.launches == before + 1
     xr, hr = band.bsrnn_stack_reference(plan, x, h)
@@ -276,13 +278,12 @@ def test_bsrnn_stack_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         band.bsrnn_stack_step(plan, x, h)
     plan, x, h = _band_case(2, 8, 1, torch.float32, cuda_device, 0)
-    with pytest.raises(ValueError, match="streams_per_block"):
-        band.bsrnn_stack_step(plan, x, h, streams_per_block=3)
     with pytest.raises(ValueError, match="shape"):
         band.bsrnn_stack_step(plan, x, h[:, :, :, :1].contiguous())
-    plan, x, h = _band_case(1, 128, 1, torch.float32, cuda_device, 0)
+    plan, x, h = _band_case(1, 256, 1, torch.float32, cuda_device, 0,
+                            bands=64)
     with pytest.raises(ValueError, match="shared memory"):
-        band.bsrnn_stack_step(plan, x, h, streams_per_block=4)
+        band.bsrnn_stack_step(plan, x, h)
 
 
 def _dprnn_case(b, f, c, nb, dtype, device, seed):

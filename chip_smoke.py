@@ -4,9 +4,9 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It drives the streaming paths of `fastenhancer_tpu_torch` (no JAX anywhere)
-through the hand-written CUDA kernels, in eleven phases, each printed on
-its own line:
+It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
+JAX anywhere) through the hand-written CUDA kernels, in thirteen phases,
+each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for the float32 checks;
@@ -17,8 +17,13 @@ its own line:
      FastEnhancer T/B/S shapes, the dpt stack at the DPT T/B/S block shapes
      with a wrapped pointer and unwritten cache slots, the BSRNN stack at
      the BSRNN-XT and -S shapes, the dprnn stack at the DPRNN-T and -B
-     shapes), and each timed with CUDA events at B=256 bfloat16 beside its
-     plain version and its bound;
+     shapes, segmental RMS with silent, half-quiet and short rows and the
+     absolute floor on and off, the GRU scan at H=20 and 36, T=13 and 126,
+     ragged N, with and without h0), and each timed with CUDA events beside
+     its plain version and its bound (the stacks at B=256 bfloat16,
+     segmental RMS at the shard recipe's [32, 64000] float32 train batch,
+     the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
+     cuDNN's GRU as the library yardstick);
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -34,11 +39,23 @@ its own line:
   8. throughput DPT-B: Model.stream(fused_plan=...) over 256 streams;
   9. serving BSRNN-S, as phase 4, through the BSRNN stack kernel;
  10. serving DPRNN-B, as phase 4, through the dprnn stack kernel;
- 11. throughput BSRNN-S: Model.stream(fused_plan=...) over 256 streams.
+ 11. throughput BSRNN-S: Model.stream(fused_plan=...) over 256 streams;
+ 12. train FE-T on the shard recipe (presets.FE_T_SHARD) through the
+     ns_shard ModelWrapper: 5 bfloat16 steps over float32 masters on one
+     synthetic batch of 32 x 4 s (speech with silent stretches, noise with
+     a silent row, 0.5 s RIRs), each step mixed on the card (segmental RMS
+     kernel, twice) with the mixer's generator re-seeded so every step sees
+     the same mix; losses finite and falling, trained params moved and the
+     fixed filterbanks not, BN statistics moved, the warmup followed; then
+     one float32 step (TF32 off) against the same step on the CPU's plain
+     path from the same variables and batch;
+ 13. valid FE-T: valid_epoch over 64 x 2 s paired batches (the GRU scan
+     kernel, once per block), and the float32 valid losses against the
+     CPU's plain path.
 
-Each of phases 4 to 11 drives a path: every kernel's launch count is set to
+Each of phases 4 to 13 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
-kernel ran once per frame and no other kernel ran. The line before the
+kernel ran as often as the path needs it and no other kernel ran. The line before the
 last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -59,6 +76,17 @@ FE_SECONDS = 10.0      # phase 5's audio per stream
 FRAME_SECONDS = 5.0    # phase 7's audio per stream
 DPT_SECONDS = 5.0      # phase 8's audio per stream
 BSRNN_SECONDS = 5.0    # phase 11's audio per stream
+TRAIN_ROWS, TRAIN_SECONDS = 32, 4.0   # phase 12: 128 s = max_duration
+TRAIN_STEPS = 5
+RIR_SECONDS = 0.5
+MIX_SEED = 11
+VALID_ROWS, VALID_SECONDS, VALID_BATCHES = 64, 2.0, 2   # phase 13
+# float32 card vs the CPU's plain path, over a whole train or valid batch:
+# losses and grad norm relative (sums over 128 s of audio in another order,
+# cuFFT against pocketfft), params absolute (twice the first step's lr of
+# 4e-6: a gradient near zero may take either sign on the two devices)
+TRAIN_F32_RTOL = 1e-4
+TRAIN_F32_PARAM_ATOL = 1e-5
 # the H100 SXM's published peaks (NVIDIA H100 datasheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -83,19 +111,28 @@ def main():
     from fastenhancer_tpu_torch.ops import _build
     from fastenhancer_tpu_torch.ops import bsrnn_stack as band
     from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
+    from fastenhancer_tpu_torch.data import ShardBatch
     from fastenhancer_tpu_torch.ops import dpt_stack as dpt
     from fastenhancer_tpu_torch.ops import fused_frame as frame
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
     from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
-    from fastenhancer_tpu_torch.presets import BSRNN_S, DPRNN_B, DPT_B, FE_B
+    from fastenhancer_tpu_torch.ops import segmental_rms as seg
+    from fastenhancer_tpu_torch.optim import get_optimizer
+    from fastenhancer_tpu_torch.presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B,
+                                                FE_T_SHARD)
     from fastenhancer_tpu_torch.serving import StreamingEngine
-    from fastenhancer_tpu_torch.utils import cast_floating
+    from fastenhancer_tpu_torch.train import make_train_step, make_valid_step
+    from fastenhancer_tpu_torch.utils import cast_floating, tree_map, tree_paths
+    from fastenhancer_tpu_torch.wrappers import get_wrapper
 
     dev = require_cuda()
     wrappers = {"rnnformer_stack_step": stack.rnnformer_stack_step,
                 "fused_frame_step": frame.fused_frame_step,
                 "dpt_stack_step": dpt.dpt_stack_step,
                 "bsrnn_stack_step": band.bsrnn_stack_step,
-                "dprnn_stack_step": dprnn.dprnn_stack_step}
+                "dprnn_stack_step": dprnn.dprnn_stack_step,
+                "segmental_rms_fused": seg.segmental_rms_fused,
+                "gru_scan": scan.gru_scan}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -118,7 +155,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/11] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/13] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -126,7 +163,7 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/11] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/13] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against their plain versions ------------------------------------
@@ -246,7 +283,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/11] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/13] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -298,7 +335,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/11] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/13] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -348,7 +385,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/11] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/13] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -384,7 +421,7 @@ def main():
             torch.cuda.synchronize()
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/11] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/13] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -416,7 +453,7 @@ def main():
             torch.cuda.synchronize()
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/11] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/13] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -429,10 +466,112 @@ def main():
                     lambda: dprnn.dprnn_stack_reference(plan, x, h),
                     max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
 
+    # 3f. segmental RMS (kernel 4): silent, half-quiet and -60 dB rows, T
+    # a multiple of the window, not one, and shorter than one
+    def rms_rows(b, t, seed):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(b, t, generator=g) * 0.1
+        x[1] = 0.0                 # silent: +inf
+        x[2, : t // 2] *= 1e-3     # 60 dB quieter first half: dropped
+        x[3] *= 1e-2               # -60 dB: below the -50 dB floor
+        return x
+
+    def rms_err(got, want, dtype, what):
+        """Max abs error over the finite entries; +inf where plain has it;
+        each finite entry within 1e-5 (float32) or one bf16 ulp (2^-7) of
+        the plain value, relative."""
+        _check(torch.equal(torch.isinf(got), torch.isinf(want)),
+               f"{what}: +inf rows differ")
+        fin = torch.isfinite(want)
+        diff = (got.float()[fin] - want.float()[fin]).abs()
+        rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        _check(bool((diff <= rel * want.float()[fin].abs()).all()),
+               f"{what}: kernel vs plain relative error above {rel:g}")
+        return diff.max().item(), rel
+
+    for b, t in ((TRAIN_ROWS, int(TRAIN_SECONDS * SR)), (5, 5 * 1600 + 700),
+                 (4, 1300)):
+        for abs_db in (None, -50.0):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = rms_rows(b, t, t).to(dev, dtype)
+                got = seg.segmental_rms_fused(x, absolute_threshold_db=abs_db)
+                torch.cuda.synchronize()
+                want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
+                err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
+                print(f"[3/13] kernel segmental_rms B={b} T={t} abs floor "
+                      f"{abs_db} {str(dtype)[6:]}: rows +inf "
+                      f"{torch.isinf(got).flatten().tolist()}, max abs err "
+                      f"{err:.3e} (each within {rel:g} relative)")
+                if (b == TRAIN_ROWS and abs_db is None
+                        and dtype == torch.float32):
+                    bound_info = bound(2 * b * t, nbytes(x, got), dtype)
+                    record["segmental_rms_fused"] = timed(
+                        lambda: seg.segmental_rms_fused(
+                            x, absolute_threshold_db=None),
+                        lambda: seg.segmental_rms(
+                            x, absolute_threshold_db=None), err, bound_info)
+
+    # 3g. the GRU scan (kernel 5) at FE-T's and FE-B's widths
+    def scan_case(t, n, h, dtype, seed, h0):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(t, n, 3 * h, generator=g)
+        w = (torch.rand(3 * h, h, generator=g) * 2 - 1) / h ** 0.5
+        b = (torch.rand(3 * h, generator=g) * 2 - 1) / h ** 0.5
+        hh = (torch.randn(n, h, generator=g) * 0.5 if h0
+              else torch.zeros(n, h))
+        return [a.to(dev, dtype) for a in (x, hh, w, b)]
+
+    valid_frames = int(VALID_SECONDS * SR) // 256 + 1
+    valid_n = VALID_ROWS * FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"][
+        "freq"]
+    for t, n, h, h0 in ((valid_frames, valid_n, 20, False), (13, 37, 20, True),
+                        (valid_frames, 301, 36, True), (13, 5, 36, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_case(t, n, h, dtype, t + n + h, h0)
+            ys, h_t = scan.gru_scan(*args)
+            torch.cuda.synchronize()
+            ys_r, h_r = scan.gru_scan_reference(*args)
+            errs = compare(f"gru_scan T={t} N={n} H={h}",
+                           ((ys, ys_r), (h_t, h_r)), dtype)
+            print(f"[3/13] kernel gru_scan T={t} N={n} H={h} h0 "
+                  f"{'given' if h0 else 'None'} {str(dtype)[6:]}: max abs err "
+                  f"ys {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
+                  f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+            if n == valid_n and dtype == torch.bfloat16:
+                # the library yardstick: cuDNN's GRU with W_ih = I and
+                # b_ih = 0 computes the same recurrence from x_proj
+                lib = torch.nn.GRU(3 * h, h).to(dev, dtype)
+                with torch.no_grad():
+                    lib.weight_ih_l0.copy_(torch.eye(3 * h))
+                    lib.bias_ih_l0.zero_()
+                    lib.weight_hh_l0.copy_(args[2])
+                    lib.bias_hh_l0.copy_(args[3])
+                    lib.flatten_parameters()
+                    ys_l, _ = lib(args[0], args[1][None])
+                # a sanity check that it is the same function (cuDNN may
+                # round its state each step): within 2^-3 of the peak
+                lib_err = (ys_l.float() - ys_r.float()).abs().max().item()
+                _check(lib_err <= 2 ** -3 * ys_r.float().abs().max().item(),
+                       f"cuDNN GRU vs gru_scan's plain version: {lib_err}")
+                # operations: 3H x H multiply-adds a row and step, and about
+                # 12 more a unit for the gates
+                bound_info = bound(t * n * (6 * h * h + 12 * h),
+                                   nbytes(*args, ys, h_t), dtype)
+                rec = timed(lambda: scan.gru_scan(*args),
+                            lambda: scan.gru_scan_reference(*args),
+                            max(errs[0][0], errs[1][0]), bound_info,
+                            plain_graph=True)
+                with torch.no_grad():
+                    rec["library_ms"], rec["library_host_ms"] = time_ms(
+                        lambda: lib(args[0], args[1][None]))
+                record["gru_scan"] = rec
+
     for name, r in record.items():
-        print(f"[3/11] time {name} bf16 B={STREAMS}: kernel {r['ms']:.4f} ms, "
-              f"plain PyTorch {r['plain_ms']:.4f} ms on the device (CUDA "
-              f"events, median, queue kept ahead; plain timed "
+        lib = ("" if r.get("library_ms") is None else
+               f", library {r['library_ms']:.4f} ms")
+        print(f"[3/13] time {name}: kernel {r['ms']:.4f} ms, "
+              f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
+              f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
               f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}; "
               f"{r['flops'] / 1e9:.4f} GFLOP, {r['bytes'] / 1e6:.4f} MB); "
@@ -516,7 +655,7 @@ def main():
         _check(f32_err <= STREAM_F32_TOL,
                f"{tag} fused vs unfused float32: {f32_err} > "
                f"{STREAM_F32_TOL}")
-        print(f"[{phase}/11] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/13] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -556,7 +695,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/11] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/13] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -613,7 +752,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/11] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/13] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -638,12 +777,209 @@ def main():
     throughput("bsrnn", BSRNN_S, "BSRNN-S", BSRNN_SECONDS, 11,
                "bsrnn_stack_step")
 
+    # -- 12. train FE-T on the shard recipe ---------------------------------
+    def speech_like(rng, rows, n):
+        """Noise under a 3 Hz syllable envelope, silent for a sixth of the
+        row, so the segmental thresholds have frames to drop."""
+        tt = np.arange(n) / SR
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * tt
+                                 + rng.uniform(0, 2 * np.pi, (rows, 1)))
+        x = rng.standard_normal((rows, n)) * 0.1 * env
+        x[:, n // 3: n // 2] = 0.0
+        return x.astype(np.float32)
+
+    def shard_batch(rows, n, seed):
+        """A synthetic ShardBatch: noise with a silent row, 0.5 s RIRs that
+        are unit impulses on half the rows and decaying noise on the others,
+        with t60 above and below the recipe's t60_max of 0.15 s."""
+        rng = np.random.default_rng(seed)
+        speech = speech_like(rng, rows, n)
+        noise = (rng.standard_normal((rows, n)) * 0.05).astype(np.float32)
+        noise[0] = 0.0
+        t_rir = int(RIR_SECONDS * SR)
+        rir = np.zeros((rows, t_rir), np.float32)
+        rir[:, 0] = 1.0
+        onset = np.zeros(rows, np.int64)
+        t60 = np.full(rows, 1e-3, np.float32)
+        k = np.arange(t_rir)
+        for i in range(rows // 2, rows):
+            t60[i] = 0.3 if i % 2 else 0.1
+            onset[i] = rng.integers(0, 200)
+            r = rng.standard_normal(t_rir) * np.exp(
+                -6.9 * np.clip(k - onset[i], 0, None) / (t60[i] * SR))
+            r[:onset[i]] = 0.0
+            rir[i] = r / np.abs(r).max()
+        return ShardBatch(
+            speech=speech[:, None], speech_clean=speech[:, None].copy(),
+            noise=noise[:, None], rir=rir[:, None], rir_onset=onset,
+            rir_t60=t60, num_samples=np.full(rows, n),
+            id_speech=[f"synthetic-{i}" for i in range(rows)])
+
+    def tree_diff(got, want):
+        """Max over leaves of |got - want| - 1e-5 |want| (<= atol passes)."""
+        w = dict(tree_paths(want))
+        return max(((a.detach().cpu() - w[p].detach().cpu()).abs()
+                    - 1e-5 * w[p].detach().cpu().abs()).max().item()
+                   for p, a in tree_paths(got))
+
+    hps = FE_T_SHARD
+    n_train = int(TRAIN_SECONDS * SR)
+    batch = shard_batch(TRAIN_ROWS, n_train, seed=5)
+    wrapper = get_wrapper(hps["wrapper"])(hps, train=True)
+    _check(wrapper.compute_dtype == torch.bfloat16, "the recipe is fp16")
+    model = wrapper.model
+    start = tree_map(lambda a: a.detach().clone(), wrapper.state["variables"])
+    warmup = hps["train"]["scheduler_kwargs"]["warmup_iterations"]
+    base_lrs = list(wrapper.optim.base_lrs)
+    totals, norms, lrs_used, mix_ms, step_ms = [], [], [], [], []
+    zero_counts()
+    for i in range(TRAIN_STEPS):
+        wrapper.mix_generator.manual_seed(MIX_SEED)  # the same mix each step
+        lrs_used.append(list(wrapper.scheduler.lrs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_batch, rows = wrapper._mix_to_device(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = wrapper._step_and_account(dev_batch, rows)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mix_ms.append(1e3 * (t1 - t0))
+        step_ms.append(1e3 * (t2 - t1))
+        _check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+               f"train step {i + 1}: non-finite metrics {metrics}")
+        totals.append(float(metrics["loss/total"]))
+        norms.append(float(metrics["grad_norm"]))
+    counts = read_counts()
+    check_launches(counts, "segmental_rms_fused", 2 * TRAIN_STEPS,
+                   "FE-T train")
+    record["segmental_rms_fused"]["launches"] = counts["segmental_rms_fused"]
+    _check(totals[-1] < totals[0], f"train loss did not fall: {totals}")
+    fixed = set(model.fixed_param_paths())
+    p0 = dict(tree_paths(start["params"]))
+    for path, t in tree_paths(wrapper.state["variables"]["params"]):
+        moved = not torch.equal(t.detach(), p0[path])
+        _check(moved != (path in fixed), f"param {path}: moved={moved}")
+    s0 = dict(tree_paths(start["stats"]))
+    for path, t in tree_paths(wrapper.state["variables"]["stats"]):
+        _check(not torch.equal(t, s0[path]), f"BN statistic {path} unmoved")
+    want_lrs = [[b * max(k - 1, 1) / warmup for b in base_lrs]
+                for k in range(1, TRAIN_STEPS + 1)]
+    _check(all(np.allclose(a, b, rtol=1e-12) for a, b in zip(lrs_used,
+                                                             want_lrs))
+           and np.allclose(wrapper.scheduler.lrs,
+                           [b * TRAIN_STEPS / warmup for b in base_lrs],
+                           rtol=1e-12),
+           f"warmup lrs {lrs_used[:2]}... != {want_lrs[:2]}...")
+    step_med = statistics.median(step_ms[1:])
+    mix_med = statistics.median(mix_ms[1:])
+    audio_s = TRAIN_ROWS * TRAIN_SECONDS
+    print(f"[12/13] train FE-T shard recipe bf16 over float32 masters, "
+          f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
+          f"step, {model.num_params(start['params'])} trainable params: "
+          f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
+          f"{', '.join(f'{v:.4f}' for v in norms)}; lr {lrs_used[0][0]:.3e} "
+          f"to {lrs_used[-1][0]:.3e} (warmup {warmup}); segmental_rms "
+          f"launches {counts['segmental_rms_fused']} = 2 a step, no other "
+          f"kernel; train step {step_med:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms), mixer "
+          f"{mix_med:.2f} ms, {audio_s / (1e-3 * (step_med + mix_med)):.1f} "
+          f"audio s trained per wall s; on {card}")
+
+    # 12b. one float32 step on the card against the CPU's plain path
+    cpu_wrapper = get_wrapper(hps["wrapper"])(hps, train=True, device="cpu")
+    _check(tree_diff(cpu_wrapper.state["variables"], start) <= 0.0,
+           "the CPU wrapper's init differs from the card's")
+    wrapper.mix_generator.manual_seed(MIX_SEED)
+    cpu_wrapper.mix_generator.manual_seed(MIX_SEED)
+    mixed_card, _ = wrapper._mix_to_device(batch)
+    mixed_cpu, _ = cpu_wrapper._mix_to_device(batch)
+    mix_err = max((mixed_card[k].cpu() - mixed_cpu[k]).abs().max().item()
+                  / mixed_cpu[k].abs().max().item()
+                  for k in ("clean", "noisy"))
+    _check(mix_err <= 1e-5, f"mix card vs CPU: {mix_err:.3e} of the peak")
+    card_vars = tree_map(lambda a: a.clone(), start)
+    steps = {
+        "card": make_train_step(model, wrapper.loss, get_optimizer(
+            model, card_vars["params"], hps["train"])),
+        "cpu": make_train_step(model, cpu_wrapper.loss, cpu_wrapper.optim)}
+    lrs0 = [b / warmup for b in base_lrs]
+    out_card = steps["card"]({"variables": card_vars}, mixed_card, lrs0)
+    t0 = time.perf_counter()
+    out_cpu = steps["cpu"](cpu_wrapper.state,
+                           {k: v.cpu() for k, v in mixed_card.items()}, lrs0)
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(float(out_card[1][k]) - float(out_cpu[1][k]))
+           / abs(float(out_cpu[1][k])) for k in out_cpu[1]}
+    _check(max(rel.values()) <= TRAIN_F32_RTOL,
+           f"float32 step card vs CPU: relative {rel}")
+    p_err = tree_diff(out_card[0]["variables"]["params"],
+                      out_cpu[0]["variables"]["params"])
+    s_err = tree_diff(out_card[0]["variables"]["stats"],
+                      out_cpu[0]["variables"]["stats"])
+    _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
+           f"float32 step card vs CPU: params {p_err:.3e}, stats "
+           f"{s_err:.3e}")
+    print(f"[12/13] float32 train step (TF32 off) card vs the CPU's plain "
+          f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
+          f"loss and grad norm max relative diff {max(rel.values()):.3e} "
+          f"(tol {TRAIN_F32_RTOL:g}; loss "
+          f"{float(out_card[1]['loss/total']):.6f} vs "
+          f"{float(out_cpu[1]['loss/total']):.6f}); params and BN "
+          f"statistics within {TRAIN_F32_PARAM_ATOL:g} + 1e-5 relative "
+          f"(worst margin {max(p_err, s_err):.3e}); the CPU step took "
+          f"{cpu_s:.1f} s")
+
+    # -- 13. valid FE-T -----------------------------------------------------
+    def valid_batch(seed):
+        rng = np.random.default_rng(seed)
+        n = int(VALID_SECONDS * SR)
+        clean = speech_like(rng, VALID_ROWS, n)
+        noise = rng.standard_normal((VALID_ROWS, n)) * rng.uniform(
+            0.01, 0.1, (VALID_ROWS, 1))
+        return {"clean": clean, "noisy": (clean + noise).astype(np.float32)}
+
+    valid = [valid_batch(20 + i) for i in range(VALID_BATCHES)]
+    wrapper.valid_epoch(valid[:1])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    scalars = wrapper.valid_epoch(valid)["scalars"]
+    torch.cuda.synchronize()
+    valid_s = time.perf_counter() - t0
+    counts = read_counts()
+    check_launches(counts, "gru_scan", model.num_blocks * VALID_BATCHES,
+                   "FE-T valid")
+    record["gru_scan"]["launches"] = counts["gru_scan"]
+    _check(all(np.isfinite(v) for v in scalars.values()),
+           f"valid losses {scalars}")
+    trained = tree_map(lambda a: a.detach(), wrapper.state["variables"])
+    dev_batch, _ = wrapper._device_batch(valid[0], ("clean", "noisy"))
+    v_card = make_valid_step(model, wrapper.loss)(trained, dev_batch)
+    v_cpu = make_valid_step(model, cpu_wrapper.loss)(
+        tree_map(lambda a: a.cpu(), trained),
+        {k: v.cpu() for k, v in dev_batch.items()})
+    v_rel = {k: abs(float(v_card[k]) - float(v_cpu[k])) / abs(float(v_cpu[k]))
+             for k in v_cpu}
+    _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
+           f"float32 valid card vs CPU: relative {v_rel}")
+    print(f"[13/13] valid FE-T bf16, {VALID_BATCHES} batches of "
+          f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
+          f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
+          f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
+          f"forward, no other kernel; {1e3 * valid_s / VALID_BATCHES:.1f} ms "
+          f"per valid batch; float32 valid losses card vs CPU max relative "
+          f"diff {max(v_rel.values()):.3e} (tol {TRAIN_F32_RTOL:g}); on "
+          f"{card}")
+
     sources = {
         "rnnformer_stack_step": ("rnnformer_stack", "rnnformer_stack.py:394"),
         "fused_frame_step": ("fused_frame", "fused_frame.py:303"),
         "dpt_stack_step": ("dpt_stack", "dpt_stack.py:323"),
         "bsrnn_stack_step": ("bsrnn_stack", "bsrnn_stack.py:249"),
-        "dprnn_stack_step": ("dprnn_stack", "dprnn_stack.py:269")}
+        "dprnn_stack_step": ("dprnn_stack", "dprnn_stack.py:269"),
+        "segmental_rms_fused": ("segmental_rms", "segmental_rms.py:64"),
+        "gru_scan": ("gru_scan", "gru_scan.py:43")}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -656,7 +992,7 @@ def main():
         "bound_ms": r["bound_ms"],
         "bound_us": 1e3 * r["bound_ms"],
         "bound_by": r["bound_by"],
-        "library_ms": None,
+        "library_ms": r.get("library_ms"),
     } for name, (src, tpu) in sources.items()
         for r in [record[name]]]}))
     print(json.dumps({"ok": True, "device": {

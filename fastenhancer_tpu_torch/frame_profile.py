@@ -1,4 +1,4 @@
-"""Where a streaming frame's time goes on the card, for each fused path.
+"""Where a streaming frame's, and a training step's, time goes on the card.
 
     python -m fastenhancer_tpu_torch.frame_profile
 
@@ -6,10 +6,13 @@ For FastEnhancer_B through the block-stack kernel (`streaming_step_fused`),
 FastEnhancer_B through the whole-frame kernel (`streaming_step_fused_frame`),
 and DPT-B, BSRNN-S and DPRNN-B through their stack kernels
 (`streaming_step_fused`), all bfloat16 with folded random-init weights,
-over 256 streams and 20 frames, it prints per frame:
+over 256 streams and 20 frames; and for the shard recipe's FE-T
+(`presets.FE_T_SHARD`) a train step (the mix and the bf16 step) at
+32 x 4 s over 3 steps and a valid step at 64 x 2 s over 20 steps, it
+prints per frame or step:
 
-* the wall time of the step loop without the profiler (host clock around
-  work that ends in a synchronize);
+* the wall time of the loop without the profiler (host clock around work
+  that ends in a synchronize);
 * the device time of every CUDA kernel under `torch.profiler`, the number
   of kernel launches, and the device's busy share (device time over wall);
 * the 8 kernels that take the most device time.
@@ -21,16 +24,20 @@ from __future__ import annotations
 import time
 import typing as tp
 
+import numpy as np
 import torch
 
 from . import require_cuda
+from .data import ShardBatch
 from .models import get_model
-from .presets import BSRNN_S, DPRNN_B, DPT_B, FE_B
+from .presets import BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD
 from .utils import cast_floating
+from .wrappers import get_wrapper
 
 STREAMS = 256
 FRAMES = 20
 TOP = 8
+TRAIN_STEPS = 3
 
 
 def _device_us(event) -> float:
@@ -42,23 +49,24 @@ def _device_us(event) -> float:
 
 
 def profile_path(name: str, step: tp.Callable, carry,
-                 hops: torch.Tensor) -> None:
-    """Warm up, time FRAMES steps on the host clock, then profile them."""
+                 hops: tp.Sequence[tp.Any], frames: int = FRAMES,
+                 warmup: int = 5, unit: str = "frame") -> None:
+    """Warm up, time `frames` steps on the host clock, then profile them."""
     def run(carry, n):
         for i in range(n):
-            carry, _ = step(carry, hops[i % hops.shape[0]])
+            carry, _ = step(carry, hops[i % len(hops)])
         return carry
 
-    carry = run(carry, 5)
+    carry = run(carry, warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry = run(carry, FRAMES)
+    carry = run(carry, frames)
     torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
+    wall_ms = 1e3 * (time.perf_counter() - t0) / frames
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run(carry, FRAMES)
+        run(carry, frames)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -67,14 +75,49 @@ def profile_path(name: str, step: tp.Callable, carry,
     launches = sum(e.count for e in kernels)
     if device_us == 0:
         raise RuntimeError("the profiler recorded no device time")
-    dev_ms = 1e-3 * device_us / FRAMES
-    print(f"{name}: wall {wall_ms:.4f} ms per frame (no profiler); device "
-          f"{dev_ms:.4f} ms per frame over {launches / FRAMES:.1f} kernel "
+    dev_ms = 1e-3 * device_us / frames
+    print(f"{name}: wall {wall_ms:.4f} ms per {unit} (no profiler); device "
+          f"{dev_ms:.4f} ms per {unit} over {launches / frames:.1f} kernel "
           f"launches; device busy {100 * dev_ms / wall_ms:.1f}% of the wall")
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
         print(f"    {100 * _device_us(e) / device_us:5.1f}%  "
-              f"{_device_us(e) / FRAMES:9.3f} us/frame  "
-              f"{e.count / FRAMES:5.1f}/frame  {e.key[:90]}")
+              f"{_device_us(e) / frames:9.3f} us/{unit}  "
+              f"{e.count / frames:7.1f}/{unit}  {e.key[:90]}")
+
+
+def profile_training(dev: torch.device) -> None:
+    """The shard recipe's FE-T: a train step (the mix on the card and the
+    bf16 step) on a batch of 32 x 4 s (128 s, the recipe's max_duration),
+    and a valid step on 64 x 2 s. Random audio; RIRs are unit impulses."""
+    wrapper = get_wrapper(FE_T_SHARD["wrapper"])(FE_T_SHARD, train=True,
+                                                 device=dev)
+    rng = np.random.default_rng(0)
+    rows, n = 32, 64_000
+    speech = (rng.standard_normal((rows, 1, n)) * 0.1).astype(np.float32)
+    rir = np.zeros((rows, 1, 8_000), np.float32)
+    rir[:, 0, 0] = 1.0
+    batch = ShardBatch(
+        speech=speech, speech_clean=speech, noise=speech[::-1] * 0.5,
+        rir=rir, rir_onset=np.zeros(rows, np.int64),
+        rir_t60=np.full(rows, 1e-3, np.float32),
+        num_samples=np.full(rows, n), id_speech=[""] * rows)
+
+    def train(carry, batch):
+        wrapper._step_and_account(*wrapper._mix_to_device(batch))
+        return carry, None
+
+    profile_path("FE-T shard train step (mix + bf16 step), 32 x 4 s", train,
+                 None, [batch], frames=TRAIN_STEPS, warmup=2, unit="step")
+    clean = speech[:, 0].reshape(64, 32_000)
+    valid, _ = wrapper._device_batch({"clean": clean, "noisy": clean * 0.8},
+                                     ("clean", "noisy"))
+
+    def validate(carry, batch):
+        wrapper.valid_step(wrapper.state["variables"], batch)
+        return carry, None
+
+    profile_path("FE-T valid step (bf16), 64 x 2 s", validate, None, [valid],
+                 unit="step")
 
 
 def main() -> None:
@@ -103,6 +146,7 @@ def main() -> None:
                 f"{tag} {step_name}, {STREAMS} streams, bf16",
                 lambda c, x, step=step, plan=plan: step(folded, plan, c, x),
                 carry, hops)
+    profile_training(dev)
 
 
 if __name__ == "__main__":

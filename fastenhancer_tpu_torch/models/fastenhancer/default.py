@@ -1,4 +1,4 @@
-"""FastEnhancer (RNNFormer), inference and streaming, in PyTorch.
+"""FastEnhancer (RNNFormer): training, inference and streaming, in PyTorch.
 
 Counterpart of fastenhancer_tpu/models/fastenhancer/default.py. One
 parameter tree (nested dicts and lists of tensors, the JAX package's
@@ -8,15 +8,19 @@ strips weight norm and merges BatchNorm into the convs and fcs; folded and
 unfolded trees run through the same code (a conv applies BN only if its
 subtree has one).
 
-`streaming_step_fused` runs the RNNFormer block stack as one CUDA kernel
-(ops/rnnformer_stack.py) on folded variables: the serving and benchmark path
-of FastEnhancer_B. `streaming_step_fused_frame` runs the whole spec->mask
-model as one CUDA kernel (ops/fused_frame.py).
+`forward(train=True, row_mask=...)` is the training graph: train-mode
+BatchNorm over the batch (rows with row_mask 0 left out of the statistics)
+and the time GRU as nn.gru's differentiable loop; it returns the new BN
+statistics. The offline eval forward runs each block's time GRU as one
+`gru_scan` launch (ops/gru_scan.py). `streaming_step_fused` runs the
+RNNFormer block stack as one CUDA kernel (ops/rnnformer_stack.py) on folded
+variables: the serving and benchmark path of FastEnhancer_B.
+`streaming_step_fused_frame` runs the whole spec->mask model as one CUDA
+kernel (ops/fused_frame.py).
 
-Not ported yet (each raises NotImplementedError): training-mode BatchNorm
-and `forward(train=True)` with its remat and row_mask (ROADMAP queue 1
-item 10), and chunked streaming (`stream(chunk_frames>1)`,
-`streaming_chunk`; ROADMAP queue 1 item 4).
+Not ported yet (each raises NotImplementedError): `train.remat` (gradient
+checkpointing; ROADMAP queue 1 item 10) and chunked streaming
+(`stream(chunk_frames>1)`, `streaming_chunk`; ROADMAP queue 1 item 4).
 
 Architecture: complex spectrogram [B, F, T, 2] -> strided "reshape-trick"
 conv encoder over frequency -> frequency resampling -> K RNNFormer blocks
@@ -45,15 +49,76 @@ from ...functional import (
     init_istft_carry,
 )
 from ...ops.fused_frame import fused_frame_step, plan_frame
+from ...ops.gru_scan import gru_fused
 from ...ops.rnnformer_stack import plan_stack, rnnformer_stack_step
+from ...utils.tree import tree_map, tree_paths
 
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
 
-_TRAIN_TODO = ("training mode is not ported yet (ROADMAP queue 1 item 10: "
-               "train-mode BatchNorm, remat, row_mask)")
+_TRAIN_TODO = ("training mode of this model is not ported yet (ROADMAP "
+               "queue 1 item 10)")
+_REMAT_TODO = ("train.remat (gradient checkpointing, torch.utils.checkpoint) "
+               "is not ported yet (ROADMAP queue 1 item 10)")
 _CHUNK_TODO = ("chunked streaming is not ported yet (ROADMAP queue 1 "
                "item 4: stream(chunk_frames>1), streaming_chunk)")
+
+
+def _wn_suffix(torch_weight_name: str, sub: tp.Optional[str]) -> str:
+    """weight-norm {g, v} leaves -> torch parametrization key names."""
+    if sub is None:
+        return torch_weight_name
+    which = "original0" if sub == "g" else "original1"
+    return f"parametrizations.{torch_weight_name}.{which}"
+
+
+def _torch_name_default(path: tp.Tuple[str, ...]) -> str:
+    """Param-tree path -> the reference's torch parameter name, so that
+    `train.optimizer_groups` regexes apply unchanged. A copy of the JAX
+    module's mapping for the default model: enc_pre.{0 conv,1 bn},
+    encoder.{i}.{0,1}, rf_pre.{0 lin,1 conv,2 bn},
+    rf_block.{i}.{rnn,rnn_fc,rnn_post_norm,attn.qkv,attn_fc,attn_post_norm,
+    pe}, decoder.{i}.{0,1,3,4}, dec_post.{0,1,3}. (The JAX variants rename
+    the rf prefixes; their training is not ported.)"""
+    head, rest = path[0], path[1:]
+    if head in ("enc_pre", "dec_post", "encoder"):
+        if head == "encoder":
+            prefix = f"encoder.{rest[0]}"
+            rest = rest[1:]
+        else:
+            prefix = head
+        mod, leaf = rest[0], rest[1]
+        idx = {"conv": 0, "bn": 1, "convt": 3}.get(mod)
+        if idx is not None:
+            return f"{prefix}.{idx}.{leaf}"
+    if head in ("rf_pre", "rf_post"):
+        mod, leaf = rest[0], rest[1]
+        idx = {"lin": 0, "conv": 1, "bn": 2}[mod]
+        side = "pre" if head == "rf_pre" else "post"
+        return f"rf_{side}.{idx}.{leaf}"
+    if head == "rf_blocks":
+        i, mod = rest[0], rest[1]
+        prefix = f"rf_block.{i}"
+        if mod == "rnn":
+            leaf = rest[2]
+            sub = rest[3] if len(rest) > 3 else None
+            if leaf.startswith("weight"):
+                return f"{prefix}.rnn.{_wn_suffix(leaf + '_l0', sub)}"
+            return f"{prefix}.rnn.{leaf}_l0"
+        if mod == "attn":
+            leaf = rest[3]  # ("attn", "qkv", leaf[, sub])
+            sub = rest[4] if len(rest) > 4 else None
+            if leaf == "weight":
+                return f"{prefix}.attn.qkv.{_wn_suffix('weight', sub)}"
+            return f"{prefix}.attn.qkv.{leaf}"
+        if mod == "pe":
+            return f"{prefix}.pe"
+        return f"{prefix}.{mod}.{rest[2]}"
+    if head == "decoder":
+        i, mod, leaf = rest[0], rest[1], rest[2]
+        idx = {"conv1": 0, "bn1": 1, "conv2": 3, "bn2": 4}[mod]
+        return f"decoder.{i}.{idx}.{leaf}"
+    raise KeyError(f"unmapped param path: {path}")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +223,10 @@ class Model(torch.nn.Module):
     weights live in the variables tree that `init` returns and every apply
     method takes."""
 
+    # why forward(train=True) raises, for a variant whose training is not
+    # ported yet; None where it is
+    train_todo: tp.Optional[str] = None
+
     def __init__(
         self,
         channels: int = 64,
@@ -213,6 +282,12 @@ class Model(torch.nn.Module):
         # both are read at init, apply and fold time
         self.final_scale: tp.Union[bool, str] = True
         self.final_scale_init: str = "one"
+        # train.remat, set by the training wrapper (raises until ported)
+        self.remat = False
+        # row inclusion mask [B] for train-mode BatchNorm statistics, held
+        # for the duration of forward(train=True, row_mask=...); None = every
+        # row is real
+        self._row_mask: tp.Optional[Tensor] = None
 
     # -- init ---------------------------------------------------------------
 
@@ -338,17 +413,48 @@ class Model(torch.nn.Module):
                 positional_embedding(ch, rf.freq)).to(dev)}
         return bp, bs
 
+    # -- row mask -> BN inclusion weights ------------------------------------
+
+    def _bn_w_bt(self, b: int, t: int) -> tp.Optional[Tensor]:
+        """[B*T, 1, 1] weight for [B*T, F, C] layouts (b-major fold)."""
+        m = self._row_mask
+        if m is None:
+            return None
+        return m.float().repeat_interleave(t)[:, None, None]
+
+    def _bn_w_tb(self) -> tp.Optional[Tensor]:
+        """[1, B, 1, 1] weight for [T, B, F, C] layouts."""
+        m = self._row_mask
+        if m is None:
+            return None
+        return m.float()[None, :, None, None]
+
+    def _bn_w_b(self, ndim: int) -> tp.Optional[Tensor]:
+        """[B, 1, ...] weight for batch-leading layouts (time_kernel's)."""
+        m = self._row_mask
+        if m is None:
+            return None
+        return m.float().reshape(m.shape[0], *([1] * (ndim - 1)))
+
     # -- building blocks ------------------------------------------------------
 
     def _conv_bn_act(self, p: Params, s: tp.Optional[Params], x: Tensor, *,
                      stride: int = 1, padding: int = 0, act: bool = True,
-                     eps: float = 1e-5) -> Tensor:
-        """conv (+BN if the subtree has one) (+activation); x: [N, F, Cin]."""
+                     eps: float = 1e-5, new_s: tp.Optional[Params] = None,
+                     bw: tp.Optional[Tensor] = None) -> Tensor:
+        """conv (+BN if the subtree has one) (+activation); x: [N, F, Cin].
+        With `new_s` (a dict) the BN runs in train mode, its statistics
+        weighted by `bw`, and writes its new running statistics to
+        new_s["bn"]."""
         conv = dict(p["conv"])
         conv["weight"] = fnn.maybe_wn_weight(p["conv"], "weight")
         y = fnn.conv1d_cl(conv, x, stride=stride, padding=padding)
         if p.get("bn") is not None:
-            y, _ = fnn.batch_norm(p["bn"], s["bn"], y, train=False, eps=eps)
+            y, st = fnn.batch_norm(p["bn"], s["bn"], y,
+                                   train=new_s is not None, eps=eps,
+                                   weight=bw)
+            if new_s is not None:
+                new_s["bn"] = st
         return self.act(y) if act else y
 
     def _scaled_convt(self, p: Params, x: Tensor) -> Tensor:
@@ -374,54 +480,84 @@ class Model(torch.nn.Module):
 
     # -- core network ---------------------------------------------------------
 
+    def _check_trainable(self) -> None:
+        if self.train_todo is not None:
+            raise NotImplementedError(self.train_todo)
+        if self.remat:
+            raise NotImplementedError(_REMAT_TODO)
+
     def model_forward(self, params: Params, stats: Params, spec: Tensor,
                       h0: tp.Optional[tp.List[Tensor]] = None,
                       train: bool = False
                       ) -> tp.Tuple[Tensor, tp.List[Tensor], Params]:
         """Compressed spec [B, F, T, 2] -> (mask [B, F, T, 2], h_T list,
-        stats)."""
+        stats). train=True runs every BatchNorm in train mode and returns
+        their new statistics (a new tree; `stats` is left as it is)."""
+        new_stats = None
         if train:
-            raise NotImplementedError(_TRAIN_TODO)
-        x, x_res, skips, b, t = self._encode(params, stats, spec)
+            self._check_trainable()
+            new_stats = tree_map(lambda a: a, stats)  # structural copy
+        x, x_res, skips, b, t = self._encode(params, stats, spec, new_stats)
         h_out: tp.List[Tensor] = []
         for i, (bp, bs) in enumerate(zip(params["rf_blocks"],
                                          stats["rf_blocks"])):
-            x, h_t = self._block_apply(bp, bs, x, None if h0 is None else h0[i])
+            h_i = None if h0 is None else h0[i]
+            if train:
+                x, h_t = self._block_apply(
+                    bp, bs, x, h_i, train_stats=new_stats["rf_blocks"][i])
+            else:
+                x, h_t = self._block_apply(bp, bs, x, h_i)
             h_out.append(h_t)
         mask = self._decode(params, stats, x, x_res, skips, b, t,
-                            spec.shape[1])
-        return mask, h_out, stats
+                            spec.shape[1], new_stats)
+        return mask, h_out, stats if new_stats is None else new_stats
 
-    def _encode(self, params: Params, stats: Params, spec: Tensor
+    def _encode(self, params: Params, stats: Params, spec: Tensor,
+                new_stats: tp.Optional[Params] = None
                 ) -> tp.Tuple[Tensor, Tensor, tp.List[Tensor], int, int]:
         """Everything before the block stack: spec [B, F, T, 2] ->
-        (x [T, B, F', C'], rf_pre residual, skips, b, t)."""
+        (x [T, B, F', C'], rf_pre residual, skips, b, t). With `new_stats`
+        (model_forward's copy of stats) the BNs run in train mode and write
+        their new statistics there."""
         b, f_in, t, _ = spec.shape
+        train = new_stats is not None
+        bw = self._bn_w_bt(b, t) if train else None
         x = spec.permute(0, 2, 1, 3).reshape(b * t, f_in, 2)
         x = self._strided_reshape(x)
-        x = self._conv_bn_act(params["enc_pre"], stats["enc_pre"], x)
+        x = self._conv_bn_act(params["enc_pre"], stats["enc_pre"], x,
+                              new_s=new_stats["enc_pre"] if train else None,
+                              bw=bw)
         skips = [x]
         for i, (p, st) in enumerate(zip(params["encoder"], stats["encoder"])):
             x_in = x
             k = self.kernel_size[1 + i]
-            x = self._conv_bn_act(p, st, x, padding=(k - 1) // 2)
+            x = self._conv_bn_act(
+                p, st, x, padding=(k - 1) // 2,
+                new_s=new_stats["encoder"][i] if train else None, bw=bw)
             skips.append(x)
             if self.resnet:
                 x = x + x_in
         x_res = x
         x = torch.einsum("oF,nFc->noc", params["rf_pre"]["lin"]["weight"], x)
-        x = self._conv_bn_act(params["rf_pre"], stats["rf_pre"], x, act=False)
+        x = self._conv_bn_act(params["rf_pre"], stats["rf_pre"], x, act=False,
+                              new_s=new_stats["rf_pre"] if train else None,
+                              bw=bw)
         x = x.reshape(b, t, self.block_freq, x.shape[-1]).transpose(0, 1)
         return x, x_res, skips, b, t
 
     def _decode(self, params: Params, stats: Params, x: Tensor, x_res: Tensor,
-                skips: tp.List[Tensor], b: int, t: int, f_in: int) -> Tensor:
+                skips: tp.List[Tensor], b: int, t: int, f_in: int,
+                new_stats: tp.Optional[Params] = None) -> Tensor:
         """Everything after the block stack: x [T, B, F', C'] -> mask
-        [B, F, T, 2]."""
+        [B, F, T, 2]. `new_stats` as in _encode."""
+        train = new_stats is not None
+        bw = self._bn_w_bt(b, t) if train else None
         x = x.transpose(0, 1).reshape(b * t, self.block_freq, x.shape[-1])
         x = torch.einsum("oF,nFc->noc", params["rf_post"]["lin"]["weight"], x)
         x = self._conv_bn_act(params["rf_post"], stats["rf_post"], x,
-                              act=False)
+                              act=False,
+                              new_s=new_stats["rf_post"] if train else None,
+                              bw=bw)
         if self.resnet:
             x = x + x_res
         for i, (p, st) in enumerate(zip(params["decoder"], stats["decoder"])):
@@ -429,36 +565,59 @@ class Model(torch.nn.Module):
             x = torch.cat([x, skips.pop()], dim=-1)
             unit1 = {"conv": p["conv1"], "bn": p.get("bn1")}
             unit2 = {"conv": p["conv2"], "bn": p.get("bn2")}
-            y = self._conv_bn_act(unit1, {"bn": st.get("bn1")}, x)
+            new1 = {} if train else None
+            new2 = {} if train else None
+            y = self._conv_bn_act(unit1, {"bn": st.get("bn1")}, x,
+                                  new_s=new1, bw=bw)
             k = self.kernel_size[len(self.kernel_size) - 1 - i]
             x = self._conv_bn_act(unit2, {"bn": st.get("bn2")}, y,
-                                  padding=(k - 1) // 2)
+                                  padding=(k - 1) // 2, new_s=new2, bw=bw)
+            if train:
+                new_stats["decoder"][i] = {"bn1": new1["bn"],
+                                           "bn2": new2["bn"]}
             if self.resnet:
                 x = x + x_in
         x = torch.cat([x, skips.pop()], dim=-1)
-        x = self._conv_bn_act(params["dec_post"], stats["dec_post"], x)
+        x = self._conv_bn_act(params["dec_post"], stats["dec_post"], x,
+                              new_s=new_stats["dec_post"] if train else None,
+                              bw=bw)
         x = self._scaled_convt(params["dec_post"]["convt"], x)  # [B*T, F, 2]
         mask = self.mask_act(x)
         return mask.reshape(b, t, f_in, 2).permute(0, 2, 1, 3)
 
     def _block_apply(self, p: Params, s: Params, x: Tensor,
-                     h0: tp.Optional[Tensor]) -> tp.Tuple[Tensor, Tensor]:
-        """x: [T, B, F', C] -> (x, h_T [B*F', C]); eval mode."""
+                     h0: tp.Optional[Tensor],
+                     train_stats: tp.Optional[Params] = None
+                     ) -> tp.Tuple[Tensor, Tensor]:
+        """x: [T, B, F', C] -> (x, h_T [B*F', C]). In eval mode the time GRU
+        is one gru_scan launch (ops/gru_scan.py). With `train_stats` (a copy
+        of s) the BNs run in train mode and write their new statistics
+        there, and the time GRU is nn.gru's differentiable loop, as the JAX
+        package keeps lax.scan for training."""
         rf = self.rf
         t, b, f, c = x.shape
+        train = train_stats is not None
+        bw = self._bn_w_tb() if train else None
+
+        def bn(bn_p: tp.Optional[Params], key: str, y: Tensor) -> Tensor:
+            y, st = fnn.batch_norm(bn_p, s[key], y, train=train, eps=rf.eps,
+                                   weight=bw)
+            if train:
+                train_stats[key] = st
+            return y
+
         # --- time GRU ---
         x_in = x
         y = x
         if s and "rnn_pre_norm" in s:
-            y, _ = fnn.batch_norm(None, s["rnn_pre_norm"], y, train=False,
-                                  eps=rf.eps)
+            y = bn(None, "rnn_pre_norm", y)
         if h0 is None:
             h0 = x.new_zeros(b * f, c)
-        y, h_t = fnn.gru(p["rnn"], y.reshape(t, b * f, c), h0)
+        gru = fnn.gru if train else gru_fused
+        y, h_t = gru(p["rnn"], y.reshape(t, b * f, c), h0)
         y = fnn.linear(p["rnn_fc"], y.reshape(t, b, f, c))
         if p.get("rnn_post_norm") is not None:
-            y, _ = fnn.batch_norm(p["rnn_post_norm"], s["rnn_post_norm"], y,
-                                  train=False, eps=rf.eps)
+            y = bn(p["rnn_post_norm"], "rnn_post_norm", y)
         if rf.post_act:
             y = self.act(y)
         x = y + x_in
@@ -469,13 +628,11 @@ class Model(torch.nn.Module):
         x_in = x
         y = x
         if s and "attn_pre_norm" in s:
-            y, _ = fnn.batch_norm(None, s["attn_pre_norm"], y, train=False,
-                                  eps=rf.eps)
+            y = bn(None, "attn_pre_norm", y)
         y = fnn.attention(p["attn"], y.reshape(t * b, f, c), rf.num_heads)
         y = fnn.linear(p["attn_fc"], y.reshape(t, b, f, c))
         if p.get("attn_post_norm") is not None:
-            y, _ = fnn.batch_norm(p["attn_post_norm"], s["attn_post_norm"], y,
-                                  train=False, eps=rf.eps)
+            y = bn(p["attn_post_norm"], "attn_post_norm", y)
         if rf.post_act:
             y = self.act(y)
         return y + x_in, h_t
@@ -488,22 +645,37 @@ class Model(torch.nn.Module):
         im = spec[..., 0] * mask[..., 1] + spec[..., 1] * mask[..., 0]
         return torch.stack([re, im], dim=-1)
 
-    def forward(self, variables: Params, wav: Tensor, train: bool = False
+    def forward(self, variables: Params, wav: Tensor, train: bool = False,
+                row_mask: tp.Optional[Tensor] = None
                 ) -> tp.Tuple[Tensor, Tensor, Params]:
         """wav [B, T] -> (wav_hat [B, T], spec_hat compressed [B, F, T', 2],
-        stats). Inference only."""
+        stats; the new BN statistics when train=True).
+
+        row_mask [B] (1 real, 0 zero-padded) leaves padded rows out of the
+        train-mode BN statistics. It is held on self for the duration of
+        the call, so the BN call sites, which see folded [B*T, ...] and
+        [T, B, ...] layouts, derive their weights from it."""
         if train:
-            raise NotImplementedError(_TRAIN_TODO)
+            self._check_trainable()
         params, stats = variables["params"], variables["stats"]
-        spec = compressed_stft(wav, self.stft_cfg, self.input_compression,
-                               discard_last_freq_bin=True)
-        mask, _, stats = self.model_forward(params, stats, spec)
-        spec_hat = self.complex_mask_mul(spec, mask)
-        wav_hat = compressed_istft(spec_hat, self.stft_cfg,
-                                   self.input_compression,
-                                   discard_last_freq_bin=True,
-                                   length=wav.shape[-1])
+        self._row_mask = row_mask if train else None
+        try:
+            spec = self.stft(wav)
+            mask, _, stats = self.model_forward(params, stats, spec,
+                                                train=train)
+            spec_hat = self.complex_mask_mul(spec, mask)
+            wav_hat = compressed_istft(spec_hat, self.stft_cfg,
+                                       self.input_compression,
+                                       discard_last_freq_bin=True,
+                                       length=wav.shape[-1])
+        finally:
+            self._row_mask = None
         return wav_hat, spec_hat, stats
+
+    def stft(self, wav: Tensor) -> Tensor:
+        """Compressed STFT of a clean target (for the losses)."""
+        return compressed_stft(wav, self.stft_cfg, self.input_compression,
+                               discard_last_freq_bin=True)
 
     # -- streaming --------------------------------------------------------------
 
@@ -742,3 +914,28 @@ class Model(torch.nn.Module):
         if "pe" in bp:
             nb["pe"] = bp["pe"]
         return nb
+
+    # -- misc ----------------------------------------------------------------
+
+    def fixed_param_paths(self) -> tp.List[tp.Tuple[str, ...]]:
+        """Param-tree paths that are buffers in the reference (not trained)."""
+        fixed: tp.List[tp.Tuple[str, ...]] = []
+        if (self.pre_post_init is not None
+                and self.pre_post_init.endswith("_fixed")):
+            fixed.append(("rf_pre", "lin", "weight"))
+            fixed.append(("rf_post", "lin", "weight"))
+        if self.rf.positional_embedding == "fixed":
+            fixed.append(("rf_blocks", "0", "pe", "weight"))
+        return fixed
+
+    def torch_name(self, path: tp.Tuple[str, ...]) -> str:
+        """A param-tree path's name in the reference's torch model, so that
+        `train.optimizer_groups` regexes from the reference configs apply
+        unchanged (configs/fastenhancer/t.yaml's optimizer_groups)."""
+        return _torch_name_default(path)
+
+    def num_params(self, params: Params) -> int:
+        """Trainable parameter count (fixed buffers excluded)."""
+        fixed = set(self.fixed_param_paths())
+        return sum(leaf.numel() for path, leaf in tree_paths(params)
+                   if path not in fixed)

@@ -16,8 +16,9 @@ Two streaming forms:
   CUDA kernel per frame (ops/dprnn_stack.py) over stacked frequency-major
   carries [NB, F', B, C].
 
-Not ported yet (each raises NotImplementedError): training mode and chunked
-streaming, as for the default model.
+Not ported yet (each raises NotImplementedError): training mode (the
+default model's trains; this one's block keeps its eval-only time GRU) and
+chunked streaming.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from ... import nn as fnn
 from ...functional import init_istft_carry, init_stft_carry
 from ...functional.mel import mel_fbank_weights
 from ...ops.dprnn_stack import dprnn_stack_step, plan_dprnn_stack
-from .default import (Model as DefaultModel, Params, Tensor, fold_fc_bn,
-                      fold_prenorm_into_rnn)
+from .default import (Model as DefaultModel, Params, Tensor, _TRAIN_TODO,
+                      fold_fc_bn, fold_prenorm_into_rnn)
 from .dptransformer import hz_grid_linear_weights
 
 
@@ -48,6 +49,8 @@ class DPRNNConfig:
 class Model(DefaultModel):
     """FastEnhancer dprnn. Takes the reference's `model_kwargs` unchanged
     (configs/ablation/dprnn_*.yaml)."""
+
+    train_todo = _TRAIN_TODO
 
     def __init__(
         self,

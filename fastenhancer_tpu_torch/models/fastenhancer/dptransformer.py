@@ -17,8 +17,8 @@ Two streaming forms:
   [NB, B, L, F', C'] that is written one slot per block per frame, in
   place, at a slot pointer kept on the device.
 
-Not ported yet (each raises NotImplementedError): training mode and chunked
-streaming, as for the default model.
+Not ported yet (each raises NotImplementedError): training mode (the
+default model's trains, this one's does not yet) and chunked streaming.
 """
 from __future__ import annotations
 
@@ -89,6 +89,8 @@ def banded_bias(pe: Tensor, tq: int, tk: int, lookbehind: int,
 class Model(DefaultModel):
     """FastEnhancer dptransformer. Takes the reference's `model_kwargs`
     unchanged (configs/ablation/dpt_*.yaml)."""
+
+    train_todo = _TRAIN_TODO
 
     def __init__(
         self,

@@ -103,23 +103,46 @@ def conv_transpose1d_cl(params: Params, x: Tensor, stride: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# BatchNorm (eval mode; statistics live in a separate tree)
+# BatchNorm (torch BatchNorm1d semantics; statistics live in a separate tree)
 # ---------------------------------------------------------------------------
 
 def batch_norm(params: tp.Optional[Params], stats: Params, x: Tensor, *,
-               train: bool, eps: float = 1e-5) -> tp.Tuple[Tensor, Params]:
-    """Normalize over every axis but the last (channel) one with the running
-    statistics. Runs in float32 and casts back to x.dtype. Returns
-    (y, stats) like the JAX function; train mode waits for the training
-    port (ROADMAP queue 1 item 10)."""
+               train: bool, momentum: float = 0.1, eps: float = 1e-5,
+               weight: tp.Optional[Tensor] = None
+               ) -> tp.Tuple[Tensor, Params]:
+    """Normalize over every axis but the last (channel) one.
+
+    params: {"weight", "bias"} or None (affine=False); stats: running
+    {"mean", "var"} (the unbiased variance, as torch stores it). Train mode
+    normalizes with the batch's statistics and returns the running ones
+    moved by `momentum`; `weight`, broadcastable to x.shape[:-1] + (1,),
+    includes (1) or excludes (0) each position from those statistics (the
+    row mask of zero-padded batch rows). Eval mode uses the running
+    statistics and returns `stats` unchanged. Statistics and normalization
+    run in float32; the output has x's dtype."""
+    in_dtype = x.dtype
+    xf = x.float()
     if train:
-        raise NotImplementedError(
-            "train-mode BatchNorm is not ported yet (ROADMAP queue 1 item 10)")
-    inv = torch.rsqrt(stats["var"].float() + eps)
-    y = (x.float() - stats["mean"]) * inv
+        red = tuple(range(x.ndim - 1))
+        if weight is None:
+            mean = xf.mean(dim=red)
+            var = xf.square().mean(dim=red) - mean.square()
+            n = x.numel() // x.shape[-1]
+            unbiased = var * (n / max(n - 1, 1))
+        else:
+            w = weight.float().expand(*x.shape[:-1], 1)
+            n = w.sum().clamp_min(1.0)
+            mean = (xf * w).sum(dim=red) / n
+            var = (xf.square() * w).sum(dim=red) / n - mean.square()
+            unbiased = var * (n / (n - 1.0).clamp_min(1.0))
+        stats = {"mean": (1 - momentum) * stats["mean"] + momentum * mean,
+                 "var": (1 - momentum) * stats["var"] + momentum * unbiased}
+    else:
+        mean, var = stats["mean"], stats["var"]
+    y = (xf - mean) * torch.rsqrt(var.float() + eps)
     if params is not None:
         y = y * params["weight"] + params["bias"]
-    return y.to(x.dtype), stats
+    return y.to(in_dtype), stats
 
 
 # ---------------------------------------------------------------------------

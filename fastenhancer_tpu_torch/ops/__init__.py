@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version. Kernels build at first use (ops/_build.py); importing this package
-builds nothing."""
+builds nothing. `gru_scan` (a wrapper) and `segmental_rms` (a plain
+version) share their modules' names, so they are imported from
+ops.gru_scan and ops.segmental_rms and not re-exported here."""
 from .bsrnn_stack import (
     bsrnn_stack_reference,
     bsrnn_stack_step,
@@ -13,14 +15,18 @@ from .dprnn_stack import (
 )
 from .dpt_stack import dpt_stack_reference, dpt_stack_step, plan_dpt_stack
 from .fused_frame import fused_frame_reference, fused_frame_step, plan_frame
+from .gru_scan import gru_fused, gru_scan_reference
 from .rnnformer_stack import (
     plan_stack,
     rnnformer_stack_reference,
     rnnformer_stack_step,
 )
+from .segmental_rms import segmental_rms_fused
 
 __all__ = ["bsrnn_stack_reference", "bsrnn_stack_step", "plan_band_stack",
            "dprnn_stack_reference", "dprnn_stack_step", "plan_dprnn_stack",
            "dpt_stack_reference", "dpt_stack_step", "plan_dpt_stack",
            "fused_frame_reference", "fused_frame_step", "plan_frame",
-           "plan_stack", "rnnformer_stack_reference", "rnnformer_stack_step"]
+           "gru_fused", "gru_scan_reference",
+           "plan_stack", "rnnformer_stack_reference", "rnnformer_stack_step",
+           "segmental_rms_fused"]

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # every source under csrc/ with a kernel, one per ported TPU kernel
 SOURCES = ("rnnformer_stack", "fused_frame", "dpt_stack", "bsrnn_stack",
-           "dprnn_stack")
+           "dprnn_stack", "segmental_rms", "gru_scan")
 # the activation types every kernel takes, and their entry suffixes
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Hopper's largest dynamic shared memory per thread block (227 KB)

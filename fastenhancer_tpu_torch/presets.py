@@ -13,6 +13,11 @@ nor a YAML reader (the card's machine has neither):
   configs/ablation/dprnn_b.yaml's model_kwargs).
 * `BSRNN_S`: the BSRNN baseline at C=64, 6 layers, 3.54M parameters
   (`bsrnn`; configs/others/bsrnn_s.yaml's model_kwargs).
+* `FE_T_SHARD`: FastEnhancer_T's shard training recipe
+  (configs/fastenhancer_shard/t.yaml): its model, model_kwargs, wrapper,
+  the mixer and dereverberation of `data`, the sampling rate, batch
+  duration and valid segment, and the whole `train` and `valid` sections,
+  as the training wrapper reads them.
 
 tests/test_torch_presets.py holds each against its source.
 """
@@ -74,4 +79,69 @@ BSRNN_S: tp.Dict[str, tp.Any] = dict(
     hop_size=256, win_size=512, input_compression=0.3, window="hann",
 )
 
-__all__ = ["FE_B", "DPT_B", "DPRNN_B", "BSRNN_S"]
+FE_T_SHARD: tp.Dict[str, tp.Any] = dict(
+    model="fastenhancer.default",
+    model_kwargs=dict(
+        channels=24,
+        kernel_size=[8, 3, 3],
+        stride=4,
+        rnnformer_kwargs=dict(
+            num_blocks=2, channels=20, freq=16, num_heads=4, eps=1.0e-5,
+            positional_embedding="train", attn_bias=False, post_act=False,
+            pre_norm=False,
+        ),
+        pre_post_init="linear_fixed",
+        n_fft=512, hop_size=256, win_size=512, window="hann",
+        stft_normalized=False, mask=None, activation="SiLU",
+        activation_kwargs={"inplace": True},
+        input_compression=0.3, normalize_final_conv=True, weight_norm=True,
+        resnet=False,
+    ),
+    wrapper="ns_shard",
+    data=dict(
+        train=dict(mixer=dict(
+            speech_dbFS=[-35.0, -15.0], snr=[0.0, 20.0],
+            seg_rel_threshold=-25.0, seg_abs_threshold=None)),
+        valid=dict(segment_size=32000),
+        sampling_rate=16000,
+        max_duration=128,
+        dereverberation=dict(rir_target_type="rts", early_rir_sec=0.05,
+                             t60_max=0.15),
+    ),
+    train=dict(
+        test=False, save_interval=10, max_epochs=200, steps_per_epoch=1000,
+        fp16=True, clip_grad=None, seed=1, plot_param_and_grad=False,
+        losses=dict(
+            mag_mse=dict(weight=0.3),
+            complex_mse=dict(weight=0.2),
+            consistency=dict(weight=0.3, compression=0.3),
+            wav_l1=dict(weight=0.2),
+        ),
+        optimizer="AdamP",
+        optimizer_kwargs=dict(lr=0.002, weight_decay=0.01, wd_ratio=1.0,
+                              betas=[0.95, 0.999]),
+        optimizer_groups=[
+            dict(regex_list=[r"rnn\.\d\.rnn.+parametrizations.+original0$",
+                             r"enc_pre\.2\.weight",
+                             r"(en|de)coder\.\d\.2\.weight",
+                             r"rnn_(pre|post)\.1\.weight",
+                             r"dec_post\.scale"],
+                 weight_decay=0, projection="disabled"),
+            dict(regex_list=[r"rnn_pre\.0.+parametrizations.+original1$",
+                             r"rnn\.\d\..+parametrizations.+original1$",
+                             r"enc_pre\.0\.weight",
+                             r"(en|de)coder\.\d\.0\.weight",
+                             r"rnn_(pre|post)\.2\.weight"],
+                 projection="channelwise"),
+            dict(regex_list=[r"dec_post\.weight"], projection="layerwise"),
+            dict(regex_list=[r"rnn_post\.0.+parametrizations.+original1$"],
+                 projection=1),
+        ],
+        scheduler="CosineAnnealingWarmup",
+        scheduler_kwargs=dict(warmup_iterations=500, eta_min=1.0e-6,
+                              warn=False),
+    ),
+    valid=dict(batch_size=64, num_workers=2),
+)
+
+__all__ = ["FE_B", "DPT_B", "DPRNN_B", "BSRNN_S", "FE_T_SHARD"]

@@ -29,6 +29,25 @@ def tree_leaves(tree: tp.Any) -> tp.List[tp.Any]:
     return out
 
 
+def tree_paths(tree: tp.Any, prefix: tp.Tuple[str, ...] = ()
+               ) -> tp.List[tp.Tuple[tp.Tuple[str, ...], tp.Any]]:
+    """(path, leaf) of every non-None leaf in insertion order; a path is a
+    tuple of dict keys and list indices as strings, ("rf_blocks", "0",
+    "rnn", ...), as the JAX package's `path_key` writes them."""
+    if isinstance(tree, dict):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    elif tree is None:
+        return []
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(tree_paths(v, prefix + (k,)))
+    return out
+
+
 def cast_floating(tree: tp.Any, dtype: torch.dtype) -> tp.Any:
     """Cast every floating-point tensor leaf to `dtype`."""
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,

@@ -1,0 +1,91 @@
+"""Shard-recipe training wrapper: fixed steps per epoch, the mixer on the
+device.
+
+Counterpart of the single-device part of
+fastenhancer_tpu/wrappers/ns_shard.py. Train batches are `ShardBatch`es
+(speech, speech_clean, noise, RIRs) from any iterator; `_mix_to_device`
+moves one to the device and runs the `DynamicMixer` there, two or three
+segmental-RMS kernel launches, ahead of the train step. `steps_per_epoch`
+bounds an epoch; the iterator starts again when it runs out. The valid
+set is paired {"clean", "noisy"} batches, as in the base wrapper.
+"""
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+import torch
+
+from ..data.shard_mixer import DynamicMixer, ShardBatch
+from .ns import ModelWrapper as BaseModelWrapper
+
+Tensor = torch.Tensor
+
+
+class ModelWrapper(BaseModelWrapper):
+    def __init__(self, hps: tp.Mapping[str, tp.Any], train: bool = False,
+                 device: tp.Union[str, torch.device, None] = None):
+        super().__init__(hps, train, device)
+        data = hps["data"]
+        mixer_kwargs = dict(data.get("train", {}).get("mixer") or {})
+        mixer_kwargs.update(data.get("dereverberation") or {})
+        self.mixer = DynamicMixer(sampling_rate=self.sr, **mixer_kwargs)
+        self.steps_per_epoch: int = hps.get("train", {}).get(
+            "steps_per_epoch", 1000)
+        # the mixer's dBFS/SNR/SER draws (on the CPU: the same on every
+        # device for one seed)
+        self.mix_generator = torch.Generator().manual_seed(self.seed)
+
+    def _mix_to_device(self, batch: ShardBatch
+                       ) -> tp.Tuple[tp.Dict[str, Tensor], int]:
+        """ShardBatch -> the mixed {"clean", "noisy", "row_mask"} on the
+        device, cut to a multiple of the hop; returns (batch, rows)."""
+        dev = self.device
+        rows = batch.speech.shape[0]
+        t = (batch.speech.shape[-1] // self.hop_size) * self.hop_size
+
+        def put(a: tp.Optional[np.ndarray],
+                dtype: torch.dtype = torch.float32,
+                cut: bool = False) -> tp.Optional[Tensor]:
+            if a is None:
+                return None
+            a = np.asarray(a)
+            a = np.ascontiguousarray(a[..., :t] if cut else a)
+            return torch.from_numpy(a).to(dev, dtype)
+
+        rir = batch.rir
+        mixed = self.mixer(
+            self.mix_generator, put(batch.speech, cut=True),
+            put(batch.speech_clean, cut=True), put(batch.noise, cut=True),
+            put(rir), put(None if rir is None else batch.rir_onset,
+                          torch.int64),
+            put(None if rir is None else batch.rir_t60),
+            echo=put(batch.echo, cut=True),
+            is_real=put(None if batch.echo is None else batch.is_real,
+                        torch.bool))
+        return {"clean": mixed["speech_clean"][:, 0],
+                "noisy": mixed["speech"][:, 0],
+                "row_mask": torch.ones(rows, device=dev)}, rows
+
+    def train_epoch(self, dataloader: tp.Iterable[ShardBatch]
+                    ) -> tp.Dict[str, tp.Any]:
+        """steps_per_epoch train steps, each on a freshly mixed batch."""
+        self.loss.initialize()
+        it = iter(dataloader)
+        idx = 0
+        fresh = True  # no batch yet from this iterator
+        while idx < self.steps_per_epoch:
+            try:
+                batch = next(it)
+            except StopIteration:
+                if fresh:
+                    raise ValueError("the train batches ran out before the "
+                                     "first step of a pass") from None
+                it, fresh = iter(dataloader), True  # infinite epochs
+                continue
+            fresh = False
+            idx += 1
+            self._step_and_account(*self._mix_to_device(batch))
+            if self.test and idx >= 50:
+                break
+        return self._end_train_epoch()

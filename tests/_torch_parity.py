@@ -4,8 +4,11 @@ Inputs are made with numpy from a seed and handed to both packages; weights
 move from the JAX package to the port with
 `fastenhancer_tpu_torch.utils.bridge.from_jax`.
 """
+import sys
+
 import numpy as np
 import jax
+import pytest
 import torch
 
 from fastenhancer_tpu_torch.serving import StreamingEngine
@@ -19,6 +22,26 @@ TINY_KWARGS = dict(
     n_fft=128, hop_size=64, win_size=128, window="hann",
     weight_norm=True, pre_post_init="linear_fixed",
 )
+
+
+@pytest.fixture(scope="module")
+def real_triton_only():
+    """Take a stub `triton` (a module without a file, which
+    tests/test_shard_pipeline.py leaves in sys.modules) out while the
+    module's tests run, and put it back after them. torch.optim's
+    Optimizer imports torch._dynamo, which trips on the stub; the first
+    import of it is made here without the stub, with torch's cached
+    "is triton installed" answer cleared."""
+    from torch.utils import _triton
+
+    stubs = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k.split(".")[0] == "triton"
+             and getattr(sys.modules[k], "__file__", None) is None}
+    _triton.has_triton_package.cache_clear()
+    import torch._dynamo  # noqa: F401
+    yield
+    sys.modules.update(stubs)
+    _triton.has_triton_package.cache_clear()
 
 
 def to_np_tree(tree):

@@ -18,8 +18,11 @@ from fastenhancer_tpu_torch.ops import bsrnn_stack as band
 from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
 from fastenhancer_tpu_torch.ops import dpt_stack as dpt
 from fastenhancer_tpu_torch.ops import fused_frame as frame
+from fastenhancer_tpu_torch.ops import gru_scan as scan
 from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
-from fastenhancer_tpu_torch.presets import DPRNN_B, DPT_B, FE_B
+from fastenhancer_tpu_torch.ops import segmental_rms as seg
+from fastenhancer_tpu_torch.presets import DPRNN_B, DPT_B, FE_B, FE_T_SHARD
+from fastenhancer_tpu_torch.utils import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +345,92 @@ def test_bsrnn_and_dprnn_streams_match_unfused_on_card(cuda_device):
                                fused_plan=model.build_stack_plan(folded))
         assert counter.launches == before + 6
         assert (y_fused - model.stream(folded, wav)).abs().max() <= 1e-4
+
+
+def _rms_rows(b, t, seed):
+    """b rows at -20 dB, row 1 silent, row 2 60 dB quieter in its first
+    half, row 3 at -60 dB throughout."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, generator=g) * 0.1
+    x[1] = 0.0
+    x[2, : t // 2] *= 1e-3
+    x[3] *= 1e-2
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,abs_db", [
+    (32, 64_000, None),       # the shard recipe's train batch, no floor
+    (32, 64_000, -50.0),
+    (5, 5 * 1600 + 700, -50.0),  # T not a multiple of the window
+    (4, 1300, -50.0)])        # T shorter than one window
+def test_segmental_rms_kernel_matches_plain(cuda_device, dtype, b, t, abs_db):
+    x = _rms_rows(b, t, seed=t).to(cuda_device, dtype)
+    before = seg.segmental_rms_fused.launches
+    got = seg.segmental_rms_fused(x[:, None], absolute_threshold_db=abs_db)
+    torch.cuda.synchronize()
+    assert seg.segmental_rms_fused.launches == before + 1
+    want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
+    assert got.dtype == dtype and got.shape == (b, 1, 1)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float()[fin] - want.float()[fin]).abs()
+    assert (err <= rel * want.float()[fin].abs()).all()
+
+
+def _scan_case(t, n, h, dtype, device, seed, h0=True):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(t, n, 3 * h, generator=g)
+    w = (torch.rand(3 * h, h, generator=g) * 2 - 1) / h ** 0.5
+    b = (torch.rand(3 * h, generator=g) * 2 - 1) / h ** 0.5
+    hh = torch.randn(n, h, generator=g) * 0.5 if h0 else torch.zeros(n, h)
+    return [a.to(device, dtype) for a in (x, hh, w, b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,n,h,h0", [
+    (126, 1024, 20, False),   # the shard recipe's valid forward (FE-T)
+    (13, 37, 20, True),       # N not a multiple of the tile
+    (126, 300, 36, True),     # FE-B's width
+    (13, 5, 128, True)])      # the widest H the kernel takes
+def test_gru_scan_kernel_matches_plain(cuda_device, dtype, t, n, h, h0):
+    args = _scan_case(t, n, h, dtype, cuda_device, seed=t + n, h0=h0)
+    before = scan.gru_scan.launches
+    ys, h_t = scan.gru_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.gru_scan.launches == before + 1
+    ys_r, h_r = scan.gru_scan_reference(*args)
+    for got, want in ((ys, ys_r), (h_t, h_r)):
+        assert got.dtype == dtype and got.device == cuda_device
+        _close(got, want, dtype)
+
+
+def test_gru_scan_kernel_rejects_what_it_cannot_take(cuda_device):
+    args = _scan_case(3, 4, 8, torch.float32, cuda_device, 0)
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="backward"):
+        scan.gru_scan(*args)
+    with torch.no_grad():
+        scan.gru_scan(*args)  # no graph to build: fine
+    with pytest.raises(ValueError, match="H <= 128"):
+        scan.gru_scan(*_scan_case(2, 3, 130, torch.float32, cuda_device, 0))
+    args = _scan_case(2, 3, 8, torch.float16, cuda_device, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        scan.gru_scan(*args)
+
+
+def test_fe_t_offline_forward_on_card_matches_cpu(cuda_device):
+    """FE-T's eval forward (each block's time GRU one gru_scan launch) on
+    the card against the same forward on the CPU's plain path, float32
+    (1e-4 on the wav, after the iSTFT)."""
+    kw = FE_T_SHARD["model_kwargs"]
+    model = get_model("fastenhancer.default", **kw)
+    variables = model.init(torch.Generator().manual_seed(0), "cpu")
+    wav = torch.randn(4, 16_000, generator=torch.Generator().manual_seed(1))
+    want, _, _ = model.forward(variables, wav * 0.1)
+    dev = tree_map(lambda a: a.to(cuda_device), variables)
+    before = scan.gru_scan.launches
+    got, _, _ = model.forward(dev, (wav * 0.1).to(cuda_device))
+    assert scan.gru_scan.launches == before + 2
+    assert (got.cpu() - want).abs().max() <= 1e-4

@@ -113,8 +113,24 @@ def test_offline_forward_matches_jax(over):
     wt, st, _ = tm.forward(tv, torch.tensor(wav))
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-5)
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tv, torch.tensor(wav), train=True)
+    wt, st, new_stats = tm.forward(tv, torch.tensor(wav), train=True)
+    assert torch.isfinite(wt).all() and torch.isfinite(st).all()
+    new, old = flatten_paths(new_stats), flatten_paths(tv["stats"])
+    assert new.keys() == old.keys()
+    assert all(torch.isfinite(v).all() for v in new.values())
+    assert any(not torch.equal(new[k], old[k]) for k in old)
+
+
+def test_remat_raises():
+    """train.remat (gradient checkpointing) is not ported: forward with
+    train=True raises; eval mode ignores it, as in the JAX package."""
+    jm, tm = _models()
+    _, tv = _variables(jm, 3)
+    wav = torch.tensor(_wav(2, 3))
+    tm.remat = True
+    with pytest.raises(NotImplementedError, match="remat"):
+        tm.forward(tv, wav, train=True)
+    assert torch.isfinite(tm.forward(tv, wav)[0]).all()
 
 
 @pytest.mark.parametrize("over,folded", [({}, False), ({}, True),
@@ -264,6 +280,22 @@ assert get_model("fastenhancer.dptransformer", **DPT_B).dpt.lookbehind == 31
 assert get_model("fastenhancer.default", **FE_B).block_freq == 24
 assert get_model("fastenhancer.dprnn", **DPRNN_B).dp.channels_frnn == 18
 assert get_model("bsrnn", **BSRNN_S).channels == 64
+# the shard recipe's wrapper at the tiny width: one mixed train step
+import copy, numpy as np
+from fastenhancer_tpu_torch.data import ShardBatch
+from fastenhancer_tpu_torch.presets import FE_T_SHARD
+from fastenhancer_tpu_torch.wrappers import get_wrapper
+hps = copy.deepcopy(FE_T_SHARD)
+hps["model_kwargs"] = dict(kw)
+hps["train"]["steps_per_epoch"] = 1
+w = get_wrapper("ns_shard")(hps, train=True, device="cpu")
+x = np.random.default_rng(0).standard_normal((2, 1, 64 * 8)).astype("f4")
+rir = np.zeros((2, 1, 100), "f4")
+rir[:, 0, 0] = 1.0
+batch = ShardBatch(speech=x, speech_clean=x, noise=x[::-1].copy(), rir=rir,
+                   rir_onset=np.zeros(2, "i8"), rir_t60=np.full(2, 1e-3),
+                   num_samples=np.full(2, 512), id_speech=["a", "b"])
+assert all(np.isfinite(v) for v in w.train_epoch([batch])["scalars"].values())
 assert not any(m.split(".")[0] in ("jax", "fastenhancer_tpu") for m in sys.modules)
 print("OK", len(names))
 """
@@ -272,8 +304,8 @@ print("OK", len(names))
 def test_port_imports_no_jax():
     """Every port module imports, and the tiny model's init -> fold ->
     fused stream, its whole-frame step, the dpt, bsrnn and dprnn models'
-    fused streams and the presets run, with jax and fastenhancer_tpu
-    blocked."""
+    fused streams, the presets and a train step of the shard recipe's
+    wrapper run, with jax and fastenhancer_tpu blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

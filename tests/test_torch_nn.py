@@ -79,8 +79,12 @@ def test_batch_norm_eval_matches_jax(affine):
                               _t(stats), torch.tensor(x), train=False,
                               eps=1e-5)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnn.batch_norm(None, _t(stats), torch.tensor(x), train=True)
+    assert s_t is not None and torch.equal(s_t["mean"], _t(stats)["mean"])
+    # train mode is ported (tests/test_torch_train.py holds it against
+    # JAX with a row mask): batch statistics, new running statistics
+    y_tr, s_tr = tnn.batch_norm(None, _t(stats), torch.tensor(x), train=True)
+    assert torch.isfinite(y_tr).all()
+    assert not torch.equal(s_tr["mean"], _t(stats)["mean"])
 
 
 def test_weight_norm_matches_jax():

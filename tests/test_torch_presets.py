@@ -33,6 +33,23 @@ def test_preset_is_its_config(name, config, model):
     assert getattr(presets, name) == hps.model_kwargs.to_dict()
 
 
+def test_fe_t_shard_is_its_config():
+    """FE_T_SHARD holds configs/fastenhancer_shard/t.yaml's model, wrapper,
+    train and valid sections whole, and the parts of `data` the training
+    wrapper reads."""
+    hps = get_hparams(os.path.join(REPO, "configs", "fastenhancer_shard",
+                                   "t.yaml"), base_dir="").to_dict()
+    p = presets.FE_T_SHARD
+    for key in ("model", "model_kwargs", "wrapper", "train", "valid"):
+        assert p[key] == hps[key], key
+    data = hps["data"]
+    assert p["data"]["train"] == {"mixer": data["train"]["mixer"]}
+    assert p["data"]["valid"] == {"segment_size":
+                                  data["valid"]["segment_size"]}
+    for key in ("sampling_rate", "max_duration", "dereverberation"):
+        assert p["data"][key] == data[key], key
+
+
 def test_chip_smoke_imports_only_the_port_torch_and_numpy():
     with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
         tree = ast.parse(f.read())

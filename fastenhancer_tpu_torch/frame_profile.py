@@ -68,8 +68,11 @@ def profile_path(name: str, step: tp.Callable, carry,
     with torch.profiler.profile(activities=acts) as prof:
         run(carry, frames)
         torch.cuda.synchronize()
+    # a record_function range (torch.optim's "Optimizer.step#...") also
+    # shows on the device's track; it is not a kernel, so it is left out
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
                and _device_us(e) > 0]
     device_us = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)

@@ -41,22 +41,23 @@ each printed on its own line:
  10. serving DPRNN-B, as phase 4, through the dprnn stack kernel;
  11. throughput BSRNN-S: Model.stream(fused_plan=...) over 256 streams;
  12. train FE-T on the shard recipe (presets.FE_T_SHARD) through the
-     ns_shard ModelWrapper: 5 bfloat16 steps over float32 masters on one
-     synthetic batch of 32 x 4 s (speech with silent stretches, noise with
-     a silent row, 0.5 s RIRs), each step mixed on the card (segmental RMS
-     kernel, twice) with the mixer's generator re-seeded so every step sees
-     the same mix; losses finite and falling, trained params moved and the
-     fixed filterbanks not, BN statistics moved, the warmup followed; then
-     one float32 step (TF32 off) against the same step on the CPU's plain
-     path from the same variables and batch;
+     ns_shard ModelWrapper's train_epoch: 5 bfloat16 steps over float32
+     masters on one synthetic batch of 32 x 4 s (speech with silent
+     stretches, noise with a silent row, 0.5 s RIRs), each step mixed on
+     the card (segmental RMS kernel, twice) with the mixer's generator
+     re-seeded so every step sees the same mix; losses finite and
+     falling, trained params moved and the fixed filterbanks not, BN
+     statistics moved, the warmup followed; then one float32 step (TF32
+     off) against the same step on the CPU's plain path from the same
+     variables and batch;
  13. valid FE-T: valid_epoch over 64 x 2 s paired batches (the GRU scan
      kernel, once per block), and the float32 valid losses against the
      CPU's plain path.
 
 Each of phases 4 to 13 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
-kernel ran as often as the path needs it and no other kernel ran. The line before the
-last holds the kernels' JSON record; the last line is
+kernel ran as often as the path needs it and no other kernel ran. The
+line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
 """
@@ -826,31 +827,52 @@ def main():
     n_train = int(TRAIN_SECONDS * SR)
     batch = shard_batch(TRAIN_ROWS, n_train, seed=5)
     wrapper = get_wrapper(hps["wrapper"])(hps, train=True)
-    _check(wrapper.compute_dtype == torch.bfloat16, "the recipe is fp16")
+    _check(wrapper.compute_dtype == torch.bfloat16,
+           "the recipe's fp16 flag did not give bfloat16 compute")
     model = wrapper.model
     start = tree_map(lambda a: a.detach().clone(), wrapper.state["variables"])
     warmup = hps["train"]["scheduler_kwargs"]["warmup_iterations"]
     base_lrs = list(wrapper.optim.base_lrs)
     totals, norms, lrs_used, mix_ms, step_ms = [], [], [], [], []
-    zero_counts()
-    for i in range(TRAIN_STEPS):
-        wrapper.mix_generator.manual_seed(MIX_SEED)  # the same mix each step
-        lrs_used.append(list(wrapper.scheduler.lrs))
+    handed_at = []  # host clock when train_epoch took each batch
+
+    def batches():
+        """The one batch over and over, the mixer re-seeded each time so
+        that every step sees the same mix."""
+        while True:
+            wrapper.mix_generator.manual_seed(MIX_SEED)
+            torch.cuda.synchronize()
+            handed_at.append(time.perf_counter())
+            yield batch
+
+    train_step = wrapper.train_step
+
+    def timed_step(state, dev_batch, lrs):
+        """The wrapper's train step, timed and its metrics kept; the time
+        since its batch was handed over is the mixer's (copies to the card
+        included)."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dev_batch, rows = wrapper._mix_to_device(batch)
+        mix_ms.append(1e3 * (t0 - handed_at[-1]))
+        lrs_used.append(list(lrs))
+        state, metrics = train_step(state, dev_batch, lrs)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        metrics = wrapper._step_and_account(dev_batch, rows)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        mix_ms.append(1e3 * (t1 - t0))
-        step_ms.append(1e3 * (t2 - t1))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
         _check(all(bool(torch.isfinite(v)) for v in metrics.values()),
-               f"train step {i + 1}: non-finite metrics {metrics}")
+               f"train step {len(step_ms)}: non-finite metrics {metrics}")
         totals.append(float(metrics["loss/total"]))
         norms.append(float(metrics["grad_norm"]))
+        return state, metrics
+
+    wrapper.train_step = timed_step
+    wrapper.steps_per_epoch = TRAIN_STEPS
+    zero_counts()
+    epoch = wrapper.train_epoch(batches())
     counts = read_counts()
+    wrapper.train_step = train_step
+    _check(len(totals) == TRAIN_STEPS
+           and all(np.isfinite(v) for v in epoch["scalars"].values()),
+           f"train_epoch: {len(totals)} steps, losses {epoch['scalars']}")
     check_launches(counts, "segmental_rms_fused", 2 * TRAIN_STEPS,
                    "FE-T train")
     record["segmental_rms_fused"]["launches"] = counts["segmental_rms_fused"]
@@ -882,8 +904,9 @@ def main():
           f"to {lrs_used[-1][0]:.3e} (warmup {warmup}); segmental_rms "
           f"launches {counts['segmental_rms_fused']} = 2 a step, no other "
           f"kernel; train step {step_med:.1f} ms (median of steps 2-"
-          f"{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms), mixer "
-          f"{mix_med:.2f} ms, {audio_s / (1e-3 * (step_med + mix_med)):.1f} "
+          f"{TRAIN_STEPS} of one train_epoch; step 1 {step_ms[0]:.1f} ms), "
+          f"mixer {mix_med:.2f} ms, "
+          f"{audio_s / (1e-3 * (step_med + mix_med)):.1f} "
           f"audio s trained per wall s; on {card}")
 
     # 12b. one float32 step on the card against the CPU's plain path

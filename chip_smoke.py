@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in thirteen phases,
+JAX anywhere) through the hand-written CUDA kernels, in fifteen phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -14,13 +14,15 @@ each printed on its own line:
      process per source, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
-     FastEnhancer T/B/S shapes, the dpt stack at the DPT T/B/S block shapes
+     FastEnhancer T/B/S shapes, the block stack's LN form at LN_B's shape
+     with non-trivial LayerNorm terms, the dpt stack at the DPT T/B/S block shapes
      with a wrapped pointer and unwritten cache slots, the BSRNN stack at
      the BSRNN-XT and -S shapes, the dprnn stack at the DPRNN-T and -B
      shapes, segmental RMS with silent, half-quiet and short rows and the
      absolute floor on and off, the GRU scan at H=20 and 36, T=13 and 126,
      ragged N, with and without h0), and each timed with CUDA events beside
-     its plain version and its bound (the stacks at B=256 bfloat16,
+     its plain version and its bound (the stacks, LN form included, at
+     B=256 bfloat16,
      segmental RMS at the shard recipe's [32, 64000] float32 train batch,
      the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
      cuDNN's GRU as the library yardstick);
@@ -40,7 +42,13 @@ each printed on its own line:
   9. serving BSRNN-S, as phase 4, through the BSRNN stack kernel;
  10. serving DPRNN-B, as phase 4, through the dprnn stack kernel;
  11. throughput BSRNN-S: Model.stream(fused_plan=...) over 256 streams;
- 12. train FE-T on the shard recipe (presets.FE_T_SHARD) through the
+ 12. serving LN_B (the ln ablation), as phase 4, through the block stack's
+     LN form, with its GroupNorm and LayerNorm affine terms drawn away from
+     their init (weight 1, bias 0);
+ 13. serving TIME_KERNEL_B (the time_kernel ablation), as phase 4, through
+     the block stack's folded default form, its 2-D causal convs eager
+     with their frame caches;
+ 14. train FE-T on the shard recipe (presets.FE_T_SHARD) through the
      ns_shard ModelWrapper's train_epoch: 5 bfloat16 steps over float32
      masters on one synthetic batch of 32 x 4 s (speech with silent
      stretches, noise with a silent row, 0.5 s RIRs), each step mixed on
@@ -50,13 +58,15 @@ each printed on its own line:
      statistics moved, the warmup followed; then one float32 step (TF32
      off) against the same step on the CPU's plain path from the same
      variables and batch;
- 13. valid FE-T: valid_epoch over 64 x 2 s paired batches (the GRU scan
+ 15. valid FE-T: valid_epoch over 64 x 2 s paired batches (the GRU scan
      kernel, once per block), and the float32 valid losses against the
      CPU's plain path.
 
-Each of phases 4 to 13 drives a path: every kernel's launch count is set to
+Each of phases 4 to 15 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
+block stack's two forms are counted apart (`rnnformer_stack_step.launches`
+and `.ln_launches`). The
 line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -77,11 +87,11 @@ FE_SECONDS = 10.0      # phase 5's audio per stream
 FRAME_SECONDS = 5.0    # phase 7's audio per stream
 DPT_SECONDS = 5.0      # phase 8's audio per stream
 BSRNN_SECONDS = 5.0    # phase 11's audio per stream
-TRAIN_ROWS, TRAIN_SECONDS = 32, 4.0   # phase 12: 128 s = max_duration
+TRAIN_ROWS, TRAIN_SECONDS = 32, 4.0   # phase 14: 128 s = max_duration
 TRAIN_STEPS = 5
 RIR_SECONDS = 0.5
 MIX_SEED = 11
-VALID_ROWS, VALID_SECONDS, VALID_BATCHES = 64, 2.0, 2   # phase 13
+VALID_ROWS, VALID_SECONDS, VALID_BATCHES = 64, 2.0, 2   # phase 15
 # float32 card vs the CPU's plain path, over a whole train or valid batch:
 # losses and grad norm relative (sums over 128 s of audio in another order,
 # cuFFT against pocketfft), params absolute (twice the first step's lr of
@@ -91,6 +101,11 @@ TRAIN_F32_PARAM_ATOL = 1e-5
 # the H100 SXM's published peaks (NVIDIA H100 datasheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+
+
+# the block stack's LN form (the ln ablation's) in the launch counts and
+# the kernels' record
+LN_KERNEL = "rnnformer_stack_step (ln)"
 
 
 def _check(cond, msg):
@@ -120,31 +135,37 @@ def main():
     from fastenhancer_tpu_torch.ops import segmental_rms as seg
     from fastenhancer_tpu_torch.optim import get_optimizer
     from fastenhancer_tpu_torch.presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B,
-                                                FE_T_SHARD)
+                                                FE_T_SHARD, LN_B,
+                                                TIME_KERNEL_B)
     from fastenhancer_tpu_torch.serving import StreamingEngine
     from fastenhancer_tpu_torch.train import make_train_step, make_valid_step
     from fastenhancer_tpu_torch.utils import cast_floating, tree_map, tree_paths
     from fastenhancer_tpu_torch.wrappers import get_wrapper
 
     dev = require_cuda()
-    wrappers = {"rnnformer_stack_step": stack.rnnformer_stack_step,
-                "fused_frame_step": frame.fused_frame_step,
-                "dpt_stack_step": dpt.dpt_stack_step,
-                "bsrnn_stack_step": band.bsrnn_stack_step,
-                "dprnn_stack_step": dprnn.dprnn_stack_step,
-                "segmental_rms_fused": seg.segmental_rms_fused,
-                "gru_scan": scan.gru_scan}
+    # each kernel's launch counter: (wrapper, attribute); the block stack's
+    # LN form is a kernel of its own, counted apart
+    counters = {
+        "rnnformer_stack_step": (stack.rnnformer_stack_step, "launches"),
+        LN_KERNEL: (stack.rnnformer_stack_step, "ln_launches"),
+        "fused_frame_step": (frame.fused_frame_step, "launches"),
+        "dpt_stack_step": (dpt.dpt_stack_step, "launches"),
+        "bsrnn_stack_step": (band.bsrnn_stack_step, "launches"),
+        "dprnn_stack_step": (dprnn.dprnn_stack_step, "launches"),
+        "segmental_rms_fused": (seg.segmental_rms_fused, "launches"),
+        "gru_scan": (scan.gru_scan, "launches")}
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
 
     def check_launches(counts, name, n, what):
         """The path's own kernel ran n times and no other kernel ran."""
-        want = {k: (n if k == name else 0) for k in wrappers}
+        want = {k: (n if k == name else 0) for k in counters}
         _check(counts == want, f"{what}: launches {counts} != {want}")
 
     # -- 1. card -----------------------------------------------------------------
@@ -156,7 +177,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/13] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/15] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -164,7 +185,7 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/13] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/15] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against their plain versions ------------------------------------
@@ -284,7 +305,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/13] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/15] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -297,6 +318,44 @@ def main():
                     lambda: stack.rnnformer_stack_reference(plan, x, h,
                                                             heads),
                     max(errs[0][0], errs[1][0]), bound_info)
+
+    # 3a'. the block stack's LN form (kernel 1's ln form) at LN_B's block
+    # shape: each post-norm's weight ~ 1 + 0.2 N(0, 1) and bias ~ 0.3 N(0, 1)
+    # as plan_stack combines them, so diff + inv * (weight * bias) matters
+    ln_rf = LN_B["rnnformer_kwargs"]
+    b, f, c, nb = (STREAMS, ln_rf["freq"], ln_rf["channels"],
+                   ln_rf["num_blocks"])
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(7 * f * c)
+        plan = uniform_plan(stack.plan_shapes(nb, f, c), c, dtype, g)
+        for key in stack.LN_KEYS:
+            weight = 1.0 + 0.2 * torch.randn(nb, c, generator=g)
+            bias = 0.3 * torch.randn(nb, c, generator=g)
+            plan[key] = (weight * bias).to(dev, dtype)
+        plan["ln_eps"] = float(ln_rf["eps"])
+        x = torch.randn(b, f, c, generator=g).to(dev, dtype)
+        h = (torch.randn(nb, b * f, c, generator=g) * 0.5).to(dev, dtype)
+        xo, ho = stack.rnnformer_stack_step(plan, x, h, heads)
+        torch.cuda.synchronize()
+        xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
+        errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
+                       dtype)
+        print(f"[3/15] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+              f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
+              f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
+              f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
+              f"{errs[1][1]:.3e})")
+        if dtype == torch.bfloat16:
+            # two LayerNorms a block: about 6 operations an element each
+            # (sum, difference, square-sum, normalise, add) beside the stack
+            bound_info = bound(
+                stack_flops(b, f, c, nb) + b * nb * 2 * 6 * f * c,
+                nbytes(x, h, xo, ho, *(v for v in plan.values()
+                                       if torch.is_tensor(v))), dtype)
+            record[LN_KERNEL] = timed(
+                lambda: stack.rnnformer_stack_step(plan, x, h, heads),
+                lambda: stack.rnnformer_stack_reference(plan, x, h, heads),
+                max(errs[0][0], errs[1][0]), bound_info)
 
     # 3b. the whole frame (kernel 7), on folded random-init models
     def frame_case(kwargs, b, dtype, seed):
@@ -336,7 +395,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/13] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/15] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -386,7 +445,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/13] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/15] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -422,7 +481,7 @@ def main():
             torch.cuda.synchronize()
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/13] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/15] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -454,7 +513,7 @@ def main():
             torch.cuda.synchronize()
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/13] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/15] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -499,7 +558,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/13] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/15] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()}, max abs err "
                       f"{err:.3e} (each within {rel:g} relative)")
@@ -534,7 +593,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan T={t} N={n} H={h}",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[3/13] kernel gru_scan T={t} N={n} H={h} h0 "
+            print(f"[3/15] kernel gru_scan T={t} N={n} H={h} h0 "
                   f"{'given' if h0 else 'None'} {str(dtype)[6:]}: max abs err "
                   f"ys {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -570,7 +629,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/13] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/15] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -581,13 +640,36 @@ def main():
               f"{r['plain_host_ms']:.4f} ms per call; on {card}")
 
     # -- 4. serving FE_B; 6. serving DPT-B ---------------------------------------------
-    def serve(model_name, kwargs, tag, phase):
+    def vary_norms(tree, g):
+        """Every GroupNorm and LayerNorm affine pair (gn, gn1, gn2, ln) set
+        to weight ~ 1 + 0.2 N(0, 1) and bias ~ 0.1 N(0, 1): at init they are
+        1 and 0, which makes the GroupNorms identities and the LayerNorm's
+        weight * bias term zero."""
+        if isinstance(tree, list):
+            return [vary_norms(v, g) for v in tree]
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if k in ("gn", "gn1", "gn2", "ln"):
+                n = v["weight"].shape
+                v = {"weight": (1.0 + 0.2 * torch.randn(n, generator=g)
+                                ).to(dev),
+                     "bias": (0.1 * torch.randn(n, generator=g)).to(dev)}
+            out[k] = vary_norms(v, g)
+        return out
+
+    def serve(model_name, kwargs, tag, phase, norms=False):
         """Staggered requests through a capacity-256 bf16 fused engine; the
-        launch counts are zeroed just before and read just after."""
+        launch counts are zeroed just before and read just after. With
+        norms, the norm affine terms are drawn away from their init."""
         model = get_model(model_name, **kwargs, stft_method="matmul")
         hop = model.hop_size
-        folded = model.fold(model.init(torch.Generator().manual_seed(0),
-                                       device=dev))
+        g = torch.Generator().manual_seed(0)
+        variables = model.init(g, device=dev)
+        if norms:
+            variables["params"] = vary_norms(variables["params"], g)
+        folded = model.fold(variables)
         folded_bf16 = cast_floating(folded, torch.bfloat16)
         engine = StreamingEngine(model, folded_bf16, capacity=STREAMS,
                                  dtype=torch.bfloat16, fused=True, device=dev)
@@ -656,7 +738,7 @@ def main():
         _check(f32_err <= STREAM_F32_TOL,
                f"{tag} fused vs unfused float32: {f32_err} > "
                f"{STREAM_F32_TOL}")
-        print(f"[{phase}/13] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/15] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -696,7 +778,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/13] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/15] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -753,7 +835,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/13] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/15] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -778,7 +860,19 @@ def main():
     throughput("bsrnn", BSRNN_S, "BSRNN-S", BSRNN_SECONDS, 11,
                "bsrnn_stack_step")
 
-    # -- 12. train FE-T on the shard recipe ---------------------------------
+    # -- 12. serving LN_B; 13. serving TIME_KERNEL_B --------------------------
+    # LN_B, its norms' affine terms drawn away from 1 and 0, through the
+    # block stack's LN form; TIME_KERNEL_B through its folded default form
+    # (its launches stay FE_B's in the record)
+    ticks, counts = serve("fastenhancer.ln", LN_B, "LN_B", 12, norms=True)
+    check_launches(counts, LN_KERNEL, ticks, "LN_B serving")
+    record[LN_KERNEL]["launches"] = counts[LN_KERNEL]
+    ticks, counts = serve("fastenhancer.time_kernel", TIME_KERNEL_B,
+                          "TIME_KERNEL_B", 13)
+    check_launches(counts, "rnnformer_stack_step", ticks,
+                   "TIME_KERNEL_B serving")
+
+    # -- 14. train FE-T on the shard recipe ---------------------------------
     def speech_like(rng, rows, n):
         """Noise under a 3 Hz syllable envelope, silent for a sixth of the
         row, so the segmental thresholds have frames to drop."""
@@ -896,7 +990,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[12/13] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/15] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -943,7 +1037,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[12/13] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/15] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -953,7 +1047,7 @@ def main():
           f"(worst margin {max(p_err, s_err):.3e}); the CPU step took "
           f"{cpu_s:.1f} s")
 
-    # -- 13. valid FE-T -----------------------------------------------------
+    # -- 15. valid FE-T -----------------------------------------------------
     def valid_batch(seed):
         rng = np.random.default_rng(seed)
         n = int(VALID_SECONDS * SR)
@@ -986,7 +1080,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[13/13] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/15] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -997,6 +1091,7 @@ def main():
 
     sources = {
         "rnnformer_stack_step": ("rnnformer_stack", "rnnformer_stack.py:394"),
+        LN_KERNEL: ("rnnformer_stack", "rnnformer_stack.py:394"),
         "fused_frame_step": ("fused_frame", "fused_frame.py:303"),
         "dpt_stack_step": ("dpt_stack", "dpt_stack.py:323"),
         "bsrnn_stack_step": ("bsrnn_stack", "bsrnn_stack.py:249"),

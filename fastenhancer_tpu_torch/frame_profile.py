@@ -4,8 +4,9 @@
 
 For FastEnhancer_B through the block-stack kernel (`streaming_step_fused`),
 FastEnhancer_B through the whole-frame kernel (`streaming_step_fused_frame`),
-and DPT-B, BSRNN-S and DPRNN-B through their stack kernels
-(`streaming_step_fused`), all bfloat16 with folded random-init weights,
+DPT-B, BSRNN-S and DPRNN-B through their stack kernels, and the ln
+ablation's LN_B through the block stack's LN form (`streaming_step_fused`
+each), all bfloat16 with folded random-init weights,
 over 256 streams and 20 frames; and for the shard recipe's FE-T
 (`presets.FE_T_SHARD`) a train step (the mix and the bf16 step) at
 32 x 4 s over 3 steps and a valid step at 64 x 2 s over 20 steps, it
@@ -30,7 +31,7 @@ import torch
 from . import require_cuda
 from .data import ShardBatch
 from .models import get_model
-from .presets import BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD
+from .presets import BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD, LN_B
 from .utils import cast_floating
 from .wrappers import get_wrapper
 
@@ -132,7 +133,8 @@ def main() -> None:
                                      "DPT-B"),
                                     ("bsrnn", BSRNN_S, "BSRNN-S"),
                                     ("fastenhancer.dprnn", DPRNN_B,
-                                     "DPRNN-B")):
+                                     "DPRNN-B"),
+                                    ("fastenhancer.ln", LN_B, "LN_B")):
         model = get_model(model_name, **kwargs, stft_method="matmul")
         folded = cast_floating(model.fold(model.init(g, dev)), dt)
         hops = (torch.randn(8, STREAMS, model.hop_size, generator=g)

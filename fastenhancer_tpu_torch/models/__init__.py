@@ -1,21 +1,28 @@
 """Model registry: `get_model(name, **model_kwargs)`.
 
-The port has FastEnhancer's default model, its dptransformer and dprnn
-ablations, and the BSRNN baseline; every other name of the JAX package's registry
+The port has FastEnhancer's default model, its conv_stft variant, its
+dptransformer, dprnn, ln and time_kernel ablations, and the BSRNN
+baseline; every other name of the JAX package's registry
 (fastenhancer_tpu/models/__init__.py) raises NotImplementedError until its
 port lands (ROADMAP queue 1).
 """
 import typing as tp
 
 from . import bsrnn as _bsrnn
+from .fastenhancer import conv_stft as _fastenhancer_conv_stft
 from .fastenhancer import default as _fastenhancer_default
 from .fastenhancer import dprnn as _fastenhancer_dprnn
 from .fastenhancer import dptransformer as _fastenhancer_dptransformer
+from .fastenhancer import ln as _fastenhancer_ln
+from .fastenhancer import time_kernel as _fastenhancer_time_kernel
 
 _MODELS = {
     "fastenhancer.default": _fastenhancer_default.Model,
     "fastenhancer.dptransformer": _fastenhancer_dptransformer.Model,
     "fastenhancer.dprnn": _fastenhancer_dprnn.Model,
+    "fastenhancer.ln": _fastenhancer_ln.Model,
+    "fastenhancer.time_kernel": _fastenhancer_time_kernel.Model,
+    "fastenhancer.conv_stft": _fastenhancer_conv_stft.Model,
     "bsrnn": _bsrnn.Model,
 }
 

@@ -303,18 +303,15 @@ class Model(torch.nn.Module):
         params: Params = {}
         stats: Params = {}
 
-        def conv_bn(out_ch: int, in_ch: int, k: int):
-            bn_p, bn_s = fnn.init_batch_norm(out_ch, dev)
-            return ({"conv": fnn.torch_conv1d_init(g, out_ch, in_ch, k, False,
-                                                   dev), "bn": bn_p},
-                    {"bn": bn_s})
+        def conv_bn(out_ch: int, in_ch: int, k: int, site: str):
+            return self._conv_block_init(g, out_ch, in_ch, k, site, dev)
 
         k0 = self.kernel_size[0]
         params["enc_pre"], stats["enc_pre"] = conv_bn(
-            c, 2 * self.stride, k0 // self.stride)
+            c, 2 * self.stride, k0 // self.stride, "enc_pre")
         params["encoder"], stats["encoder"] = [], []
         for k in self.kernel_size[1:]:
-            p, s = conv_bn(c, c, k)
+            p, s = conv_bn(c, c, k, "encoder")
             params["encoder"].append(p)
             stats["encoder"].append(s)
 
@@ -328,9 +325,9 @@ class Model(torch.nn.Module):
                              for w in rf_pre_post_weights(
                                  self.freq, rf.freq, self.pre_post_init,
                                  self.sampling_rate))
-        p, stats["rf_pre"] = conv_bn(self.block_channels, c, 1)
+        p, stats["rf_pre"] = conv_bn(self.block_channels, c, 1, "rf_pre")
         params["rf_pre"] = {"lin": {"weight": pre_w}, **p}
-        p, stats["rf_post"] = conv_bn(c, self.block_channels, 1)
+        p, stats["rf_post"] = conv_bn(c, self.block_channels, 1, "rf_post")
         params["rf_post"] = {"lin": {"weight": post_w}, **p}
 
         params["rf_blocks"], stats["rf_blocks"] = [], []
@@ -341,19 +338,39 @@ class Model(torch.nn.Module):
 
         params["decoder"], stats["decoder"] = [], []
         for k in self.kernel_size[:0:-1]:
-            p1, s1 = conv_bn(c, 2 * c, 1)
-            p2, s2 = conv_bn(c, c, k)
-            params["decoder"].append({"conv1": p1["conv"], "conv2": p2["conv"],
-                                      "bn1": p1["bn"], "bn2": p2["bn"]})
-            stats["decoder"].append({"bn1": s1["bn"], "bn2": s2["bn"]})
+            p1, s1 = conv_bn(c, 2 * c, 1, "decoder1")
+            p2, s2 = conv_bn(c, c, k, "decoder2")
+            # the norms as bn1/bn2 (BatchNorm) or gn1/gn2 (the ln ablation's
+            # GroupNorm), the units' statistics only where they have any
+            unit = {"conv1": p1["conv"], "conv2": p2["conv"]}
+            for tag, pp in (("1", p1), ("2", p2)):
+                for norm in ("bn", "gn"):
+                    if norm in pp:
+                        unit[f"{norm}{tag}"] = pp[norm]
+            params["decoder"].append(unit)
+            stats["decoder"].append({"bn1": s1["bn"], "bn2": s2["bn"]}
+                                    if "bn" in s1 else {})
 
-        p1, s1 = conv_bn(c, 2 * c, 1)
+        p1, s1 = conv_bn(c, 2 * c, 1, "dec_post")
         convt = fnn.torch_convtranspose1d_init(g, c, 2, k0, True, dev)
         if self.final_scale is not False:
             convt["scale"] = self._final_scale_init(convt, k0)
         params["dec_post"] = {**p1, "convt": convt}
         stats["dec_post"] = s1
         return {"params": params, "stats": stats}
+
+    def _conv_block_init(self, g: torch.Generator, out_ch: int, in_ch: int,
+                         k: int, site: str, device: torch.device
+                         ) -> tp.Tuple[Params, Params]:
+        """One conv + norm unit -> (params, stats). `site` names where it
+        sits (enc_pre, encoder, rf_pre, rf_post, decoder1, decoder2,
+        dec_post), so that a variant can change the norm kind, the conv's
+        rank or its bias per site."""
+        del site
+        bn_p, bn_s = fnn.init_batch_norm(out_ch, device)
+        return ({"conv": fnn.torch_conv1d_init(g, out_ch, in_ch, k, False,
+                                               device), "bn": bn_p},
+                {"bn": bn_s})
 
     def _final_scale_init(self, convt: Params, k0: int) -> Tensor:
         """The ConvTranspose scale's initial value (JAX default.py:354-371);
@@ -442,10 +459,10 @@ class Model(torch.nn.Module):
                      stride: int = 1, padding: int = 0, act: bool = True,
                      eps: float = 1e-5, new_s: tp.Optional[Params] = None,
                      bw: tp.Optional[Tensor] = None) -> Tensor:
-        """conv (+BN if the subtree has one) (+activation); x: [N, F, Cin].
-        With `new_s` (a dict) the BN runs in train mode, its statistics
-        weighted by `bw`, and writes its new running statistics to
-        new_s["bn"]."""
+        """conv (+BN, or the ln ablation's GroupNorm, if the subtree has
+        one) (+activation); x: [N, F, Cin]. With `new_s` (a dict) the BN
+        runs in train mode, its statistics weighted by `bw`, and writes its
+        new running statistics to new_s["bn"]."""
         conv = dict(p["conv"])
         conv["weight"] = fnn.maybe_wn_weight(p["conv"], "weight")
         y = fnn.conv1d_cl(conv, x, stride=stride, padding=padding)
@@ -455,6 +472,8 @@ class Model(torch.nn.Module):
                                    weight=bw)
             if new_s is not None:
                 new_s["bn"] = st
+        elif p.get("gn") is not None:
+            y = fnn.layer_norm_fc(p["gn"], y, eps=eps)
         return self.act(y) if act else y
 
     def _scaled_convt(self, p: Params, x: Tensor) -> Tensor:
@@ -563,8 +582,10 @@ class Model(torch.nn.Module):
         for i, (p, st) in enumerate(zip(params["decoder"], stats["decoder"])):
             x_in = x
             x = torch.cat([x, skips.pop()], dim=-1)
-            unit1 = {"conv": p["conv1"], "bn": p.get("bn1")}
-            unit2 = {"conv": p["conv2"], "bn": p.get("bn2")}
+            unit1 = {"conv": p["conv1"], "bn": p.get("bn1"),
+                     "gn": p.get("gn1")}
+            unit2 = {"conv": p["conv2"], "bn": p.get("bn2"),
+                     "gn": p.get("gn2")}
             new1 = {} if train else None
             new2 = {} if train else None
             y = self._conv_bn_act(unit1, {"bn": st.get("bn1")}, x,

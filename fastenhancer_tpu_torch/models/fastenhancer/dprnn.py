@@ -29,11 +29,10 @@ import torch
 
 from ... import nn as fnn
 from ...functional import init_istft_carry, init_stft_carry
-from ...functional.mel import mel_fbank_weights
 from ...ops.dprnn_stack import dprnn_stack_step, plan_dprnn_stack
 from .default import (Model as DefaultModel, Params, Tensor, _TRAIN_TODO,
                       fold_fc_bn, fold_prenorm_into_rnn)
-from .dptransformer import hz_grid_linear_weights
+from .dptransformer import set_ablation_filterbanks
 
 
 @dataclasses.dataclass
@@ -103,13 +102,9 @@ class Model(DefaultModel):
         dev = torch.device(device)
         variables = super().init(generator, dev)
         if self.pre_post_init is not None:
-            make = (mel_fbank_weights if self.pre_post_init.startswith("mel")
-                    else hz_grid_linear_weights)
-            pre_w, post_w = make(self.freq, self.dp.freq, self.sampling_rate)
-            params = variables["params"]
-            params["rf_pre"]["lin"]["weight"] = torch.from_numpy(pre_w).to(dev)
-            params["rf_post"]["lin"]["weight"] = torch.from_numpy(post_w).to(
-                dev)
+            set_ablation_filterbanks(variables["params"], self.freq,
+                                     self.dp.freq, self.pre_post_init,
+                                     self.sampling_rate, dev)
         return variables
 
     def _block_init(self, g: torch.Generator, i: int,

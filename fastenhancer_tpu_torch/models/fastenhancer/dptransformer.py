@@ -58,6 +58,19 @@ def hz_grid_linear_weights(freq: int, n_filter: int, sr: int = 16_000
     return pre.astype(np.float32), post.astype(np.float32)
 
 
+def set_ablation_filterbanks(params: Params, freq: int, n_filter: int,
+                             init: str, sr: int, device: torch.device) -> None:
+    """Put the ablations' own fixed filterbanks (mel for a "mel*" init, else
+    the absolute-Hz linear grid) into params["rf_pre"/"rf_post"]["lin"], in
+    place (reference: models/fastenhancer/{dprnn,dptransformer,ln,
+    time_kernel}/model.py)."""
+    make = mel_fbank_weights if init.startswith("mel") else \
+        hz_grid_linear_weights
+    pre_w, post_w = make(freq, n_filter, sr)
+    params["rf_pre"]["lin"]["weight"] = torch.from_numpy(pre_w).to(device)
+    params["rf_post"]["lin"]["weight"] = torch.from_numpy(post_w).to(device)
+
+
 @dataclasses.dataclass
 class DPTConfig:
     num_blocks: int = 3
@@ -153,12 +166,9 @@ class Model(DefaultModel):
         params = variables["params"]
         params["time_pe"] = {"weight": torch.from_numpy(pe.T.copy()).to(dev)}
         if self.pre_post_init is not None:
-            make = (mel_fbank_weights if self.pre_post_init.startswith("mel")
-                    else hz_grid_linear_weights)
-            pre_w, post_w = make(self.freq, cfg.freq, self.sampling_rate)
-            params["rf_pre"]["lin"]["weight"] = torch.from_numpy(pre_w).to(dev)
-            params["rf_post"]["lin"]["weight"] = torch.from_numpy(post_w).to(
-                dev)
+            set_ablation_filterbanks(params, self.freq, cfg.freq,
+                                     self.pre_post_init, self.sampling_rate,
+                                     dev)
         return variables
 
     def _block_init(self, g: torch.Generator, i: int,

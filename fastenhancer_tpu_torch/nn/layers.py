@@ -145,6 +145,24 @@ def batch_norm(params: tp.Optional[Params], stats: Params, x: Tensor, *,
     return y.to(in_dtype), stats
 
 
+def layer_norm_fc(params: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """Normalize over the last TWO axes (freq, channel) with a per-channel
+    affine: the ln ablation's GroupNorm(1, C) on the conv units. Statistics
+    in float32, output in x's dtype."""
+    in_dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=(-2, -1), keepdim=True)
+    diff = xf - mean
+    var = diff.square().mean(dim=(-2, -1), keepdim=True)
+    y = diff * torch.rsqrt(var + eps) * params["weight"] + params["bias"]
+    return y.to(in_dtype)
+
+
+def init_layer_norm(c: int, device: torch.device) -> Params:
+    return {"weight": torch.ones(c, device=device),
+            "bias": torch.zeros(c, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # Weight norm (torch parametrization: w = g * v / ||v||, norm over dims != 0)
 # ---------------------------------------------------------------------------

@@ -4,11 +4,16 @@
 // ctypes and launches it on PyTorch's current stream.
 //
 // Replaces fastenhancer_tpu/ops/rnnformer_stack.py::rnnformer_stack_step, the
-// Pallas TPU kernel. It computes what that kernel's stack_math computes for
-// the folded default block form (no LayerNorm), block after block:
+// Pallas TPU kernel. It computes what that kernel's stack_math computes,
+// block after block:
 //   GRU step (torch gate order r, z, n)      -> h_new[i]
 //   x = x + rnn_fc(h_new) ; x = x + pe[i]
 //   x = x + attn_fc(MHSA over the F frequency rows of each stream)
+// in two forms, one template each: the folded default block form, and the
+// ln ablation's (stack_math(ln=True); wb_fc and wb_afc given), where each
+// fc output is LayerNorm'd over the stream's [F, C] tile before its
+// residual, out = diff + rsqrt(var + eps) * (weight * bias), the
+// reference's affine quirk (fe::ln_residual).
 // Matmuls accumulate in float32 and the gate and softmax math is float32.
 // Results are rounded to the activation type T at the Pallas kernel's
 // points: h_new, each fc output before its residual, each residual sum, the
@@ -33,7 +38,12 @@
 // and 256 streams give 256 independent thread blocks for the 132 SMs. The
 // weights are read from global memory, where L1/L2 keep them (each block's
 // weights are read by every stream). Tensor cores (wgmma), TMA and weight
-// staging in shared memory are left to later work.
+// staging in shared memory are left to later work. The LN form adds, per
+// LayerNorm, one pass that writes the fc output whole and two block-wide
+// reductions over the F*C = 864 values of the tile (warp shuffles, then 8
+// partial sums in shared memory): 6 LayerNorms, 12 reductions, a frame at
+// FastEnhancer_B's 3 blocks, a few microseconds of barriers beside the
+// same chain of dot products.
 //
 // Carry layout: h and h_out are [NB, B*F, C], rows batch-major
 // [b0f0..b0fF, b1f0..]; thread block b owns rows b*F..b*F+F-1 of every
@@ -55,12 +65,12 @@ namespace {
 using fe::kThreads;
 using fe::StackPlan;
 
-template <typename T>
+template <typename T, bool kLn>
 __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     rnnformer_stack_kernel(const T* __restrict__ x, const T* h,
                            T* __restrict__ x_out, T* h_out, StackPlan<T> p,
-                           int batch, int freq, int ch, int heads, int nblocks,
-                           float scale) {
+                           fe::LnPlan<T> ln, int batch, int freq, int ch,
+                           int heads, int nblocks, float scale) {
   extern __shared__ float smem[];
   const int fc = freq * ch;
   const int b = blockIdx.x;
@@ -68,8 +78,8 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     smem[e] = fe::load_f(x[static_cast<size_t>(b) * fc + e]);
   }
   __syncthreads();
-  fe::rnnformer_stack_frame<T>(smem, h, h_out, p, b, batch, freq, ch, heads,
-                               nblocks, scale);
+  fe::rnnformer_stack_frame<T, kLn>(smem, h, h_out, p, b, batch, freq, ch,
+                                    heads, nblocks, scale, ln);
   for (int e = threadIdx.x; e < fc; e += blockDim.x) {
     x_out[static_cast<size_t>(b) * fc + e] = fe::store_t<T>(smem[e]);
   }
@@ -79,50 +89,72 @@ size_t smem_bytes(int freq, int ch, int heads) {
   return fe::stack_smem_floats(freq, ch, heads) * sizeof(float);
 }
 
+template <typename T, bool kLn>
+int launch_form(const T* x, const T* h, T* x_out, T* h_out,
+                const StackPlan<T>& plan, const fe::LnPlan<T>& ln, int batch,
+                int freq, int ch, int heads, int nblocks, float scale,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes(freq, ch, heads);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rnnformer_stack_kernel<T, kLn>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  rnnformer_stack_kernel<T, kLn><<<batch, kThreads, smem, stream>>>(
+      x, h, x_out, h_out, plan, ln, batch, freq, ch, heads, nblocks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wb_fc == nullptr selects the folded default form (wb_afc and eps unread).
 template <typename T>
 int launch(const void* x, const void* h, void* x_out, void* h_out,
            const void* w_x, const void* w_h, const void* b_gru,
            const void* w_fc, const void* b_fc, const void* w_qkv,
            const void* b_qkv, const void* w_afc, const void* b_afc,
-           const void* pe, int batch, int freq, int ch, int heads,
-           int nblocks, void* stream) {
-  const size_t smem = smem_bytes(freq, ch, heads);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rnnformer_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+           const void* pe, const void* wb_fc, const void* wb_afc, int batch,
+           int freq, int ch, int heads, int nblocks, float eps,
+           void* stream) {
   const StackPlan<T> plan{
       static_cast<const T*>(w_x),   static_cast<const T*>(w_h),
       static_cast<const T*>(b_gru), static_cast<const T*>(w_fc),
       static_cast<const T*>(b_fc),  static_cast<const T*>(w_qkv),
       static_cast<const T*>(b_qkv), static_cast<const T*>(w_afc),
       static_cast<const T*>(b_afc), static_cast<const T*>(pe)};
+  const fe::LnPlan<T> ln{static_cast<const T*>(wb_fc),
+                         static_cast<const T*>(wb_afc), eps};
   const float scale = static_cast<float>(1.0 / std::sqrt(double(ch / heads)));
-  rnnformer_stack_kernel<T>
-      <<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), static_cast<const T*>(h),
-          static_cast<T*>(x_out), static_cast<T*>(h_out), plan, batch, freq,
-          ch, heads, nblocks, scale);
-  return static_cast<int>(cudaGetLastError());
+  const auto xt = static_cast<const T*>(x);
+  const auto ht = static_cast<const T*>(h);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (wb_fc != nullptr) {
+    return launch_form<T, true>(xt, ht, static_cast<T*>(x_out),
+                                static_cast<T*>(h_out), plan, ln, batch, freq,
+                                ch, heads, nblocks, scale, st);
+  }
+  return launch_form<T, false>(xt, ht, static_cast<T*>(x_out),
+                               static_cast<T*>(h_out), plan, ln, batch, freq,
+                               ch, heads, nblocks, scale, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 on success).
+// Each returns the cudaError_t of the launch (0 on success). wb_fc and
+// wb_afc ([NB, C] each) and eps are the LN form's; null wb_fc runs the
+// folded default form.
 int rnnformer_stack_f32(const void* x, const void* h, void* x_out,
                         void* h_out, const void* w_x, const void* w_h,
                         const void* b_gru, const void* w_fc, const void* b_fc,
                         const void* w_qkv, const void* b_qkv,
                         const void* w_afc, const void* b_afc, const void* pe,
-                        int batch, int freq, int ch, int heads, int nblocks,
+                        const void* wb_fc, const void* wb_afc, int batch,
+                        int freq, int ch, int heads, int nblocks, float eps,
                         void* stream) {
   return launch<float>(x, h, x_out, h_out, w_x, w_h, b_gru, w_fc, b_fc, w_qkv,
-                       b_qkv, w_afc, b_afc, pe, batch, freq, ch, heads,
-                       nblocks, stream);
+                       b_qkv, w_afc, b_afc, pe, wb_fc, wb_afc, batch, freq,
+                       ch, heads, nblocks, eps, stream);
 }
 
 int rnnformer_stack_bf16(const void* x, const void* h, void* x_out,
@@ -130,12 +162,14 @@ int rnnformer_stack_bf16(const void* x, const void* h, void* x_out,
                          const void* b_gru, const void* w_fc,
                          const void* b_fc, const void* w_qkv,
                          const void* b_qkv, const void* w_afc,
-                         const void* b_afc, const void* pe, int batch,
-                         int freq, int ch, int heads, int nblocks,
+                         const void* b_afc, const void* pe,
+                         const void* wb_fc, const void* wb_afc, int batch,
+                         int freq, int ch, int heads, int nblocks, float eps,
                          void* stream) {
   return launch<__nv_bfloat16>(x, h, x_out, h_out, w_x, w_h, b_gru, w_fc,
-                               b_fc, w_qkv, b_qkv, w_afc, b_afc, pe, batch,
-                               freq, ch, heads, nblocks, stream);
+                               b_fc, w_qkv, b_qkv, w_afc, b_afc, pe, wb_fc,
+                               wb_afc, batch, freq, ch, heads, nblocks, eps,
+                               stream);
 }
 
 const char* rnnformer_stack_error_string(int code) {

@@ -1,8 +1,10 @@
 // Device code shared by the port's CUDA kernels (rnnformer_stack.cu,
 // fused_frame.cu, dpt_stack.cu, bsrnn_stack.cu, dprnn_stack.cu): type
 // conversion and rounding, the row-wise linear layers, the GRU step over a
-// stream's rows, the H-head frequency self-attention, and the whole
-// RNNFormer block stack of one stream for one frame.
+// stream's rows, the H-head frequency self-attention, the ln ablation's
+// LayerNorm over a stream's [F, C] tile, and the whole RNNFormer block
+// stack of one stream for one frame, in its folded default form and its
+// LayerNorm form.
 //
 // Every function here is called by all threads of a thread block that owns
 // one stream: work is spread over the block's threads with a stride loop,
@@ -121,6 +123,53 @@ __device__ __forceinline__ void qkv_rows(const float* xs, float* qs,
   }
 }
 
+// Sum of v over the thread block (kThreads threads, every one calling),
+// returned to every thread: a shuffle sum in each warp, then each thread
+// adds the warps' sums from red (kThreads / 32 floats of shared memory).
+// One __syncthreads(); red must not be written again until every thread
+// has returned.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  return s;
+}
+
+// The ln ablation's post-norm and residual on one stream's [F, C] tile.
+// y holds an fc's output (rounded to T, visible to all threads). Its mean
+// and variance over all F*C values are taken in float32, mean first and
+// then the squared differences (two passes: E[y^2] - mean^2 would lose
+// digits), and
+//   xs[f, j] = round_T(round_T(diff + rsqrt(var + eps) * wb[j]) + xs[f, j])
+// with diff = y[f, j] - mean: the reference's affine quirk, where the
+// normalized diff is never scaled and wb = weight * bias. Two
+// __syncthreads(), one per reduction, each into its own half of red; the
+// caller synchronises before reading xs.
+template <typename T>
+__device__ __forceinline__ void ln_residual(const float* y, float* xs,
+                                            const T* wb, float eps, int freq,
+                                            int ch) {
+  __shared__ float red[2 * (kThreads / 32)];
+  const int fc = freq * ch;
+  float s = 0.f;
+  for (int e = threadIdx.x; e < fc; e += blockDim.x) s += y[e];
+  const float mean = block_sum(s, red) / static_cast<float>(fc);
+  float q = 0.f;
+  for (int e = threadIdx.x; e < fc; e += blockDim.x) {
+    const float d = y[e] - mean;
+    q = fmaf(d, d, q);
+  }
+  const float var = block_sum(q, red + kThreads / 32) / static_cast<float>(fc);
+  const float inv = rsqrtf(var + eps);
+  for (int e = threadIdx.x; e < fc; e += blockDim.x) {
+    const int j = e % ch;
+    const float out = round_t<T>((y[e] - mean) + inv * load_f(wb[j]));
+    xs[e] = round_t<T>(out + xs[e]);
+  }
+}
+
 // In place over `rows` rows of `len` float32 logits: softmax with the row's
 // own max, probabilities rounded to T.
 template <typename T>
@@ -234,6 +283,14 @@ struct StackPlan {
   const T* pe;     // [NB, F, C]    zeros for blocks without an embedding
 };
 
+// The ln ablation's LayerNorm terms (plan_stack(..., ln_eps=...)).
+template <typename T>
+struct LnPlan {
+  const T* wb_fc;   // [NB, C] rnn_post_norm's weight * bias
+  const T* wb_afc;  // [NB, C] attn_post_norm's weight * bias
+  float eps;
+};
+
 // Floats of shared memory rnnformer_stack_frame uses: six [F, C] buffers
 // and the [H, F, F] logits.
 __host__ __device__ inline size_t stack_smem_floats(int freq, int ch,
@@ -248,12 +305,17 @@ __host__ __device__ inline size_t stack_smem_floats(int freq, int ch,
 // the stream's carry rows h[i][b*F : b*F+F] -> h_out[i] (rounded to T),
 // rnn_fc + residual, + pe[i], H-head frequency MHSA, attn_fc + residual.
 // Each block reads all its carry rows into shared memory before it writes
-// any row of h_out, so h_out == h would be safe too.
-template <typename T>
+// any row of h_out, so h_out == h would be safe too. With kLn (the ln
+// ablation's form) each fc's output is first written out whole (the rnn_fc
+// one over the carry buffer, the attn_fc one over the keys, both free by
+// then), normalised by ln_residual with `ln`'s terms, and only then added
+// to the residual.
+template <typename T, bool kLn = false>
 __device__ void rnnformer_stack_frame(float* smem, const T* h, T* h_out,
                                       const StackPlan<T>& p, int b, int batch,
                                       int freq, int ch, int heads,
-                                      int nblocks, float scale) {
+                                      int nblocks, float scale,
+                                      const LnPlan<T>& ln = LnPlan<T>{}) {
   const int fc = freq * ch;
   const size_t cc = static_cast<size_t>(ch) * ch;
   float* xs = smem;     // [F, C] activations
@@ -283,8 +345,16 @@ __device__ void rnnformer_stack_frame(float* smem, const T* h, T* h_out,
     __syncthreads();
 
     // --- rnn_fc + residual, then the positional embedding ---
-    fc_residual<T>(hn, xs, p.w_fc + i * cc, p.b_fc + static_cast<size_t>(i) * ch,
-                   freq, ch);
+    if constexpr (kLn) {
+      linear_rows<T>(hn, hs, p.w_fc + i * cc,
+                     p.b_fc + static_cast<size_t>(i) * ch, freq, ch, ch);
+      __syncthreads();
+      ln_residual<T>(hs, xs, ln.wb_fc + static_cast<size_t>(i) * ch, ln.eps,
+                     freq, ch);
+    } else {
+      fc_residual<T>(hn, xs, p.w_fc + i * cc,
+                     p.b_fc + static_cast<size_t>(i) * ch, freq, ch);
+    }
     {
       const T* pe = p.pe + static_cast<size_t>(i) * fc;
       for (int e = tid; e < fc; e += nt) xs[e] = round_t<T>(xs[e] + load_f(pe[e]));
@@ -296,8 +366,16 @@ __device__ void rnnformer_stack_frame(float* smem, const T* h, T* h_out,
                 p.b_qkv + static_cast<size_t>(i) * 3 * ch, freq, ch);
     __syncthreads();
     freq_attention<T>(qs, ks, vs, ps, freq, ch, heads, scale);
-    fc_residual<T>(qs, xs, p.w_afc + i * cc,
-                   p.b_afc + static_cast<size_t>(i) * ch, freq, ch);
+    if constexpr (kLn) {
+      linear_rows<T>(qs, ks, p.w_afc + i * cc,
+                     p.b_afc + static_cast<size_t>(i) * ch, freq, ch, ch);
+      __syncthreads();
+      ln_residual<T>(ks, xs, ln.wb_afc + static_cast<size_t>(i) * ch, ln.eps,
+                     freq, ch);
+    } else {
+      fc_residual<T>(qs, xs, p.w_afc + i * cc,
+                     p.b_afc + static_cast<size_t>(i) * ch, freq, ch);
+    }
     __syncthreads();
   }
 }

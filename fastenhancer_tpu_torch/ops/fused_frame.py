@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ..utils.tree import tree_leaves
+from ..utils.tree import tree_leaves, tree_paths
 from .rnnformer_stack import (PLAN_KEYS as STACK_KEYS, _check as _check_stack,
                               plan_stack, rnnformer_stack_reference)
 
@@ -88,11 +88,22 @@ def plan_frame(model, variables: Params,
                dtype: tp.Optional[torch.dtype] = None) -> Params:
     """Pack a folded fastenhancer.default model for the whole-frame kernel.
     Raises ValueError outside the kernel's envelope: unfolded variables,
-    kernel_size[0] != 2 * stride, an activation other than SiLU, a mask
-    other than None/sigmoid/tanh, post_act, or other than RNNFormer
-    blocks. dtype=None keeps the variables' own dtype."""
+    a GroupNorm or LayerNorm anywhere (the ln ablation: a folded tree keeps
+    them, with no statistics), a conv other than 1-D (the time_kernel
+    ablation's 2-D causal convs), kernel_size[0] != 2 * stride, an
+    activation other than SiLU, a mask other than None/sigmoid/tanh,
+    post_act, or other than RNNFormer blocks. dtype=None keeps the
+    variables' own dtype."""
     if tree_leaves(variables["stats"]):
         raise ValueError("plan_frame expects fold() output")
+    for path, leaf in tree_paths(variables["params"]):
+        if {"gn", "gn1", "gn2", "ln"} & set(path):
+            raise ValueError(f"fused frame has no GroupNorm or LayerNorm "
+                             f"form (found {'.'.join(path)})")
+        if path[-2].startswith("conv") and path[-1] == "weight" \
+                and leaf.ndim != 3:
+            raise ValueError(f"fused frame runs 1-D convs only (found a "
+                             f"{leaf.ndim}-D weight at {'.'.join(path)})")
     if model.kernel_size[0] != 2 * model.stride:
         raise ValueError("fused frame supports kernel_size[0] == 2*stride")
     if model.activation != "SiLU":

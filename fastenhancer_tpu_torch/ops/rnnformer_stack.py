@@ -2,9 +2,14 @@
 the wrapper of the hand-written CUDA kernel (csrc/rnnformer_stack.cu).
 
 Replaces fastenhancer_tpu/ops/rnnformer_stack.py::rnnformer_stack_step (the
-Pallas TPU kernel) for the folded default block form. Per block: one GRU
-step, rnn_fc plus residual, the positional embedding, H-head frequency
-self-attention, attn_fc plus residual.
+Pallas TPU kernel) in both its forms. Per block: one GRU step, rnn_fc plus
+residual, the positional embedding, H-head frequency self-attention,
+attn_fc plus residual. The folded default block form has its post-norms
+merged into the fcs; the ln ablation's form (a plan built with `ln_eps`)
+applies a LayerNorm over each stream's [F, C] tile to each fc's output
+before its residual, with the reference's affine quirk
+`diff + rsqrt(var + eps) * (weight * bias)`: the normalized diff is never
+scaled (the Pallas kernel's `stack_math(ln=True)`).
 
 * `plan_stack` packs folded rf_blocks params into stacked, pre-transposed
   arrays. It keeps only the real weights: the TPU plan's frequency padding,
@@ -15,7 +20,8 @@ self-attention, attn_fc plus residual.
   the kernel against it.
 * `rnnformer_stack_step` is the wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor launches the kernel or raises; nothing falls back.
-  `rnnformer_stack_step.launches` counts kernel launches.
+  `rnnformer_stack_step.launches` counts launches of the folded default
+  form and `rnnformer_stack_step.ln_launches` those of the LN form.
 
 What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/rnnformer_stack.cu: at B=256 streams the
@@ -38,10 +44,14 @@ Params = tp.Dict[str, tp.Any]
 
 PLAN_KEYS = ("w_x", "w_h", "b_gru", "w_fc", "b_fc", "w_qkv", "b_qkv",
              "w_afc", "b_afc", "pe")
+# the LN form's extra arrays: each post-norm's weight * bias, [NB, C]; its
+# plan also holds the LayerNorm's eps as a float under "ln_eps"
+LN_KEYS = ("wb_fc", "wb_afc")
 MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
-# x, h, x_out, h_out, the plan; B, F, C, H, NB; the stream
-_ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
-             + [ctypes.c_void_p])
+# x, h, x_out, h_out, the plan, wb_fc and wb_afc (null for the folded
+# default form); B, F, C, H, NB; eps; the stream
+_ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS) + len(LN_KEYS))
+             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
@@ -49,11 +59,21 @@ _ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
 # ---------------------------------------------------------------------------
 
 def plan_stack(blocks: tp.Sequence[Params], freq: int, num_heads: int,
-               dtype: tp.Optional[torch.dtype] = None) -> Params:
+               dtype: tp.Optional[torch.dtype] = None,
+               ln_eps: tp.Optional[float] = None) -> Params:
     """Pack folded rf_blocks params (Model.fold() output: weight norm
     stripped, post-norms merged into the fcs, no pre-norms) into stacked
     arrays with the block index leading; matrices are [in, out]. dtype=None
     keeps the blocks' own dtype.
+
+    ln_eps selects the ln ablation's form (models/fastenhancer/ln.py): its
+    post-norms are LayerNorms over [F, C] that cannot fold, so the blocks
+    keep {"ln": {"weight", "bias"}} under rnn_post_norm and attn_post_norm,
+    and the plan gains wb_fc and wb_afc, each [NB, C]: weight * bias taken
+    in float32, then cast to the plan's dtype (the reference's quirky affine
+    term), and "ln_eps" as a float. The statistics run over exactly F x C
+    (no frequency padding here, so the Pallas plan's fmask has no
+    counterpart).
 
     The reference qkv weight rows are per head [q_h | k_h | v_h]; they are
     gathered so that output column h*d + t of w_qkv[:, 0/1/2] is head h,
@@ -101,8 +121,16 @@ def plan_stack(blocks: tp.Sequence[Params], freq: int, num_heads: int,
         }
 
     per_block = [one(b) for b in blocks]
-    return {k: torch.stack([p[k] for p in per_block]).to(dtype).contiguous()
+    plan = {k: torch.stack([p[k] for p in per_block]).to(dtype).contiguous()
             for k in PLAN_KEYS}
+    if ln_eps is not None:
+        for key, norm in (("wb_fc", "rnn_post_norm"),
+                          ("wb_afc", "attn_post_norm")):
+            plan[key] = torch.stack([
+                b[norm]["ln"]["weight"].float() * b[norm]["ln"]["bias"].float()
+                for b in blocks]).to(dtype).contiguous()
+        plan["ln_eps"] = float(ln_eps)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -114,13 +142,28 @@ def rnnformer_stack_reference(plan: Params, x: Tensor, h: Tensor,
     """x: [B, F, C], h: [NB, B*F, C] -> (x_out [B, F, C], h_new [NB, B*F, C]).
 
     float32 accumulation and gate/softmax math; results rounded to x.dtype
-    where the kernel rounds them. The softmax uses each head's own max."""
+    where the kernel rounds them. The softmax uses each head's own max. A
+    plan with wb_fc (the LN form) normalizes each fc output, rounded to
+    x.dtype, over its stream's [F, C] in float32, rounds the result to
+    x.dtype and only then adds the residual."""
     b, f, c = x.shape
     nb = h.shape[0]
     dt = x.dtype
     d = c // num_heads
     scale = 1.0 / math.sqrt(d)
-    p = {k: v.float() for k, v in plan.items()}
+    ln = "wb_fc" in plan
+    p = {k: v.float() for k, v in plan.items() if isinstance(v, Tensor)}
+
+    def post_norm(y: Tensor, key: str, i: int) -> Tensor:
+        """y [B*F, C] in dt -> the LN form's normalized y, or y as it is."""
+        if not ln:
+            return y
+        yf = y.float().reshape(b, f, c)
+        diff = yf - yf.mean(dim=(1, 2), keepdim=True)
+        var = diff.square().mean(dim=(1, 2), keepdim=True)
+        out = diff + torch.rsqrt(var + plan["ln_eps"]) * p[key][i]
+        return out.reshape(b * f, c).to(dt)
+
     xs = x.reshape(b * f, c)
     h_new = []
     for i in range(nb):
@@ -133,7 +176,7 @@ def rnnformer_stack_reference(plan: Params, x: Tensor, h: Tensor,
         hn = ((1.0 - z) * n + z * hf).to(dt)
         h_new.append(hn)
         y = (hn.float() @ p["w_fc"][i] + p["b_fc"][i]).to(dt)
-        xs = y + xs
+        xs = post_norm(y, "wb_fc", i) + xs
         xs = (xs.reshape(b, f, c) + plan["pe"][i]).reshape(b * f, c)
         xf = xs.float()
         q, k, v = [(xf @ p["w_qkv"][i, o] + p["b_qkv"][i, o]).to(dt)
@@ -144,7 +187,7 @@ def rnnformer_stack_reference(plan: Params, x: Tensor, h: Tensor,
         attn = torch.einsum("bhfg,bghd->bfhd", probs, v)
         attn = attn.reshape(b * f, c).to(dt)
         y = (attn.float() @ p["w_afc"][i] + p["b_afc"][i]).to(dt)
-        xs = y + xs
+        xs = post_norm(y, "wb_afc", i) + xs
     return xs.reshape(b, f, c), torch.stack(h_new)
 
 
@@ -152,15 +195,18 @@ def rnnformer_stack_reference(plan: Params, x: Tensor, h: Tensor,
 # Wrapper
 # ---------------------------------------------------------------------------
 
-def plan_shapes(num_blocks: int, freq: int, channels: int
-                ) -> tp.Dict[str, tp.Tuple[int, ...]]:
+def plan_shapes(num_blocks: int, freq: int, channels: int,
+                ln: bool = False) -> tp.Dict[str, tp.Tuple[int, ...]]:
     """Shape of each plan array, as `plan_stack` makes it and the kernel
-    reads it."""
+    reads it; ln=True adds the LN form's wb_fc and wb_afc."""
     nb, f, c = num_blocks, freq, channels
-    return {"w_x": (nb, 3, c, c), "w_h": (nb, 3, c, c), "b_gru": (nb, 4, c),
-            "w_fc": (nb, c, c), "b_fc": (nb, c), "w_qkv": (nb, 3, c, c),
-            "b_qkv": (nb, 3, c), "w_afc": (nb, c, c), "b_afc": (nb, c),
-            "pe": (nb, f, c)}
+    shapes = {"w_x": (nb, 3, c, c), "w_h": (nb, 3, c, c),
+              "b_gru": (nb, 4, c), "w_fc": (nb, c, c), "b_fc": (nb, c),
+              "w_qkv": (nb, 3, c, c), "b_qkv": (nb, 3, c),
+              "w_afc": (nb, c, c), "b_afc": (nb, c), "pe": (nb, f, c)}
+    if ln:
+        shapes.update(wb_fc=(nb, c), wb_afc=(nb, c))
+    return shapes
 
 
 def smem_bytes(freq: int, channels: int, num_heads: int) -> int:
@@ -181,9 +227,13 @@ def _check(plan: Params, x: Tensor, h: Tensor, num_heads: int) -> None:
     if tuple(h.shape) != (nb, b * f, c):
         raise ValueError(f"h has shape {tuple(h.shape)}, expected "
                          f"{(nb, b * f, c)}")
-    shapes = plan_shapes(nb, f, c)
+    ln = "wb_fc" in plan
+    if ln and not isinstance(plan.get("ln_eps"), float):
+        raise ValueError("an LN plan needs its eps as a float under "
+                         "'ln_eps' (plan_stack(..., ln_eps=...))")
+    shapes = plan_shapes(nb, f, c, ln)
     for name, t in (("x", x), ("h", h),
-                    *((k, plan[k]) for k in PLAN_KEYS)):
+                    *((k, plan[k]) for k in shapes)):
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; every "
                              f"operand must be {x.dtype} on {x.device}")
@@ -201,9 +251,10 @@ def rnnformer_stack_step(plan: Params, x: Tensor, h: Tensor,
     x: [B, F, C] frame activations (rf_pre output), h: [NB, B*F, C] stacked
     GRU carries, rows batch-major -> (x_out [B, F, C], h_new [NB, B*F, C]),
     fresh tensors. Every operand has x's dtype (float32 or bfloat16) and
-    device and is contiguous. On the CPU this is the plain version; on a
-    CUDA device it launches the kernel (building it on first use) and raises
-    if it cannot."""
+    device and is contiguous. A plan with wb_fc (plan_stack's ln_eps) runs
+    the LN form. On the CPU this is the plain version; on a CUDA device it
+    launches the kernel (building it on first use) and raises if it
+    cannot."""
     _check(plan, x, h, num_heads)
     if x.device.type == "cpu":
         return rnnformer_stack_reference(plan, x, h, num_heads)
@@ -216,16 +267,23 @@ def rnnformer_stack_step(plan: Params, x: Tensor, h: Tensor,
         raise ValueError(
             f"F={f}, C={c}, H={num_heads} needs {smem} bytes of shared "
             f"memory per stream; the kernel has {MAX_SMEM_BYTES}")
+    ln = "wb_fc" in plan
+    wb = [plan[k].data_ptr() if ln else None for k in LN_KEYS]
     x_out = torch.empty_like(x)
     h_out = torch.empty_like(h)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
                  h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
-                 b, f, c, num_heads, h.shape[0], stream)
+                 *wb, b, f, c, num_heads, h.shape[0],
+                 plan["ln_eps"] if ln else 0.0, stream)
     _build.check_launch("rnnformer_stack", err)
-    rnnformer_stack_step.launches += 1
+    if ln:
+        rnnformer_stack_step.ln_launches += 1
+    else:
+        rnnformer_stack_step.launches += 1
     return x_out, h_out
 
 
 rnnformer_stack_step.launches = 0
+rnnformer_stack_step.ln_launches = 0

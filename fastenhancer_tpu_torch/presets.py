@@ -11,6 +11,11 @@ nor a YAML reader (the card's machine has neither):
   model_kwargs).
 * `DPRNN_B`: the dprnn ablation at FE_B's widths (`fastenhancer.dprnn`;
   configs/ablation/dprnn_b.yaml's model_kwargs).
+* `LN_B`: the ln ablation at FE_B's widths (`fastenhancer.ln`;
+  configs/ablation/ln_b.yaml's model_kwargs).
+* `TIME_KERNEL_B`: the time_kernel ablation at FE_B's widths
+  (`fastenhancer.time_kernel`; configs/ablation/time_kernel_b.yaml's
+  model_kwargs).
 * `BSRNN_S`: the BSRNN baseline at C=64, 6 layers, 3.54M parameters
   (`bsrnn`; configs/others/bsrnn_s.yaml's model_kwargs).
 * `FE_T_SHARD`: FastEnhancer_T's shard training recipe
@@ -72,6 +77,39 @@ DPRNN_B: tp.Dict[str, tp.Any] = dict(
         num_blocks=3, channels=36, channels_frnn=18, freq=24, eps=1.0e-5,
         pre_norm=False,
     ),
+)
+
+LN_B: tp.Dict[str, tp.Any] = dict(
+    channels=48,
+    kernel_size=[8, 3, 3],
+    stride=4,
+    rnnformer_kwargs=dict(
+        num_blocks=3, channels=36, freq=24, num_heads=4, eps=1.0e-5,
+        positional_embedding="train", attn_bias=False, post_act=False,
+        pre_norm=False,
+    ),
+    pre_post_init="linear_fixed",
+    n_fft=512, hop_size=256, win_size=512, window="hann",
+    stft_normalized=False, mask=None, activation="SiLU",
+    activation_kwargs={"inplace": True},
+    input_compression=0.3, normalize_final_conv=True, weight_norm=True,
+    resnet=False, final_scale=True, final_scale_init="one",
+)
+
+TIME_KERNEL_B: tp.Dict[str, tp.Any] = dict(
+    channels=48,
+    stride=4,
+    rnnformer_kwargs=dict(
+        num_blocks=3, channels=36, freq=24, num_heads=4, eps=1.0e-5,
+        positional_embedding="train", attn_bias=False, post_act=False,
+        pre_norm=False,
+    ),
+    pre_post_init="linear_fixed",
+    n_fft=512, hop_size=256, win_size=512, window="hann",
+    stft_normalized=False, mask=None, activation="SiLU",
+    activation_kwargs={"inplace": True},
+    input_compression=0.3, normalize_final_conv=True, weight_norm=True,
+    final_scale=True, kernel_size_freq=[8, 3, 3], kernel_size_time=3,
 )
 
 BSRNN_S: tp.Dict[str, tp.Any] = dict(

@@ -187,7 +187,10 @@ class StreamingEngine:
                     f"expected ({self.hop},)")
             buf[slot] = wav
         x = torch.from_numpy(buf).to(device=self.device, dtype=self.dtype)
-        carry, out = self._step(self._carry, x)
+        # the outputs leave as numpy: no graph is wanted, whatever the
+        # variables' requires_grad
+        with torch.no_grad():
+            carry, out = self._step(self._carry, x)
         if _signature(carry) != self._signature:
             raise ValueError("the streaming step changed its carry "
                              "structure; StreamingEngine requires a stable "

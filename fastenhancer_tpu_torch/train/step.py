@@ -78,11 +78,18 @@ def make_train_step(model, losses: Losses, optimizer: GroupedOptimizer,
         row_mask = batch.get("row_mask")
         clean, noisy = _truncate(model, batch)
         leaves = tree_leaves(params)
+        # the leaves are tracked only while the loss is taken: the params
+        # leave the step untracked, so fold(), stream() and the serving
+        # engine build no graph on trained variables
         for p in leaves:
             p.requires_grad_(True)
-        total, per_loss, new_stats = loss_fn(params, variables["stats"],
-                                             clean, noisy, row_mask)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        try:
+            total, per_loss, new_stats = loss_fn(params, variables["stats"],
+                                                 clean, noisy, row_mask)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(leaves, grads)]
         grads, gnorm = clipper(grads)

@@ -124,6 +124,30 @@ def perturb_bn_stats(jax_variables, seed):
     return {"params": params, "stats": stats}
 
 
+def perturb_norms(params, seed):
+    """The ln ablation's params with every GroupNorm (gn, gn1, gn2) and
+    LayerNorm (ln) affine pair set to weight ~ 1 + 0.2 N(0, 1) and
+    bias ~ 0.1 N(0, 1), numpy leaves, so that the reference LayerNorm's
+    `diff + inv * weight * bias` quirk matters."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            if key in ("gn", "gn1", "gn2", "ln") \
+                    and set(tree) == {"weight", "bias"}:
+                n = np.asarray(tree["weight"]).shape
+                return {"weight": (1.0 + 0.2 * rng.standard_normal(n)
+                                   ).astype(np.float32),
+                        "bias": (0.1 * rng.standard_normal(n)
+                                 ).astype(np.float32)}
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(params)
+
+
 def check_engine_fused_matches_unfused(model, folded, atol):
     """Two CPU engines of capacity 2, fused and unfused, on one schedule: a
     and b together for 2 ticks, b leaves, c takes b's slot for 4 ticks (its

@@ -105,6 +105,57 @@ def test_fused_stream_matches_unfused_on_card(cuda_device):
     assert (y_fused - y_plain).abs().max() <= 1e-4
 
 
+def _ln_case(b, f, c, nb, dtype, device, seed):
+    """A random LN-form plan: the default form's arrays and weight * bias
+    terms of about 0.2, so that the quirky affine term matters."""
+    plan, x, h = _random_case(b, f, c, nb, dtype, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    for k in stack.LN_KEYS:
+        plan[k] = (torch.randn(nb, c, generator=g) * 0.2).to(device, dtype)
+    plan["ln_eps"] = 1e-5
+    return plan, x, h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,c,nb", [(256, 24, 36, 3), (8, 8, 8, 2),
+                                      (3, 13, 12, 2)])
+def test_ln_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb):
+    """The LN form at LN_B's block shape, the tiny test model's, and an odd
+    F with H=4, d=3; it counts as an LN launch only."""
+    plan, x, h = _ln_case(b, f, c, nb, dtype, cuda_device, seed=b + f)
+    step = stack.rnnformer_stack_step
+    before = (step.launches, step.ln_launches)
+    xo, ho = step(plan, x, h, 4)
+    torch.cuda.synchronize()
+    assert (step.launches, step.ln_launches) == (before[0], before[1] + 1)
+    xr, hr = stack.rnnformer_stack_reference(plan, x, h, 4)
+    for got, want in ((xo, xr), (ho, hr)):
+        assert got.dtype == dtype and got.device == cuda_device
+        _close(got, want, dtype)
+
+
+def test_ln_and_time_kernel_streams_match_unfused_on_card(cuda_device):
+    """The tiny ln model's stream through the LN form and the tiny
+    time_kernel model's through the default form, each against its
+    unfused path on the card in float32 (1e-4 on stream outputs)."""
+    tk = {k: v for k, v in TINY_KWARGS.items() if k != "kernel_size"}
+    wav = torch.randn(3, 64 * 12, generator=torch.Generator().manual_seed(1))
+    wav = (wav * 0.3).to(cuda_device)
+    step = stack.rnnformer_stack_step
+    for name, kw, counter in (
+            ("fastenhancer.ln", TINY_KWARGS, "ln_launches"),
+            ("fastenhancer.time_kernel", dict(tk, kernel_size_freq=[4, 3]),
+             "launches")):
+        model = get_model(name, **kw)
+        folded = model.fold(model.init(torch.Generator().manual_seed(0),
+                                       cuda_device))
+        before = getattr(step, counter)
+        y_fused = model.stream(folded, wav,
+                               fused_plan=model.build_stack_plan(folded))
+        assert getattr(step, counter) == before + 12
+        assert (y_fused - model.stream(folded, wav)).abs().max() <= 1e-4
+
+
 def _dpt_case(b, f, c, nb, lb, dtype, device, seed, written):
     """A random plan, frame and cache; slots at index >= written stay zero
     (never written)."""

@@ -216,12 +216,40 @@ def test_streaming_equals_offline():
 
 
 def test_get_model_registry():
+    from fastenhancer_tpu_torch.models.fastenhancer import (conv_stft, ln,
+                                                            time_kernel)
+
     _, tm = _models()
     m = get_model("fastenhancer.default", **TINY_KWARGS)
     assert isinstance(m, TModel) and m.block_freq == tm.block_freq
-    for name in ("fspen", "lisennet", "fastenhancer.ln"):
+    assert isinstance(get_model("fastenhancer.ln", **TINY_KWARGS), ln.Model)
+    assert isinstance(get_model("fastenhancer.conv_stft", **TINY_KWARGS),
+                      conv_stft.Model)
+    assert isinstance(get_model("fastenhancer.time_kernel", channels=12),
+                      time_kernel.Model)
+    for name in ("fspen", "lisennet", "fastenhancer.noncausal"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             get_model(name)
+
+
+def test_conv_stft_forward_matches_jax():
+    """conv_stft is the default model with the matmul-DFT front end: the
+    same tree, and its offline forward and stream agree with JAX's."""
+    from fastenhancer_tpu.models.fastenhancer.conv_stft import Model as JConv
+
+    jm = JConv(**TINY_KWARGS)
+    tm = get_model("fastenhancer.conv_stft", **TINY_KWARGS)
+    assert tm.stft_cfg.method == jm.stft_cfg.method == "matmul"
+    jv, tv = _variables(jm, 7)
+    wav = _wav(2, 7)
+    wj, sj, _ = jm.forward(jv, jnp.asarray(wav), train=False)
+    wt, st, _ = tm.forward(tv, torch.tensor(wav))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-5)
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=1e-4)
+    jf, tf = jm.fold(jv), tm.fold(tv)
+    y_j = np.asarray(jm.stream(jf, jnp.asarray(wav[:, :HOP * 8])))
+    y_t = tm.stream(tf, torch.tensor(wav[:, :HOP * 8])).numpy()
+    np.testing.assert_allclose(y_t, y_j, atol=1e-4)
 
 
 _NO_JAX = r"""
@@ -275,7 +303,19 @@ model = get_model("fastenhancer.dprnn", **dkw, dprnn_kwargs=dict(
 folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
 y = model.stream(folded, wav, fused_plan=model.build_stack_plan(folded))
 assert y.shape == wav.shape and torch.isfinite(y).all()
-from fastenhancer_tpu_torch.presets import BSRNN_S, DPRNN_B, DPT_B, FE_B
+# the ln and time_kernel models' fused streams
+for name, mkw in (("fastenhancer.ln", kw),
+                  ("fastenhancer.time_kernel",
+                   dict({k: v for k, v in kw.items() if k != "kernel_size"},
+                        kernel_size_freq=[4, 3]))):
+    model = get_model(name, **mkw)
+    folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
+    y = model.stream(folded, wav, fused_plan=model.build_stack_plan(folded))
+    assert y.shape == wav.shape and torch.isfinite(y).all()
+from fastenhancer_tpu_torch.presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B,
+                                            LN_B, TIME_KERNEL_B)
+assert get_model("fastenhancer.ln", **LN_B).block_freq == 24
+assert get_model("fastenhancer.time_kernel", **TIME_KERNEL_B).kernel_size_time == 3
 assert get_model("fastenhancer.dptransformer", **DPT_B).dpt.lookbehind == 31
 assert get_model("fastenhancer.default", **FE_B).block_freq == 24
 assert get_model("fastenhancer.dprnn", **DPRNN_B).dp.channels_frnn == 18
@@ -303,9 +343,9 @@ print("OK", len(names))
 
 def test_port_imports_no_jax():
     """Every port module imports, and the tiny model's init -> fold ->
-    fused stream, its whole-frame step, the dpt, bsrnn and dprnn models'
-    fused streams, the presets and a train step of the shard recipe's
-    wrapper run, with jax and fastenhancer_tpu blocked."""
+    fused stream, its whole-frame step, the dpt, bsrnn, dprnn, ln and
+    time_kernel models' fused streams, the presets and a train step of the
+    shard recipe's wrapper run, with jax and fastenhancer_tpu blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

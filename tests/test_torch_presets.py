@@ -25,6 +25,9 @@ def test_fe_b_is_the_flagship():
 @pytest.mark.parametrize("name,config,model", [
     ("DPT_B", "ablation/dpt_b.yaml", "fastenhancer.dptransformer"),
     ("DPRNN_B", "ablation/dprnn_b.yaml", "fastenhancer.dprnn"),
+    ("LN_B", "ablation/ln_b.yaml", "fastenhancer.ln"),
+    ("TIME_KERNEL_B", "ablation/time_kernel_b.yaml",
+     "fastenhancer.time_kernel"),
     ("BSRNN_S", "others/bsrnn_s.yaml", "bsrnn")])
 def test_preset_is_its_config(name, config, model):
     hps = get_hparams(os.path.join(REPO, "configs", *config.split("/")),

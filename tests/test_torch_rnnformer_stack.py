@@ -1,8 +1,9 @@
 """The block-stack op (fastenhancer_tpu_torch/ops/rnnformer_stack.py).
 
-The plan and the plain version against the JAX package's Pallas kernel
-(interpret mode) and its `_block_apply` loop. The CUDA kernel itself is
-tested on the card by tests/test_torch_cuda_kernels.py.
+The plan and the plain version, in the folded default form and the ln
+ablation's LN form, against the JAX package's Pallas kernel (interpret
+mode) and its `_block_apply` loop. The CUDA kernel itself is tested on the
+card by tests/test_torch_cuda_kernels.py.
 
 Tolerances: float32 1e-5 absolute (dot products of <= 48 terms on values of
 order 1-10); bfloat16 vs the Pallas kernel: 2^-5 of the largest magnitude,
@@ -16,11 +17,13 @@ import jax.numpy as jnp
 import torch
 
 from fastenhancer_tpu.models.fastenhancer.default import Model as JModel
+from fastenhancer_tpu.models.fastenhancer.ln import Model as JLnModel
 from fastenhancer_tpu.ops import rnnformer_stack as jstack
 from fastenhancer_tpu_torch.models.fastenhancer.default import Model as TModel
+from fastenhancer_tpu_torch.models.fastenhancer.ln import Model as TLnModel
 from fastenhancer_tpu_torch.ops import rnnformer_stack as tstack
 
-from _torch_parity import TINY_KWARGS, as_np, port_variables
+from _torch_parity import TINY_KWARGS, as_np, perturb_norms, port_variables
 
 ATOL = 1e-5
 
@@ -183,3 +186,103 @@ def test_shared_memory_fits_fastenhancer_shapes():
     for f, c in ((16, 20), (24, 36), (36, 48), (48, 64), (64, 72)):
         assert tstack.smem_bytes(f, c, 4) <= tstack.MAX_SMEM_BYTES
     assert tstack.smem_bytes(256, 64, 4) > tstack.MAX_SMEM_BYTES
+
+
+# -- the LN form (the ln ablation's plan, plan_stack(..., ln_eps=...)) ------
+
+def _ln_case(freq, seed, b):
+    """The tiny ln model at block frequency `freq`, folded, with
+    non-trivial LayerNorm affine params; JAX's and the port's folded
+    variables and a random frame and carry."""
+    kw = dict(TINY_KWARGS)
+    kw["rnnformer_kwargs"] = dict(kw["rnnformer_kwargs"], freq=freq)
+    jm, tm = JLnModel(**kw), TLnModel(**kw)
+    jv = jm.init(jax.random.PRNGKey(seed))
+    jv = {"params": perturb_norms(jv["params"], seed), "stats": jv["stats"]}
+    jf = jm.fold(jax.tree.map(jnp.asarray, jv))
+    x, h = _inputs(jm, b, seed)
+    return jm, tm, jf, port_variables(jf), x, h
+
+
+def test_ln_plan_matches_jax_plan():
+    """wb_fc and wb_afc are JAX's weight * bias (taken in float32, then
+    cast), eps a float, and the rest the default plan; no frequency mask."""
+    jm, tm, jf, tf, _, _ = _ln_case(10, 0, 1)
+    for dtype, jdtype in ((None, None), (torch.bfloat16, jnp.bfloat16)):
+        jp = jstack.plan_stack(jf["params"]["rf_blocks"], jm.block_freq,
+                               jm.rf.num_heads, dtype=jdtype, ln_eps=jm.rf.eps)
+        plan = tm.build_stack_plan(tf, dtype=dtype)
+        assert set(plan) == set(tstack.PLAN_KEYS + tstack.LN_KEYS) | {
+            "ln_eps"}
+        assert isinstance(plan["ln_eps"], float)
+        assert np.float32(plan["ln_eps"]) == np.asarray(jp["ln_eps"])[0, 0]
+        for key in tstack.LN_KEYS:
+            assert plan[key].shape == (jm.num_blocks, jm.block_channels)
+            np.testing.assert_array_equal(as_np(plan[key]),
+                                          np.asarray(jp[key], np.float32)[:, 0])
+        np.testing.assert_array_equal(as_np(plan["w_fc"]),
+                                      np.asarray(jp["w_fc"], np.float32))
+
+
+@pytest.mark.parametrize("freq", [8, 10])
+def test_ln_plain_stack_matches_pallas(freq):
+    """float32, 1e-5: the LN form's plain version against the Pallas
+    kernel's stack_math(ln=True) in interpret mode. At F'=10 the Pallas
+    kernel pads the rows to 16 and keeps them out of the LayerNorm
+    statistics (fmask); the port has no padding."""
+    jm, tm, jf, tf, x, h = _ln_case(freq, 1, 3)
+    jp = jstack.plan_stack(jf["params"]["rf_blocks"], freq, jm.rf.num_heads,
+                           ln_eps=jm.rf.eps)
+    xo_j, ho_j = jstack.rnnformer_stack_step(jp, jnp.asarray(x),
+                                             jnp.asarray(h), jm.rf.num_heads,
+                                             interpret=True)
+    plan = tm.build_stack_plan(tf)
+    xo_t, ho_t = tstack.rnnformer_stack_step(plan, torch.tensor(x),
+                                             torch.tensor(h), tm.rf.num_heads)
+    np.testing.assert_allclose(xo_t.numpy(), np.asarray(xo_j), atol=ATOL)
+    np.testing.assert_allclose(ho_t.numpy(), np.asarray(ho_j), atol=ATOL)
+
+
+def test_ln_plain_stack_bf16_cast_points_match_pallas():
+    """bf16 activations and plan: the fc output, the LayerNorm's output and
+    the residual sum are rounded where the Pallas kernel rounds them.
+    Tolerance 2^-5 of the largest magnitude, as for the default form."""
+    jm, tm, jf, tf, x, h = _ln_case(8, 2, 4)
+    jp = jstack.plan_stack(jf["params"]["rf_blocks"], jm.block_freq,
+                           jm.rf.num_heads, dtype=jnp.bfloat16,
+                           ln_eps=jm.rf.eps)
+    xo_j, ho_j = jstack.rnnformer_stack_step(
+        jp, jnp.asarray(x, jnp.bfloat16), jnp.asarray(h, jnp.bfloat16),
+        jm.rf.num_heads, interpret=True)
+    plan = tm.build_stack_plan(tf, dtype=torch.bfloat16)
+    xo_t, ho_t = tstack.rnnformer_stack_reference(
+        plan, torch.tensor(x).bfloat16(), torch.tensor(h).bfloat16(),
+        tm.rf.num_heads)
+    assert xo_t.dtype == ho_t.dtype == torch.bfloat16
+    for got, want in ((xo_t, xo_j), (ho_t, ho_j)):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(as_np(got), want,
+                                   atol=2.0 ** -5 * np.abs(want).max())
+
+
+def test_ln_wrapper_cpu_path_and_checks():
+    """A CPU tensor takes the plain version and counts no launch of either
+    form; an LN plan without its float eps, or with a wb of the wrong
+    shape, raises."""
+    _, tm, _, tf, x, h = _ln_case(8, 3, 2)
+    plan = tm.build_stack_plan(tf)
+    x, h = torch.tensor(x), torch.tensor(h)
+    step = tstack.rnnformer_stack_step
+    before = (step.launches, step.ln_launches)
+    got = step(plan, x, h, tm.rf.num_heads)
+    want = tstack.rnnformer_stack_reference(plan, x, h, tm.rf.num_heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (step.launches, step.ln_launches) == before
+    with pytest.raises(ValueError, match="ln_eps"):
+        step({k: v for k, v in plan.items() if k != "ln_eps"}, x, h,
+             tm.rf.num_heads)
+    with pytest.raises(ValueError, match="ln_eps"):
+        step(dict(plan, ln_eps=torch.tensor(1e-5)), x, h, tm.rf.num_heads)
+    with pytest.raises(ValueError, match="wb_afc"):
+        step(dict(plan, wb_afc=plan["wb_afc"][:, 1:].contiguous()), x, h,
+             tm.rf.num_heads)

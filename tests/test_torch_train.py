@@ -39,11 +39,13 @@ from fastenhancer_tpu_torch.optim import get_optimizer, get_scheduler
 from fastenhancer_tpu_torch.presets import FE_T_SHARD
 from fastenhancer_tpu_torch.train import (make_clipper, make_infer_fn,
                                           make_train_step, make_valid_step)
-from fastenhancer_tpu_torch.utils import tree_paths
+from fastenhancer_tpu_torch.serving import StreamingEngine
+from fastenhancer_tpu_torch.utils import tree_leaves, tree_paths
 from fastenhancer_tpu_torch.wrappers import get_wrapper
 
 from _torch_parity import (TINY_KWARGS, assert_trees_close, flatten_paths,
-                           port_variables, real_triton_only,  # noqa: F401
+                           perturb_bn_stats, port_variables,
+                           real_triton_only,  # noqa: F401
                            to_np_tree)
 
 pytestmark = pytest.mark.usefixtures("real_triton_only")
@@ -214,6 +216,65 @@ def test_valid_step_and_infer_match_jax():
     wav = make_infer_fn(tm)(tv, torch.from_numpy(batch["noisy"]))
     wj, _, _ = jm.forward(jv, jnp.asarray(batch["noisy"]))
     np.testing.assert_allclose(wav.numpy(), np.asarray(wj), atol=1e-4)
+
+
+def test_valid_step_bf16_matches_jax():
+    """bfloat16 compute over float32 variables: the port's valid step against
+    JAX's on the same variables (random BN statistics) and batch (a padded
+    row masked out). The two round to bfloat16 at different points (the
+    port's eval time GRU keeps its state in float32 over the frames, JAX's
+    rounds it every step), so the losses, means over thousands of bf16
+    values, differ by a small fraction of a bf16 unit roundoff (2^-9):
+    measured at most 6.5e-5 relative here (1.4e-4 over seeds 3-7, FE-T at
+    4 x 1 s up to 1.2e-4). Tolerance: rtol 5e-4 on every loss. The control,
+    the port's valid step in float32 (compute_dtype ignored), is off by
+    2.9e-3 on this seed (at least 1.2e-3 over seeds 3-7), so the test
+    also asserts that the float32 step fails the same limit."""
+    hp = _hp_train()
+    jm, tm = _models()
+    jv = jax.tree.map(jnp.asarray,
+                      perturb_bn_stats(jm.init(jax.random.PRNGKey(3)), 3))
+    tv = port_variables(jv)
+    batch = dict(_batch(3, rows=4, frames=16),
+                 row_mask=np.array([1, 1, 1, 0], np.float32))
+    want = jmake_valid_step(jm, JLosses(hp["losses"]),
+                            compute_dtype=jnp.bfloat16)(
+        jv, {k: jnp.asarray(v) for k, v in batch.items()})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    got = make_valid_step(tm, Losses(hp["losses"]),
+                          compute_dtype=torch.bfloat16)(tv, tb)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == torch.float32, k
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=5e-4,
+                                   err_msg=k)
+    f32 = make_valid_step(tm, Losses(hp["losses"]))(tv, tb)
+    assert max(abs(float(f32[k]) / float(want[k]) - 1) for k in want) > 5e-4
+
+
+def test_trained_variables_serve_untracked():
+    """After a train epoch the wrapper's params leave untracked, and so do
+    fold()'s outputs: the engine serves them and stream() builds no
+    graph."""
+    hps = copy.deepcopy(FE_T_SHARD)
+    hps["model_kwargs"] = dict(TINY_KWARGS)
+    hps["train"].update(fp16=False, test=True)
+    wrapper = get_wrapper("ns")(hps, train=True, device="cpu")
+    wrapper.train_epoch([_batch(8, pad_last=False)])
+    variables = wrapper.state["variables"]
+    assert not any(t.requires_grad for t in tree_leaves(variables))
+    model = wrapper.model
+    folded = model.fold(variables)
+    assert not any(t.requires_grad for t in tree_leaves(folded))
+    wav = torch.from_numpy(_batch(9, rows=2, pad_last=False)["noisy"])
+    for plan in (None, model.build_stack_plan(folded)):
+        y = model.stream(folded, wav, fused_plan=plan)
+        assert not y.requires_grad and torch.isfinite(y).all()
+    engine = StreamingEngine(model, folded, capacity=2, fused=True,
+                             device="cpu")
+    h = engine.open_stream()
+    out = engine.tick({h: wav[0, :HOP].numpy()})[h]
+    assert out.shape == (HOP,) and np.isfinite(out).all()
 
 
 def test_nonfinite_step_keeps_the_state():

@@ -11,7 +11,10 @@ each printed on its own line:
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for the float32 checks;
   2. build: every kernel compiled from this checkout with nvcc, one nvcc
-     process per source, all at once;
+     process per source, all at once, with `-Xptxas -v`; the registers,
+     static shared memory and spills of the block stack's and the whole
+     frame's instantiations (the bfloat16 tensor-core forms and the
+     float32 forms) are printed;
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
      FastEnhancer T/B/S shapes, the block stack's LN form at LN_B's shape
@@ -21,8 +24,8 @@ each printed on its own line:
      shapes, segmental RMS with silent, half-quiet and short rows and the
      absolute floor on and off, the GRU scan at H=20 and 36, T=13 and 126,
      ragged N, with and without h0), and each timed with CUDA events beside
-     its plain version and its bound (the stacks, LN form included, at
-     B=256 bfloat16,
+     its plain version and its bound, with the bound's share of the
+     kernel's time (the stacks, LN form included, at B=256 bfloat16,
      segmental RMS at the shard recipe's [32, 64000] float32 train batch,
      the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
      cuDNN's GRU as the library yardstick);
@@ -113,6 +116,43 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
+# the block stack's and the whole frame's kernel instantiations, as their
+# mangled names show them in ptxas's report
+PTXAS_KERNELS = {
+    "rnnformer_stack_tc_kernelILb0E": "rnnformer_stack bf16 (tensor cores)",
+    "rnnformer_stack_tc_kernelILb1E": "rnnformer_stack bf16 LN form "
+                                      "(tensor cores)",
+    "rnnformer_stack_kernelIfLb0E": "rnnformer_stack f32",
+    "rnnformer_stack_kernelIfLb1E": "rnnformer_stack f32 LN form",
+    "fused_frame_tc_kernel": "fused_frame bf16 (tensor cores)",
+    "fused_frame_kernelIfE": "fused_frame f32"}
+
+
+def ptxas_summary(reports):
+    """{label: registers, static smem and spill bytes} of each kernel in
+    PTXAS_KERNELS, from `nvcc -Xptxas -v` reports."""
+    def number_before(text, phrase):
+        head, found, _ = text.partition(phrase)
+        return int(head.split()[-1]) if found else None
+
+    out = {}
+    for text in reports.values():
+        for part in text.split("Compiling entry function '")[1:]:
+            name = part.split("'", 1)[0]
+            label = next((v for k, v in PTXAS_KERNELS.items() if k in name),
+                         None)
+            if label is None:
+                continue
+            used = part.partition("Used ")[2]
+            out[label] = dict(
+                registers=int(used.split()[0]) if used else None,
+                smem=number_before(used.partition("\n")[0], " bytes smem")
+                or 0,
+                spill_stores=number_before(part, " bytes spill stores"),
+                spill_loads=number_before(part, " bytes spill loads"))
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -187,6 +227,10 @@ def main():
     _build.build_all(names, verbose=True)
     print(f"[2/15] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
+    for label, info in ptxas_summary(_build.REPORTS).items():
+        print(f"[2/15] ptxas {label}: {info['registers']} registers, "
+              f"{info['smem']} bytes static smem, spill stores "
+              f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
     # -- 3. kernels against their plain versions ------------------------------------
     def time_ms(fn, reps=7, inner=20):
@@ -633,7 +677,9 @@ def main():
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
-              f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}; "
+              f"{1e3 * r['bound_ms']:.3f} us, "
+              f"{100 * r['bound_ms'] / r['ms']:.2f}% of the kernel's time "
+              f"({r['bound_by']}; "
               f"{r['flops'] / 1e9:.4f} GFLOP, {r['bytes'] / 1e6:.4f} MB); "
               "with the "
               f"host's dispatch: kernel {r['host_ms']:.4f} ms, plain "

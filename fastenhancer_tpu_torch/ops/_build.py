@@ -12,7 +12,8 @@ default location).
 
 Every source exports `<name>_f32`, `<name>_bf16` (each returning the
 launch's cudaError_t) and `<name>_error_string`; `entry` binds the first
-two and `check_launch` raises with the third.
+two and `check_launch` raises with the third. `function` binds any other
+export (the bfloat16 forms' shared memory sizes).
 """
 from __future__ import annotations
 
@@ -41,7 +42,9 @@ DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_SMEM_BYTES = 232_448
 
 _LIBRARIES: tp.Dict[str, ctypes.CDLL] = {}
-_ENTRIES: tp.Dict[tp.Tuple[str, torch.dtype], tp.Callable[..., int]] = {}
+# what nvcc reported for each source at its last verbose build (ptxas -v)
+REPORTS: tp.Dict[str, str] = {}
+_ENTRIES: tp.Dict[tp.Tuple[str, tp.Any], tp.Callable[..., tp.Any]] = {}
 
 
 def find_nvcc() -> str:
@@ -74,8 +77,9 @@ def build_all(names: tp.Sequence[str], verbose: bool = False
               ) -> tp.Dict[str, pathlib.Path]:
     """Compile csrc/<name>.cu for every name whose library is not built
     yet, all nvcc processes at once; returns {name: library path}.
-    verbose=True rebuilds, adds `-Xptxas -v` and prints what nvcc reports
-    (registers, shared memory and spills per kernel)."""
+    verbose=True rebuilds, adds `-Xptxas -v`, prints what nvcc reports
+    (registers, shared memory and spills per kernel) and keeps it in
+    REPORTS."""
     outs = {name: _library_path(name) for name in names}
     todo = [n for n in names if verbose or not outs[n].exists()]
     if not todo:
@@ -100,6 +104,7 @@ def build_all(names: tp.Sequence[str], verbose: bool = False
             continue
         os.replace(tmp, outs[name])
         if verbose:
+            REPORTS[name] = err
             print(f"[build] {name}.cu -> {outs[name].name} "
                   f"({time.perf_counter() - t0:.1f} s since the start)\n"
                   f"{err.strip()}")
@@ -137,6 +142,19 @@ def entry(name: str, dtype: torch.dtype,
         fn.restype = ctypes.c_int
         fn.argtypes = list(argtypes)
         _ENTRIES[(name, dtype)] = fn
+    return fn
+
+
+def function(name: str, symbol: str, restype: tp.Any,
+             argtypes: tp.Sequence[tp.Any]) -> tp.Callable[..., tp.Any]:
+    """Another C function `symbol` of csrc/<name>.cu (a size query), with
+    its ctypes signature declared once."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        _ENTRIES[(name, symbol)] = fn
     return fn
 
 

@@ -25,24 +25,50 @@
 // one frame is about 2.1 GFLOP (the stack is 0.6 of it) over about 1.9 MB
 // of inputs, carries and outputs: a few microseconds of the card at its
 // peak rates. The frame is latency-bound: dozens of dependent phases, each
-// a small matrix product. The PyTorch path around the stack kernel spends
-// about 80 launches on these phases, each with its own host dispatch; this
-// kernel spends one. Its design: one thread block per stream, every
-// activation of that stream in shared memory for the whole frame (the
-// input frame, the n_enc + 1 encoder skips, two work buffers and the
-// stack's buffers: about 93 KB at FE_B in float32, so two streams per SM),
-// and nothing but the input frame, the carries and the mask touching
-// device memory. The weights are read from global memory, where L1/L2 keep
-// them. Tensor cores (wgmma), TMA, weight staging in shared memory and
-// several streams per thread block are left to later work.
+// a small matrix product over 24 or 64 rows. The PyTorch path around the
+// stack kernel spends about 80 launches on these phases, each with its own
+// host dispatch; this kernel spends one. One thread block per stream keeps
+// every activation of that stream in shared memory for the whole frame
+// (the input frame, the n_enc + 1 encoder skips, two work tiles and the
+// stack's tiles), and nothing but the input frame, the carries and the
+// mask touches device memory.
+//
+// Two forms. The float32 form (fused_frame_kernel<float>, the card's
+// correctness reference) runs every product as a scalar float32 FMA chain,
+// one output per thread, its weights read from global memory (L1/L2). The
+// bfloat16 form (fused_frame_tc_kernel, the served type) runs every
+// product on the tensor cores (mma.sync m16n8k16, mma_common.cuh): PreNet
+// as a 2-tap product over the strided frame, each k-tap conv as k products
+// over row-shifted tiles (the halo rows come from a chunk of zeros), each
+// skip concat as two K segments, each frequency resample with its weight
+// as a transposed A, the stack as stack_tc.cuh. Activations are bf16 tiles,
+// and the frame is one run of 22 weight stages at FE_B (run_stages): each
+// stage's arrays arrive by bulk copy while the stage before computes, then
+// move into a slot with padded rows (91,056 bytes of shared memory a stream
+// at FE_B, 2 streams per SM). Only the ConvTranspose phases (under 0.1 M
+// MACs a stream) stay scalar, and the mask stays float32 until it is
+// stored.
+// What still bounds the bf16 form (python -m
+// fastenhancer_tpu_torch.phase_profile): the chain of barrier-separated
+// stages, each a few hundred cycles of ldmatrix/mma latency per output tile
+// over 8 warps (about half the cycles), plus per stage the move into the
+// padded slot and the start of the next stage's copies (about a third),
+// and the attention. Under __launch_bounds__(256, 2) the kernel is capped
+// at 128 registers and spills a little (ptxas: some 50-100 bytes stored a
+// thread): the stack's code alone takes 110-128 of them. One stream per
+// block: 256 streams fill 132 SMs at 2 blocks each in one wave (packing 2
+// streams into a block was not tried).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
+#include "mma_common.cuh"
 #include "stack_common.cuh"
+#include "stack_tc.cuh"
 
 namespace {
 
@@ -293,12 +319,348 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* h, void* mask_out, void* h_out,
-           const void* const* frame, int n_frame, const void* const* stack,
-           const int* dims, int n_dims, void* stream) {
-  FrameDims dm{};
-  if (n_dims < 11) return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// The bfloat16 form on the tensor cores (mma_common.cuh, stack_tc.cuh)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using fe::tc::AOp;
+using fe::tc::ATOp;
+using fe::tc::BOp;
+using fe::tc::bf;
+using fe::tc::gemm;
+using fe::tc::ld_of;
+using fe::tc::mma_tiles;
+using fe::tc::rnd;
+using fe::tc::round8;
+using fe::tc::silu_r;
+using fe::tc::stage_rows;
+
+// a[i] with constant indices only: a kernel parameter array indexed at run
+// time is copied to local memory first, by every thread.
+template <typename P>
+__device__ __forceinline__ P pick(const P (&a)[kMaxEnc], int i) {
+  P r = a[0];
+#pragma unroll
+  for (int j = 1; j < kMaxEnc; ++j) {
+    if (i == j) r = a[j];
+  }
+  return r;
+}
+
+// Sizes, in bf16 elements, of the bf16 frame's shared memory: a chunk of
+// zeros and the stages' mbarrier, the input frame, the n_enc + 1 skips
+// [F_enc, C], two work tiles [max(F_enc, F'), max(C, C')], the stack's
+// activations, the weight slot (padded rows) and the staging buffer
+// (packed), each as large as the largest stage.
+struct FrameGeom {
+  int ldx, ldc, ldw, xin, skip, work, slot, staging;
+  fe::tc::StackGeom st;
+  explicit FrameGeom(const FrameDims& d)
+      : st(d.block_freq, d.block_ch, d.heads) {
+    const int c = d.ch, c2 = d.block_ch, s2 = 2 * d.stride;
+    const int fe_ = d.f_enc, f2 = d.block_freq;
+    const int rows_w = fe_ > f2 ? fe_ : f2;
+    ldx = ld_of(s2);
+    ldc = ld_of(c);
+    ldw = ld_of(c > c2 ? c : c2);
+    xin = (fe_ + 1) * ldx;
+    skip = fe_ * ldc;
+    work = rows_w * ldw;
+    int kmax = 1;
+    for (int i = 0; i < d.n_enc; ++i) {
+      kmax = d.enc_ks[i] > kmax ? d.enc_ks[i] : kmax;
+    }
+    const int b = round8(c);
+    const int slots[] = {
+        st.slot(),
+        2 * s2 * ldc + b,                                    // PreNet
+        kmax * c * ldc + b,                                  // k-tap convs
+        fe_ * ld_of(f2) + c * ld_of(c2) + round8(c2),        // rf_pre
+        f2 * ld_of(fe_) + c2 * ldc + b,                      // rf_post
+        2 * c * ldc + b};                                    // skip sums
+    const int packed[] = {
+        st.staging(),
+        round8(2 * s2 * c) + b,
+        round8(kmax * c * c) + b,
+        round8(fe_ * f2) + round8(c * c2) + round8(c2),
+        round8(f2 * fe_) + round8(c2 * c) + b,
+        2 * round8(c * c) + b};
+    slot = staging = 0;
+    for (int v : slots) slot = v > slot ? v : slot;
+    for (int v : packed) staging = v > staging ? v : staging;
+  }
+  size_t elems(int n_enc) const {
+    return 16 + static_cast<size_t>(xin) +
+           (n_enc + 1) * static_cast<size_t>(skip) +
+           2 * static_cast<size_t>(work) + static_cast<size_t>(st.act()) +
+           slot + staging;
+  }
+};
+
+// The frame as fused_frame_kernel computes it, with every product on the
+// tensor cores, as one run of weight stages (PreNet, the n_enc encoder
+// convs, rf_pre, the stack's 4 * NB, rf_post, per decoder unit its skip sum
+// and its conv, dec_post; run_stages inlines each piece of code once). The
+// ConvTranspose phases stay scalar.
+__global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
+    fused_frame_tc_kernel(const bf16* __restrict__ x, const bf16* h,
+                          bf16* __restrict__ mask_out, bf16* h_out,
+                          FramePlan<bf16> p, StackPlan<bf16> sp, FrameDims dm,
+                          FrameGeom geo, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int b = blockIdx.x;
+  const int c = dm.ch, c2 = dm.block_ch, fe_ = dm.f_enc, f2 = dm.block_freq;
+  const int s2 = 2 * dm.stride, n_enc = dm.n_enc;
+  const int ldc = geo.ldc, ldw = geo.ldw;
+  const fe::tc::StackGeom& g = geo.st;
+  bf16* zero = reinterpret_cast<bf16*>(smem_tc);
+  auto* bar = reinterpret_cast<uint64_t*>(smem_tc + 16);
+  bf16* xin = zero + 16;                  // [F_enc+1, 2s]
+  bf16* skips = xin + geo.xin;            // n_enc+1 x [F_enc, C]
+  bf16* buf_a = skips + (n_enc + 1) * geo.skip;
+  bf16* buf_b = buf_a + geo.work;
+  bf16* st = buf_b + geo.work;            // the stack's tiles, x first
+  bf16* slot = st + g.act();
+  bf16* staging = slot + geo.slot;
+  if (threadIdx.x < 8) zero[threadIdx.x] = __float2bfloat16_rn(0.f);
+  fe::tc::stack_init(st, g);
+  if (threadIdx.x == 0) {
+    fe::tc::mbar_init(bar);
+    fe::tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int s_stack = n_enc + 2;               // first stage of the stack
+  const int s_post = s_stack + 4 * dm.nblocks;  // rf_post
+  const int stages = s_post + 2 + 2 * n_enc;
+  const auto pieces = [&](int s, auto& v) {
+    if (s == 0) {
+      v.mat(p.w_enc_pre, 2 * s2, c);
+      v.vec(p.b_enc_pre, c);
+    } else if (s <= n_enc) {
+      v.mat(pick(p.w_enc, s - 1), pick(dm.enc_ks, s - 1) * c, c);
+      v.vec(pick(p.b_enc, s - 1), c);
+    } else if (s == n_enc + 1) {
+      v.mat(p.w_rf_pre_lin, fe_, f2);
+      v.mat(p.w_rf_pre, c, c2);
+      v.vec(p.b_rf_pre, c2);
+    } else if (s < s_post) {
+      fe::tc::stack_pieces(s - s_stack, v, sp, nullptr, nullptr, g);
+    } else if (s == s_post) {
+      v.mat(p.w_rf_post_lin, f2, fe_);
+      v.mat(p.w_rf_post, c2, c);
+      v.vec(p.b_rf_post, c);
+    } else {
+      const int u = s - s_post - 1;  // 2i: skip sum i, 2i+1: conv i
+      const int i = u >> 1;
+      if (i == n_enc) {
+        v.mat(p.w_post_x, c, c);
+        v.mat(p.w_post_s, c, c);
+        v.vec(p.b_post, c);
+      } else if ((u & 1) == 0) {
+        v.mat(pick(p.w_dec_x, i), c, c);
+        v.mat(pick(p.w_dec_s, i), c, c);
+        v.vec(pick(p.b_dec_1, i), c);
+      } else {
+        v.mat(pick(p.w_dec_2, i), pick(dm.enc_ks, n_enc - 1 - i) * c, c);
+        v.vec(pick(p.b_dec_2, i), c);
+      }
+    }
+  };
+  const auto side = [&](int s) {
+    if (s == 0) {
+      stage_rows(xin, geo.ldx, x + static_cast<size_t>(b) * (fe_ + 1) * s2,
+                 fe_ + 1, s2);
+    } else if (s >= s_stack && s < s_post) {
+      fe::tc::stack_side(s - s_stack, h, st + g.tile(), b, dm.batch, g);
+    }
+  };
+
+  // out = silu(k-tap same-padded conv of `in` ([F_enc, C], stride ld_in)
+  // with the taps in slot w); with res, round(that + out) (in place)
+  const auto conv = [&](const bf16* in, int ld_in, const bf16* w, int k,
+                        bf16* out, int ld_out, bool res) {
+    const int pad = (k - 1) / 2;
+    const bf16* bias = w + k * c * ldc;
+    gemm(
+        1, fe_, c,
+        [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+          for (int j = 0; j < k; ++j) {
+            mma_tiles(acc, AOp{in, ld_in, fe_, c, j - pad},
+                     BOp{w + j * c * ldc, ldc, c}, m0, n0, cnt, zero);
+          }
+        },
+        [&](int, int r, int j, float v) {
+          const float y = silu_r(v + bf(bias[j]));
+          bf16& o = out[r * ld_out + j];
+          o = __float2bfloat16_rn(res ? y + bf(o) : y);
+        });
+  };
+  // out = silu(a . W_x + s . W_s + b): a skip concat and a 1x1 conv
+  const auto skip_sum = [&](const bf16* a, int ld_a, const bf16* s,
+                            const bf16* w, bf16* out) {
+    const bf16* bias = w + 2 * c * ldc;
+    gemm(
+        1, fe_, c,
+        [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+          mma_tiles(acc, AOp{a, ld_a, fe_, c, 0}, BOp{w, ldc, c}, m0, n0, cnt,
+                   zero);
+          mma_tiles(acc, AOp{s, ldc, fe_, c, 0}, BOp{w + c * ldc, ldc, c}, m0,
+                   n0, cnt, zero);
+        },
+        [&](int, int r, int j, float v) {
+          out[r * ldw + j] = __float2bfloat16_rn(silu_r(v + bf(bias[j])));
+        });
+  };
+
+  const bf16* cur = skips;  // the encoder's running output
+  int ld_cur = ldc;
+  const auto compute = [&](int s, const bf16* w) {
+    if (s == 0) {
+      // --- PreNet: 2-tap valid conv over the strided-reshaped frame ---
+      const bf16* bias = w + 2 * s2 * ldc;
+      gemm(
+          1, fe_, c,
+          [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+            for (int j = 0; j < 2; ++j) {
+              mma_tiles(acc, AOp{xin, geo.ldx, fe_ + 1, s2, j},
+                       BOp{w + j * s2 * ldc, ldc, s2}, m0, n0, cnt, zero);
+            }
+          },
+          [&](int, int r, int j, float v) {
+            skips[r * ldc + j] = __float2bfloat16_rn(silu_r(v + bf(bias[j])));
+          });
+    } else if (s <= n_enc) {
+      // --- encoder conv s-1 into skips[s] (+ the residual into buf_a) ---
+      bf16* out = skips + s * geo.skip;
+      conv(cur, ld_cur, w, pick(dm.enc_ks, s - 1), out, ldc, false);
+      if (dm.resnet) {
+        __syncthreads();
+        for (int e = threadIdx.x; e < fe_ * c; e += blockDim.x) {
+          const int r = e / c, j = e - r * c;
+          buf_a[r * ldw + j] = __float2bfloat16_rn(
+              bf(out[r * ldc + j]) + bf(cur[r * ld_cur + j]));
+        }
+        cur = buf_a;
+        ld_cur = ldw;
+      } else {
+        cur = out;
+      }
+    } else if (s == n_enc + 1) {
+      // --- rf_pre: resample F_enc -> F' into buf_b, 1x1 conv into x ---
+      const bf16* wc = w + fe_ * ld_of(f2);
+      const bf16* bias = wc + c * g.ldc;
+      gemm(
+          1, f2, c,
+          [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+            mma_tiles(acc, ATOp{w, ld_of(f2), f2, fe_}, BOp{cur, ld_cur, fe_},
+                     m0, n0, cnt, zero);
+          },
+          [&](int, int r, int j, float v) {
+            buf_b[r * ldw + j] = __float2bfloat16_rn(v);
+          });
+      __syncthreads();
+      gemm(
+          1, f2, c2,
+          [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+            mma_tiles(acc, AOp{buf_b, ldw, f2, c, 0}, BOp{wc, g.ldc, c}, m0,
+                     n0, cnt, zero);
+          },
+          [&](int, int r, int j, float v) {
+            st[r * g.ldc + j] = __float2bfloat16_rn(v + bf(bias[j]));
+          });
+    } else if (s < s_post) {
+      fe::tc::stack_stage<false>(s - s_stack, w, st, h_out, b, dm.batch, g,
+                                 0.f, zero);
+    } else if (s == s_post) {
+      // --- rf_post: resample F' -> F_enc into buf_b, 1x1 conv into buf_a;
+      // with resnet the residual is buf_a itself (the encoder's last sum)
+      const bf16* wc = w + f2 * ld_of(fe_);
+      const bf16* bias = wc + c2 * ldc;
+      gemm(
+          1, fe_, c2,
+          [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+            mma_tiles(acc, ATOp{w, ld_of(fe_), fe_, f2}, BOp{st, g.ldc, f2},
+                     m0, n0, cnt, zero);
+          },
+          [&](int, int r, int j, float v) {
+            buf_b[r * ldw + j] = __float2bfloat16_rn(v);
+          });
+      __syncthreads();
+      gemm(
+          1, fe_, c,
+          [&](int, float (&acc)[fe::tc::kMaxNT][4], int m0,
+              int n0, int cnt) {
+            mma_tiles(acc, AOp{buf_b, ldw, fe_, c2, 0}, BOp{wc, ldc, c2}, m0,
+                     n0, cnt, zero);
+          },
+          [&](int, int r, int j, float v) {
+            const float y = rnd(v + bf(bias[j]));
+            buf_a[r * ldw + j] = __float2bfloat16_rn(
+                dm.resnet ? y + bf(buf_a[r * ldw + j]) : y);
+          });
+    } else {
+      const int u = s - s_post - 1;
+      const int i = u >> 1;
+      if (i == n_enc) {
+        // --- dec_post: skip sum (the PreNet output) + SiLU into buf_b ---
+        skip_sum(buf_a, ldw, skips, w, buf_b);
+      } else if ((u & 1) == 0) {
+        // --- decoder unit i: skip sum + SiLU into buf_b ---
+        skip_sum(buf_a, ldw, skips + (n_enc - i) * geo.skip, w, buf_b);
+      } else {
+        // --- then its k-tap conv + SiLU into buf_a ---
+        conv(buf_b, ldw, w, pick(dm.enc_ks, n_enc - 1 - i), buf_a, ldw,
+             dm.resnet != 0);
+      }
+    }
+  };
+  fe::tc::run_stages(
+      stages, staging, slot, bar, pieces, side,
+      [&](int s) {
+        if (s >= s_stack && s < s_post) {
+          fe::tc::stack_pre_stage(s - s_stack, st, g, scale, zero);
+        }
+      },
+      compute);
+
+  // --- ConvTranspose phases + bias + mask: out[f, r*2 + o] ---
+  const int half = dm.stride / 2;
+  for (int e = threadIdx.x; e < fe_ * s2; e += blockDim.x) {
+    const int f = e / s2;
+    const int ro = e - f * s2;
+    const int r = ro / 2;
+    const int o = ro - r * 2;
+    const int other = r < half ? f - 1 : f + 1;
+    const bf16* wa = p.w_convt_a + static_cast<size_t>(r) * c * 2 + o;
+    const bf16* wb = p.w_convt_b + static_cast<size_t>(r) * c * 2 + o;
+    const bf16* y = buf_b + f * ldw;
+    float acc = bf(p.b_convt[ro]);
+    for (int j = 0; j < c; ++j) acc = fmaf(bf(y[j]), bf(wa[2 * j]), acc);
+    if (other >= 0 && other < fe_) {
+      const bf16* yo = buf_b + other * ldw;
+      for (int j = 0; j < c; ++j) acc = fmaf(bf(yo[j]), bf(wb[2 * j]), acc);
+    }
+    if (dm.mask == 1) {
+      acc = sigmoid_f(acc);
+    } else if (dm.mask == 2) {
+      acc = tanhf(acc);
+    }
+    mask_out[static_cast<size_t>(b) * fe_ * s2 + e] = __float2bfloat16_rn(acc);
+  }
+}
+
+// The size table (see the entries below) into dm; false if it cannot be
+// read.
+bool read_dims(const int* dims, int n_dims, FrameDims& dm) {
+  if (n_dims < 11) return false;
   dm.batch = dims[0];
   dm.f_enc = dims[1];
   dm.block_freq = dims[2];
@@ -311,10 +673,20 @@ int launch(const void* x, const void* h, void* mask_out, void* h_out,
   dm.resnet = dims[9];
   dm.mask = dims[10];
   const int n = dm.n_enc;
-  if (n < 0 || n > kMaxEnc || n_dims != 11 + n || n_frame != 14 + 7 * n) {
+  if (n < 0 || n > kMaxEnc || n_dims != 11 + n) return false;
+  for (int i = 0; i < n; ++i) dm.enc_ks[i] = dims[11 + i];
+  return true;
+}
+
+template <typename T>
+int launch(const void* x, const void* h, void* mask_out, void* h_out,
+           const void* const* frame, int n_frame, const void* const* stack,
+           const int* dims, int n_dims, void* stream) {
+  FrameDims dm{};
+  if (!read_dims(dims, n_dims, dm) || n_frame != 14 + 7 * dm.n_enc) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int i = 0; i < n; ++i) dm.enc_ks[i] = dims[11 + i];
+  const int n = dm.n_enc;
 
   // the pointer table in ops/fused_frame.py::frame_plan_keys order
   FramePlan<T> p{};
@@ -353,20 +725,35 @@ int launch(const void* x, const void* h, void* mask_out, void* h_out,
       static_cast<const T*>(stack[6]), static_cast<const T*>(stack[7]),
       static_cast<const T*>(stack[8]), static_cast<const T*>(stack[9])};
 
-  const size_t smem = smem_bytes(dm);
+  constexpr bool kTc = std::is_same_v<T, bf16>;
+  const FrameGeom geo(dm);
+  const size_t smem = kTc ? geo.elems(dm.n_enc) * sizeof(bf16)
+                          : smem_bytes(dm);
+  const void* kernel;
+  if constexpr (kTc) {
+    kernel = reinterpret_cast<const void*>(fused_frame_tc_kernel);
+  } else {
+    kernel = reinterpret_cast<const void*>(fused_frame_kernel<T>);
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_frame_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float scale =
       static_cast<float>(1.0 / std::sqrt(double(dm.block_ch / dm.heads)));
-  fused_frame_kernel<T>
-      <<<dm.batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), static_cast<const T*>(h),
-          static_cast<T*>(mask_out), static_cast<T*>(h_out), p, sp, dm,
-          scale);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (kTc) {
+    fused_frame_tc_kernel<<<dm.batch, kThreads, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h),
+        static_cast<T*>(mask_out), static_cast<T*>(h_out), p, sp, dm, geo,
+        scale);
+  } else {
+    fused_frame_kernel<T><<<dm.batch, kThreads, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h),
+        static_cast<T*>(mask_out), static_cast<T*>(h_out), p, sp, dm, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,6 +781,15 @@ int fused_frame_bf16(const void* x, const void* h, void* mask_out,
                      void* stream) {
   return launch<__nv_bfloat16>(x, h, mask_out, h_out, frame, n_frame, stack,
                                dims, n_dims, stream);
+}
+
+// Bytes of dynamic shared memory one thread block (one stream) of the
+// bfloat16 form needs for this size table (0 if it cannot be read); the
+// wrapper checks it against the card's limit.
+size_t fused_frame_smem_bf16(const int* dims, int n_dims) {
+  FrameDims dm{};
+  if (!read_dims(dims, n_dims, dm)) return 0;
+  return FrameGeom(dm).elems(dm.n_enc) * sizeof(bf16);
 }
 
 const char* fused_frame_error_string(int code) {

@@ -18,9 +18,8 @@
 // Results are rounded to the activation type T at the Pallas kernel's
 // points: h_new, each fc output before its residual, each residual sum, the
 // pe sum, q/k/v after the bias, the probabilities and the attention output.
-// Shared memory holds float32 copies of values that are exact in T. The
-// block math itself is fe::rnnformer_stack_frame in stack_common.cuh, which
-// the whole-frame kernel (fused_frame.cu) runs too.
+// The block math itself is in the shared headers, which the whole-frame
+// kernel (fused_frame.cu) runs too.
 //
 // The one difference from the Pallas kernel: the softmax is stabilised with
 // each head's own row max (as nn/attention.py's XLA path does) instead of
@@ -29,21 +28,32 @@
 // What bounds it on the H100. At FastEnhancer_B (B=256 streams, F=24,
 // C=36, H=4, 3 blocks) one frame is about 0.6 GFLOP over 1.3 MB of
 // activations and carries and 0.17 MB of weights: far too small to be
-// FLOP- or bandwidth-bound. Its time is latency: the launch, the chain of
-// dependent phases inside each block, and the serial k-loops of tiny
-// C-wide dot products. The design answers that by running the whole stack
-// as one launch, with one thread block per stream: all of a stream's F rows
-// (x, h, q, k, v and the H*F*F logits) stay in shared memory across all
+// FLOP- or bandwidth-bound. Its time is latency: the launch and the chain
+// of about 30 dependent, barrier-separated phases inside each thread block.
+// The design runs the whole stack as one launch, one thread block per
+// stream: all of a stream's F rows stay in shared memory across all
 // blocks, so nothing but the carry touches device memory between phases,
-// and 256 streams give 256 independent thread blocks for the 132 SMs. The
-// weights are read from global memory, where L1/L2 keep them (each block's
-// weights are read by every stream). Tensor cores (wgmma), TMA and weight
-// staging in shared memory are left to later work. The LN form adds, per
-// LayerNorm, one pass that writes the fc output whole and two block-wide
-// reductions over the F*C = 864 values of the tile (warp shuffles, then 8
-// partial sums in shared memory): 6 LayerNorms, 12 reductions, a frame at
-// FastEnhancer_B's 3 blocks, a few microseconds of barriers beside the
-// same chain of dot products.
+// and 256 streams give 256 independent thread blocks for the 132 SMs.
+//
+// Two forms per block type. The float32 forms (the card's correctness
+// reference: TF32 would break their 1e-5 tolerance) keep scalar float32
+// FMA chains, one output per thread, weights read from global memory
+// (fe::rnnformer_stack_frame, stack_common.cuh). The bfloat16 forms (the
+// served type) run every product on the tensor cores (stack_tc.cuh, on
+// mma_common.cuh's mma.sync routines): the GRU as six products per output
+// tile into four register accumulators, rnn_fc, q/k/v and attn_fc with
+// their residual epilogues, and the attention's q.k^T and P.v, with the
+// softmax in registers. Activations are bf16 tiles, and each block's
+// weights come in four stages: bulk copies (cp.async.bulk on an mbarrier)
+// into a staging buffer while the stage before computes, then one pass
+// into a slot with padded rows for ldmatrix (54,176 bytes of shared memory
+// a stream at FE_B: 2 blocks per SM). What still bounds it (python -m
+// fastenhancer_tpu_torch.phase_profile): the chain of 12 barrier-separated
+// stages, about half of it the products' ldmatrix/mma latency over 8
+// warps, 30% moving each stage into the slot and starting the next one's
+// copies, 20% the attention. The LN form adds, per LayerNorm, one pass that writes the fc
+// output whole and two block-wide reductions over the F*C = 864 values of
+// the tile (warp shuffles, then 8 partial sums in shared memory).
 //
 // Carry layout: h and h_out are [NB, B*F, C], rows batch-major
 // [b0f0..b0fF, b1f0..]; thread block b owns rows b*F..b*F+F-1 of every
@@ -57,11 +67,14 @@
 
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 #include "stack_common.cuh"
+#include "stack_tc.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using fe::kThreads;
 using fe::StackPlan;
 
@@ -85,6 +98,64 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   }
 }
 
+// The bfloat16 forms on the tensor cores (stack_tc.cuh). Shared memory, in
+// bf16 elements: a 16-byte chunk of zeros and the stages' mbarrier, the
+// activations (StackGeom::act), the weight slot and the staging buffer.
+template <bool kLn>
+__global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
+    rnnformer_stack_tc_kernel(const bf16* __restrict__ x, const bf16* h,
+                              bf16* __restrict__ x_out, bf16* h_out,
+                              StackPlan<bf16> p, fe::LnPlan<bf16> ln,
+                              int batch, int freq, int ch, int heads,
+                              int nblocks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const fe::tc::StackGeom g(freq, ch, heads);
+  bf16* zero = reinterpret_cast<bf16*>(smem_tc);
+  auto* bar = reinterpret_cast<uint64_t*>(smem_tc + 16);
+  bf16* act = zero + 16;
+  bf16* slot = act + g.act();
+  bf16* staging = slot + g.slot();
+  const int b = blockIdx.x;
+  if (threadIdx.x < 8) zero[threadIdx.x] = __float2bfloat16_rn(0.f);
+  fe::tc::stack_init(act, g);
+  if (threadIdx.x == 0) {
+    fe::tc::mbar_init(bar);
+    fe::tc::mbar_fence_init();
+  }
+  __syncthreads();
+  const bf16* wb_fc = kLn ? ln.wb_fc : nullptr;
+  const bf16* wb_afc = kLn ? ln.wb_afc : nullptr;
+  fe::tc::run_stages(
+      4 * nblocks, staging, slot, bar,
+      [&](int s, auto& v) {
+        fe::tc::stack_pieces(s, v, p, wb_fc, wb_afc, g);
+      },
+      [&](int s) {
+        // stage 0 also brings this stream's frame into x
+        if (s == 0) {
+          fe::tc::stage_rows(act, g.ldc,
+                             x + static_cast<size_t>(b) * freq * ch, freq,
+                             ch);
+        }
+        fe::tc::stack_side(s, h, act + g.tile(), b, batch, g);
+      },
+      [&](int s) { fe::tc::stack_pre_stage(s, act, g, scale, zero); },
+      [&](int s, const bf16* w) {
+        fe::tc::stack_stage<kLn>(s, w, act, h_out, b, batch, g, ln.eps,
+                                 zero);
+      });
+  for (int e = threadIdx.x; e < freq * ch; e += blockDim.x) {
+    x_out[static_cast<size_t>(b) * freq * ch + e] =
+        act[e / ch * g.ldc + e % ch];
+  }
+}
+
+size_t smem_bytes_tc(int freq, int ch, int heads) {
+  const fe::tc::StackGeom g(freq, ch, heads);
+  return (16 + static_cast<size_t>(g.act()) + g.slot() + g.staging()) *
+         sizeof(bf16);
+}
+
 size_t smem_bytes(int freq, int ch, int heads) {
   return fe::stack_smem_floats(freq, ch, heads) * sizeof(float);
 }
@@ -94,15 +165,28 @@ int launch_form(const T* x, const T* h, T* x_out, T* h_out,
                 const StackPlan<T>& plan, const fe::LnPlan<T>& ln, int batch,
                 int freq, int ch, int heads, int nblocks, float scale,
                 cudaStream_t stream) {
-  const size_t smem = smem_bytes(freq, ch, heads);
+  constexpr bool kTc = std::is_same_v<T, bf16>;
+  const size_t smem =
+      kTc ? smem_bytes_tc(freq, ch, heads) : smem_bytes(freq, ch, heads);
+  const void* kernel;
+  if constexpr (kTc) {
+    kernel = reinterpret_cast<const void*>(rnnformer_stack_tc_kernel<kLn>);
+  } else {
+    kernel = reinterpret_cast<const void*>(rnnformer_stack_kernel<T, kLn>);
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rnnformer_stack_kernel<T, kLn>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  rnnformer_stack_kernel<T, kLn><<<batch, kThreads, smem, stream>>>(
-      x, h, x_out, h_out, plan, ln, batch, freq, ch, heads, nblocks, scale);
+  if constexpr (kTc) {
+    rnnformer_stack_tc_kernel<kLn><<<batch, kThreads, smem, stream>>>(
+        x, h, x_out, h_out, plan, ln, batch, freq, ch, heads, nblocks, scale);
+  } else {
+    rnnformer_stack_kernel<T, kLn><<<batch, kThreads, smem, stream>>>(
+        x, h, x_out, h_out, plan, ln, batch, freq, ch, heads, nblocks, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,6 +254,12 @@ int rnnformer_stack_bf16(const void* x, const void* h, void* x_out,
                                b_fc, w_qkv, b_qkv, w_afc, b_afc, pe, wb_fc,
                                wb_afc, batch, freq, ch, heads, nblocks, eps,
                                stream);
+}
+
+// Bytes of dynamic shared memory one thread block (one stream) of the
+// bfloat16 form needs; the wrapper checks it against the card's limit.
+size_t rnnformer_stack_smem_bf16(int freq, int ch, int heads) {
+  return smem_bytes_tc(freq, ch, heads);
 }
 
 const char* rnnformer_stack_error_string(int code) {

@@ -6,13 +6,17 @@
 // stack of one stream for one frame, in its folded default form and its
 // LayerNorm form.
 //
-// Every function here is called by all threads of a thread block that owns
-// one stream: work is spread over the block's threads with a stride loop,
-// activations live in float32 shared memory, and each function ends with
-// __syncthreads() where a later phase reads what it wrote. Matmuls
-// accumulate in float32; results are rounded to the activation type T at
-// the Pallas kernels' points, so shared memory holds float32 copies of
-// values that are exact in T.
+// This is the scalar float32 design: every function is called by all
+// threads of a thread block that owns one stream, work is spread over the
+// block's threads with a stride loop (one output per thread, a float32 FMA
+// chain over K with weights read from global memory), activations live in
+// float32 shared memory, and each function ends with __syncthreads() where
+// a later phase reads what it wrote. Results are rounded to the activation
+// type T at the Pallas kernels' points, so shared memory holds float32
+// copies of values that are exact in T. The float32 forms of kernels #1
+// and #7 and every form of #2, #3 and #6 run on it; the bfloat16 forms of
+// #1 and #7 run on the tensor cores instead (mma_common.cuh,
+// stack_tc.cuh), and reuse block_sum, softmax_rows and the plans from here.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -30,7 +30,8 @@ How the pieces map (the Pallas kernel's forms, kept in the plan):
   `fused_frame_step.launches` counts kernel launches.
 
 What bounds the kernel on the H100, and what its design does about it, is
-in the note at the top of csrc/fused_frame.cu.
+in the note at the top of csrc/fused_frame.cu (the bfloat16 form on the
+tensor cores, the float32 form scalar).
 """
 from __future__ import annotations
 
@@ -250,9 +251,10 @@ def fused_frame_reference(plan: Params, x: Tensor, h: Tensor, *,
 
 def smem_bytes(n_enc: int, f_enc: int, channels: int, block_freq: int,
                block_channels: int, num_heads: int, stride: int) -> int:
-    """Shared memory of one thread block (one stream), as the kernel lays
-    it out: the input frame, n_enc + 1 skips, two work buffers and the
-    block stack's buffers, all float32."""
+    """Shared memory of one thread block (one stream) of the float32 form,
+    as the kernel lays it out: the input frame, n_enc + 1 skips, two work
+    buffers and the block stack's buffers, all float32. The bfloat16 form's
+    comes from the kernel's library (`fused_frame_step`)."""
     fc = f_enc * channels
     work = max(fc, block_freq * channels, f_enc * block_channels)
     stack = (6 * block_freq * block_channels
@@ -329,7 +331,15 @@ def fused_frame_step(plan: Params, x: Tensor, h: Tensor, *, num_blocks: int,
     b = x.shape[0]
     c = plan["b_enc_pre"].shape[0]
     cc = h.shape[-1]
-    smem = smem_bytes(n_enc, f_enc, c, block_freq, cc, num_heads, stride)
+    dims = [b, f_enc, block_freq, c, cc, num_heads, num_blocks, stride,
+            n_enc, int(resnet), MASKS.index(mask), *enc_ks]
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    if x.dtype == torch.bfloat16:
+        smem = _build.function(
+            "fused_frame", "fused_frame_smem_bf16", ctypes.c_size_t,
+            [ctypes.POINTER(ctypes.c_int), ctypes.c_int])(c_dims, len(dims))
+    else:
+        smem = smem_bytes(n_enc, f_enc, c, block_freq, cc, num_heads, stride)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"F_enc={f_enc}, C={c}, F'={block_freq}, C'={cc}, H={num_heads}, "
@@ -339,14 +349,12 @@ def fused_frame_step(plan: Params, x: Tensor, h: Tensor, *, num_blocks: int,
     h_out = torch.empty_like(h)
     frame = [plan[k].data_ptr() for k in frame_plan_keys(n_enc)]
     stack = [plan["stack"][k].data_ptr() for k in STACK_KEYS]
-    dims = [b, f_enc, block_freq, c, cc, num_heads, num_blocks, stride,
-            n_enc, int(resnet), MASKS.index(mask), *enc_ks]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), mask8.data_ptr(),
                  h_out.data_ptr(), (ctypes.c_void_p * len(frame))(*frame),
                  len(frame), (ctypes.c_void_p * len(stack))(*stack),
-                 (ctypes.c_int * len(dims))(*dims), len(dims), stream)
+                 c_dims, len(dims), stream)
     _build.check_launch("fused_frame", err)
     fused_frame_step.launches += 1
     return mask8, h_out

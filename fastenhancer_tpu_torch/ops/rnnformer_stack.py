@@ -27,7 +27,10 @@ What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/rnnformer_stack.cu: at B=256 streams the
 frame is tiny, so it is latency- and launch-bound rather than FLOP-bound,
 and the kernel runs the whole stack in one launch with one thread block per
-stream and every activation in shared memory.
+stream and every activation in shared memory. The bfloat16 forms run their
+products on the tensor cores with weights staged in shared memory
+(csrc/stack_tc.cuh); the float32 forms keep scalar float32 FMA chains as
+the card's correctness reference.
 """
 from __future__ import annotations
 
@@ -209,9 +212,16 @@ def plan_shapes(num_blocks: int, freq: int, channels: int,
     return shapes
 
 
-def smem_bytes(freq: int, channels: int, num_heads: int) -> int:
-    """Shared memory of one thread block (one stream): six [F, C] float32
-    buffers and the [H, F, F] logits."""
+def smem_bytes(freq: int, channels: int, num_heads: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one thread block (one stream). float32: six [F, C]
+    float32 buffers and the [H, F, F] logits. bfloat16 (the tensor-core
+    form): as the kernel's library computes it (bf16 tiles, the logits and
+    two weight slots); this builds the library."""
+    if dtype == torch.bfloat16:
+        fn = _build.function("rnnformer_stack", "rnnformer_stack_smem_bf16",
+                             ctypes.c_size_t, [ctypes.c_int] * 3)
+        return int(fn(freq, channels, num_heads))
     return 4 * (6 * freq * channels + num_heads * freq * freq)
 
 
@@ -262,7 +272,7 @@ def rnnformer_stack_step(plan: Params, x: Tensor, h: Tensor,
         raise ValueError(f"unsupported device {x.device}")
     fn = _build.entry("rnnformer_stack", x.dtype, _ARGTYPES)
     b, f, c = x.shape
-    smem = smem_bytes(f, c, num_heads)
+    smem = smem_bytes(f, c, num_heads, x.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"F={f}, C={c}, H={num_heads} needs {smem} bytes of shared "

@@ -1,0 +1,257 @@
+"""Where a bfloat16 tensor-core kernel's time goes, stage by stage.
+
+    python -m fastenhancer_tpu_torch.phase_profile
+
+Builds a copy of `ops/csrc/` (into `ops/_build/phase_profile/`) in which
+`fe::tc::run_stages` records `clock64()` of thread 0 of thread blocks 0 and
+1 at five points of every weight stage: after the work that needs no weights
+(`pre`: the attention before each attn_fc), after the wait for the stage's
+copies, after moving them into the padded slot, after starting the next
+stage's copies, and after the stage's products and the barrier behind
+them. It runs the block stack (#1, default and LN form) and the whole frame
+(#7) at FastEnhancer_B's shapes, 256 streams, bf16 (one thread block per
+stream, all in one wave), and prints each stage's cycles at each point and
+their sums per kind, beside each kernel's CUDA-event time with and without
+the markers. Runs on a CUDA card only; it raises without one.
+"""
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import typing as tp
+
+import torch
+
+from . import require_cuda
+from .models import get_model
+from .ops import _build
+from .ops import fused_frame as frame
+from .ops import rnnformer_stack as stack
+from .presets import FE_B
+
+STREAMS = 256
+POINTS = ("pre", "wait", "move", "start", "compute")
+_PRE = r"""
+__device__ long long fe_prof_clock[2][512];
+__device__ int fe_prof_code[2][512];
+__device__ int fe_prof_count[2];
+#define FE_PROF(s, point) do { if (threadIdx.x == 0 && blockIdx.x < 2) { \
+  const int k_ = fe_prof_count[blockIdx.x]++; if (k_ < 512) { \
+  fe_prof_clock[blockIdx.x][k_] = clock64(); \
+  fe_prof_code[blockIdx.x][k_] = (s) * 8 + (point); } } } while (0)
+"""
+_POST = r"""
+extern "C" int fe_prof_read(long long* clock, int* code, int* count) {
+  cudaMemcpyFromSymbol(clock, fe_prof_clock, sizeof(fe_prof_clock));
+  cudaMemcpyFromSymbol(code, fe_prof_code, sizeof(fe_prof_code));
+  cudaMemcpyFromSymbol(count, fe_prof_count, sizeof(fe_prof_count));
+  int zero[2] = {0, 0};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(fe_prof_count, zero, sizeof(zero)));
+}
+"""
+# (text in run_stages, the marker appended after it)
+_MARKS = (
+    ("      pre(s);\n", "FE_PROF(s, 0);"),
+    ("      mbar_wait(bar, s & 1);\n      __syncthreads();\n",
+     "FE_PROF(s, 1);"),
+    ("      pieces(s, mv);\n      __syncthreads();\n", "FE_PROF(s, 2);"),
+    ("      cp_async_commit();\n    }\n", "FE_PROF(s, 3);"),
+    ("      compute(s, static_cast<const bf16*>(slot));\n"
+     "      __syncthreads();\n", "FE_PROF(s, 4);"),
+)
+
+
+def build() -> tp.Dict[str, ctypes.CDLL]:
+    """The marked copies of rnnformer_stack.cu and fused_frame.cu."""
+    dst = _build.BUILD_DIR / "phase_profile"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, dst)
+    common = (dst / "mma_common.cuh").read_text()
+    for text, mark in _MARKS:
+        if text not in common:
+            raise RuntimeError(f"run_stages changed: {text!r} not found")
+        common = common.replace(text, text + mark + "\n")
+    (dst / "mma_common.cuh").write_text(common)
+    procs = {}
+    for name in ("rnnformer_stack", "fused_frame"):
+        src = dst / f"{name}.cu"
+        src.write_text(_PRE + src.read_text() + _POST)
+        out = dst / f"lib{name}.so"
+        procs[name] = (out, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the marked {name}.cu:\n{err}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def read(lib: ctypes.CDLL) -> tp.List[tp.Dict[tp.Tuple[int, int], int]]:
+    """{(stage, point): cycles since the mark before} for blocks 0 and 1;
+    the counters are reset."""
+    clock = (ctypes.c_longlong * 1024)()
+    code = (ctypes.c_int * 1024)()
+    count = (ctypes.c_int * 2)()
+    if lib.fe_prof_read(clock, code, count):
+        raise RuntimeError("reading the phase counters failed")
+    out = []
+    for blk in range(2):
+        n = min(count[blk], 512)
+        base = 512 * blk
+        out.append({divmod(code[base + k], 8):
+                    clock[base + k] - clock[base + k - 1]
+                    for k in range(1, n)})
+    return out
+
+
+def event_ms(fn: tp.Callable[[], None], inner: int = 20) -> float:
+    """Median device ms per call over 5 runs of `inner` calls, the queue
+    kept ahead by a sleep kernel."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e8))
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return sorted(times)[len(times) // 2]
+
+
+def report(tag: str, blocks, labels: tp.Sequence[str], marked_ms: float,
+           plain_ms: float) -> None:
+    """One line per stage (block 0; block 1 in brackets where it differs
+    by more than 10%), then the sums by stage kind and by point."""
+    print(f"{tag}: {marked_ms:.4f} ms with the markers, {plain_ms:.4f} ms "
+          f"without (CUDA events); cycles of thread block 0 (1) at "
+          + ", ".join(POINTS))
+    kinds: tp.Dict[str, tp.List[int]] = {}
+    for s, label in enumerate(labels):
+        cells = []
+        for p in range(len(POINTS)):
+            c0 = blocks[0].get((s, p), 0)
+            c1 = blocks[1].get((s, p), 0)
+            cells.append(f"{c0}" if abs(c1 - c0) <= 0.1 * max(c0, 1)
+                         else f"{c0} ({c1})")
+            kinds.setdefault(label.split(" ")[0], [0] * len(POINTS))[p] += c0
+        print(f"  {s:2d} {label:<12s} " + " ".join(f"{c:>14s}"
+                                                   for c in cells))
+    total = sum(sum(v) for v in kinds.values())
+    print(f"  sums by kind (block 0, {total} cycles in all):")
+    for kind, v in kinds.items():
+        print(f"     {kind:<10s} {sum(v):>8d} ({100 * sum(v) / total:.1f}%)"
+              f": " + ", ".join(f"{p} {c}" for p, c in zip(POINTS, v)))
+    by_point = [sum(v[p] for v in kinds.values()) for p in range(len(POINTS))]
+    print("  sums by point: " + ", ".join(
+        f"{p} {c} ({100 * c / total:.1f}%)" for p, c in zip(POINTS, by_point)))
+
+
+def main() -> None:
+    dev = require_cuda()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    libs = build()
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(5)
+    rf = FE_B["rnnformer_kwargs"]
+    b, f, c, nb, heads = (STREAMS, rf["freq"], rf["channels"],
+                          rf["num_blocks"], rf["num_heads"])
+    plan = {k: ((torch.rand(s, generator=g) * 2 - 1) / c ** 0.5).to(dev, dt)
+            for k, s in stack.plan_shapes(nb, f, c).items()}
+    x = torch.randn(b, f, c, generator=g).to(dev, dt)
+    h = (torch.randn(nb, b * f, c, generator=g) * 0.5).to(dev, dt)
+    block_labels = [f"{kind} {i}" for i in range(nb)
+                    for kind in ("GRU", "rnn_fc", "qkv", "attn_fc")]
+    fn = libs["rnnformer_stack"].rnnformer_stack_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = stack._ARGTYPES
+    for ln in (False, True):
+        p = dict(plan)
+        if ln:
+            for k in stack.LN_KEYS:
+                p[k] = (torch.randn(nb, c, generator=g) * 0.2).to(dev, dt)
+            p["ln_eps"] = float(rf["eps"])
+        xo, ho = torch.empty_like(x), torch.empty_like(h)
+
+        def run(p=p, xo=xo, ho=ho, ln=ln):
+            wb = [p[k].data_ptr() if ln else None for k in stack.LN_KEYS]
+            err = fn(x.data_ptr(), h.data_ptr(), xo.data_ptr(),
+                     ho.data_ptr(), *(p[k].data_ptr() for k in stack.PLAN_KEYS),
+                     *wb, b, f, c, heads, nb, p.get("ln_eps", 0.0),
+                     torch.cuda.current_stream().cuda_stream)
+            _build.check_launch("rnnformer_stack", err)
+
+        run()
+        torch.cuda.synchronize()
+        read(libs["rnnformer_stack"])
+        run()
+        torch.cuda.synchronize()
+        blocks = read(libs["rnnformer_stack"])
+        marked = event_ms(run)
+        plain = event_ms(lambda: stack.rnnformer_stack_step(p, x, h, heads))
+        report(f"rnnformer_stack bf16 {'LN form' if ln else 'default'}, "
+               f"FE_B B={b}", blocks, block_labels, marked, plain)
+
+    model = get_model("fastenhancer.default", **FE_B)
+    folded = model.fold(model.init(torch.Generator().manual_seed(3), dev))
+    fplan = model.build_frame_plan(folded, dtype=dt)
+    n_enc = len(model.kernel_size) - 1
+    fx = torch.randn(b, model.freq + 1, 2 * model.stride,
+                     generator=g).to(dev, dt)
+    kw = dict(num_blocks=nb, num_heads=heads, n_enc=n_enc,
+              enc_ks=tuple(model.kernel_size[1:]), f_enc=model.freq,
+              block_freq=f, stride=model.stride, resnet=model.resnet,
+              mask=model.mask_name)
+    frm = [fplan[k].data_ptr() for k in frame.frame_plan_keys(n_enc)]
+    stk = [fplan["stack"][k].data_ptr() for k in frame.STACK_KEYS]
+    dims = [b, model.freq, f, model.channels, c, heads, nb, model.stride,
+            n_enc, int(model.resnet), frame.MASKS.index(model.mask_name),
+            *model.kernel_size[1:]]
+    mo = torch.empty(b, model.freq, 2 * model.stride, dtype=dt, device=dev)
+    fho = torch.empty_like(h)
+    ffn = libs["fused_frame"].fused_frame_bf16
+    ffn.restype = ctypes.c_int
+    ffn.argtypes = frame._ARGTYPES
+
+    def run_frame():
+        err = ffn(fx.data_ptr(), h.data_ptr(), mo.data_ptr(), fho.data_ptr(),
+                  (ctypes.c_void_p * len(frm))(*frm), len(frm),
+                  (ctypes.c_void_p * len(stk))(*stk),
+                  (ctypes.c_int * len(dims))(*dims), len(dims),
+                  torch.cuda.current_stream().cuda_stream)
+        _build.check_launch("fused_frame", err)
+
+    run_frame()
+    torch.cuda.synchronize()
+    read(libs["fused_frame"])
+    run_frame()
+    torch.cuda.synchronize()
+    blocks = read(libs["fused_frame"])
+    labels = (["PreNet"] + [f"enc {i}" for i in range(n_enc)] + ["rf_pre"]
+              + block_labels + ["rf_post"]
+              + [f"dec_{part} {i}" for i in range(n_enc)
+                 for part in ("skip", "conv")] + ["dec_post"])
+    marked = event_ms(run_frame)
+    plain = event_ms(lambda: frame.fused_frame_step(fplan, fx, h, **kw))
+    report(f"fused_frame bf16, FE_B B={b}", blocks, labels, marked, plain)
+    # a label list that does not match the stages would mislabel each row
+    if max(s for s, _ in blocks[0]) != len(labels) - 1:
+        raise RuntimeError("stage count differs from the labels")
+
+
+if __name__ == "__main__":
+    main()

@@ -66,9 +66,12 @@ def _random_case(b, f, c, nb, dtype, device, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f,c,nb", [(256, 24, 36, 3), (8, 16, 20, 2),
-                                      (8, 36, 48, 3), (3, 13, 12, 2)])
+                                      (8, 36, 48, 3), (3, 13, 12, 2),
+                                      (5, 7, 28, 1)])
 def test_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb):
-    """FE_B, FE_T and FE_S block shapes, and an odd F with H=4, d=3."""
+    """FE_B, FE_T and FE_S block shapes, an odd F with H=4, d=3, and an odd
+    F below one 16-row tile with C a multiple of 4 but not of 8 (the bf16
+    form's masked K and N edges)."""
     plan, x, h = _random_case(b, f, c, nb, dtype, cuda_device, seed=b + f)
     before = stack.rnnformer_stack_step.launches
     xo, ho = stack.rnnformer_stack_step(plan, x, h, 4)
@@ -118,10 +121,11 @@ def _ln_case(b, f, c, nb, dtype, device, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f,c,nb", [(256, 24, 36, 3), (8, 8, 8, 2),
-                                      (3, 13, 12, 2)])
+                                      (3, 13, 12, 2), (5, 7, 28, 1)])
 def test_ln_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb):
-    """The LN form at LN_B's block shape, the tiny test model's, and an odd
-    F with H=4, d=3; it counts as an LN launch only."""
+    """The LN form at LN_B's block shape, the tiny test model's, an odd F
+    with H=4, d=3, and an odd F below one 16-row tile with C not a multiple
+    of 8; it counts as an LN launch only."""
     plan, x, h = _ln_case(b, f, c, nb, dtype, cuda_device, seed=b + f)
     step = stack.rnnformer_stack_step
     before = (step.launches, step.ln_launches)
@@ -229,8 +233,8 @@ def _frame_case(kwargs, b, dtype, device, seed):
 @pytest.mark.parametrize("kwargs,b", [
     (FE_B, 64), (FE_T, 8), (FE_S, 8),
     (dict(FE_B, mask="tanh", resnet=True), 4),
-    (dict(FE_B, mask="sigmoid", kernel_size=[8, 5]), 4)],
-    ids=["FE_B", "FE_T", "FE_S", "tanh-resnet", "sigmoid-k5"])
+    (dict(FE_B, mask="sigmoid", kernel_size=[8, 5]), 4), (FE_B, 3)],
+    ids=["FE_B", "FE_T", "FE_S", "tanh-resnet", "sigmoid-k5", "FE_B-B3"])
 def test_fused_frame_kernel_matches_plain(cuda_device, dtype, kwargs, b):
     plan, x, h, kw = _frame_case(kwargs, b, dtype, cuda_device, seed=b)
     before = frame.fused_frame_step.launches
@@ -242,6 +246,25 @@ def test_fused_frame_kernel_matches_plain(cuda_device, dtype, kwargs, b):
     for got, want in ((mo, mr), (ho, hr)):
         assert got.dtype == dtype and got.device == cuda_device
         _close(got, want, dtype)
+
+
+def test_bf16_kernels_are_deterministic(cuda_device):
+    """#1 (both forms) and #7 in bfloat16, each run twice on the same
+    inputs, give bit-identical outputs: a race in the weight ring (a slot
+    refilled while a warp still reads it) would show as a run-to-run
+    difference that a tolerance hides."""
+    dt = torch.bfloat16
+    for plan, x, h in (_random_case(256, 24, 36, 3, dt, cuda_device, 5),
+                       _ln_case(256, 24, 36, 3, dt, cuda_device, 6)):
+        first = stack.rnnformer_stack_step(plan, x, h, 4)
+        second = stack.rnnformer_stack_step(plan, x, h, 4)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    plan, x, h, kw = _frame_case(FE_B, 256, dt, cuda_device, seed=7)
+    first = frame.fused_frame_step(plan, x, h, **kw)
+    second = frame.fused_frame_step(plan, x, h, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_fused_frame_kernel_rejects_what_it_cannot_take(cuda_device):

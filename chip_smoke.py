@@ -28,7 +28,12 @@ each printed on its own line:
      kernel's time (the stacks, LN form included, at B=256 bfloat16,
      segmental RMS at the shard recipe's [32, 64000] float32 train batch,
      the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
-     cuDNN's GRU as the library yardstick);
+     cuDNN's GRU as the library yardstick); the BSRNN stack prints the
+     form each case ran (bfloat16 the tensor-core form, float32 the scalar
+     one) and, at BSRNN-S bf16, the scalar form's time and every
+     tensor-core variant's (8 or 16 streams a tile, W_hh's fragments in
+     registers or shared memory) in the same call, and both tile sizes at
+     1024 streams;
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -69,7 +74,9 @@ Each of phases 4 to 15 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
-and `.ln_launches`). The
+and `.ln_launches`); the BSRNN stack's tensor-core form is counted inside
+its launches (`bsrnn_stack_step.tc_launches`), and BSRNN-S's bf16 paths
+must run it on every frame. The
 line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -109,6 +116,9 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # the block stack's LN form (the ln ablation's) in the launch counts and
 # the kernels' record
 LN_KERNEL = "rnnformer_stack_step (ln)"
+# the BSRNN stack's tensor-core form in the launch counts (a form of the
+# kernel's one record, counted inside its launches)
+BAND_TC = "bsrnn_stack_step (tc form)"
 
 
 def _check(cond, msg):
@@ -125,7 +135,16 @@ PTXAS_KERNELS = {
     "rnnformer_stack_kernelIfLb0E": "rnnformer_stack f32",
     "rnnformer_stack_kernelIfLb1E": "rnnformer_stack f32 LN form",
     "fused_frame_tc_kernel": "fused_frame bf16 (tensor cores)",
-    "fused_frame_kernelIfE": "fused_frame f32"}
+    "fused_frame_kernelIfE": "fused_frame f32",
+    "bsrnn_stack_tc_kernelILi8ELb1E": "bsrnn_stack bf16 tc S=8 (half of "
+                                      "W_hh in registers)",
+    "bsrnn_stack_tc_kernelILi8ELb0E": "bsrnn_stack bf16 tc S=8 (W_hh in "
+                                      "shared memory)",
+    "bsrnn_stack_tc_kernelILi16ELb1E": "bsrnn_stack bf16 tc S=16 (half "
+                                       "of W_hh in registers)",
+    "bsrnn_stack_tc_kernelILi16ELb0E": "bsrnn_stack bf16 tc S=16 (W_hh in "
+                                       "shared memory)",
+    "bsrnn_stack_kernelI13__nv_bfloat16E": "bsrnn_stack bf16 scalar"}
 
 
 def ptxas_summary(reports):
@@ -191,6 +210,7 @@ def main():
         "fused_frame_step": (frame.fused_frame_step, "launches"),
         "dpt_stack_step": (dpt.dpt_stack_step, "launches"),
         "bsrnn_stack_step": (band.bsrnn_stack_step, "launches"),
+        BAND_TC: (band.bsrnn_stack_step, "tc_launches"),
         "dprnn_stack_step": (dprnn.dprnn_stack_step, "launches"),
         "segmental_rms_fused": (seg.segmental_rms_fused, "launches"),
         "gru_scan": (scan.gru_scan, "launches")}
@@ -204,8 +224,10 @@ def main():
                 for name, (fn, attr) in counters.items()}
 
     def check_launches(counts, name, n, what):
-        """The path's own kernel ran n times and no other kernel ran."""
-        want = {k: (n if k == name else 0) for k in counters}
+        """The path's own kernel ran n times and no other kernel ran; the
+        BSRNN stack's launches are all its tensor-core form's (bf16)."""
+        own = {name, BAND_TC} if name == "bsrnn_stack_step" else {name}
+        want = {k: (n if k in own else 0) for k in counters}
         _check(counts == want, f"{what}: launches {counts} != {want}")
 
     # -- 1. card -----------------------------------------------------------------
@@ -521,22 +543,74 @@ def main():
             x = torch.randn(f, STREAMS, c, generator=g).to(dev, dtype)
             h = (torch.randn(nl, 2, f, STREAMS, hd, generator=g) * 0.5).to(
                 dev, dtype)
+            form = band.kernel_form(f, c, hd, dtype)
+            before_tc = band.bsrnn_stack_step.tc_launches
             xo, ho = band.bsrnn_stack_step(plan, x, h)
             torch.cuda.synchronize()
+            _check(band.bsrnn_stack_step.tc_launches - before_tc
+                   == (form == "tc"), f"bsrnn_stack {name}: form {form}")
+            _check((form == "tc") == (dtype == torch.bfloat16),
+                   f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
             print(f"[3/15] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
-                  f"H={hd} L={nl} {str(dtype)[6:]}: max abs err x_out "
-                  f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
+                  f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
+                  f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
             if name == "BSRNN_S" and dtype == torch.bfloat16:
                 bound_info = bound(band_flops(STREAMS, f, c, nl),
                                    nbytes(x, h, xo, ho, *plan.values()),
                                    dtype)
-                record["bsrnn_stack_step"] = timed(
+                rec = record["bsrnn_stack_step"] = timed(
                     lambda: band.bsrnn_stack_step(plan, x, h),
                     lambda: band.bsrnn_stack_reference(plan, x, h),
                     max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
+                # the scalar form (PR 7's kernel) and every variant of the
+                # tensor-core form, launched directly, in the same call
+                variants = {"scalar": lambda: band.launch_scalar(plan, x, h)}
+                for s in band.TC_TILE_STREAMS:
+                    ws = band.tc_workspace(STREAMS, f, hd, s, dev)
+                    for regw in (True, False):
+                        variants[f"tc S={s} W_hh "
+                                 f"{'half in registers' if regw else 'shared'}"
+                                 ] = (
+                            lambda ws=ws, s=s, regw=regw: band.launch_tc(
+                                plan, x, h, *ws, s, regw))
+                for vname, fn in variants.items():
+                    if vname != "scalar":
+                        vo = fn()
+                        compare(f"bsrnn_stack {vname}",
+                                ((vo[0], xr), (vo[1], hr)), dtype)
+                    rec[f"{vname} ms"], _ = time_ms(fn)
+                share = rec["bound_ms"] / rec["ms"]
+                print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={STREAMS}: "
+                      f"bsrnn_stack_step (tc form, S="
+                      f"{band.tile_streams(STREAMS)}, W_hh in shared memory) "
+                      f"{rec['ms']:.4f} ms, {100 * share:.2f}% of its bound "
+                      f"{1e3 * rec['bound_ms']:.3f} us "
+                      f"({rec['bound_by']}); "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in rec.items()
+                                  if k.endswith(" ms"))
+                      + f"; on {card}")
+            if name == "BSRNN_S" and dtype == torch.bfloat16:
+                # tiles of 16 where 8 would outnumber the SMs: 4 x 256 streams
+                big = 4 * STREAMS
+                xb = torch.randn(f, big, c, generator=g).to(dev, dtype)
+                hb = (torch.randn(nl, 2, f, big, hd, generator=g) * 0.5).to(
+                    dev, dtype)
+                times = {}
+                for s in band.TC_TILE_STREAMS:
+                    ws = band.tc_workspace(big, f, hd, s, dev)
+                    times[s], _ = time_ms(
+                        lambda ws=ws, s=s: band.launch_tc(plan, xb, hb, *ws,
+                                                          s), reps=5,
+                        inner=5)
+                print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={big} tc form, W_hh "
+                      "in shared memory: "
+                      + ", ".join(f"S={s} {t:.4f} ms" for s, t in
+                                  times.items())
+                      + f" (the wrapper picks S={band.tile_streams(big)}); "
+                      f"on {card}")
 
     # 3e. the dprnn stack (kernel 6) at the DPRNN-T and -B shapes
     def dprnn_flops(b, f, c, hd, nb):

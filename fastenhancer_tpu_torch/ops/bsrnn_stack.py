@@ -23,10 +23,18 @@ serving engine can infer.
   the card's checks compare the kernel against it.
 * `bsrnn_stack_step` is the wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor launches the kernel or raises; nothing falls back.
-  `bsrnn_stack_step.launches` counts kernel launches.
+  The kernel has two forms, chosen by `kernel_form` from the shapes and
+  dtype before launch: bfloat16 with C and H multiples of 16, C <= 64 and
+  H <= 128 (BSRNN-S and -XT) runs the tensor-core form (csrc/band_tc.cuh:
+  a cluster of two thread blocks per tile of 8 or 16 streams, two
+  workspaces from `tc_workspace`); float32 and every other shape run the
+  scalar form (one thread block per stream). `bsrnn_stack_step.launches`
+  counts launches of either form, `.tc_launches` the tensor-core form's.
+  `launch_scalar` and `launch_tc` launch one form directly and count
+  nothing (for timing one against the other).
 
-What bounds the kernel on the H100, and what its design does about it, is
-in the note at the top of csrc/bsrnn_stack.cu.
+What bounds each form on the H100, and what its design does about it, is
+in the notes at the top of csrc/bsrnn_stack.cu and csrc/band_tc.cuh.
 """
 from __future__ import annotations
 
@@ -46,6 +54,10 @@ MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
 # x, h, x_out, h_out, the plan; B, F, C, H, L; the stream
 _ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+# the tensor-core form adds the two workspaces, the tile's streams and the
+# register flag
+_TC_ARGTYPES = ([ctypes.c_void_p] * (6 + len(PLAN_KEYS))
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
@@ -160,13 +172,89 @@ def bsrnn_stack_reference(plan: Params, x: Tensor, h: Tensor
 # Wrapper
 # ---------------------------------------------------------------------------
 
+# the tensor-core form (csrc/band_tc.cuh): units of a time-cell weight
+# stage, rows of an A tile held at once, the largest C and H it takes, and
+# its stream tiles
+TC_UNITS = 16
+TC_CHUNK = 128
+TC_MAX_CHANNELS = 64
+TC_MAX_HIDDEN = 128
+TC_TILE_STREAMS = (8, 16)
+# tiles of 8 streams until two blocks per tile would outnumber the H100's
+# 132 SMs, then tiles of 16
+_SMS = 132
+
+
 def smem_bytes(bands: int, channels: int, hidden: int) -> int:
-    """Shared memory of one thread block (one stream): float32 activations
-    [F, C], the sweep output [F, 2H] (which holds the time cell's input and
-    output carries before the sweep), the sweep's double-buffered h and its
-    c [3, 2, H]."""
+    """Shared memory of one thread block (one stream) of the scalar form:
+    float32 activations [F, C], the sweep output [F, 2H] (which holds the
+    time cell's input and output carries before the sweep), the sweep's
+    double-buffered h and its c [3, 2, H]."""
     f, c, hd = bands, channels, hidden
     return 4 * (f * c + f * 2 * hd + 3 * 2 * hd)
+
+
+def _ld(n: int) -> int:
+    """mma_common.cuh::ld_of: a bf16 row stride, a multiple of 8 with an
+    odd number of 16-byte chunks."""
+    r = (n + 7) // 8 * 8
+    return r if (r // 8) % 2 else r + 8
+
+
+def tc_smem_bytes(bands: int, channels: int, hidden: int,
+                  tile_streams: int) -> int:
+    """Shared memory of one thread block of the tensor-core form, as
+    band_tc.cuh's BandGeom counts it: the zero chunk, the x tile, the h
+    double buffer and the region the phases share (the largest of the time
+    cell's h, h' and two-slot ring, W_hh, W_ih, and fc_freq's ys rows and
+    weight)."""
+    f, c, hd, s = bands, channels, hidden, tile_streams
+    ldx, ldh, ldg = _ld(c), _ld(hd), _ld(4 * hd)
+    stage = max((c + hd) * _ld(4 * TC_UNITS), hd * ldx)
+    region = max(2 * TC_CHUNK * ldh + 2 * stage, hd * ldg, c * ldg,
+                 TC_CHUNK * _ld(2 * hd) + 2 * hd * ldx)
+    return 2 * (8 + f * s * ldx + 2 * s * ldh + region)
+
+
+def tile_streams(batch: int) -> int:
+    """Streams per tile of the tensor-core form for a batch of B: 8, or 16
+    once two blocks per tile of 8 would outnumber the SMs."""
+    return 8 if 2 * -(-batch // 8) <= _SMS else 16
+
+
+def kernel_form(bands: int, channels: int, hidden: int,
+                dtype: torch.dtype) -> str:
+    """Which form of the kernel runs, by shape alone, before launch: "tc"
+    (tensor cores, csrc/band_tc.cuh) for bfloat16 when C and H are
+    multiples of 16, C <= 64, H <= 128 and its shared memory at tiles of 16
+    streams fits; else "scalar" (csrc/bsrnn_stack.cu's float32-FMA form,
+    which float32 always takes)."""
+    if (dtype == torch.bfloat16 and channels % 16 == 0 and hidden % 16 == 0
+            and channels <= TC_MAX_CHANNELS and hidden <= TC_MAX_HIDDEN
+            and tc_smem_bytes(bands, channels, hidden, max(TC_TILE_STREAMS))
+            <= MAX_SMEM_BYTES):
+        return "tc"
+    return "scalar"
+
+
+def tc_workspace_shapes(batch: int, bands: int, hidden: int,
+                        tile_streams: int
+                        ) -> tp.Tuple[tp.Tuple[int, ...], tp.Tuple[int, ...]]:
+    """Shapes of the tensor-core form's two bfloat16 workspaces: xp, the
+    sweep's input projection in the recurrence's fragment order [tiles, 2,
+    F, H/16, 32 lanes, 2 * tile_streams], and ys, the sweep's output
+    [tiles, F * tile_streams, 2H]."""
+    tiles = -(-batch // tile_streams)
+    return ((tiles, 2, bands, hidden // 16, 32, 2 * tile_streams),
+            (tiles, bands * tile_streams, 2 * hidden))
+
+
+def tc_workspace(batch: int, bands: int, hidden: int, tile_streams: int,
+                 device: torch.device) -> tp.Tuple[Tensor, Tensor]:
+    """The two workspaces of tc_workspace_shapes, uninitialised."""
+    return tuple(torch.empty(s, dtype=torch.bfloat16, device=device)
+                 for s in tc_workspace_shapes(batch, bands, hidden,
+                                              tile_streams))
 
 
 def _check(plan: Params, x: Tensor, h: Tensor) -> None:
@@ -192,21 +280,44 @@ def _check(plan: Params, x: Tensor, h: Tensor) -> None:
                              f"expected {shapes[name]}")
 
 
-def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor
-                     ) -> tp.Tuple[Tensor, Tensor]:
-    """One streaming frame through every layer.
+def _check_tc(plan: Params, x: Tensor, h: Tensor, xp_ws: Tensor,
+              ys_ws: Tensor, tile_streams: int) -> None:
+    """What the tensor-core form takes beyond _check: its shapes, tiles of
+    8 or 16 streams, workspaces of tc_workspace_shapes on x's device, and
+    16-byte aligned operands (its copies move 16 bytes a chunk)."""
+    fb, b, c = x.shape
+    hd = h.shape[-1]
+    if kernel_form(fb, c, hd, x.dtype) != "tc":
+        raise ValueError(f"the tensor-core form does not take F={fb}, C={c}, "
+                         f"H={hd} in {x.dtype} (see kernel_form)")
+    if tile_streams not in TC_TILE_STREAMS:
+        raise ValueError(f"tile_streams must be one of {TC_TILE_STREAMS}, "
+                         f"not {tile_streams}")
+    want = tc_workspace_shapes(b, fb, hd, tile_streams)
+    for name, t, shape in (("xp_ws", xp_ws, want[0]),
+                           ("ys_ws", ys_ws, want[1])):
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous bfloat16 {shape} "
+                             f"on {x.device}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    for name, t in (("x", x), ("h", h), ("xp_ws", xp_ws), ("ys_ws", ys_ws),
+                    *((k, plan[k]) for k in PLAN_KEYS)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             f"tensor-core form")
 
-    x: [F, B, C] frame activations (band-split output, frequency-major);
-    h: [L, 2, F, B, H] stacked time-LSTM (h, c) carries -> (x_out [F, B, C],
-    h_new like h), fresh tensors. Every operand has x's dtype (float32 or
-    bfloat16) and device and is contiguous. On the CPU this is the plain
-    version; on a CUDA device it launches the kernel (building it on first
-    use), one thread block per stream, and raises if it cannot."""
-    _check(plan, x, h)
-    if x.device.type == "cpu":
-        return bsrnn_stack_reference(plan, x, h)
+
+def _cuda_only(x: Tensor) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+        raise ValueError(f"the kernel runs on a CUDA device, not {x.device}")
+
+
+def launch_scalar(plan: Params, x: Tensor, h: Tensor
+                  ) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the scalar form (one thread block per stream) on CUDA tensors
+    that passed _check; counts nothing."""
+    _cuda_only(x)
     fn = _build.entry("bsrnn_stack", x.dtype, _ARGTYPES)
     fb, b, c = x.shape
     nl, hd = h.shape[0], h.shape[-1]
@@ -223,8 +334,61 @@ def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor
                  h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
                  b, fb, c, hd, nl, stream)
     _build.check_launch("bsrnn_stack", err)
-    bsrnn_stack_step.launches += 1
     return x_out, h_out
 
 
+def launch_tc(plan: Params, x: Tensor, h: Tensor, xp_ws: Tensor,
+              ys_ws: Tensor, tile_streams: int, reg_weights: bool = False
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the tensor-core form on bfloat16 CUDA tensors that passed
+    _check, with its workspaces (tc_workspace); reg_weights keeps W_hh's
+    fragments in registers through the sweep. Counts nothing."""
+    _check_tc(plan, x, h, xp_ws, ys_ws, tile_streams)
+    _cuda_only(x)
+    fn = _build.function("bsrnn_stack", "bsrnn_stack_tc_bf16", ctypes.c_int,
+                         _TC_ARGTYPES)
+    fb, b, c = x.shape
+    nl, hd = h.shape[0], h.shape[-1]
+    x_out = torch.empty_like(x)
+    h_out = torch.empty_like(h)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
+                 h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
+                 xp_ws.data_ptr(), ys_ws.data_ptr(), b, fb, c, hd, nl,
+                 tile_streams, int(reg_weights), stream)
+    _build.check_launch("bsrnn_stack", err)
+    return x_out, h_out
+
+
+def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor
+                     ) -> tp.Tuple[Tensor, Tensor]:
+    """One streaming frame through every layer.
+
+    x: [F, B, C] frame activations (band-split output, frequency-major);
+    h: [L, 2, F, B, H] stacked time-LSTM (h, c) carries -> (x_out [F, B, C],
+    h_new like h), fresh tensors. Every operand has x's dtype (float32 or
+    bfloat16) and device and is contiguous. On the CPU this is the plain
+    version; on a CUDA device it launches the form `kernel_form` picks
+    (building the kernel on first use) and raises if it cannot.
+    `bsrnn_stack_step.launches` counts launches of either form,
+    `.tc_launches` those of the tensor-core form."""
+    _check(plan, x, h)
+    if x.device.type == "cpu":
+        return bsrnn_stack_reference(plan, x, h)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    fb, b, c = x.shape
+    hd = h.shape[-1]
+    if kernel_form(fb, c, hd, x.dtype) == "tc":
+        s = tile_streams(b)
+        out = launch_tc(plan, x, h, *tc_workspace(b, fb, hd, s, x.device), s)
+        bsrnn_stack_step.tc_launches += 1
+    else:
+        out = launch_scalar(plan, x, h)
+    bsrnn_stack_step.launches += 1
+    return out
+
+
 bsrnn_stack_step.launches = 0
+bsrnn_stack_step.tc_launches = 0

@@ -26,9 +26,18 @@
 // TFLOP/s: about 0.45 ms), and with a load for each weight it falls short
 // of that. The serial chain is 6 layers x (1 + 31) dependent steps.
 //
-// The design. One thread block per stream runs the whole stack with no
-// grid-wide sync, since each layer's sweep couples the bands of one stream
-// only; 256 streams give 256 blocks, two per SM on the 132 SMs. The
+// Two forms. The bfloat16 form on the tensor cores (band_tc.cuh, below as
+// bsrnn_stack_tc_kernel; entry bsrnn_stack_tc_bf16) takes C and H
+// multiples of 16 with C <= 64 and H <= 128, BSRNN-S and -XT among them:
+// a cluster of two blocks per tile of streams shares each weight fragment
+// over the tile and keeps each direction's recurrent weights on chip
+// through the sweep. The scalar form below (bsrnn_stack_kernel) is the
+// float32 form, the card's correctness reference, and takes every other
+// shape; ops/bsrnn_stack.py::kernel_form picks one before launch.
+//
+// The scalar design. One thread block per stream runs the whole stack with
+// no grid-wide sync, since each layer's sweep couples the bands of one
+// stream only; 256 streams give 256 blocks, two per SM on the 132 SMs. The
 // forward and backward sweeps run at the same time on two halves of the
 // block (band_sweep.cuh), so the chain is 31 steps per layer, not 62. The
 // weights (about 640 KB per layer in bf16) do not fit shared memory and
@@ -39,8 +48,6 @@
 // block): fewer loads per FMA did not pay for the warps and SMs they
 // idled. The stream's activations, the time cell's carries and the sweep's
 // output stay in shared memory (43 KB at BSRNN-S) for the whole stack.
-// Tensor cores (mma.sync on 16-row tiles, wgmma) and weights held on chip
-// across the 31 steps are left to later work.
 //
 // Layouts (frequency-major rows, as the Pallas kernel's): x and x_out
 // [F, B, C]; h and h_out [L, 2 (h, c), F, B, H]; thread block b owns
@@ -53,32 +60,16 @@
 #include <cstddef>
 
 #include "band_sweep.cuh"
+#include "band_tc.cuh"
 #include "stack_common.cuh"
 
 namespace {
 
+using fe::BandPlan;
 using fe::kThreads;
 
 // rows of one thread's register tile in the time cell
 constexpr int kRows = 8;
-
-// Stacked plan of the folded layers (ops/bsrnn_stack.py::plan_band_stack).
-// Matrices are [in, out], gates in torch order (i, f, g, o); L leads every
-// array.
-template <typename T>
-struct BandPlan {
-  const T* w_tih;  // [L, C, 4H]     time LSTM input weights
-  const T* w_thh;  // [L, H, 4H]     time LSTM recurrent weights
-  const T* b_t;    // [L, 1, 4H]     b_ih + b_hh
-  const T* w_fct;  // [L, H, C]      fc_time
-  const T* b_fct;  // [L, 1, C]
-  const T* w_fih;  // [L, 2, C, 4H]  sweep input weights (fwd, bwd)
-  const T* b_fih;  // [L, 2, 1, 4H]
-  const T* w_fhh;  // [L, 2, H, 4H]  sweep recurrent weights
-  const T* b_fhh;  // [L, 2, 1, 4H]
-  const T* w_fcf;  // [L, 2H, C]     fc_freq
-  const T* b_fcf;  // [L, 1, C]
-};
 
 // The time-LSTM step of one layer on the stream's F band rows: gates =
 // x.W_ih + h.W_hh + b (float32), the cell from c, h' -> hn (float32 copy)
@@ -254,6 +245,38 @@ int launch(const void* x, const void* h, void* x_out, void* h_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bfloat16 form on the tensor cores (band_tc.cuh): a cluster of two
+// thread blocks per tile of kS streams, one per sweep direction. Its
+// shared memory allows one block per SM, so the kernel may take up to 255
+// registers a thread (kRegW keeps W_hh's fragments in them).
+template <int kS, bool kRegW>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+    bsrnn_stack_tc_kernel(fe::tc::BandArgs a, int bands, int ch, int hd) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  fe::tc::band_stack_tc<kS, kRegW>(a, bands, ch, hd,
+                                   reinterpret_cast<fe::tc::bf16*>(smem_tc));
+}
+
+size_t tc_smem_bytes(int bands, int ch, int hd, int tile_streams) {
+  return fe::tc::BandGeom(bands, ch, hd, tile_streams).elems() *
+         sizeof(fe::tc::bf16);
+}
+
+template <int kS, bool kRegW>
+int launch_tc(const fe::tc::BandArgs& a, int bands, int ch, int hd,
+              void* stream) {
+  const size_t smem = tc_smem_bytes(bands, ch, hd, kS);
+  const cudaError_t err = cudaFuncSetAttribute(
+      bsrnn_stack_tc_kernel<kS, kRegW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (a.batch + kS - 1) / kS;
+  bsrnn_stack_tc_kernel<kS, kRegW>
+      <<<2 * tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          a, bands, ch, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -279,6 +302,53 @@ int bsrnn_stack_bf16(const void* x, const void* h, void* x_out, void* h_out,
   return launch<__nv_bfloat16>(x, h, x_out, h_out, w_tih, w_thh, b_t, w_fct,
                                b_fct, w_fih, b_fih, w_fhh, b_fhh, w_fcf,
                                b_fcf, batch, bands, ch, hd, layers, stream);
+}
+
+// The bfloat16 tensor-core form: xp_ws and ys_ws are the workspaces of
+// band_tc.cuh ([tiles, 2, F, H/16, 32, 2 * tile_streams] and [tiles, F *
+// tile_streams, 2H] bf16), tile_streams is 8 or 16, reg_weights nonzero
+// keeps W_hh's fragments in registers. Shapes outside the form (C or H not
+// a multiple of 16, C > 64, H > 128) return cudaErrorInvalidValue.
+int bsrnn_stack_tc_bf16(const void* x, const void* h, void* x_out,
+                        void* h_out, const void* w_tih, const void* w_thh,
+                        const void* b_t, const void* w_fct, const void* b_fct,
+                        const void* w_fih, const void* b_fih,
+                        const void* w_fhh, const void* b_fhh,
+                        const void* w_fcf, const void* b_fcf, void* xp_ws,
+                        void* ys_ws, int batch, int bands, int ch, int hd,
+                        int layers, int tile_streams, int reg_weights,
+                        void* stream) {
+  if (ch % 16 || hd % 16 || ch > fe::tc::kMaxC || hd > fe::tc::kMaxH ||
+      (tile_streams != 8 && tile_streams != 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using B = fe::tc::bf16;
+  const fe::tc::BandArgs a{
+      static_cast<const B*>(x),
+      static_cast<const B*>(h),
+      static_cast<B*>(x_out),
+      static_cast<B*>(h_out),
+      {static_cast<const B*>(w_tih), static_cast<const B*>(w_thh),
+       static_cast<const B*>(b_t), static_cast<const B*>(w_fct),
+       static_cast<const B*>(b_fct), static_cast<const B*>(w_fih),
+       static_cast<const B*>(b_fih), static_cast<const B*>(w_fhh),
+       static_cast<const B*>(b_fhh), static_cast<const B*>(w_fcf),
+       static_cast<const B*>(b_fcf)},
+      static_cast<B*>(xp_ws),
+      static_cast<B*>(ys_ws),
+      batch,
+      layers};
+  if (tile_streams == 8) {
+    return reg_weights ? launch_tc<8, true>(a, bands, ch, hd, stream)
+                       : launch_tc<8, false>(a, bands, ch, hd, stream);
+  }
+  return reg_weights ? launch_tc<16, true>(a, bands, ch, hd, stream)
+                     : launch_tc<16, false>(a, bands, ch, hd, stream);
+}
+
+// dynamic shared memory of one block of the tensor-core form
+size_t bsrnn_stack_tc_smem(int bands, int ch, int hd, int tile_streams) {
+  return tc_smem_bytes(bands, ch, hd, tile_streams);
 }
 
 const char* bsrnn_stack_error_string(int code) {

@@ -13,6 +13,13 @@ them. It runs the block stack (#1, default and LN form) and the whole frame
 stream, all in one wave), and prints each stage's cycles at each point and
 their sums per kind, beside each kernel's CUDA-event time with and without
 the markers. Runs on a CUDA card only; it raises without one.
+
+For the BSRNN stack's tensor-core form (csrc/band_tc.cuh) the markers sit
+at its phases instead: thread 0 of the cluster's two blocks (the forward
+and backward directions of tile 0) records the end of each layer's time
+cell, the cluster barrier after it, the input projection, the W_hh copy,
+the 31-step recurrence, the barrier after it and fc_freq, at BSRNN-S's
+shapes, 256 streams, bf16.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from . import require_cuda
 from .models import get_model
 from .ops import _build
+from .ops import bsrnn_stack as band
 from .ops import fused_frame as frame
 from .ops import rnnformer_stack as stack
 from .presets import FE_B
@@ -33,11 +41,11 @@ from .presets import FE_B
 STREAMS = 256
 POINTS = ("pre", "wait", "move", "start", "compute")
 _PRE = r"""
-__device__ long long fe_prof_clock[2][512];
-__device__ int fe_prof_code[2][512];
+__device__ long long fe_prof_clock[2][1024];
+__device__ int fe_prof_code[2][1024];
 __device__ int fe_prof_count[2];
 #define FE_PROF(s, point) do { if (threadIdx.x == 0 && blockIdx.x < 2) { \
-  const int k_ = fe_prof_count[blockIdx.x]++; if (k_ < 512) { \
+  const int k_ = fe_prof_count[blockIdx.x]++; if (k_ < 1024) { \
   fe_prof_clock[blockIdx.x][k_] = clock64(); \
   fe_prof_code[blockIdx.x][k_] = (s) * 8 + (point); } } } while (0)
 """
@@ -63,19 +71,61 @@ _MARKS = (
 )
 
 
+# the BSRNN tensor-core form's phases, in the order a layer runs them
+BAND_PHASES = ("time cell", "barrier 1", "input proj", "W_hh copy",
+               "recurrence", "barrier 2", "fc_freq")
+# Finer marks: each time-cell stage of layer i at code 16 + 16 i + stage
+# (point 0 its copies waited for, 1 its products and cells), each sweep
+# step t at 128 + 32 i + t (point 0 its products, 1 its cells; the barrier
+# and the next step's prefetch fall in the next products)
+_CELL, _STEP = 16, 128
+# (text in band_tc.cuh, the marker appended after it, or put before it
+# with a third item True); code (0, 7) marks the start, before layer 0
+_BAND_MARKS = (
+    ("    __syncthreads();\n    const bf16* w = ring + (st & 1) * g.stage;\n",
+     "FE_PROF(16 + 16 * i + st, 0);"),
+    ("              ra, n, xt, xt_peer, zero);\n    }\n    __syncthreads();\n",
+     "FE_PROF(16 + 16 * i + st, 1);"),
+    ("#pragma unroll\n      for (int nt = 0; nt < kNT; ++nt) {\n"
+     "        const uint32_t wv[8]", "FE_PROF(128 + 32 * i + t, 0);", True),
+    ("          ys[static_cast<size_t>(band * kS + s) * 2 * hd + u] = hv;\n"
+     "        }\n      }\n", "FE_PROF(128 + 32 * i + t, 1);"),
+    ("  cluster_sync();\n  const int r0 = q ? g.half : 0;\n",
+     "FE_PROF(0, 7);"),
+    ("      time_cell_chunk<kS>(a, g, i, ra, n, b0, xt, xt_peer, reg, zero);"
+     "\n    }\n", "FE_PROF(i, 0);"),
+    ("FE_PROF(i, 0);\n    cluster_sync();\n", "FE_PROF(i, 1);"),
+    ("    input_projection<kS>(a, g, i, q, tile, xt, reg, zero);\n",
+     "FE_PROF(i, 2);"),
+    ("  const bool active = ug < hd / 16;\n", "FE_PROF(i, 3);"),
+    ("    recurrence<kS, kRegW>(a, g, i, q, tile, hb, reg, zero);\n",
+     "FE_PROF(i, 4);"),
+    ("    __threadfence();\n    cluster_sync();\n", "FE_PROF(i, 5);"),
+    ("      fc_freq_chunk(a, g, i, tile, ra, n, xt, xt_peer, reg, zero);\n"
+     "    }\n", "FE_PROF(i, 6);"),
+)
+
+
+def _mark(path, marks, what: str) -> None:
+    text = path.read_text()
+    for anchor, mark, *before in marks:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{what} changed: {anchor!r} not found once")
+        text = text.replace(anchor, mark + "\n" + anchor if before
+                            else anchor + mark + "\n")
+    path.write_text(text)
+
+
 def build() -> tp.Dict[str, ctypes.CDLL]:
-    """The marked copies of rnnformer_stack.cu and fused_frame.cu."""
+    """The marked copies of rnnformer_stack.cu, fused_frame.cu and
+    bsrnn_stack.cu."""
     dst = _build.BUILD_DIR / "phase_profile"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, dst)
-    common = (dst / "mma_common.cuh").read_text()
-    for text, mark in _MARKS:
-        if text not in common:
-            raise RuntimeError(f"run_stages changed: {text!r} not found")
-        common = common.replace(text, text + mark + "\n")
-    (dst / "mma_common.cuh").write_text(common)
+    _mark(dst / "mma_common.cuh", _MARKS, "run_stages")
+    _mark(dst / "band_tc.cuh", _BAND_MARKS, "band_stack_tc")
     procs = {}
-    for name in ("rnnformer_stack", "fused_frame"):
+    for name in ("rnnformer_stack", "fused_frame", "bsrnn_stack"):
         src = dst / f"{name}.cu"
         src.write_text(_PRE + src.read_text() + _POST)
         out = dst / f"lib{name}.so"
@@ -95,15 +145,15 @@ def build() -> tp.Dict[str, ctypes.CDLL]:
 def read(lib: ctypes.CDLL) -> tp.List[tp.Dict[tp.Tuple[int, int], int]]:
     """{(stage, point): cycles since the mark before} for blocks 0 and 1;
     the counters are reset."""
-    clock = (ctypes.c_longlong * 1024)()
-    code = (ctypes.c_int * 1024)()
+    clock = (ctypes.c_longlong * 2048)()
+    code = (ctypes.c_int * 2048)()
     count = (ctypes.c_int * 2)()
     if lib.fe_prof_read(clock, code, count):
         raise RuntimeError("reading the phase counters failed")
     out = []
     for blk in range(2):
-        n = min(count[blk], 512)
-        base = 512 * blk
+        n = min(count[blk], 1024)
+        base = 1024 * blk
         out.append({divmod(code[base + k], 8):
                     clock[base + k] - clock[base + k - 1]
                     for k in range(1, n)})
@@ -156,6 +206,51 @@ def report(tag: str, blocks, labels: tp.Sequence[str], marked_ms: float,
     by_point = [sum(v[p] for v in kinds.values()) for p in range(len(POINTS))]
     print("  sums by point: " + ", ".join(
         f"{p} {c} ({100 * c / total:.1f}%)" for p, c in zip(POINTS, by_point)))
+
+
+def report_band(blocks, marked_ms: float, plain_ms: float) -> None:
+    """One line per layer, the cycles of each phase (block 0, the forward
+    direction; block 1 in brackets where it differs by more than 10%), the
+    sums per phase, then the time cell's and the sweep's own split."""
+    print(f"bsrnn_stack bf16 tensor-core form, BSRNN-S B={STREAMS}: "
+          f"{marked_ms:.4f} ms with the markers, {plain_ms:.4f} ms without "
+          "(CUDA events); cycles of thread block 0 (1) at "
+          + ", ".join(BAND_PHASES))
+
+    def phase(blk, i, p):
+        out = blk.get((i, p), 0)
+        if p in (0, 4):  # the time cell's stages, the sweep's steps
+            lo, span = ((_CELL + 16 * i, 16) if p == 0
+                        else (_STEP + 32 * i, 32))
+            out += sum(v for (code, _), v in blk.items()
+                       if lo <= code < lo + span)
+        return out
+
+    layers = max(c for c, p in blocks[0] if c < _CELL and p < 7) + 1
+    sums = [0] * len(BAND_PHASES)
+    for i in range(layers):
+        cells = []
+        for p in range(len(BAND_PHASES)):
+            c0, c1 = phase(blocks[0], i, p), phase(blocks[1], i, p)
+            sums[p] += c0
+            cells.append(f"{c0}" if abs(c1 - c0) <= 0.1 * max(c0, 1)
+                         else f"{c0} ({c1})")
+        print(f"  layer {i} " + " ".join(f"{c:>14s}" for c in cells))
+    total = sum(sums)
+    print(f"  sums by phase (block 0, {total} cycles in all): " + ", ".join(
+        f"{p} {c} ({100 * c / total:.1f}%)"
+        for p, c in zip(BAND_PHASES, sums)))
+
+    def split(lo, hi):
+        return [sum(v for (code, p), v in blocks[0].items()
+                    if lo <= code < hi and p == q) for q in (0, 1)]
+
+    wait, work = split(_CELL, _STEP)
+    prod, cell = split(_STEP, 1 << 30)
+    print(f"  time cell stages (block 0): copies waited for {wait}, products"
+          f" and cells {work}; sweep steps: barrier, prefetch and products "
+          f"{prod}, cells {cell} ({(prod + cell) / (31 * layers):.0f} a "
+          "step)")
 
 
 def main() -> None:
@@ -251,6 +346,38 @@ def main() -> None:
     # a label list that does not match the stages would mislabel each row
     if max(s for s, _ in blocks[0]) != len(labels) - 1:
         raise RuntimeError("stage count differs from the labels")
+
+    # the BSRNN stack's tensor-core form at BSRNN-S (C=64, H=128, 6 layers,
+    # 31 bands)
+    c, nl, bands = 64, 6, 31
+    hd = 2 * c
+    plan = {k: ((torch.rand(s, generator=g) * 2 - 1) / c ** 0.5).to(dev, dt)
+            for k, s in band.plan_shapes(nl, c, hd).items()}
+    x = torch.randn(bands, b, c, generator=g).to(dev, dt)
+    h = (torch.randn(nl, 2, bands, b, hd, generator=g) * 0.5).to(dev, dt)
+    s = band.tile_streams(b)
+    ws = band.tc_workspace(b, bands, hd, s, dev)
+    xo, ho = torch.empty_like(x), torch.empty_like(h)
+    bfn = libs["bsrnn_stack"].bsrnn_stack_tc_bf16
+    bfn.restype = ctypes.c_int
+    bfn.argtypes = band._TC_ARGTYPES
+
+    def run_band():
+        err = bfn(x.data_ptr(), h.data_ptr(), xo.data_ptr(), ho.data_ptr(),
+                  *(plan[k].data_ptr() for k in band.PLAN_KEYS),
+                  ws[0].data_ptr(), ws[1].data_ptr(), b, bands, c, hd, nl,
+                  s, 0, torch.cuda.current_stream().cuda_stream)
+        _build.check_launch("bsrnn_stack", err)
+
+    run_band()
+    torch.cuda.synchronize()
+    read(libs["bsrnn_stack"])
+    run_band()
+    torch.cuda.synchronize()
+    blocks = read(libs["bsrnn_stack"])
+    marked = event_ms(run_band)
+    plain = event_ms(lambda: band.bsrnn_stack_step(plan, x, h))
+    report_band(blocks, marked, plain)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,14 @@ Tolerances: float32 1e-5 absolute (TF32 off); bfloat16 2^-5 of the largest
 magnitude (a few bf16 ulps: the kernel and cuBLAS sum in different orders,
 so a sum on a rounding boundary can round either way and carry on).
 """
+import ctypes
+
 import pytest
 import torch
 
 from fastenhancer_tpu_torch.models import get_model
+from fastenhancer_tpu_torch.models import bsrnn as bsrnn_model
+from fastenhancer_tpu_torch.ops import _build
 from fastenhancer_tpu_torch.ops import bsrnn_stack as band
 from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
 from fastenhancer_tpu_torch.ops import dpt_stack as dpt
@@ -22,7 +26,7 @@ from fastenhancer_tpu_torch.ops import gru_scan as scan
 from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
 from fastenhancer_tpu_torch.ops import segmental_rms as seg
 from fastenhancer_tpu_torch.presets import DPRNN_B, DPT_B, FE_B, FE_T_SHARD
-from fastenhancer_tpu_torch.utils import tree_map
+from fastenhancer_tpu_torch.utils import cast_floating, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -338,16 +342,70 @@ def _band_case(b, c, nl, dtype, device, seed, bands=31):
     (2, 128, 1, 5)])   # H=256: each thread sweeps two units
 def test_bsrnn_stack_kernel_matches_plain(cuda_device, dtype, b, c, nl,
                                           bands):
-    plan, x, h = _band_case(b, c, nl, dtype, cuda_device, seed=b + c,
+    _bsrnn_matches_plain(cuda_device, dtype, b, c, nl, bands)
+
+
+def _bsrnn_matches_plain(device, dtype, b, c, nl, bands):
+    """bsrnn_stack_step against the plain version; the launch is counted
+    once, as the tensor-core form's exactly when kernel_form says so."""
+    plan, x, h = _band_case(b, c, nl, dtype, device, seed=b + c,
                             bands=bands)
     before = band.bsrnn_stack_step.launches
+    before_tc = band.bsrnn_stack_step.tc_launches
     xo, ho = band.bsrnn_stack_step(plan, x, h)
     torch.cuda.synchronize()
     assert band.bsrnn_stack_step.launches == before + 1
+    tc = band.kernel_form(bands, c, 2 * c, dtype) == "tc"
+    assert tc == (dtype == torch.bfloat16 and c <= 64)
+    assert band.bsrnn_stack_step.tc_launches == before_tc + tc
     xr, hr = band.bsrnn_stack_reference(plan, x, h)
     for got, want in ((xo, xr), (ho, hr)):
-        assert got.dtype == dtype and got.device == cuda_device
+        assert got.dtype == dtype and got.device == device
         _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("b,c,nl", [
+    (1, 64, 2), (13, 64, 2), (257, 64, 2),  # B not a multiple of the tile
+    (256, 64, 6)])                          # BSRNN-S at 256 streams
+def test_bsrnn_stack_tc_form_matches_plain(cuda_device, b, c, nl):
+    _bsrnn_matches_plain(cuda_device, torch.bfloat16, b, c, nl, 31)
+
+
+@pytest.mark.parametrize("tile_streams", band.TC_TILE_STREAMS)
+@pytest.mark.parametrize("reg_weights", [True, False])
+@pytest.mark.parametrize("b,c", [(21, 64), (3, 16)])
+def test_bsrnn_stack_tc_variants_match_plain(cuda_device, tile_streams,
+                                             reg_weights, b, c):
+    """Each tile size, with W_hh's fragments in registers or read from
+    shared memory every step, launched directly."""
+    plan, x, h = _band_case(b, c, 2, torch.bfloat16, cuda_device, seed=b)
+    ws = band.tc_workspace(b, 31, 2 * c, tile_streams, cuda_device)
+    xo, ho = band.launch_tc(plan, x, h, *ws, tile_streams, reg_weights)
+    torch.cuda.synchronize()
+    xr, hr = band.bsrnn_stack_reference(plan, x, h)
+    for got, want in ((xo, xr), (ho, hr)):
+        _close(got, want, torch.bfloat16)
+
+
+def test_bsrnn_stack_tc_smem_matches_the_library(cuda_device):
+    """The wrapper's shape rule counts the shared memory the kernel's
+    library asks for."""
+    fn = _build.function("bsrnn_stack", "bsrnn_stack_tc_smem",
+                              ctypes.c_size_t, [ctypes.c_int] * 4)
+    for f, c, hd in ((31, 64, 128), (31, 16, 32), (7, 48, 96)):
+        for s in band.TC_TILE_STREAMS:
+            assert fn(f, c, hd, s) == band.tc_smem_bytes(f, c, hd, s)
+
+
+def test_bsrnn_stack_tc_form_is_deterministic(cuda_device):
+    """The tensor-core form at BSRNN-S, run twice on the same inputs, gives
+    bit-identical outputs: a race between the cluster's two blocks or in
+    the weight ring would show as a run-to-run difference."""
+    plan, x, h = _band_case(256, 64, 6, torch.bfloat16, cuda_device, 9)
+    first = band.bsrnn_stack_step(plan, x, h)
+    second = band.bsrnn_stack_step(plan, x, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_bsrnn_stack_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -419,6 +477,29 @@ def test_bsrnn_and_dprnn_streams_match_unfused_on_card(cuda_device):
                                fused_plan=model.build_stack_plan(folded))
         assert counter.launches == before + 6
         assert (y_fused - model.stream(folded, wav)).abs().max() <= 1e-4
+
+
+def test_bsrnn_bf16_stream_runs_the_tc_form_on_card(cuda_device,
+                                                    monkeypatch):
+    """BSRNN at full width and reduced depth, bf16, over 6 frames of 3
+    streams through the tensor-core form, against the same fused stream
+    with the plain version in the kernel's place (2^-5 of the peak, the
+    file's bf16 tolerance)."""
+    model = get_model("bsrnn", num_channels=64, num_layers=2,
+                      stft_method="matmul")
+    folded = cast_floating(model.fold(model.init(
+        torch.Generator().manual_seed(0), cuda_device)), torch.bfloat16)
+    plan = model.build_stack_plan(folded)
+    wav = torch.randn(3, model.hop_size * 6,
+                      generator=torch.Generator().manual_seed(1))
+    wav = (wav * 0.1).to(cuda_device, torch.bfloat16)
+    before = band.bsrnn_stack_step.tc_launches
+    y_kernel = model.stream(folded, wav, fused_plan=plan)
+    assert band.bsrnn_stack_step.tc_launches == before + 6
+    monkeypatch.setattr(bsrnn_model, "bsrnn_stack_step",
+                        band.bsrnn_stack_reference)
+    y_plain = model.stream(folded, wav, fused_plan=plan)
+    _close(y_kernel, y_plain, torch.bfloat16)
 
 
 def _rms_rows(b, t, seed):

@@ -30,10 +30,8 @@ each printed on its own line:
      the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
      cuDNN's GRU as the library yardstick); the BSRNN stack prints the
      form each case ran (bfloat16 the tensor-core form, float32 the scalar
-     one) and, at BSRNN-S bf16, the scalar form's time and every
-     tensor-core variant's (8 or 16 streams a tile, W_hh's fragments in
-     registers or shared memory) in the same call, and both tile sizes at
-     1024 streams;
+     one) and, at BSRNN-S bf16, the scalar form's time beside the
+     tensor-core form's in the same call;
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -136,14 +134,7 @@ PTXAS_KERNELS = {
     "rnnformer_stack_kernelIfLb1E": "rnnformer_stack f32 LN form",
     "fused_frame_tc_kernel": "fused_frame bf16 (tensor cores)",
     "fused_frame_kernelIfE": "fused_frame f32",
-    "bsrnn_stack_tc_kernelILi8ELb1E": "bsrnn_stack bf16 tc S=8 (half of "
-                                      "W_hh in registers)",
-    "bsrnn_stack_tc_kernelILi8ELb0E": "bsrnn_stack bf16 tc S=8 (W_hh in "
-                                      "shared memory)",
-    "bsrnn_stack_tc_kernelILi16ELb1E": "bsrnn_stack bf16 tc S=16 (half "
-                                       "of W_hh in registers)",
-    "bsrnn_stack_tc_kernelILi16ELb0E": "bsrnn_stack bf16 tc S=16 (W_hh in "
-                                       "shared memory)",
+    "bsrnn_stack_tc_kernel": "bsrnn_stack bf16 (tensor cores)",
     "bsrnn_stack_kernelI13__nv_bfloat16E": "bsrnn_stack bf16 scalar"}
 
 
@@ -565,52 +556,17 @@ def main():
                     lambda: band.bsrnn_stack_step(plan, x, h),
                     lambda: band.bsrnn_stack_reference(plan, x, h),
                     max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
-                # the scalar form (PR 7's kernel) and every variant of the
-                # tensor-core form, launched directly, in the same call
-                variants = {"scalar": lambda: band.launch_scalar(plan, x, h)}
-                for s in band.TC_TILE_STREAMS:
-                    ws = band.tc_workspace(STREAMS, f, hd, s, dev)
-                    for regw in (True, False):
-                        variants[f"tc S={s} W_hh "
-                                 f"{'half in registers' if regw else 'shared'}"
-                                 ] = (
-                            lambda ws=ws, s=s, regw=regw: band.launch_tc(
-                                plan, x, h, *ws, s, regw))
-                for vname, fn in variants.items():
-                    if vname != "scalar":
-                        vo = fn()
-                        compare(f"bsrnn_stack {vname}",
-                                ((vo[0], xr), (vo[1], hr)), dtype)
-                    rec[f"{vname} ms"], _ = time_ms(fn)
-                share = rec["bound_ms"] / rec["ms"]
-                print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={STREAMS}: "
-                      f"bsrnn_stack_step (tc form, S="
-                      f"{band.tile_streams(STREAMS)}, W_hh in shared memory) "
-                      f"{rec['ms']:.4f} ms, {100 * share:.2f}% of its bound "
-                      f"{1e3 * rec['bound_ms']:.3f} us "
-                      f"({rec['bound_by']}); "
-                      + ", ".join(f"{k} {v:.4f} ms" for k, v in rec.items()
-                                  if k.endswith(" ms"))
-                      + f"; on {card}")
-            if name == "BSRNN_S" and dtype == torch.bfloat16:
-                # tiles of 16 where 8 would outnumber the SMs: 4 x 256 streams
-                big = 4 * STREAMS
-                xb = torch.randn(f, big, c, generator=g).to(dev, dtype)
-                hb = (torch.randn(nl, 2, f, big, hd, generator=g) * 0.5).to(
-                    dev, dtype)
-                times = {}
-                for s in band.TC_TILE_STREAMS:
-                    ws = band.tc_workspace(big, f, hd, s, dev)
-                    times[s], _ = time_ms(
-                        lambda ws=ws, s=s: band.launch_tc(plan, xb, hb, *ws,
-                                                          s), reps=5,
-                        inner=5)
-                print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={big} tc form, W_hh "
-                      "in shared memory: "
-                      + ", ".join(f"S={s} {t:.4f} ms" for s, t in
-                                  times.items())
-                      + f" (the wrapper picks S={band.tile_streams(big)}); "
-                      f"on {card}")
+                # the scalar form (PR 7's kernel) in the same call, launched
+                # directly: not a launch of the main path
+                rec["scalar_ms"], _ = time_ms(
+                    lambda: band.launch_scalar(plan, x, h))
+                print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={STREAMS}: the "
+                      f"tensor-core form {rec['ms']:.4f} ms, "
+                      f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
+                      f"bound {1e3 * rec['bound_ms']:.3f} us "
+                      f"({rec['bound_by']}); the scalar form "
+                      f"{rec['scalar_ms']:.4f} ms "
+                      f"({rec['scalar_ms'] / rec['ms']:.2f}x); on {card}")
 
     # 3e. the dprnn stack (kernel 6) at the DPRNN-T and -B shapes
     def dprnn_flops(b, f, c, hd, nb):

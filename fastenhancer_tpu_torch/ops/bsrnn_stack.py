@@ -26,8 +26,8 @@ serving engine can infer.
   The kernel has two forms, chosen by `kernel_form` from the shapes and
   dtype before launch: bfloat16 with C and H multiples of 16, C <= 64 and
   H <= 128 (BSRNN-S and -XT) runs the tensor-core form (csrc/band_tc.cuh:
-  a cluster of two thread blocks per tile of 8 or 16 streams, two
-  workspaces from `tc_workspace`); float32 and every other shape run the
+  a cluster of two thread blocks per tile of 8 streams, two workspaces
+  from `tc_workspace`); float32 and every other shape run the
   scalar form (one thread block per stream). `bsrnn_stack_step.launches`
   counts launches of either form, `.tc_launches` the tensor-core form's.
   `launch_scalar` and `launch_tc` launch one form directly and count
@@ -54,10 +54,9 @@ MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
 # x, h, x_out, h_out, the plan; B, F, C, H, L; the stream
 _ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
-# the tensor-core form adds the two workspaces, the tile's streams and the
-# register flag
+# the tensor-core form adds the two workspaces
 _TC_ARGTYPES = ([ctypes.c_void_p] * (6 + len(PLAN_KEYS))
-                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
@@ -172,17 +171,15 @@ def bsrnn_stack_reference(plan: Params, x: Tensor, h: Tensor
 # Wrapper
 # ---------------------------------------------------------------------------
 
-# the tensor-core form (csrc/band_tc.cuh): units of a time-cell weight
-# stage, rows of an A tile held at once, the largest C and H it takes, and
-# its stream tiles
+# the tensor-core form (csrc/band_tc.cuh): streams of a tile, units of a
+# time-cell weight stage and slots of its ring, rows of an A tile held at
+# once, the largest C and H it takes
+TC_TILE = 8
 TC_UNITS = 16
+TC_SLOTS = 3
 TC_CHUNK = 128
 TC_MAX_CHANNELS = 64
 TC_MAX_HIDDEN = 128
-TC_TILE_STREAMS = (8, 16)
-# tiles of 8 streams until two blocks per tile would outnumber the H100's
-# 132 SMs, then tiles of 16
-_SMS = 132
 
 
 def smem_bytes(bands: int, channels: int, hidden: int) -> int:
@@ -201,60 +198,50 @@ def _ld(n: int) -> int:
     return r if (r // 8) % 2 else r + 8
 
 
-def tc_smem_bytes(bands: int, channels: int, hidden: int,
-                  tile_streams: int) -> int:
+def tc_smem_bytes(bands: int, channels: int, hidden: int) -> int:
     """Shared memory of one thread block of the tensor-core form, as
     band_tc.cuh's BandGeom counts it: the zero chunk, the x tile, the h
     double buffer and the region the phases share (the largest of the time
-    cell's h, h' and two-slot ring, W_hh, W_ih, and fc_freq's ys rows and
-    weight)."""
-    f, c, hd, s = bands, channels, hidden, tile_streams
+    cell's h and c/h' rows and three-slot ring, W_hh, W_ih, and fc_freq's
+    ys rows and weight)."""
+    f, c, hd, s = bands, channels, hidden, TC_TILE
     ldx, ldh, ldg = _ld(c), _ld(hd), _ld(4 * hd)
     stage = max((c + hd) * _ld(4 * TC_UNITS), hd * ldx)
-    region = max(2 * TC_CHUNK * ldh + 2 * stage, hd * ldg, c * ldg,
+    region = max(2 * TC_CHUNK * ldh + TC_SLOTS * stage, hd * ldg, c * ldg,
                  TC_CHUNK * _ld(2 * hd) + 2 * hd * ldx)
     return 2 * (8 + f * s * ldx + 2 * s * ldh + region)
-
-
-def tile_streams(batch: int) -> int:
-    """Streams per tile of the tensor-core form for a batch of B: 8, or 16
-    once two blocks per tile of 8 would outnumber the SMs."""
-    return 8 if 2 * -(-batch // 8) <= _SMS else 16
 
 
 def kernel_form(bands: int, channels: int, hidden: int,
                 dtype: torch.dtype) -> str:
     """Which form of the kernel runs, by shape alone, before launch: "tc"
     (tensor cores, csrc/band_tc.cuh) for bfloat16 when C and H are
-    multiples of 16, C <= 64, H <= 128 and its shared memory at tiles of 16
-    streams fits; else "scalar" (csrc/bsrnn_stack.cu's float32-FMA form,
-    which float32 always takes)."""
+    multiples of 16, C <= 64, H <= 128 and its shared memory fits; else
+    "scalar" (csrc/bsrnn_stack.cu's float32-FMA form, which float32 always
+    takes)."""
     if (dtype == torch.bfloat16 and channels % 16 == 0 and hidden % 16 == 0
             and channels <= TC_MAX_CHANNELS and hidden <= TC_MAX_HIDDEN
-            and tc_smem_bytes(bands, channels, hidden, max(TC_TILE_STREAMS))
-            <= MAX_SMEM_BYTES):
+            and tc_smem_bytes(bands, channels, hidden) <= MAX_SMEM_BYTES):
         return "tc"
     return "scalar"
 
 
-def tc_workspace_shapes(batch: int, bands: int, hidden: int,
-                        tile_streams: int
+def tc_workspace_shapes(batch: int, bands: int, hidden: int
                         ) -> tp.Tuple[tp.Tuple[int, ...], tp.Tuple[int, ...]]:
-    """Shapes of the tensor-core form's two bfloat16 workspaces: xp, the
-    sweep's input projection in the recurrence's fragment order [tiles, 2,
-    F, H/16, 32 lanes, 2 * tile_streams], and ys, the sweep's output
-    [tiles, F * tile_streams, 2H]."""
-    tiles = -(-batch // tile_streams)
-    return ((tiles, 2, bands, hidden // 16, 32, 2 * tile_streams),
-            (tiles, bands * tile_streams, 2 * hidden))
+    """Shapes of the tensor-core form's two bfloat16 workspaces, per tile of
+    8 streams: xp, the sweep's input projection in the recurrence's
+    fragment order [tiles, 2, F, H/16, 32 lanes, 16], and ys, the sweep's
+    output [tiles, F * 8, 2H]."""
+    tiles = -(-batch // TC_TILE)
+    return ((tiles, 2, bands, hidden // 16, 32, 2 * TC_TILE),
+            (tiles, bands * TC_TILE, 2 * hidden))
 
 
-def tc_workspace(batch: int, bands: int, hidden: int, tile_streams: int,
+def tc_workspace(batch: int, bands: int, hidden: int,
                  device: torch.device) -> tp.Tuple[Tensor, Tensor]:
     """The two workspaces of tc_workspace_shapes, uninitialised."""
     return tuple(torch.empty(s, dtype=torch.bfloat16, device=device)
-                 for s in tc_workspace_shapes(batch, bands, hidden,
-                                              tile_streams))
+                 for s in tc_workspace_shapes(batch, bands, hidden))
 
 
 def _check(plan: Params, x: Tensor, h: Tensor) -> None:
@@ -281,19 +268,16 @@ def _check(plan: Params, x: Tensor, h: Tensor) -> None:
 
 
 def _check_tc(plan: Params, x: Tensor, h: Tensor, xp_ws: Tensor,
-              ys_ws: Tensor, tile_streams: int) -> None:
-    """What the tensor-core form takes beyond _check: its shapes, tiles of
-    8 or 16 streams, workspaces of tc_workspace_shapes on x's device, and
-    16-byte aligned operands (its copies move 16 bytes a chunk)."""
+              ys_ws: Tensor) -> None:
+    """What the tensor-core form takes beyond _check: its shapes,
+    workspaces of tc_workspace_shapes on x's device, and 16-byte aligned
+    operands (its copies move 16 bytes a chunk)."""
     fb, b, c = x.shape
     hd = h.shape[-1]
     if kernel_form(fb, c, hd, x.dtype) != "tc":
         raise ValueError(f"the tensor-core form does not take F={fb}, C={c}, "
                          f"H={hd} in {x.dtype} (see kernel_form)")
-    if tile_streams not in TC_TILE_STREAMS:
-        raise ValueError(f"tile_streams must be one of {TC_TILE_STREAMS}, "
-                         f"not {tile_streams}")
-    want = tc_workspace_shapes(b, fb, hd, tile_streams)
+    want = tc_workspace_shapes(b, fb, hd)
     for name, t, shape in (("xp_ws", xp_ws, want[0]),
                            ("ys_ws", ys_ws, want[1])):
         if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
@@ -338,12 +322,10 @@ def launch_scalar(plan: Params, x: Tensor, h: Tensor
 
 
 def launch_tc(plan: Params, x: Tensor, h: Tensor, xp_ws: Tensor,
-              ys_ws: Tensor, tile_streams: int, reg_weights: bool = False
-              ) -> tp.Tuple[Tensor, Tensor]:
+              ys_ws: Tensor) -> tp.Tuple[Tensor, Tensor]:
     """Launch the tensor-core form on bfloat16 CUDA tensors that passed
-    _check, with its workspaces (tc_workspace); reg_weights keeps W_hh's
-    fragments in registers through the sweep. Counts nothing."""
-    _check_tc(plan, x, h, xp_ws, ys_ws, tile_streams)
+    _check, with its workspaces (tc_workspace). Counts nothing."""
+    _check_tc(plan, x, h, xp_ws, ys_ws)
     _cuda_only(x)
     fn = _build.function("bsrnn_stack", "bsrnn_stack_tc_bf16", ctypes.c_int,
                          _TC_ARGTYPES)
@@ -356,7 +338,7 @@ def launch_tc(plan: Params, x: Tensor, h: Tensor, xp_ws: Tensor,
         err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
                  h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
                  xp_ws.data_ptr(), ys_ws.data_ptr(), b, fb, c, hd, nl,
-                 tile_streams, int(reg_weights), stream)
+                 stream)
     _build.check_launch("bsrnn_stack", err)
     return x_out, h_out
 
@@ -381,8 +363,7 @@ def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor
     fb, b, c = x.shape
     hd = h.shape[-1]
     if kernel_form(fb, c, hd, x.dtype) == "tc":
-        s = tile_streams(b)
-        out = launch_tc(plan, x, h, *tc_workspace(b, fb, hd, s, x.device), s)
+        out = launch_tc(plan, x, h, *tc_workspace(b, fb, hd, x.device))
         bsrnn_stack_step.tc_launches += 1
     else:
         out = launch_scalar(plan, x, h)

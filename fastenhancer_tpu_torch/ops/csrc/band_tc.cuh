@@ -3,47 +3,48 @@
 // float32 and the shapes this form does not take, rounded at the same
 // points.
 //
-// Work unit: a tile of kS streams (8 or 16), run by a cluster of two
-// thread blocks, rank q = 0 and 1. Each weight fragment a warp loads serves
-// every stream of the tile. Per layer:
+// Work unit: a tile of kTile = 8 streams, run by a cluster of two thread
+// blocks, rank q = 0 and 1. Each weight fragment a warp loads serves every
+// stream of the tile. Per layer:
 //   1. time cell: gates = [x | h] . [W_tih; W_thh] (one float32
 //      accumulator), the LSTM cell in registers, then fc_time and its
-//      residual. Rank q takes its half of the tile's F * kS rows. The
-//      weights pass through a ring of two shared-memory slots, one stage of
-//      kUnits units (all four gates, every K row) at a time, the next
-//      stage's cp.async copies in flight while the current one computes. A
-//      warp's task holds the n-tiles {u, H+u, 2H+u, 3H+u} of 8 units, so
-//      one lane's accumulators hold i, f, g and o of the same (row, unit).
-//      The new x rows go to both blocks' x tiles (the peer's through
-//      distributed shared memory).
+//      residual. Rank q takes its half of the tile's F * kTile rows. The
+//      weights pass through a ring of three shared-memory slots, one stage
+//      of kUnits units (all four gates, every K row) at a time, the copies
+//      two stages ahead of the products. A warp's task holds the n-tiles
+//      {u, H+u, 2H+u, 3H+u} of 8 units for 32 rows, so one lane's
+//      accumulators hold i, f, g and o of the same (row, unit). The new x
+//      rows go to both blocks' x tiles (the peer's through distributed
+//      shared memory).
 //   2. input projection, after a cluster barrier: block q is direction q
 //      of the sweep and computes xp = round(x . W_fih[q] + round(b_fih[q] +
 //      b_fhh[q])) for every row of the tile, as W^T . x^T: the mma's M is
-//      the 4H gate columns, N the kS streams of one band. Warp w owns the
+//      the 4H gate columns, N the 8 streams of one band. Warp w owns the
 //      16 units 16w..16w+15 (m-tiles of gate g at gH + 16w), holds its W^T
 //      fragments in registers across the F bands, and writes its
 //      accumulators to the global workspace xp_ws in fragment order: the
 //      lane that writes a value is the lane that reads it back in step 3.
-//   3. recurrence: W_hh[q] is copied once into padded shared rows. Each of
-//      the F steps computes W_hh^T . h^T for the tile (h: [kS, H] bf16 in a
-//      double buffer, c in float32 registers), adds xp (prefetched into
+//   3. recurrence: W_hh[q] is copied once into padded shared rows, and
+//      each warp holds the fragments of its W_hh^T's first kRegSteps
+//      k-steps in registers through the sweep (the rest it reads from
+//      shared memory every step; all of them in registers spilled). Each
+//      of the F steps computes W_hh^T . h^T for the tile (h: [8, H] bf16 in
+//      a double buffer, c in float32 registers), adds xp (prefetched into
 //      registers a step ahead), runs the cell and writes the rounded h to
 //      the double buffer and to the global workspace ys_ws; one
-//      __syncthreads() a step. With kRegW the warp holds the fragments of
-//      its W_hh^T's first kRegSteps k-steps in registers for the whole
-//      sweep instead of reading them from shared memory every step.
+//      __syncthreads() a step.
 //   4. fc_freq, after a cluster barrier: rank q's rows of ys_ws (both
 //      directions) times W_fcf plus the residual, written to both x tiles.
 // Streams past B in the last tile are zero rows that are never stored.
 //
 // Layouts: x, x_out [F, B, C]; h, h_out [L, 2, F, B, H]; a tile's row
-// r = f * kS + s is band f, stream b0 + s. xp_ws: [tiles, 2, F, H/16, 32
-// lanes, kS * 2] bf16; ys_ws: [tiles, F * kS, 2H] bf16 (row r: [fwd h |
-// bwd h]). Shared memory: the 16-byte zero chunk, the x tile [F * kS, ldx],
-// the h double buffer [2, kS, ldh] and one region each phase reuses (the
-// time cell's h and h' rows of a chunk and its ring; W_fih[q]; W_hh[q]; a
-// chunk of ys rows and W_fcf). The plan's arrays are read as they are,
-// row-major [in, out].
+// r = f * kTile + s is band f, stream b0 + s. xp_ws: [tiles, 2, F, H/16,
+// 32 lanes, 16] bf16; ys_ws: [tiles, F * kTile, 2H] bf16 (row r: [fwd h |
+// bwd h]). Shared memory: the 16-byte zero chunk, the x tile [F * kTile,
+// ldx], the h double buffer [2, kTile, ldh] and one region each phase
+// reuses (the time cell's h and c/h' rows of a chunk and its ring; W_fih[q];
+// W_hh[q]; a chunk of ys rows and W_fcf). The plan's arrays are read as
+// they are, row-major [in, out].
 #pragma once
 
 #include "mma_common.cuh"
@@ -70,15 +71,19 @@ struct BandPlan {
 
 namespace tc {
 
+// streams of a tile: the N of the input projection's and the sweep's mma
+constexpr int kTile = 8;
 // units of one time-cell weight stage (all four gates)
 constexpr int kUnits = 16;
+// slots of the time cell's weight ring
+constexpr int kSlots = 3;
 // rows of the time cell's and fc_freq's A tiles in shared memory at once
 constexpr int kChunk = 128;
 // the largest C and H this form takes: W_fih's fragments of one warp (C /
 // 16 k-steps) and one 16-unit group per warp (H / 16 <= kWarps)
 constexpr int kMaxC = 64;
 constexpr int kMaxH = 16 * kWarps;
-// k-steps of W_hh^T a warp holds in registers through the sweep (kRegW)
+// k-steps of W_hh^T a warp holds in registers through the sweep
 constexpr int kRegSteps = 4;
 
 // ---------------------------------------------------------------------------
@@ -116,8 +121,8 @@ __device__ __forceinline__ P* peer_of(P* p) {
 
 struct BandGeom {
   int f, c, hd, s, rows, half, ldx, ldh, ldg, ldy, lds, stage;
-  __host__ __device__ BandGeom(int bands, int ch, int hidden, int streams)
-      : f(bands), c(ch), hd(hidden), s(streams), rows(bands * streams),
+  __host__ __device__ BandGeom(int bands, int ch, int hidden)
+      : f(bands), c(ch), hd(hidden), s(kTile), rows(bands * kTile),
         half(0), ldx(ld_of(ch)), ldh(ld_of(hidden)), ldg(ld_of(4 * hidden)),
         ldy(ld_of(2 * hidden)), lds(ld_of(4 * kUnits)), stage(0) {
     // rank 0's rows: half of them, rounded up to whole m-tiles
@@ -130,7 +135,7 @@ struct BandGeom {
   __host__ __device__ int xtile() const { return rows * ldx; }
   __host__ __device__ int hbuf() const { return s * ldh; }
   __host__ __device__ int region() const {
-    const int cell = 2 * kChunk * ldh + 2 * stage;
+    const int cell = 2 * kChunk * ldh + kSlots * stage;
     const int whh = hd * ldg;
     const int wih = c * ldg;
     const int fcf = kChunk * ldy + 2 * hd * ldx;
@@ -176,7 +181,6 @@ __device__ __forceinline__ float tanh_fast(float v) {
 // rows [ra, ra + n) of the tile, `cols` wide, from rows of a global [F, B,
 // cols] array (row (f, b) at (f * batch + b) * cols) into dst with stride
 // ld, 16-byte cp.async chunks; rows of streams >= batch are zeroed.
-template <int kS>
 __device__ __forceinline__ void load_tile_rows(bf16* dst, int ld,
                                                const bf16* src, int ra, int n,
                                                int cols, int b0, int batch) {
@@ -185,10 +189,10 @@ __device__ __forceinline__ void load_tile_rows(bf16* dst, int ld,
     const int r = e / per;
     const int k = e - r * per;
     const int row = ra + r;
-    const int b = b0 + (row & (kS - 1));
+    const int b = b0 + (row & (kTile - 1));
     bf16* d = dst + static_cast<size_t>(r) * ld + 8 * k;
     if (b < batch) {
-      cp_async<16>(d, src + (static_cast<size_t>(row / kS) * batch + b) *
+      cp_async<16>(d, src + (static_cast<size_t>(row / kTile) * batch + b) *
                                 cols + 8 * k);
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
@@ -281,7 +285,6 @@ __device__ __forceinline__ void fc_rows(const bf16* a, int lda, int k,
 // The time cell and fc_time of layer i on tile rows [ra, ra + n), n <=
 // kChunk: h rows into ht, the c rows into hn (each cell overwrites its c
 // with its h'), ring stages in `ring`.
-template <int kS>
 __device__ __forceinline__ void time_cell_chunk(const BandArgs& a,
                                                 const BandGeom& g, int i,
                                                 int ra, int n, int b0,
@@ -302,28 +305,28 @@ __device__ __forceinline__ void time_cell_chunk(const BandArgs& a,
   const int pairs = (n + 31) / 32;  // a task's two m-tiles
   constexpr int kSub = kUnits / 8;
 
-  load_tile_rows<kS>(ht, g.ldh, a.h + 2 * i * fbh, ra, n, hd, b0, a.batch);
-  load_tile_rows<kS>(hn, g.ldh, a.h + (2 * i + 1) * fbh, ra, n, hd, b0,
-                     a.batch);
-  copy_cell_stage(ring, g.lds, w_ih, w_hh, 0, c, hd);
-  cp_async_commit();
-  for (int st = 0; st <= cells; ++st) {
+  // stage st's copies into slot st % kSlots, one commit group each
+  auto copy_stage = [&](int st) {
+    bf16* slot = ring + (st % kSlots) * g.stage;
     if (st < cells) {
-      bf16* next = ring + ((st + 1) & 1) * g.stage;
-      if (st + 1 < cells) {
-        copy_cell_stage(next, g.lds, w_ih, w_hh, st + 1, c, hd);
-      } else {
-        copy_rows_async<16>(next, g.ldx,
-                            a.p.w_fct + static_cast<size_t>(i) * hd * c, hd,
-                            c);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      copy_cell_stage(slot, g.lds, w_ih, w_hh, st, c, hd);
+    } else if (st == cells) {
+      copy_rows_async<16>(slot, g.ldx,
+                          a.p.w_fct + static_cast<size_t>(i) * hd * c, hd, c);
     }
+    cp_async_commit();
+  };
+  load_tile_rows(ht, g.ldh, a.h + 2 * i * fbh, ra, n, hd, b0, a.batch);
+  load_tile_rows(hn, g.ldh, a.h + (2 * i + 1) * fbh, ra, n, hd, b0,
+                 a.batch);
+  for (int st = 0; st < kSlots - 1; ++st) copy_stage(st);
+  for (int st = 0; st <= cells; ++st) {
+    // every group but the newest has landed: stage st's
+    cp_async_wait<kSlots - 2>();
     __syncthreads();
-    const bf16* w = ring + (st & 1) * g.stage;
+    // the slot stage st - 1 used is free: two stages ahead
+    copy_stage(st + kSlots - 1);
+    const bf16* w = ring + (st % kSlots) * g.stage;
     if (st < cells) {
       const AOp ax{xt + static_cast<size_t>(ra) * g.ldx, g.ldx, n, c, 0};
       const AOp ah{ht, g.ldh, n, hd, 0};
@@ -376,7 +379,7 @@ __device__ __forceinline__ void time_cell_chunk(const BandArgs& a,
             if (r >= n) continue;
             const int u = u0 + (e & 1);
             const int row = ra + r;
-            const int b = b0 + (row & (kS - 1));
+            const int b = b0 + (row & (kTile - 1));
             const float ig = sigmoid_fast(acc[mi][0][e] + bias[0][e & 1]);
             const float fg = sigmoid_fast(acc[mi][1][e] + bias[1][e & 1]);
             const float gg = tanh_fast(acc[mi][2][e] + bias[2][e & 1]);
@@ -387,7 +390,7 @@ __device__ __forceinline__ void time_cell_chunk(const BandArgs& a,
             *cell = hv;
             if (b < a.batch) {
               const size_t o =
-                  (static_cast<size_t>(row / kS) * a.batch + b) * hd + u;
+                  (static_cast<size_t>(row / kTile) * a.batch + b) * hd + u;
               h_new[o] = hv;
               c_new[o] = __float2bfloat16_rn(cv);
             }
@@ -403,15 +406,23 @@ __device__ __forceinline__ void time_cell_chunk(const BandArgs& a,
   }
 }
 
+// Where lane `lane` of warp `ug` keeps its 16 xp values of band 0 of
+// direction d (the next band 16 * 32 * H / 16 values on).
+__device__ __forceinline__ bf16* xp_of(const BandArgs& a, const BandGeom& g,
+                                       int tile, int d, int ug, int lane) {
+  return a.xp_ws +
+         (((static_cast<size_t>(tile) * 2 + d) * g.f * (g.hd / 16) + ug) *
+              32 + lane) * 16;
+}
+
 // The input projection of direction d (step 2): xp for every band of the
-// tile into xp_ws, in the fragment order the recurrence reads.
-template <int kS>
+// tile into xp_ws, in the fragment order the recurrence reads: per lane
+// and band, gate g's values at 4 g + e for the mma's accumulator e.
 __device__ __forceinline__ void input_projection(const BandArgs& a,
                                                  const BandGeom& g, int i,
                                                  int d, int tile,
                                                  const bf16* xt, bf16* reg,
                                                  const bf16* zero) {
-  constexpr int kNT = kS / 8;
   const int c = g.c, hd = g.hd, g4 = 4 * hd;
   const size_t wo = (2 * static_cast<size_t>(i) + d) * g4;
   copy_rows_async<16>(reg, g.ldg, a.p.w_fih + wo * c, c, g4);
@@ -439,59 +450,43 @@ __device__ __forceinline__ void input_projection(const BandArgs& a,
         if (k < ks) wt.load(fa[gt][k], gt * hd + j0, 16 * k, z);
       }
     }
-    bf16* out = a.xp_ws +
-                ((static_cast<size_t>(tile) * 2 + d) * g.f * (hd / 16) + ug) *
-                    32 * (2 * kS) +
-                lane * (2 * kS);
-    const size_t band_step = static_cast<size_t>(hd / 16) * 32 * (2 * kS);
+    bf16* out = xp_of(a, g, tile, d, ug, lane);
+    const size_t band_step = static_cast<size_t>(hd / 16) * 32 * 16;
 #pragma unroll 2
     for (int f = 0; f < g.f; ++f) {
+      const BTOp bx{xt + static_cast<size_t>(f) * kTile * g.ldx, g.ldx,
+                    kTile, c};
+      float acc[4][4] = {};
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const BTOp bx{xt + static_cast<size_t>(f * kS + 8 * nt) * g.ldx,
-                      g.ldx, 8, c};
-        float acc[4][4] = {};
+      for (int k = 0; k < kMaxC / 16; ++k) {
+        if (k < ks) {
+          uint32_t fb[2];
+          bx.load(fb, 16 * k, 0, z);
 #pragma unroll
-        for (int k = 0; k < kMaxC / 16; ++k) {
-          if (k < ks) {
-            uint32_t fb[2];
-            bx.load(fb, 16 * k, 0, z);
-#pragma unroll
-            for (int gt = 0; gt < 4; ++gt) mma_bf16(acc[gt], fa[gt][k], fb);
-          }
+          for (int gt = 0; gt < 4; ++gt) mma_bf16(acc[gt], fa[gt][k], fb);
         }
-        uint32_t w[8];
-#pragma unroll
-        for (int gt = 0; gt < 4; ++gt) {
-          w[2 * gt] = pack_bf16(acc[gt][0] + xb[gt][0], acc[gt][1] + xb[gt][0]);
-          w[2 * gt + 1] =
-              pack_bf16(acc[gt][2] + xb[gt][1], acc[gt][3] + xb[gt][1]);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(out + f * band_step + 16 * nt);
-        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
       }
+      uint32_t w[8];
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt) {
+        w[2 * gt] = pack_bf16(acc[gt][0] + xb[gt][0], acc[gt][1] + xb[gt][0]);
+        w[2 * gt + 1] =
+            pack_bf16(acc[gt][2] + xb[gt][1], acc[gt][3] + xb[gt][1]);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(out + f * band_step);
+      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
     }
   }
   __syncthreads();
 }
 
-// one lane's xp values of one band (16 a stream n-tile), a step ahead
-template <int kNT>
-__device__ __forceinline__ void load_xp(uint4 (&xn)[kNT][2], const bf16* src) {
-  const uint4* v = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int q = 0; q < 2 * kNT; ++q) xn[q / 2][q % 2] = v[q];
-}
-
 // The recurrence of direction d (step 3) over the F bands, h into hb's
 // double buffer and ys_ws.
-template <int kS, bool kRegW>
 __device__ __forceinline__ void recurrence(const BandArgs& a,
                                            const BandGeom& g, int i, int d,
                                            int tile, bf16* hb, bf16* reg,
                                            const bf16* zero) {
-  constexpr int kNT = kS / 8;
   const int hd = g.hd, g4 = 4 * hd;
   copy_rows_async<16>(
       reg, g.ldg, a.p.w_fhh + (2 * static_cast<size_t>(i) + d) * hd * g4, hd,
@@ -509,94 +504,77 @@ __device__ __forceinline__ void recurrence(const BandArgs& a,
   const int ks = hd / 16;
   const uint32_t z = smem_u32(zero);
   const ATOp wt{reg, g.ldg, g4, hd};
-  // with kRegW, the fragments of the first kRegK k-steps stay in registers
-  constexpr int kRegK = kRegW ? kRegSteps : 0;
-  uint32_t wr[4][kRegK > 0 ? kRegK : 1][4];
+  uint32_t wr[4][kRegSteps][4];
   if (active) {
 #pragma unroll
     for (int gt = 0; gt < 4; ++gt) {
 #pragma unroll
-      for (int k = 0; k < kRegK; ++k) {
+      for (int k = 0; k < kRegSteps; ++k) {
         if (k < ks) wt.load(wr[gt][k], gt * hd + j0, 16 * k, z);
       }
     }
   }
-  const bf16* xp = a.xp_ws +
-                   ((static_cast<size_t>(tile) * 2 + d) * g.f * (hd / 16) +
-                    ug) * 32 * (2 * kS) +
-                   lane * (2 * kS);
-  const size_t band_step = static_cast<size_t>(hd / 16) * 32 * (2 * kS);
+  const uint4* xp =
+      reinterpret_cast<const uint4*>(xp_of(a, g, tile, d, ug, lane));
+  const int band_step = (hd / 16) * 32 * 2;  // in uint4
   bf16* ys = a.ys_ws + static_cast<size_t>(tile) * g.rows * 2 * hd + d * hd;
-  float cs[kNT][4] = {};
-  uint4 xn[kNT][2];
-  if (active) load_xp<kNT>(xn, xp + (d ? g.f - 1 : 0) * band_step);
+  float cs[4] = {};
+  uint4 xn[2];
+  if (active) {
+    const int band = d ? g.f - 1 : 0;
+    xn[0] = xp[band * band_step];
+    xn[1] = xp[band * band_step + 1];
+  }
   for (int t = 0; t < g.f; ++t) {
     const int band = d ? g.f - 1 - t : t;
     const bf16* h_cur = hb + (t & 1) * g.hbuf();
     bf16* h_next = hb + ((t + 1) & 1) * g.hbuf();
     if (active) {
-      uint4 cur[kNT][2];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        cur[nt][0] = xn[nt][0];
-        cur[nt][1] = xn[nt][1];
+      const uint32_t wv[8] = {xn[0].x, xn[0].y, xn[0].z, xn[0].w,
+                              xn[1].x, xn[1].y, xn[1].z, xn[1].w};
+      if (t + 1 < g.f) {  // the next band's xp, a step ahead
+        const int next = d ? band - 1 : band + 1;
+        xn[0] = xp[next * band_step];
+        xn[1] = xp[next * band_step + 1];
       }
-      if (t + 1 < g.f) {
-        load_xp<kNT>(xn, xp + (d ? band - 1 : band + 1) * band_step);
-      }
-      float acc[4][kNT][4] = {};
+      float acc[4][4] = {};
+      const BTOp bh{h_cur, g.ldh, kTile, hd};
 #pragma unroll
       for (int k = 0; k < kMaxH / 16; ++k) {
         if (k < ks) {
-          uint32_t fb[kNT][2];
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            BTOp{h_cur + 8 * nt * g.ldh, g.ldh, 8, hd}.load(fb[nt], 16 * k, 0,
-                                                            z);
-          }
+          uint32_t fb[2];
+          bh.load(fb, 16 * k, 0, z);
 #pragma unroll
           for (int gt = 0; gt < 4; ++gt) {
-            if (k < kRegK) {
-#pragma unroll
-              for (int nt = 0; nt < kNT; ++nt) {
-                mma_bf16(acc[gt][nt], wr[gt][k < kRegK ? k : 0], fb[nt]);
-              }
+            if (k < kRegSteps) {
+              mma_bf16(acc[gt], wr[gt][k < kRegSteps ? k : 0], fb);
             } else {
               uint32_t fa[4];
               wt.load(fa, gt * hd + j0, 16 * k, z);
-#pragma unroll
-              for (int nt = 0; nt < kNT; ++nt) {
-                mma_bf16(acc[gt][nt], fa, fb[nt]);
-              }
+              mma_bf16(acc[gt], fa, fb);
             }
           }
         }
       }
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const uint32_t wv[8] = {cur[nt][0].x, cur[nt][0].y, cur[nt][0].z,
-                                cur[nt][0].w, cur[nt][1].x, cur[nt][1].y,
-                                cur[nt][1].z, cur[nt][1].w};
+      for (int e = 0; e < 4; ++e) {
+        float gate[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float gate[4];
-#pragma unroll
-          for (int gt = 0; gt < 4; ++gt) {
-            const uint32_t word = wv[2 * gt + (e >> 1)];
-            gate[gt] = ((e & 1) ? hi_bf16(word) : lo_bf16(word)) +
-                       acc[gt][nt][e];
-          }
-          const float ig = sigmoid_fast(gate[0]);
-          const float fg = sigmoid_fast(gate[1]);
-          const float gg = tanh_fast(gate[2]);
-          const float og = sigmoid_fast(gate[3]);
-          cs[nt][e] = fg * cs[nt][e] + ig * gg;
-          const bf16 hv = __float2bfloat16_rn(og * tanh_fast(cs[nt][e]));
-          const int u = j0 + (lane >> 2) + (e >> 1) * 8;
-          const int s = 8 * nt + 2 * (lane & 3) + (e & 1);
-          h_next[s * g.ldh + u] = hv;
-          ys[static_cast<size_t>(band * kS + s) * 2 * hd + u] = hv;
+        for (int gt = 0; gt < 4; ++gt) {
+          const uint32_t word = wv[2 * gt + (e >> 1)];
+          gate[gt] =
+              ((e & 1) ? hi_bf16(word) : lo_bf16(word)) + acc[gt][e];
         }
+        const float ig = sigmoid_fast(gate[0]);
+        const float fg = sigmoid_fast(gate[1]);
+        const float gg = tanh_fast(gate[2]);
+        const float og = sigmoid_fast(gate[3]);
+        cs[e] = fg * cs[e] + ig * gg;
+        const bf16 hv = __float2bfloat16_rn(og * tanh_fast(cs[e]));
+        const int u = j0 + (lane >> 2) + (e >> 1) * 8;
+        const int s = 2 * (lane & 3) + (e & 1);
+        h_next[s * g.ldh + u] = hv;
+        ys[static_cast<size_t>(band * kTile + s) * 2 * hd + u] = hv;
       }
     }
     __syncthreads();
@@ -631,20 +609,19 @@ __device__ __forceinline__ void fc_freq_chunk(const BandArgs& a,
 
 // The whole stack for the tile of cluster blockIdx.x / 2; called by every
 // thread of both blocks. smem: g.elems() bf16, 16-byte aligned.
-template <int kS, bool kRegW>
 __device__ __forceinline__ void band_stack_tc(const BandArgs& a, int bands,
                                               int ch, int hd, bf16* smem) {
-  const BandGeom g(bands, ch, hd, kS);
+  const BandGeom g(bands, ch, hd);
   const int q = cluster_rank();
   const int tile = blockIdx.x >> 1;
-  const int b0 = tile * kS;
+  const int b0 = tile * kTile;
   bf16* zero = smem;
   bf16* xt = smem + 8;
   bf16* hb = xt + g.xtile();
   bf16* reg = hb + 2 * g.hbuf();
   bf16* xt_peer = peer_of(xt);
   if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0, 0, 0, 0);
-  load_tile_rows<kS>(xt, g.ldx, a.x, 0, g.rows, ch, b0, a.batch);
+  load_tile_rows(xt, g.ldx, a.x, 0, g.rows, ch, b0, a.batch);
   cp_async_commit();
   cp_async_wait<0>();
   // both blocks started (before any write to the peer) and the tile loaded
@@ -654,11 +631,11 @@ __device__ __forceinline__ void band_stack_tc(const BandArgs& a, int bands,
   for (int i = 0; i < a.layers; ++i) {
     for (int ra = r0; ra < r0 + nr; ra += kChunk) {
       const int n = r0 + nr - ra < kChunk ? r0 + nr - ra : kChunk;
-      time_cell_chunk<kS>(a, g, i, ra, n, b0, xt, xt_peer, reg, zero);
+      time_cell_chunk(a, g, i, ra, n, b0, xt, xt_peer, reg, zero);
     }
     cluster_sync();
-    input_projection<kS>(a, g, i, q, tile, xt, reg, zero);
-    recurrence<kS, kRegW>(a, g, i, q, tile, hb, reg, zero);
+    input_projection(a, g, i, q, tile, xt, reg, zero);
+    recurrence(a, g, i, q, tile, hb, reg, zero);
     // W_hh is done with: W_fcf's copy overlaps the barrier
     copy_rows_async<16>(fcf_of(reg, g), g.ldx,
                         a.p.w_fcf + static_cast<size_t>(i) * 2 * hd * ch,
@@ -676,10 +653,10 @@ __device__ __forceinline__ void band_stack_tc(const BandArgs& a, int bands,
     const int r = e / per;
     const int k = e - r * per;
     const int row = r0 + r;
-    const int b = b0 + (row & (kS - 1));
+    const int b = b0 + (row & (kTile - 1));
     if (b < a.batch) {
       *reinterpret_cast<uint4*>(
-          a.x_out + (static_cast<size_t>(row / kS) * a.batch + b) * ch +
+          a.x_out + (static_cast<size_t>(row / kTile) * a.batch + b) * ch +
           8 * k) =
           *reinterpret_cast<const uint4*>(xt + static_cast<size_t>(row) *
                                                    g.ldx + 8 * k);

@@ -246,34 +246,31 @@ int launch(const void* x, const void* h, void* x_out, void* h_out,
 }
 
 // The bfloat16 form on the tensor cores (band_tc.cuh): a cluster of two
-// thread blocks per tile of kS streams, one per sweep direction. Its
-// shared memory allows one block per SM, so the kernel may take up to 255
-// registers a thread (kRegW keeps W_hh's fragments in them).
-template <int kS, bool kRegW>
+// thread blocks per tile of 8 streams, one per sweep direction. Its shared
+// memory allows one block per SM, so the kernel may take up to 255
+// registers a thread (half of each warp's W_hh fragments live in them).
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     bsrnn_stack_tc_kernel(fe::tc::BandArgs a, int bands, int ch, int hd) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  fe::tc::band_stack_tc<kS, kRegW>(a, bands, ch, hd,
-                                   reinterpret_cast<fe::tc::bf16*>(smem_tc));
+  fe::tc::band_stack_tc(a, bands, ch, hd,
+                        reinterpret_cast<fe::tc::bf16*>(smem_tc));
 }
 
-size_t tc_smem_bytes(int bands, int ch, int hd, int tile_streams) {
-  return fe::tc::BandGeom(bands, ch, hd, tile_streams).elems() *
-         sizeof(fe::tc::bf16);
+size_t tc_smem_bytes(int bands, int ch, int hd) {
+  return fe::tc::BandGeom(bands, ch, hd).elems() * sizeof(fe::tc::bf16);
 }
 
-template <int kS, bool kRegW>
 int launch_tc(const fe::tc::BandArgs& a, int bands, int ch, int hd,
               void* stream) {
-  const size_t smem = tc_smem_bytes(bands, ch, hd, kS);
+  const size_t smem = tc_smem_bytes(bands, ch, hd);
   const cudaError_t err = cudaFuncSetAttribute(
-      bsrnn_stack_tc_kernel<kS, kRegW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      bsrnn_stack_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (a.batch + kS - 1) / kS;
-  bsrnn_stack_tc_kernel<kS, kRegW>
-      <<<2 * tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          a, bands, ch, hd);
+  const int tiles = (a.batch + fe::tc::kTile - 1) / fe::tc::kTile;
+  bsrnn_stack_tc_kernel<<<2 * tiles, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(a, bands, ch,
+                                                               hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,10 +302,9 @@ int bsrnn_stack_bf16(const void* x, const void* h, void* x_out, void* h_out,
 }
 
 // The bfloat16 tensor-core form: xp_ws and ys_ws are the workspaces of
-// band_tc.cuh ([tiles, 2, F, H/16, 32, 2 * tile_streams] and [tiles, F *
-// tile_streams, 2H] bf16), tile_streams is 8 or 16, reg_weights nonzero
-// keeps W_hh's fragments in registers. Shapes outside the form (C or H not
-// a multiple of 16, C > 64, H > 128) return cudaErrorInvalidValue.
+// band_tc.cuh ([tiles, 2, F, H/16, 32, 16] and [tiles, F * 8, 2H] bf16,
+// tiles of 8 streams). Shapes outside the form (C or H not a multiple of
+// 16, C > 64, H > 128) return cudaErrorInvalidValue.
 int bsrnn_stack_tc_bf16(const void* x, const void* h, void* x_out,
                         void* h_out, const void* w_tih, const void* w_thh,
                         const void* b_t, const void* w_fct, const void* b_fct,
@@ -316,10 +312,8 @@ int bsrnn_stack_tc_bf16(const void* x, const void* h, void* x_out,
                         const void* w_fhh, const void* b_fhh,
                         const void* w_fcf, const void* b_fcf, void* xp_ws,
                         void* ys_ws, int batch, int bands, int ch, int hd,
-                        int layers, int tile_streams, int reg_weights,
-                        void* stream) {
-  if (ch % 16 || hd % 16 || ch > fe::tc::kMaxC || hd > fe::tc::kMaxH ||
-      (tile_streams != 8 && tile_streams != 16)) {
+                        int layers, void* stream) {
+  if (ch % 16 || hd % 16 || ch > fe::tc::kMaxC || hd > fe::tc::kMaxH) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   using B = fe::tc::bf16;
@@ -338,17 +332,12 @@ int bsrnn_stack_tc_bf16(const void* x, const void* h, void* x_out,
       static_cast<B*>(ys_ws),
       batch,
       layers};
-  if (tile_streams == 8) {
-    return reg_weights ? launch_tc<8, true>(a, bands, ch, hd, stream)
-                       : launch_tc<8, false>(a, bands, ch, hd, stream);
-  }
-  return reg_weights ? launch_tc<16, true>(a, bands, ch, hd, stream)
-                     : launch_tc<16, false>(a, bands, ch, hd, stream);
+  return launch_tc(a, bands, ch, hd, stream);
 }
 
 // dynamic shared memory of one block of the tensor-core form
-size_t bsrnn_stack_tc_smem(int bands, int ch, int hd, int tile_streams) {
-  return tc_smem_bytes(bands, ch, hd, tile_streams);
+size_t bsrnn_stack_tc_smem(int bands, int ch, int hd) {
+  return tc_smem_bytes(bands, ch, hd);
 }
 
 const char* bsrnn_stack_error_string(int code) {

@@ -82,23 +82,22 @@ _CELL, _STEP = 16, 128
 # (text in band_tc.cuh, the marker appended after it, or put before it
 # with a third item True); code (0, 7) marks the start, before layer 0
 _BAND_MARKS = (
-    ("    __syncthreads();\n    const bf16* w = ring + (st & 1) * g.stage;\n",
-     "FE_PROF(16 + 16 * i + st, 0);"),
+    ("    copy_stage(st + kSlots - 1);\n", "FE_PROF(16 + 16 * i + st, 0);"),
     ("              ra, n, xt, xt_peer, zero);\n    }\n    __syncthreads();\n",
      "FE_PROF(16 + 16 * i + st, 1);"),
-    ("#pragma unroll\n      for (int nt = 0; nt < kNT; ++nt) {\n"
-     "        const uint32_t wv[8]", "FE_PROF(128 + 32 * i + t, 0);", True),
-    ("          ys[static_cast<size_t>(band * kS + s) * 2 * hd + u] = hv;\n"
-     "        }\n      }\n", "FE_PROF(128 + 32 * i + t, 1);"),
+    ("#pragma unroll\n      for (int e = 0; e < 4; ++e) {\n"
+     "        float gate[4];\n", "FE_PROF(128 + 32 * i + t, 0);", True),
+    ("        ys[static_cast<size_t>(band * kTile + s) * 2 * hd + u] = hv;\n"
+     "      }\n", "FE_PROF(128 + 32 * i + t, 1);"),
     ("  cluster_sync();\n  const int r0 = q ? g.half : 0;\n",
      "FE_PROF(0, 7);"),
-    ("      time_cell_chunk<kS>(a, g, i, ra, n, b0, xt, xt_peer, reg, zero);"
+    ("      time_cell_chunk(a, g, i, ra, n, b0, xt, xt_peer, reg, zero);"
      "\n    }\n", "FE_PROF(i, 0);"),
     ("FE_PROF(i, 0);\n    cluster_sync();\n", "FE_PROF(i, 1);"),
-    ("    input_projection<kS>(a, g, i, q, tile, xt, reg, zero);\n",
+    ("    input_projection(a, g, i, q, tile, xt, reg, zero);\n",
      "FE_PROF(i, 2);"),
     ("  const bool active = ug < hd / 16;\n", "FE_PROF(i, 3);"),
-    ("    recurrence<kS, kRegW>(a, g, i, q, tile, hb, reg, zero);\n",
+    ("    recurrence(a, g, i, q, tile, hb, reg, zero);\n",
      "FE_PROF(i, 4);"),
     ("    __threadfence();\n    cluster_sync();\n", "FE_PROF(i, 5);"),
     ("      fc_freq_chunk(a, g, i, tile, ra, n, xt, xt_peer, reg, zero);\n"
@@ -355,8 +354,7 @@ def main() -> None:
             for k, s in band.plan_shapes(nl, c, hd).items()}
     x = torch.randn(bands, b, c, generator=g).to(dev, dt)
     h = (torch.randn(nl, 2, bands, b, hd, generator=g) * 0.5).to(dev, dt)
-    s = band.tile_streams(b)
-    ws = band.tc_workspace(b, bands, hd, s, dev)
+    ws = band.tc_workspace(b, bands, hd, dev)
     xo, ho = torch.empty_like(x), torch.empty_like(h)
     bfn = libs["bsrnn_stack"].bsrnn_stack_tc_bf16
     bfn.restype = ctypes.c_int
@@ -366,7 +364,7 @@ def main() -> None:
         err = bfn(x.data_ptr(), h.data_ptr(), xo.data_ptr(), ho.data_ptr(),
                   *(plan[k].data_ptr() for k in band.PLAN_KEYS),
                   ws[0].data_ptr(), ws[1].data_ptr(), b, bands, c, hd, nl,
-                  s, 0, torch.cuda.current_stream().cuda_stream)
+                  torch.cuda.current_stream().cuda_stream)
         _build.check_launch("bsrnn_stack", err)
 
     run_band()

@@ -25,21 +25,23 @@ def test_bsrnn_configs_run_the_tc_form_in_bf16(name, c):
     (31, 64, 136),   # H not a multiple of 16
     (31, 80, 128),   # C > 64
     (31, 64, 144),   # H > 128
-    (600, 64, 128)])  # the x tile of 16 streams outgrows shared memory
+    (700, 64, 128)])  # the x tile outgrows shared memory
 def test_other_shapes_run_the_scalar_form(bands, c, hd):
     assert band.kernel_form(bands, c, hd, BF16) == "scalar"
     assert band.kernel_form(bands, c, hd, torch.float32) == "scalar"
 
 
-@pytest.mark.parametrize("bands,c,hd,s,want", [
-    # zero chunk + x tile + h double buffer + the largest phase (W_hh[d])
-    (31, 64, 128, 8, 2 * (8 + 248 * 72 + 2 * 8 * 136 + 128 * 520)),
-    (31, 64, 128, 16, 2 * (8 + 496 * 72 + 2 * 16 * 136 + 128 * 520)),
-    # at XT the time cell's chunk tiles and ring are the largest phase
-    (31, 16, 32, 8, 2 * (8 + 248 * 24 + 2 * 8 * 40
-                         + 2 * 128 * 40 + 2 * 48 * 72))])
-def test_tc_smem_bytes(bands, c, hd, s, want):
-    assert band.tc_smem_bytes(bands, c, hd, s) == want
+@pytest.mark.parametrize("bands,c,hd,want", [
+    # zero chunk + x tile + h double buffer + the largest phase: the time
+    # cell's h and c/h' rows of a chunk and its three ring slots
+    (31, 64, 128, 2 * (8 + 248 * 72 + 2 * 8 * 136
+                       + 2 * 128 * 136 + 3 * 192 * 72)),
+    (31, 16, 32, 2 * (8 + 248 * 24 + 2 * 8 * 40
+                      + 2 * 128 * 40 + 3 * 48 * 72)),
+    # at H = 128 and C = 16 W_hh[d] (128 rows of 520) is the largest
+    (31, 16, 128, 2 * (8 + 248 * 24 + 2 * 8 * 136 + 128 * 520))])
+def test_tc_smem_bytes(bands, c, hd, want):
+    assert band.tc_smem_bytes(bands, c, hd) == want
     assert want <= band.MAX_SMEM_BYTES
 
 
@@ -48,30 +50,21 @@ def test_tc_shared_memory_fits_where_the_rule_says_tc():
         for hd in range(16, band.TC_MAX_HIDDEN + 1, 16):
             for bands in (1, 7, 31, 64):
                 if band.kernel_form(bands, c, hd, BF16) == "tc":
-                    for s in band.TC_TILE_STREAMS:
-                        assert (band.tc_smem_bytes(bands, c, hd, s)
-                                <= band.MAX_SMEM_BYTES)
+                    assert (band.tc_smem_bytes(bands, c, hd)
+                            <= band.MAX_SMEM_BYTES)
 
 
-@pytest.mark.parametrize("b,s,tiles", [(1, 8, 1), (13, 8, 2), (256, 8, 32),
-                                       (257, 8, 33), (1024, 16, 64)])
-def test_tc_workspace_shapes(b, s, tiles):
-    xp, ys = band.tc_workspace_shapes(b, 31, 128, s)
-    assert xp == (tiles, 2, 31, 8, 32, 2 * s)
-    assert ys == (tiles, 31 * s, 256)
-    # xp holds each tile's [2, F, s, 4H] input projection; at 256 streams
+@pytest.mark.parametrize("b,tiles", [(1, 1), (13, 2), (256, 32), (257, 33),
+                                     (1024, 128)])
+def test_tc_workspace_shapes(b, tiles):
+    xp, ys = band.tc_workspace_shapes(b, 31, 128)
+    assert xp == (tiles, 2, 31, 8, 32, 16)
+    assert ys == (tiles, 31 * 8, 256)
+    # xp holds each tile's [2, F, 8, 4H] input projection; at 256 streams
     # of BSRNN-S the two stay in the H100's 50 MB L2
-    assert xp[3] * xp[4] * xp[5] == s * 4 * 128
+    assert xp[3] * xp[4] * xp[5] == 8 * 4 * 128
     if b == 256:
         assert 2 * (torch.Size(xp).numel() + torch.Size(ys).numel()) < 50e6
-
-
-def test_tile_streams_rule():
-    assert band.tile_streams(1) == 8
-    assert band.tile_streams(256) == 8      # 64 blocks on 132 SMs
-    assert band.tile_streams(528) == 8      # 132 blocks
-    assert band.tile_streams(529) == 16
-    assert band.tile_streams(1024) == 16
 
 
 def _case(b, c=16, nl=1, bands=5, dtype=BF16):
@@ -86,34 +79,31 @@ def _case(b, c=16, nl=1, bands=5, dtype=BF16):
 
 def test_launch_tc_checks_its_workspaces():
     plan, x, h = _case(3)
-    xp, ys = band.tc_workspace(3, 5, 32, 8, x.device)
+    xp, ys = band.tc_workspace(3, 5, 32, x.device)
     with pytest.raises(ValueError, match="xp_ws must be"):
-        band.launch_tc(plan, x, h, xp[:, :1].contiguous(), ys, 8)
+        band.launch_tc(plan, x, h, xp[:, :1].contiguous(), ys)
     with pytest.raises(ValueError, match="ys_ws must be"):
-        band.launch_tc(plan, x, h, xp, ys.float(), 8)
+        band.launch_tc(plan, x, h, xp, ys.float())
     with pytest.raises(ValueError, match="ys_ws must be"):
-        band.launch_tc(plan, x, h, xp, ys.transpose(0, 1), 8)
+        band.launch_tc(plan, x, h, xp, ys.transpose(0, 1))
     with pytest.raises(ValueError, match="xp_ws must be"):
-        band.launch_tc(plan, x, h, *band.tc_workspace(3, 5, 32, 16,
-                                                     x.device), 8)
-    with pytest.raises(ValueError, match="tile_streams"):
-        band.launch_tc(plan, x, h, xp, ys, 4)
+        band.launch_tc(plan, x, h, *band.tc_workspace(9, 5, 32, x.device))
     with pytest.raises(ValueError, match="16-byte aligned"):
         flat = torch.empty(ys.numel() + 1, dtype=BF16)
-        band.launch_tc(plan, x, h, xp, flat[1:].view(ys.shape), 8)
+        band.launch_tc(plan, x, h, xp, flat[1:].view(ys.shape))
     # everything right, but the kernel has no CPU mode
     with pytest.raises(ValueError, match="CUDA device"):
-        band.launch_tc(plan, x, h, xp, ys, 8)
+        band.launch_tc(plan, x, h, xp, ys)
 
 
 def test_launch_tc_refuses_what_the_form_does_not_take():
-    xp, ys = band.tc_workspace(3, 5, 32, 8, torch.device("cpu"))
+    xp, ys = band.tc_workspace(3, 5, 32, torch.device("cpu"))
     plan, x, h = _case(3, dtype=torch.float32)
     with pytest.raises(ValueError, match="tensor-core form does not take"):
-        band.launch_tc(plan, x, h, xp, ys, 8)
+        band.launch_tc(plan, x, h, xp, ys)
     plan, x, h = _case(3, c=24)
     with pytest.raises(ValueError, match="tensor-core form does not take"):
-        band.launch_tc(plan, x, h, xp, ys, 8)
+        band.launch_tc(plan, x, h, xp, ys)
 
 
 def test_launch_scalar_needs_the_card():

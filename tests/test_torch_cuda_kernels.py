@@ -371,16 +371,16 @@ def test_bsrnn_stack_tc_form_matches_plain(cuda_device, b, c, nl):
     _bsrnn_matches_plain(cuda_device, torch.bfloat16, b, c, nl, 31)
 
 
-@pytest.mark.parametrize("tile_streams", band.TC_TILE_STREAMS)
-@pytest.mark.parametrize("reg_weights", [True, False])
-@pytest.mark.parametrize("b,c", [(21, 64), (3, 16)])
-def test_bsrnn_stack_tc_variants_match_plain(cuda_device, tile_streams,
-                                             reg_weights, b, c):
-    """Each tile size, with W_hh's fragments in registers or read from
-    shared memory every step, launched directly."""
-    plan, x, h = _band_case(b, c, 2, torch.bfloat16, cuda_device, seed=b)
-    ws = band.tc_workspace(b, 31, 2 * c, tile_streams, cuda_device)
-    xo, ho = band.launch_tc(plan, x, h, *ws, tile_streams, reg_weights)
+@pytest.mark.parametrize("b,c,bands", [(21, 64, 31), (3, 16, 31),
+                                       (40, 48, 7), (5, 16, 70)])
+def test_bsrnn_stack_tc_form_launched_directly_matches_plain(cuda_device, b,
+                                                             c, bands):
+    """launch_tc with workspaces made apart from the wrapper; H = 96, and
+    70 bands (three row chunks a block), among the shapes."""
+    plan, x, h = _band_case(b, c, 2, torch.bfloat16, cuda_device, seed=b,
+                            bands=bands)
+    ws = band.tc_workspace(b, bands, 2 * c, cuda_device)
+    xo, ho = band.launch_tc(plan, x, h, *ws)
     torch.cuda.synchronize()
     xr, hr = band.bsrnn_stack_reference(plan, x, h)
     for got, want in ((xo, xr), (ho, hr)):
@@ -391,10 +391,10 @@ def test_bsrnn_stack_tc_smem_matches_the_library(cuda_device):
     """The wrapper's shape rule counts the shared memory the kernel's
     library asks for."""
     fn = _build.function("bsrnn_stack", "bsrnn_stack_tc_smem",
-                              ctypes.c_size_t, [ctypes.c_int] * 4)
-    for f, c, hd in ((31, 64, 128), (31, 16, 32), (7, 48, 96)):
-        for s in band.TC_TILE_STREAMS:
-            assert fn(f, c, hd, s) == band.tc_smem_bytes(f, c, hd, s)
+                         ctypes.c_size_t, [ctypes.c_int] * 3)
+    for f, c, hd in ((31, 64, 128), (31, 16, 32), (7, 48, 96), (70, 16, 32),
+                     (31, 16, 128)):
+        assert fn(f, c, hd) == band.tc_smem_bytes(f, c, hd)
 
 
 def test_bsrnn_stack_tc_form_is_deterministic(cuda_device):

@@ -166,16 +166,19 @@ __device__ __forceinline__ float hi_bf16(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// The cell's sigmoid and tanh through __expf (ex2.approx) and __fdividef
-// (rcp.approx): a few float32 ulps from the accurate ones (tanh within
-// 2e-7 absolute), at a fraction of their instructions; the accurate
-// expf, division and tanhf took most of the cycles of the time cell and
-// the sweep steps.
-__device__ __forceinline__ float sigmoid_fast(float v) {
-  return __fdividef(1.0f, 1.0f + __expf(-v));
-}
+// The cell's tanh and sigmoid on the MUFU unit, one tanh.approx.f32 each
+// (sigmoid(v) = (1 + tanh(v / 2)) / 2): at most 2^-11 relative error, an
+// eighth of a bf16 ulp. The accurate expf, division and tanhf took most
+// of the cycles of the time cell and the sweep steps; with an exp and a
+// reciprocal a function the sweep's cells were bound by the MUFU unit's
+// 16 operations a clock.
 __device__ __forceinline__ float tanh_fast(float v) {
-  return 2.0f * sigmoid_fast(2.0f * v) - 1.0f;
+  float r;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return fmaf(0.5f, tanh_fast(0.5f * v), 0.5f);
 }
 
 // rows [ra, ra + n) of the tile, `cols` wide, from rows of a global [F, B,
@@ -371,28 +374,37 @@ __device__ __forceinline__ void time_cell_chunk(const BandArgs& a,
             mma_bf16(acc[1][gt], fa[1], fb);
           }
         }
+        // accumulators e = 2 rh + q: row half rh, unit u0 + q; each
+        // (row, unit pair) leaves as one 4-byte store of h' and one of c'
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = m0 + 16 * mi + (lane >> 2) + (e >> 1) * 8;
+          for (int rh = 0; rh < 2; ++rh) {
+            const int r = m0 + 16 * mi + (lane >> 2) + rh * 8;
             if (r >= n) continue;
-            const int u = u0 + (e & 1);
+            bf16* cell = hn + r * g.ldh + u0;  // c in, h' out
+            const uint32_t c_pair = *reinterpret_cast<const uint32_t*>(cell);
+            float cv[2], hv[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int e = 2 * rh + q;
+              const float ig = sigmoid_fast(acc[mi][0][e] + bias[0][q]);
+              const float fg = sigmoid_fast(acc[mi][1][e] + bias[1][q]);
+              const float gg = tanh_fast(acc[mi][2][e] + bias[2][q]);
+              const float og = sigmoid_fast(acc[mi][3][e] + bias[3][q]);
+              cv[q] = fg * (q ? hi_bf16(c_pair) : lo_bf16(c_pair)) + ig * gg;
+              hv[q] = og * tanh_fast(cv[q]);
+            }
+            const uint32_t h_pair = pack_bf16(hv[0], hv[1]);
+            *reinterpret_cast<uint32_t*>(cell) = h_pair;
             const int row = ra + r;
             const int b = b0 + (row & (kTile - 1));
-            const float ig = sigmoid_fast(acc[mi][0][e] + bias[0][e & 1]);
-            const float fg = sigmoid_fast(acc[mi][1][e] + bias[1][e & 1]);
-            const float gg = tanh_fast(acc[mi][2][e] + bias[2][e & 1]);
-            const float og = sigmoid_fast(acc[mi][3][e] + bias[3][e & 1]);
-            bf16* cell = hn + r * g.ldh + u;  // c in, h' out
-            const float cv = fg * bf(*cell) + ig * gg;
-            const bf16 hv = __float2bfloat16_rn(og * tanh_fast(cv));
-            *cell = hv;
             if (b < a.batch) {
               const size_t o =
-                  (static_cast<size_t>(row / kTile) * a.batch + b) * hd + u;
-              h_new[o] = hv;
-              c_new[o] = __float2bfloat16_rn(cv);
+                  (static_cast<size_t>(row / kTile) * a.batch + b) * hd + u0;
+              *reinterpret_cast<uint32_t*>(h_new + o) = h_pair;
+              *reinterpret_cast<uint32_t*>(c_new + o) =
+                  pack_bf16(cv[0], cv[1]);
             }
           }
         }
@@ -620,7 +632,9 @@ __device__ __forceinline__ void band_stack_tc(const BandArgs& a, int bands,
   bf16* hb = xt + g.xtile();
   bf16* reg = hb + 2 * g.hbuf();
   bf16* xt_peer = peer_of(xt);
-  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    *reinterpret_cast<uint4*>(zero) = make_uint4(0, 0, 0, 0);
+  }
   load_tile_rows(xt, g.ldx, a.x, 0, g.rows, ch, b0, a.batch);
   cp_async_commit();
   cp_async_wait<0>();

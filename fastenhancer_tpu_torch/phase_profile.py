@@ -75,7 +75,8 @@ _MARKS = (
 BAND_PHASES = ("time cell", "barrier 1", "input proj", "W_hh copy",
                "recurrence", "barrier 2", "fc_freq")
 # Finer marks: each time-cell stage of layer i at code 16 + 16 i + stage
-# (point 0 its copies waited for, 1 its products and cells), each sweep
+# (point 0 its copies waited for, 2 warp 0's products, 1 its cells and
+# the barrier behind them), each sweep
 # step t at 128 + 32 i + t (point 0 its products, 1 its cells; the barrier
 # and the next step's prefetch fall in the next products)
 _CELL, _STEP = 16, 128
@@ -83,6 +84,8 @@ _CELL, _STEP = 16, 128
 # with a third item True); code (0, 7) marks the start, before layer 0
 _BAND_MARKS = (
     ("    copy_stage(st + kSlots - 1);\n", "FE_PROF(16 + 16 * i + st, 0);"),
+    ("#pragma unroll\n        for (int mi = 0; mi < 2; ++mi) {\n",
+     "FE_PROF(16 + 16 * i + st, 2);", True),
     ("              ra, n, xt, xt_peer, zero);\n    }\n    __syncthreads();\n",
      "FE_PROF(16 + 16 * i + st, 1);"),
     ("#pragma unroll\n      for (int e = 0; e < 4; ++e) {\n"
@@ -242,14 +245,14 @@ def report_band(blocks, marked_ms: float, plain_ms: float) -> None:
 
     def split(lo, hi):
         return [sum(v for (code, p), v in blocks[0].items()
-                    if lo <= code < hi and p == q) for q in (0, 1)]
+                    if lo <= code < hi and p == q) for q in (0, 1, 2)]
 
-    wait, work = split(_CELL, _STEP)
-    prod, cell = split(_STEP, 1 << 30)
+    wait, cells, prods = split(_CELL, _STEP)
+    prod, cell, _ = split(_STEP, 1 << 30)
     print(f"  time cell stages (block 0): copies waited for {wait}, products"
-          f" and cells {work}; sweep steps: barrier, prefetch and products "
-          f"{prod}, cells {cell} ({(prod + cell) / (31 * layers):.0f} a "
-          "step)")
+          f" {prods}, cells and the barrier {cells}; sweep steps: barrier, "
+          f"prefetch and products {prod}, cells {cell} "
+          f"({(prod + cell) / (31 * layers):.0f} a step)")
 
 
 def main() -> None:

@@ -45,6 +45,15 @@
 // reuses (the time cell's h and c/h' rows of a chunk and its ring; W_fih[q];
 // W_hh[q]; a chunk of ys rows and W_fcf). The plan's arrays are read as
 // they are, row-major [in, out].
+//
+// What bounds it on the H100. At BSRNN-S and 256 streams its 64 blocks
+// (one per SM: 193 KB of shared memory each) take about 0.54 ms against
+// the 31 us operations bound (chip_smoke.py; NVIDIA H100 80GB HBM3, 700
+// W). python -m fastenhancer_tpu_torch.phase_profile puts ~40% of the
+// cycles in the time cell and ~35% in the 31 sweep steps of ~2,000 cycles
+// each: with 8 warps a block, both are bound by the latency of their
+// ldmatrix/mma chains and the barriers between phases, not by a pipe's
+// rate. 16 warps a block (128 registers a thread) spilled and ran slower.
 #pragma once
 
 #include "mma_common.cuh"

@@ -14,7 +14,8 @@ each printed on its own line:
      process per source, all at once, with `-Xptxas -v`; the registers,
      static shared memory and spills of the block stack's and the whole
      frame's instantiations (the bfloat16 tensor-core forms and the
-     float32 forms) are printed;
+     float32 forms) and of the BSRNN stack's two bfloat16 forms are
+     printed;
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
      FastEnhancer T/B/S shapes, the block stack's LN form at LN_B's shape

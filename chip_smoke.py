@@ -557,8 +557,8 @@ def main():
                     lambda: band.bsrnn_stack_step(plan, x, h),
                     lambda: band.bsrnn_stack_reference(plan, x, h),
                     max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
-                # the scalar form (PR 7's kernel) in the same call, launched
-                # directly: not a launch of the main path
+                # the scalar form in the same call, launched directly: not
+                # a launch of the main path
                 rec["scalar_ms"], _ = time_ms(
                     lambda: band.launch_scalar(plan, x, h))
                 print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={STREAMS}: the "

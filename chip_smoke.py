@@ -14,8 +14,8 @@ each printed on its own line:
      process per source, all at once, with `-Xptxas -v`; the registers,
      static shared memory and spills of the block stack's and the whole
      frame's instantiations (the bfloat16 tensor-core forms and the
-     float32 forms) and of the BSRNN stack's two bfloat16 forms are
-     printed;
+     float32 forms) and of the BSRNN, dprnn and dpt stacks' bfloat16
+     forms (tensor-core and scalar) are printed;
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
      FastEnhancer T/B/S shapes, the block stack's LN form at LN_B's shape
@@ -29,10 +29,10 @@ each printed on its own line:
      kernel's time (the stacks, LN form included, at B=256 bfloat16,
      segmental RMS at the shard recipe's [32, 64000] float32 train batch,
      the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
-     cuDNN's GRU as the library yardstick); the BSRNN stack prints the
-     form each case ran (bfloat16 the tensor-core form, float32 the scalar
-     one) and, at BSRNN-S bf16, the scalar form's time beside the
-     tensor-core form's in the same call;
+     cuDNN's GRU as the library yardstick); the BSRNN, dprnn and dpt
+     stacks print the form each case ran (bfloat16 the tensor-core form,
+     float32 the scalar one) and, at BSRNN-S, DPRNN-B and DPT-B bf16, the
+     scalar form's time beside the tensor-core form's in the same call;
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -73,9 +73,10 @@ Each of phases 4 to 15 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
-and `.ln_launches`); the BSRNN stack's tensor-core form is counted inside
-its launches (`bsrnn_stack_step.tc_launches`), and BSRNN-S's bf16 paths
-must run it on every frame. The
+and `.ln_launches`); the BSRNN, dprnn and dpt stacks' tensor-core forms
+are counted inside their launches (`.tc_launches` of each wrapper), and
+the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must run them on every
+frame. The
 line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -115,9 +116,14 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # the block stack's LN form (the ln ablation's) in the launch counts and
 # the kernels' record
 LN_KERNEL = "rnnformer_stack_step (ln)"
-# the BSRNN stack's tensor-core form in the launch counts (a form of the
-# kernel's one record, counted inside its launches)
+# the tensor-core forms of the BSRNN, dprnn and dpt stacks in the launch
+# counts (each a form of its kernel's one record, counted inside its
+# launches)
 BAND_TC = "bsrnn_stack_step (tc form)"
+DPRNN_TC = "dprnn_stack_step (tc form)"
+DPT_TC = "dpt_stack_step (tc form)"
+TC_FORMS = {"bsrnn_stack_step": BAND_TC, "dprnn_stack_step": DPRNN_TC,
+            "dpt_stack_step": DPT_TC}
 
 
 def _check(cond, msg):
@@ -136,7 +142,14 @@ PTXAS_KERNELS = {
     "fused_frame_tc_kernel": "fused_frame bf16 (tensor cores)",
     "fused_frame_kernelIfE": "fused_frame f32",
     "bsrnn_stack_tc_kernel": "bsrnn_stack bf16 (tensor cores)",
-    "bsrnn_stack_kernelI13__nv_bfloat16E": "bsrnn_stack bf16 scalar"}
+    "bsrnn_stack_kernelI13__nv_bfloat16E": "bsrnn_stack bf16 scalar",
+    "dprnn_stack_tc_kernelILi16E": "dprnn_stack bf16 (tensor cores, Hd <= "
+                                   "16: DPRNN-T)",
+    "dprnn_stack_tc_kernelILi24E": "dprnn_stack bf16 (tensor cores, Hd <= "
+                                   "24: DPRNN-B)",
+    "dprnn_stack_kernelI13__nv_bfloat16E": "dprnn_stack bf16 scalar",
+    "dpt_stack_tc_kernel": "dpt_stack bf16 (tensor cores)",
+    "dpt_stack_kernelI13__nv_bfloat16E": "dpt_stack bf16 scalar"}
 
 
 def ptxas_summary(reports):
@@ -201,9 +214,11 @@ def main():
         LN_KERNEL: (stack.rnnformer_stack_step, "ln_launches"),
         "fused_frame_step": (frame.fused_frame_step, "launches"),
         "dpt_stack_step": (dpt.dpt_stack_step, "launches"),
+        DPT_TC: (dpt.dpt_stack_step, "tc_launches"),
         "bsrnn_stack_step": (band.bsrnn_stack_step, "launches"),
         BAND_TC: (band.bsrnn_stack_step, "tc_launches"),
         "dprnn_stack_step": (dprnn.dprnn_stack_step, "launches"),
+        DPRNN_TC: (dprnn.dprnn_stack_step, "tc_launches"),
         "segmental_rms_fused": (seg.segmental_rms_fused, "launches"),
         "gru_scan": (scan.gru_scan, "launches")}
 
@@ -217,8 +232,9 @@ def main():
 
     def check_launches(counts, name, n, what):
         """The path's own kernel ran n times and no other kernel ran; the
-        BSRNN stack's launches are all its tensor-core form's (bf16)."""
-        own = {name, BAND_TC} if name == "bsrnn_stack_step" else {name}
+        BSRNN, dprnn and dpt stacks' launches are all their tensor-core
+        forms' (bf16)."""
+        own = {name, TC_FORMS[name]} if name in TC_FORMS else {name}
         want = {k: (n if k in own else 0) for k in counters}
         _check(counts == want, f"{what}: launches {counts} != {want}")
 
@@ -471,6 +487,15 @@ def main():
                     lambda: frame.fused_frame_reference(plan, x, h, **kw),
                     max(errs[0][0], errs[1][0]), bound_info)
 
+    def print_forms(what, rec):
+        """A stack's tensor-core form beside its scalar form (timed in the
+        same call, launched directly), bf16 at 256 streams."""
+        print(f"[3/15] {what} bf16 B={STREAMS}: the tensor-core form "
+              f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
+              f"of its bound {1e3 * rec['bound_ms']:.3f} us "
+              f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
+              f"ms ({rec['scalar_ms'] / rec['ms']:.2f}x); on {card}")
+
     # 3c. the dpt stack (kernel 2): a wrapped pointer, unwritten slots
     def dpt_flops(b, f, c, nb, lb):
         # multiply-adds per row and block: time qkv 3, time_fc, freq qkv 3,
@@ -496,8 +521,14 @@ def main():
             kc, vc = kc.to(dev, dtype), vc.to(dev, dtype)
             p = torch.tensor(ptr, dtype=torch.int32, device=dev)
             kc_r, vc_r = kc.clone(), vc.clone()
+            form = dpt.kernel_form(f, c, heads, lb, dtype)
+            before_tc = dpt.dpt_stack_step.tc_launches
             xo, po = dpt.dpt_stack_step(plan, x, kc, vc, p, heads)
             torch.cuda.synchronize()
+            _check(dpt.dpt_stack_step.tc_launches - before_tc
+                   == (form == "tc"), f"dpt_stack {name}: form {form}")
+            _check((form == "tc") == (dtype == torch.bfloat16),
+                   f"dpt_stack {name} {dtype} runs the {form} form")
             xr, pr = dpt.dpt_stack_reference(plan, x, kc_r, vc_r, p, heads)
             _check(int(po) == int(pr) == (ptr + 1) % lb,
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
@@ -505,8 +536,8 @@ def main():
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
             print(f"[3/15] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
-                  f"{written} {str(dtype)[6:]}: max abs err x_out "
-                  f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
+                  f"{written} {str(dtype)[6:]}, {form} form: max abs err "
+                  f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
                   f"{errs[1][0]:.3e}, v cache {errs[2][0]:.3e}")
             if name == "DPT_B" and dtype == torch.bfloat16:
                 # bytes: the whole cache read once, one slot per block and
@@ -515,11 +546,16 @@ def main():
                 bound_info = bound(
                     dpt_flops(STREAMS, f, c, nb, lb),
                     nbytes(x, kc, vc, xo, slot, slot, *plan.values()), dtype)
-                record["dpt_stack_step"] = timed(
+                rec = record["dpt_stack_step"] = timed(
                     lambda: dpt.dpt_stack_step(plan, x, kc, vc, p, heads),
                     lambda: dpt.dpt_stack_reference(plan, x, kc_r, vc_r, p,
                                                     heads),
                     max(e for e, _ in errs), bound_info)
+                # the scalar form in the same call, launched directly: not
+                # a launch of the main path
+                rec["scalar_ms"], _ = time_ms(
+                    lambda: dpt.launch_scalar(plan, x, kc, vc, p, heads))
+                print_forms("dpt_stack DPT_B", rec)
     # 3d. the BSRNN stack (kernel 3) at the XT and S shapes, 256 streams
     def band_flops(b, f, c, nl):
         # multiply-adds per row and layer with H = 2C: the time cell and
@@ -561,13 +597,7 @@ def main():
                 # a launch of the main path
                 rec["scalar_ms"], _ = time_ms(
                     lambda: band.launch_scalar(plan, x, h))
-                print(f"[3/15] bsrnn_stack BSRNN_S bf16 B={STREAMS}: the "
-                      f"tensor-core form {rec['ms']:.4f} ms, "
-                      f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
-                      f"bound {1e3 * rec['bound_ms']:.3f} us "
-                      f"({rec['bound_by']}); the scalar form "
-                      f"{rec['scalar_ms']:.4f} ms "
-                      f"({rec['scalar_ms'] / rec['ms']:.2f}x); on {card}")
+                print_forms("bsrnn_stack BSRNN_S", rec)
 
     # 3e. the dprnn stack (kernel 6) at the DPRNN-T and -B shapes
     def dprnn_flops(b, f, c, hd, nb):
@@ -584,22 +614,31 @@ def main():
             x = torch.randn(f, STREAMS, c, generator=g).to(dev, dtype)
             h = (torch.randn(nb, f, STREAMS, c, generator=g) * 0.5).to(
                 dev, dtype)
+            form = dprnn.kernel_form(f, c, hd, dtype)
+            before_tc = dprnn.dprnn_stack_step.tc_launches
             xo, ho = dprnn.dprnn_stack_step(plan, x, h)
             torch.cuda.synchronize()
+            _check(dprnn.dprnn_stack_step.tc_launches - before_tc
+                   == (form == "tc"), f"dprnn_stack {name}: form {form}")
+            _check((form == "tc") == (dtype == torch.bfloat16),
+                   f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
             print(f"[3/15] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
-                  f"Hd={hd} NB={nb} {str(dtype)[6:]}: max abs err x_out "
-                  f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
+                  f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
+                  f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
             if name == "DPRNN_B" and dtype == torch.bfloat16:
                 bound_info = bound(dprnn_flops(STREAMS, f, c, hd, nb),
                                    nbytes(x, h, xo, ho, *plan.values()),
                                    dtype)
-                record["dprnn_stack_step"] = timed(
+                rec = record["dprnn_stack_step"] = timed(
                     lambda: dprnn.dprnn_stack_step(plan, x, h),
                     lambda: dprnn.dprnn_stack_reference(plan, x, h),
                     max(errs[0][0], errs[1][0]), bound_info, plain_graph=True)
+                rec["scalar_ms"], _ = time_ms(
+                    lambda: dprnn.launch_scalar(plan, x, h))
+                print_forms("dprnn_stack DPRNN_B", rec)
 
     # 3f. segmental RMS (kernel 4): silent, half-quiet and -60 dB rows, T
     # a multiple of the window, not one, and shorter than one

@@ -13,7 +13,9 @@ default location).
 Every source exports `<name>_f32`, `<name>_bf16` (each returning the
 launch's cudaError_t) and `<name>_error_string`; `entry` binds the first
 two and `check_launch` raises with the third. `function` binds any other
-export (the bfloat16 forms' shared memory sizes).
+export (the tensor-core forms and their shared memory sizes); `ld_of`
+and `round8` mirror the tiles' padding in `csrc/mma_common.cuh` for the
+wrappers' shared-memory counts.
 """
 from __future__ import annotations
 
@@ -40,6 +42,20 @@ SOURCES = ("rnnformer_stack", "fused_frame", "dpt_stack", "bsrnn_stack",
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Hopper's largest dynamic shared memory per thread block (227 KB)
 MAX_SMEM_BYTES = 232_448
+
+
+
+def round8(n: int) -> int:
+    """mma_common.cuh::round8: n rounded up to 8 bf16 values (16 bytes)."""
+    return (n + 7) // 8 * 8
+
+
+def ld_of(n: int) -> int:
+    """mma_common.cuh::ld_of: the bf16 row stride of an n-wide tile in
+    shared memory, a multiple of 8 with an odd number of 16-byte chunks."""
+    r = round8(n)
+    return r if (r // 8) % 2 else r + 8
+
 
 _LIBRARIES: tp.Dict[str, ctypes.CDLL] = {}
 # what nvcc reported for each source at its last verbose build (ptxas -v)

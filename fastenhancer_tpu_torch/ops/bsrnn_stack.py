@@ -191,13 +191,6 @@ def smem_bytes(bands: int, channels: int, hidden: int) -> int:
     return 4 * (f * c + f * 2 * hd + 3 * 2 * hd)
 
 
-def _ld(n: int) -> int:
-    """mma_common.cuh::ld_of: a bf16 row stride, a multiple of 8 with an
-    odd number of 16-byte chunks."""
-    r = (n + 7) // 8 * 8
-    return r if (r // 8) % 2 else r + 8
-
-
 def tc_smem_bytes(bands: int, channels: int, hidden: int) -> int:
     """Shared memory of one thread block of the tensor-core form, as
     band_tc.cuh's BandGeom counts it: the zero chunk, the x tile, the h
@@ -205,10 +198,10 @@ def tc_smem_bytes(bands: int, channels: int, hidden: int) -> int:
     cell's h and c/h' rows and three-slot ring, W_hh, W_ih, and fc_freq's
     ys rows and weight)."""
     f, c, hd, s = bands, channels, hidden, TC_TILE
-    ldx, ldh, ldg = _ld(c), _ld(hd), _ld(4 * hd)
-    stage = max((c + hd) * _ld(4 * TC_UNITS), hd * ldx)
+    ldx, ldh, ldg = _build.ld_of(c), _build.ld_of(hd), _build.ld_of(4 * hd)
+    stage = max((c + hd) * _build.ld_of(4 * TC_UNITS), hd * ldx)
     region = max(2 * TC_CHUNK * ldh + TC_SLOTS * stage, hd * ldg, c * ldg,
-                 TC_CHUNK * _ld(2 * hd) + 2 * hd * ldx)
+                 TC_CHUNK * _build.ld_of(2 * hd) + 2 * hd * ldx)
     return 2 * (8 + f * s * ldx + 2 * s * ldh + region)
 
 

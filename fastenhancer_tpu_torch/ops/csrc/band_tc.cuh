@@ -168,27 +168,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
               __bfloat16_as_ushort(__float2bfloat16_rn(hi)))
           << 16);
 }
-__device__ __forceinline__ float lo_bf16(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float hi_bf16(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// The cell's tanh and sigmoid on the MUFU unit, one tanh.approx.f32 each
-// (sigmoid(v) = (1 + tanh(v / 2)) / 2): at most 2^-11 relative error, an
-// eighth of a bf16 ulp. The accurate expf, division and tanhf took most
-// of the cycles of the time cell and the sweep steps; with an exp and a
-// reciprocal a function the sweep's cells were bound by the MUFU unit's
-// 16 operations a clock.
-__device__ __forceinline__ float tanh_fast(float v) {
-  float r;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ float sigmoid_fast(float v) {
-  return fmaf(0.5f, tanh_fast(0.5f * v), 0.5f);
-}
 
 // rows [ra, ra + n) of the tile, `cols` wide, from rows of a global [F, B,
 // cols] array (row (f, b) at (f * batch + b) * cols) into dst with stride

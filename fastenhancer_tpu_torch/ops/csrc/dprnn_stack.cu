@@ -19,18 +19,27 @@
 // What bounds it on the H100. At DPRNN-B (F'=24, C'=36, Hd=18, 3 blocks)
 // and 256 streams one frame is 0.60 GFLOP over about 3.6 MB of carries,
 // frame and weights: about 1.1 us at the memory rate, so bytes bound it.
-// Its time is latency: 3 x (1 + 24) dependent steps, each a short dot
-// product per thread, and the launch.
+// Its time is latency: 3 x (1 + 24) dependent steps and the launch.
 //
 // The design. One thread block per stream, as the RNNFormer stack kernel
-// (rnnformer_stack.cu), so 256 streams give 256 blocks for the 132 SMs.
-// The time-GRU step is that kernel's (fe::gru_rows in stack_common.cuh)
-// over the stream's F' rows; the sweep is the one bsrnn_stack.cu runs with
-// LSTM cells (fe::band_sweep in band_sweep.cuh), here with GRU cells, both
-// directions at once so the chain is F' steps per block, not 2F'. The
-// stream's activations, carry and sweep output stay in shared memory for
-// the whole stack (14 KB at DPRNN-B); the weights (about 16k values per
-// block) are read from global memory, where L1/L2 keep them.
+// (rnnformer_stack.cu), so 256 streams give 256 blocks for the 132 SMs,
+// in two forms:
+//   - float32 (the card's correctness reference) and the shapes the
+//     tensor-core form does not take: scalar FMA chains. The time-GRU step
+//     is the RNNFormer kernel's (fe::gru_rows in stack_common.cuh) over the
+//     stream's F' rows; the sweep is the one bsrnn_stack.cu runs with LSTM
+//     cells (fe::band_sweep in band_sweep.cuh), here with GRU cells, both
+//     directions at once so the chain is F' steps per block, not 2F'; the
+//     weights are read from global memory, where L1/L2 keep them; in that
+//     sweep only 2Hd threads work, each reading its unit's 3 (C + Hd)
+//     weights from global memory every step, and a __syncthreads() ends
+//     each step (about 2 us a step at DPRNN-B);
+//   - bfloat16 with Hd <= 32 (DPRNN-T/B/S): dprnn_tc.cuh. The products on
+//     the tensor cores through stack_tc.cuh's stages (weights staged a
+//     stage ahead by run_stages), the sweep's input projection hoisted out
+//     of the recurrence into one product, and the recurrence one warp a
+//     direction with W_hh in registers and h exchanged by shuffles, no
+//     block barrier inside it.
 //
 // Layouts (frequency-major rows, as the Pallas kernel's): x and x_out
 // [F', B, C]; h and h_out [NB, F', B, C]; thread block b owns stream b.
@@ -43,35 +52,14 @@
 #include <cstddef>
 
 #include "band_sweep.cuh"
+#include "dprnn_tc.cuh"
 #include "stack_common.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+using fe::DprnnPlan;
 using fe::kThreads;
-
-// Stacked plan of the folded blocks (ops/dprnn_stack.py::plan_dprnn_stack).
-// Matrices are [in, out]; NB leads every array.
-template <typename T>
-struct DprnnPlan {
-  const T* w_xr;   // [NB, C, C]       time GRU input weights, gate r
-  const T* w_hr;   // [NB, C, C]       time GRU recurrent weights, gate r
-  const T* b_r;    // [NB, 1, C]       b_ir + b_hr
-  const T* w_xz;   // [NB, C, C]
-  const T* w_hz;   // [NB, C, C]
-  const T* b_z;    // [NB, 1, C]       b_iz + b_hz
-  const T* w_xn;   // [NB, C, C]
-  const T* w_hn;   // [NB, C, C]
-  const T* b_xn;   // [NB, 1, C]       b_in
-  const T* b_hn;   // [NB, 1, C]       b_hn
-  const T* w_tfc;  // [NB, C, C]       trnn_fc (post-BN folded)
-  const T* b_tfc;  // [NB, 1, C]
-  const T* w_fih;  // [NB, 2, C, 3Hd]  sweep input weights (fwd, bwd)
-  const T* b_fih;  // [NB, 2, 1, 3Hd]
-  const T* w_fhh;  // [NB, 2, Hd, 3Hd] sweep recurrent weights
-  const T* b_fhh;  // [NB, 2, 1, 3Hd]
-  const T* w_ffc;  // [NB, 2Hd, C]     frnn_fc (post-BN folded)
-  const T* b_ffc;  // [NB, 1, C]
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
@@ -132,6 +120,81 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     const int f = e / ch;
     x_out[f * row_ld + b * ch + (e - f * ch)] = fe::store_t<T>(xs[e]);
   }
+}
+
+// The bfloat16 form on the tensor cores (dprnn_tc.cuh), for Hd <= kMaxHd.
+// Shared memory, in bf16 elements: a 16-byte chunk of zeros (and 16 bytes
+// unused), the activations (DprnnGeom::act) and the two weight slots.
+template <int kMaxHd>
+__global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
+    dprnn_stack_tc_kernel(const bf16* __restrict__ x,
+                          const bf16* __restrict__ h,
+                          bf16* __restrict__ x_out, bf16* __restrict__ h_out,
+                          DprnnPlan<bf16> p, int batch, int bins, int ch,
+                          int hd, int nblocks) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const fe::tc::DprnnGeom g(bins, ch, hd);
+  bf16* zero = reinterpret_cast<bf16*>(smem_tc);
+  bf16* act = zero + 16;
+  bf16* slot = act + g.act();
+  const fe::tc::DprnnTiles t(act, g);
+  const int b = blockIdx.x;
+  const size_t row_ld = static_cast<size_t>(batch) * ch;  // between bins
+  if (threadIdx.x < 8) zero[threadIdx.x] = __float2bfloat16_rn(0.f);
+  fe::tc::run_stages_direct(
+      4 * nblocks, slot, slot + g.slot(),
+      [&](int s, auto& v) { fe::tc::dprnn_pieces(s, v, p, g); },
+      [&](int s) {
+        // each block's GRU stage brings the stream's carry rows of that
+        // block into hs (the first also its frame into xs); the rows are
+        // B * C apart, and 8-byte aligned only when b is odd at C = 36
+        if ((s & 3) != 0) return;
+        if (s == 0) {
+          fe::tc::stage_rows_strided(t.xs, g.s.ldc, x + b * ch, row_ld,
+                                     bins, ch);
+        }
+        fe::tc::stage_rows_strided(
+            t.hs, g.s.ldc,
+            h + static_cast<size_t>(s >> 2) * bins * row_ld + b * ch, row_ld,
+            bins, ch);
+      },
+      [&](int) {},
+      [&](int s, const bf16* w) {
+        fe::tc::dprnn_stage<kMaxHd>(s, w, t, h_out + b * ch, row_ld, g,
+                                    zero);
+      });
+  for (int e = threadIdx.x; e < bins * ch; e += blockDim.x) {
+    const int f = e / ch;
+    const int j = e - f * ch;
+    x_out[f * row_ld + b * ch + j] = t.xs[f * g.s.ldc + j];
+  }
+}
+
+// The register tile of W_hh each lane holds: the smallest of 16, 24, 32
+// that covers Hd (0: the tensor-core form does not take Hd).
+int max_hd_of(int hd) {
+  return hd <= 16 ? 16 : (hd <= 24 ? 24 : (hd <= 32 ? 32 : 0));
+}
+
+size_t smem_bytes_tc(int bins, int ch, int hd) {
+  const fe::tc::DprnnGeom g(bins, ch, hd);
+  return (16 + static_cast<size_t>(g.act()) + 2 * g.slot()) * sizeof(bf16);
+}
+
+template <int kMaxHd>
+int launch_tc_form(const bf16* x, const bf16* h, bf16* x_out, bf16* h_out,
+                   const DprnnPlan<bf16>& p, int batch, int bins, int ch,
+                   int hd, int nblocks, cudaStream_t stream) {
+  const size_t smem = smem_bytes_tc(bins, ch, hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dprnn_stack_tc_kernel<kMaxHd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dprnn_stack_tc_kernel<kMaxHd><<<batch, kThreads, smem, stream>>>(
+      x, h, x_out, h_out, p, batch, bins, ch, hd, nblocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 size_t smem_bytes(int bins, int ch, int hd) {
@@ -199,6 +262,53 @@ int dprnn_stack_bf16(const void* x, const void* h, void* x_out, void* h_out,
                         w_fih, b_fih, w_fhh, b_fhh, w_ffc, b_ffc};
   return launch<__nv_bfloat16>(x, h, x_out, h_out, plan, batch, bins, ch, hd,
                                nblocks, stream);
+}
+
+// The tensor-core form (bfloat16, Hd <= 32; dprnn_tc.cuh), same
+// arguments as dprnn_stack_bf16. Returns cudaErrorInvalidValue for an Hd
+// it does not take.
+int dprnn_stack_tc_bf16(const void* x, const void* h, void* x_out,
+                        void* h_out, const void* w_xr, const void* w_hr,
+                        const void* b_r, const void* w_xz, const void* w_hz,
+                        const void* b_z, const void* w_xn, const void* w_hn,
+                        const void* b_xn, const void* b_hn, const void* w_tfc,
+                        const void* b_tfc, const void* w_fih,
+                        const void* b_fih, const void* w_fhh,
+                        const void* b_fhh, const void* w_ffc,
+                        const void* b_ffc, int batch, int bins, int ch,
+                        int hd, int nblocks, void* stream) {
+  const void* plan[] = {w_xr, w_hr, b_r,   w_xz,  w_hz,  b_z,
+                        w_xn, w_hn, b_xn,  b_hn,  w_tfc, b_tfc,
+                        w_fih, b_fih, w_fhh, b_fhh, w_ffc, b_ffc};
+  const auto w = [&plan](int k) { return static_cast<const bf16*>(plan[k]); };
+  const DprnnPlan<bf16> p{w(0),  w(1),  w(2),  w(3),  w(4),  w(5),
+                          w(6),  w(7),  w(8),  w(9),  w(10), w(11),
+                          w(12), w(13), w(14), w(15), w(16), w(17)};
+  const auto xt = static_cast<const bf16*>(x);
+  const auto ht = static_cast<const bf16*>(h);
+  const auto xo = static_cast<bf16*>(x_out);
+  const auto ho = static_cast<bf16*>(h_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (max_hd_of(hd)) {
+    case 16:
+      return launch_tc_form<16>(xt, ht, xo, ho, p, batch, bins, ch, hd,
+                                nblocks, st);
+    case 24:
+      return launch_tc_form<24>(xt, ht, xo, ho, p, batch, bins, ch, hd,
+                                nblocks, st);
+    case 32:
+      return launch_tc_form<32>(xt, ht, xo, ho, p, batch, bins, ch, hd,
+                                nblocks, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Bytes of dynamic shared memory one thread block (one stream) of the
+// tensor-core form needs; ops/dprnn_stack.py::tc_smem_bytes computes the
+// same.
+size_t dprnn_stack_smem_bf16(int bins, int ch, int hd) {
+  return smem_bytes_tc(bins, ch, hd);
 }
 
 const char* dprnn_stack_error_string(int code) {

@@ -32,15 +32,20 @@
 // What bounds it on the H100. At DPT-B in bf16 with B=256 streams (F=24,
 // C=36, H=4, NB=3, L=31) the K/V cache is 2*3*31*256*24*36*2 B = 82.3 MB
 // and every frame reads all of it: about 25 us at 3.35 TB/s, against about
-// 0.5 GFLOP of arithmetic. The kernel is bound by those bytes. Its design:
-// the cache is [NB, B, L, F, C], so one stream's slice of one block is one
-// contiguous run; one thread block per stream walks it with neighbouring
-// threads on neighbouring addresses (the logits phase reads each
-// (slot, bin, head) run of d values, the value mix reads whole [F, C] slot
-// rows), and each cache value is read from device memory once per frame.
-// Only the frame's own slot is written. Activations, q/k/v and the
-// [H, F, L+1] logits stay in shared memory. Deeper pipelining of the cache
-// reads (cp.async/TMA), tensor cores and CUDA graphs are later work.
+// 0.5 GFLOP of arithmetic. The kernel is bound by those bytes. The cache
+// is [NB, B, L, F, C], so one stream's slice of one block is one
+// contiguous run, read from device memory once per frame; only the
+// frame's own slot is written. One thread block per stream, in two forms:
+//   - float32 (the card's correctness reference) and the shapes the
+//     tensor-core form does not take: scalar FMA chains with the weights
+//     read from global memory (stack_common.cuh); the cache is read by
+//     plain loads inside the compute loops, neighbouring threads on
+//     neighbouring addresses, nothing in flight ahead of its use;
+//   - bfloat16 where a slot's F*C*2 bytes are a multiple of 16 (DPT-T/B/S):
+//     dpt_tc.cuh. The products on the tensor cores through stack_tc.cuh's
+//     stages, and the cache streamed through a ring of shared-memory
+//     chunks by bulk copies on mbarriers, issued as far ahead as the ring
+//     allows: block i + 1's keys while block i's products run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,30 +53,17 @@
 #include <cmath>
 #include <cstddef>
 
+#include "dpt_tc.cuh"
 #include "stack_common.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+using fe::DptPlan;
 using fe::kThreads;
 using fe::load_f;
 using fe::round_t;
 using fe::store_t;
-
-// Stacked plan of the folded dpt blocks (ops/dpt_stack.py::plan_dpt_stack).
-// Matrices are [in, out]; NB leads every array but time_pe.
-template <typename T>
-struct DptPlan {
-  const T* w_tqkv;   // [NB, 3, C, C] time q, k, v; column h*d + t = head h
-  const T* b_tqkv;   // [NB, 3, C]
-  const T* w_tfc;    // [NB, C, C]    time_fc (post-norm folded)
-  const T* b_tfc;    // [NB, C]
-  const T* w_fqkv;   // [NB, 3, C, C] frequency q, k, v
-  const T* b_fqkv;   // [NB, 3, C]
-  const T* w_ffc;    // [NB, C, C]    freq_fc (post-norm folded)
-  const T* b_ffc;    // [NB, C]
-  const T* pe;       // [NB, F, C]    zeros for blocks without an embedding
-  const T* time_pe;  // [H, L+1]      relative-age bias, shared by all blocks
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
@@ -191,6 +183,84 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   }
 }
 
+// The bfloat16 form (dpt_tc.cuh). Shared memory, in bf16 elements: the
+// head (a 16-byte chunk of zeros and the ring's kRing mbarriers), the
+// activations and float32 logits (DptGeom::act), the cache ring and the two
+// weight slots.
+__global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
+    dpt_stack_tc_kernel(const bf16* __restrict__ x, bf16* kc, bf16* vc,
+                        const int* __restrict__ ptr_in,
+                        bf16* __restrict__ x_out, int* __restrict__ ptr_out,
+                        DptPlan<bf16> p, int batch, int freq, int ch,
+                        int heads, int nblocks, int lookbehind, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const fe::tc::DptGeom g(freq, ch, heads, lookbehind);
+  bf16* zero = reinterpret_cast<bf16*>(smem_tc);
+  auto* ring_bars = reinterpret_cast<uint64_t*>(smem_tc + 16);
+  bf16* act = zero + fe::tc::kDptHead;
+  float* logits = reinterpret_cast<float*>(act + g.s.act());
+  float* bias = logits + g.logits();
+  bf16* ring_buf = act + g.act();
+  bf16* slot = ring_buf + g.ring();
+  const fe::tc::StackTiles t(act, g.s);
+  const int b = blockIdx.x;
+  const int lb = lookbehind;
+  // taken mod L, so no pointer value can send a write outside the slab
+  const int ptr = (*ptr_in % lb + lb) % lb;
+  if (b == 0 && threadIdx.x == 0) *ptr_out = (ptr + 1) % lb;
+  if (threadIdx.x < 8) zero[threadIdx.x] = __float2bfloat16_rn(0.f);
+  fe::tc::stack_init(act, g.s);
+  // each key's bias this frame: slot s < L was written ((ptr - 1 - s) mod
+  // L) + 1 frames ago and takes time_pe[h, L - age]; the frame itself
+  // time_pe[h, L]
+  for (int e = threadIdx.x; e < heads * g.keys; e += blockDim.x) {
+    const int hh = e / g.keys;
+    const int sk = e - hh * g.keys;
+    const int col = sk < lb ? lb - ((ptr - 1 - sk) % lb + lb) % lb - 1 : lb;
+    bias[e] = load_f(p.time_pe[hh * g.keys + col]);
+  }
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < fe::tc::kRing; ++r) fe::tc::mbar_init(ring_bars + r);
+    fe::tc::mbar_fence_init();
+  }
+  __syncthreads();
+  const size_t frame = g.slot_el;  // one stream's [F, C]
+  const size_t slab = lb * frame;  // its L slots of one block
+  fe::tc::KvRing ring{ring_buf, ring_bars, kc, vc, b * slab, batch * slab,
+                      nblocks * 2 * g.chunks, 0};
+  ring.fill(0, g);  // block 0's first keys, while its q, k, v are computed
+  fe::tc::run_stages_direct(
+      4 * nblocks, slot, slot + g.slot(),
+      [&](int s, auto& v) { fe::tc::dpt_pieces(s, v, p, g); },
+      [&](int s) {
+        if (s == 0) {
+          fe::tc::stage_rows(t.xs, g.s.ldc, x + b * frame, freq, ch);
+        }
+      },
+      [&](int s) {
+        if ((s & 3) == 1) {
+          const size_t at = (s >> 2) * batch * slab + b * slab +
+                            static_cast<size_t>(ptr) * g.slot_el;
+          fe::tc::time_attention_tc(s >> 2, ring, t, logits, bias, g, scale,
+                                    kc + at, vc + at);
+        } else if ((s & 3) == 3) {
+          fe::tc::attention_tc(t.qs, t.ks, t.vs, t.ps, t.qs, g.s, scale,
+                               zero);
+        }
+      },
+      [&](int s, const bf16* w) { fe::tc::dpt_stage(s, w, t, g, zero); });
+  for (int e = threadIdx.x; e < freq * ch; e += blockDim.x) {
+    x_out[b * frame + e] = t.xs[e / ch * g.s.ldc + e % ch];
+  }
+}
+
+size_t smem_bytes_tc(int freq, int ch, int heads, int lookbehind) {
+  const fe::tc::DptGeom g(freq, ch, heads, lookbehind);
+  return (fe::tc::kDptHead + static_cast<size_t>(g.act()) + g.ring() +
+          2 * g.slot()) *
+         sizeof(bf16);
+}
+
 size_t smem_bytes(int freq, int ch, int heads, int lookbehind) {
   const int keys = freq > lookbehind + 1 ? freq : lookbehind + 1;
   return (4 * static_cast<size_t>(freq) * ch +
@@ -255,6 +325,45 @@ int dpt_stack_bf16(const void* x, void* kc, void* vc, const void* ptr,
                           b_fqkv, w_ffc,  b_ffc, pe,    time_pe};
   return launch<__nv_bfloat16>(x, kc, vc, ptr, x_out, ptr_out, plan, batch,
                                freq, ch, heads, nblocks, lookbehind, stream);
+}
+
+// The tensor-core form (bfloat16, F*C*2 a multiple of 16; dpt_tc.cuh),
+// same arguments as dpt_stack_bf16. kc and vc must be 16-byte aligned.
+int dpt_stack_tc_bf16(const void* x, void* kc, void* vc, const void* ptr,
+                      void* x_out, void* ptr_out, const void* w_tqkv,
+                      const void* b_tqkv, const void* w_tfc,
+                      const void* b_tfc, const void* w_fqkv,
+                      const void* b_fqkv, const void* w_ffc,
+                      const void* b_ffc, const void* pe, const void* time_pe,
+                      int batch, int freq, int ch, int heads, int nblocks,
+                      int lookbehind, void* stream) {
+  const void* plan[10] = {w_tqkv, b_tqkv, w_tfc, b_tfc, w_fqkv,
+                          b_fqkv, w_ffc,  b_ffc, pe,    time_pe};
+  const auto w = [&plan](int k) { return static_cast<const bf16*>(plan[k]); };
+  const DptPlan<bf16> p{w(0), w(1), w(2), w(3), w(4),
+                        w(5), w(6), w(7), w(8), w(9)};
+  const size_t smem = smem_bytes_tc(freq, ch, heads, lookbehind);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dpt_stack_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const float scale = static_cast<float>(1.0 / std::sqrt(double(ch / heads)));
+  dpt_stack_tc_kernel<<<batch, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(kc),
+      static_cast<bf16*>(vc), static_cast<const int*>(ptr),
+      static_cast<bf16*>(x_out), static_cast<int*>(ptr_out), p, batch, freq,
+      ch, heads, nblocks, lookbehind, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory one thread block (one stream) of the
+// tensor-core form needs; ops/dpt_stack.py::tc_smem_bytes computes the
+// same.
+size_t dpt_stack_smem_bf16(int freq, int ch, int heads, int lookbehind) {
+  return smem_bytes_tc(freq, ch, heads, lookbehind);
 }
 
 const char* dpt_stack_error_string(int code) {

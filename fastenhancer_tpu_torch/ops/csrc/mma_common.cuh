@@ -1,8 +1,9 @@
 // Tensor-core device code for the bfloat16 forms of the block stack
-// (rnnformer_stack.cu) and the whole frame (fused_frame.cu) on Hopper
-// (sm_90a): a block-level product on mma.sync, and a ring of two shared
-// memory slots that asynchronous bulk copies fill with the next phase's
-// weights while the current phase computes.
+// (rnnformer_stack.cu), the whole frame (fused_frame.cu), the BSRNN stack
+// (band_tc.cuh) and the dprnn and dpt stacks (dprnn_tc.cuh, dpt_tc.cuh) on
+// Hopper (sm_90a): a block-level product on mma.sync, and shared memory
+// slots that asynchronous copies fill with the next phase's weights while
+// the current phase computes.
 //
 // The product. Y[M x N] = sum of terms A[M x K] . B[K x N], A and B bf16 in
 // shared memory, float32 accumulation, on
@@ -34,8 +35,10 @@
 // while the phase before computes. When the phase before is done, one pass
 // over shared memory moves the stage into the weight slot with padded rows
 // (ldmatrix needs 16-byte aligned rows, which a row of 36 bf16 values is
-// not) and the next stage's copies start. Every call below is made by all
-// threads of the block.
+// not) and the next stage's copies start (run_stages). run_stages_direct
+// skips the staging buffer and the move: every thread copies its share of
+// the next stage straight into the padded rows of the other of two slots.
+// Every call below is made by all threads of the block.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -191,6 +194,50 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
   }
 }
 
+// dst[r * ld + c] = src[r * src_ld + c] for r < rows, c < cols: rows at a
+// stride of src_ld elements (one stream's rows of a frequency-major
+// [F, B, C] array), per-thread cp.async chunks as wide as the address, the
+// row length and the stride allow (8 bytes for the 72-byte rows of an odd
+// stream at C = 36), plain copies for a 2-byte-aligned source. Visible to
+// the block after cp_async_wait and __syncthreads.
+template <int kBytes>
+__device__ __forceinline__ void copy_strided_async(bf16* dst, int ld,
+                                                   const bf16* src,
+                                                   size_t src_ld, int rows,
+                                                   int cols) {
+  const int per = cols * 2 / kBytes;
+  for (int e = threadIdx.x; e < rows * per; e += kThreads) {
+    const int r = e / per;
+    const int c = e - r * per;
+    cp_async<kBytes>(
+        reinterpret_cast<char*>(dst + static_cast<size_t>(r) * ld) +
+            c * kBytes,
+        reinterpret_cast<const char*>(src + r * src_ld) + c * kBytes);
+  }
+}
+
+__device__ __forceinline__ void stage_rows_strided(bf16* dst, int ld,
+                                                   const bf16* src,
+                                                   size_t src_ld, int rows,
+                                                   int cols) {
+  const auto a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src)) |
+                 static_cast<unsigned>(cols * 2) |
+                 static_cast<unsigned>(src_ld * 2);
+  if ((a & 15) == 0) {
+    copy_strided_async<16>(dst, ld, src, src_ld, rows, cols);
+  } else if ((a & 7) == 0) {
+    copy_strided_async<8>(dst, ld, src, src_ld, rows, cols);
+  } else if ((a & 3) == 0) {
+    copy_strided_async<4>(dst, ld, src, src_ld, rows, cols);
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols;
+      dst[static_cast<size_t>(r) * ld + (e - r * cols)] =
+          src[r * src_ld + (e - r * cols)];
+    }
+  }
+}
+
 // n contiguous values into dst (16-byte aligned): one bulk copy by thread 0
 // on `bar` when the source address and the size are multiples of 16 bytes,
 // else per-thread chunks. Returns dst + n rounded up to 16 bytes: where the
@@ -305,6 +352,57 @@ __device__ __forceinline__ void run_stages(int stages, bf16* staging,
       compute(s, static_cast<const bf16*>(slot));
       __syncthreads();
     }
+  }
+}
+
+// The third visitor: each array straight from global memory into its slot
+// with padded rows (ld_of(cols) for a matrix, round8(n) for a vector, the
+// layout MoveV leaves), per-thread cp.async chunks as wide as the
+// alignment allows (stage_rows).
+struct DirectV {
+  bf16* to;
+  __device__ __forceinline__ void mat(const bf16* src, int rows, int cols) {
+    stage_rows(to, ld_of(cols), src, rows, cols);
+    to += rows * ld_of(cols);
+  }
+  __device__ __forceinline__ void vec(const bf16* src, int n) {
+    stage_rows(to, round8(n), src, 1, n);
+    to += round8(n);
+  }
+};
+
+// run_stages without the staging buffer: two slots in turn, each stage's
+// arrays copied by every thread straight into its slot's padded rows
+// (DirectV) a stage ahead, so no pass moves them and no thread issues all
+// the copies. For stage s: pre(s); stage s + 1's copies into the other
+// slot (its last reader, compute(s - 1), finished behind the barrier after
+// it) and side(s + 1); wait for stage s's copies; compute(s, slot). Two
+// barriers a stage (run_stages has three and a move pass). The slots take
+// the largest stage padded twice, where run_stages takes it padded once
+// and packed once.
+template <class Pieces, class Side, class Pre, class Compute>
+__device__ __forceinline__ void run_stages_direct(int stages, bf16* slot0,
+                                                  bf16* slot1,
+                                                  const Pieces& pieces,
+                                                  const Side& side,
+                                                  const Pre& pre,
+                                                  const Compute& compute) {
+  DirectV first{slot0};
+  pieces(0, first);
+  side(0);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    pre(s);
+    if (s + 1 < stages) {
+      DirectV next{(s & 1) ? slot0 : slot1};
+      pieces(s + 1, next);
+      side(s + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    compute(s, static_cast<const bf16*>((s & 1) ? slot1 : slot0));
+    __syncthreads();
   }
 }
 
@@ -498,6 +596,37 @@ __device__ __forceinline__ void gemm(int groups, int m, int n,
 }
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+// The two products of bf16 pairs a and b (low halves, high halves), each
+// rounded to bf16 as one bf16 multiply rounds the exact product: the same
+// value as the float32 product (exact for bf16 operands) rounded to bf16.
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// a bf16 pair's low and high halves as floats
+__device__ __forceinline__ float lo_bf16(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// tanh and sigmoid on the MUFU unit, one tanh.approx.f32 each
+// (sigmoid(v) = (1 + tanh(v / 2)) / 2): at most 2^-11 relative error, an
+// eighth of a bf16 ulp. The recurrent cells (band_tc.cuh, dprnn_tc.cuh)
+// take them: with the accurate expf, division and tanhf (an exp and a
+// reciprocal a function) the BSRNN sweep's cells were bound by the MUFU
+// unit's 16 operations a clock.
+__device__ __forceinline__ float tanh_fast(float v) {
+  float r;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return fmaf(0.5f, tanh_fast(0.5f * v), 0.5f);
+}
+
 __device__ __forceinline__ float rnd(float v) { return round_t<bf16>(v); }
 
 // SiLU at the plain version's points: the sum rounded, SiLU in float32,

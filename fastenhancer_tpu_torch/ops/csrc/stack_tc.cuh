@@ -18,7 +18,9 @@
 // every rounding point). The weights come through the caller's
 // run_stages, four stages a block (stack stage j = 4 i + phase): GRU (w_x,
 // w_h, b_gru; the block's carry rows into h), rnn_fc (w_fc, b_fc, pe,
-// wb_fc), qkv (w_qkv, b_qkv), attn_fc (w_afc, b_afc, wb_afc).
+// wb_fc), qkv (w_qkv, b_qkv), attn_fc (w_afc, b_afc, wb_afc). gru_tc,
+// fc_residual_tc, qkv_tc and attention_tc are also the dprnn and dpt
+// stacks' stages (dprnn_tc.cuh, dpt_tc.cuh).
 #pragma once
 
 #include "mma_common.cuh"
@@ -134,14 +136,18 @@ __device__ __forceinline__ void for_tile(int f, int c, const Fn& fn) {
 }
 
 // One GRU step on the stream's F rows: w is the GRU stage's slot (w_x and
-// w_h as 3C padded rows each, then b_r, b_z, b_xn, b_hn). h' goes to hn and
-// to the carry rows h_out ([F, C], contiguous). The caller synchronises.
+// w_h as 3C padded rows each, then b_r, b_z, b_xn, b_hn, each bias_ld
+// apart; 0 is C, packed). h' goes to hn and to the carry rows h_out, row r
+// at h_out + r * out_ld (0 is C, contiguous). The caller synchronises.
 __device__ __forceinline__ void gru_tc(const bf16* xs, const bf16* hs,
                                        bf16* hn, bf16* h_out, const bf16* w,
-                                       const StackGeom& g, const bf16* zero) {
+                                       const StackGeom& g, const bf16* zero,
+                                       size_t out_ld = 0, int bias_ld = 0) {
   const int f = g.f, c = g.c, ld = g.ldc, mat = g.mat();
   const bf16* wh = w + 3 * mat;
   const bf16* bias = wh + 3 * mat;
+  if (out_ld == 0) out_ld = c;
+  if (bias_ld == 0) bias_ld = c;
   const AOp ax{xs, ld, f, c, 0};
   const AOp ah{hs, ld, f, c, 0};
   const BOp wr{w, ld, c}, wz{w + mat, ld, c}, wn{w + 2 * mat, ld, c};
@@ -179,15 +185,65 @@ __device__ __forceinline__ void gru_tc(const bf16* xs, const bf16* hs,
       const int j = n0 + 2 * (lane & 3) + (e & 1);
       if (r >= f || j >= c) continue;
       const float rg = sigmoid_f(acc_r[e] + bf(bias[j]));
-      const float zg = sigmoid_f(acc_z[e] + bf(bias[c + j]));
-      const float ng = tanhf(acc_xn[e] + bf(bias[2 * c + j]) +
-                             rg * (acc_hn[e] + bf(bias[3 * c + j])));
+      const float zg = sigmoid_f(acc_z[e] + bf(bias[bias_ld + j]));
+      const float ng = tanhf(acc_xn[e] + bf(bias[2 * bias_ld + j]) +
+                             rg * (acc_hn[e] + bf(bias[3 * bias_ld + j])));
       const bf16 hv =
           __float2bfloat16_rn((1.0f - zg) * ng + zg * bf(hs[r * ld + j]));
       hn[r * ld + j] = hv;
-      h_out[r * c + j] = hv;
+      h_out[r * out_ld + j] = hv;
     }
   }
+}
+
+// An fc with its residual on the stream's F rows: xs = round(round(a . w +
+// bias) + xs), then with kPe xs = round(xs + pe). a: [F, k] (stride lda),
+// w: [k, C] from a slot (stride ldc), bias [C], pe [F, C] contiguous. The
+// caller synchronises.
+template <bool kPe>
+__device__ __forceinline__ void fc_residual_tc(const bf16* a, int lda, int k,
+                                               bf16* xs, const bf16* w,
+                                               const bf16* bias,
+                                               const bf16* pe,
+                                               const StackGeom& g,
+                                               const bf16* zero) {
+  const int f = g.f, c = g.c, ld = g.ldc;
+  const BOp wf{w, ld, k};
+  gemm(
+      1, f, c,
+      [&](int, float (&acc)[kMaxNT][4], int m0, int n0, int cnt) {
+        mma_tiles(acc, AOp{a, lda, f, k, 0}, wf, m0, n0, cnt, zero);
+      },
+      [&](int, int r, int jj, float v) {
+        const float y = rnd(v + bf(bias[jj]));
+        if constexpr (kPe) {
+          const float x1 = rnd(y + bf(xs[r * ld + jj]));
+          xs[r * ld + jj] = __float2bfloat16_rn(x1 + bf(pe[r * c + jj]));
+        } else {
+          xs[r * ld + jj] = __float2bfloat16_rn(y + bf(xs[r * ld + jj]));
+        }
+      });
+}
+
+// q, k, v = round(xs . w_o + b_o) for o = 0, 1, 2, written head-padded to
+// t.qs, t.ks, t.vs; w: a qkv stage's slot (3C padded rows, then the 3C
+// biases). The caller synchronises.
+__device__ __forceinline__ void qkv_tc(const StackTiles& t, const bf16* w,
+                                       const StackGeom& g, const bf16* zero) {
+  const int f = g.f, c = g.c, ld = g.ldc;
+  const bf16* bias = w + 3 * g.mat();
+  gemm(
+      3, f, c,
+      [&](int q, float (&acc)[kMaxNT][4], int m0, int n0, int cnt) {
+        mma_tiles(acc, AOp{t.xs, ld, f, c, 0}, BOp{w + q * g.mat(), ld, c},
+                  m0, n0, cnt, zero);
+      },
+      [&](int q, int r, int jj, float v) {
+        bf16* out = q == 0 ? t.qs : (q == 1 ? t.ks : t.vs);
+        const int hh = static_cast<int>((jj * g.dmag) >> 20);
+        out[r * g.ldq + hh * g.dp + (jj - hh * g.d)] =
+            __float2bfloat16_rn(v + bf(bias[q * c + jj]));
+      });
 }
 
 // fe::ln_residual on bf16 tiles: y ([F, ld], an fc output rounded to bf16)
@@ -398,63 +454,44 @@ __device__ __forceinline__ void stack_stage(int j, const bf16* w, bf16* act,
              zero);
       break;
     case 1: {  // rnn_fc + residual, then the positional embedding
-      const BOp wf{w, ld, c};
       const bf16* bias = w + g.mat();
       const bf16* pe = bias + round8(c);
-      const auto prod = [&](int, float (&acc)[kMaxNT][4], int m0,
-              int n0, int cnt) {
-        mma_tiles(acc, AOp{t.hn, ld, f, c, 0}, wf, m0, n0, cnt, zero);
-      };
       if constexpr (kLn) {
-        gemm(1, f, c, prod, [&](int, int r, int jj, float v) {
-          t.hs[r * ld + jj] = __float2bfloat16_rn(v + bf(bias[jj]));
-        });
+        const BOp wf{w, ld, c};
+        gemm(
+            1, f, c,
+            [&](int, float (&acc)[kMaxNT][4], int m0, int n0, int cnt) {
+              mma_tiles(acc, AOp{t.hn, ld, f, c, 0}, wf, m0, n0, cnt, zero);
+            },
+            [&](int, int r, int jj, float v) {
+              t.hs[r * ld + jj] = __float2bfloat16_rn(v + bf(bias[jj]));
+            });
         __syncthreads();
         ln_residual_tc(t.hs, t.xs, pe + round8(f * c), pe, eps, g);
       } else {
-        gemm(1, f, c, prod, [&](int, int r, int jj, float v) {
-          const float y = rnd(v + bf(bias[jj]));
-          const float x1 = rnd(y + bf(t.xs[r * ld + jj]));
-          t.xs[r * ld + jj] = __float2bfloat16_rn(x1 + bf(pe[r * c + jj]));
-        });
+        fc_residual_tc<true>(t.hn, ld, c, t.xs, w, bias, pe, g, zero);
       }
       break;
     }
-    case 2: {  // q, k, v, head-padded
-      const bf16* bias = w + 3 * g.mat();
-      gemm(
-          3, f, c,
-          [&](int q, float (&acc)[kMaxNT][4], int m0,
-              int n0, int cnt) {
-            mma_tiles(acc, AOp{t.xs, ld, f, c, 0}, BOp{w + q * g.mat(), ld, c},
-                     m0, n0, cnt, zero);
-          },
-          [&](int q, int r, int jj, float v) {
-            bf16* out = q == 0 ? t.qs : (q == 1 ? t.ks : t.vs);
-            const int hh = static_cast<int>((jj * g.dmag) >> 20);
-            out[r * g.ldq + hh * g.dp + (jj - hh * g.d)] =
-                __float2bfloat16_rn(v + bf(bias[q * c + jj]));
-          });
+    case 2:  // q, k, v, head-padded
+      qkv_tc(t, w, g, zero);
       break;
-    }
     default: {  // attn_fc + residual
-      const BOp wf{w, ld, c};
       const bf16* bias = w + g.mat();
-      const auto prod = [&](int, float (&acc)[kMaxNT][4], int m0,
-              int n0, int cnt) {
-        mma_tiles(acc, AOp{t.qs, ld, f, c, 0}, wf, m0, n0, cnt, zero);
-      };
       if constexpr (kLn) {
-        gemm(1, f, c, prod, [&](int, int r, int jj, float v) {
-          t.hn[r * ld + jj] = __float2bfloat16_rn(v + bf(bias[jj]));
-        });
+        const BOp wf{w, ld, c};
+        gemm(
+            1, f, c,
+            [&](int, float (&acc)[kMaxNT][4], int m0, int n0, int cnt) {
+              mma_tiles(acc, AOp{t.qs, ld, f, c, 0}, wf, m0, n0, cnt, zero);
+            },
+            [&](int, int r, int jj, float v) {
+              t.hn[r * ld + jj] = __float2bfloat16_rn(v + bf(bias[jj]));
+            });
         __syncthreads();
         ln_residual_tc(t.hn, t.xs, bias + round8(c), nullptr, eps, g);
       } else {
-        gemm(1, f, c, prod, [&](int, int r, int jj, float v) {
-          const float y = rnd(v + bf(bias[jj]));
-          t.xs[r * ld + jj] = __float2bfloat16_rn(y + bf(t.xs[r * ld + jj]));
-        });
+        fc_residual_tc<false>(t.qs, ld, c, t.xs, w, bias, nullptr, g, zero);
       }
     }
   }

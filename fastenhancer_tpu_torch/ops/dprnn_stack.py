@@ -24,7 +24,12 @@ can infer.
   the card's checks compare the kernel against it.
 * `dprnn_stack_step` is the wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor launches the kernel or raises; nothing falls back.
-  `dprnn_stack_step.launches` counts kernel launches.
+  The kernel has two forms, chosen by shape alone before launch
+  (`kernel_form`): the tensor-core form (csrc/dprnn_tc.cuh) for bfloat16
+  with Hd <= 32 whose shared memory fits, else the scalar form (float32
+  always). `dprnn_stack_step.launches` counts launches of either form,
+  `.tc_launches` those of the tensor-core form; `launch_scalar` and
+  `launch_tc` launch one form directly and count nothing.
 
 What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/dprnn_stack.cu.
@@ -45,9 +50,11 @@ PLAN_KEYS = ("w_xr", "w_hr", "b_r", "w_xz", "w_hz", "b_z",
              "w_xn", "w_hn", "b_xn", "b_hn", "w_tfc", "b_tfc",
              "w_fih", "b_fih", "w_fhh", "b_fhh", "w_ffc", "b_ffc")
 MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
-# x, h, x_out, h_out, the plan; B, F, C, Hd, NB; the stream
+# x, h, x_out, h_out, the plan; B, F, C, Hd, NB; the stream (both forms)
 _ARGTYPES = ([ctypes.c_void_p] * (4 + len(PLAN_KEYS)) + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+# the tensor-core form's widest sweep: one lane of a warp per hidden unit
+TC_MAX_HIDDEN = 32
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +187,34 @@ def smem_bytes(bins: int, channels: int, hidden: int) -> int:
     return 4 * (3 * f * c + f * 2 * hd + 3 * 2 * hd)
 
 
+def tc_smem_bytes(bins: int, channels: int, hidden: int) -> int:
+    """Shared memory of one thread block of the tensor-core form, as
+    dprnn_tc.cuh's DprnnGeom counts it (bf16 elements): the zero chunk,
+    the x, h and h' tiles, the sweep's input projection [F', 2, 3Hd] and
+    output [F', 2Hd], and two weight slots (the largest stage, rows
+    padded)."""
+    f, c, hd = bins, channels, hidden
+    ld, r8 = _build.ld_of, _build.round8
+    g3, c8, v = 3 * hd, r8(c), r8(6 * hd)
+    act = 3 * f * ld(c) + r8(f * 2 * g3) + f * ld(2 * hd)
+    slot = max(6 * c * ld(c) + 4 * c8, c * ld(c) + c8,
+               2 * c * ld(g3) + v + 2 * hd * ld(g3) + v,
+               2 * hd * ld(c) + c8)
+    return 2 * (16 + act + 2 * slot)
+
+
+def kernel_form(bins: int, channels: int, hidden: int,
+                dtype: torch.dtype) -> str:
+    """Which form of the kernel runs, by shape alone, before launch: "tc"
+    (tensor cores, csrc/dprnn_tc.cuh) for bfloat16 when Hd <= 32 and its
+    shared memory fits; else "scalar" (the float32-FMA form, which float32
+    always takes)."""
+    if (dtype == torch.bfloat16 and hidden <= TC_MAX_HIDDEN
+            and tc_smem_bytes(bins, channels, hidden) <= MAX_SMEM_BYTES):
+        return "tc"
+    return "scalar"
+
+
 def _check(plan: Params, x: Tensor, h: Tensor) -> None:
     if x.ndim != 3 or h.ndim != 4:
         raise ValueError(f"x must be [F, B, C] and h [NB, F, B, C]; got "
@@ -203,6 +238,55 @@ def _check(plan: Params, x: Tensor, h: Tensor) -> None:
                              f"expected {shapes[name]}")
 
 
+def _cuda_only(x: Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {x.device}")
+
+
+def _launch(fn: tp.Callable[..., int], plan: Params, x: Tensor, h: Tensor
+            ) -> tp.Tuple[Tensor, Tensor]:
+    fb, b, c = x.shape
+    x_out = torch.empty_like(x)
+    h_out = torch.empty_like(h)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
+                 h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
+                 b, fb, c, plan["w_fhh"].shape[-2], h.shape[0], stream)
+    _build.check_launch("dprnn_stack", err)
+    return x_out, h_out
+
+
+def launch_scalar(plan: Params, x: Tensor, h: Tensor
+                  ) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the scalar form (one thread block per stream) on CUDA tensors
+    that passed _check; counts nothing."""
+    _cuda_only(x)
+    fb, _, c = x.shape
+    hd = plan["w_fhh"].shape[-2]
+    smem = smem_bytes(fb, c, hd)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"F={fb}, C={c}, Hd={hd} needs {smem} bytes of shared memory "
+            f"per stream; the kernel has {MAX_SMEM_BYTES}")
+    return _launch(_build.entry("dprnn_stack", x.dtype, _ARGTYPES), plan, x,
+                   h)
+
+
+def launch_tc(plan: Params, x: Tensor, h: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the tensor-core form on bfloat16 CUDA tensors that passed
+    _check and whose shape kernel_form gives to it; counts nothing."""
+    fb, _, c = x.shape
+    hd = plan["w_fhh"].shape[-2]
+    if kernel_form(fb, c, hd, x.dtype) != "tc":
+        raise ValueError(f"the tensor-core form does not take F={fb}, C={c}, "
+                         f"Hd={hd} in {x.dtype} (see kernel_form)")
+    _cuda_only(x)
+    return _launch(_build.function("dprnn_stack", "dprnn_stack_tc_bf16",
+                                   ctypes.c_int, _ARGTYPES), plan, x, h)
+
+
 def dprnn_stack_step(plan: Params, x: Tensor, h: Tensor
                      ) -> tp.Tuple[Tensor, Tensor]:
     """One streaming frame through every block.
@@ -211,31 +295,23 @@ def dprnn_stack_step(plan: Params, x: Tensor, h: Tensor
     [NB, F, B, C] stacked time-GRU carries -> (x_out [F, B, C], h_new like
     h), fresh tensors. Every operand has x's dtype (float32 or bfloat16)
     and device and is contiguous. On the CPU this is the plain version; on
-    a CUDA device it launches the kernel (building it on first use), one
-    thread block per stream, and raises if it cannot."""
+    a CUDA device it launches the form `kernel_form` picks (building the
+    kernel on first use), one thread block per stream, and raises if it
+    cannot."""
     _check(plan, x, h)
     if x.device.type == "cpu":
         return dprnn_stack_reference(plan, x, h)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    fn = _build.entry("dprnn_stack", x.dtype, _ARGTYPES)
-    fb, b, c = x.shape
-    hd = plan["w_fhh"].shape[-2]
-    smem = smem_bytes(fb, c, hd)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"F={fb}, C={c}, Hd={hd} needs {smem} bytes of shared memory "
-            f"per stream; the kernel has {MAX_SMEM_BYTES}")
-    x_out = torch.empty_like(x)
-    h_out = torch.empty_like(h)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
-                 h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
-                 b, fb, c, hd, h.shape[0], stream)
-    _build.check_launch("dprnn_stack", err)
+    fb, _, c = x.shape
+    if kernel_form(fb, c, plan["w_fhh"].shape[-2], x.dtype) == "tc":
+        out = launch_tc(plan, x, h)
+        dprnn_stack_step.tc_launches += 1
+    else:
+        out = launch_scalar(plan, x, h)
     dprnn_stack_step.launches += 1
-    return x_out, h_out
+    return out
 
 
 dprnn_stack_step.launches = 0
+dprnn_stack_step.tc_launches = 0

@@ -33,8 +33,15 @@ activations' device, read by the kernel, so no frame waits on the host.
   activation type. The CPU path uses it; the card's checks compare the
   kernel against it.
 * `dpt_stack_step` is the wrapper: a CPU tensor goes to the plain version,
-  a CUDA tensor launches the kernel or raises; nothing falls back.
-  `dpt_stack_step.launches` counts kernel launches.
+  a CUDA tensor launches the kernel or raises; nothing falls back. The
+  kernel has two forms, chosen by shape alone before launch
+  (`kernel_form`): the tensor-core form (csrc/dpt_tc.cuh, the cache
+  streamed through a shared-memory ring by bulk copies) for bfloat16 when
+  a slot's F*C*2 bytes are a multiple of 16 and its shared memory fits,
+  else the scalar form (float32 always). `dpt_stack_step.launches` counts
+  launches of either form, `.tc_launches` those of the tensor-core form;
+  `launch_scalar` and `launch_tc` launch one form directly and count
+  nothing.
 
 Both write the frame's k and v into slot `ptr` of kc and vc in place and
 return the advanced pointer as a new tensor. What bounds the kernel on the
@@ -58,8 +65,22 @@ PLAN_KEYS = ("w_tqkv", "b_tqkv", "w_tfc", "b_tfc", "w_fqkv", "b_fqkv",
              "w_ffc", "b_ffc", "pe", "time_pe")
 MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
 # x, kc, vc, ptr, x_out, ptr_out, the plan; B, F, C, H, NB, L; the stream
+# (both forms)
 _ARGTYPES = ([ctypes.c_void_p] * (6 + len(PLAN_KEYS)) + [ctypes.c_int] * 6
              + [ctypes.c_void_p])
+# the tensor-core form's cache ring (csrc/dpt_tc.cuh): chunks in flight a
+# thread block, the most bytes of whole slots a chunk holds, and the head
+# of its shared memory (zero chunk and mbarriers), in bytes
+TC_RING = 4
+TC_CHUNK_BYTES = 16384
+TC_HEAD_BYTES = 2 * _build.round8(8 + 4 * TC_RING)
+# the widest head whose q a thread holds in registers, the most rows
+# (heads x bins) the attention gives one thread each, and the largest frame
+# (F x C) whose value mix the threads hold in registers (4 channel pairs
+# each)
+TC_MAX_HEAD_DIM = 16
+TC_MAX_ROWS = 256
+TC_MAX_FRAME = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +241,48 @@ def smem_bytes(freq: int, channels: int, num_heads: int,
                 + num_heads * freq * max(freq, lookbehind + 1))
 
 
+def tc_chunk_slots(freq: int, channels: int, lookbehind: int) -> int:
+    """Cache slots in one chunk of the tensor-core form's ring: as many
+    whole [F, C] slots as fit TC_CHUNK_BYTES, at least 1, at most L."""
+    return min(max(TC_CHUNK_BYTES // (2 * freq * channels), 1), lookbehind)
+
+
+def tc_smem_bytes(freq: int, channels: int, num_heads: int,
+                  lookbehind: int) -> int:
+    """Shared memory of one thread block of the tensor-core form, as
+    dpt_tc.cuh's DptGeom counts it: the head, the block stack's bf16 tiles
+    (x, two free tiles, head-padded q, k, v, the frequency probabilities),
+    the float32 logits [L+1, ldr] (ldr: H F rounded up to 8 mod 32) and
+    [H, L+1] slot bias, the cache ring and two weight slots (q, k, v or
+    time_fc with pe, rows padded)."""
+    f, c, h, keys = freq, channels, num_heads, lookbehind + 1
+    ld, r8 = _build.ld_of, _build.round8
+    dp = (c // h + 15) // 16 * 16
+    tiles = 3 * f * ld(c) + 3 * f * ld(h * dp) + h * f * ld(f)
+    ldr = h * f + (40 - h * f % 32) % 32
+    floats = -(-keys * ldr // 4) * 4 + -(-h * keys // 4) * 4
+    ring = TC_RING * tc_chunk_slots(f, c, lookbehind) * f * c
+    slot = max(3 * c * ld(c) + r8(3 * c), c * ld(c) + r8(c) + r8(f * c))
+    return TC_HEAD_BYTES + 2 * (tiles + 2 * floats + ring + 2 * slot)
+
+
+def kernel_form(freq: int, channels: int, num_heads: int, lookbehind: int,
+                dtype: torch.dtype) -> str:
+    """Which form of the kernel runs, by shape alone, before launch: "tc"
+    (csrc/dpt_tc.cuh) for bfloat16 when a cache slot's F*C*2 bytes are a
+    multiple of 16 (the bulk copy's unit), C / H <= 16, H * F <= 256,
+    F * C <= 2048 and its shared memory fits; else "scalar" (the
+    float32-FMA form, which float32 always takes)."""
+    if (dtype == torch.bfloat16 and (2 * freq * channels) % 16 == 0
+            and channels // num_heads <= TC_MAX_HEAD_DIM
+            and num_heads * freq <= TC_MAX_ROWS
+            and freq * channels <= TC_MAX_FRAME
+            and tc_smem_bytes(freq, channels, num_heads, lookbehind)
+            <= MAX_SMEM_BYTES):
+        return "tc"
+    return "scalar"
+
+
 def _check(plan: Params, x: Tensor, kc: Tensor, vc: Tensor, ptr: Tensor,
            num_heads: int) -> None:
     if x.ndim != 3 or kc.ndim != 5:
@@ -252,6 +315,65 @@ def _check(plan: Params, x: Tensor, kc: Tensor, vc: Tensor, ptr: Tensor,
                              f"expected {shapes[name]}")
 
 
+def _cuda_only(x: Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {x.device}")
+
+
+def _launch(fn: tp.Callable[..., int], plan: Params, x: Tensor, kc: Tensor,
+            vc: Tensor, ptr: Tensor, num_heads: int
+            ) -> tp.Tuple[Tensor, Tensor]:
+    b, f, c = x.shape
+    nb, _, lb = kc.shape[:3]
+    x_out = torch.empty_like(x)
+    ptr_out = torch.empty_like(ptr)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr.data_ptr(),
+                 x_out.data_ptr(), ptr_out.data_ptr(),
+                 *(plan[k].data_ptr() for k in PLAN_KEYS),
+                 b, f, c, num_heads, nb, lb, stream)
+    _build.check_launch("dpt_stack", err)
+    return x_out, ptr_out
+
+
+def launch_scalar(plan: Params, x: Tensor, kc: Tensor, vc: Tensor,
+                  ptr: Tensor, num_heads: int) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the scalar form (one thread block per stream) on CUDA tensors
+    that passed _check; counts nothing."""
+    _cuda_only(x)
+    _, f, c = x.shape
+    lb = kc.shape[2]
+    smem = smem_bytes(f, c, num_heads, lb)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"F={f}, C={c}, H={num_heads}, L={lb} needs {smem} bytes of "
+            f"shared memory per stream; the kernel has {MAX_SMEM_BYTES}")
+    return _launch(_build.entry("dpt_stack", x.dtype, _ARGTYPES), plan, x,
+                   kc, vc, ptr, num_heads)
+
+
+def launch_tc(plan: Params, x: Tensor, kc: Tensor, vc: Tensor, ptr: Tensor,
+              num_heads: int) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the tensor-core form on bfloat16 CUDA tensors that passed
+    _check and whose shape kernel_form gives to it, with kc and vc 16-byte
+    aligned (the ring's bulk copies read them); counts nothing."""
+    _, f, c = x.shape
+    lb = kc.shape[2]
+    if kernel_form(f, c, num_heads, lb, x.dtype) != "tc":
+        raise ValueError(f"the tensor-core form does not take F={f}, C={c}, "
+                         f"H={num_heads}, L={lb} in {x.dtype} (see "
+                         "kernel_form)")
+    for name, t in (("kc", kc), ("vc", vc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             "tensor-core form")
+    _cuda_only(x)
+    return _launch(_build.function("dpt_stack", "dpt_stack_tc_bf16",
+                                   ctypes.c_int, _ARGTYPES),
+                   plan, x, kc, vc, ptr, num_heads)
+
+
 def dpt_stack_step(plan: Params, x: Tensor, kc: Tensor, vc: Tensor,
                    ptr: Tensor, num_heads: int) -> tp.Tuple[Tensor, Tensor]:
     """One streaming frame through every dpt block.
@@ -262,32 +384,22 @@ def dpt_stack_step(plan: Params, x: Tensor, kc: Tensor, vc: Tensor,
     tensors. The frame's k and v are written into slot ptr of kc and vc in
     place. Every float operand has x's dtype (float32 or bfloat16) and
     device and is contiguous. On the CPU this is the plain version; on a
-    CUDA device it launches the kernel (building it on first use) and
-    raises if it cannot."""
+    CUDA device it launches the form `kernel_form` picks (building the
+    kernel on first use) and raises if it cannot."""
     _check(plan, x, kc, vc, ptr, num_heads)
     if x.device.type == "cpu":
         return dpt_stack_reference(plan, x, kc, vc, ptr, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    fn = _build.entry("dpt_stack", x.dtype, _ARGTYPES)
-    b, f, c = x.shape
-    nb, _, lb = kc.shape[:3]
-    smem = smem_bytes(f, c, num_heads, lb)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"F={f}, C={c}, H={num_heads}, L={lb} needs {smem} bytes of "
-            f"shared memory per stream; the kernel has {MAX_SMEM_BYTES}")
-    x_out = torch.empty_like(x)
-    ptr_out = torch.empty_like(ptr)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr.data_ptr(),
-                 x_out.data_ptr(), ptr_out.data_ptr(),
-                 *(plan[k].data_ptr() for k in PLAN_KEYS),
-                 b, f, c, num_heads, nb, lb, stream)
-    _build.check_launch("dpt_stack", err)
+    _, f, c = x.shape
+    if kernel_form(f, c, num_heads, kc.shape[2], x.dtype) == "tc":
+        out = launch_tc(plan, x, kc, vc, ptr, num_heads)
+        dpt_stack_step.tc_launches += 1
+    else:
+        out = launch_scalar(plan, x, kc, vc, ptr, num_heads)
     dpt_stack_step.launches += 1
-    return x_out, ptr_out
+    return out
 
 
 dpt_stack_step.launches = 0
+dpt_stack_step.tc_launches = 0

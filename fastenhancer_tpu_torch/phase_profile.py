@@ -20,6 +20,15 @@ and backward directions of tile 0) records the end of each layer's time
 cell, the cluster barrier after it, the input projection, the W_hh copy,
 the 31-step recurrence, the barrier after it and fc_freq, at BSRNN-S's
 shapes, 256 streams, bf16.
+
+The tensor-core forms of the dprnn stack (csrc/dprnn_tc.cuh, DPRNN-B) and
+the dpt stack (csrc/dpt_tc.cuh, DPT-B) run on run_stages_direct, which
+gets the same points but move (its copies go straight into the slots);
+the dprnn sweep stage adds a point between its
+input projection and its recurrence (thread 0 is lane 0 of the forward
+direction's warp), and the dpt kernel marks each wait on its cache ring's
+mbarriers, so the cached time attention (the `pre` of each time_fc stage)
+splits into the cycles spent waiting on the ring and those computing.
 """
 from __future__ import annotations
 
@@ -34,12 +43,37 @@ from . import require_cuda
 from .models import get_model
 from .ops import _build
 from .ops import bsrnn_stack as band
+from .ops import dprnn_stack as dprnn
+from .ops import dpt_stack as dpt
 from .ops import fused_frame as frame
 from .ops import rnnformer_stack as stack
-from .presets import FE_B
+from .presets import DPRNN_B, DPT_B, FE_B
 
 STREAMS = 256
 POINTS = ("pre", "wait", "move", "start", "compute")
+# dprnn's sweep stages: point 5 ends the input projection (before the
+# recurrence, which the compute point then ends)
+DPRNN_POINTS = POINTS + ("proj",)
+# the dpt cache ring's wait on chunk q: code 64 + q, point 6 before it and
+# 7 after it
+_RING = 64
+_DPRNN_MARKS = (
+    ("      band_sweep_warp<kMaxHd>(t.xp, w_hh, b_hh, t.ys, g);\n",
+     "FE_PROF(j, 5);", True),
+)
+_DPT_MARKS = (
+    ("    mbar_wait(bars + q % kRing, (q / kRing) & 1);\n",
+     "FE_PROF(64 + q, 6);", True),
+    ("    mbar_wait(bars + q % kRing, (q / kRing) & 1);\n",
+     "FE_PROF(64 + q, 7);"),
+    # the end of the logits (code _PHASE + i, point 0) and of the softmax
+    # (point 1) of block i's attention
+    ("  // softmax of each row over the L+1 keys", "FE_PROF(120 + i, 0);",
+     True),
+    ("  // value mix: thread -> the channel pairs (2p, 2p + 1) of the frame's\n",
+     "FE_PROF(120 + i, 1);", True),
+)
+_PHASE = 120
 _PRE = r"""
 __device__ long long fe_prof_clock[2][1024];
 __device__ int fe_prof_code[2][1024];
@@ -70,6 +104,17 @@ _MARKS = (
      "      __syncthreads();\n", "FE_PROF(s, 4);"),
 )
 
+# the same points in run_stages_direct (the dprnn and dpt forms), which has
+# no move: pre, then the next stage's copies issued (start), then the wait
+# for this stage's copies, then the products
+_DIRECT_MARKS = (
+    ("    if (s + 1 < stages) {\n      DirectV next", "FE_PROF(s, 0);", True),
+    ("    cp_async_commit();\n    cp_async_wait<1>();\n", "FE_PROF(s, 3);",
+     True),
+    ("    cp_async_wait<1>();\n    __syncthreads();\n", "FE_PROF(s, 1);"),
+    ("    compute(s, static_cast<const bf16*>((s & 1) ? slot1 : slot0));\n"
+     "    __syncthreads();\n", "FE_PROF(s, 4);"),
+)
 
 # the BSRNN tensor-core form's phases, in the order a layer runs them
 BAND_PHASES = ("time cell", "barrier 1", "input proj", "W_hh copy",
@@ -119,15 +164,18 @@ def _mark(path, marks, what: str) -> None:
 
 
 def build() -> tp.Dict[str, ctypes.CDLL]:
-    """The marked copies of rnnformer_stack.cu, fused_frame.cu and
-    bsrnn_stack.cu."""
+    """The marked copies of rnnformer_stack.cu, fused_frame.cu,
+    bsrnn_stack.cu, dprnn_stack.cu and dpt_stack.cu."""
     dst = _build.BUILD_DIR / "phase_profile"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, dst)
-    _mark(dst / "mma_common.cuh", _MARKS, "run_stages")
+    _mark(dst / "mma_common.cuh", _MARKS + _DIRECT_MARKS, "run_stages")
     _mark(dst / "band_tc.cuh", _BAND_MARKS, "band_stack_tc")
+    _mark(dst / "dprnn_tc.cuh", _DPRNN_MARKS, "dprnn_stage")
+    _mark(dst / "dpt_tc.cuh", _DPT_MARKS, "KvRing::wait")
     procs = {}
-    for name in ("rnnformer_stack", "fused_frame", "bsrnn_stack"):
+    for name in ("rnnformer_stack", "fused_frame", "bsrnn_stack",
+                 "dprnn_stack", "dpt_stack"):
         src = dst / f"{name}.cu"
         src.write_text(_PRE + src.read_text() + _POST)
         out = dst / f"lib{name}.so"
@@ -183,31 +231,31 @@ def event_ms(fn: tp.Callable[[], None], inner: int = 20) -> float:
 
 
 def report(tag: str, blocks, labels: tp.Sequence[str], marked_ms: float,
-           plain_ms: float) -> None:
+           plain_ms: float, points: tp.Sequence[str] = POINTS) -> None:
     """One line per stage (block 0; block 1 in brackets where it differs
     by more than 10%), then the sums by stage kind and by point."""
     print(f"{tag}: {marked_ms:.4f} ms with the markers, {plain_ms:.4f} ms "
           f"without (CUDA events); cycles of thread block 0 (1) at "
-          + ", ".join(POINTS))
+          + ", ".join(points))
     kinds: tp.Dict[str, tp.List[int]] = {}
     for s, label in enumerate(labels):
         cells = []
-        for p in range(len(POINTS)):
+        for p in range(len(points)):
             c0 = blocks[0].get((s, p), 0)
             c1 = blocks[1].get((s, p), 0)
             cells.append(f"{c0}" if abs(c1 - c0) <= 0.1 * max(c0, 1)
                          else f"{c0} ({c1})")
-            kinds.setdefault(label.split(" ")[0], [0] * len(POINTS))[p] += c0
+            kinds.setdefault(label.split(" ")[0], [0] * len(points))[p] += c0
         print(f"  {s:2d} {label:<12s} " + " ".join(f"{c:>14s}"
                                                    for c in cells))
     total = sum(sum(v) for v in kinds.values())
     print(f"  sums by kind (block 0, {total} cycles in all):")
     for kind, v in kinds.items():
         print(f"     {kind:<10s} {sum(v):>8d} ({100 * sum(v) / total:.1f}%)"
-              f": " + ", ".join(f"{p} {c}" for p, c in zip(POINTS, v)))
-    by_point = [sum(v[p] for v in kinds.values()) for p in range(len(POINTS))]
+              f": " + ", ".join(f"{p} {c}" for p, c in zip(points, v)))
+    by_point = [sum(v[p] for v in kinds.values()) for p in range(len(points))]
     print("  sums by point: " + ", ".join(
-        f"{p} {c} ({100 * c / total:.1f}%)" for p, c in zip(POINTS, by_point)))
+        f"{p} {c} ({100 * c / total:.1f}%)" for p, c in zip(points, by_point)))
 
 
 def report_band(blocks, marked_ms: float, plain_ms: float) -> None:
@@ -253,6 +301,34 @@ def report_band(blocks, marked_ms: float, plain_ms: float) -> None:
           f" {prods}, cells and the barrier {cells}; sweep steps: barrier, "
           f"prefetch and products {prod}, cells {cell} "
           f"({(prod + cell) / (31 * layers):.0f} a step)")
+
+
+def fold_ring(blocks, chunks: int):
+    """The dpt kernel's attention marks folded into the `pre` point of the
+    time_fc stage whose attention made them; returns the blocks and, for
+    block 0, the attention's cycles by part: waiting on the ring, the
+    logits, the softmax and the value mix with the slot write."""
+    out = []
+    parts = dict.fromkeys(("wait", "logits", "softmax", "mix"), 0)
+    for k, blk in enumerate(blocks):
+        folded = {}
+        for (code, p), v in blk.items():
+            if code >= _PHASE:
+                key = (4 * (code - _PHASE) + 1, 0)
+                part = ("logits", "softmax")[p]
+            elif code >= _RING:
+                q = code - _RING
+                key = (4 * (q // (2 * chunks)) + 1, 0)
+                is_v = q % (2 * chunks) >= chunks
+                part = "wait" if p == 7 else ("mix" if is_v else "logits")
+            else:
+                key = (code, p)
+                part = "mix" if p == 0 and code % 4 == 1 else None
+            if k == 0 and part:
+                parts[part] += v
+            folded[key] = folded.get(key, 0) + v
+        out.append(folded)
+    return out, parts
 
 
 def main() -> None:
@@ -379,6 +455,85 @@ def main() -> None:
     marked = event_ms(run_band)
     plain = event_ms(lambda: band.bsrnn_stack_step(plan, x, h))
     report_band(blocks, marked, plain)
+
+    def profile(lib_name, symbol, argtypes, args, step):
+        """(blocks, marked ms, plain ms) of one marked tensor-core form
+        against its wrapper."""
+        fn = getattr(libs[lib_name], symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+
+        def run():
+            err = fn(*args(), torch.cuda.current_stream().cuda_stream)
+            _build.check_launch(lib_name, err)
+
+        run()
+        torch.cuda.synchronize()
+        read(libs[lib_name])
+        run()
+        torch.cuda.synchronize()
+        blocks = read(libs[lib_name])
+        return blocks, event_ms(run), event_ms(step)
+
+    # the dprnn stack's tensor-core form at DPRNN-B
+    rk = DPRNN_B["dprnn_kwargs"]
+    f, c, hd, nb = (rk["freq"], rk["channels"], rk["channels_frnn"],
+                    rk["num_blocks"])
+    plan = {k: ((torch.rand(s, generator=g) * 2 - 1) / c ** 0.5).to(dev, dt)
+            for k, s in dprnn.plan_shapes(nb, c, hd).items()}
+    x = torch.randn(f, b, c, generator=g).to(dev, dt)
+    h = (torch.randn(nb, f, b, c, generator=g) * 0.5).to(dev, dt)
+    xo, ho = torch.empty_like(x), torch.empty_like(h)
+    blocks, marked, plain = profile(
+        "dprnn_stack", "dprnn_stack_tc_bf16", dprnn._ARGTYPES,
+        lambda: (x.data_ptr(), h.data_ptr(), xo.data_ptr(), ho.data_ptr(),
+                 *(plan[k].data_ptr() for k in dprnn.PLAN_KEYS), b, f, c,
+                 hd, nb),
+        lambda: dprnn.dprnn_stack_step(plan, x, h))
+    labels = [f"{kind} {i}" for i in range(nb)
+              for kind in ("GRU", "trnn_fc", "sweep", "frnn_fc")]
+    report(f"dprnn_stack bf16 tensor-core form, DPRNN-B B={b}", blocks,
+           labels, marked, plain, DPRNN_POINTS)
+    sweeps = range(2, 4 * nb, 4)
+    proj = sum(blocks[0].get((s, 5), 0) for s in sweeps)
+    rec = sum(blocks[0].get((s, 4), 0) for s in sweeps)
+    print(f"  sweep stages (block 0): input projection and its barrier "
+          f"{proj}, the recurrence and the barrier behind it {rec} "
+          f"({rec / (nb * f):.0f} a band step)")
+
+    # the dpt stack's tensor-core form at DPT-B, the pointer about to wrap
+    tk = DPT_B["dpt_kwargs"]
+    f, c, nb, lb, heads = (tk["freq"], tk["channels"], tk["num_blocks"],
+                           tk["lookbehind"], tk["num_heads"])
+    plan = {k: ((torch.rand(s, generator=g) * 2 - 1) / c ** 0.5).to(dev, dt)
+            for k, s in dpt.plan_shapes(nb, f, c, heads, lb).items()}
+    x = torch.randn(b, f, c, generator=g).to(dev, dt)
+    shape = dpt.cache_shape(nb, b, lb, f, c)
+    kc = (torch.randn(shape, generator=g) * 0.5).to(dev, dt)
+    vc = (torch.randn(shape, generator=g) * 0.5).to(dev, dt)
+    ptr = torch.tensor(lb - 1, dtype=torch.int32, device=dev)
+    xo, po = torch.empty_like(x), torch.empty_like(ptr)
+    blocks, marked, plain = profile(
+        "dpt_stack", "dpt_stack_tc_bf16", dpt._ARGTYPES,
+        lambda: (x.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr.data_ptr(),
+                 xo.data_ptr(), po.data_ptr(),
+                 *(plan[k].data_ptr() for k in dpt.PLAN_KEYS), b, f, c,
+                 heads, nb, lb),
+        lambda: dpt.dpt_stack_step(plan, x, kc, vc, ptr, heads))
+    chunks = -(-lb // dpt.tc_chunk_slots(f, c, lb))
+    blocks, parts = fold_ring(blocks, chunks)
+    labels = [f"{kind} {i}" for i in range(nb)
+              for kind in ("time_qkv", "time_fc", "freq_qkv", "freq_fc")]
+    report(f"dpt_stack bf16 tensor-core form, DPT-B B={b} (the pre of each "
+           "time_fc stage is the cached time attention)", blocks, labels,
+           marked, plain)
+    total = sum(parts.values())
+    print(f"  cached time attention (block 0, {nb} blocks x {2 * chunks} "
+          f"ring chunks, {total} cycles): " + ", ".join(
+              f"{k} {v} ({100 * v / max(total, 1):.1f}%)"
+              for k, v in parts.items()) + " (waiting: on the ring's "
+          "mbarriers; logits and mix: computing between the waits, the "
+          "barrier and the next chunk's copy issue included)")
 
 
 if __name__ == "__main__":

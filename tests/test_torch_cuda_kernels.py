@@ -17,6 +17,9 @@ import torch
 
 from fastenhancer_tpu_torch.models import get_model
 from fastenhancer_tpu_torch.models import bsrnn as bsrnn_model
+from fastenhancer_tpu_torch.models.fastenhancer import dprnn as dprnn_model
+from fastenhancer_tpu_torch.models.fastenhancer import (
+    dptransformer as dpt_model)
 from fastenhancer_tpu_torch.ops import _build
 from fastenhancer_tpu_torch.ops import bsrnn_stack as band
 from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
@@ -185,7 +188,12 @@ def _dpt_case(b, f, c, nb, lb, dtype, device, seed, written):
     (8, 16, 20, 2, 0, 31),     # DPT-T
     (8, 36, 48, 3, 5, 12),     # DPT-S, slots 12.. never written
     (3, 13, 12, 2, 7, 0),      # an odd F with H=4, d=3, a cold cache
-    (4, 8, 8, 1, 31 + 4, 31)])  # a pointer past L is taken mod L
+    (4, 8, 8, 1, 31 + 4, 31),  # a pointer past L is taken mod L
+    (256, 24, 36, 3, 30, 31),  # DPT-B at the serving capacity, about to wrap
+    (256, 24, 36, 3, 9, 0),    # DPT-B, a cold cache
+    (1, 24, 36, 3, 30, 31),    # one stream
+    (13, 24, 36, 3, 0, 0),     # an odd stream count, a cold cache
+    (257, 16, 20, 2, 30, 31)])  # one stream past a wave of two a SM
 def test_dpt_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb, ptr,
                                         written):
     lb = 31
@@ -193,10 +201,15 @@ def test_dpt_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb, ptr,
                                 b + f, written)
     p = torch.tensor(ptr, dtype=torch.int32, device=cuda_device)
     kc_r, vc_r = kc.clone(), vc.clone()
-    before = dpt.dpt_stack_step.launches
+    form = dpt.kernel_form(f, c, 4, lb, dtype)
+    # bf16 takes the tensor-core form wherever a slot is whole 16-byte
+    # chunks; the odd F=13, C=12 stays on the scalar form
+    assert (form == "tc") == (dtype == torch.bfloat16 and f * c != 156)
+    before = (dpt.dpt_stack_step.launches, dpt.dpt_stack_step.tc_launches)
     xo, po = dpt.dpt_stack_step(plan, x, kc, vc, p, 4)
     torch.cuda.synchronize()
-    assert dpt.dpt_stack_step.launches == before + 1
+    assert (dpt.dpt_stack_step.launches, dpt.dpt_stack_step.tc_launches) == (
+        before[0] + 1, before[1] + (form == "tc"))
     xr, pr = dpt.dpt_stack_reference(plan, x, kc_r, vc_r, p, 4)
     assert int(po) == int(pr) == (ptr + 1) % lb and int(p) == ptr
     for got, want in ((xo, xr), (kc, kc_r), (vc, vc_r)):
@@ -253,10 +266,11 @@ def test_fused_frame_kernel_matches_plain(cuda_device, dtype, kwargs, b):
 
 
 def test_bf16_kernels_are_deterministic(cuda_device):
-    """#1 (both forms) and #7 in bfloat16, each run twice on the same
-    inputs, give bit-identical outputs: a race in the weight ring (a slot
-    refilled while a warp still reads it) would show as a run-to-run
-    difference that a tolerance hides."""
+    """#1 (both forms), #7 and the tensor-core forms of #6 and #2 in
+    bfloat16, each run twice on the same inputs, give bit-identical
+    outputs: a race in the weight ring (a slot refilled while a warp still
+    reads it), in #6's warp-synchronous sweep or in #2's cache ring would
+    show as a run-to-run difference that a tolerance hides."""
     dt = torch.bfloat16
     for plan, x, h in (_random_case(256, 24, 36, 3, dt, cuda_device, 5),
                        _ln_case(256, 24, 36, 3, dt, cuda_device, 6)):
@@ -269,6 +283,22 @@ def test_bf16_kernels_are_deterministic(cuda_device):
     second = frame.fused_frame_step(plan, x, h, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    plan, x, h = _dprnn_case(256, 24, 36, 3, dt, cuda_device, seed=8)
+    before = dprnn.dprnn_stack_step.tc_launches
+    first = dprnn.dprnn_stack_step(plan, x, h)
+    second = dprnn.dprnn_stack_step(plan, x, h)
+    torch.cuda.synchronize()
+    assert dprnn.dprnn_stack_step.tc_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    plan, x, kc, vc = _dpt_case(256, 24, 36, 3, 31, dt, cuda_device, 9, 31)
+    p = torch.tensor(30, dtype=torch.int32, device=cuda_device)
+    caches = [(kc.clone(), vc.clone()) for _ in range(2)]
+    before = dpt.dpt_stack_step.tc_launches
+    outs = [dpt.dpt_stack_step(plan, x, k, v, p, 4) for k, v in caches]
+    torch.cuda.synchronize()
+    assert dpt.dpt_stack_step.tc_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert all(torch.equal(a, b) for a, b in zip(*caches))
 
 
 def test_fused_frame_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -430,13 +460,23 @@ def _dprnn_case(b, f, c, nb, dtype, device, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f,c,nb", [(3, 24, 36, 3),    # DPRNN-B widths
                                       (3, 16, 20, 2),    # DPRNN-T
-                                      (64, 24, 36, 3)])
+                                      (64, 24, 36, 3),
+                                      (256, 24, 36, 3),  # serving capacity
+                                      (1, 24, 36, 3),
+                                      (13, 24, 36, 3),   # odd b: 8-byte rows
+                                      (257, 16, 20, 2),
+                                      (2, 8, 72, 1)])    # Hd = 36: scalar
 def test_dprnn_stack_kernel_matches_plain(cuda_device, dtype, b, f, c, nb):
     plan, x, h = _dprnn_case(b, f, c, nb, dtype, cuda_device, seed=b + f)
-    before = dprnn.dprnn_stack_step.launches
+    form = dprnn.kernel_form(f, c, c // 2, dtype)
+    assert (form == "tc") == (dtype == torch.bfloat16 and c // 2 <= 32)
+    before = (dprnn.dprnn_stack_step.launches,
+              dprnn.dprnn_stack_step.tc_launches)
     xo, ho = dprnn.dprnn_stack_step(plan, x, h)
     torch.cuda.synchronize()
-    assert dprnn.dprnn_stack_step.launches == before + 1
+    assert (dprnn.dprnn_stack_step.launches,
+            dprnn.dprnn_stack_step.tc_launches) == (
+        before[0] + 1, before[1] + (form == "tc"))
     xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
     for got, want in ((xo, xr), (ho, hr)):
         assert got.dtype == dtype and got.device == cuda_device
@@ -477,6 +517,71 @@ def test_bsrnn_and_dprnn_streams_match_unfused_on_card(cuda_device):
                                fused_plan=model.build_stack_plan(folded))
         assert counter.launches == before + 6
         assert (y_fused - model.stream(folded, wav)).abs().max() <= 1e-4
+
+
+def test_dprnn_and_dpt_tc_forms_match_the_library_and_the_scalar_form(
+        cuda_device):
+    """Each tensor-core form's shared memory as its library computes it
+    equals the wrapper's count; at DPRNN-B and DPT-B in bf16 both forms,
+    launched directly, match the plain version."""
+    size = _build.function("dprnn_stack", "dprnn_stack_smem_bf16",
+                           ctypes.c_size_t, [ctypes.c_int] * 3)
+    for f, c, hd in ((24, 36, 18), (16, 20, 10), (36, 48, 24), (5, 12, 32)):
+        assert size(f, c, hd) == dprnn.tc_smem_bytes(f, c, hd)
+    size = _build.function("dpt_stack", "dpt_stack_smem_bf16",
+                           ctypes.c_size_t, [ctypes.c_int] * 4)
+    for f, c, lb in ((24, 36, 31), (16, 20, 31), (36, 48, 31), (8, 8, 5)):
+        assert size(f, c, 4, lb) == dpt.tc_smem_bytes(f, c, 4, lb)
+    dt = torch.bfloat16
+    plan, x, h = _dprnn_case(21, 24, 36, 3, dt, cuda_device, seed=3)
+    want = dprnn.dprnn_stack_reference(plan, x, h)
+    for launch in (dprnn.launch_tc, dprnn.launch_scalar):
+        for got, ref in zip(launch(plan, x, h), want):
+            _close(got, ref, dt)
+    plan, x, kc, vc = _dpt_case(21, 24, 36, 3, 31, dt, cuda_device, 4, 20)
+    p = torch.tensor(25, dtype=torch.int32, device=cuda_device)
+    kr, vr = kc.clone(), vc.clone()
+    xr, _ = dpt.dpt_stack_reference(plan, x, kr, vr, p, 4)
+    for launch in (dpt.launch_tc, dpt.launch_scalar):
+        k, v = kc.clone(), vc.clone()
+        xo, po = launch(plan, x, k, v, p, 4)
+        torch.cuda.synchronize()
+        assert int(po) == 26
+        for got, ref in ((xo, xr), (k, kr), (v, vr)):
+            _close(got, ref, dt)
+
+
+def test_dprnn_and_dpt_bf16_streams_run_the_tc_forms_on_card(cuda_device,
+                                                             monkeypatch):
+    """DPRNN-B and DPT-B at full width and reduced depth, bf16, over frames
+    of 3 streams through each kernel's tensor-core form (DPT-B over 2L+3
+    frames, so the pointer wraps twice), against the same fused stream with
+    the plain version in the kernel's place (2^-5 of the peak, the file's
+    bf16 tolerance)."""
+    for name, kw, module, attr, op, frames in (
+            ("fastenhancer.dprnn",
+             dict(DPRNN_B, dprnn_kwargs=dict(DPRNN_B["dprnn_kwargs"],
+                                             num_blocks=1)),
+             dprnn_model, "dprnn_stack_step", dprnn, 6),
+            ("fastenhancer.dptransformer",
+             dict(DPT_B, dpt_kwargs=dict(DPT_B["dpt_kwargs"], num_blocks=1)),
+             dpt_model, "dpt_stack_step", dpt, 65)):
+        model = get_model(name, **kw, stft_method="matmul")
+        folded = cast_floating(model.fold(model.init(
+            torch.Generator().manual_seed(0), cuda_device)), torch.bfloat16)
+        plan = model.build_stack_plan(folded)
+        wav = torch.randn(3, model.hop_size * frames,
+                          generator=torch.Generator().manual_seed(1))
+        wav = (wav * 0.1).to(cuda_device, torch.bfloat16)
+        step = getattr(module, attr)
+        before = step.tc_launches
+        y_kernel = model.stream(folded, wav, fused_plan=plan)
+        assert step.tc_launches == before + frames
+        with monkeypatch.context() as m:
+            m.setattr(module, attr, getattr(op, attr.replace(
+                "_step", "_reference")))
+            y_plain = model.stream(folded, wav, fused_plan=plan)
+        _close(y_kernel, y_plain, torch.bfloat16)
 
 
 def test_bsrnn_bf16_stream_runs_the_tc_form_on_card(cuda_device,

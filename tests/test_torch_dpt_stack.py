@@ -304,3 +304,105 @@ def test_wrapper_cpu_path_and_checks():
         tdpt.dpt_stack_step(plan, x, kc, vc, ptr, 3)
     for f, c in ((16, 20), (24, 36), (36, 48)):
         assert tdpt.smem_bytes(f, c, 4, 31) <= tdpt.MAX_SMEM_BYTES
+
+
+# --- the kernel's forms (no JAX needed below) --------------------------------
+
+BF16 = torch.bfloat16
+# the H100's shared memory a SM (228 KB), and what it reserves a block
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+
+
+@pytest.mark.parametrize("name,f,c", [("DPT-T", 16, 20), ("DPT-B", 24, 36),
+                                      ("DPT-S", 36, 48)])
+def test_dpt_configs_run_the_tc_form_in_bf16(name, f, c):
+    assert tdpt.kernel_form(f, c, 4, 31, BF16) == "tc", name
+    assert tdpt.kernel_form(f, c, 4, 31, torch.float32) == "scalar", name
+
+
+@pytest.mark.parametrize("f,c,lb", [
+    (13, 12, 31),    # the card tests' odd shape: a slot is 312 bytes
+    (7, 9, 31),      # 126 bytes
+    (5, 10, 4),      # 100 bytes
+    (8, 80, 31),     # C / H = 20: q outgrows a thread's registers
+    (72, 16, 31),    # H F = 288 rows: more than one a thread
+    (48, 48, 31),    # F C = 2304: more than 4 channel pairs a thread
+    (64, 64, 255)])  # the tiles, logits and ring outgrow shared memory
+def test_other_shapes_run_the_scalar_form(f, c, lb):
+    assert tdpt.kernel_form(f, c, 4 if c % 4 == 0 else 1, lb,
+                            BF16) == "scalar"
+
+
+@pytest.mark.parametrize("f,c,lb,want", [(24, 36, 31, 9), (16, 20, 31, 25),
+                                         (36, 48, 31, 4), (8, 8, 31, 31),
+                                         (8, 16, 5, 5), (128, 64, 31, 1)])
+def test_tc_chunk_slots(f, c, lb, want):
+    assert tdpt.tc_chunk_slots(f, c, lb) == want
+    assert want * 2 * f * c <= max(tdpt.TC_CHUNK_BYTES, 2 * f * c)
+
+
+def test_tc_smem_bytes_at_dpt_b():
+    # head; x and two free [F, ld(C)] tiles, head-padded q, k, v [F, ld(64)],
+    # probabilities [H, F, ld(F)]; float32 logits [32 keys, 96 + 8] and the
+    # slot bias [H, 32]; 4 ring chunks of 9 slots; two slots, each the qkv
+    # stage in padded rows
+    tiles = 3 * 24 * 40 + 3 * 24 * 72 + 4 * 24 * 24
+    floats = 32 * 104 + 4 * 32
+    want = 48 + 2 * (tiles + 2 * floats + 4 * 9 * 24 * 36
+                     + 2 * (3 * 36 * 40 + 112))
+    assert tdpt.tc_smem_bytes(24, 36, 4, 31) == want
+    # two blocks a SM: all 256 streams resident in one wave on 132 SMs
+    assert 2 * (want + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+
+
+def test_tc_shared_memory_fits_where_the_rule_says_tc():
+    for f in (1, 8, 16, 24, 36, 64):
+        for c in (8, 16, 20, 36, 48, 64):
+            for lb in (1, 7, 31, 64):
+                if tdpt.kernel_form(f, c, 4, lb, BF16) == "tc":
+                    assert (tdpt.tc_smem_bytes(f, c, 4, lb)
+                            <= tdpt.MAX_SMEM_BYTES)
+                    assert (2 * f * c) % 16 == 0
+
+
+def _form_case(b, f=8, c=8, nb=2, lb=5, dtype=BF16):
+    g = torch.Generator().manual_seed(b)
+    plan = {k: ((torch.rand(s, generator=g) * 2 - 1) / c ** 0.5).to(dtype)
+            for k, s in tdpt.plan_shapes(nb, f, c, 4, lb).items()}
+    x = torch.randn(b, f, c, generator=g).to(dtype)
+    shape = tdpt.cache_shape(nb, b, lb, f, c)
+    kc, vc = ((torch.randn(shape, generator=g) * 0.5).to(dtype)
+              for _ in range(2))
+    return plan, x, kc, vc, torch.tensor(3, dtype=torch.int32)
+
+
+def test_launch_tc_refuses_what_the_form_does_not_take():
+    plan, x, kc, vc, p = _form_case(2, dtype=torch.float32)
+    with pytest.raises(ValueError, match="tensor-core form does not take"):
+        tdpt.launch_tc(plan, x, kc, vc, p, 4)
+    plan, x, kc, vc, p = _form_case(2, f=13, c=12)
+    with pytest.raises(ValueError, match="tensor-core form does not take"):
+        tdpt.launch_tc(plan, x, kc, vc, p, 4)
+    plan, x, kc, vc, p = _form_case(2)
+    flat = torch.empty(kc.numel() + 1, dtype=BF16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tdpt.launch_tc(plan, x, flat[1:].view(kc.shape), vc, p, 4)
+    # everything right, but the kernel has no CPU mode
+    with pytest.raises(ValueError, match="CUDA device"):
+        tdpt.launch_tc(plan, x, kc, vc, p, 4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tdpt.launch_scalar(plan, x, kc, vc, p, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_cpu_step_is_the_plain_version_and_counts_no_launch(dtype):
+    plan, x, kc, vc, p = _form_case(3, dtype=dtype)
+    kr, vr = kc.clone(), vc.clone()
+    before = (tdpt.dpt_stack_step.launches, tdpt.dpt_stack_step.tc_launches)
+    got = tdpt.dpt_stack_step(plan, x, kc, vc, p, 4)
+    want = tdpt.dpt_stack_reference(plan, x, kr, vr, p, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    assert (tdpt.dpt_stack_step.launches,
+            tdpt.dpt_stack_step.tc_launches) == before

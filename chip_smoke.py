@@ -14,25 +14,30 @@ each printed on its own line:
      process per source, all at once, with `-Xptxas -v`; the registers,
      static shared memory and spills of the block stack's and the whole
      frame's instantiations (the bfloat16 tensor-core forms and the
-     float32 forms) and of the BSRNN, dprnn and dpt stacks' bfloat16
-     forms (tensor-core and scalar) are printed;
+     float32 forms), of the BSRNN, dprnn and dpt stacks' bfloat16 forms
+     (tensor-core and scalar), of the GRU scan's three tensor-core
+     instantiations and float32 form and of segmental RMS are printed;
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
      FastEnhancer T/B/S shapes, the block stack's LN form at LN_B's shape
      with non-trivial LayerNorm terms, the dpt stack at the DPT T/B/S block shapes
      with a wrapped pointer and unwritten cache slots, the BSRNN stack at
      the BSRNN-XT and -S shapes, the dprnn stack at the DPRNN-T and -B
-     shapes, segmental RMS with silent, half-quiet and short rows and the
-     absolute floor on and off, the GRU scan at H=20 and 36, T=13 and 126,
-     ragged N, with and without h0), and each timed with CUDA events beside
-     its plain version and its bound, with the bound's share of the
-     kernel's time (the stacks, LN form included, at B=256 bfloat16,
-     segmental RMS at the shard recipe's [32, 64000] float32 train batch,
-     the GRU scan at its bfloat16 valid shape [126, 1024, 60] beside
-     cuDNN's GRU as the library yardstick); the BSRNN, dprnn and dpt
-     stacks print the form each case ran (bfloat16 the tensor-core form,
-     float32 the scalar one) and, at BSRNN-S, DPRNN-B and DPT-B bf16, the
-     scalar form's time beside the tensor-core form's in the same call;
+     shapes, segmental RMS with silent, half-quiet and short rows, rows
+     that do not start on 16 bytes, one row and 200, and the absolute
+     floor on and off, the GRU scan at H=20 and 36, T=13 and 126, ragged
+     N, with and without h0), and each timed with CUDA events beside its
+     plain version and its bound, with the bound's share of the kernel's
+     time (the stacks, LN form included, at B=256 bfloat16, segmental RMS
+     at the shard recipe's [32, 64000] float32 train batch beside an empty
+     kernel, the GRU scan at its bfloat16 valid shape [126, 1024, 60]
+     beside cuDNN's GRU as the library yardstick); the BSRNN, dprnn, dpt
+     and GRU-scan kernels print the form each case ran (bfloat16 the
+     tensor-core form, float32 the scalar one) and, at BSRNN-S, DPRNN-B
+     and DPT-B bf16 and the GRU scan's valid shape and FE_B's width
+     [126, 301, 108], the scalar form's time beside the tensor-core
+     form's in the same call (the GRU scan's with one and with three
+     warps a tile, and cuDNN's GRU);
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -73,10 +78,10 @@ Each of phases 4 to 15 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
-and `.ln_launches`); the BSRNN, dprnn and dpt stacks' tensor-core forms
-are counted inside their launches (`.tc_launches` of each wrapper), and
-the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must run them on every
-frame. The
+and `.ln_launches`); the BSRNN, dprnn and dpt stacks' and the GRU
+scan's tensor-core forms are counted inside their launches (`.tc_launches`
+of each wrapper), and the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must
+run them on every frame, FE-T's bf16 valid step on every launch. The
 line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -122,8 +127,9 @@ LN_KERNEL = "rnnformer_stack_step (ln)"
 BAND_TC = "bsrnn_stack_step (tc form)"
 DPRNN_TC = "dprnn_stack_step (tc form)"
 DPT_TC = "dpt_stack_step (tc form)"
+GRU_TC = "gru_scan (tc form)"
 TC_FORMS = {"bsrnn_stack_step": BAND_TC, "dprnn_stack_step": DPRNN_TC,
-            "dpt_stack_step": DPT_TC}
+            "dpt_stack_step": DPT_TC, "gru_scan": GRU_TC}
 
 
 def _check(cond, msg):
@@ -149,7 +155,15 @@ PTXAS_KERNELS = {
                                    "24: DPRNN-B)",
     "dprnn_stack_kernelI13__nv_bfloat16E": "dprnn_stack bf16 scalar",
     "dpt_stack_tc_kernel": "dpt_stack bf16 (tensor cores)",
-    "dpt_stack_kernelI13__nv_bfloat16E": "dpt_stack bf16 scalar"}
+    "dpt_stack_kernelI13__nv_bfloat16E": "dpt_stack bf16 scalar",
+    "gru_scan_tc_kernelILi2ELi4ELb1ELb1E": "gru_scan bf16 (tensor cores, "
+                                           "one warp a tile, H <= 32)",
+    "gru_scan_tc_kernelILi4ELi2ELb0ELb1E": "gru_scan bf16 (tensor cores, "
+                                           "W_hh in registers, H <= 64)",
+    "gru_scan_tc_kernelILi8ELi4ELb0ELb0E": "gru_scan bf16 (tensor cores, "
+                                           "W_hh in shared memory)",
+    "gru_scan_kernelIfE": "gru_scan f32",
+    "segmental_rms_kernelIfE": "segmental_rms f32"}
 
 
 def ptxas_summary(reports):
@@ -220,7 +234,8 @@ def main():
         "dprnn_stack_step": (dprnn.dprnn_stack_step, "launches"),
         DPRNN_TC: (dprnn.dprnn_stack_step, "tc_launches"),
         "segmental_rms_fused": (seg.segmental_rms_fused, "launches"),
-        "gru_scan": (scan.gru_scan, "launches")}
+        "gru_scan": (scan.gru_scan, "launches"),
+        GRU_TC: (scan.gru_scan, "tc_launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -232,8 +247,8 @@ def main():
 
     def check_launches(counts, name, n, what):
         """The path's own kernel ran n times and no other kernel ran; the
-        BSRNN, dprnn and dpt stacks' launches are all their tensor-core
-        forms' (bf16)."""
+        BSRNN, dprnn and dpt stacks' and the GRU scan's launches are all
+        their tensor-core forms' (bf16)."""
         own = {name, TC_FORMS[name]} if name in TC_FORMS else {name}
         want = {k: (n if k in own else 0) for k in counters}
         _check(counts == want, f"{what}: launches {counts} != {want}")
@@ -645,9 +660,9 @@ def main():
     def rms_rows(b, t, seed):
         g = torch.Generator().manual_seed(seed)
         x = torch.randn(b, t, generator=g) * 0.1
-        x[1] = 0.0                 # silent: +inf
-        x[2, : t // 2] *= 1e-3     # 60 dB quieter first half: dropped
-        x[3] *= 1e-2               # -60 dB: below the -50 dB floor
+        x[1:2] = 0.0                 # silent: +inf
+        x[2:3, : t // 2] *= 1e-3     # 60 dB quieter first half: dropped
+        x[3:4] *= 1e-2               # -60 dB: below the -50 dB floor
         return x
 
     def rms_err(got, want, dtype, what):
@@ -664,7 +679,7 @@ def main():
         return diff.max().item(), rel
 
     for b, t in ((TRAIN_ROWS, int(TRAIN_SECONDS * SR)), (5, 5 * 1600 + 700),
-                 (4, 1300)):
+                 (4, 1300), (1, 64_003), (200, 64_003)):
         for abs_db in (None, -50.0):
             for dtype in (torch.float32, torch.bfloat16):
                 x = rms_rows(b, t, t).to(dev, dtype)
@@ -673,17 +688,28 @@ def main():
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
                 print(f"[3/15] kernel segmental_rms B={b} T={t} abs floor "
-                      f"{abs_db} {str(dtype)[6:]}: rows +inf "
-                      f"{torch.isinf(got).flatten().tolist()}, max abs err "
-                      f"{err:.3e} (each within {rel:g} relative)")
-                if (b == TRAIN_ROWS and abs_db is None
-                        and dtype == torch.float32):
+                      f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
+                      f"blocks a row: rows +inf "
+                      f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
+                      f"err {err:.3e} (each within {rel:g} relative)")
+                if ((b, t) == (TRAIN_ROWS, int(TRAIN_SECONDS * SR))
+                        and abs_db is None and dtype == torch.float32):
                     bound_info = bound(2 * b * t, nbytes(x, got), dtype)
-                    record["segmental_rms_fused"] = timed(
+                    rec = record["segmental_rms_fused"] = timed(
                         lambda: seg.segmental_rms_fused(
                             x, absolute_threshold_db=None),
                         lambda: seg.segmental_rms(
                             x, absolute_threshold_db=None), err, bound_info)
+                    # a launch's own device time: an empty kernel (a spin
+                    # of 0 cycles) timed the same way, in the same call
+                    rec["empty_ms"], _ = time_ms(
+                        lambda: torch.cuda._sleep(0))
+                    print(f"[3/15] segmental_rms B={b} T={t} float32, a "
+                          f"cluster of {seg.cluster_size(b)} blocks a row: "
+                          f"{rec['ms']:.4f} ms, "
+                          f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
+                          f"bound {1e3 * rec['bound_ms']:.3f} us (bytes); an "
+                          f"empty kernel {rec['empty_ms']:.4f} ms; on {card}")
 
     # 3g. the GRU scan (kernel 5) at FE-T's and FE-B's widths
     def scan_case(t, n, h, dtype, seed, h0):
@@ -698,35 +724,63 @@ def main():
     valid_frames = int(VALID_SECONDS * SR) // 256 + 1
     valid_n = VALID_ROWS * FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"][
         "freq"]
+    def cudnn_gru(args):
+        """The library yardstick: cuDNN's GRU with W_ih = I and b_ih = 0
+        computes the same recurrence from x_proj (it may round its state
+        each step); checked within 2^-3 of the peak, and timed."""
+        h = args[2].shape[1]
+        lib = torch.nn.GRU(3 * h, h).to(dev, args[0].dtype)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(torch.eye(3 * h))
+            lib.bias_ih_l0.zero_()
+            lib.weight_hh_l0.copy_(args[2])
+            lib.bias_hh_l0.copy_(args[3])
+            lib.flatten_parameters()
+            ys_l, _ = lib(args[0], args[1][None])
+            ys_r, _ = scan.gru_scan_reference(*args)
+            lib_err = (ys_l.float() - ys_r.float()).abs().max().item()
+            _check(lib_err <= 2 ** -3 * ys_r.float().abs().max().item(),
+                   f"cuDNN GRU vs gru_scan's plain version: {lib_err}")
+            return time_ms(lambda: lib(args[0], args[1][None]))
+
     for t, n, h, h0 in ((valid_frames, valid_n, 20, False), (13, 37, 20, True),
                         (valid_frames, 301, 36, True), (13, 5, 36, False)):
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_case(t, n, h, dtype, t + n + h, h0)
+            form = scan.kernel_form(n, h, dtype)
+            before_tc = scan.gru_scan.tc_launches
             ys, h_t = scan.gru_scan(*args)
             torch.cuda.synchronize()
+            _check(scan.gru_scan.tc_launches - before_tc == (form == "tc")
+                   and (form == "tc") == (dtype == torch.bfloat16),
+                   f"gru_scan T={t} N={n} H={h} {dtype} runs the {form} form")
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan T={t} N={n} H={h}",
                            ((ys, ys_r), (h_t, h_r)), dtype)
             print(f"[3/15] kernel gru_scan T={t} N={n} H={h} h0 "
-                  f"{'given' if h0 else 'None'} {str(dtype)[6:]}: max abs err "
-                  f"ys {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
-                  f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
-            if n == valid_n and dtype == torch.bfloat16:
-                # the library yardstick: cuDNN's GRU with W_ih = I and
-                # b_ih = 0 computes the same recurrence from x_proj
-                lib = torch.nn.GRU(3 * h, h).to(dev, dtype)
-                with torch.no_grad():
-                    lib.weight_ih_l0.copy_(torch.eye(3 * h))
-                    lib.bias_ih_l0.zero_()
-                    lib.weight_hh_l0.copy_(args[2])
-                    lib.bias_hh_l0.copy_(args[3])
-                    lib.flatten_parameters()
-                    ys_l, _ = lib(args[0], args[1][None])
-                # a sanity check that it is the same function (cuDNN may
-                # round its state each step): within 2^-3 of the peak
-                lib_err = (ys_l.float() - ys_r.float()).abs().max().item()
-                _check(lib_err <= 2 ** -3 * ys_r.float().abs().max().item(),
-                       f"cuDNN GRU vs gru_scan's plain version: {lib_err}")
+                  f"{'given' if h0 else 'None'} {str(dtype)[6:]}, {form} "
+                  f"form: max abs err ys {errs[0][0]:.3e} (tol "
+                  f"{errs[0][1]:.3e}), h_T {errs[1][0]:.3e} (tol "
+                  f"{errs[1][1]:.3e})")
+            if t != valid_frames or dtype != torch.bfloat16:
+                continue
+            # both forms launched directly (not launches of the main path)
+            # and cuDNN's GRU, in this call: the tensor-core form with the
+            # warps a tile the wrapper picks, and with one warp at H <= 32
+            warps = scan.tc_warps(h)
+            forms = {f"tc, {warps} warps a tile": time_ms(
+                lambda: scan.launch_tc(*args))[0]}
+            if h <= 32:
+                forms["tc, 1 warp a tile"] = time_ms(
+                    lambda: scan.launch_tc(*args, warps=1))[0]
+            forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
+            lib_ms, lib_host_ms = cudnn_gru(args)
+            forms["cuDNN GRU"] = lib_ms
+            print(f"[3/15] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+                  " tiles of 16 rows): " + ", ".join(
+                      f"{k} {v:.4f} ms" for k, v in forms.items())
+                  + f"; on {card}")
+            if n == valid_n:
                 # operations: 3H x H multiply-adds a row and step, and about
                 # 12 more a unit for the gates
                 bound_info = bound(t * n * (6 * h * h + 12 * h),
@@ -735,9 +789,8 @@ def main():
                             lambda: scan.gru_scan_reference(*args),
                             max(errs[0][0], errs[1][0]), bound_info,
                             plain_graph=True)
-                with torch.no_grad():
-                    rec["library_ms"], rec["library_host_ms"] = time_ms(
-                        lambda: lib(args[0], args[1][None]))
+                rec["library_ms"], rec["library_host_ms"] = (lib_ms,
+                                                             lib_host_ms)
                 record["gru_scan"] = rec
 
     for name, r in record.items():
@@ -1200,7 +1253,9 @@ def main():
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
-          f"forward, no other kernel; {1e3 * valid_s / VALID_BATCHES:.1f} ms "
+          f"forward, all of them its tensor-core form "
+          f"({counts[GRU_TC]}), no other kernel; "
+          f"{1e3 * valid_s / VALID_BATCHES:.1f} ms "
           f"per valid batch; float32 valid losses card vs CPU max relative "
           f"diff {max(v_rel.values()):.3e} (tol {TRAIN_F32_RTOL:g}); on "
           f"{card}")

@@ -56,6 +56,7 @@
 // rate. 16 warps a block (128 registers a thread) spilled and ran slower.
 #pragma once
 
+#include "cluster.cuh"
 #include "mma_common.cuh"
 
 namespace fe {
@@ -96,32 +97,13 @@ constexpr int kMaxH = 16 * kWarps;
 constexpr int kRegSteps = 4;
 
 // ---------------------------------------------------------------------------
-// The cluster of two blocks
+// The cluster of two blocks (cluster.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-// every thread of both blocks; orders shared and global memory across them
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
 
 // the generic address of *p's counterpart in the peer block's shared memory
 template <typename P>
 __device__ __forceinline__ P* peer_of(P* p) {
-  uint64_t out;
-  asm volatile("mapa.u64 %0, %1, %2;\n"
-               : "=l"(out)
-               : "l"(reinterpret_cast<uint64_t>(p)),
-                 "r"(static_cast<uint32_t>(cluster_rank() ^ 1)));
-  return reinterpret_cast<P*>(out);
+  return cluster_map(p, cluster_rank() ^ 1);
 }
 
 // ---------------------------------------------------------------------------

@@ -19,7 +19,14 @@
 // bf16) about 21 MB, about 6 us at 3.35 TB/s. Its time is latency: T
 // dependent steps, each a dot product of length H per gate and a barrier.
 //
-// The design. A thread block owns a tile of R rows for all T steps; the
+// Two forms. The bfloat16 form runs on the tensor cores (gru_scan_tc.cuh:
+// a tile of 16 rows a thread block, h W_hh^T on mma.sync with the float32
+// state split into two bf16 halves, W_hh's fragments in registers, x_proj
+// through a ring of bulk copies); ops/gru_scan.py::kernel_form picks it
+// for every bfloat16 shape it takes (H <= 128). The float32 form below is
+// the scalar design and the correctness reference.
+//
+// The scalar design. A thread block owns a tile of R rows for all T steps; the
 // time loop runs inside the kernel, which takes the place of the Pallas
 // grid's sequential time dimension and its VMEM scratch state. Shared
 // memory holds w_hh transposed to [H, 3H] in float32 (so the threads of a
@@ -37,6 +44,7 @@
 
 #include <cstddef>
 
+#include "gru_scan_tc.cuh"
 #include "stack_common.cuh"
 
 namespace {
@@ -150,6 +158,84 @@ int launch(const void* x_proj, const void* h0, const void* w_hh,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core form's kernels, one for each (k-steps, unit groups a
+// warp) that a shape needs: one warp a tile for H <= 32 (groups = U),
+// else tc_warps(H) warps of one group (H <= 64) or two; W_hh's fragments
+// in registers up to H = 64, in shared memory above. Up to 255 registers
+// a thread: at most eight warps a block and a block a tile, so registers
+// do not limit the blocks an SM holds.
+template <int kKS, int kG, bool kSolo, bool kRegB>
+__global__ void __launch_bounds__(fe::gru::kMaxWarps * 32, 1)
+    gru_scan_tc_kernel(fe::gru::GruTcArgs a) {
+  extern __shared__ __align__(16) char smem_tc[];
+  fe::gru::gru_tile<kKS, kG, kSolo, kRegB>(a, smem_tc);
+}
+
+using TcKernel = void (*)(fe::gru::GruTcArgs);
+
+// the kernel for this geometry, or nullptr if no instantiation takes it
+TcKernel tc_kernel(const fe::gru::GruTcGeom& g) {
+  if (g.warps == 1) {
+    switch (g.units) {
+      case 1: return gru_scan_tc_kernel<1, 1, true, true>;
+      case 2: return gru_scan_tc_kernel<1, 2, true, true>;
+      case 3: return gru_scan_tc_kernel<2, 3, true, true>;
+      case 4: return gru_scan_tc_kernel<2, 4, true, true>;
+      default: return nullptr;
+    }
+  }
+  // several warps: only the split tc_warps(H) gives, one unit group a
+  // warp up to U = 8 (H <= 64), two above
+  if (g.units < 2 || g.groups != (g.units + 7) / 8 ||
+      g.warps != (g.units + g.groups - 1) / g.groups) {
+    return nullptr;
+  }
+  switch (g.ksteps) {
+    case 1: return gru_scan_tc_kernel<1, 1, false, true>;
+    case 2: return gru_scan_tc_kernel<2, 1, false, true>;
+    case 3: return gru_scan_tc_kernel<3, 1, false, true>;
+    case 4: return gru_scan_tc_kernel<4, 1, false, true>;
+    case 5: return gru_scan_tc_kernel<5, 2, false, false>;
+    case 6: return gru_scan_tc_kernel<6, 2, false, false>;
+    case 7: return gru_scan_tc_kernel<7, 2, false, false>;
+    case 8: return gru_scan_tc_kernel<8, 2, false, false>;
+    default: return nullptr;
+  }
+}
+
+int launch_tc(const void* x_proj, const void* h0, const void* w_hh,
+              const void* b_hh, void* ys, void* h_t, int steps, int rows,
+              int hid, int warps, void* stream) {
+  if (hid < 2 || hid % 2 || warps < 1 || warps > fe::gru::kMaxWarps ||
+      rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const fe::gru::GruTcGeom g(hid, warps);
+  const TcKernel kernel = tc_kernel(g);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = g.bytes();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const fe::gru::GruTcArgs args{
+      static_cast<const __nv_bfloat16*>(x_proj),
+      static_cast<const __nv_bfloat16*>(h0),
+      static_cast<const __nv_bfloat16*>(w_hh),
+      static_cast<const __nv_bfloat16*>(b_hh),
+      static_cast<__nv_bfloat16*>(ys),
+      static_cast<__nv_bfloat16*>(h_t),
+      steps,
+      rows,
+      hid};
+  const int blocks = (rows + fe::gru::kRows - 1) / fe::gru::kRows;
+  kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -170,6 +256,22 @@ int gru_scan_bf16(const void* x_proj, const void* h0, const void* w_hh,
                   int hid, int tile, void* stream) {
   return launch<__nv_bfloat16>(x_proj, h0, w_hh, b_hh, ys, h_t, steps, rows,
                                hid, tile, stream);
+}
+
+// The tensor-core form (bfloat16, even H <= 128 only): a thread block of
+// `warps` warps per tile of 16 rows, 1 (H <= 32) or ceil(U / ceil(U / 8))
+// (ops/gru_scan.py::tc_warps). Same arguments as gru_scan_bf16 but the
+// rows per block.
+int gru_scan_tc_bf16(const void* x_proj, const void* h0, const void* w_hh,
+                     const void* b_hh, void* ys, void* h_t, int steps,
+                     int rows, int hid, int warps, void* stream) {
+  return launch_tc(x_proj, h0, w_hh, b_hh, ys, h_t, steps, rows, hid, warps,
+                   stream);
+}
+
+// the tensor-core form's shared memory per block, in bytes
+long long gru_scan_tc_smem(int hid, int warps) {
+  return static_cast<long long>(fe::gru::GruTcGeom(hid, warps).bytes());
 }
 
 const char* gru_scan_error_string(int code) {

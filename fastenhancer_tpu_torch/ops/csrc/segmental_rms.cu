@@ -18,28 +18,38 @@
 // float32 is 8.2 MB, about 2.4 us at 3.35 TB/s. The arithmetic (one FMA a
 // sample) is far below the memory rate.
 //
-// The design. One thread block per row, as the Pallas grid has one
-// program per row. Each warp takes every kWarps-th frame, its lanes stride
-// over the frame's samples (consecutive lanes on consecutive addresses, so
-// the loads coalesce) and a shuffle reduction gives the frame's power,
-// which goes to shared memory. After one barrier the block reduces the
-// powers twice, first their max, then the count and the sum of the active
-// ones; one thread writes the result. With B rows only B blocks run: at
-// B=32 that is 32 of the 132 SMs, so one row's read rate, not the card's,
-// sets the time. Splitting a row over several blocks is left for later.
+// The design. A cluster of K thread blocks per row (K in 1, 2, 4, 8: the
+// largest with B * K <= 132 SMs, chosen by the wrapper), so that a small
+// batch still spreads over the card: at B = 32, K = 4 gives 128 blocks.
+// Block `rank` takes the row's frames [n rank / K, n (rank + 1) / K); each
+// of its warps takes every kWarps-th of them. A warp reads its frame with
+// 16-byte loads (4 float32 or 8 bfloat16 samples a lane), kUnroll of them
+// in flight a lane into separate accumulators, with scalar loads for the
+// head before the first 16-byte boundary (a row or frame that does not
+// start on one) and for the tail; a shuffle reduction gives the frame's
+// power, which lane 0 stores into rank 0's shared array through
+// distributed shared memory (mapa, st.shared::cluster). After one cluster
+// barrier, rank 0 reduces the powers twice, first their max, then the
+// count and the sum of the active ones, and one thread writes the result;
+// the other blocks have exited. A row shorter than one frame is summed by
+// rank 0 alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
+#include "cluster.cuh"
 #include "stack_common.cuh"
 
 namespace {
 
 using fe::kThreads;
 constexpr int kWarps = kThreads / 32;
+// 16-byte loads a lane keeps in flight
+constexpr int kUnroll = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -68,6 +78,74 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
+// acc + the squares of the 16 bytes w
+__device__ __forceinline__ float sumsq(const float*, uint4 w, float acc) {
+  const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float f = __uint_as_float(v[i]);
+    acc = fmaf(f, f, acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float sumsq(const __nv_bfloat16*, uint4 w,
+                                       float acc) {
+  const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = __uint_as_float(v[i] << 16);
+    const float hi = __uint_as_float(v[i] & 0xffff0000u);
+    acc = fmaf(lo, lo, acc);
+    acc = fmaf(hi, hi, acc);
+  }
+  return acc;
+}
+
+// the sum of x[0..n)^2 over one warp; every lane gets it
+template <typename T>
+__device__ __forceinline__ float warp_sumsq(const T* x, int n) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const int lane = threadIdx.x & 31;
+  const auto addr = reinterpret_cast<uintptr_t>(x);
+  const int head = min(static_cast<int>(((16 - (addr & 15)) & 15) /
+                                        sizeof(T)),
+                       n);
+  const int nv = (n - head) / kVec;
+  const int tail0 = head + nv * kVec;
+  float acc[kUnroll] = {};
+  if (lane < head) {
+    const float v = fe::load_f(x[lane]);
+    acc[0] = v * v;
+  }
+  if (tail0 + lane < n) {
+    const float v = fe::load_f(x[tail0 + lane]);
+    acc[1] = v * v;
+  }
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  int i = lane;
+  for (; i + (kUnroll - 1) * 32 < nv; i += kUnroll * 32) {
+    uint4 w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(xv + i + u * 32);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc[u] = sumsq(x, w[u], acc[u]);
+  }
+  // the last (fewer than kUnroll * 32) vectors, their loads still all
+  // issued before the first is used
+  uint4 w[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    w[u] = i + u * 32 < nv ? __ldg(xv + i + u * 32) : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) acc[u] = sumsq(x, w[u], acc[u]);
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) s += acc[u];
+  return warp_sum(s);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     segmental_rms_kernel(const T* __restrict__ wav, T* __restrict__ out,
@@ -75,13 +153,17 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
                          float abs_floor) {
   extern __shared__ float smem[];
   float* red = smem;             // [kWarps] reduction scratch
-  float* pow_f = smem + kWarps;  // [n] frame powers
-  const T* x = wav + static_cast<size_t>(blockIdx.x) * len;
+  float* pow_f = smem + kWarps;  // [n] frame powers (rank 0's are read)
+  const int k = fe::cluster_size();
+  const int rank = fe::cluster_rank();
+  const int row = blockIdx.x / k;
+  const T* x = wav + static_cast<size_t>(row) * len;
   const int n = static_cast<int>(len / win);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
   if (n == 0) {  // shorter than one frame: the RMS of the whole row
+    if (rank != 0) return;
     float acc = 0.f;
     for (long long i = threadIdx.x; i < len; i += kThreads) {
       const float v = fe::load_f(x[i]);
@@ -89,22 +171,18 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     }
     acc = block_reduce<false>(acc, red);
     if (threadIdx.x == 0) {
-      out[blockIdx.x] = fe::store_t<T>(sqrtf(acc / static_cast<float>(len)));
+      out[row] = fe::store_t<T>(sqrtf(acc / static_cast<float>(len)));
     }
     return;
   }
 
-  for (int f = warp; f < n; f += kWarps) {
-    const T* xf = x + static_cast<size_t>(f) * win;
-    float acc = 0.f;
-    for (int i = lane; i < win; i += 32) {
-      const float v = fe::load_f(xf[i]);
-      acc = fmaf(v, v, acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) pow_f[f] = acc / static_cast<float>(win);
+  const int f1 = n * (rank + 1) / k;
+  for (int f = n * rank / k + warp; f < f1; f += kWarps) {
+    const float p = warp_sumsq(x + static_cast<size_t>(f) * win, win);
+    if (lane == 0) fe::store_cluster(pow_f + f, 0, p / static_cast<float>(win));
   }
-  __syncthreads();
+  fe::cluster_sync();  // every frame's power is in rank 0's pow_f
+  if (rank != 0) return;
 
   float m = 0.f;  // powers are >= 0
   for (int f = threadIdx.x; f < n; f += kThreads) m = fmaxf(m, pow_f[f]);
@@ -121,8 +199,7 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   cnt = block_reduce<false>(cnt, red);
   sum = block_reduce<false>(sum, red);
   if (threadIdx.x == 0) {
-    out[blockIdx.x] =
-        fe::store_t<T>(cnt > 0.f ? sqrtf(sum / cnt) : INFINITY);
+    out[row] = fe::store_t<T>(cnt > 0.f ? sqrtf(sum / cnt) : INFINITY);
   }
 }
 
@@ -132,7 +209,7 @@ size_t smem_bytes(long long len, int win) {
 
 template <typename T>
 int launch(const void* wav, void* out, int batch, long long len, int win,
-           float rel_ratio, float abs_floor, void* stream) {
+           int cluster, float rel_ratio, float abs_floor, void* stream) {
   const size_t smem = smem_bytes(len, win);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -140,10 +217,22 @@ int launch(const void* wav, void* out, int batch, long long len, int win,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  segmental_rms_kernel<T>
-      <<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(wav), static_cast<T*>(out), len, win,
-          rel_ratio, abs_floor);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, segmental_rms_kernel<T>, static_cast<const T*>(wav),
+      static_cast<T*>(out), len, win, rel_ratio, abs_floor);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,18 +241,19 @@ int launch(const void* wav, void* out, int batch, long long len, int win,
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 on success). wav is
-// [batch, len] contiguous; out is [batch].
+// [batch, len] contiguous; out is [batch]; cluster (1, 2, 4 or 8) thread
+// blocks a row.
 int segmental_rms_f32(const void* wav, void* out, int batch, long long len,
-                      int win, float rel_ratio, float abs_floor,
+                      int win, int cluster, float rel_ratio, float abs_floor,
                       void* stream) {
-  return launch<float>(wav, out, batch, len, win, rel_ratio, abs_floor,
-                       stream);
+  return launch<float>(wav, out, batch, len, win, cluster, rel_ratio,
+                       abs_floor, stream);
 }
 
 int segmental_rms_bf16(const void* wav, void* out, int batch, long long len,
-                       int win, float rel_ratio, float abs_floor,
+                       int win, int cluster, float rel_ratio, float abs_floor,
                        void* stream) {
-  return launch<__nv_bfloat16>(wav, out, batch, len, win, rel_ratio,
+  return launch<__nv_bfloat16>(wav, out, batch, len, win, cluster, rel_ratio,
                                abs_floor, stream);
 }
 

@@ -17,7 +17,12 @@ where x_proj = x W_ih^T + b_ih comes from one matmul over the sequence.
   tensor goes to the plain version, a CUDA tensor launches the kernel or
   raises; nothing falls back. The kernel has no backward, as the Pallas
   kernel has no VJP, so a CUDA input that requires a gradient raises.
-  `gru_scan.launches` counts kernel launches.
+  `gru_scan.launches` counts kernel launches. The kernel has two forms,
+  chosen by `kernel_form` from the shape and type: "tc" (bfloat16 on the
+  tensor cores, a thread block of `tc_warps(H)` warps per tile of 16
+  rows; `gru_scan.tc_launches` counts it) and "scalar" (float32; the
+  correctness reference). `launch_scalar` and `launch_tc` launch one form
+  directly and count nothing.
 * `gru_fused(params, x, h0)` is the drop-in for nn.gru (the counterpart of
   `gru_pallas`), weight-norm parameters included.
 
@@ -42,8 +47,14 @@ Params = tp.Dict[str, tp.Any]
 MAX_HIDDEN = 128
 _THREADS = 256  # a thread per (row, unit) pair, at most this many per block
 _SMS = 132      # the H100 SXM's streaming multiprocessors
-# x_proj, h0, w_hh, b_hh, ys, h_T; T, N, H, rows per block; the stream
+# x_proj, h0, w_hh, b_hh, ys, h_T; T, N, H, rows per block (the scalar
+# form) or warps per tile (the tensor-core form); the stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the tensor-core form (csrc/gru_scan_tc.cuh): rows of a tile, x_proj
+# slabs in flight, warps a tile at most
+TC_ROWS = 16
+TC_RING = 8
+TC_MAX_WARPS = 8
 
 
 def gru_scan_reference(x_proj: Tensor, h0: Tensor, w_hh: Tensor,
@@ -74,6 +85,47 @@ def rows_per_block(n: int, hidden: int) -> int:
     return max(1, min(_THREADS // hidden, -(-n // _SMS)))
 
 
+def tc_tiles(n: int) -> int:
+    """Tiles of 16 rows, a thread block each, of the tensor-core form."""
+    return -(-n // TC_ROWS)
+
+
+def tc_warps(hidden: int) -> int:
+    """Warps of a tile in the tensor-core form: the unit groups of 8 (U =
+    ceil(H / 8)) dealt over at most 8 warps, G = ceil(U / 8) a warp, so
+    ceil(U / G) warps (3 at H = 20, 5 at H = 36, 8 at H = 64 and 128)."""
+    units = -(-hidden // 8)
+    per = -(-units // TC_MAX_WARPS)
+    return -(-units // per)
+
+
+def tc_smem_bytes(hidden: int, warps: int) -> int:
+    """Shared memory of one thread block of the tensor-core form, as
+    gru_scan_tc.cuh's GruTcGeom counts it: the ring's mbarriers and slabs
+    of 16 x 3H bf16, the double-buffered hi/lo h tile (several warps),
+    and W_hh's fragments where they are not in registers (H > 64)."""
+    units, ksteps = -(-hidden // 8), -(-hidden // 16)
+    groups = -(-units // warps)
+    reg_b = warps == 1 or (ksteps <= 4 and groups <= 2)
+    slot = -(-TC_ROWS * 3 * hidden * 2 // 16) * 16
+    hbuf = 4 * TC_ROWS * _build.ld_of(16 * ksteps) * 2 if warps > 1 else 0
+    frag = 0 if reg_b else 3 * units * ksteps * 32 * 8
+    return 16 * TC_RING + TC_RING * slot + hbuf + frag
+
+
+def kernel_form(n: int, hidden: int, dtype: torch.dtype) -> str:
+    """Which form of the kernel runs, by shape alone, before launch: "tc"
+    (tensor cores, csrc/gru_scan_tc.cuh) for bfloat16 at every even H <=
+    MAX_HIDDEN (any N >= 1; its shared memory fits at H = 128; it reads
+    and writes bf16 pairs); else "scalar" (float32, odd H)."""
+    if (dtype == torch.bfloat16 and n >= 1 and 2 <= hidden <= MAX_HIDDEN
+            and hidden % 2 == 0
+            and tc_smem_bytes(hidden, tc_warps(hidden))
+            <= _build.MAX_SMEM_BYTES):
+        return "tc"
+    return "scalar"
+
+
 def _check(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor) -> None:
     if x_proj.ndim != 3 or x_proj.shape[-1] % 3:
         raise ValueError("x_proj must be [T, N, 3H]; got "
@@ -90,6 +142,80 @@ def _check(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor) -> None:
                              f"{x_proj.device}")
 
 
+def _cuda_operands(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
+                   ) -> tp.Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Checks of a launch on CUDA tensors that passed _check; returns them
+    contiguous."""
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not "
+                         f"{x_proj.device}")
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x_proj, h0, w_hh, b_hh)):
+        raise RuntimeError("gru_scan's kernel has no backward: run it under "
+                           "torch.no_grad(), or use nn.gru to train")
+    hidden = x_proj.shape[-1] // 3
+    if hidden > MAX_HIDDEN:
+        raise ValueError(f"H={hidden}: the kernel takes H <= {MAX_HIDDEN}")
+    if x_proj.shape[1] == 0:
+        raise ValueError("need N >= 1")
+    for name, a in (("h0", h0), ("w_hh", w_hh), ("b_hh", b_hh)):
+        if a.dtype != x_proj.dtype:
+            raise ValueError(f"{name} is {a.dtype}; every operand must be "
+                             f"{x_proj.dtype}")
+    return (x_proj.contiguous(), h0.contiguous(), w_hh.contiguous(),
+            b_hh.contiguous())
+
+
+def _launch(fn: tp.Callable[..., int], x_proj: Tensor, h0: Tensor,
+            w_hh: Tensor, b_hh: Tensor, per_block: int
+            ) -> tp.Tuple[Tensor, Tensor]:
+    t, n, h3 = x_proj.shape
+    ys = torch.empty(t, n, h3 // 3, dtype=x_proj.dtype, device=x_proj.device)
+    h_t = torch.empty_like(h0)
+    with torch.cuda.device(x_proj.device):
+        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
+        err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
+                 b_hh.data_ptr(), ys.data_ptr(), h_t.data_ptr(), t, n,
+                 h3 // 3, per_block, stream)
+    _build.check_launch("gru_scan", err)
+    return ys, h_t
+
+
+def launch_scalar(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
+                  ) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the scalar form (a thread per (row, unit) pair) on CUDA
+    tensors that passed _check, float32 or bfloat16; counts nothing."""
+    x_proj, h0, w_hh, b_hh = _cuda_operands(x_proj, h0, w_hh, b_hh)
+    fn = _build.entry("gru_scan", x_proj.dtype, _ARGTYPES)
+    tile = rows_per_block(x_proj.shape[1], x_proj.shape[-1] // 3)
+    return _launch(fn, x_proj, h0, w_hh, b_hh, tile)
+
+
+def launch_tc(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor,
+              warps: tp.Optional[int] = None) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the tensor-core form on bfloat16 CUDA tensors that passed
+    _check and whose shape kernel_form gives to it, `warps` warps a tile
+    (tc_warps(H), the default, or 1 for H <= 32); counts nothing."""
+    n, hidden = x_proj.shape[1], x_proj.shape[-1] // 3
+    if kernel_form(n, hidden, x_proj.dtype) != "tc":
+        raise ValueError(f"the tensor-core form does not take N={n}, "
+                         f"H={hidden} in {x_proj.dtype} (see kernel_form)")
+    warps = tc_warps(hidden) if warps is None else warps
+    if warps not in ((1, tc_warps(hidden)) if hidden <= 32
+                     else (tc_warps(hidden),)):
+        raise ValueError(f"{warps} warps a tile: the tensor-core form takes "
+                         f"tc_warps(H) = {tc_warps(hidden)}, or 1 for H <= "
+                         "32")
+    if tc_smem_bytes(hidden, warps) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"H={hidden} over {warps} warps needs "
+                         f"{tc_smem_bytes(hidden, warps)} bytes of shared "
+                         f"memory; a block has {_build.MAX_SMEM_BYTES}")
+    x_proj, h0, w_hh, b_hh = _cuda_operands(x_proj, h0, w_hh, b_hh)
+    fn = _build.function("gru_scan", "gru_scan_tc_bf16", ctypes.c_int,
+                         _ARGTYPES)
+    return _launch(fn, x_proj, h0, w_hh, b_hh, warps)
+
+
 def gru_scan(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
              ) -> tp.Tuple[Tensor, Tensor]:
     """The GRU recurrence over T steps as one kernel launch.
@@ -97,45 +223,26 @@ def gru_scan(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
     x_proj [T, N, 3H], h0 [N, H], w_hh [3H, H], b_hh [3H], all of x_proj's
     dtype (float32 or bfloat16) and device -> (ys [T, N, H], h_T [N, H]),
     fresh tensors. On the CPU this is the plain version; on a CUDA device
-    it launches the kernel (building it on first use), a thread block per
-    tile of rows, and raises if it cannot, or if an input requires a
-    gradient (the kernel has no backward)."""
+    it launches the form `kernel_form` picks (building the kernel on first
+    use) and raises if it cannot, or if an input requires a gradient (the
+    kernel has no backward)."""
     _check(x_proj, h0, w_hh, b_hh)
     if x_proj.device.type == "cpu":
         return gru_scan_reference(x_proj, h0, w_hh, b_hh)
     if x_proj.device.type != "cuda":
         raise ValueError(f"unsupported device {x_proj.device}")
-    if torch.is_grad_enabled() and any(
-            a.requires_grad for a in (x_proj, h0, w_hh, b_hh)):
-        raise RuntimeError("gru_scan's kernel has no backward: run it under "
-                           "torch.no_grad(), or use nn.gru to train")
-    t, n, h3 = x_proj.shape
-    hidden = h3 // 3
-    if hidden > MAX_HIDDEN:
-        raise ValueError(f"H={hidden}: the kernel takes H <= {MAX_HIDDEN}")
-    if n == 0:
-        raise ValueError("need N >= 1")
-    for name, a in (("h0", h0), ("w_hh", w_hh), ("b_hh", b_hh)):
-        if a.dtype != x_proj.dtype:
-            raise ValueError(f"{name} is {a.dtype}; every operand must be "
-                             f"{x_proj.dtype}")
-    fn = _build.entry("gru_scan", x_proj.dtype, _ARGTYPES)
-    x_proj, h0 = x_proj.contiguous(), h0.contiguous()
-    w_hh, b_hh = w_hh.contiguous(), b_hh.contiguous()
-    tile = rows_per_block(n, hidden)
-    ys = torch.empty(t, n, hidden, dtype=x_proj.dtype, device=x_proj.device)
-    h_t = torch.empty_like(h0)
-    with torch.cuda.device(x_proj.device):
-        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
-                 b_hh.data_ptr(), ys.data_ptr(), h_t.data_ptr(), t, n, hidden,
-                 tile, stream)
-    _build.check_launch("gru_scan", err)
+    n, hidden = x_proj.shape[1], x_proj.shape[-1] // 3
+    if kernel_form(n, hidden, x_proj.dtype) == "tc":
+        out = launch_tc(x_proj, h0, w_hh, b_hh)
+        gru_scan.tc_launches += 1
+    else:
+        out = launch_scalar(x_proj, h0, w_hh, b_hh)
     gru_scan.launches += 1
-    return ys, h_t
+    return out
 
 
 gru_scan.launches = 0
+gru_scan.tc_launches = 0
 
 
 def gru_fused(params: Params, x: Tensor, h0: tp.Optional[Tensor] = None

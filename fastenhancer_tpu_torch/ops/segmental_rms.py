@@ -13,7 +13,9 @@ shorter than one frame gives the RMS of the whole row.
 * `segmental_rms_fused` is the wrapper, the counterpart of
   `segmental_rms_pallas`: a CPU tensor goes to the plain version, a CUDA
   tensor launches the kernel or raises; nothing falls back.
-  `segmental_rms_fused.launches` counts kernel launches.
+  `segmental_rms_fused.launches` counts kernel launches. The kernel runs
+  a cluster of `cluster_size(B)` thread blocks per row, each on the
+  frames `frame_range` deals it.
 
 What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/segmental_rms.cu.
@@ -29,11 +31,25 @@ from . import _build
 
 Tensor = torch.Tensor
 
-# wav, out; batch, len, win; rel_ratio, abs_floor; the stream
+# wav, out; batch, len, win, cluster; rel_ratio, abs_floor; the stream
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, ctypes.c_void_p]
 _WARPS = 8  # the kernel's 256 threads
+_SMS = 132  # the H100 SXM's streaming multiprocessors
+_CLUSTERS = (8, 4, 2, 1)  # 8 is the largest portable cluster
+
+
+def cluster_size(batch: int) -> int:
+    """Thread blocks a row: the largest of 8, 4, 2 and 1 that keeps the
+    B * K blocks within one wave of the 132 SMs (at least 1)."""
+    return next((k for k in _CLUSTERS if batch * k <= _SMS), 1)
+
+
+def frame_range(frames: int, cluster: int, rank: int) -> range:
+    """The frames block `rank` of a row's cluster reads (the kernel's
+    [n rank / K, n (rank + 1) / K)): contiguous, every frame in one."""
+    return range(frames * rank // cluster, frames * (rank + 1) // cluster)
 
 
 def _prep(wav: Tensor, sr: int, window_ms: int) -> tp.Tuple[Tensor, int, int]:
@@ -75,8 +91,8 @@ def segmental_rms(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
 
 
 def smem_bytes(length: int, win: int) -> int:
-    """Shared memory of one thread block (one row): the frame powers and
-    the reduction scratch, float32."""
+    """Shared memory of one thread block: the row's frame powers (rank 0's
+    are read) and the reduction scratch, float32."""
     return 4 * (_WARPS + length // win)
 
 
@@ -84,7 +100,8 @@ def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
                         relative_threshold_db: float = -25.0,
                         absolute_threshold_db: tp.Optional[float] = -50.0
                         ) -> Tensor:
-    """segmental_rms as one kernel launch, one thread block per row.
+    """segmental_rms as one kernel launch, a cluster of thread blocks per
+    row.
 
     wav: [B, T] (or [B, 1, T]), float32 or bfloat16 -> [B, 1, 1] in wav's
     dtype. On the CPU this is the plain version; on a CUDA device it
@@ -111,8 +128,8 @@ def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
                                        absolute_threshold_db)
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
-        err = fn(wav.data_ptr(), out.data_ptr(), b, length, win, rel_ratio,
-                 abs_floor, stream)
+        err = fn(wav.data_ptr(), out.data_ptr(), b, length, win,
+                 cluster_size(b), rel_ratio, abs_floor, stream)
     _build.check_launch("segmental_rms", err)
     segmental_rms_fused.launches += 1
     return out[:, None, None]

@@ -29,6 +29,17 @@ input projection and its recurrence (thread 0 is lane 0 of the forward
 direction's warp), and the dpt kernel marks each wait on its cache ring's
 mbarriers, so the cached time attention (the `pre` of each time_fc stage)
 splits into the cycles spent waiting on the ring and those computing.
+
+The GRU scan's tensor-core form (csrc/gru_scan_tc.cuh) is marked at each
+of its T steps (thread 0 of tiles 0 and 1): the wait on the x_proj ring's
+mbarrier, the products (the x_proj reads and, with several warps a tile,
+the ldmatrix of A included), the cell, and the ys stores with the hand-off
+of h, the barrier and the ring's refill; at FE-T's valid shape (T=126,
+N=1024, H=20) with one and with three warps a tile, and at FE_B's width
+(T=126, N=301, H=36). Segmental RMS (csrc/segmental_rms.cu) is marked in
+ranks 0 and 1 of row 0's cluster: the frames' loads, the cluster barrier
+that gathers their powers in rank 0, and rank 0's reduction, at the shard
+recipe's [32, 64000] float32 batch.
 """
 from __future__ import annotations
 
@@ -46,8 +57,10 @@ from .ops import bsrnn_stack as band
 from .ops import dprnn_stack as dprnn
 from .ops import dpt_stack as dpt
 from .ops import fused_frame as frame
+from .ops import gru_scan as scan
 from .ops import rnnformer_stack as stack
-from .presets import DPRNN_B, DPT_B, FE_B
+from .ops import segmental_rms as seg
+from .presets import DPRNN_B, DPT_B, FE_B, FE_T_SHARD
 
 STREAMS = 256
 POINTS = ("pre", "wait", "move", "start", "compute")
@@ -74,6 +87,30 @@ _DPT_MARKS = (
      "FE_PROF(120 + i, 1);", True),
 )
 _PHASE = 120
+# the GRU scan's tensor-core form: the prologue (code 0, point 7), then
+# each step t's points 0-3 at code t
+GRU_POINTS = ("ring wait", "products", "cell", "store, barrier, refill")
+_GRU_MARKS = (
+    ("  const int hid = a.hid, g3 = 3 * hid;\n", "FE_PROF(0, 6);"),
+    ("  const size_t out_ld = static_cast<size_t>(a.rows) * hid;\n",
+     "FE_PROF(0, 7);", True),
+    ("    const bf16* xs = xr.wait(t);\n", "FE_PROF(t, 0);"),
+    ("    // the cell, float32\n", "FE_PROF(t, 1);", True),
+    ("    // ys[t], then h into the next step's A\n", "FE_PROF(t, 2);", True),
+    ("    if (t + kRing < a.steps) xr.issue(t + kRing);\n", "FE_PROF(t, 3);"),
+)
+# segmental RMS: the loads (point 0), the cluster barrier (1), rank 0's
+# reduction (2)
+RMS_POINTS = ("loads", "cluster gather", "reduce")
+_RMS_MARKS = (
+    ("  const int rank = fe::cluster_rank();\n", "FE_PROF(0, 6);"),
+    ("  fe::cluster_sync();  // every frame's power is in rank 0's pow_f\n",
+     "FE_PROF(0, 0);", True),
+    ("  fe::cluster_sync();  // every frame's power is in rank 0's pow_f\n",
+     "FE_PROF(0, 1);"),
+    ("    out[row] = fe::store_t<T>(cnt > 0.f ? sqrtf(sum / cnt) : INFINITY);"
+     "\n  }\n", "FE_PROF(0, 2);"),
+)
 _PRE = r"""
 __device__ long long fe_prof_clock[2][1024];
 __device__ int fe_prof_code[2][1024];
@@ -165,7 +202,8 @@ def _mark(path, marks, what: str) -> None:
 
 def build() -> tp.Dict[str, ctypes.CDLL]:
     """The marked copies of rnnformer_stack.cu, fused_frame.cu,
-    bsrnn_stack.cu, dprnn_stack.cu and dpt_stack.cu."""
+    bsrnn_stack.cu, dprnn_stack.cu, dpt_stack.cu, gru_scan.cu and
+    segmental_rms.cu."""
     dst = _build.BUILD_DIR / "phase_profile"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, dst)
@@ -173,9 +211,11 @@ def build() -> tp.Dict[str, ctypes.CDLL]:
     _mark(dst / "band_tc.cuh", _BAND_MARKS, "band_stack_tc")
     _mark(dst / "dprnn_tc.cuh", _DPRNN_MARKS, "dprnn_stage")
     _mark(dst / "dpt_tc.cuh", _DPT_MARKS, "KvRing::wait")
+    _mark(dst / "gru_scan_tc.cuh", _GRU_MARKS, "gru_tile")
+    _mark(dst / "segmental_rms.cu", _RMS_MARKS, "segmental_rms_kernel")
     procs = {}
     for name in ("rnnformer_stack", "fused_frame", "bsrnn_stack",
-                 "dprnn_stack", "dpt_stack"):
+                 "dprnn_stack", "dpt_stack", "gru_scan", "segmental_rms"):
         src = dst / f"{name}.cu"
         src.write_text(_PRE + src.read_text() + _POST)
         out = dst / f"lib{name}.so"
@@ -329,6 +369,25 @@ def fold_ring(blocks, chunks: int):
             folded[key] = folded.get(key, 0) + v
         out.append(folded)
     return out, parts
+
+
+def report_gru(tag: str, blocks, marked_ms: float, plain_ms: float
+               ) -> None:
+    """The GRU scan's cycles per step at each point (tile 0; tile 1 in
+    brackets where its sum differs by more than 10%), summed over the
+    steps, and the prologue."""
+    steps = 1 + max(s for s, p in blocks[0] if p < 4)
+    sums = [[sum(b.get((s, p), 0) for s in range(steps)) for p in range(4)]
+            for b in blocks]
+    total = sum(sums[0]) + blocks[0].get((0, 7), 0)
+    print(f"{tag}: {marked_ms:.4f} ms with the markers, {plain_ms:.4f} ms "
+          f"without (CUDA events); thread block 0, {total} cycles: prologue "
+          f"{blocks[0].get((0, 7), 0)}, then {steps} steps of "
+          f"{sum(sums[0]) / steps:.0f} cycles: " + ", ".join(
+              f"{name} {c / steps:.0f}"
+              + (f" ({c1 / steps:.0f})" if abs(c1 - c) > 0.1 * max(c, 1)
+                 else "") + f" ({100 * c / max(sum(sums[0]), 1):.1f}%)"
+              for name, c, c1 in zip(GRU_POINTS, sums[0], sums[1])))
 
 
 def main() -> None:
@@ -534,6 +593,46 @@ def main() -> None:
               for k, v in parts.items()) + " (waiting: on the ring's "
           "mbarriers; logits and mix: computing between the waits, the "
           "barrier and the next chunk's copy issue included)")
+
+    # the GRU scan's tensor-core form at FE-T's valid shape (one and three
+    # warps a tile) and at FE_B's width
+    valid_n = 64 * FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"]["freq"]
+    for t_, n, hid, warps in ((126, valid_n, 20, 3), (126, valid_n, 20, 1),
+                              (126, 301, 36, 3)):
+        gx = torch.randn(t_, n, 3 * hid, generator=g).to(dev, dt)
+        gw = ((torch.rand(3 * hid, hid, generator=g) * 2 - 1)
+              / hid ** 0.5).to(dev, dt)
+        gb = ((torch.rand(3 * hid, generator=g) * 2 - 1)
+              / hid ** 0.5).to(dev, dt)
+        gh = (torch.randn(n, hid, generator=g) * 0.5).to(dev, dt)
+        ys = torch.empty(t_, n, hid, dtype=dt, device=dev)
+        ht = torch.empty_like(gh)
+        blocks, marked, plain = profile(
+            "gru_scan", "gru_scan_tc_bf16", scan._ARGTYPES,
+            lambda: (gx.data_ptr(), gh.data_ptr(), gw.data_ptr(),
+                     gb.data_ptr(), ys.data_ptr(), ht.data_ptr(), t_, n, hid,
+                     warps),
+            lambda: scan.launch_tc(gx, gh, gw, gb, warps=warps))
+        report_gru(f"gru_scan bf16 tensor-core form, T={t_} N={n} H={hid}, "
+                   f"{warps} warp{'s' if warps > 1 else ''} a tile", blocks,
+                   marked, plain)
+
+    # segmental RMS at the shard recipe's train batch, float32
+    wav = torch.randn(32, 64_000, generator=g).to(dev) * 0.1
+    out = torch.empty(32, device=dev)
+    rel, floor = seg._thresholds(-25.0, None)
+    blocks, marked, plain = profile(
+        "segmental_rms", "segmental_rms_f32", seg._ARGTYPES,
+        lambda: (wav.data_ptr(), out.data_ptr(), 32, 64_000, 1600,
+                 seg.cluster_size(32), rel, floor),
+        lambda: seg.segmental_rms_fused(wav, absolute_threshold_db=None))
+    print(f"segmental_rms f32 [32, 64000], a cluster of "
+          f"{seg.cluster_size(32)} blocks a row: {marked:.4f} ms with the "
+          f"markers, {plain:.4f} ms without (CUDA events); cycles of ranks "
+          "0 (1) of row 0: " + ", ".join(
+              f"{name} {blocks[0].get((0, p), 0)} "
+              f"({blocks[1].get((0, p), 0)})"
+              for p, name in enumerate(RMS_POINTS)))
 
 
 if __name__ == "__main__":

@@ -609,12 +609,12 @@ def test_bsrnn_bf16_stream_runs_the_tc_form_on_card(cuda_device,
 
 def _rms_rows(b, t, seed):
     """b rows at -20 dB, row 1 silent, row 2 60 dB quieter in its first
-    half, row 3 at -60 dB throughout."""
+    half, row 3 at -60 dB throughout (those that b has)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(b, t, generator=g) * 0.1
-    x[1] = 0.0
-    x[2, : t // 2] *= 1e-3
-    x[3] *= 1e-2
+    x[1:2] = 0.0
+    x[2:3, : t // 2] *= 1e-3
+    x[3:4] *= 1e-2
     return x
 
 
@@ -633,6 +633,29 @@ def test_segmental_rms_kernel_matches_plain(cuda_device, dtype, b, t, abs_db):
     want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
     assert got.dtype == dtype and got.shape == (b, 1, 1)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float()[fin] - want.float()[fin]).abs()
+    assert (err <= rel * want.float()[fin].abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 5, 32, 200])
+@pytest.mark.parametrize("t", [1300, 8700, 64_000, 64_003])
+def test_segmental_rms_cluster_form_matches_plain(cuda_device, dtype, b, t):
+    """The cluster of cluster_size(B) blocks a row (8 at B = 1 and 5, 4 at
+    32, 1 at 200), T shorter than a frame, not a multiple of the frame,
+    and rows that do not start on 16 bytes (T = 64003): +inf where the
+    plain version has it, each finite value within 1e-5 (float32) or 2^-7
+    (bfloat16) relative."""
+    x = _rms_rows(b, t, seed=b + t).to(cuda_device, dtype)
+    got = seg.segmental_rms_fused(x, absolute_threshold_db=-50.0)
+    torch.cuda.synchronize()
+    want = seg.segmental_rms(x, absolute_threshold_db=-50.0)
+    assert got.dtype == dtype and got.shape == (b, 1, 1)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    if t >= 1600 and b > 1:
+        assert torch.isinf(want[1]).all()  # the silent row
     fin = torch.isfinite(want)
     rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     err = (got.float()[fin] - want.float()[fin]).abs()
@@ -678,6 +701,76 @@ def test_gru_scan_kernel_rejects_what_it_cannot_take(cuda_device):
     args = _scan_case(2, 3, 8, torch.float16, cuda_device, 0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         scan.gru_scan(*args)
+
+
+@pytest.mark.parametrize("h0", [True, False])
+@pytest.mark.parametrize("h", [18, 20, 36, 64, 128])
+@pytest.mark.parametrize("n", [5, 37, 301, 1024])
+@pytest.mark.parametrize("t", [0, 1, 13, 126])
+def test_gru_scan_tc_form_matches_plain(cuda_device, t, n, h, h0):
+    """bfloat16 runs the tensor-core form (a tile of 16 rows a block; N
+    ragged, H not a multiple of 8 or 16, W_hh's fragments in registers up
+    to H = 64 and in shared memory above), within BF16_REL of the peak."""
+    args = _scan_case(t, n, h, torch.bfloat16, cuda_device, seed=t + n + h,
+                      h0=h0)
+    assert scan.kernel_form(n, h, torch.bfloat16) == "tc"
+    before, before_tc = scan.gru_scan.launches, scan.gru_scan.tc_launches
+    ys, h_t = scan.gru_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.gru_scan.launches == before + 1
+    assert scan.gru_scan.tc_launches == before_tc + 1
+    ys_r, h_r = scan.gru_scan_reference(*args)
+    assert ys.shape == ys_r.shape and h_t.shape == h_r.shape
+    err = (h_t.float() - h_r.float()).abs().max().item()
+    print(f"gru_scan tc T={t} N={n} H={h} h0={h0}: h_T max abs err {err:.3e}")
+    if t:
+        _close(ys, ys_r, torch.bfloat16)
+    _close(h_t, h_r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("h", [18, 20, 32])
+def test_gru_scan_tc_warps_give_the_same_bits(cuda_device, h):
+    """One warp a tile and tc_warps(H) warps sum each gate in the same
+    order, so their outputs are bit for bit the same."""
+    args = _scan_case(126, 301, h, torch.bfloat16, cuda_device, seed=h)
+    ys, h_t = scan.launch_tc(*args)
+    ys_1, h_1 = scan.launch_tc(*args, warps=1)
+    torch.cuda.synchronize()
+    assert torch.equal(ys_1, ys) and torch.equal(h_1, h_t)
+
+
+def test_gru_scan_tc_smem_matches_the_library(cuda_device):
+    size = _build.function("gru_scan", "gru_scan_tc_smem", ctypes.c_longlong,
+                           [ctypes.c_int, ctypes.c_int])
+    for h in (2, 8, 18, 20, 36, 64, 100, 128):
+        for warps in range(1, 9):
+            assert size(h, warps) == scan.tc_smem_bytes(h, warps)
+
+
+def test_gru_scan_forms_and_tc_launches_agree(cuda_device):
+    """kernel_form's choice is the form that runs: float32 and odd H count
+    a launch and no tc launch, bfloat16 at even H both; launch_tc refuses
+    float32 and H > 128, and counts nothing."""
+    for dtype, h, tc in ((torch.float32, 20, 0), (torch.bfloat16, 20, 1),
+                         (torch.bfloat16, 21, 0)):
+        args = _scan_case(13, 37, h, dtype, cuda_device, 1)
+        before, before_tc = scan.gru_scan.launches, scan.gru_scan.tc_launches
+        ys, h_t = scan.gru_scan(*args)
+        torch.cuda.synchronize()
+        assert scan.gru_scan.launches == before + 1
+        assert scan.gru_scan.tc_launches == before_tc + tc
+        assert (scan.kernel_form(37, h, dtype) == "tc") == bool(tc)
+        ys_r, h_r = scan.gru_scan_reference(*args)
+        _close(ys, ys_r, dtype)
+        _close(h_t, h_r, dtype)
+    with pytest.raises(ValueError, match="tensor-core form"):
+        scan.launch_tc(*_scan_case(3, 4, 20, torch.float32, cuda_device, 0))
+    with pytest.raises(ValueError, match="tensor-core form"):
+        scan.launch_tc(*_scan_case(3, 4, 130, torch.bfloat16, cuda_device,
+                                   0))
+    before_tc = scan.gru_scan.tc_launches
+    scan.launch_tc(*_scan_case(3, 4, 20, torch.bfloat16, cuda_device, 0))
+    assert scan.gru_scan.tc_launches == before_tc
 
 
 def test_fe_t_offline_forward_on_card_matches_cpu(cuda_device):

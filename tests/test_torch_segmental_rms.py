@@ -4,7 +4,8 @@ TPU interpret mode as tests/test_shard_pipeline.py runs it.
 
 Tolerances: float32 rtol 1e-6 (one frame-power reduction and one masked
 mean); bfloat16 one bf16 ulp (2^-7 relative; the port sums in float32,
-JAX in the input's type).
+JAX in the input's type). The kernel's cluster size and its partition of
+a row's frames over the cluster are checked here too.
 """
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from fastenhancer_tpu.ops.segmental_rms import (segmental_rms as jrms,
                                                 segmental_rms_pallas)
+from fastenhancer_tpu_torch.ops import segmental_rms as seg
 from fastenhancer_tpu_torch.ops.segmental_rms import (segmental_rms,
                                                       segmental_rms_fused)
 
@@ -83,3 +85,38 @@ def test_bfloat16_and_three_dim_input():
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="device"):
         segmental_rms_fused(torch.zeros(2, 3200, device="meta"))
+
+
+def test_cluster_size_by_batch():
+    """The largest of 8, 4, 2, 1 blocks a row within one wave of 132 SMs."""
+    assert {b: seg.cluster_size(b) for b in (1, 5, 16, 17, 32, 33, 34, 66,
+                                             67, 200)} == {
+        1: 8, 5: 8, 16: 8, 17: 4, 32: 4, 33: 4, 34: 2, 66: 2, 67: 1,
+        200: 1}
+
+
+@pytest.mark.parametrize("t", [64_000, 64_003, 5 * WIN + 700, WIN - 300,
+                               7 * WIN])
+def test_frames_dealt_once_over_the_cluster(t):
+    """Every frame of a row goes to exactly one block of its cluster, in
+    contiguous runs; a row shorter than a frame deals none (rank 0 sums
+    the whole row). Summing the powers block by block, as the cluster
+    gathers them, gives the plain version's result."""
+    n = t // WIN
+    wav = torch.from_numpy(_rows(t, seed=2))
+    want = segmental_rms(wav, absolute_threshold_db=-50.0).flatten()
+    frames = wav[:, : n * WIN].reshape(4, n, WIN).square().mean(-1)
+    for k in (1, 2, 4, 8):
+        dealt = [f for r in range(k) for f in seg.frame_range(n, k, r)]
+        assert dealt == list(range(n))
+        gathered = torch.cat([frames[:, seg.frame_range(n, k, r)]
+                              for r in range(k)], dim=1)
+        assert torch.equal(gathered, frames)
+    if n == 0:
+        return
+    thr = (frames.amax(-1, keepdim=True) * 10 ** -2.5).clamp_min(1e-5)
+    act = frames > thr
+    rms = torch.where(act.any(-1), ((frames * act).sum(-1)
+                                    / act.sum(-1).clamp_min(1)).sqrt(),
+                      torch.full((4,), float("inf")))
+    torch.testing.assert_close(rms, want, rtol=1e-6, atol=0)

@@ -15,8 +15,9 @@ each printed on its own line:
      static shared memory and spills of the block stack's and the whole
      frame's instantiations (the bfloat16 tensor-core forms and the
      float32 forms), of the BSRNN, dprnn and dpt stacks' bfloat16 forms
-     (tensor-core and scalar), of the GRU scan's three tensor-core
-     instantiations and float32 form and of segmental RMS are printed;
+     (tensor-core and scalar), of three of the GRU scan's tensor-core
+     instantiations and its float32 form and of segmental RMS are
+     printed;
   3. kernels: each kernel against its plain PyTorch version on the card in
      float32 and bfloat16 (the block stack and the whole frame at the
      FastEnhancer T/B/S shapes, the block stack's LN form at LN_B's shape
@@ -36,8 +37,7 @@ each printed on its own line:
      tensor-core form, float32 the scalar one) and, at BSRNN-S, DPRNN-B
      and DPT-B bf16 and the GRU scan's valid shape and FE_B's width
      [126, 301, 108], the scalar form's time beside the tensor-core
-     form's in the same call (the GRU scan's with one and with three
-     warps a tile, and cuDNN's GRU);
+     form's in the same call (the GRU scan's beside cuDNN's GRU too);
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -156,12 +156,12 @@ PTXAS_KERNELS = {
     "dprnn_stack_kernelI13__nv_bfloat16E": "dprnn_stack bf16 scalar",
     "dpt_stack_tc_kernel": "dpt_stack bf16 (tensor cores)",
     "dpt_stack_kernelI13__nv_bfloat16E": "dpt_stack bf16 scalar",
-    "gru_scan_tc_kernelILi2ELi4ELb1ELb1E": "gru_scan bf16 (tensor cores, "
-                                           "one warp a tile, H <= 32)",
-    "gru_scan_tc_kernelILi4ELi2ELb0ELb1E": "gru_scan bf16 (tensor cores, "
-                                           "W_hh in registers, H <= 64)",
-    "gru_scan_tc_kernelILi8ELi4ELb0ELb0E": "gru_scan bf16 (tensor cores, "
-                                           "W_hh in shared memory)",
+    "gru_scan_tc_kernelILi2ELi1ELb1E": "gru_scan bf16 (tensor cores, "
+                                       "H = 18..32: FE-T)",
+    "gru_scan_tc_kernelILi3ELi1ELb1E": "gru_scan bf16 (tensor cores, "
+                                       "H = 34..48: FE_B)",
+    "gru_scan_tc_kernelILi8ELi2ELb0E": "gru_scan bf16 (tensor cores, "
+                                       "H = 114..128)",
     "gru_scan_kernelIfE": "gru_scan f32",
     "segmental_rms_kernelIfE": "segmental_rms f32"}
 
@@ -765,14 +765,9 @@ def main():
             if t != valid_frames or dtype != torch.bfloat16:
                 continue
             # both forms launched directly (not launches of the main path)
-            # and cuDNN's GRU, in this call: the tensor-core form with the
-            # warps a tile the wrapper picks, and with one warp at H <= 32
-            warps = scan.tc_warps(h)
-            forms = {f"tc, {warps} warps a tile": time_ms(
+            # and cuDNN's GRU, in this call
+            forms = {f"tc ({scan.tc_warps(h)} warps a tile)": time_ms(
                 lambda: scan.launch_tc(*args))[0]}
-            if h <= 32:
-                forms["tc, 1 warp a tile"] = time_ms(
-                    lambda: scan.launch_tc(*args, warps=1))[0]
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms

@@ -20,11 +20,12 @@
 // dependent steps, each a dot product of length H per gate and a barrier.
 //
 // Two forms. The bfloat16 form runs on the tensor cores (gru_scan_tc.cuh:
-// a tile of 16 rows a thread block, h W_hh^T on mma.sync with the float32
-// state split into two bf16 halves, W_hh's fragments in registers, x_proj
-// through a ring of bulk copies); ops/gru_scan.py::kernel_form picks it
-// for every bfloat16 shape it takes (H <= 128). The float32 form below is
-// the scalar design and the correctness reference.
+// a tile of 16 rows a thread block, one warp a group of 8 units, h W_hh^T
+// on mma.sync with the float32 state split into two bf16 halves, W_hh's
+// fragments in registers, x_proj loaded into registers two steps ahead);
+// ops/gru_scan.py::kernel_form picks it for every bfloat16 shape it takes
+// (even H <= 128). The float32 form below (and bf16 at odd H) is the
+// scalar design and the correctness reference.
 //
 // The scalar design. A thread block owns a tile of R rows for all T steps; the
 // time loop runs inside the kernel, which takes the place of the Pallas
@@ -159,59 +160,43 @@ int launch(const void* x_proj, const void* h0, const void* w_hh,
 }
 
 // The tensor-core form's kernels, one for each (k-steps, unit groups a
-// warp) that a shape needs: one warp a tile for H <= 32 (groups = U),
-// else tc_warps(H) warps of one group (H <= 64) or two; W_hh's fragments
-// in registers up to H = 64, in shared memory above. Up to 255 registers
-// a thread: at most eight warps a block and a block a tile, so registers
-// do not limit the blocks an SM holds.
-template <int kKS, int kG, bool kSolo, bool kRegB>
+// warp) that an even H <= 128 needs: one group a warp up to H = 64 (W_hh's
+// fragments in registers), two above (in shared memory). Up to 255
+// registers a thread: at most eight warps a block and a block a tile, so
+// registers do not limit the blocks an SM holds.
+template <int kKS, int kG, bool kRegB>
 __global__ void __launch_bounds__(fe::gru::kMaxWarps * 32, 1)
     gru_scan_tc_kernel(fe::gru::GruTcArgs a) {
   extern __shared__ __align__(16) char smem_tc[];
-  fe::gru::gru_tile<kKS, kG, kSolo, kRegB>(a, smem_tc);
+  fe::gru::gru_tile<kKS, kG, kRegB>(a, smem_tc);
 }
 
 using TcKernel = void (*)(fe::gru::GruTcArgs);
 
-// the kernel for this geometry, or nullptr if no instantiation takes it
-TcKernel tc_kernel(const fe::gru::GruTcGeom& g) {
-  if (g.warps == 1) {
-    switch (g.units) {
-      case 1: return gru_scan_tc_kernel<1, 1, true, true>;
-      case 2: return gru_scan_tc_kernel<1, 2, true, true>;
-      case 3: return gru_scan_tc_kernel<2, 3, true, true>;
-      case 4: return gru_scan_tc_kernel<2, 4, true, true>;
-      default: return nullptr;
-    }
-  }
-  // several warps: only the split tc_warps(H) gives, one unit group a
-  // warp up to U = 8 (H <= 64), two above
-  if (g.units < 2 || g.groups != (g.units + 7) / 8 ||
-      g.warps != (g.units + g.groups - 1) / g.groups) {
-    return nullptr;
-  }
-  switch (g.ksteps) {
-    case 1: return gru_scan_tc_kernel<1, 1, false, true>;
-    case 2: return gru_scan_tc_kernel<2, 1, false, true>;
-    case 3: return gru_scan_tc_kernel<3, 1, false, true>;
-    case 4: return gru_scan_tc_kernel<4, 1, false, true>;
-    case 5: return gru_scan_tc_kernel<5, 2, false, false>;
-    case 6: return gru_scan_tc_kernel<6, 2, false, false>;
-    case 7: return gru_scan_tc_kernel<7, 2, false, false>;
-    case 8: return gru_scan_tc_kernel<8, 2, false, false>;
+// the kernel for H's k-steps (H even, 2 <= H <= 128), or nullptr
+TcKernel tc_kernel(int ksteps) {
+  switch (ksteps) {
+    case 1: return gru_scan_tc_kernel<1, 1, true>;
+    case 2: return gru_scan_tc_kernel<2, 1, true>;
+    case 3: return gru_scan_tc_kernel<3, 1, true>;
+    case 4: return gru_scan_tc_kernel<4, 1, true>;
+    case 5: return gru_scan_tc_kernel<5, 2, false>;
+    case 6: return gru_scan_tc_kernel<6, 2, false>;
+    case 7: return gru_scan_tc_kernel<7, 2, false>;
+    case 8: return gru_scan_tc_kernel<8, 2, false>;
     default: return nullptr;
   }
 }
 
 int launch_tc(const void* x_proj, const void* h0, const void* w_hh,
               const void* b_hh, void* ys, void* h_t, int steps, int rows,
-              int hid, int warps, void* stream) {
-  if (hid < 2 || hid % 2 || warps < 1 || warps > fe::gru::kMaxWarps ||
-      rows < 1) {
+              int hid, void* stream) {
+  if (hid < 2 || hid % 2 || rows < 1 ||
+      reinterpret_cast<uintptr_t>(x_proj) % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const fe::gru::GruTcGeom g(hid, warps);
-  const TcKernel kernel = tc_kernel(g);
+  const fe::gru::GruTcGeom g(hid);
+  const TcKernel kernel = tc_kernel(g.ksteps);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = g.bytes();
   if (smem > 48 * 1024) {
@@ -231,8 +216,8 @@ int launch_tc(const void* x_proj, const void* h0, const void* w_hh,
       rows,
       hid};
   const int blocks = (rows + fe::gru::kRows - 1) / fe::gru::kRows;
-  kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      args);
+  kernel<<<blocks, 32 * g.warps(), smem,
+           static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,20 +243,19 @@ int gru_scan_bf16(const void* x_proj, const void* h0, const void* w_hh,
                                hid, tile, stream);
 }
 
-// The tensor-core form (bfloat16, even H <= 128 only): a thread block of
-// `warps` warps per tile of 16 rows, 1 (H <= 32) or ceil(U / ceil(U / 8))
-// (ops/gru_scan.py::tc_warps). Same arguments as gru_scan_bf16 but the
-// rows per block.
+// The tensor-core form (bfloat16, even H <= 128 only, x_proj 4-byte
+// aligned): a thread block of ops/gru_scan.py::tc_warps(H) warps per tile
+// of 16 rows. Same arguments as gru_scan_bf16 but the rows per block.
 int gru_scan_tc_bf16(const void* x_proj, const void* h0, const void* w_hh,
                      const void* b_hh, void* ys, void* h_t, int steps,
-                     int rows, int hid, int warps, void* stream) {
-  return launch_tc(x_proj, h0, w_hh, b_hh, ys, h_t, steps, rows, hid, warps,
+                     int rows, int hid, void* stream) {
+  return launch_tc(x_proj, h0, w_hh, b_hh, ys, h_t, steps, rows, hid,
                    stream);
 }
 
 // the tensor-core form's shared memory per block, in bytes
-long long gru_scan_tc_smem(int hid, int warps) {
-  return static_cast<long long>(fe::gru::GruTcGeom(hid, warps).bytes());
+long long gru_scan_tc_smem(int hid) {
+  return static_cast<long long>(fe::gru::GruTcGeom(hid).bytes());
 }
 
 const char* gru_scan_error_string(int code) {

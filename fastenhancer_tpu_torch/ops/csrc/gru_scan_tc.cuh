@@ -2,55 +2,56 @@
 // function as the scalar form (which keeps float32), with the Pallas
 // kernel's cast points: the state stays float32 across all T steps, w_hh
 // and b_hh are exact, the gate math is float32, and only ys and h_T are
-// rounded to bfloat16.
+// rounded to bfloat16. H is even (x_proj, ys and h_T move as bf16 pairs).
 //
 // Work unit: a tile of kRows = 16 rows for all T steps, one thread block
-// of `warps` warps (the wrapper chooses 1 to 4). Each step is the product
-// h [16, H] . W_hh^T [H, 3H] on mma.sync m16n8k16 (mma_common.cuh), then
-// the cell.
+// of tc_warps(H) warps. Each step is the product h [16, H] . W_hh^T
+// [H, 3H] on mma.sync m16n8k16 (mma_common.cuh), then the cell.
 //   - The columns of W_hh^T are permuted: n-tile 3u + q holds gate q (r,
 //     z, n) of units 8u .. 8u + 7 (the units padded to U = ceil(H / 8)
 //     groups of 8, K to KS = ceil(H / 16) k-steps of 16, with zeros).
 //     Lane (g, c) of a warp (g = lane / 4, c = lane % 4) then holds in its
 //     accumulators of n-tiles 3u, 3u + 1 and 3u + 2 all three gate sums of
 //     rows g and g + 8 for units 8u + 2c and 8u + 2c + 1, and computes h'
-//     for exactly those four (row, unit) pairs.
-//   - Those four values are, in the same registers, the A fragment of
-//     k-step u / 2 of the next step (a0/a1 for even u, a2/a3 for odd u):
-//     with one warp a tile the next step's A needs no shuffle and no
-//     shared memory. With several warps, warp w owns the unit groups
-//     w G .. w G + G - 1 (G = ceil(U / warps)), writes its part of A into
-//     a double-buffered shared tile and reads the whole of it back with
-//     ldmatrix after the step's one __syncthreads().
+//     for exactly those four (row, unit) pairs, which are its part of the
+//     next step's A (k-step u / 2: a0/a1 for even u, a2/a3 for odd u).
+//   - Warp w owns the unit groups w G .. w G + G - 1: G = 1 up to H = 64,
+//     2 above, so up to 8 warps a tile, each warp's products and cells on
+//     its own sub-partition where there are at most 4. Each writes its part
+//     of A into a double-buffered shared tile; after the step's one
+//     __syncthreads() every warp reads the whole A back with ldmatrix.
+//     (One warp for the whole tile, A kept in its own registers with no
+//     barrier, was about half as fast at H = 20: its 36 mma and 72 MUFU
+//     operations a step all fall on one sub-partition.)
 //   - The float32 state survives the bf16 products: each lane keeps its h
 //     in float32 registers (the state), and A = hi + lo, hi = bf16(h), lo =
-//     bf16(h - hi), two mma per (k-step, n-tile) into one float32
-//     accumulator that starts from b_hh. B (w_hh) is exact in bf16. The
-//     product is then within about 2^-16 of h's own size of the float32
-//     one; h rounded to bf16 once a step (nn.gru's cast point) would drift
-//     about 500 times further over 126 steps.
+//     bf16(h - hi), two mma per (k-step, n-tile), hi products summed from
+//     b_hh and lo products from 0 in separate accumulators (chains half as
+//     long), then added. B (w_hh) is exact in bf16. The product is then
+//     within about 2^-16 of h's own size of the float32 one; h rounded to
+//     bf16 once a step (nn.gru's cast point) drifts about 500 times further
+//     over 126 steps.
 //   - W_hh^T's B fragments are computed from w_hh [3H, H] once, in the
-//     kernel, and stay in registers for the whole sequence where they fit
-//     (kRegB: at most 4 k-steps and 2 unit groups a warp, H <= 64);
+//     kernel, and stay in registers for the whole sequence up to H = 64;
 //     above that (H <= 128) they stay in shared memory in fragment order,
 //     each lane reading its 8 bytes a fragment.
-//   - The gates: sigmoid(v) = 1 / (1 + e^-v) with __expf and __fdividef,
-//     tanh(v) = 2 sigmoid(2v) - 1: two MUFU operations each and about 1e-7
-//     absolute error. (tanh.approx's 2^-11 relative error at every one of
-//     126 steps would throw away what the split keeps.)
-//   - x_proj goes through a ring of kRing slabs in shared memory, kRing
-//     steps ahead: the tile's 16 x 3H values of one step are contiguous in
-//     x_proj [T, N, 3H]. Where every slab's address and size are multiples
-//     of 16 bytes, thread 0 copies each with one cp.async.bulk on the
-//     slot's mbarrier; otherwise every thread copies its 8- or 4-byte
-//     chunks with cp.async and arrives on the mbarrier when they land
-//     (plain 2-byte copies where N and H are both odd). A slot is refilled
-//     after the step's barrier, when every warp has read it.
-//   - ys[t] is written from registers as 4-byte bf16 pairs (single values
-//     for odd H); rows past N and units past H are never stored.
-// What bounds it: the T dependent steps, each a chain of mma, MUFU and
-// FMA latencies; the bytes (x_proj in, ys out: 21 MB at the valid step)
-// take 6 us at 3.35 TB/s.
+//   - The gates: sigmoid(v) = 1 / (1 + 2^(-v log2 e)) on ex2.approx and
+//     rcp.approx, tanh(v) = 2 sigmoid(2v) - 1: two MUFU operations each
+//     and about 1e-7 absolute error. (tanh.approx's 2^-11 relative error at
+//     every one of 126 steps would throw away what the split keeps.)
+//   - x_proj: each lane loads its own 12 gate inputs a step (6 bf16 pairs a
+//     unit group) from global memory straight into registers, two steps
+//     ahead, into two buffers that the unrolled time loop takes in turn.
+//     A ring of x_proj slabs in shared memory, filled by cp.async.bulk (or
+//     cp.async) several steps ahead, cost more than the loads it hid: the
+//     mbarrier wait and the refill sat on every step's path.
+//   - ys[t] is written from registers as 4-byte bf16 pairs after the
+//     barrier; rows past N and units past H are never stored.
+// Every loop of a step runs a compile-time count (one instantiation per
+// (KS, G)), so a step is straight-line code with no divergent branch.
+// What bounds it: the T dependent steps, each a chain of ldmatrix, mma,
+// MUFU and FMA latencies and a barrier; the bytes (x_proj in, ys out: 21
+// MB at the valid step) take 6 us at 3.35 TB/s.
 #pragma once
 
 #include "mma_common.cuh"
@@ -62,45 +63,35 @@ using tc::bf16;
 
 // rows of a tile: the mma's M
 constexpr int kRows = 16;
-// x_proj slabs in flight a tile
-constexpr int kRing = 8;
 // warps of a tile's block at most
 constexpr int kMaxWarps = 8;
 
 // The tile's geometry and shared memory (bytes), shared with the host's
-// size query: kRing mbarriers, the ring of x_proj slabs, the h tile
-// [2 steps][hi, lo][16][ldk] bf16 (several warps only), and W_hh^T's B
-// fragments [3U][KS][32 lanes][2] (not kRegB only).
+// size query: the h tile [2 steps][hi, lo][16][ldk] bf16, then W_hh^T's B
+// fragments [3U][KS][32 lanes][2] where they are not in registers (H >
+// 64).
 struct GruTcGeom {
-  int hid, units, ksteps, warps, groups, ldk, slot_el;
+  int hid, units, ksteps, groups, ldk;
   bool reg_b;
-  __host__ __device__ GruTcGeom(int h, int w)
-      : hid(h), units((h + 7) / 8), ksteps((h + 15) / 16), warps(w),
-        groups(((h + 7) / 8 + w - 1) / w),
-        ldk(tc::ld_of(16 * ((h + 15) / 16))), slot_el(kRows * 3 * h),
-        reg_b(w == 1 || ((h + 15) / 16 <= 4 && ((h + 7) / 8 + w - 1) / w <= 2)) {
-  }
-  __host__ __device__ size_t slot_bytes() const {
-    return (static_cast<size_t>(slot_el) * 2 + 15) / 16 * 16;
-  }
-  __host__ __device__ size_t ring_off() const { return 16 * kRing; }
-  __host__ __device__ size_t hbuf_off() const {
-    return ring_off() + kRing * slot_bytes();
+  __host__ __device__ explicit GruTcGeom(int h)
+      : hid(h), units((h + 7) / 8), ksteps((h + 15) / 16),
+        groups((h + 7) / 8 <= 8 ? 1 : 2),
+        ldk(tc::ld_of(16 * ((h + 15) / 16))), reg_b(h <= 64) {}
+  // warps a tile: one per G unit groups
+  __host__ __device__ int warps() const {
+    return (units + groups - 1) / groups;
   }
   __host__ __device__ size_t hbuf_bytes() const {
-    return warps > 1 ? static_cast<size_t>(4) * kRows * ldk * 2 : 0;
-  }
-  __host__ __device__ size_t frag_off() const {
-    return hbuf_off() + hbuf_bytes();
+    return static_cast<size_t>(4) * kRows * ldk * 2;
   }
   __host__ __device__ size_t bytes() const {
-    return frag_off() +
+    return hbuf_bytes() +
            (reg_b ? 0 : static_cast<size_t>(3) * units * ksteps * 32 * 8);
   }
 };
 
 struct GruTcArgs {
-  const bf16* x_proj;  // [T, N, 3H]
+  const bf16* x_proj;  // [T, N, 3H], 4-byte aligned
   const bf16* h0;      // [N, H]
   const bf16* w_hh;    // [3H, H]
   const bf16* b_hh;    // [3H]
@@ -163,98 +154,28 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
                  b - __uint_as_float(hi & 0xffff0000u));
 }
 
-// The tile's x_proj ring: slot s holds step t with t % kRing == s, its
-// mbarrier completing phase t / kRing when the slab has landed.
-struct XRing {
-  const bf16* src;  // the tile's slab of step 0
-  size_t step_el;   // N * 3H: from one step's slab to the next
-  bf16* slots;
-  uint64_t* bars;
-  int slot_ld;      // elements from one slot to the next
-  int el;           // the slab's elements: tile rows * 3H
-  int mode;         // 0: bulk copies; 8, 4: cp.async chunk bytes; 1: plain
-  __device__ __forceinline__ void issue(int t) const {
-    const bf16* s = src + static_cast<size_t>(t) * step_el;
-    bf16* d = slots + (t % kRing) * slot_ld;
-    uint64_t* bar = bars + t % kRing;
-    const uint32_t bytes = static_cast<uint32_t>(el) * 2;
-    if (mode == 0) {
-      // No proxy fence before the bulk write: every thread has used the
-      // values it read from this slot (in a cell) before the barrier that
-      // precedes the refill.
-      if (threadIdx.x == 0) {
-        tc::mbar_expect_tx(bar, bytes);
-        tc::bulk_copy(d, s, bytes, bar);
-        tc::mbar_arrive(bar);
-      }
-      return;
-    }
-    if (mode == 8) {
-      for (uint32_t o = 8 * threadIdx.x; o < bytes; o += 8 * blockDim.x) {
-        tc::cp_async<8>(reinterpret_cast<char*>(d) + o,
-                        reinterpret_cast<const char*>(s) + o);
-      }
-    } else if (mode == 4) {
-      for (uint32_t o = 4 * threadIdx.x; o < bytes; o += 4 * blockDim.x) {
-        tc::cp_async<4>(reinterpret_cast<char*>(d) + o,
-                        reinterpret_cast<const char*>(s) + o);
-      }
-    } else {
-      for (int e = threadIdx.x; e < el; e += blockDim.x) d[e] = s[e];
-      tc::mbar_arrive(bar);
-      return;
-    }
-    tc::cp_async_mbar_arrive(bar);
-  }
-  __device__ __forceinline__ const bf16* wait(int t) const {
-    tc::mbar_wait(bars + t % kRing, (t / kRing) & 1);
-    return slots + (t % kRing) * slot_ld;
-  }
-};
-
-// One tile's whole sequence; every thread of the block calls it. H is even.
-// kKS: the k-steps (KS); kG: the unit groups of each warp (G; the last
-// warp's groups past U compute zeros and store nothing); kSolo: one warp a
-// tile (A from its own registers); kRegB: B in registers. Every loop below
-// runs a compile-time count, so a step is straight-line code.
-template <int kKS, int kG, bool kSolo, bool kRegB>
+// One tile's whole sequence; every thread of the block (geom.warps()
+// warps) calls it. kKS: the k-steps; kG: the unit groups of each warp (the
+// last warp's groups past U compute values that nothing reads); kRegB: B
+// in registers. Every loop of a step runs a compile-time count.
+template <int kKS, int kG, bool kRegB>
 __device__ __forceinline__ void gru_tile(const GruTcArgs& a, char* smem) {
   // two accumulators a gate (hi and lo products apart) while registers
   // allow: chains half as long
-  constexpr bool kTwoAcc = kG <= 2;
+  constexpr bool kTwoAcc = kG == 1;
   const int hid = a.hid, g3 = 3 * hid;
-  const GruTcGeom geom(hid, blockDim.x >> 5);
+  const GruTcGeom geom(hid);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, cq = lane & 3;
   const int row0 = blockIdx.x * kRows;
   const int tile_rows = min(kRows, a.rows - row0);
-  auto* bars = reinterpret_cast<uint64_t*>(smem);
-  bf16* ring = reinterpret_cast<bf16*>(smem + geom.ring_off());
-  bf16* hbuf = reinterpret_cast<bf16*>(smem + geom.hbuf_off());
-  auto* frag = reinterpret_cast<uint2*>(smem + geom.frag_off());
-
-  // the ring's copy mode, uniform over the block
-  XRing xr{a.x_proj + static_cast<size_t>(row0) * g3,
-           static_cast<size_t>(a.rows) * g3, ring, bars,
-           static_cast<int>(geom.slot_bytes() / 2), tile_rows * g3, 0};
-  {
-    const auto al =
-        static_cast<unsigned>(reinterpret_cast<uintptr_t>(xr.src)) |
-        static_cast<unsigned>(xr.step_el * 2) |
-        static_cast<unsigned>(xr.el * 2);
-    xr.mode = (al & 15) == 0 ? 0 : (al & 7) == 0 ? 8 : (al & 3) == 0 ? 4 : 1;
-  }
-  if (threadIdx.x == 0) {
-    // bulk copies: thread 0 arrives; otherwise every thread
-    for (int s = 0; s < kRing; ++s) {
-      tc::mbar_init(bars + s, xr.mode == 0 ? 1u : blockDim.x);
-    }
-    tc::mbar_fence_init();
-  }
+  bf16* hbuf = reinterpret_cast<bf16*>(smem);
+  auto* frag = reinterpret_cast<uint2*>(smem + geom.hbuf_bytes());
   // the units this warp owns: groups u = warp G + j, j < kG (G = kG)
   const int g_first = warp * kG;
   const int g_cnt = min(kG, geom.units - g_first);
+
   if (!kRegB) {
     const int n = 3 * geom.units * kKS * 32;
     for (int e = threadIdx.x; e < n; e += blockDim.x) {
@@ -265,17 +186,15 @@ __device__ __forceinline__ void gru_tile(const GruTcArgs& a, char* smem) {
                            b_frag(a.w_hh, hid, nt, ks, 1, l));
     }
   }
-  if (!kSolo) {
+  {
     auto* hb = reinterpret_cast<uint32_t*>(hbuf);
     for (int e = threadIdx.x; e < 2 * kRows * geom.ldk; e += blockDim.x) {
       hb[e] = 0u;  // both steps' hi and lo; padded columns stay zero
     }
   }
-  __syncthreads();
-  for (int t = 0; t < kRing && t < a.steps; ++t) xr.issue(t);
 
   // the state of this lane's four (row, unit) pairs of each group (rows
-  // gq, gq + 8; units u0 + 2cq, + 1), the biases, the B fragments; units
+  // gq, gq + 8; units 8u + 2cq, + 1), the biases, the B fragments; units
   // past H (and rows past N) hold values that no output reads
   float h[kG][4];
   float bias[kG][3][2];
@@ -312,80 +231,65 @@ __device__ __forceinline__ void gru_tile(const GruTcArgs& a, char* smem) {
       }
     }
   }
+  __syncthreads();  // the zeroed tile before any warp's part of A
 
-  // A: the hi and lo halves of h as fragments of each k-step
-  uint32_t ahi[kKS][4], alo[kKS][4];
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) ahi[ks][r] = alo[ks][r] = 0u;
-  }
-  // h into A: registers (kSolo) or the shared tile of step `buf`
+  // h (hi and lo halves) into the shared A tile of step `buf`
   const auto publish = [&](int buf) {
+    auto* hb = reinterpret_cast<uint32_t*>(hbuf + buf * 2 * kRows * geom.ldk);
+    const int half = kRows * geom.ldk / 2;  // lo after hi, in words
 #pragma unroll
     for (int j = 0; j < kG; ++j) {
+      if (j >= g_cnt) break;
       uint32_t hi0, lo0, hi1, lo1;
       split_pair(h[j][0], h[j][1], hi0, lo0);
       split_pair(h[j][2], h[j][3], hi1, lo1);
-      if (kSolo) {
-        // group j is k-step j / 2, half j % 2: a0/a1 or a2/a3
-        const int r = 2 * (j & 1);
-        ahi[j >> 1][r] = hi0;
-        ahi[j >> 1][r + 1] = hi1;
-        alo[j >> 1][r] = lo0;
-        alo[j >> 1][r + 1] = lo1;
-      } else if (j < g_cnt) {
-        auto* hb = reinterpret_cast<uint32_t*>(hbuf + buf * 2 * kRows *
-                                                          geom.ldk);
-        const int half = kRows * geom.ldk / 2;  // lo after hi, in words
-        const int col = 4 * (g_first + j) + cq;
-        hb[gq * geom.ldk / 2 + col] = hi0;
-        hb[(gq + 8) * geom.ldk / 2 + col] = hi1;
-        hb[half + gq * geom.ldk / 2 + col] = lo0;
-        hb[half + (gq + 8) * geom.ldk / 2 + col] = lo1;
-      }
+      const int col = 4 * (g_first + j) + cq;
+      hb[gq * geom.ldk / 2 + col] = hi0;
+      hb[(gq + 8) * geom.ldk / 2 + col] = hi1;
+      hb[half + gq * geom.ldk / 2 + col] = lo0;
+      hb[half + (gq + 8) * geom.ldk / 2 + col] = lo1;
     }
   };
-  publish(0);
-  if (!kSolo) __syncthreads();
-
-  const size_t out_ld = static_cast<size_t>(a.rows) * hid;
-  // this lane's x_proj values of the coming step: gate q of its four
-  // (row, unit) pairs of each group, read from the ring a step ahead as
-  // bf16 pairs (zero past H, read from the slab's start there)
-  float xv[kG][3][4];
-  const auto read_x = [&](const bf16* xs) {
+  // x_proj of step t: gate q of rows gq, gq + 8 of each group, as bf16
+  // pairs from global memory (rows past N read the tile's row 0, units
+  // past H the row's unit 0)
+  const auto load_x = [&](int t, uint32_t (&xb)[kG][3][2]) {
+    const bf16* xt =
+        a.x_proj + (static_cast<size_t>(t) * a.rows + row0) * g3;
 #pragma unroll
     for (int j = 0; j < kG; ++j) {
       const int unit = 8 * (g_first + j) + 2 * cq;
-      const bool on = unit < hid;
+      const int uo = unit < hid ? unit : 0;
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
+        const int r = gq + 8 * e2 < tile_rows ? gq + 8 * e2 : 0;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
-          const uint32_t w = *reinterpret_cast<const uint32_t*>(
-              xs + (on ? (gq + 8 * e2) * g3 + q * hid + unit : 0));
-          xv[j][q][2 * e2] = on ? __uint_as_float(w << 16) : 0.f;
-          xv[j][q][2 * e2 + 1] = on ? __uint_as_float(w & 0xffff0000u) : 0.f;
+          xb[j][q][e2] = __ldg(reinterpret_cast<const unsigned int*>(
+              xt + r * g3 + q * hid + uo));
         }
       }
     }
   };
-  if (a.steps > 0) read_x(xr.wait(0));
-  for (int t = 0; t < a.steps; ++t) {
-    if (!kSolo) {
-      // the whole A from the shared tile of this step
-      const bf16* hb = hbuf + (t & 1) * 2 * kRows * geom.ldk;
-      const uint32_t base =
-          tc::smem_u32(hb + (lane & 15) * geom.ldk + (lane >> 4) * 8);
+  publish(0);
+  __syncthreads();
+
+  const size_t out_ld = static_cast<size_t>(a.rows) * hid;
+  uint32_t ahi[kKS][4], alo[kKS][4];
+  // step t, its x_proj in xb (loaded two steps ahead); reloads xb with step
+  // t + 2 once the cell has read it
+  const auto step = [&](int t, uint32_t (&xb)[kG][3][2]) {
+    // the whole A from the shared tile of this step
+    const bf16* hb = hbuf + (t & 1) * 2 * kRows * geom.ldk;
+    const uint32_t base =
+        tc::smem_u32(hb + (lane & 15) * geom.ldk + (lane >> 4) * 8);
 #pragma unroll
-      for (int ks = 0; ks < kKS; ++ks) {
-        tc::ldsm_x4(ahi[ks], base + 32 * ks);
-        tc::ldsm_x4(alo[ks], base + 32 * ks + 2 * kRows * geom.ldk);
-      }
+    for (int ks = 0; ks < kKS; ++ks) {
+      tc::ldsm_x4(ahi[ks], base + 32 * ks);
+      tc::ldsm_x4(alo[ks], base + 32 * ks + 2 * kRows * geom.ldk);
     }
     // the gate sums: the hi products from b_hh, the lo products from 0
-    // (kTwoAcc) or onto the same sums, then added
+    // (kTwoAcc) or onto the same sums
     float acc[kG][3][4], acc_lo[kTwoAcc ? kG : 1][3][4];
 #pragma unroll
     for (int j = 0; j < kG; ++j) {
@@ -422,32 +326,28 @@ __device__ __forceinline__ void gru_tile(const GruTcArgs& a, char* smem) {
     // the cell, float32
 #pragma unroll
     for (int j = 0; j < kG; ++j) {
+      const bool on = 8 * (g_first + j) + 2 * cq < hid;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float s[3];
+        float s[3], x[3];
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           s[q] = kTwoAcc ? acc[j][q][e] + acc_lo[kTwoAcc ? j : 0][q][e]
                          : acc[j][q][e];
+          const uint32_t w = xb[j][q][e >> 1];
+          x[q] = on ? __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16))
+                    : 0.f;
         }
-        const float r = sigmoid_mufu(xv[j][0][e] + s[0]);
-        const float z = sigmoid_mufu(xv[j][1][e] + s[1]);
-        const float n = tanh_mufu(fmaf(r, s[2], xv[j][2][e]));
+        const float r = sigmoid_mufu(x[0] + s[0]);
+        const float z = sigmoid_mufu(x[1] + s[1]);
+        const float n = tanh_mufu(fmaf(r, s[2], x[2]));
         h[j][e] = fmaf(z, h[j][e] - n, n);
       }
     }
-    // h into the next step's A, the next step's x_proj into registers
-    // (their latency hides behind the barrier), then every warp has
-    // written its part of A and read slot (t + 1) % kRing
+    if (t + 2 < a.steps) load_x(t + 2, xb);
+    // h into the next step's A; then every warp has written its part
     publish((t + 1) & 1);
-    if (t + 1 < a.steps) read_x(xr.wait(t + 1));
-    if (kSolo) {
-      __syncwarp();
-    } else {
-      __syncthreads();
-    }
-    // slot t % kRing was last read before the barrier of step t - 1
-    if (t + kRing < a.steps) xr.issue(t + kRing);
+    __syncthreads();
     // ys[t], off the path to the next step
     bf16* yt = a.ys + static_cast<size_t>(t) * out_ld +
                static_cast<size_t>(row0) * hid;
@@ -465,6 +365,15 @@ __device__ __forceinline__ void gru_tile(const GruTcArgs& a, char* smem) {
         }
       }
     }
+  };
+  // the time loop, unrolled by two so that each step's x_proj buffer is a
+  // fixed set of registers
+  uint32_t xa[kG][3][2], xb[kG][3][2];
+  if (a.steps > 0) load_x(0, xa);
+  if (a.steps > 1) load_x(1, xb);
+  for (int t = 0; t < a.steps; t += 2) {
+    step(t, xa);
+    if (t + 1 < a.steps) step(t + 1, xb);
   }
   // h_T
   bf16* ht = a.h_t + static_cast<size_t>(row0) * hid;

@@ -73,12 +73,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // mbarriers and asynchronous copies into shared memory
 // ---------------------------------------------------------------------------
 
-// an mbarrier whose phases complete after `count` arrivals (and the
-// transaction bytes expected of them)
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
-               "r"(count));
+               "r"(1));
 }
 
 __device__ __forceinline__ void mbar_fence_init() {
@@ -139,14 +137,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
                      smem_u32(dst)),
                  "l"(src), "n"(kBytes));
   }
-}
-
-// an arrival on *bar once this thread's cp.async copies issued so far have
-// landed (counted among the mbarrier's `count` arrivals)
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -22,17 +22,17 @@
 // largest with B * K <= 132 SMs, chosen by the wrapper), so that a small
 // batch still spreads over the card: at B = 32, K = 4 gives 128 blocks.
 // Block `rank` takes the row's frames [n rank / K, n (rank + 1) / K); each
-// of its warps takes every kWarps-th of them. A warp reads its frame with
-// 16-byte loads (4 float32 or 8 bfloat16 samples a lane), kUnroll of them
-// in flight a lane into separate accumulators, with scalar loads for the
-// head before the first 16-byte boundary (a row or frame that does not
-// start on one) and for the tail; a shuffle reduction gives the frame's
-// power, which lane 0 stores into rank 0's shared array through
-// distributed shared memory (mapa, st.shared::cluster). After one cluster
-// barrier, rank 0 reduces the powers twice, first their max, then the
-// count and the sum of the active ones, and one thread writes the result;
-// the other blocks have exited. A row shorter than one frame is summed by
-// rank 0 alone.
+// of its 16 warps takes every 16th of them. A warp reads its frame with
+// 16-byte loads (4 float32 or 8 bfloat16 samples a lane), all of a
+// 1,600-sample frame in flight at once (kUnroll a lane, into separate
+// accumulators), with scalar loads for the head before the first 16-byte
+// boundary (a row or frame that does not start on one) and for the tail;
+// a shuffle reduction gives the frame's power, which lane 0 stores into
+// rank 0's shared array through distributed shared memory (mapa,
+// st.shared::cluster). After one cluster barrier, warp 0 of rank 0 reduces
+// the powers twice with shuffles, first their max, then the count and the
+// sum of the active ones, and writes the result; every other warp has
+// exited. A row shorter than one frame is summed by warp 0 of rank 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,14 +42,17 @@
 #include <cstdint>
 
 #include "cluster.cuh"
-#include "stack_common.cuh"
+#include "stack_common.cuh"  // load_f, store_t
 
 namespace {
 
-using fe::kThreads;
+// 16 warps a block: at B = 32 the cluster of 4 deals each block 10 frames
+// of a 40-frame row, a warp each, in one round
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-// 16-byte loads a lane keeps in flight
-constexpr int kUnroll = 8;
+// 16-byte loads a lane keeps in flight: a whole 1,600-sample frame (400
+// float32 or 200 bfloat16 vectors) in one batch
+constexpr int kUnroll = 16;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -61,21 +64,6 @@ __device__ __forceinline__ float warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   }
   return v;
-}
-
-// the sum (or max) of v over the block; every thread gets the result.
-// red: kWarps floats of shared memory, free on entry.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();  // red may be reused right after
-  return r;
 }
 
 // acc + the squares of the 16 bytes w
@@ -104,15 +92,14 @@ __device__ __forceinline__ float sumsq(const __nv_bfloat16*, uint4 w,
 
 // the sum of x[0..n)^2 over one warp; every lane gets it
 template <typename T>
-__device__ __forceinline__ float warp_sumsq(const T* x, int n) {
+__device__ __forceinline__ float warp_sumsq(const T* x, long long n) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   const int lane = threadIdx.x & 31;
   const auto addr = reinterpret_cast<uintptr_t>(x);
-  const int head = min(static_cast<int>(((16 - (addr & 15)) & 15) /
-                                        sizeof(T)),
-                       n);
-  const int nv = (n - head) / kVec;
-  const int tail0 = head + nv * kVec;
+  const long long head = min(
+      static_cast<long long>(((16 - (addr & 15)) & 15) / sizeof(T)), n);
+  const long long nv = (n - head) / kVec;
+  const long long tail0 = head + nv * kVec;
   float acc[kUnroll] = {};
   if (lane < head) {
     const float v = fe::load_f(x[lane]);
@@ -123,7 +110,7 @@ __device__ __forceinline__ float warp_sumsq(const T* x, int n) {
     acc[1] = v * v;
   }
   const uint4* xv = reinterpret_cast<const uint4*>(x + head);
-  int i = lane;
+  long long i = lane;
   for (; i + (kUnroll - 1) * 32 < nv; i += kUnroll * 32) {
     uint4 w[kUnroll];
 #pragma unroll
@@ -147,13 +134,11 @@ __device__ __forceinline__ float warp_sumsq(const T* x, int n) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
     segmental_rms_kernel(const T* __restrict__ wav, T* __restrict__ out,
                          long long len, int win, float rel_ratio,
                          float abs_floor) {
-  extern __shared__ float smem[];
-  float* red = smem;             // [kWarps] reduction scratch
-  float* pow_f = smem + kWarps;  // [n] frame powers (rank 0's are read)
+  extern __shared__ float pow_f[];  // [n] frame powers (rank 0's are read)
   const int k = fe::cluster_size();
   const int rank = fe::cluster_rank();
   const int row = blockIdx.x / k;
@@ -163,15 +148,11 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   const int warp = threadIdx.x >> 5;
 
   if (n == 0) {  // shorter than one frame: the RMS of the whole row
-    if (rank != 0) return;
-    float acc = 0.f;
-    for (long long i = threadIdx.x; i < len; i += kThreads) {
-      const float v = fe::load_f(x[i]);
-      acc = fmaf(v, v, acc);
-    }
-    acc = block_reduce<false>(acc, red);
-    if (threadIdx.x == 0) {
-      out[row] = fe::store_t<T>(sqrtf(acc / static_cast<float>(len)));
+    if (rank == 0 && warp == 0) {
+      const float s = warp_sumsq(x, len);
+      if (lane == 0) {
+        out[row] = fe::store_t<T>(sqrtf(s / static_cast<float>(len)));
+      }
     }
     return;
   }
@@ -179,32 +160,34 @@ __global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
   const int f1 = n * (rank + 1) / k;
   for (int f = n * rank / k + warp; f < f1; f += kWarps) {
     const float p = warp_sumsq(x + static_cast<size_t>(f) * win, win);
-    if (lane == 0) fe::store_cluster(pow_f + f, 0, p / static_cast<float>(win));
+    if (lane == 0) {
+      fe::store_cluster(pow_f + f, 0, p / static_cast<float>(win));
+    }
   }
   fe::cluster_sync();  // every frame's power is in rank 0's pow_f
-  if (rank != 0) return;
+  if (rank != 0 || warp != 0) return;
 
+  // rank 0's warp 0: the max, then the count and sum of the active powers
   float m = 0.f;  // powers are >= 0
-  for (int f = threadIdx.x; f < n; f += kThreads) m = fmaxf(m, pow_f[f]);
-  const float thr = fmaxf(block_reduce<true>(m, red) * rel_ratio, abs_floor);
-
+  for (int f = lane; f < n; f += 32) m = fmaxf(m, pow_f[f]);
+  const float thr = fmaxf(warp_max(m) * rel_ratio, abs_floor);
   float cnt = 0.f, sum = 0.f;
-  for (int f = threadIdx.x; f < n; f += kThreads) {
+  for (int f = lane; f < n; f += 32) {
     const float p = pow_f[f];
     if (p > thr) {
       cnt += 1.f;
       sum += p;
     }
   }
-  cnt = block_reduce<false>(cnt, red);
-  sum = block_reduce<false>(sum, red);
-  if (threadIdx.x == 0) {
+  cnt = warp_sum(cnt);
+  sum = warp_sum(sum);
+  if (lane == 0) {
     out[row] = fe::store_t<T>(cnt > 0.f ? sqrtf(sum / cnt) : INFINITY);
   }
 }
 
 size_t smem_bytes(long long len, int win) {
-  return (kWarps + static_cast<size_t>(len / win)) * sizeof(float);
+  return static_cast<size_t>(len / win) * sizeof(float);
 }
 
 template <typename T>

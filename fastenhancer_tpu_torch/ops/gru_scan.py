@@ -20,8 +20,8 @@ where x_proj = x W_ih^T + b_ih comes from one matmul over the sequence.
   `gru_scan.launches` counts kernel launches. The kernel has two forms,
   chosen by `kernel_form` from the shape and type: "tc" (bfloat16 on the
   tensor cores, a thread block of `tc_warps(H)` warps per tile of 16
-  rows; `gru_scan.tc_launches` counts it) and "scalar" (float32; the
-  correctness reference). `launch_scalar` and `launch_tc` launch one form
+  rows; `gru_scan.tc_launches` counts it) and "scalar" (float32 and odd
+  H; the correctness reference). `launch_scalar` and `launch_tc` launch one form
   directly and count nothing.
 * `gru_fused(params, x, h0)` is the drop-in for nn.gru (the counterpart of
   `gru_pallas`), weight-norm parameters included.
@@ -47,14 +47,12 @@ Params = tp.Dict[str, tp.Any]
 MAX_HIDDEN = 128
 _THREADS = 256  # a thread per (row, unit) pair, at most this many per block
 _SMS = 132      # the H100 SXM's streaming multiprocessors
-# x_proj, h0, w_hh, b_hh, ys, h_T; T, N, H, rows per block (the scalar
-# form) or warps per tile (the tensor-core form); the stream
+# x_proj, h0, w_hh, b_hh, ys, h_T; T, N, H, rows per block; the stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# the tensor-core form (csrc/gru_scan_tc.cuh): rows of a tile, x_proj
-# slabs in flight, warps a tile at most
+# x_proj, h0, w_hh, b_hh, ys, h_T; T, N, H; the stream (the tensor-core form)
+_TC_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# rows of a tile of the tensor-core form (csrc/gru_scan_tc.cuh)
 TC_ROWS = 16
-TC_RING = 8
-TC_MAX_WARPS = 8
 
 
 def gru_scan_reference(x_proj: Tensor, h0: Tensor, w_hh: Tensor,
@@ -91,26 +89,21 @@ def tc_tiles(n: int) -> int:
 
 
 def tc_warps(hidden: int) -> int:
-    """Warps of a tile in the tensor-core form: the unit groups of 8 (U =
-    ceil(H / 8)) dealt over at most 8 warps, G = ceil(U / 8) a warp, so
-    ceil(U / G) warps (3 at H = 20, 5 at H = 36, 8 at H = 64 and 128)."""
+    """Warps of a tile in the tensor-core form: one per unit group of 8 (U =
+    ceil(H / 8)) up to H = 64, one per two groups above (3 at H = 20, 5 at
+    H = 36, 8 at H = 64 and 128)."""
     units = -(-hidden // 8)
-    per = -(-units // TC_MAX_WARPS)
-    return -(-units // per)
+    return units if units <= 8 else -(-units // 2)
 
 
-def tc_smem_bytes(hidden: int, warps: int) -> int:
+def tc_smem_bytes(hidden: int) -> int:
     """Shared memory of one thread block of the tensor-core form, as
-    gru_scan_tc.cuh's GruTcGeom counts it: the ring's mbarriers and slabs
-    of 16 x 3H bf16, the double-buffered hi/lo h tile (several warps),
-    and W_hh's fragments where they are not in registers (H > 64)."""
+    gru_scan_tc.cuh's GruTcGeom counts it: the double-buffered hi/lo h
+    tile [2, 2, 16, ld] bf16, and W_hh's fragments where they are not in
+    registers (H > 64)."""
     units, ksteps = -(-hidden // 8), -(-hidden // 16)
-    groups = -(-units // warps)
-    reg_b = warps == 1 or (ksteps <= 4 and groups <= 2)
-    slot = -(-TC_ROWS * 3 * hidden * 2 // 16) * 16
-    hbuf = 4 * TC_ROWS * _build.ld_of(16 * ksteps) * 2 if warps > 1 else 0
-    frag = 0 if reg_b else 3 * units * ksteps * 32 * 8
-    return 16 * TC_RING + TC_RING * slot + hbuf + frag
+    hbuf = 4 * TC_ROWS * _build.ld_of(16 * ksteps) * 2
+    return hbuf + (0 if hidden <= 64 else 3 * units * ksteps * 32 * 8)
 
 
 def kernel_form(n: int, hidden: int, dtype: torch.dtype) -> str:
@@ -120,8 +113,7 @@ def kernel_form(n: int, hidden: int, dtype: torch.dtype) -> str:
     and writes bf16 pairs); else "scalar" (float32, odd H)."""
     if (dtype == torch.bfloat16 and n >= 1 and 2 <= hidden <= MAX_HIDDEN
             and hidden % 2 == 0
-            and tc_smem_bytes(hidden, tc_warps(hidden))
-            <= _build.MAX_SMEM_BYTES):
+            and tc_smem_bytes(hidden) <= _build.MAX_SMEM_BYTES):
         return "tc"
     return "scalar"
 
@@ -167,7 +159,7 @@ def _cuda_operands(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
 
 
 def _launch(fn: tp.Callable[..., int], x_proj: Tensor, h0: Tensor,
-            w_hh: Tensor, b_hh: Tensor, per_block: int
+            w_hh: Tensor, b_hh: Tensor, *per_block: int
             ) -> tp.Tuple[Tensor, Tensor]:
     t, n, h3 = x_proj.shape
     ys = torch.empty(t, n, h3 // 3, dtype=x_proj.dtype, device=x_proj.device)
@@ -176,7 +168,7 @@ def _launch(fn: tp.Callable[..., int], x_proj: Tensor, h0: Tensor,
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
                  b_hh.data_ptr(), ys.data_ptr(), h_t.data_ptr(), t, n,
-                 h3 // 3, per_block, stream)
+                 h3 // 3, *per_block, stream)
     _build.check_launch("gru_scan", err)
     return ys, h_t
 
@@ -191,29 +183,21 @@ def launch_scalar(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
     return _launch(fn, x_proj, h0, w_hh, b_hh, tile)
 
 
-def launch_tc(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor,
-              warps: tp.Optional[int] = None) -> tp.Tuple[Tensor, Tensor]:
-    """Launch the tensor-core form on bfloat16 CUDA tensors that passed
-    _check and whose shape kernel_form gives to it, `warps` warps a tile
-    (tc_warps(H), the default, or 1 for H <= 32); counts nothing."""
+def launch_tc(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """Launch the tensor-core form (tc_warps(H) warps a tile of 16 rows) on
+    bfloat16 CUDA tensors that passed _check and whose shape kernel_form
+    gives to it; counts nothing."""
     n, hidden = x_proj.shape[1], x_proj.shape[-1] // 3
     if kernel_form(n, hidden, x_proj.dtype) != "tc":
         raise ValueError(f"the tensor-core form does not take N={n}, "
                          f"H={hidden} in {x_proj.dtype} (see kernel_form)")
-    warps = tc_warps(hidden) if warps is None else warps
-    if warps not in ((1, tc_warps(hidden)) if hidden <= 32
-                     else (tc_warps(hidden),)):
-        raise ValueError(f"{warps} warps a tile: the tensor-core form takes "
-                         f"tc_warps(H) = {tc_warps(hidden)}, or 1 for H <= "
-                         "32")
-    if tc_smem_bytes(hidden, warps) > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"H={hidden} over {warps} warps needs "
-                         f"{tc_smem_bytes(hidden, warps)} bytes of shared "
-                         f"memory; a block has {_build.MAX_SMEM_BYTES}")
     x_proj, h0, w_hh, b_hh = _cuda_operands(x_proj, h0, w_hh, b_hh)
+    if x_proj.data_ptr() % 4:
+        x_proj = x_proj.clone()  # the kernel reads 4-byte bf16 pairs
     fn = _build.function("gru_scan", "gru_scan_tc_bf16", ctypes.c_int,
-                         _ARGTYPES)
-    return _launch(fn, x_proj, h0, w_hh, b_hh, warps)
+                         _TC_ARGTYPES)
+    return _launch(fn, x_proj, h0, w_hh, b_hh)
 
 
 def gru_scan(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor

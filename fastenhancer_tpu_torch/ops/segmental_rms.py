@@ -35,7 +35,6 @@ Tensor = torch.Tensor
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_float, ctypes.c_void_p]
-_WARPS = 8  # the kernel's 256 threads
 _SMS = 132  # the H100 SXM's streaming multiprocessors
 _CLUSTERS = (8, 4, 2, 1)  # 8 is the largest portable cluster
 
@@ -91,9 +90,9 @@ def segmental_rms(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
 
 
 def smem_bytes(length: int, win: int) -> int:
-    """Shared memory of one thread block: the row's frame powers (rank 0's
-    are read) and the reduction scratch, float32."""
-    return 4 * (_WARPS + length // win)
+    """Shared memory of one thread block: the row's frame powers, float32
+    (rank 0's are read)."""
+    return 4 * (length // win)
 
 
 def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
@@ -120,7 +119,7 @@ def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
             f"T={length} has {length // win} frames; the kernel holds at "
-            f"most {_build.MAX_SMEM_BYTES // 4 - _WARPS}")
+            f"most {_build.MAX_SMEM_BYTES // 4}")
     fn = _build.entry("segmental_rms", wav.dtype, _ARGTYPES)
     wav = wav.contiguous()
     out = torch.empty(b, dtype=wav.dtype, device=wav.device)

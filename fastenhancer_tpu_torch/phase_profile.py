@@ -31,12 +31,11 @@ mbarriers, so the cached time attention (the `pre` of each time_fc stage)
 splits into the cycles spent waiting on the ring and those computing.
 
 The GRU scan's tensor-core form (csrc/gru_scan_tc.cuh) is marked at each
-of its T steps (thread 0 of tiles 0 and 1): the wait on the x_proj ring's
-mbarrier, the products (the x_proj reads and, with several warps a tile,
-the ldmatrix of A included), the cell, and the ys stores with the hand-off
-of h, the barrier and the ring's refill; at FE-T's valid shape (T=126,
-N=1024, H=20) with one and with three warps a tile, and at FE_B's width
-(T=126, N=301, H=36). Segmental RMS (csrc/segmental_rms.cu) is marked in
+of its T steps (thread 0 of tiles 0 and 1): the products (the ldmatrix of
+A included), the cell (with the wait for its x_proj loads, issued two
+steps ahead), the hand-off (the next loads issued, h written to the
+shared A tile, the barrier) and the ys stores; at FE-T's valid shape
+(T=126, N=1024, H=20) and at FE_B's width (T=126, N=301, H=36). Segmental RMS (csrc/segmental_rms.cu) is marked in
 ranks 0 and 1 of row 0's cluster: the frames' loads, the cluster barrier
 that gathers their powers in rank 0, and rank 0's reduction, at the shard
 recipe's [32, 64000] float32 batch.
@@ -89,15 +88,15 @@ _DPT_MARKS = (
 _PHASE = 120
 # the GRU scan's tensor-core form: the prologue (code 0, point 7), then
 # each step t's points 0-3 at code t
-GRU_POINTS = ("ring wait", "products", "cell", "store, barrier, refill")
+GRU_POINTS = ("products", "cell", "hand-off and barrier", "ys store")
 _GRU_MARKS = (
     ("  const int hid = a.hid, g3 = 3 * hid;\n", "FE_PROF(0, 6);"),
     ("  const size_t out_ld = static_cast<size_t>(a.rows) * hid;\n",
      "FE_PROF(0, 7);", True),
-    ("    const bf16* xs = xr.wait(t);\n", "FE_PROF(t, 0);"),
-    ("    // the cell, float32\n", "FE_PROF(t, 1);", True),
-    ("    // ys[t], then h into the next step's A\n", "FE_PROF(t, 2);", True),
-    ("    if (t + kRing < a.steps) xr.issue(t + kRing);\n", "FE_PROF(t, 3);"),
+    ("    // the cell, float32\n", "FE_PROF(t, 0);", True),
+    ("    if (t + 2 < a.steps) load_x(t + 2, xb);\n", "FE_PROF(t, 1);", True),
+    ("    publish((t + 1) & 1);\n    __syncthreads();\n", "FE_PROF(t, 2);"),
+    ("  };\n  // the time loop, unrolled by two", "    FE_PROF(t, 3);", True),
 )
 # segmental RMS: the loads (point 0), the cluster barrier (1), rank 0's
 # reduction (2)
@@ -594,11 +593,10 @@ def main() -> None:
           "mbarriers; logits and mix: computing between the waits, the "
           "barrier and the next chunk's copy issue included)")
 
-    # the GRU scan's tensor-core form at FE-T's valid shape (one and three
-    # warps a tile) and at FE_B's width
+    # the GRU scan's tensor-core form at FE-T's valid shape and at FE_B's
+    # width
     valid_n = 64 * FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"]["freq"]
-    for t_, n, hid, warps in ((126, valid_n, 20, 3), (126, valid_n, 20, 1),
-                              (126, 301, 36, 3)):
+    for t_, n, hid in ((126, valid_n, 20), (126, 301, 36)):
         gx = torch.randn(t_, n, 3 * hid, generator=g).to(dev, dt)
         gw = ((torch.rand(3 * hid, hid, generator=g) * 2 - 1)
               / hid ** 0.5).to(dev, dt)
@@ -608,14 +606,14 @@ def main() -> None:
         ys = torch.empty(t_, n, hid, dtype=dt, device=dev)
         ht = torch.empty_like(gh)
         blocks, marked, plain = profile(
-            "gru_scan", "gru_scan_tc_bf16", scan._ARGTYPES,
+            "gru_scan", "gru_scan_tc_bf16", scan._TC_ARGTYPES,
             lambda: (gx.data_ptr(), gh.data_ptr(), gw.data_ptr(),
-                     gb.data_ptr(), ys.data_ptr(), ht.data_ptr(), t_, n, hid,
-                     warps),
-            lambda: scan.launch_tc(gx, gh, gw, gb, warps=warps))
+                     gb.data_ptr(), ys.data_ptr(), ht.data_ptr(), t_, n,
+                     hid),
+            lambda: scan.launch_tc(gx, gh, gw, gb))
         report_gru(f"gru_scan bf16 tensor-core form, T={t_} N={n} H={hid}, "
-                   f"{warps} warp{'s' if warps > 1 else ''} a tile", blocks,
-                   marked, plain)
+                   f"{scan.tc_warps(hid)} warps a tile", blocks, marked,
+                   plain)
 
     # segmental RMS at the shard recipe's train batch, float32
     wav = torch.randn(32, 64_000, generator=g).to(dev) * 0.1

@@ -247,30 +247,24 @@ def test_kernel_form_and_geometry():
     # one unit group of 8 a warp up to H = 64, two above, at most 8 warps
     assert {h: scan.tc_warps(h) for h in (8, 16, 20, 36, 64, 66, 128)} == {
         8: 1, 16: 2, 20: 3, 36: 5, 64: 8, 66: 5, 128: 8}
-    # H = 128: the ring (8 slabs of 16 x 384 bf16), the h tile and W_hh's
-    # fragments in shared memory, within the 227 KB of a block
-    big = scan.tc_smem_bytes(128, 8)
-    assert big == 16 * 8 + 8 * 12288 + 4 * 16 * _build.ld_of(128) * 2 + (
-        48 * 8 * 32 * 8)
+    # the double-buffered hi/lo h tile; at H = 128 W_hh's fragments in
+    # shared memory too, within the 227 KB of a block
+    assert scan.tc_smem_bytes(20) == 4 * 16 * _build.ld_of(32) * 2
+    big = scan.tc_smem_bytes(128)
+    assert big == 4 * 16 * _build.ld_of(128) * 2 + 48 * 8 * 32 * 8
     assert big <= _build.MAX_SMEM_BYTES
-    # one warp a tile: no h tile, W_hh in registers
-    assert scan.tc_smem_bytes(20, 1) == 16 * 8 + 8 * 16 * 60 * 2
 
 
 def test_direct_launches_refuse_cpu_tensors_and_other_forms():
     """launch_tc and launch_scalar run on the card only; launch_tc takes
-    only what kernel_form gives to it, with tc_warps(H) warps a tile or,
-    up to H = 32, one."""
+    only what kernel_form gives to it."""
     args = [torch.from_numpy(a) for a in _case(3, 4, 20, 0)]
     with pytest.raises(ValueError, match="tensor-core form"):
         scan.launch_tc(*args)  # float32
-    bf = [a.bfloat16() for a in args]
+    with pytest.raises(ValueError, match="tensor-core form"):
+        scan.launch_tc(*[torch.from_numpy(a).bfloat16()
+                         for a in _case(3, 4, 21, 0)])  # odd H
     with pytest.raises(ValueError, match="CUDA"):
-        scan.launch_tc(*bf)
+        scan.launch_tc(*[a.bfloat16() for a in args])
     with pytest.raises(ValueError, match="CUDA"):
         scan.launch_scalar(*args)
-    with pytest.raises(ValueError, match="warps"):
-        scan.launch_tc(*bf, warps=2)
-    wide = [torch.from_numpy(a).bfloat16() for a in _case(2, 3, 36, 0)]
-    with pytest.raises(ValueError, match="warps"):
-        scan.launch_tc(*wide, warps=1)

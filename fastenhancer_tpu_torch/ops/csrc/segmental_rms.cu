@@ -22,7 +22,7 @@
 // largest with B * K <= 132 SMs, chosen by the wrapper), so that a small
 // batch still spreads over the card: at B = 32, K = 4 gives 128 blocks.
 // Block `rank` takes the row's frames [n rank / K, n (rank + 1) / K); each
-// of its 16 warps takes every 16th of them. A warp reads its frame with
+// of its 8 warps takes every 8th of them. A warp reads its frame with
 // 16-byte loads (4 float32 or 8 bfloat16 samples a lane), all of a
 // 1,600-sample frame in flight at once (kUnroll a lane, into separate
 // accumulators), with scalar loads for the head before the first 16-byte
@@ -46,9 +46,7 @@
 
 namespace {
 
-// 16 warps a block: at B = 32 the cluster of 4 deals each block 10 frames
-// of a 40-frame row, a warp each, in one round
-constexpr int kThreads = 512;
+using fe::kThreads;
 constexpr int kWarps = kThreads / 32;
 // 16-byte loads a lane keeps in flight: a whole 1,600-sample frame (400
 // float32 or 200 bfloat16 vectors) in one batch
@@ -134,7 +132,7 @@ __device__ __forceinline__ float warp_sumsq(const T* x, long long n) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, fe::kMinBlocks)
     segmental_rms_kernel(const T* __restrict__ wav, T* __restrict__ out,
                          long long len, int win, float rel_ratio,
                          float abs_floor) {

@@ -21,8 +21,8 @@ where x_proj = x W_ih^T + b_ih comes from one matmul over the sequence.
   chosen by `kernel_form` from the shape and type: "tc" (bfloat16 on the
   tensor cores, a thread block of `tc_warps(H)` warps per tile of 16
   rows; `gru_scan.tc_launches` counts it) and "scalar" (float32 and odd
-  H; the correctness reference). `launch_scalar` and `launch_tc` launch one form
-  directly and count nothing.
+  H; the correctness reference). `launch_scalar` and `launch_tc` launch
+  one form directly and count nothing.
 * `gru_fused(params, x, h0)` is the drop-in for nn.gru (the counterpart of
   `gru_pallas`), weight-norm parameters included.
 

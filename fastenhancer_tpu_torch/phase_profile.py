@@ -35,10 +35,14 @@ of its T steps (thread 0 of tiles 0 and 1): the products (the ldmatrix of
 A included), the cell (with the wait for its x_proj loads, issued two
 steps ahead), the hand-off (the next loads issued, h written to the
 shared A tile, the barrier) and the ys stores; at FE-T's valid shape
-(T=126, N=1024, H=20) and at FE_B's width (T=126, N=301, H=36). Segmental RMS (csrc/segmental_rms.cu) is marked in
-ranks 0 and 1 of row 0's cluster: the frames' loads, the cluster barrier
-that gathers their powers in rank 0, and rank 0's reduction, at the shard
-recipe's [32, 64000] float32 batch.
+(T=126, N=1024, H=20) and at FE_B's width (T=126, N=301, H=36).
+Segmental RMS (csrc/segmental_rms.cu) is marked in ranks 0 and 1 of row
+0's cluster: the frames' loads, the cluster barrier that gathers their
+powers in rank 0, and rank 0's reduction, at the shard recipe's
+[32, 64000] float32 batch. Each marker is a global read-modify-write by
+thread 0, so where steps are short (the GRU scan's) the markers take a
+large share of the marked time: read the split beside the time without
+markers.
 """
 from __future__ import annotations
 

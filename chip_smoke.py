@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in fifteen phases,
+JAX anywhere) through the hand-written CUDA kernels, in eighteen phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -37,7 +37,12 @@ each printed on its own line:
      tensor-core form, float32 the scalar one) and, at BSRNN-S, DPRNN-B
      and DPT-B bf16 and the GRU scan's valid shape and FE_B's width
      [126, 301, 108], the scalar form's time beside the tensor-core
-     form's in the same call (the GRU scan's beside cuDNN's GRU too);
+     form's in the same call (the GRU scan's beside cuDNN's GRU too); the
+     GRU scan also at every shape phases 16 and 18 give it, FE_B's chunks
+     [C, 6144, 108] for C = 1, 4, 8 with a carried state (and a ragged
+     N = 6143 at C = 4) and the huge noncausal model's biGRU
+     [641, 256, 384] in both directions, each timed in bfloat16 beside
+     its plain version, its bound and cuDNN's GRU;
   4. serving FE_B: a StreamingEngine (capacity 256, bfloat16, fused)
      answers a few staggered requests; outputs are checked for length,
      finiteness, agreement with an isolated run, and the stack kernel's
@@ -72,9 +77,28 @@ each printed on its own line:
      variables and batch;
  15. valid FE-T: valid_epoch over 64 x 2 s paired batches (the GRU scan
      kernel, once per block), and the float32 valid losses against the
-     CPU's plain path.
+     CPU's plain path;
+ 16. chunked FE_B: Model.stream(chunk_frames=C) over 256 streams of 5 s in
+     bfloat16 for C = 1 (the per-frame unfused stream), 4 and 8, each
+     block's time GRU one GRU-scan launch a chunk on its tensor-core form
+     and no other kernel; per-stream RTF and launches per frame; bf16
+     chunked against the per-frame fused stream (the block stack kernel),
+     float32 chunked against the per-frame unfused stream (to 1e-4 of its
+     peak);
+ 17. chunked, the other six served families (conv_stft at FE_B's widths,
+     DPT-B, DPRNN-B, LN_B, TIME_KERNEL_B, BSRNN-S), C = 4 over 256 streams
+     of 2 s: bf16 launches (the GRU scan's tensor-core form once a block a
+     chunk where the family has a time GRU, no kernel otherwise) and RTF,
+     float32 chunked against the per-frame unfused stream (to 1e-4 of its
+     peak);
+ 18. noncausal offline: Model.forward of the huge noncausal recipe
+     (presets.NONCAUSAL_HUGE) over 4 streams of 4 s in bfloat16, its six
+     biGRUs twelve tensor-core GRU-scan launches at H = 128 and no other
+     kernel, timed; the bf16 forward against the float32 forward on the
+     card (to 2^-5 of its peak), and the float32 forward on a short input
+     against the CPU's plain path (to 1e-4 of its peak).
 
-Each of phases 4 to 15 drives a path: every kernel's launch count is set to
+Each of phases 4 to 18 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -96,6 +120,9 @@ import time
 F32_TOL = 1e-5      # absolute, kernel vs plain, float32
 BF16_REL = 2 ** -5  # bfloat16: of the largest magnitude (a few bf16 ulps)
 STREAM_F32_TOL = 1e-4  # float32 stream outputs, fused vs unfused
+# float32 outputs computed in another order (chunked against per frame, the
+# card against the CPU): of the reference output's largest magnitude
+F32_OUT_REL = 1e-4
 SR = 16_000
 STREAMS = 256
 FE_SECONDS = 10.0      # phase 5's audio per stream
@@ -107,6 +134,10 @@ TRAIN_STEPS = 5
 RIR_SECONDS = 0.5
 MIX_SEED = 11
 VALID_ROWS, VALID_SECONDS, VALID_BATCHES = 64, 2.0, 2   # phase 15
+CHUNK_SECONDS = 5.0    # phase 16's audio per stream
+FAMILY_SECONDS = 2.0   # phase 17's audio per stream
+# phase 18 and its GRU-scan shape: streams and audio per stream
+NC_STREAMS, NC_SECONDS = 4, 4.0
 # float32 card vs the CPU's plain path, over a whole train or valid batch:
 # losses and grad norm relative (sums over 128 s of audio in another order,
 # cuFFT against pocketfft), params absolute (twice the first step's lr of
@@ -214,6 +245,7 @@ def main():
     from fastenhancer_tpu_torch.optim import get_optimizer
     from fastenhancer_tpu_torch.presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B,
                                                 FE_T_SHARD, LN_B,
+                                                NONCAUSAL_HUGE,
                                                 TIME_KERNEL_B)
     from fastenhancer_tpu_torch.serving import StreamingEngine
     from fastenhancer_tpu_torch.train import make_train_step, make_valid_step
@@ -245,12 +277,14 @@ def main():
         return {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
 
-    def check_launches(counts, name, n, what):
+    def check_launches(counts, name, n, what, tc=None):
         """The path's own kernel ran n times and no other kernel ran; the
         BSRNN, dprnn and dpt stacks' and the GRU scan's launches are all
-        their tensor-core forms' (bf16)."""
-        own = {name, TC_FORMS[name]} if name in TC_FORMS else {name}
-        want = {k: (n if k in own else 0) for k in counters}
+        their tensor-core forms' (bf16), or `tc` of them where given."""
+        want = {k: 0 for k in counters}
+        want[name] = n
+        if name in TC_FORMS:
+            want[TC_FORMS[name]] = n if tc is None else tc
         _check(counts == want, f"{what}: launches {counts} != {want}")
 
     # -- 1. card -----------------------------------------------------------------
@@ -262,7 +296,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/15] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/18] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -270,10 +304,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/15] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/18] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/15] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/18] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -394,7 +428,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/15] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/18] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -429,7 +463,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/15] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/18] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -484,7 +518,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/15] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/18] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -505,7 +539,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/15] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/18] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -549,7 +583,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/15] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/18] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -596,7 +630,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/15] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/18] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -639,7 +673,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/15] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/18] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -687,7 +721,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/15] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/18] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -704,7 +738,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/15] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/18] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -743,25 +777,40 @@ def main():
                    f"cuDNN GRU vs gru_scan's plain version: {lib_err}")
             return time_ms(lambda: lib(args[0], args[1][None]))
 
+    def check_scan(t, n, h, h0, dtype, flip=False):
+        """One case of #5 against its plain version, its form checked;
+        flip runs the backward direction of a biGRU (x_proj time-flipped).
+        -> (args, ys, h_T, errs)."""
+        args = scan_case(t, n, h, dtype, t + n + h, h0)
+        if flip:
+            args[0] = args[0].flip(0)
+        form = scan.kernel_form(n, h, dtype)
+        before_tc = scan.gru_scan.tc_launches
+        ys, h_t = scan.gru_scan(*args)
+        torch.cuda.synchronize()
+        _check(scan.gru_scan.tc_launches - before_tc == (form == "tc")
+               and (form == "tc") == (dtype == torch.bfloat16),
+               f"gru_scan T={t} N={n} H={h} {dtype} runs the {form} form")
+        ys_r, h_r = scan.gru_scan_reference(*args)
+        errs = compare(f"gru_scan T={t} N={n} H={h}",
+                       ((ys, ys_r), (h_t, h_r)), dtype)
+        print(f"[3/18] kernel gru_scan T={t} N={n} H={h} h0 "
+              f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
+              f" {str(dtype)[6:]}, {form} form: max abs err ys "
+              f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
+              f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+        return args, ys, h_t, errs
+
+    def scan_bound(t, n, h, args, ys, h_t, dtype):
+        # operations: 3H x H multiply-adds a row and step, and about 12
+        # more a unit for the gates
+        return bound(t * n * (6 * h * h + 12 * h), nbytes(*args, ys, h_t),
+                     dtype)
+
     for t, n, h, h0 in ((valid_frames, valid_n, 20, False), (13, 37, 20, True),
                         (valid_frames, 301, 36, True), (13, 5, 36, False)):
         for dtype in (torch.float32, torch.bfloat16):
-            args = scan_case(t, n, h, dtype, t + n + h, h0)
-            form = scan.kernel_form(n, h, dtype)
-            before_tc = scan.gru_scan.tc_launches
-            ys, h_t = scan.gru_scan(*args)
-            torch.cuda.synchronize()
-            _check(scan.gru_scan.tc_launches - before_tc == (form == "tc")
-                   and (form == "tc") == (dtype == torch.bfloat16),
-                   f"gru_scan T={t} N={n} H={h} {dtype} runs the {form} form")
-            ys_r, h_r = scan.gru_scan_reference(*args)
-            errs = compare(f"gru_scan T={t} N={n} H={h}",
-                           ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[3/15] kernel gru_scan T={t} N={n} H={h} h0 "
-                  f"{'given' if h0 else 'None'} {str(dtype)[6:]}, {form} "
-                  f"form: max abs err ys {errs[0][0]:.3e} (tol "
-                  f"{errs[0][1]:.3e}), h_T {errs[1][0]:.3e} (tol "
-                  f"{errs[1][1]:.3e})")
+            args, ys, h_t, errs = check_scan(t, n, h, h0, dtype)
             if t != valid_frames or dtype != torch.bfloat16:
                 continue
             # both forms launched directly (not launches of the main path)
@@ -771,15 +820,12 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/15] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/18] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
             if n == valid_n:
-                # operations: 3H x H multiply-adds a row and step, and about
-                # 12 more a unit for the gates
-                bound_info = bound(t * n * (6 * h * h + 12 * h),
-                                   nbytes(*args, ys, h_t), dtype)
+                bound_info = scan_bound(t, n, h, args, ys, h_t, dtype)
                 rec = timed(lambda: scan.gru_scan(*args),
                             lambda: scan.gru_scan_reference(*args),
                             max(errs[0][0], errs[1][0]), bound_info,
@@ -788,10 +834,44 @@ def main():
                                                              lib_host_ms)
                 record["gru_scan"] = rec
 
+    # 3g'. #5 at every shape this slice's paths give it: FE_B's chunked
+    # stream (phase 16: chunks of 1, 4 and 8 frames over 256 x 24 rows from
+    # a carried state; the tile tail ragged at one row less) and the huge
+    # noncausal model's biGRU (phase 18: the offline STFT's frames of
+    # NC_SECONDS, N = NC_STREAMS x 64, H = 128, both directions), each
+    # timed in bf16 beside its plain version, its bound and cuDNN's GRU
+    nc_frames = int(NC_SECONDS * SR) // NONCAUSAL_HUGE["hop_size"] + 1
+    nc_rows = NC_STREAMS * NONCAUSAL_HUGE["rnnformer_kwargs"]["freq"]
+    for t, n, h, h0, flip in ((1, STREAMS * 24, 36, True, False),
+                              (4, STREAMS * 24, 36, True, False),
+                              (4, STREAMS * 24 - 1, 36, True, False),
+                              (8, STREAMS * 24, 36, True, False),
+                              (nc_frames, nc_rows, 128, False, False),
+                              (nc_frames, nc_rows, 128, False, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, ys, h_t, errs = check_scan(t, n, h, h0, dtype, flip)
+            if dtype != torch.bfloat16 or flip or n % 16:
+                continue
+            rec = timed(lambda: scan.gru_scan(*args),
+                        lambda: scan.gru_scan_reference(*args),
+                        max(errs[0][0], errs[1][0]),
+                        scan_bound(t, n, h, args, ys, h_t, dtype),
+                        plain_graph=True)
+            rec["library_ms"], _ = cudnn_gru(args)
+            print(f"[3/18] time gru_scan T={t} N={n} H={h} bf16 "
+                  f"({scan.tc_tiles(n)} tiles of 16 rows, "
+                  f"{scan.tc_warps(h)} warps a tile): kernel "
+                  f"{rec['ms']:.4f} ms, plain PyTorch {rec['plain_ms']:.4f} "
+                  f"ms (as a CUDA graph), cuDNN GRU {rec['library_ms']:.4f} "
+                  f"ms; bound {1e3 * rec['bound_ms']:.3f} us, "
+                  f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of the kernel's "
+                  f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
+                  f"{rec['bytes'] / 1e6:.4f} MB); on {card}")
+
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/15] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/18] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -902,7 +982,7 @@ def main():
         _check(f32_err <= STREAM_F32_TOL,
                f"{tag} fused vs unfused float32: {f32_err} > "
                f"{STREAM_F32_TOL}")
-        print(f"[{phase}/15] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/18] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -942,7 +1022,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/15] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/18] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -999,7 +1079,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/15] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/18] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1154,7 +1234,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/15] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/18] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1201,7 +1281,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/15] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/18] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1244,7 +1324,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/15] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/18] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1254,6 +1334,164 @@ def main():
           f"per valid batch; float32 valid losses card vs CPU max relative "
           f"diff {max(v_rel.values()):.3e} (tol {TRAIN_F32_RTOL:g}); on "
           f"{card}")
+
+    # -- 16. chunked FE_B -----------------------------------------------------
+    def run_stream(model, variables, wav, chunk, gru, tc, what):
+        """One Model.stream over `wav` after a short warm-up, the launch
+        counts zeroed just before and read just after: the GRU scan ran
+        `gru` times (`tc` of them its tensor-core form) and no other
+        kernel ran. -> (y, wall s)."""
+        model.stream(variables, wav[:, :model.hop_size * 16],
+                     chunk_frames=chunk)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        y = model.stream(variables, wav, chunk_frames=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_launches(read_counts(), "gru_scan", gru, what, tc)
+        _check(tuple(y.shape) == tuple(wav.shape)
+               and bool(torch.isfinite(y).all()),
+               f"{what}: output {tuple(y.shape)} not finite/full")
+        return y, wall
+
+    def max_err(got, want):
+        return (got.float() - want.float()).abs().max().item()
+
+    model = get_model("fastenhancer.default", **FE_B, stft_method="matmul")
+    hop, nb = model.hop_size, model.num_blocks
+    folded = model.fold(model.init(torch.Generator().manual_seed(0),
+                                   device=dev))
+    folded_bf16 = cast_floating(folded, torch.bfloat16)
+    frames = int(CHUNK_SECONDS * SR) // hop // 8 * 8  # a multiple of 4 and 8
+    audio_s = frames * hop / SR
+    g = torch.Generator().manual_seed(6)
+    wav = (torch.randn(STREAMS, frames * hop, generator=g) * 0.05).to(dev)
+    wav_bf16 = wav.to(torch.bfloat16)
+    y_fused = model.stream(folded_bf16, wav_bf16,
+                           fused_plan=model.build_stack_plan(folded_bf16))
+    tol = BF16_REL * y_fused.float().abs().max().item()
+    chunk_rows = {}
+    for c in (1, 4, 8):
+        n = nb * frames // c
+        y, wall = run_stream(model, folded_bf16, wav_bf16, c, n, n,
+                             f"FE_B chunked C={c}")
+        err = max_err(y, y_fused)
+        _check(err <= tol, f"FE_B bf16 C={c} vs the fused per-frame stream: "
+                           f"{err:.3e} > {tol:.3e}")
+        chunk_rows[c] = (wall, n, err)
+    y4 = model.stream(folded, wav, chunk_frames=4)
+    y1 = model.stream(folded, wav)
+    f32_err = max_err(y4, y1)
+    f32_tol = F32_OUT_REL * y1.abs().max().item()
+    _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
+                               f"{f32_err:.3e} > {f32_tol:.3e}")
+    for c, (wall, n, err) in chunk_rows.items():
+        print(f"[16/18] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+              f"{', the per-frame unfused stream' if c == 1 else ''}), "
+              f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
+              f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
+              f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n} = "
+              f"{nb} a chunk ({n / frames:.3f} a frame), all its tensor-core "
+              f"form, no other kernel; vs the fused per-frame stream (block "
+              f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
+              f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
+    print(f"[16/18] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+          f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
+          f"= {F32_OUT_REL:g} of the output peak "
+          f"{y1.abs().max().item():.3e})")
+
+    # -- 17. chunked, the other six served families ---------------------------
+    # (model, kwargs, tag, whether its blocks run a time GRU)
+    for name, kwargs, tag, has_gru in (
+            ("fastenhancer.conv_stft", FE_B, "conv_stft (FE_B widths)", True),
+            ("fastenhancer.dptransformer", DPT_B, "DPT-B", False),
+            ("fastenhancer.dprnn", DPRNN_B, "DPRNN-B", True),
+            ("fastenhancer.ln", LN_B, "LN_B", True),
+            ("fastenhancer.time_kernel", TIME_KERNEL_B, "TIME_KERNEL_B",
+             True),
+            ("bsrnn", BSRNN_S, "BSRNN-S", False)):
+        model = get_model(name, **kwargs, stft_method="matmul")
+        hop = model.hop_size
+        g = torch.Generator().manual_seed(0)
+        variables = model.init(g, device=dev)
+        if name == "fastenhancer.ln":
+            variables["params"] = vary_norms(variables["params"], g)
+        folded = model.fold(variables)
+        frames = int(FAMILY_SECONDS * SR) // hop // 4 * 4
+        audio_s = frames * hop / SR
+        wav = (torch.randn(STREAMS, frames * hop, generator=g) * 0.05).to(dev)
+        n = model.num_blocks * frames // 4 if has_gru else 0
+        _, wall = run_stream(model, cast_floating(folded, torch.bfloat16),
+                             wav.to(torch.bfloat16), 4, n, n,
+                             f"{tag} chunked bf16")
+        y4, _ = run_stream(model, folded, wav, 4, n, 0,
+                           f"{tag} chunked float32")
+        y1 = model.stream(folded, wav)
+        f32_err = max_err(y4, y1)
+        f32_tol = F32_OUT_REL * y1.abs().max().item()
+        _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
+                                   f"{f32_err:.3e} > {f32_tol:.3e}")
+        print(f"[17/18] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+              f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
+              f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
+              f"gru_scan launches {n} ({'one a block a chunk, all its '
+              'tensor-core form' if has_gru else 'no time GRU'}), no other "
+              f"kernel; float32 chunked vs the per-frame unfused stream max "
+              f"abs err {f32_err:.3e} (tol {f32_tol:.3e} = {F32_OUT_REL:g} of "
+              f"the output peak {y1.abs().max().item():.3e}); on {card}")
+
+    # -- 18. noncausal offline ------------------------------------------------
+    model = get_model("fastenhancer.noncausal", **NONCAUSAL_HUGE)
+    variables = model.init(torch.Generator().manual_seed(0), device=dev)
+    folded = model.fold(variables)
+    folded_bf16 = cast_floating(folded, torch.bfloat16)
+    g = torch.Generator().manual_seed(8)
+    wav = (torch.randn(NC_STREAMS, int(NC_SECONDS * SR), generator=g)
+           * 0.05).to(dev, torch.bfloat16)
+    model.forward(folded_bf16, wav[:, :SR // 2])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    y, spec_hat, _ = model.forward(folded_bf16, wav)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = 2 * model.num_blocks
+    check_launches(read_counts(), "gru_scan", n, "noncausal forward")
+    _check(tuple(y.shape) == tuple(wav.shape)
+           and bool(torch.isfinite(y).all()), "noncausal output")
+    _check(spec_hat.shape[2] == nc_frames,
+           f"noncausal frames {spec_hat.shape[2]} != 3g's {nc_frames}")
+    fwd_ms, fwd_host_ms = time_ms(lambda: model.forward(folded_bf16, wav),
+                                  reps=3, inner=2)
+    # the bf16 forward (the GRU scan's tensor-core form in its model)
+    # against the float32 forward on the card, on the same input
+    y32, _, _ = model.forward(folded, wav.float())
+    bf_peak = y32.abs().max().item()
+    bf_err = max_err(y, y32)
+    _check(bf_err <= BF16_REL * bf_peak, f"noncausal bf16 vs float32: "
+                                         f"{bf_err:.3e} > "
+                                         f"{BF16_REL * bf_peak:.3e}")
+    wav32 = (torch.randn(2, SR // 2, generator=g) * 0.05)
+    want, _, _ = model.forward(tree_map(lambda a: a.cpu(), variables), wav32)
+    got, _, _ = model.forward(variables, wav32.to(dev))
+    nc_err = max_err(got.cpu(), want)
+    nc_peak = want.abs().max().item()
+    _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
+                                            f"CPU: {nc_err:.3e} > "
+                                            f"{F32_OUT_REL * nc_peak:.3e}")
+    print(f"[18/18] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+          f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
+          f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
+          f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
+          f"ms for the first timed forward, {fwd_ms:.3f} ms on the device "
+          f"(CUDA events), {fwd_host_ms:.3f} ms with the host's dispatch; "
+          f"bf16 vs the float32 forward on the card max abs err "
+          f"{bf_err:.3e} (tol {BF16_REL * bf_peak:.3e} = 2^-5 of the output "
+          f"peak {bf_peak:.3e}); float32 forward on 2 x 0.5 s card vs the "
+          f"CPU's plain path max abs err {nc_err:.3e} (tol "
+          f"{F32_OUT_REL * nc_peak:.3e} = {F32_OUT_REL:g} of the output peak "
+          f"{nc_peak:.3e}); on {card}")
 
     sources = {
         "rnnformer_stack_step": ("rnnformer_stack", "rnnformer_stack.py:394"),

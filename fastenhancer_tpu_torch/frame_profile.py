@@ -7,7 +7,11 @@ FastEnhancer_B through the whole-frame kernel (`streaming_step_fused_frame`),
 DPT-B, BSRNN-S and DPRNN-B through their stack kernels, and the ln
 ablation's LN_B through the block stack's LN form (`streaming_step_fused`
 each), all bfloat16 with folded random-init weights,
-over 256 streams and 20 frames; and for the shard recipe's FE-T
+over 256 streams and 20 frames; FastEnhancer_B's chunked stream
+(`streaming_chunk` of 4 and of 8 frames, each block's time GRU one GRU-scan
+launch a chunk) over 256 streams and 20 chunks, per frame; the noncausal
+model at the huge recipe's widths (`presets.NONCAUSAL_HUGE`), one offline
+`forward` of 4 streams x 4 s, per forward; and for the shard recipe's FE-T
 (`presets.FE_T_SHARD`) a train step (the mix and the bf16 step) at
 32 x 4 s over 3 steps and a valid step at 64 x 2 s over 20 steps, it
 prints per frame or step:
@@ -31,7 +35,8 @@ import torch
 from . import require_cuda
 from .data import ShardBatch
 from .models import get_model
-from .presets import BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD, LN_B
+from .presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD, LN_B,
+                      NONCAUSAL_HUGE)
 from .utils import cast_floating
 from .wrappers import get_wrapper
 
@@ -51,8 +56,11 @@ def _device_us(event) -> float:
 
 def profile_path(name: str, step: tp.Callable, carry,
                  hops: tp.Sequence[tp.Any], frames: int = FRAMES,
-                 warmup: int = 5, unit: str = "frame") -> None:
-    """Warm up, time `frames` steps on the host clock, then profile them."""
+                 warmup: int = 5, unit: str = "frame",
+                 per_step: int = 1) -> None:
+    """Warm up, time `frames` steps on the host clock, then profile them;
+    each step is `per_step` units (the frames of a chunk), and the numbers
+    are printed per unit."""
     def run(carry, n):
         for i in range(n):
             carry, _ = step(carry, hops[i % len(hops)])
@@ -63,12 +71,14 @@ def profile_path(name: str, step: tp.Callable, carry,
     t0 = time.perf_counter()
     carry = run(carry, frames)
     torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / frames
+    wall_s = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run(carry, frames)
         torch.cuda.synchronize()
+    frames *= per_step  # the units the steps cover
+    wall_ms = 1e3 * wall_s / frames
     # a record_function range (torch.optim's "Optimizer.step#...") also
     # shows on the device's track; it is not a kernel, so it is left out
     kernels = [e for e in prof.key_averages()
@@ -124,6 +134,33 @@ def profile_training(dev: torch.device) -> None:
                  unit="step")
 
 
+def profile_chunks_and_noncausal(dev: torch.device) -> None:
+    """FE_B's chunked stream (4 and 8 frames a chunk) per frame, and the
+    huge noncausal model's offline forward, bf16."""
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    model = get_model("fastenhancer.default", **FE_B, stft_method="matmul")
+    folded = cast_floating(model.fold(model.init(g, dev)), dt)
+    for c in (4, 8):
+        chunks = (torch.randn(4, STREAMS, c * model.hop_size, generator=g)
+                  * 0.05).to(dev, dt)
+        profile_path(
+            f"FE_B streaming_chunk of {c} frames, {STREAMS} streams, bf16",
+            lambda carry, x: model.streaming_chunk(folded, carry, x),
+            model.init_streaming_carry(STREAMS, dt, dev), chunks,
+            per_step=c)
+    model = get_model("fastenhancer.noncausal", **NONCAUSAL_HUGE)
+    variables = cast_floating(model.fold(model.init(g, dev)), dt)
+    wav = (torch.randn(4, 64_000, generator=g) * 0.05).to(dev, dt)
+
+    def forward(carry, x):
+        model.forward(variables, x)
+        return carry, None
+
+    profile_path("noncausal NONCAUSAL_HUGE forward, 4 x 4 s, bf16", forward,
+                 None, [wav], frames=5, warmup=2, unit="forward")
+
+
 def main() -> None:
     dev = require_cuda()
     dt = torch.bfloat16
@@ -151,6 +188,7 @@ def main() -> None:
                 f"{tag} {step_name}, {STREAMS} streams, bf16",
                 lambda c, x, step=step, plan=plan: step(folded, plan, c, x),
                 carry, hops)
+    profile_chunks_and_noncausal(dev)
     profile_training(dev)
 
 

@@ -15,6 +15,8 @@ from .stft import (
     init_istft_carry,
     stft_streaming_step,
     istft_streaming_step,
+    stft_streaming_chunk,
+    istft_streaming_chunk,
 )
 
 __all__ = [
@@ -22,4 +24,5 @@ __all__ = [
     "frame_signal", "overlap_add", "stft", "istft", "compress", "uncompress",
     "compressed_stft", "compressed_istft", "init_stft_carry",
     "init_istft_carry", "stft_streaming_step", "istft_streaming_step",
+    "stft_streaming_chunk", "istft_streaming_chunk",
 ]

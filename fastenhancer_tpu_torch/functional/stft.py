@@ -6,7 +6,10 @@ dtype contract:
 * offline `stft` / `istft` over whole utterances (used by `Model.forward`);
 * magnitude compression `compress` / `uncompress`;
 * single-hop streaming `stft_streaming_step` / `istft_streaming_step` with
-  explicit rolling carries.
+  explicit rolling carries, and their multi-hop forms
+  `stft_streaming_chunk` / `istft_streaming_chunk` (C hops at once, one
+  batched DFT over the C frames), which the models' streaming steps run,
+  a single hop as C = 1.
 
 Each transform has an `fft` form (torch.fft) and a `matmul` form (one
 windowed-DFT matrix product). The DFT always runs in float32 whatever the
@@ -191,6 +194,8 @@ def overlap_add(frames: Tensor, hop: int) -> Tensor:
     """[B, T, n_fft] -> [B, (T-1)*hop + n_fft] overlap-add at stride `hop`."""
     b, t, n_fft = frames.shape
     out_len = (t - 1) * hop + n_fft
+    if t == 1:
+        return frames[:, 0]
     if n_fft % hop == 0:
         k = n_fft // hop
         chunks = frames.reshape(b, t, k, hop)
@@ -219,7 +224,13 @@ def _center_pad(x: Tensor, pad: int, mode: str) -> Tensor:
 def _dft(frames: Tensor, cfg: STFTConfig) -> tp.Tuple[Tensor, Tensor]:
     """float32 frames [..., n_fft] -> (re, im) [..., n_freq]."""
     if cfg.method == "matmul":
-        spec = frames @ cfg.tensor("dft_matrix", frames.device)
+        # one 2-D product: frames that are an unfold view (strided rows)
+        # would otherwise go to a batched product, one small GEMM (or a
+        # GEMV at one frame) per row of the batch
+        lead = frames.shape[:-1]
+        spec = (frames.reshape(-1, frames.shape[-1])
+                @ cfg.tensor("dft_matrix", frames.device))
+        spec = spec.reshape(*lead, spec.shape[-1])
         return spec[..., :cfg.n_freq], spec[..., cfg.n_freq:]
     z = torch.fft.rfft(frames * cfg.tensor("window_f32", frames.device),
                        dim=-1)
@@ -373,3 +384,40 @@ def istft_streaming_step(spec: Tensor, carry: Tensor,
     out = frame[:, :cfg.hop_size]
     new_carry = frame[:, -cfg.cache_len:]
     return out.to(in_dtype), new_carry.to(in_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Streaming (C hops per step)
+# ---------------------------------------------------------------------------
+
+def stft_streaming_chunk(x: Tensor, carry: Tensor,
+                         cfg: STFTConfig) -> tp.Tuple[Tensor, Tensor]:
+    """C analysis hops. x: [B, hop*C], carry: [B, n_fft-hop] ->
+    (spec [B, n_freq, C, 2], new_carry): the same frames as C single-hop
+    steps, with the DFT as one batched product (or FFT) over all C."""
+    buf = torch.cat([carry, x], dim=1)
+    new_carry = buf[:, -cfg.cache_len:]
+    frames = frame_signal(buf.float(), cfg.n_fft, cfg.hop_size)  # [B, C, n]
+    re, im = _dft(frames, cfg)
+    out = torch.stack([re, im], dim=-1).transpose(1, 2)  # [B, n_freq, C, 2]
+    return out.to(x.dtype), new_carry
+
+
+def istft_streaming_chunk(spec: Tensor, carry: Tensor,
+                          cfg: STFTConfig) -> tp.Tuple[Tensor, Tensor]:
+    """C synthesis hops. spec: [B, n_freq, C, 2], carry: [B, n_fft-hop] ->
+    (wav [B, hop*C], new_carry): the C frames overlap-added at once, the
+    carry added to the first cache_len samples; the same output as C
+    single-hop steps."""
+    c = spec.shape[2]
+    specf = spec.float()
+    re = specf[..., 0].transpose(1, 2)  # [B, C, n_freq]
+    im = specf[..., 1].transpose(1, 2)
+    frames = _idft(re, im, cfg)  # [B, C, n_fft]
+    frames = frames * cfg.tensor("synthesis_window", frames.device)
+    y = overlap_add(frames, cfg.hop_size)  # [B, (C-1)*hop + n_fft]
+    y = torch.cat([y[:, :cfg.cache_len] + carry.float(),
+                   y[:, cfg.cache_len:]], dim=1)
+    out = y[:, :c * cfg.hop_size]
+    new_carry = y[:, c * cfg.hop_size:]
+    return out.to(spec.dtype), new_carry.to(spec.dtype)

@@ -105,7 +105,8 @@ def _make(name: str, kwargs: tp.Dict[str, tp.Any]
         return "wav", ConsistencyLoss(**kwargs).items
     if name == "pesq":
         raise NotImplementedError("the pesq loss is not ported yet (ROADMAP "
-                                  "queue 1 item 10: pesq_loss.py)")
+                                  'queue 1, "Training, end to end on one '
+                                  'card": pesq_loss.py)')
     raise ValueError(f"unknown loss: {name}")
 
 

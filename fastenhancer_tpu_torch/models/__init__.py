@@ -1,10 +1,11 @@
 """Model registry: `get_model(name, **model_kwargs)`.
 
-The port has FastEnhancer's default model, its conv_stft variant, its
-dptransformer, dprnn, ln and time_kernel ablations, and the BSRNN
-baseline; every other name of the JAX package's registry
-(fastenhancer_tpu/models/__init__.py) raises NotImplementedError until its
-port lands (ROADMAP queue 1).
+The port has every FastEnhancer model (the default, its conv_stft variant,
+its dptransformer, dprnn, ln and time_kernel ablations, and the offline
+noncausal variant) and the BSRNN baseline; the other names of the JAX
+package's registry (fastenhancer_tpu/models/__init__.py), fspen and
+lisennet, raise NotImplementedError until their port lands (ROADMAP queue
+1, "The baselines").
 """
 import typing as tp
 
@@ -14,6 +15,7 @@ from .fastenhancer import default as _fastenhancer_default
 from .fastenhancer import dprnn as _fastenhancer_dprnn
 from .fastenhancer import dptransformer as _fastenhancer_dptransformer
 from .fastenhancer import ln as _fastenhancer_ln
+from .fastenhancer import noncausal as _fastenhancer_noncausal
 from .fastenhancer import time_kernel as _fastenhancer_time_kernel
 
 _MODELS = {
@@ -23,6 +25,7 @@ _MODELS = {
     "fastenhancer.ln": _fastenhancer_ln.Model,
     "fastenhancer.time_kernel": _fastenhancer_time_kernel.Model,
     "fastenhancer.conv_stft": _fastenhancer_conv_stft.Model,
+    "fastenhancer.noncausal": _fastenhancer_noncausal.Model,
     "bsrnn": _bsrnn.Model,
 }
 

@@ -18,10 +18,12 @@ conv and LSTM input weights; folded and unfolded trees run through the same
 code. Streaming carries each layer's time-LSTM (h, c): a list of (h, c)
 [B*F', 2C] (rows batch-major), or stacked [L, 2, F', B, 2C] (rows
 frequency-major) for `streaming_step_fused`, which runs the layer stack as
-one CUDA kernel per frame (ops/bsrnn_stack.py).
+one CUDA kernel per frame (ops/bsrnn_stack.py). `streaming_chunk` (and
+`stream(chunk_frames=C)`) runs C hops a step, the network time-batched over
+the chunk and each time LSTM over the C frames from its carried (h, c).
 
-Not ported yet (each raises NotImplementedError): training mode
-(train-mode BN and its row mask) and chunked streaming.
+Not ported yet (raises NotImplementedError): training mode (train-mode BN
+and its row mask).
 """
 from __future__ import annotations
 
@@ -36,12 +38,13 @@ from ..functional import (
     uncompress,
     compressed_stft,
     compressed_istft,
-    stft_streaming_step,
-    istft_streaming_step,
+    stft_streaming_chunk,
+    istft_streaming_chunk,
     init_stft_carry,
     init_istft_carry,
 )
 from ..ops.bsrnn_stack import bsrnn_stack_step, plan_band_stack
+from .streaming import stream_hops
 
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
@@ -50,10 +53,9 @@ SUBBANDS_512 = [2, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
                 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
                 16, 16, 16, 16, 16, 16, 16, 17]  # sum == 257
 
-_TRAIN_TODO = ("training mode is not ported yet (ROADMAP queue 1 item 10: "
-               "train-mode BatchNorm and its row mask)")
-_CHUNK_TODO = ("chunked streaming is not ported yet (ROADMAP queue 1 "
-               "item 4: stream(chunk_frames>1), streaming_chunk)")
+_TRAIN_TODO = ('training mode is not ported yet (ROADMAP queue 1, "Training, '
+               'end to end on one card": train-mode BatchNorm and its row '
+               "mask)")
 
 
 class Model(torch.nn.Module):
@@ -314,25 +316,26 @@ class Model(torch.nn.Module):
                 "istft": init_istft_carry(self.stft_cfg, batch, dtype, device),
                 "h": h}
 
-    def _stream_front(self, carry: Params, wav_hop: Tensor
+    def _stream_front(self, carry: Params, wav: Tensor
                       ) -> tp.Tuple[Tensor, Tensor]:
-        """STFT step + compress (all 257 bins) -> (spec [B, F, 1, 2], new
-        stft cache)."""
-        spec, stft_c = stft_streaming_step(wav_hop, carry["stft"],
-                                           self.stft_cfg)
-        return compress(spec[:, :, None, :], self.input_compression), stft_c
+        """STFT of C hops (wav [B, hop*C]) + compress (all 257 bins) ->
+        (spec [B, F, C, 2], new stft cache)."""
+        spec, stft_c = stft_streaming_chunk(wav, carry["stft"], self.stft_cfg)
+        return compress(spec, self.input_compression), stft_c
 
     def _stream_back(self, spec_hat: Tensor, carry: Params, stft_c: Tensor,
                      h) -> tp.Tuple[Params, Tensor]:
-        spec_hat = uncompress(spec_hat, self.input_compression)[:, :, 0, :]
-        wav_out, istft_c = istft_streaming_step(spec_hat, carry["istft"],
-                                                self.stft_cfg)
+        """Uncompress + iSTFT of the C frames; h is the new carry's "h"."""
+        wav_out, istft_c = istft_streaming_chunk(
+            uncompress(spec_hat, self.input_compression), carry["istft"],
+            self.stft_cfg)
         return {"stft": stft_c, "istft": istft_c, "h": h}, wav_out
 
     def streaming_step(self, variables: Params, carry: Params,
                        wav_hop: Tensor) -> tp.Tuple[Params, Tensor]:
         """One hop: wav_hop [B, hop] -> (new_carry, wav_out [B, hop]); the
-        output is delayed n_fft - hop samples."""
+        output is delayed n_fft - hop samples. Given C hops [B, hop*C] it is
+        `streaming_chunk`."""
         spec, stft_c = self._stream_front(carry, wav_hop)
         spec_hat, h_out, _ = self.model_forward(
             variables["params"], variables["stats"], spec, h0=carry["h"])
@@ -340,7 +343,10 @@ class Model(torch.nn.Module):
 
     def streaming_chunk(self, variables: Params, carry: Params,
                         wav_chunk: Tensor) -> tp.Tuple[Params, Tensor]:
-        raise NotImplementedError(_CHUNK_TODO)
+        """C hops: wav_chunk [B, hop*C] -> (new_carry, wav_out [B, hop*C]),
+        the math of C single-hop steps with the network time-batched over
+        the chunk. The carry is init_streaming_carry()'s (fused=False)."""
+        return self.streaming_step(variables, carry, wav_chunk)
 
     # -- fused-stack streaming (CUDA kernel) -------------------------------------
 
@@ -374,25 +380,12 @@ class Model(torch.nn.Module):
 
     def stream(self, variables: Params, wav: Tensor, chunk_frames: int = 1,
                fused_plan: tp.Optional[Params] = None) -> Tensor:
-        """Whole-utterance streaming, one hop per step.
-        wav [B, hop*T] -> [B, hop*T]; `fused_plan` (build_stack_plan() of
-        folded variables) runs the layer stack as one kernel per frame."""
-        if chunk_frames != 1:
-            raise NotImplementedError(_CHUNK_TODO)
-        b, length = wav.shape
-        hop = self.hop_size
-        carry = self.init_streaming_carry(b, wav.dtype, wav.device,
-                                          fused=fused_plan is not None)
-        outs = []
-        for i in range(length // hop):
-            x = wav[:, i * hop:(i + 1) * hop]
-            if fused_plan is None:
-                carry, y = self.streaming_step(variables, carry, x)
-            else:
-                carry, y = self.streaming_step_fused(variables, fused_plan,
-                                                     carry, x)
-            outs.append(y)
-        return torch.cat(outs, dim=1) if outs else wav[:, :0]
+        """Whole-utterance streaming, one hop per step, or C hops per step
+        with chunk_frames=C (the tail cut to a multiple of C).
+        wav [B, hop*T] -> [B, hop*T']; `fused_plan` (build_stack_plan() of
+        folded variables) runs the layer stack as one kernel per frame and
+        takes one hop per step (ValueError with chunk_frames > 1)."""
+        return stream_hops(self, variables, wav, chunk_frames, fused_plan)
 
     # -- deploy-time folding -------------------------------------------------------
 

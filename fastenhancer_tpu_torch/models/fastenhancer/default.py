@@ -16,11 +16,13 @@ statistics. The offline eval forward runs each block's time GRU as one
 RNNFormer block stack as one CUDA kernel (ops/rnnformer_stack.py) on folded
 variables: the serving and benchmark path of FastEnhancer_B.
 `streaming_step_fused_frame` runs the whole spec->mask model as one CUDA
-kernel (ops/fused_frame.py).
+kernel (ops/fused_frame.py). `streaming_chunk` (and `stream(chunk_frames=C)`)
+is the throughput form of streaming: C hops a step, the network
+time-batched over the chunk and each block's time GRU one `gru_scan` launch
+over the C frames from the carried state.
 
-Not ported yet (each raises NotImplementedError): `train.remat` (gradient
-checkpointing; ROADMAP queue 1 item 10) and chunked streaming
-(`stream(chunk_frames>1)`, `streaming_chunk`; ROADMAP queue 1 item 4).
+Not ported yet (raises NotImplementedError): `train.remat` (gradient
+checkpointing; ROADMAP queue 1, "Training, end to end on one card").
 
 Architecture: complex spectrogram [B, F, T, 2] -> strided "reshape-trick"
 conv encoder over frequency -> frequency resampling -> K RNNFormer blocks
@@ -43,8 +45,8 @@ from ...functional import (
     uncompress,
     compressed_stft,
     compressed_istft,
-    stft_streaming_step,
-    istft_streaming_step,
+    stft_streaming_chunk,
+    istft_streaming_chunk,
     init_stft_carry,
     init_istft_carry,
 )
@@ -52,16 +54,17 @@ from ...ops.fused_frame import fused_frame_step, plan_frame
 from ...ops.gru_scan import gru_fused
 from ...ops.rnnformer_stack import plan_stack, rnnformer_stack_step
 from ...utils.tree import tree_map, tree_paths
+from ..streaming import stream_hops
 
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
 
 _TRAIN_TODO = ("training mode of this model is not ported yet (ROADMAP "
-               "queue 1 item 10)")
+               'queue 1, "Training, end to end on one card": training of '
+               "the other families)")
 _REMAT_TODO = ("train.remat (gradient checkpointing, torch.utils.checkpoint) "
-               "is not ported yet (ROADMAP queue 1 item 10)")
-_CHUNK_TODO = ("chunked streaming is not ported yet (ROADMAP queue 1 "
-               "item 4: stream(chunk_frames>1), streaming_chunk)")
+               'is not ported yet (ROADMAP queue 1, "Training, end to end on '
+               'one card")')
 
 
 def _wn_suffix(torch_weight_name: str, sub: tp.Optional[str]) -> str:
@@ -405,17 +408,15 @@ class Model(torch.nn.Module):
         residuals."""
         rf = self.rf
         ch = rf.channels
-        rnn = fnn.init_gru(g, ch, ch, dev)
+        rnn, rnn_out = self._time_rnn_init(g, ch, dev)
         attn = fnn.init_attention(g, ch, rf.attn_bias, dev)
         if self.weight_norm:
-            rnn["weight_ih"] = fnn.to_wn(rnn["weight_ih"])
-            rnn["weight_hh"] = fnn.to_wn(rnn["weight_hh"])
             attn["qkv"]["weight"] = fnn.to_wn(attn["qkv"]["weight"])
         bn_rnn_p, bn_rnn_s = fnn.init_batch_norm(ch, dev)
         bn_attn_p, bn_attn_s = fnn.init_batch_norm(ch, dev)
         bp: Params = {
             "rnn": rnn,
-            "rnn_fc": fnn.torch_linear_init(g, ch, ch, False, dev),
+            "rnn_fc": fnn.torch_linear_init(g, ch, rnn_out, False, dev),
             "rnn_post_norm": bn_rnn_p,
             "attn": attn,
             "attn_fc": fnn.torch_linear_init(g, ch, ch, False, dev),
@@ -429,6 +430,39 @@ class Model(torch.nn.Module):
             bp["pe"] = {"weight": torch.from_numpy(
                 positional_embedding(ch, rf.freq)).to(dev)}
         return bp, bs
+
+    # -- the blocks' time RNN: the hooks a variant with another RNN overrides
+
+    def _time_rnn_init(self, g: torch.Generator, ch: int,
+                       dev: torch.device) -> tp.Tuple[Params, int]:
+        """-> (the time GRU's params, the width rnn_fc reads)."""
+        rnn = fnn.init_gru(g, ch, ch, dev)
+        if self.weight_norm:
+            rnn["weight_ih"] = fnn.to_wn(rnn["weight_ih"])
+            rnn["weight_hh"] = fnn.to_wn(rnn["weight_hh"])
+        return rnn, ch
+
+    def _time_rnn_apply(self, p: Params, y: Tensor, h0: tp.Optional[Tensor],
+                        train: bool) -> tp.Tuple[Tensor, Tensor]:
+        """y [T, N, C] -> (ys [T, N, width rnn_fc reads], h_T [N, C]). In
+        eval one gru_scan launch (ops/gru_scan.py); in training nn.gru's
+        differentiable loop, as the JAX package keeps lax.scan for
+        training."""
+        if h0 is None:
+            h0 = y.new_zeros(y.shape[1:])
+        gru = fnn.gru if train else gru_fused
+        return gru(p, y, h0)
+
+    def _time_rnn_fold(self, rnn: Params, pre_norm: tp.Optional[Params]
+                       ) -> Params:
+        """Strip weight norm; fold the pre-norm statistics `pre_norm` (None
+        without pre-norms) into the input weights."""
+        rnn = {k: (fnn.maybe_wn_weight(rnn, k) if k.startswith("weight")
+                   else rnn[k])
+               for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+        if pre_norm is None:
+            return rnn
+        return fold_prenorm_into_rnn(rnn, pre_norm, self.rf.eps)
 
     # -- row mask -> BN inclusion weights ------------------------------------
 
@@ -610,11 +644,9 @@ class Model(torch.nn.Module):
                      h0: tp.Optional[Tensor],
                      train_stats: tp.Optional[Params] = None
                      ) -> tp.Tuple[Tensor, Tensor]:
-        """x: [T, B, F', C] -> (x, h_T [B*F', C]). In eval mode the time GRU
-        is one gru_scan launch (ops/gru_scan.py). With `train_stats` (a copy
-        of s) the BNs run in train mode and write their new statistics
-        there, and the time GRU is nn.gru's differentiable loop, as the JAX
-        package keeps lax.scan for training."""
+        """x: [T, B, F', C] -> (x, h_T [B*F', C]); the time RNN is
+        `_time_rnn_apply`. With `train_stats` (a copy of s) the BNs run in
+        train mode and write their new statistics there."""
         rf = self.rf
         t, b, f, c = x.shape
         train = train_stats is not None
@@ -632,11 +664,9 @@ class Model(torch.nn.Module):
         y = x
         if s and "rnn_pre_norm" in s:
             y = bn(None, "rnn_pre_norm", y)
-        if h0 is None:
-            h0 = x.new_zeros(b * f, c)
-        gru = fnn.gru if train else gru_fused
-        y, h_t = gru(p["rnn"], y.reshape(t, b * f, c), h0)
-        y = fnn.linear(p["rnn_fc"], y.reshape(t, b, f, c))
+        y, h_t = self._time_rnn_apply(p["rnn"], y.reshape(t, b * f, c), h0,
+                                      train)
+        y = fnn.linear(p["rnn_fc"], y.reshape(t, b, f, -1))
         if p.get("rnn_post_norm") is not None:
             y = bn(p["rnn_post_norm"], "rnn_post_norm", y)
         if rf.post_act:
@@ -721,32 +751,31 @@ class Model(torch.nn.Module):
         return torch.zeros(batch * self.block_freq, self.block_channels,
                            dtype=dtype, device=device)
 
-    def _stream_front(self, carry: Params, wav_hop: Tensor
+    def _stream_front(self, carry: Params, wav: Tensor
                       ) -> tp.Tuple[Tensor, Tensor]:
-        """STFT step + last-bin drop + compress -> (spec [B, F, 1, 2],
-        new stft cache)."""
-        spec, stft_c = stft_streaming_step(wav_hop, carry["stft"],
-                                           self.stft_cfg)
-        return (compress(spec[:, :-1, None, :], self.input_compression),
-                stft_c)
+        """STFT of C hops (wav [B, hop*C]) + last-bin drop + compress ->
+        (spec [B, F, C, 2], new stft cache)."""
+        spec, stft_c = stft_streaming_chunk(wav, carry["stft"], self.stft_cfg)
+        return compress(spec[:, :-1], self.input_compression), stft_c
 
     def _stream_back(self, spec: Tensor, mask: Tensor, carry: Params,
                      stft_c: Tensor, h_t) -> tp.Tuple[Params, Tensor]:
-        """Mask multiply + uncompress + last-bin re-append + iSTFT step.
-        h_t becomes the new carry's "h" (None for a variant that keeps its
-        block state under other keys)."""
-        spec_hat = self.complex_mask_mul(spec, mask)
-        spec_hat = uncompress(spec_hat, self.input_compression)[:, :, 0, :]
+        """Mask multiply + uncompress + last-bin re-append + iSTFT of the C
+        frames. h_t becomes the new carry's "h" (None for a variant that
+        keeps its block state under other keys)."""
+        spec_hat = uncompress(self.complex_mask_mul(spec, mask),
+                              self.input_compression)
         spec_hat = torch.cat([spec_hat, torch.zeros_like(spec_hat[:, :1])],
                              dim=1)
-        wav_out, istft_c = istft_streaming_step(spec_hat, carry["istft"],
-                                                self.stft_cfg)
+        wav_out, istft_c = istft_streaming_chunk(spec_hat, carry["istft"],
+                                                 self.stft_cfg)
         return {"stft": stft_c, "istft": istft_c, "h": h_t}, wav_out
 
     def streaming_step(self, variables: Params, carry: Params,
                        wav_hop: Tensor) -> tp.Tuple[Params, Tensor]:
         """One hop: wav_hop [B, hop] -> (new_carry, wav_out [B, hop]); the
-        output is delayed n_fft - hop samples."""
+        output is delayed n_fft - hop samples. Given C hops [B, hop*C] it is
+        `streaming_chunk`."""
         spec, stft_c = self._stream_front(carry, wav_hop)
         mask, h_t, _ = self.model_forward(variables["params"],
                                           variables["stats"], spec,
@@ -755,7 +784,13 @@ class Model(torch.nn.Module):
 
     def streaming_chunk(self, variables: Params, carry: Params,
                         wav_chunk: Tensor) -> tp.Tuple[Params, Tensor]:
-        raise NotImplementedError(_CHUNK_TODO)
+        """C hops: wav_chunk [B, hop*C] -> (new_carry, wav_out [B, hop*C]),
+        the math of C single-hop steps with the encoder, decoder and
+        attention time-batched over the chunk and each block's time GRU one
+        gru_scan over the C frames from the carried state (which it keeps
+        in float32 over the chunk). The carry is init_streaming_carry()'s
+        (fused=False)."""
+        return self.streaming_step(variables, carry, wav_chunk)
 
     # -- fused-stack streaming (CUDA kernel) -------------------------------------
 
@@ -830,26 +865,14 @@ class Model(torch.nn.Module):
 
     def stream(self, variables: Params, wav: Tensor, chunk_frames: int = 1,
                fused_plan: tp.Optional[Params] = None) -> Tensor:
-        """Whole-utterance streaming, one hop per step.
-        wav [B, hop*T] -> [B, hop*T]; `fused_plan` (build_stack_plan() of
-        folded variables) runs the block stack as one kernel per frame."""
-        if chunk_frames != 1:
-            raise NotImplementedError(_CHUNK_TODO)
-        b, length = wav.shape
-        hop = self.hop_size
-        t = length // hop
-        carry = self.init_streaming_carry(b, wav.dtype, wav.device,
-                                          fused=fused_plan is not None)
-        outs = []
-        for i in range(t):
-            x = wav[:, i * hop:(i + 1) * hop]
-            if fused_plan is None:
-                carry, y = self.streaming_step(variables, carry, x)
-            else:
-                carry, y = self.streaming_step_fused(variables, fused_plan,
-                                                     carry, x)
-            outs.append(y)
-        return torch.cat(outs, dim=1) if outs else wav[:, :0]
+        """Whole-utterance streaming. wav [B, hop*T] -> [B, hop*T'].
+        One hop per step (T' = T), or with chunk_frames=C > 1 one
+        `streaming_chunk` of C hops per step, the tail cut to a multiple of
+        C (T' = (T // C) * C), as the JAX package does. `fused_plan`
+        (build_stack_plan() of folded variables) runs the block stack as one
+        kernel per frame; it takes one hop per step (ValueError with
+        chunk_frames > 1)."""
+        return stream_hops(self, variables, wav, chunk_frames, fused_plan)
 
     # -- deploy-time folding -----------------------------------------------------
 
@@ -908,9 +931,8 @@ class Model(torch.nn.Module):
         """Fold one block: post-BN into the fc, pre-norm into GRU/QKV
         inputs."""
         eps = self.rf.eps
-        rnn = {k: (fnn.maybe_wn_weight(bp["rnn"], k) if k.startswith("weight")
-                   else bp["rnn"][k])
-               for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+        rnn = self._time_rnn_fold(bp["rnn"], bs.get("rnn_pre_norm")
+                                  if self.rf.pre_norm else None)
         qkv_w = fnn.maybe_wn_weight(bp["attn"]["qkv"], "weight")
         qkv = {"weight": qkv_w}
         if "bias" in bp["attn"]["qkv"]:
@@ -929,7 +951,6 @@ class Model(torch.nn.Module):
             beta = -st["mean"] / std
             qkv_bias = qkv.get("bias", qkv_w.new_zeros(qkv_w.shape[0]))
             qkv = {"weight": qkv_w / std, "bias": qkv_bias + qkv_w @ beta}
-            rnn = fold_prenorm_into_rnn(rnn, bs["rnn_pre_norm"], eps)
         nb["rnn"] = rnn
         nb["attn"] = {"qkv": qkv}
         if "pe" in bp:

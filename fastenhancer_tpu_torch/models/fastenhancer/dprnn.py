@@ -9,16 +9,19 @@ frequency filterbank uses the absolute-Hz grid with linear or mel init
 (:251-313). The streaming carry is the time GRU's hidden state only; the
 frequency GRU runs within one frame.
 
-Two streaming forms:
+Three streaming forms:
 * `streaming_step` (inherited): each block's carry [B*F', C], rows
   batch-major, as the JAX package's XLA path;
+* `streaming_chunk` (inherited), C frames a step on the same carry;
 * `streaming_step_fused`, on folded variables: the whole block stack is one
   CUDA kernel per frame (ops/dprnn_stack.py) over stacked frequency-major
-  carries [NB, F', B, C].
+  carries [NB, F', B, C]; it takes one frame a step (stream raises
+  ValueError with a plan and chunk_frames > 1, as the JAX package does).
 
-Not ported yet (each raises NotImplementedError): training mode (the
-default model's trains; this one's block keeps its eval-only time GRU) and
-chunked streaming.
+Outside the fused stack the time GRU is one gru_scan launch per block, as
+in the default model's eval forward. Not ported yet (raises
+NotImplementedError): training mode (the default model's trains; this
+one's block is eval-only).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from ... import nn as fnn
 from ...functional import init_istft_carry, init_stft_carry
 from ...ops.dprnn_stack import dprnn_stack_step, plan_dprnn_stack
+from ...ops.gru_scan import gru_fused
 from .default import (Model as DefaultModel, Params, Tensor, _TRAIN_TODO,
                       fold_fc_bn, fold_prenorm_into_rnn)
 from .dptransformer import set_ablation_filterbanks
@@ -141,8 +145,9 @@ class Model(DefaultModel):
 
     def _block_apply(self, p: Params, s: Params, x: Tensor,
                      h0: tp.Optional[Tensor]) -> tp.Tuple[Tensor, Tensor]:
-        """x: [T, B, F', C] -> (x, h_T [B*F', C]); eval mode (reference:
-        models/fastenhancer/dprnn/model.py:227-246)."""
+        """x: [T, B, F', C] -> (x, h_T [B*F', C]); eval mode, the time GRU
+        one gru_scan launch (reference: models/fastenhancer/dprnn/
+        model.py:227-246)."""
         dp = self.dp
         t, b, f, c = x.shape
         # --- time GRU ---
@@ -152,7 +157,7 @@ class Model(DefaultModel):
                                   eps=dp.eps)
         if h0 is None:
             h0 = x.new_zeros(b * f, c)
-        y, h_t = fnn.gru(p["trnn"], y.reshape(t, b * f, c), h0)
+        y, h_t = gru_fused(p["trnn"], y.reshape(t, b * f, c), h0)
         y = fnn.linear(p["trnn_fc"], y.reshape(t, b, f, c))
         if p.get("trnn_post_norm") is not None:
             y, _ = fnn.batch_norm(p["trnn_post_norm"], s["trnn_post_norm"], y,

@@ -8,17 +8,20 @@ by all blocks (reference: models/fastenhancer/dptransformer/model.py:
 174-236, 583-587); the frequency MHSA is the default block's. Streaming
 keeps the last L frames' keys and values per block.
 
-Two streaming forms:
+Three streaming forms:
 * `streaming_step` (inherited): each block's carry is {"k", "v"}
   [B*F', H, L, d] and every frame concatenates the new k/v and drops the
   oldest, as the JAX package's XLA path does;
+* `streaming_chunk` (inherited), C frames a step on the same carry: the
+  chunk's queries, at positions L..L+C-1, attend to the [cached L, chunk C]
+  keys within the lookbehind band, and the last L keys are carried on;
 * `streaming_step_fused`, on folded variables: the whole block stack is one
   CUDA kernel per frame (ops/dpt_stack.py) over a rotating-slot K/V cache
   [NB, B, L, F', C'] that is written one slot per block per frame, in
   place, at a slot pointer kept on the device.
 
-Not ported yet (each raises NotImplementedError): training mode (the
-default model's trains, this one's does not yet) and chunked streaming.
+Not ported yet (raises NotImplementedError): training mode (the default
+model's trains, this one's does not yet).
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ from ... import nn as fnn
 from ...functional import init_istft_carry, init_stft_carry
 from ...functional.mel import mel_fbank_weights
 from ...ops.dpt_stack import (cache_shape, dpt_stack_step, plan_dpt_stack)
-from .default import (Model as DefaultModel, Params, Tensor, _CHUNK_TODO,
-                      _TRAIN_TODO, fold_fc_bn, positional_embedding)
+from .default import (Model as DefaultModel, Params, Tensor, _TRAIN_TODO,
+                      fold_fc_bn, positional_embedding)
 
 
 def hz_grid_linear_weights(freq: int, n_filter: int, sr: int = 16_000
@@ -201,8 +204,10 @@ class Model(DefaultModel):
     def _time_attn(self, p: Params, pe: Tensor, x: Tensor,
                    carry: tp.Optional[Params]) -> tp.Tuple[Tensor, Params]:
         """x: [B*F, T, C]; carry: {"k", "v"} [B*F, H, L, d] or None (offline:
-        banded causal attention over the T frames). Returns (out [B*F, T, C],
-        the last L frames' {"k", "v"})."""
+        banded causal attention over the T frames). With a carry and T > 1
+        (a chunk) the queries sit at positions L..L+T-1 of the [cached L,
+        chunk T] keys. Returns (out [B*F, T, C], the last L frames'
+        {"k", "v"})."""
         cfg = self.dpt
         nh, lb = cfg.num_heads, cfg.lookbehind
         bf, t, c = x.shape
@@ -227,7 +232,12 @@ class Model(DefaultModel):
                 x.dtype)
             out = torch.einsum("bhs,bhsc->bhc", probs, v)[:, :, None, :]
         else:
-            raise NotImplementedError(_CHUNK_TODO)
+            k = torch.cat([carry["k"], k], dim=2)             # [BF, H, L+T, d]
+            v = torch.cat([carry["v"], v], dim=2)
+            band = banded_bias(pe.float(), t, lb + t, lb, q_offset=lb)
+            logits = torch.einsum("bhtc,bhsc->bhts", q, k) * scale
+            probs = torch.softmax(logits.float() + band, dim=-1).to(x.dtype)
+            out = torch.einsum("bhts,bhsc->bhtc", probs, v)
         new_carry = {"k": k[:, :, -lb:], "v": v[:, :, -lb:]}
         return out.transpose(1, 2).reshape(bf, t, c), new_carry
 

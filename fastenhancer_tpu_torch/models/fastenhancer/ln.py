@@ -8,16 +8,18 @@ becomes a sample-local norm: the conv units use GroupNorm(1, C)
 to show that the BN fold is what makes the default fast): `fold` strips
 weight norm and the final scale only.
 
-Two streaming forms:
+Three streaming forms:
 * `streaming_step` (inherited): the default model's per-frame graph with
   these norms;
+* `streaming_chunk` (inherited): C frames a step, each block's time GRU one
+  gru_scan launch over the chunk;
 * `streaming_step_fused` (inherited), on folded variables: the block stack
   is one CUDA kernel per frame in its LN form (ops/rnnformer_stack.py,
   `plan_stack(..., ln_eps=...)`), which applies both LayerNorms inline.
 
 The whole-frame kernel (ops/fused_frame.py) has no GroupNorm or LayerNorm,
-so `build_frame_plan` (its `plan_frame`) raises. Not ported yet (each raises
-NotImplementedError): training mode and chunked streaming.
+so `build_frame_plan` (its `plan_frame`) raises. Not ported yet (raises
+NotImplementedError): training mode.
 """
 from __future__ import annotations
 

@@ -11,8 +11,10 @@ concatenates the cached frames: the same math, one parameter set. The
 streaming carry's "h" is {"h": block carries, "enc": encoder conv caches,
 "dec": decoder conv caches}.
 
-Two streaming forms:
+Three streaming forms:
 * `streaming_step` (inherited): every block through `_block_apply`;
+* `streaming_chunk` (inherited): C frames a step; each 2-D conv reads its
+  cache before the chunk and keeps the last k_t-1 frames of [cache, chunk];
 * `streaming_step_fused` (inherited), on folded variables: the block stack
   is one CUDA kernel per frame in its folded default form
   (ops/rnnformer_stack.py); the 2-D convs run eagerly with their caches.
@@ -20,8 +22,8 @@ Two streaming forms:
   fused path would take frame 0 only).
 
 The whole-frame kernel (ops/fused_frame.py) has no 2-D conv, so
-`build_frame_plan` (its `plan_frame`) raises. Not ported yet (each raises
-NotImplementedError): training mode and chunked streaming.
+`build_frame_plan` (its `plan_frame`) raises. Not ported yet (raises
+NotImplementedError): training mode.
 """
 from __future__ import annotations
 

@@ -24,7 +24,8 @@ where x_proj = x W_ih^T + b_ih comes from one matmul over the sequence.
   H; the correctness reference). `launch_scalar` and `launch_tc` launch
   one form directly and count nothing.
 * `gru_fused(params, x, h0)` is the drop-in for nn.gru (the counterpart of
-  `gru_pallas`), weight-norm parameters included.
+  `gru_pallas`), weight-norm parameters included; `bigru_fused(params, x)`
+  the drop-in for nn.bigru, one launch a direction.
 
 What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/gru_scan.cu.
@@ -240,3 +241,12 @@ def gru_fused(params: Params, x: Tensor, h0: tp.Optional[Tensor] = None
         h0 = x.new_zeros(x.shape[1], w_hh.shape[1])
     x_proj = x @ w_ih.T + params["bias_ih"]
     return gru_scan(x_proj, h0, w_hh, params["bias_hh"])
+
+
+def bigru_fused(params: Params, x: Tensor) -> Tensor:
+    """Drop-in for nn.bigru with each direction one gru_scan launch: the
+    backward one over the time-flipped input, its outputs flipped back.
+    x: [T, N, I] -> [T, N, 2H] in nn.bigru's [forward, backward] layout."""
+    y_fwd, _ = gru_fused(params["fwd"], x)
+    y_bwd, _ = gru_fused(params["bwd"], x.flip(0))
+    return torch.cat([y_fwd, y_bwd.flip(0)], dim=-1)

@@ -16,6 +16,9 @@ nor a YAML reader (the card's machine has neither):
 * `TIME_KERNEL_B`: the time_kernel ablation at FE_B's widths
   (`fastenhancer.time_kernel`; configs/ablation/time_kernel_b.yaml's
   model_kwargs).
+* `NONCAUSAL_HUGE`: the offline noncausal FastEnhancer of the DNS recipes
+  (`fastenhancer.noncausal`; configs/fastenhancer_dns/huge_noncausal.yaml's
+  model_kwargs: C=128, 6 blocks, F'=64, hop 100).
 * `BSRNN_S`: the BSRNN baseline at C=64, 6 layers, 3.54M parameters
   (`bsrnn`; configs/others/bsrnn_s.yaml's model_kwargs).
 * `FE_T_SHARD`: FastEnhancer_T's shard training recipe
@@ -112,6 +115,23 @@ TIME_KERNEL_B: tp.Dict[str, tp.Any] = dict(
     final_scale=True, kernel_size_freq=[8, 3, 3], kernel_size_time=3,
 )
 
+NONCAUSAL_HUGE: tp.Dict[str, tp.Any] = dict(
+    channels=128,
+    kernel_size=[8, 3, 3, 3, 3, 3],
+    stride=4,
+    rnnformer_kwargs=dict(
+        num_blocks=6, channels=128, freq=64, num_heads=4, eps=1.0e-5,
+        positional_embedding="train", attn_bias=False, post_act=False,
+        pre_norm=False, p_dropout=0.0,
+    ),
+    pre_post_init="linear_fixed",
+    n_fft=512, hop_size=100, win_size=512, window="hann",
+    stft_normalized=False, mask=None, activation="SiLU",
+    activation_kwargs={"inplace": True},
+    input_compression=0.3, normalize_final_conv=True, weight_norm=True,
+    resnet=False,
+)
+
 BSRNN_S: tp.Dict[str, tp.Any] = dict(
     num_channels=64, num_layers=6, bias=True, affine=True, n_fft=512,
     hop_size=256, win_size=512, input_compression=0.3, window="hann",
@@ -182,4 +202,5 @@ FE_T_SHARD: tp.Dict[str, tp.Any] = dict(
     valid=dict(batch_size=64, num_workers=2),
 )
 
-__all__ = ["FE_B", "DPT_B", "DPRNN_B", "BSRNN_S", "FE_T_SHARD"]
+__all__ = ["FE_B", "DPT_B", "DPRNN_B", "LN_B", "TIME_KERNEL_B",
+           "NONCAUSAL_HUGE", "BSRNN_S", "FE_T_SHARD"]

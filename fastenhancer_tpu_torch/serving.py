@@ -34,7 +34,7 @@ Typical use:
     engine.close_stream(h)
 
 Sharding the slots over several devices (`devices>1` in the JAX engine) is
-not ported yet (ROADMAP queue 1 item 7).
+not ported yet (ROADMAP queue 1, "Serving, the rest").
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ def get_wrapper(name: str):
     """The ModelWrapper class of wrappers/<name>.py (ns or ns_shard)."""
     if name not in ("ns", "ns_shard"):
         raise NotImplementedError(
-            f"wrapper {name!r} is not ported yet (ROADMAP queue 1 item 10)")
+            f"wrapper {name!r} is not ported yet (ROADMAP queue 1, "
+            '"Training, end to end on one card": the DNS recipe)')
     module = importlib.import_module(f"{__name__}.{name}")
     return module.ModelWrapper
 

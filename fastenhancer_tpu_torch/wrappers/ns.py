@@ -9,7 +9,7 @@ iterable of {"clean", "noisy"} numpy batches.
 
 Not ported yet: several devices and hosts, TensorBoard summaries, the
 profiler, PESQ/STOI evaluation, checkpoints, and the dataloaders built from
-directories (ROADMAP queue 1 item 10).
+directories (ROADMAP queue 1, "Training, end to end on one card").
 """
 from __future__ import annotations
 

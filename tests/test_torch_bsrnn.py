@@ -175,8 +175,13 @@ def test_fused_stream_matches_jax_and_unfused():
     y_plain = tm.stream(tf, torch.tensor(wav)).numpy()
     np.testing.assert_allclose(y_fused, y_j, atol=1e-4)
     np.testing.assert_allclose(y_fused, y_plain, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.stream(tf, torch.tensor(wav), chunk_frames=2)
+    # a plan takes one frame a step; chunked streaming runs unfused
+    with pytest.raises(ValueError, match="fused_plan"):
+        tm.stream(tf, torch.tensor(wav), chunk_frames=2,
+                  fused_plan=tm.build_stack_plan(tf))
+    np.testing.assert_allclose(
+        tm.stream(tf, torch.tensor(wav), chunk_frames=2).numpy(),
+        y_plain[:, :tm.hop_size * 4], atol=1e-4)
 
 
 def test_engine_fused_matches_unfused_with_a_reused_slot():

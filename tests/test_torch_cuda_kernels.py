@@ -793,3 +793,94 @@ def test_fe_t_offline_forward_on_card_matches_cpu(cuda_device):
     got, _, _ = model.forward(dev, (wav * 0.1).to(cuda_device))
     assert scan.gru_scan.launches == before + 2
     assert (got.cpu() - want).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0", [True, False])
+@pytest.mark.parametrize("n", [6144, 6143])
+@pytest.mark.parametrize("t", [1, 2, 4, 8])
+def test_gru_scan_matches_plain_at_chunked_fe_b_shapes(cuda_device, dtype,
+                                                       t, n, h0):
+    """FE_B's chunked stream at 256 streams: a chunk of T frames over
+    N = 256 * 24 rows (a full tile tail and a ragged one), H = 36, from a
+    carried bf16 or float32 state; bfloat16 runs the tensor-core form."""
+    args = _scan_case(t, n, 36, dtype, cuda_device, seed=t + n, h0=h0)
+    before_tc = scan.gru_scan.tc_launches
+    ys, h_t = scan.gru_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.gru_scan.tc_launches == before_tc + (dtype == torch.bfloat16)
+    ys_r, h_r = scan.gru_scan_reference(*args)
+    _close(ys, ys_r, dtype)
+    _close(h_t, h_r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 4])
+def test_gru_scan_matches_plain_at_the_noncausal_width(cuda_device, dtype,
+                                                       b):
+    """The huge noncausal recipe's time GRU: T = 640 frames, N = B * 64
+    rows, H = 128 (W_hh's fragments in shared memory in the tensor-core
+    form), both directions: the forward scan and the backward one over the
+    time-flipped x_proj, each against its plain version."""
+    x, h0, w, bias = _scan_case(640, b * 64, 128, dtype, cuda_device,
+                                seed=b, h0=False)
+    for xp in (x, x.flip(0)):
+        ys, h_t = scan.gru_scan(xp, h0, w, bias)
+        torch.cuda.synchronize()
+        ys_r, h_r = scan.gru_scan_reference(xp, h0, w, bias)
+        _close(ys, ys_r, dtype)
+        _close(h_t, h_r, dtype)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("fastenhancer.default", TINY_KWARGS),
+    ("fastenhancer.ln", TINY_KWARGS),
+    ("fastenhancer.dprnn",
+     dict(DPRNN_B, dprnn_kwargs=dict(DPRNN_B["dprnn_kwargs"], num_blocks=1))),
+    ("fastenhancer.dptransformer",
+     dict(DPT_B, dpt_kwargs=dict(DPT_B["dpt_kwargs"], num_blocks=1))),
+    ("bsrnn", dict(num_channels=64, num_layers=2))],
+    ids=["default", "ln", "dprnn", "dpt", "bsrnn"])
+def test_chunked_streams_on_card_match_per_frame(cuda_device, name, kwargs):
+    """stream(chunk_frames=4) on the card over 10 frames of 3 streams (the
+    tail cut to 8), float32, against the per-frame unfused stream on the
+    card (1e-4 on stream outputs); each block's time GRU is one gru_scan
+    launch a chunk."""
+    model = get_model(name, **kwargs, stft_method="matmul")
+    folded = model.fold(model.init(torch.Generator().manual_seed(0),
+                                   cuda_device))
+    wav = torch.randn(3, model.hop_size * 10,
+                      generator=torch.Generator().manual_seed(1))
+    wav = (wav * 0.1).to(cuda_device)
+    before = scan.gru_scan.launches
+    y = model.stream(folded, wav, chunk_frames=4)
+    gru_blocks = 0 if name in ("bsrnn", "fastenhancer.dptransformer") \
+        else model.num_blocks
+    assert scan.gru_scan.launches == before + 2 * gru_blocks
+    assert y.shape == (3, model.hop_size * 8)
+    want = model.stream(folded, wav)[:, :y.shape[1]]
+    assert (y - want).abs().max() <= 1e-4
+
+
+def test_noncausal_forward_on_card_matches_cpu(cuda_device):
+    """The noncausal model at the huge recipe's widths and 2 of its 6
+    blocks: its eval forward on the card (each block's biGRU two gru_scan
+    launches) against the CPU's plain path, float32 (1e-4 on the wav);
+    in bf16 every launch is the tensor-core form at H = 128."""
+    from fastenhancer_tpu_torch.presets import NONCAUSAL_HUGE
+
+    kw = dict(NONCAUSAL_HUGE, rnnformer_kwargs=dict(
+        NONCAUSAL_HUGE["rnnformer_kwargs"], num_blocks=2))
+    model = get_model("fastenhancer.noncausal", **kw)
+    variables = model.init(torch.Generator().manual_seed(0), "cpu")
+    wav = torch.randn(2, 8_000, generator=torch.Generator().manual_seed(1))
+    want, _, _ = model.forward(variables, wav * 0.1)
+    dev = tree_map(lambda a: a.to(cuda_device), variables)
+    before = scan.gru_scan.launches
+    got, _, _ = model.forward(dev, (wav * 0.1).to(cuda_device))
+    assert scan.gru_scan.launches == before + 4
+    assert (got.cpu() - want).abs().max() <= 1e-4
+    before_tc = scan.gru_scan.tc_launches
+    model.forward(cast_floating(dev, torch.bfloat16),
+                  (wav * 0.1).to(cuda_device, torch.bfloat16))
+    assert scan.gru_scan.tc_launches == before_tc + 4

@@ -184,8 +184,12 @@ def test_fused_step_and_stream_match_jax():
         np.testing.assert_allclose(m_fused.numpy(), m_ref.numpy(), atol=1e-5)
         np.testing.assert_allclose(h.numpy(), torch.stack(h_list).numpy(),
                                    atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.stream(tf, torch.tensor(wav), chunk_frames=2)
+    # a plan takes one frame a step; chunked streaming runs unfused
+    with pytest.raises(ValueError, match="fused_plan"):
+        tm.stream(tf, torch.tensor(wav), chunk_frames=2, fused_plan=plan)
+    np.testing.assert_allclose(
+        tm.stream(tf, torch.tensor(wav), chunk_frames=2).numpy(), y_plain,
+        atol=1e-4)
 
 
 def test_streaming_equals_offline():
@@ -217,6 +221,7 @@ def test_streaming_equals_offline():
 
 def test_get_model_registry():
     from fastenhancer_tpu_torch.models.fastenhancer import (conv_stft, ln,
+                                                            noncausal,
                                                             time_kernel)
 
     _, tm = _models()
@@ -227,7 +232,9 @@ def test_get_model_registry():
                       conv_stft.Model)
     assert isinstance(get_model("fastenhancer.time_kernel", channels=12),
                       time_kernel.Model)
-    for name in ("fspen", "lisennet", "fastenhancer.noncausal"):
+    assert isinstance(get_model("fastenhancer.noncausal", **TINY_KWARGS),
+                      noncausal.Model)
+    for name in ("fspen", "lisennet"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             get_model(name)
 
@@ -312,8 +319,19 @@ for name, mkw in (("fastenhancer.ln", kw),
     folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
     y = model.stream(folded, wav, fused_plan=model.build_stack_plan(folded))
     assert y.shape == wav.shape and torch.isfinite(y).all()
+# chunked streaming, and the noncausal model's offline forward
+model = get_model("fastenhancer.default", **kw)
+folded = model.fold(model.init(torch.Generator().manual_seed(0), "cpu"))
+y = model.stream(folded, wav, chunk_frames=4)
+assert y.shape == wav.shape and torch.isfinite(y).all()
+model = get_model("fastenhancer.noncausal", **kw)
+y, _, _ = model.forward(model.init(torch.Generator().manual_seed(0), "cpu"),
+                        wav)
+assert y.shape == wav.shape and torch.isfinite(y).all()
 from fastenhancer_tpu_torch.presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B,
-                                            LN_B, TIME_KERNEL_B)
+                                            LN_B, NONCAUSAL_HUGE,
+                                            TIME_KERNEL_B)
+assert get_model("fastenhancer.noncausal", **NONCAUSAL_HUGE).num_blocks == 6
 assert get_model("fastenhancer.ln", **LN_B).block_freq == 24
 assert get_model("fastenhancer.time_kernel", **TIME_KERNEL_B).kernel_size_time == 3
 assert get_model("fastenhancer.dptransformer", **DPT_B).dpt.lookbehind == 31
@@ -344,8 +362,9 @@ print("OK", len(names))
 def test_port_imports_no_jax():
     """Every port module imports, and the tiny model's init -> fold ->
     fused stream, its whole-frame step, the dpt, bsrnn, dprnn, ln and
-    time_kernel models' fused streams, the presets and a train step of the
-    shard recipe's wrapper run, with jax and fastenhancer_tpu blocked."""
+    time_kernel models' fused streams, a chunked stream, the noncausal
+    model's forward, the presets and a train step of the shard recipe's
+    wrapper run, with jax and fastenhancer_tpu blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -28,6 +28,8 @@ def test_fe_b_is_the_flagship():
     ("LN_B", "ablation/ln_b.yaml", "fastenhancer.ln"),
     ("TIME_KERNEL_B", "ablation/time_kernel_b.yaml",
      "fastenhancer.time_kernel"),
+    ("NONCAUSAL_HUGE", "fastenhancer_dns/huge_noncausal.yaml",
+     "fastenhancer.noncausal"),
     ("BSRNN_S", "others/bsrnn_s.yaml", "bsrnn")])
 def test_preset_is_its_config(name, config, model):
     hps = get_hparams(os.path.join(REPO, "configs", *config.split("/")),
@@ -64,3 +66,10 @@ def test_chip_smoke_imports_only_the_port_torch_and_numpy():
             roots.add(node.module.split(".")[0])
     stdlib = {"json", "os", "statistics", "subprocess", "sys", "time"}
     assert roots - stdlib == {"numpy", "torch", "fastenhancer_tpu_torch"}
+
+
+def test_all_lists_every_preset():
+    """presets.__all__ names every preset dict the module defines."""
+    names = {k for k, v in vars(presets).items()
+             if k.isupper() and isinstance(v, dict)}
+    assert set(presets.__all__) == names

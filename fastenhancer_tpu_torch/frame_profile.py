@@ -11,7 +11,11 @@ over 256 streams and 20 frames; FastEnhancer_B's chunked stream
 (`streaming_chunk` of 4 and of 8 frames, each block's time GRU one GRU-scan
 launch a chunk) over 256 streams and 20 chunks, per frame; the noncausal
 model at the huge recipe's widths (`presets.NONCAUSAL_HUGE`), one offline
-`forward` of 4 streams x 4 s, per forward; and for the shard recipe's FE-T
+`forward` of 4 streams x 4 s, per forward; the FSPEN and LiSenNet baselines
+(`presets.FSPEN`, `presets.LISENNET`; every GRU one GRU-scan launch) over
+256 streams unfused, per frame (`streaming_step`) and per frame of a
+`streaming_chunk` of 4 over 20 steps, and their offline `forward` of 4 x 4
+s, per forward; and for the shard recipe's FE-T
 (`presets.FE_T_SHARD`) a train step (the mix and the bf16 step) at
 32 x 4 s over 3 steps and a valid step at 64 x 2 s over 20 steps, it
 prints per frame or step:
@@ -35,8 +39,8 @@ import torch
 from . import require_cuda
 from .data import ShardBatch
 from .models import get_model
-from .presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD, LN_B,
-                      NONCAUSAL_HUGE)
+from .presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD, FSPEN,
+                      LISENNET, LN_B, NONCAUSAL_HUGE)
 from .utils import cast_floating
 from .wrappers import get_wrapper
 
@@ -161,6 +165,36 @@ def profile_chunks_and_noncausal(dev: torch.device) -> None:
                  None, [wav], frames=5, warmup=2, unit="forward")
 
 
+def profile_baselines(dev: torch.device) -> None:
+    """FSPEN and LiSenNet, bf16, unfused (they have no stack plan): a
+    frame and a chunk of 4 over 256 streams, per frame, and the offline
+    forward of 4 x 4 s."""
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    for model_name, kwargs, tag in (("fspen", FSPEN, "FSPEN"),
+                                    ("lisennet", LISENNET, "LiSenNet")):
+        model = get_model(model_name, **kwargs, stft_method="matmul")
+        folded = cast_floating(model.fold(model.init(g, dev)), dt)
+        for c in (1, 4):
+            chunks = (torch.randn(4, STREAMS, c * model.hop_size,
+                                  generator=g) * 0.05).to(dev, dt)
+            profile_path(
+                f"{tag} {'streaming_step' if c == 1 else 'streaming_chunk'}"
+                f" of {c} frame{'s' if c > 1 else ''}, {STREAMS} streams, "
+                "bf16", lambda carry, x: model.streaming_chunk(folded, carry,
+                                                               x),
+                model.init_streaming_carry(STREAMS, dt, dev), chunks,
+                per_step=c)
+        wav = (torch.randn(4, 64_000, generator=g) * 0.05).to(dev, dt)
+
+        def forward(carry, x):
+            model.forward(folded, x)
+            return carry, None
+
+        profile_path(f"{tag} forward, 4 x 4 s, bf16", forward, None, [wav],
+                     frames=5, warmup=2, unit="forward")
+
+
 def main() -> None:
     dev = require_cuda()
     dt = torch.bfloat16
@@ -189,6 +223,7 @@ def main() -> None:
                 lambda c, x, step=step, plan=plan: step(folded, plan, c, x),
                 carry, hops)
     profile_chunks_and_noncausal(dev)
+    profile_baselines(dev)
     profile_training(dev)
 
 

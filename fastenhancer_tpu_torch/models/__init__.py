@@ -1,15 +1,15 @@
 """Model registry: `get_model(name, **model_kwargs)`.
 
-The port has every FastEnhancer model (the default, its conv_stft variant,
+Every name of the JAX package's registry (fastenhancer_tpu/models/
+__init__.py): the FastEnhancer models (the default, its conv_stft variant,
 its dptransformer, dprnn, ln and time_kernel ablations, and the offline
-noncausal variant) and the BSRNN baseline; the other names of the JAX
-package's registry (fastenhancer_tpu/models/__init__.py), fspen and
-lisennet, raise NotImplementedError until their port lands (ROADMAP queue
-1, "The baselines").
+noncausal variant) and the BSRNN, FSPEN and LiSenNet baselines.
 """
 import typing as tp
 
 from . import bsrnn as _bsrnn
+from . import fspen as _fspen
+from . import lisennet as _lisennet
 from .fastenhancer import conv_stft as _fastenhancer_conv_stft
 from .fastenhancer import default as _fastenhancer_default
 from .fastenhancer import dprnn as _fastenhancer_dprnn
@@ -27,14 +27,15 @@ _MODELS = {
     "fastenhancer.conv_stft": _fastenhancer_conv_stft.Model,
     "fastenhancer.noncausal": _fastenhancer_noncausal.Model,
     "bsrnn": _bsrnn.Model,
+    "fspen": _fspen.Model,
+    "lisennet": _lisennet.Model,
 }
 
 
 def get_model_class(name: str) -> tp.Type:
     if name not in _MODELS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (ROADMAP queue 1); "
-            f"the port has {sorted(_MODELS)}")
+        raise ValueError(f"unknown model {name!r}; the port has "
+                         f"{sorted(_MODELS)}")
     return _MODELS[name]
 
 

@@ -34,17 +34,13 @@ import torch
 from .. import nn as fnn
 from ..functional import (
     STFTConfig,
-    compress,
-    uncompress,
     compressed_stft,
     compressed_istft,
-    stft_streaming_chunk,
-    istft_streaming_chunk,
     init_stft_carry,
     init_istft_carry,
 )
 from ..ops.bsrnn_stack import bsrnn_stack_step, plan_band_stack
-from .streaming import stream_hops
+from .streaming import spectral_step, stream_hops
 
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
@@ -316,30 +312,15 @@ class Model(torch.nn.Module):
                 "istft": init_istft_carry(self.stft_cfg, batch, dtype, device),
                 "h": h}
 
-    def _stream_front(self, carry: Params, wav: Tensor
-                      ) -> tp.Tuple[Tensor, Tensor]:
-        """STFT of C hops (wav [B, hop*C]) + compress (all 257 bins) ->
-        (spec [B, F, C, 2], new stft cache)."""
-        spec, stft_c = stft_streaming_chunk(wav, carry["stft"], self.stft_cfg)
-        return compress(spec, self.input_compression), stft_c
-
-    def _stream_back(self, spec_hat: Tensor, carry: Params, stft_c: Tensor,
-                     h) -> tp.Tuple[Params, Tensor]:
-        """Uncompress + iSTFT of the C frames; h is the new carry's "h"."""
-        wav_out, istft_c = istft_streaming_chunk(
-            uncompress(spec_hat, self.input_compression), carry["istft"],
-            self.stft_cfg)
-        return {"stft": stft_c, "istft": istft_c, "h": h}, wav_out
-
     def streaming_step(self, variables: Params, carry: Params,
                        wav_hop: Tensor) -> tp.Tuple[Params, Tensor]:
         """One hop: wav_hop [B, hop] -> (new_carry, wav_out [B, hop]); the
         output is delayed n_fft - hop samples. Given C hops [B, hop*C] it is
         `streaming_chunk`."""
-        spec, stft_c = self._stream_front(carry, wav_hop)
-        spec_hat, h_out, _ = self.model_forward(
-            variables["params"], variables["stats"], spec, h0=carry["h"])
-        return self._stream_back(spec_hat, carry, stft_c, h_out)
+        return spectral_step(
+            self, carry, wav_hop, lambda spec: self.model_forward(
+                variables["params"], variables["stats"], spec,
+                h0=carry["h"])[:2])
 
     def streaming_chunk(self, variables: Params, carry: Params,
                         wav_chunk: Tensor) -> tp.Tuple[Params, Tensor]:
@@ -367,16 +348,18 @@ class Model(torch.nn.Module):
         same math as streaming_step on folded variables. carry["h"] is the
         stacked frequency-major layout (init_streaming_carry(fused=True))."""
         params, stats = variables["params"], variables["stats"]
-        spec, stft_c = self._stream_front(carry, wav_hop)
-        x = self._band_split_eval(params["band_split"], stats["band_split"],
-                                  spec)                     # [1, B, F', C]
-        xf, h_new = bsrnn_stack_step(plan, x[0].transpose(0, 1).contiguous(),
-                                     carry["h"])            # [F', B, C]
-        mask, res = self._mask_decoder_eval(
-            params["mask_decoder"], stats["mask_decoder"],
-            xf.permute(1, 0, 2)[..., None])                 # [B, F', C, 1]
-        return self._stream_back(self._apply_mask(spec, mask, res), carry,
-                                 stft_c, h_new)
+
+        def network(spec):
+            x = self._band_split_eval(params["band_split"],
+                                      stats["band_split"], spec)  # [1,B,F',C]
+            xf, h_new = bsrnn_stack_step(
+                plan, x[0].transpose(0, 1).contiguous(), carry["h"])
+            mask, res = self._mask_decoder_eval(
+                params["mask_decoder"], stats["mask_decoder"],
+                xf.permute(1, 0, 2)[..., None])             # [B, F', C, 1]
+            return self._apply_mask(spec, mask, res), h_new
+
+        return spectral_step(self, carry, wav_hop, network)
 
     def stream(self, variables: Params, wav: Tensor, chunk_frames: int = 1,
                fused_plan: tp.Optional[Params] = None) -> Tensor:

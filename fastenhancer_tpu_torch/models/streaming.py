@@ -1,12 +1,32 @@
-"""The loop that every streaming model's `stream` runs."""
+"""The loop that every streaming model's `stream` runs, and the streaming
+step of the models that mask the whole compressed spectrum."""
 from __future__ import annotations
 
 import typing as tp
 
 import torch
 
+from ..functional import (compress, uncompress, stft_streaming_chunk,
+                          istft_streaming_chunk)
+
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
+
+
+def spectral_step(model, carry: Params, wav: Tensor,
+                  network: tp.Callable[[Tensor], tp.Tuple[Tensor, tp.Any]]
+                  ) -> tp.Tuple[Params, Tensor]:
+    """One streaming step of a model over all n_fft/2 + 1 bins of the
+    compressed spectrum (BSRNN, FSPEN, LiSenNet): the STFT of the step's
+    hops (wav [B, hop*C]), compress, `network` (spec [B, F, C, 2] ->
+    (spec_hat, the new carry's "h")), uncompress, the iSTFT overlap-add ->
+    (new carry {"stft", "istft", "h"}, wav_out [B, hop*C])."""
+    spec, stft_c = stft_streaming_chunk(wav, carry["stft"], model.stft_cfg)
+    spec_hat, h = network(compress(spec, model.input_compression))
+    wav_out, istft_c = istft_streaming_chunk(
+        uncompress(spec_hat, model.input_compression), carry["istft"],
+        model.stft_cfg)
+    return {"stft": stft_c, "istft": istft_c, "h": h}, wav_out
 
 
 def stream_hops(model, variables: Params, wav: Tensor, chunk_frames: int,

@@ -94,11 +94,12 @@ def conv1d_cl(params: Params, x: Tensor, stride: int = 1,
 
 
 def conv_transpose1d_cl(params: Params, x: Tensor, stride: int = 1,
-                        padding: int = 0) -> Tensor:
-    """1-D transposed conv; x: [N, L, Cin] -> [N, (L-1)*s + K - 2*pad, Cout].
-    Weight [Cin, Cout, K]."""
+                        padding: int = 0, output_padding: int = 0) -> Tensor:
+    """1-D transposed conv; x: [N, L, Cin] ->
+    [N, (L-1)*s + K - 2*pad + output_padding, Cout]. Weight [Cin, Cout, K]."""
     y = F.conv_transpose1d(x.transpose(1, 2), params["weight"],
-                           params.get("bias"), stride=stride, padding=padding)
+                           params.get("bias"), stride=stride, padding=padding,
+                           output_padding=output_padding)
     return y.transpose(1, 2)
 
 

@@ -21,6 +21,11 @@ nor a YAML reader (the card's machine has neither):
   model_kwargs: C=128, 6 blocks, F'=64, hop 100).
 * `BSRNN_S`: the BSRNN baseline at C=64, 6 layers, 3.54M parameters
   (`bsrnn`; configs/others/bsrnn_s.yaml's model_kwargs).
+* `FSPEN`: the FSPEN baseline (`fspen`; configs/others/fspen.yaml's
+  model_kwargs, which configs/others_dns/fspen.yaml shares).
+* `LISENNET`: the LiSenNet baseline (`lisennet`;
+  configs/others/lisennet.yaml's model_kwargs, which
+  configs/others_dns/lisennet.yaml shares).
 * `FE_T_SHARD`: FastEnhancer_T's shard training recipe
   (configs/fastenhancer_shard/t.yaml): its model, model_kwargs, wrapper,
   the mixer and dereverberation of `data`, the sampling rate, batch
@@ -137,6 +142,21 @@ BSRNN_S: tp.Dict[str, tp.Any] = dict(
     hop_size=256, win_size=512, input_compression=0.3, window="hann",
 )
 
+FSPEN: tp.Dict[str, tp.Any] = dict(
+    channels=[4, 16, 32],
+    kernel_size=[6, 8, 6],
+    stride=[2, 2, 2],
+    dpe_kwargs=dict(num_blocks=3, channels=16, freq=32, groups=8,
+                    norm="LayerNorm-FreqChannels"),
+    n_fft=512, hop_size=256, win_size=512, input_compression=0.3,
+    window="hann",
+)
+
+LISENNET: tp.Dict[str, tp.Any] = dict(
+    num_channels=16, n_blocks=2, n_fft=512, hop_size=256, win_size=512,
+    input_compression=0.3,
+)
+
 FE_T_SHARD: tp.Dict[str, tp.Any] = dict(
     model="fastenhancer.default",
     model_kwargs=dict(
@@ -203,4 +223,4 @@ FE_T_SHARD: tp.Dict[str, tp.Any] = dict(
 )
 
 __all__ = ["FE_B", "DPT_B", "DPRNN_B", "LN_B", "TIME_KERNEL_B",
-           "NONCAUSAL_HUGE", "BSRNN_S", "FE_T_SHARD"]
+           "NONCAUSAL_HUGE", "BSRNN_S", "FSPEN", "LISENNET", "FE_T_SHARD"]

@@ -884,3 +884,73 @@ def test_noncausal_forward_on_card_matches_cpu(cuda_device):
     model.forward(cast_floating(dev, torch.bfloat16),
                   (wav * 0.1).to(cuda_device, torch.bfloat16))
     assert scan.gru_scan.tc_launches == before_tc + 4
+
+
+# the baselines' #5 shapes (T, N, H, h0, both directions), at 256 streams
+# (a frame, a chunk of 4) and offline over 4 x 4 s (251 frames)
+BASELINE_SCANS = [
+    (32, 256, 16, False, True),    # FSPEN's intra biGRU, a frame
+    (32, 1024, 16, False, True),   # ... a chunk of 4
+    (32, 1004, 16, False, True),   # ... offline: N = 251 frames x 4
+    (1, 1024, 16, True, False),    # a group's time GRU, a frame: 256 x 4
+    (4, 1024, 16, True, False),    # ... a chunk of 4
+    (251, 16, 16, False, False),   # ... offline: one tile of 16 rows
+    (32, 256, 12, False, True),    # LiSenNet's intra biGRU, a frame
+    (32, 1024, 12, False, True),   # ... a chunk of 4
+    (32, 1004, 12, False, True),   # ... offline
+    (1, 8192, 24, True, False),    # its time GRU, a frame: 256 x 32
+    (4, 8192, 24, True, False),    # ... a chunk of 4
+    (4, 8191, 24, True, False),    # ... the tile tail ragged
+    (251, 128, 24, False, False),  # ... offline
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,n,h,h0,both", BASELINE_SCANS)
+def test_gru_scan_matches_plain_at_the_baselines_shapes(cuda_device, dtype,
+                                                        t, n, h, h0, both):
+    """FSPEN's and LiSenNet's GRUs: H = 12 and 24 pad their k-steps (not
+    multiples of 16), the intra biGRUs fill few SMs, FSPEN's offline time
+    GRU is one tile over 251 steps; an intra biGRU's backward direction
+    runs over the time-flipped x_proj. bfloat16 runs the tensor-core form."""
+    x, hh, w, bias = _scan_case(t, n, h, dtype, cuda_device, seed=t + n + h,
+                                h0=h0)
+    for xp in (x, x.flip(0)) if both else (x,):
+        before_tc = scan.gru_scan.tc_launches
+        ys, h_t = scan.gru_scan(xp, hh, w, bias)
+        torch.cuda.synchronize()
+        assert scan.gru_scan.tc_launches == before_tc + (dtype ==
+                                                         torch.bfloat16)
+        ys_r, h_r = scan.gru_scan_reference(xp, hh, w, bias)
+        _close(ys, ys_r, dtype)
+        _close(h_t, h_r, dtype)
+
+
+@pytest.mark.parametrize("name,kwargs,per_chunk", [
+    ("fspen", dict(dpe_kwargs=dict(num_blocks=1)), 10),
+    ("lisennet", dict(n_blocks=1), 3)])
+def test_baseline_streams_on_card_match_cpu(cuda_device, name, kwargs,
+                                            per_chunk):
+    """FSPEN (one block of 8 groups) and LiSenNet (one block), float32:
+    stream(chunk_frames=4) over 10 frames of 3 streams (the tail cut to 8)
+    on the card against the same stream on the CPU's plain path and
+    against the per-frame stream on the card (1e-4 on stream outputs);
+    every GRU is one gru_scan launch a chunk (FSPEN 2 + 8, LiSenNet 2 + 1),
+    and in bf16 all of them the tensor-core form."""
+    model = get_model(name, **kwargs, stft_method="matmul")
+    variables = model.fold(model.init(torch.Generator().manual_seed(0),
+                                      "cpu"))
+    wav = torch.randn(3, model.hop_size * 10,
+                      generator=torch.Generator().manual_seed(1)) * 0.1
+    want = model.stream(variables, wav, chunk_frames=4)
+    dev = tree_map(lambda a: a.to(cuda_device), variables)
+    before = scan.gru_scan.launches
+    y = model.stream(dev, wav.to(cuda_device), chunk_frames=4)
+    assert scan.gru_scan.launches == before + 2 * per_chunk
+    assert (y.cpu() - want).abs().max() <= 1e-4
+    frames = model.stream(dev, wav.to(cuda_device))[:, :y.shape[1]]
+    assert (y - frames).abs().max() <= 1e-4
+    before_tc = scan.gru_scan.tc_launches
+    model.stream(cast_floating(dev, torch.bfloat16),
+                 wav.to(cuda_device, torch.bfloat16), chunk_frames=4)
+    assert scan.gru_scan.tc_launches == before_tc + 2 * per_chunk

@@ -234,9 +234,13 @@ def test_get_model_registry():
                       time_kernel.Model)
     assert isinstance(get_model("fastenhancer.noncausal", **TINY_KWARGS),
                       noncausal.Model)
-    for name in ("fspen", "lisennet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            get_model(name)
+    from fastenhancer_tpu_torch.models import fspen, lisennet
+    from fastenhancer_tpu_torch.presets import FSPEN, LISENNET
+
+    assert isinstance(get_model("fspen", **FSPEN), fspen.Model)
+    assert isinstance(get_model("lisennet", **LISENNET), lisennet.Model)
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("fastenhancer.nonexistent")
 
 
 def test_conv_stft_forward_matches_jax():

@@ -30,7 +30,11 @@ def test_fe_b_is_the_flagship():
      "fastenhancer.time_kernel"),
     ("NONCAUSAL_HUGE", "fastenhancer_dns/huge_noncausal.yaml",
      "fastenhancer.noncausal"),
-    ("BSRNN_S", "others/bsrnn_s.yaml", "bsrnn")])
+    ("BSRNN_S", "others/bsrnn_s.yaml", "bsrnn"),
+    ("FSPEN", "others/fspen.yaml", "fspen"),
+    ("FSPEN", "others_dns/fspen.yaml", "fspen"),
+    ("LISENNET", "others/lisennet.yaml", "lisennet"),
+    ("LISENNET", "others_dns/lisennet.yaml", "lisennet")])
 def test_preset_is_its_config(name, config, model):
     hps = get_hparams(os.path.join(REPO, "configs", *config.split("/")),
                       base_dir="")

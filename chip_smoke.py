@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-one phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -114,9 +114,23 @@ each printed on its own line:
      float32 chunked stream and offline forward on 2 x 1 s, card against
      the CPU's plain path (to 1e-4 of the peak; the forward's audio has
      silent edges, since LiSenNet's phase features sit on their branch
-     cut on a real-spectrum edge frame).
+     cut on a real-spectrum edge frame);
+ 21. train through the CLI: in a temporary directory, synthetic shards
+     (speech with silent stretches, noise with a silent cut, 0.5 s RIRs;
+     plain ustar tars of WAVs with gzipped cut lists) and a paired
+     clean/noisy WAV directory, then `python -m fastenhancer_tpu_torch.train`'s
+     `main` in this process on configs/fastenhancer_shard/t.yaml at its
+     width (FE-T) with -p overrides for the paths, CLI_STEPS steps an
+     epoch, 2 epochs, a checkpoint and PESQ/STOI each epoch: the run dir's
+     files, finite losses, PESQ and STOI in range, #4 twice a train step
+     and #5 once a block in every valid batch (tensor-core form, bf16) and
+     every PESQ forward (scalar form, float32), no other kernel; then a
+     resume from the run dir (no -c, max_epochs 3, -f) whose state right
+     after `load` equals 00002.ckpt bit for bit (params, BN statistics, m,
+     v, step, scheduler); each epoch's wall, load/step split, valid and
+     PESQ times are printed.
 
-Each of phases 4 to 20 drives a path: every kernel's launch count is set to
+Each of phases 4 to 21 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -125,17 +139,24 @@ scan's tensor-core forms are counted inside their launches (`.tc_launches`
 of each wrapper), and the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must
 run them on every frame, FE-T's bf16 valid step on every launch. The
 line before the last holds the kernels' JSON record (the GRU scan's
-launches there are the sum over the bf16 paths of phases 15-20, listed
-by path on the line before it); the last line is
+launches there are the sum over the bf16 paths of phases 15-20 and phase
+21's valid and PESQ forwards, segmental RMS's over phases 14 and 21, each
+listed by path before it); the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
 """
+import gzip
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
+import tempfile
 import time
+import wave
 
 F32_TOL = 1e-5      # absolute, kernel vs plain, float32
 BF16_REL = 2 ** -5  # bfloat16: of the largest magnitude (a few bf16 ulps)
@@ -175,6 +196,18 @@ BASELINE_OFF_STREAMS, BASELINE_OFF_SECONDS = 4, 4.0
 # that magnitude is small)
 BASELINE_BF16_RMS = 2 ** -5
 BASELINE_BF16_PEAK = {"FSPEN": 2 ** -2, "LiSenNet": 2 ** -4}
+# phase 21 (the training CLI on configs/fastenhancer_shard/t.yaml): its
+# synthetic corpus, CLI_SHARDS speech shards of CLI_SPEECH_CUTS cuts of
+# CLI_CUT_SECONDS and CLI_WAVS paired files of 2-4 s; its train steps an
+# epoch and its valid batch (PESQ batches are the recipe's
+# pesq.batch_size). The cuts fill the recipe's batches: all in one of its
+# 30 buckets, 33-34 of them reach max_duration (128 s), and each of its 2
+# reader threads serves 2 shards, 5 full batches and a short tail a pass,
+# so every step of an epoch mixes a full batch. 10 files in batches of 4
+# leave a ragged last valid and PESQ batch.
+CLI_SHARDS, CLI_SPEECH_CUTS, CLI_WAVS = 4, 88, 10
+CLI_CUT_SECONDS = (3.8, 4.0)
+CLI_STEPS, CLI_VALID_BATCH = 5, 4
 # float32 card vs the CPU's plain path, over a whole train or valid batch:
 # losses and grad norm relative (sums over 128 s of audio in another order,
 # cuFFT against pocketfft), params absolute (twice the first step's lr of
@@ -273,7 +306,8 @@ def main():
     from fastenhancer_tpu_torch.ops import _build
     from fastenhancer_tpu_torch.ops import bsrnn_stack as band
     from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
-    from fastenhancer_tpu_torch.data import ShardBatch
+    from fastenhancer_tpu_torch.data import (DynamicMixer, ShardBatch,
+                                             get_dataset_dataloader)
     from fastenhancer_tpu_torch.ops import dpt_stack as dpt
     from fastenhancer_tpu_torch.ops import fused_frame as frame
     from fastenhancer_tpu_torch.ops import gru_scan as scan
@@ -285,9 +319,15 @@ def main():
                                                 LN_B, NONCAUSAL_HUGE,
                                                 TIME_KERNEL_B)
     from fastenhancer_tpu_torch.serving import StreamingEngine
-    from fastenhancer_tpu_torch.train import make_train_step, make_valid_step
+    from fastenhancer_tpu_torch.train import (make_infer_fn, make_train_step,
+                                              make_valid_step)
     from fastenhancer_tpu_torch.utils import cast_floating, tree_map, tree_paths
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+    from fastenhancer_tpu_torch.train import load_checkpoint
+    from fastenhancer_tpu_torch.train.__main__ import main as train_main
+    from fastenhancer_tpu_torch.utils.hparams import HParams, get_hparams
     from fastenhancer_tpu_torch.wrappers import get_wrapper
+    from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
 
     dev = require_cuda()
     # each kernel's launch counter: (wrapper, attribute); the block stack's
@@ -333,7 +373,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/20] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/21] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -341,10 +381,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/20] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/21] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/20] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/21] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -465,7 +505,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/20] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/21] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -500,7 +540,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/20] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/21] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -555,7 +595,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/20] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/21] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -576,7 +616,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/20] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/21] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -620,7 +660,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/20] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/21] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -667,7 +707,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/20] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/21] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -710,7 +750,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/20] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/21] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -758,7 +798,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/20] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/21] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -775,7 +815,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/20] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/21] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -814,7 +854,7 @@ def main():
                    f"cuDNN GRU vs gru_scan's plain version: {lib_err}")
             return time_ms(lambda: lib(args[0], args[1][None]))
 
-    def check_scan(t, n, h, h0, dtype, flip=False):
+    def check_scan(t, n, h, h0, dtype, flip=False, phase=3):
         """One case of #5 against its plain version, its form checked;
         flip runs the backward direction of a biGRU (x_proj time-flipped).
         -> (args, ys, h_T, errs)."""
@@ -831,7 +871,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[3/20] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/21] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -857,7 +897,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/20] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/21] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -879,13 +919,14 @@ def main():
     # timed in bf16 beside its plain version, its bound and cuDNN's GRU
     nc_frames = int(NC_SECONDS * SR) // NONCAUSAL_HUGE["hop_size"] + 1
     nc_rows = NC_STREAMS * NONCAUSAL_HUGE["rnnformer_kwargs"]["freq"]
-    def check_and_time(shapes):
+    def check_and_time(shapes, phase=3):
         """Each (T, N, H, h0, flip, timed, path) of #5 against its plain
         version in both dtypes; the timed ones also in bf16 beside the
         plain version, the bound and cuDNN's GRU."""
         for t, n, h, h0, flip, timed_case, path in shapes:
             for dtype in (torch.float32, torch.bfloat16):
-                args, ys, h_t, errs = check_scan(t, n, h, h0, dtype, flip)
+                args, ys, h_t, errs = check_scan(t, n, h, h0, dtype, flip,
+                                                 phase)
                 if dtype != torch.bfloat16 or not timed_case:
                     continue
                 rec = timed(lambda: scan.gru_scan(*args),
@@ -894,7 +935,8 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[3/20] time gru_scan T={t} N={n} H={h} bf16, {path} "
+                print(f"[{phase}/21] time gru_scan T={t} N={n} H={h} bf16, "
+                      f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
                       f"{rec['ms']:.4f} ms, plain PyTorch "
@@ -946,7 +988,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/20] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/21] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1065,7 +1107,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/20] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/21] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1104,7 +1146,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/20] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/21] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1161,7 +1203,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/20] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/21] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1246,7 +1288,7 @@ def main():
     hps = FE_T_SHARD
     n_train = int(TRAIN_SECONDS * SR)
     batch = shard_batch(TRAIN_ROWS, n_train, seed=5)
-    wrapper = get_wrapper(hps["wrapper"])(hps, train=True)
+    wrapper = get_wrapper(hps["wrapper"])(HParams(**hps), train=True)
     _check(wrapper.compute_dtype == torch.bfloat16,
            "the recipe's fp16 flag did not give bfloat16 compute")
     model = wrapper.model
@@ -1316,7 +1358,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/20] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/21] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1330,7 +1372,8 @@ def main():
           f"audio s trained per wall s; on {card}")
 
     # 12b. one float32 step on the card against the CPU's plain path
-    cpu_wrapper = get_wrapper(hps["wrapper"])(hps, train=True, device="cpu")
+    cpu_wrapper = get_wrapper(hps["wrapper"])(HParams(**hps), train=True,
+                                              device="cpu")
     _check(tree_diff(cpu_wrapper.state["variables"], start) <= 0.0,
            "the CPU wrapper's init differs from the card's")
     wrapper.mix_generator.manual_seed(MIX_SEED)
@@ -1363,7 +1406,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/20] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/21] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1408,7 +1451,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/20] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/21] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1472,7 +1515,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/20] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/21] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1481,7 +1524,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/20] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/21] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1519,7 +1562,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/20] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/21] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1568,7 +1611,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/20] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/21] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1658,21 +1701,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/20] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/21] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/20] {tag} bf16 Model.forward, "
+        print(f"[{phase}/21] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/20] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/21] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -1685,8 +1728,374 @@ def main():
 
     baseline("fspen", FSPEN, "FSPEN", 19, 30)
     baseline("lisennet", LISENNET, "LiSenNet", 20, 6)
+
+    # -- 21. train through the CLI --------------------------------------------
+    def wav_bytes(x):
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(SR)
+            f.writeframes(np.clip(x * 32768, -32768, 32767).astype("<i2")
+                          .tobytes())
+        return buf.getvalue()
+
+    def write_shards(root, name, cuts_per_shard, make, custom=None):
+        """CLI_SHARDS shards of `cuts_per_shard` cuts in ShardSource's
+        layout: cuts.NNNNNN.jsonl.gz and a plain ustar recording.NNNNNN.tar
+        of 16 kHz WAVs; make(index) -> the cut's audio."""
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        k = 0
+        for s_ in range(CLI_SHARDS):
+            metas = []
+            with tarfile.open(os.path.join(d, f"recording.{s_:06d}.tar"), "w",
+                              format=tarfile.USTAR_FORMAT) as tar:
+                for _ in range(cuts_per_shard):
+                    x = make(k)
+                    cid = f"{name}-{k:04d}"
+                    data = wav_bytes(x)
+                    info = tarfile.TarInfo(f"{cid}.wav")
+                    info.size = len(data)
+                    tar.addfile(info, io.BytesIO(data))
+                    metas.append(dict({"id": cid, "duration": len(x) / SR},
+                                      **({"custom": custom} if custom
+                                         else {})))
+                    k += 1
+            with gzip.open(os.path.join(d, f"cuts.{s_:06d}.jsonl.gz"),
+                           "wt") as f:
+                f.write("".join(json.dumps(m) + "\n" for m in metas))
+        return d
+
+    def write_corpus(root, seed):
+        """Speech cuts of CLI_CUT_SECONDS with silent stretches, noise (one
+        source silent), 0.5 s decaying RIRs, and CLI_WAVS paired
+        clean/noisy files of 2-4 s. -> (inputs, wav dirs, wav lengths)."""
+        rng = np.random.default_rng(seed)
+
+        def speech(_, seconds=CLI_CUT_SECONDS):
+            return speech_like(rng, 1, int(rng.uniform(*seconds) * SR))[0]
+
+        def noise(k):
+            n = int(rng.uniform(2.0, 4.0) * SR)
+            return (np.zeros(n) if k == 0 else rng.standard_normal(n) * 0.05)
+
+        def rir(_):
+            t = np.arange(int(RIR_SECONDS * SR))
+            r = rng.standard_normal(len(t)) * np.exp(-6.9 * t / (0.3 * SR))
+            return 0.9 * r / np.abs(r).max()
+
+        inputs = {
+            "speech": [{"shard_dir": write_shards(root, "speech",
+                                                  CLI_SPEECH_CUTS, speech)}],
+            "noise": [{"shard_dir": write_shards(root, "noise", 4, noise)}],
+            "rir": [{"shard_dir": write_shards(
+                root, "rir", 2, rir, custom={"rir_onset": 0, "t60": 0.3})}]}
+        wav_dirs = [os.path.join(root, "wav", k) for k in ("clean", "noisy")]
+        for d in wav_dirs:
+            os.makedirs(d)
+        lengths = []
+        for i in range(CLI_WAVS):
+            clean = speech(i, (2.0, 4.0))
+            noisy = clean + rng.standard_normal(len(clean)) * rng.uniform(
+                0.01, 0.05)
+            for d, x in zip(wav_dirs, (clean, noisy)):
+                write_wav(os.path.join(d, f"{i:03d}.wav"), x, SR)
+            lengths.append(len(clean))
+        return inputs, wav_dirs, lengths
+
+    class Tee:
+        """stdout copied into a buffer, so the CLI's lines can be read."""
+
+        def __init__(self, out):
+            self.out, self.buf = out, io.StringIO()
+
+        def write(self, text):
+            self.buf.write(text)
+            return self.out.write(text)
+
+        def flush(self):
+            self.out.flush()
+
+    def run_cli(argv):
+        """train_main(argv) with its stdout kept; the launch counts zeroed
+        just before and read just after; -> (history, counts, stdout)."""
+        tee, old = Tee(sys.stdout), sys.stdout
+        sys.stdout = tee
+        torch.cuda.synchronize()
+        zero_counts()
+        try:
+            history = train_main(argv)
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout = old
+        return history, read_counts(), tee.buf.getvalue()
+
+    def snapshot(w):
+        """A wrapper's state as host arrays, keyed by tree path."""
+        v = w.state["variables"]
+        out = {("params",) + p: t.detach().cpu().numpy().copy()
+               for p, t in tree_paths(v["params"])}
+        out.update({("stats",) + p: t.detach().cpu().numpy().copy()
+                    for p, t in tree_paths(v["stats"])})
+        out.update({("opt",) + p: a for p, a in tree_paths(
+            w.optim.state_tree(v["params"]))})
+        return out, w.scheduler.state_dict(), w.epoch
+
+    def expected_scan_shapes(hps, lengths):
+        """Each (x_proj shape, dtype) #5 meets in a CLI epoch, worked out
+        from the config and the paired files' lengths: the bf16 valid step
+        on segment_size crops, and the float32 PESQ forward on the
+        length-sorted files, a batch padded to 16 hops."""
+        mk = hps.model_kwargs
+        hop, freq = mk.hop_size, mk.rnnformer_kwargs.freq
+        gates = 3 * mk.rnnformer_kwargs.channels
+        seg_len = hps.data.valid.segment_size
+        want = {((seg_len // hop + 1, min(vb, CLI_WAVS - i) * freq, gates),
+                 torch.bfloat16)
+                for vb in [hps.valid.batch_size]
+                for i in range(0, CLI_WAVS, vb)}
+        ordered, pb, pad = sorted(lengths), hps.pesq.batch_size, 16 * hop
+        for i in range(0, CLI_WAVS, pb):
+            padded = -(-max(ordered[i:i + pb]) // pad) * pad
+            want.add(((padded // hop + 1, len(ordered[i:i + pb]) * freq,
+                       gates), torch.float32))
+        return want
+
+    # what the CLI's path hands #4 (every mix's call) and #5 (the first
+    # launch of each shape and dtype), cloned on the way while installed,
+    # to be held against the plain versions after the run; each call goes
+    # on unchanged
+    seen_rms, seen_scan = [], {}
+    mixer_rms = DynamicMixer._rms
+    scan_launch = {"tc": scan.launch_tc, "scalar": scan.launch_scalar}
+
+    def spy_rms(self, wav, absolute_threshold_db):
+        seen_rms.append((wav[:, 0].detach().clone(), dict(
+            sr=self.sr, window_ms=self.seg_window_ms,
+            relative_threshold_db=self.seg_rel_thr,
+            absolute_threshold_db=absolute_threshold_db)))
+        return mixer_rms(self, wav, absolute_threshold_db)
+
+    def spy_scan(form):
+        def launch(*args):
+            seen_scan.setdefault((tuple(args[0].shape), args[0].dtype),
+                                 (form, [a.detach().clone() for a in args]))
+            return scan_launch[form](*args)
+        return launch
+
+    def record_inputs(on):
+        DynamicMixer._rms = spy_rms if on else mixer_rms
+        scan.launch_tc = spy_scan("tc") if on else scan_launch["tc"]
+        scan.launch_scalar = (spy_scan("scalar") if on
+                              else scan_launch["scalar"])
+
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        inputs, (clean_dir, noisy_dir), wav_lengths = write_corpus(cli_dir,
+                                                                   seed=21)
+        corpus_s = time.perf_counter() - t0
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "fastenhancer_shard", "t.yaml")
+        logs = os.path.join(cli_dir, "logs")
+        run_dir = os.path.join(logs, "cli")
+        params = [
+            f"data.train.inputs={inputs!r}",
+            f"data.valid.clean_dir={clean_dir!r}",
+            f"data.valid.noisy_dir={noisy_dir!r}",
+            f"data.pesq.clean_dir={clean_dir!r}",
+            f"data.pesq.noisy_dir={noisy_dir!r}",
+            f"train.steps_per_epoch={CLI_STEPS}", "train.max_epochs=2",
+            "train.save_interval=1", "pesq.interval=1",
+            f"valid.batch_size={CLI_VALID_BATCH}"]
+        record_inputs(True)
+        try:
+            history, counts, out = run_cli(
+                ["-n", "cli", "-c", config, "--base_dir", logs, "-p",
+                 *params])
+        finally:
+            record_inputs(False)
+        files = sorted(os.listdir(run_dir))
+        _check(files == ["00001.ckpt", "00002.ckpt", "config.yaml"],
+               f"CLI run dir holds {files}")
+        run_hps = get_hparams(None, run_dir)
+        blocks = FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"]["num_blocks"]
+        pesq_batch = run_hps.pesq.batch_size
+        valid_n = -(-CLI_WAVS // CLI_VALID_BATCH)
+        pesq_n = -(-CLI_WAVS // pesq_batch)
+
+        def check_cli_counts(counts, epochs, what):
+            want = {k: 0 for k in counters}
+            want["segmental_rms_fused"] = 2 * CLI_STEPS * epochs
+            want["gru_scan"] = blocks * (valid_n + pesq_n) * epochs
+            want[GRU_TC] = blocks * valid_n * epochs
+            _check(counts == want, f"{what}: launches {counts} != {want}")
+
+        check_cli_counts(counts, 2, "CLI train")
+        for r in history:
+            vals = list(r["train"].values()) + list(r["valid"].values())
+            _check(all(np.isfinite(v) for v in vals),
+                   f"CLI epoch {r['epoch']}: {r}")
+            _check(1.0 <= r["valid"]["metrics/pesq"] <= 4.65
+                   and -1.0 <= r["valid"]["metrics/stoi"] <= 1.0,
+                   f"CLI epoch {r['epoch']} metrics: {r['valid']}")
+        _check([r["epoch"] for r in history] == [1, 2]
+               and "Epoch 2/2  valid:" in out, "CLI epochs")
+        # every train step mixed a batch of the recipe's max_duration
+        # (padded to its longest cut, cut to a multiple of the hop)
+        batch_s = [x.shape[0] * x.shape[1] / SR for x, _ in seen_rms]
+        batch_rows = sorted({x.shape[0] for x, _ in seen_rms})
+        _check(min(batch_s) >= 0.95 * run_hps.data.max_duration,
+               f"CLI train batches of {batch_s} s, not the recipe's "
+               f"{run_hps.data.max_duration} s")
+        # #4 on every input the mixes gave it, against its plain version
+        rms_worst = 0.0
+        for x, kw in seen_rms:
+            got = seg.segmental_rms_fused(x, **kw)
+            torch.cuda.synchronize()
+            err, rms_rel = rms_err(got, seg.segmental_rms(x, **kw), x.dtype,
+                                   f"segmental_rms {tuple(x.shape)} from "
+                                   "the CLI's mix")
+            rms_worst = max(rms_worst, err)
+        print(f"[21/21] kernel segmental_rms on the {len(seen_rms)} inputs "
+              f"of the CLI's mixes (B in {batch_rows}, "
+              f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
+              f"float32): max abs err {rms_worst:.3e} (each within "
+              f"{rms_rel:g} relative)")
+        # #5: the shapes the run gave it are the ones the config and the
+        # files give; each recorded input against the plain version, and
+        # each shape in both dtypes on random inputs
+        want_shapes = expected_scan_shapes(run_hps, wav_lengths)
+        _check(set(seen_scan) == want_shapes,
+               f"#5 in the CLI run: {sorted(seen_scan, key=str)} != "
+               f"{sorted(want_shapes, key=str)}")
+        for (shape, dtype), (form, args) in sorted(seen_scan.items(),
+                                                   key=str):
+            _check(form == ("tc" if dtype == torch.bfloat16 else "scalar"),
+                   f"gru_scan {shape} {dtype} ran the {form} form")
+            ys, h_t = scan.gru_scan(*args)
+            torch.cuda.synchronize()
+            ys_r, h_r = scan.gru_scan_reference(*args)
+            errs = compare(f"gru_scan {shape} from the CLI",
+                           ((ys, ys_r), (h_t, h_r)), dtype)
+            print(f"[21/21] kernel gru_scan T={shape[0]} N={shape[1]} "
+                  f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
+                  f"input ({form} form, the "
+                  f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
+                  f"max abs err ys {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), "
+                  f"h_T {errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+        check_and_time([(t, n, g // 3, False, False, False, "CLI")
+                        for t, n, g in sorted({sh for sh, _ in want_shapes})],
+                       phase=21)
+        # resume from the run dir: the state right after load against the
+        # saved 00002.ckpt, bit for bit
+        saved = load_checkpoint(os.path.join(run_dir, "00002.ckpt"))
+        want = {("params",) + p: a for p, a in tree_paths(
+            saved["variables"]["params"])}
+        want.update({("stats",) + p: a for p, a in tree_paths(
+            saved["variables"]["stats"])})
+        want.update({("opt",) + p: a for p, a in tree_paths(
+            saved["opt_state"])})
+        loaded = []
+        load = ns_wrapper.ModelWrapper.load
+
+        def spy_load(self, epoch=None):
+            ok = load(self, epoch)
+            loaded.append(snapshot(self))
+            return ok
+
+        ns_wrapper.ModelWrapper.load = spy_load
+        try:
+            resumed, counts_r, out_r = run_cli(
+                ["-n", "cli", "--base_dir", logs, "-p", "train.max_epochs=3",
+                 "-f"])
+        finally:
+            ns_wrapper.ModelWrapper.load = load
+        got, sched, epoch = loaded[0]
+        _check(got.keys() == want.keys()
+               and all(got[k].dtype == want[k].dtype
+                       and np.array_equal(got[k], want[k]) for k in want),
+               "resumed state != 00002.ckpt")
+        _check(sched == saved["scheduler"] and epoch == 2,
+               f"resumed scheduler {sched} / epoch {epoch}")
+        _check("loaded checkpoint" in out_r
+               and [r["epoch"] for r in resumed] == [3]
+               and os.path.exists(os.path.join(run_dir, "00003.ckpt")),
+               f"CLI resume: epochs {[r['epoch'] for r in resumed]}")
+        check_cli_counts(counts_r, 1, "CLI resume")
+        # the trained 00003.ckpt on the card against the CPU's plain path,
+        # float32: the losses of the CLI's first valid batch (as phase 15)
+        # and the offline forward of its first PESQ batch
+        final = load_checkpoint(os.path.join(run_dir, "00003.ckpt"))
+        v_card = tree_map(lambda a: torch.tensor(a, device=dev),
+                          final["variables"])
+        v_cpu = tree_map(torch.tensor, final["variables"])
+        _, loader = get_dataset_dataloader(run_hps, "valid", ["clean",
+                                                              "noisy"])
+        dev_batch, _ = wrapper._device_batch(next(iter(loader)),
+                                             ("clean", "noisy"))
+        l_card = make_valid_step(wrapper.model, wrapper.loss)(v_card,
+                                                              dev_batch)
+        l_cpu = make_valid_step(wrapper.model, cpu_wrapper.loss)(
+            v_cpu, {k: v.cpu() for k, v in dev_batch.items()})
+        l_rel = {k: abs(float(l_card[k]) - float(l_cpu[k]))
+                 / abs(float(l_cpu[k])) for k in l_cpu}
+        _check(max(l_rel.values()) <= TRAIN_F32_RTOL,
+               f"CLI float32 valid card vs CPU: relative {l_rel}")
+        _, loader = get_dataset_dataloader(run_hps, "pesq", ["clean",
+                                                             "noisy"])
+        noisy = torch.from_numpy(np.ascontiguousarray(
+            next(iter(loader))["noisy"], dtype=np.float32))
+        infer = make_infer_fn(wrapper.model)
+        y_cpu = infer(v_cpu, noisy)
+        y_err = (infer(v_card, noisy.to(dev)).cpu() - y_cpu).abs().max()
+        y_peak = y_cpu.abs().max().item()
+        _check(y_err.item() <= F32_OUT_REL * y_peak,
+               f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
+               f"{y_peak}")
+        print(f"[21/21] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+              f"path: valid losses of the first valid batch "
+              f"({dev_batch['noisy'].shape[0]} x "
+              f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
+              f"{max(l_rel.values()):.3e} (tol {TRAIN_F32_RTOL:g}); the "
+              f"first PESQ batch's forward ({tuple(noisy.shape)}) max abs "
+              f"err {y_err.item():.3e} (tol {F32_OUT_REL * y_peak:.3e} = "
+              f"{F32_OUT_REL:g} of the peak {y_peak:.3e})")
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    rms_paths = {"FE-T train (14)": record["segmental_rms_fused"]["launches"],
+                 "CLI (21)": counts["segmental_rms_fused"]
+                 + counts_r["segmental_rms_fused"]}
+    record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
+    scan_paths["CLI valid bf16 + PESQ f32 (21)"] = (counts["gru_scan"]
+                                                    + counts_r["gru_scan"])
+    for r in history + resumed:
+        tm = r["timing"]
+        print(f"[21/21] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+              f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
+              f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
+              f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
+              f"({1e3 * tm['step'] / tm['steps']:.1f} ms a step); valid "
+              f"{tm['valid']:.3f} s ({valid_n} batches of up to "
+              f"{CLI_VALID_BATCH}, {1e3 * tm['valid'] / valid_n:.1f} ms a "
+              f"batch); PESQ/STOI {tm['metrics']:.3f} s ({CLI_WAVS} files in "
+              f"{pesq_n} float32 forwards); train losses "
+              f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
+              f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
+              f"{r['valid']['metrics/stoi']:.4f}; on {card}")
+    print(f"[21/21] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+          f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
+          f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
+          f"launches per "
+          f"epoch: segmental_rms {2 * CLI_STEPS} (2 a step), gru_scan "
+          f"{blocks * (valid_n + pesq_n)} ({blocks * valid_n} tensor-core in "
+          f"the bf16 valid step, {blocks * pesq_n} scalar in the float32 "
+          f"PESQ forward), no other kernel; resume: state after load equal "
+          f"to 00002.ckpt bit for bit over {len(want)} arrays, scheduler "
+          f"and epoch; segmental_rms launches by path {rms_paths}")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[20/20] gru_scan launches on the bf16 paths: {scan_paths}; "
+    print(f"[21/21] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     sources = {

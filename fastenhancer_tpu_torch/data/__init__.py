@@ -1,4 +1,18 @@
-"""Device-side data: the shard recipe's mixer and its batch type."""
+"""Host-side data (wav IO, the paired-wav dataset, the threaded loader, the
+shard reader) and the shard recipe's device-side mixer.
+
+`get_dataset_dataloader` is the counterpart of
+fastenhancer_tpu/data/__init__.py's for one process: a mode-keyed dataset
+with per-mode batch-size and worker overrides; `data.dataset` may be one
+name or a {mode: name} map.
+"""
+from __future__ import annotations
+
+import typing as tp
+
+from .audio_io import read_wav, resample, wav_duration, write_wav
+from .loader import DataLoader, collate
+from .noise_suppression import NSDataset
 from .shard_mixer import (
     DynamicMixer,
     ShardBatch,
@@ -8,5 +22,60 @@ from .shard_mixer import (
     get_weighted_rir,
 )
 
-__all__ = ["DynamicMixer", "ShardBatch", "batch_convolve_rir",
-           "get_early_rir", "get_rts_rir", "get_weighted_rir"]
+
+def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
+                           ) -> tp.Tuple[tp.Any, tp.Any]:
+    """(dataset, loader) for `mode` in train/valid/pesq; `hps` is an
+    HParams. The shard datasets are their own (endless) loaders. (The
+    showcase `infer` mode is not ported, with `infer_epoch`.)"""
+    dataset_name = hps["data"]["dataset"]
+    if not isinstance(dataset_name, str):
+        dataset_name = dataset_name[mode]
+
+    if dataset_name == "NoiseSuppression":
+        cls = NSDataset
+    elif dataset_name == "NoiseSuppressionOnTheFly":
+        raise NotImplementedError(
+            "the NoiseSuppressionOnTheFly dataset is not ported yet (ROADMAP "
+            'queue 1, "Training, end to end on one card": the DNS recipe)')
+    elif dataset_name in ("ShardOnTheFly", "ShardSegment"):
+        from .shard import build_shard_dataloader
+
+        return build_shard_dataloader(hps, mode=mode, keys=keys,
+                                      segment=(dataset_name == "ShardSegment"))
+    else:
+        raise ValueError(f"unknown dataset: {dataset_name}")
+
+    hp = hps["train"]
+    batch_size = getattr(hp, "batch_size", 1)
+    num_workers = getattr(hp, "num_workers", 2)
+    drop_last = getattr(hp, "drop_last", False)
+    pad_multiple = 1
+    if mode == "valid":
+        sec = getattr(hps, "valid", {})
+        batch_size = getattr(sec, "batch_size", batch_size)
+        num_workers = getattr(sec, "num_workers", num_workers)
+        drop_last = getattr(sec, "drop_last", drop_last)
+    elif mode == "pesq":
+        sec = getattr(hps, "pesq", {})
+        batch_size = getattr(sec, "batch_size", batch_size)
+        num_workers = getattr(sec, "num_workers", num_workers)
+        # length-sorted unsegmented eval, padded to 16 hops: a bounded set
+        # of shapes
+        pad_multiple = 16 * getattr(hps["model_kwargs"], "hop_size", 256)
+    elif mode != "train":
+        raise ValueError(f"unknown dataset mode: {mode}")
+
+    dataset = cls(hps["data"], keys, mode=mode, batch_size=batch_size)
+    loader = DataLoader(dataset, batch_size=batch_size,
+                        num_workers=max(num_workers, 1),
+                        drop_last=drop_last, pad_multiple=pad_multiple)
+    return dataset, loader
+
+
+__all__ = [
+    "get_dataset_dataloader", "NSDataset", "DataLoader", "collate",
+    "read_wav", "write_wav", "wav_duration", "resample",
+    "DynamicMixer", "ShardBatch", "batch_convolve_rir", "get_early_rir",
+    "get_rts_rir", "get_weighted_rir",
+]

@@ -1,0 +1,820 @@
+"""Sharded on-the-fly training pipeline (lhotse-shar compatible).
+
+Host-side rebuild of the reference's ShardOnTheFly stack (reference:
+utils/data/shard_on_the_fly.py, 1.5k lines on lhotse + torch DataLoader):
+
+  * `ShardSource` — lazy discovery of `cuts.NNNNNN.jsonl.gz` +
+    `recording.NNNNNN.tar` pairs in a shard dir; shard-level shuffle only
+    (tar reading stays sequential, :128-169);
+  * `WeightedMux` — re-iterable weighted mux of speech sources (:224-283);
+  * `CyclicBuffer` — infinite aux reader (noise/rir) that fills a reservoir
+    and serves random draws from it (:348-390);
+  * `DurationBucketSampler` — batches of similar-duration cuts summing to
+    `max_duration` seconds (DynamicBucketingSampler semantics, :729-738);
+  * `ShardDataset` — iterable assembling `ShardBatch`es with the
+    reference's 11-step probabilistic assembly (:841-1076): codec-vs-reverb
+    joint draw, farend/echo pooling with a shared wrap-crop cursor, is_real
+    round-robin, noise gating for real full-echo items; per-epoch seed via
+    `set_epoch`, RAM release via `release_auxiliary` (:674-692).
+
+A copy of fastenhancer_tpu/data/shard.py (the port imports nothing of the
+JAX package) without its optional native tar walker: tars are read by the
+pure-Python ustar walker (or `tarfile` for other tar formats), wav entries
+decoded by data/audio_io.py, flac via soundfile when installed. Batches are
+the `ShardBatch` of data/shard_mixer.py, which mixes them on the device.
+
+Threading replaces the reference's worker processes: one background thread
+prefetches assembled batches (decode is numpy/IO-bound and releases the GIL).
+Seed contract kept for one process, rank 0 of the reference's
+epoch_seed + iteration + worker + 1000*rank.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import io
+import json
+import os
+import queue
+import random
+import tarfile
+import threading
+import time
+import typing as tp
+
+import numpy as np
+
+from .audio_io import _read_riff
+from .shard_mixer import ShardBatch
+
+SHARD_DEBUG = bool(os.environ.get("SHARD_DEBUG"))
+
+# Parallel fields that share the recording's crop cursor and therefore must
+# be sample-aligned with it (reference shard_on_the_fly.py:941-957). `rir`
+# is deliberately absent: RIRs are stored at their natural (shorter) length
+# (reference scripts/data/shard_test.py:150-158).
+SAMPLE_ALIGNED_FIELDS = frozenset({"farend", "echo"})
+
+
+def _put_until_stop(q: "queue.Queue", item, stop: "threading.Event",
+                    timeout: float = 0.25) -> bool:
+    """q.put that gives up when stop is set (a plain q.put blocks FOREVER if
+    the consumer abandoned the queue mid-epoch — e.g. steps_per_epoch break —
+    leaking the producer thread and its open tar handles)."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=timeout)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _decode_audio(name: str, payload: bytes) -> np.ndarray:
+    if name.endswith((".wav", ".WAV")):
+        fh = io.BytesIO(payload)
+        header = fh.read(12)  # RIFF....WAVE
+        if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
+            raise ValueError(f"bad wav entry: {name}")
+        x, _ = _read_riff(fh)
+        if x.ndim == 2:
+            x = x.mean(axis=1)
+        return x.astype(np.float32)
+    if name.endswith((".flac", ".FLAC")):
+        try:
+            import soundfile as sf
+        except ImportError as e:
+            raise ImportError(
+                "flac shard entries need the soundfile package, which is "
+                "not installed; rebuild shards as wav via scripts/data") from e
+        x, _ = sf.read(io.BytesIO(payload), dtype="float32")
+        if x.ndim == 2:
+            x = x.mean(axis=1)
+        return x
+    raise ValueError(f"unsupported shard audio entry: {name}")
+
+
+@dataclasses.dataclass
+class Cut:
+    id: str
+    duration: float
+    audio: np.ndarray
+    custom: tp.Dict[str, tp.Any]
+    # extra shard fields loaded in lockstep (e.g. "codec", "echo");
+    # reference stores these as parallel tars (codec.NNNNNN.tar, :649-656)
+    extras: tp.Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # first supervision's custom payload (test-set builders store per-cut
+    # SNR/SER/dbFS there, reference scripts/data/shard_test.py:131-196)
+    sup: tp.Dict[str, tp.Any] = dataclasses.field(default_factory=dict)
+
+
+class ShardSource:
+    """One shard directory: aligned cuts.*.jsonl.gz + recording.*.tar.
+
+    `fields` beyond "recording" name parallel tars (codec.NNNNNN.tar,
+    echo.NNNNNN.tar) whose members are in the SAME order as recording's
+    (the lhotse-shar alignment contract, reference :164,:649-656); they are
+    read in lockstep and exposed as Cut.extras[field]."""
+
+    def __init__(self, shard_dir: str, weight: float = 1.0,
+                 fields: tp.Sequence[str] = ("recording",)):
+        self.shard_dir = shard_dir
+        self.weight = weight
+        self.fields = tuple(fields)
+        self._shards: tp.Optional[tp.List[tp.Tuple[str, tp.Dict[str, str]]]] \
+            = None
+
+    def _discover(self) -> tp.List[tp.Tuple[str, tp.Dict[str, str]]]:
+        if self._shards is None:
+            cuts = sorted(f for f in os.listdir(self.shard_dir)
+                          if f.startswith("cuts.") and f.endswith(".jsonl.gz"))
+            pairs = []
+            for c in cuts:
+                idx = c.split(".")[1]
+                tars = {f: os.path.join(self.shard_dir, f"{f}.{idx}.tar")
+                        for f in self.fields}
+                if all(os.path.exists(p) for p in tars.values()):
+                    pairs.append((os.path.join(self.shard_dir, c), tars))
+            self._shards = pairs
+        return self._shards
+
+    @staticmethod
+    def _plain_ustar(tar_path: str) -> bool:
+        """True when the first member header is a plain regular-file ustar
+        record (our builders and lhotse wav shards); pax/GNU-extended tars
+        take the stdlib path. Decided ONCE per tar so the fast walker never
+        bails mid-stream (a mid-tar fallback would re-yield members)."""
+        with open(tar_path, "rb") as f:
+            h = f.read(512)
+        if len(h) < 512 or h[:1] == b"\0":
+            return False
+        if h[156:157] not in (b"0", b"\x00", b""):
+            return False
+        try:
+            int(h[124:136].split(b"\0")[0].strip() or b"0", 8)
+        except ValueError:
+            return False
+        return True
+
+    @classmethod
+    def _iter_tar_audio(cls, tar_path: str):
+        """Sequential tar member reader. The stdlib tarfile module costs
+        ~180us/member in header bookkeeping we don't need (profiled at 26%
+        of shard-loading time); for plain ustar tars a manual walker is
+        ~10x cheaper (bit-identical output, tested)."""
+        if cls._plain_ustar(tar_path):
+            with open(tar_path, "rb") as f:
+                while True:
+                    header = f.read(512)
+                    if len(header) < 512 or header[:1] == b"\0":
+                        return
+                    if header[156:157] not in (b"0", b"\x00", b""):
+                        raise ValueError(
+                            f"mixed-format tar {tar_path}: rebuild the "
+                            f"shard with uniform ustar members")
+                    size = int(header[124:136].split(b"\0")[0].strip() or
+                               b"0", 8)
+                    name = header[0:100].split(b"\0")[0].decode()
+                    payload = f.read(size)
+                    f.read((512 - size % 512) % 512)  # skip padding
+                    stem = os.path.basename(name).rsplit(".", 1)[0]
+                    yield stem, _decode_audio(name, payload)
+            return  # fast path is exhaustive; never also re-walk
+        with tarfile.open(tar_path) as tar:
+            for member in tar:
+                if not member.isfile():
+                    continue
+                stem = os.path.basename(member.name).rsplit(".", 1)[0]
+                payload = tar.extractfile(member).read()
+                yield stem, _decode_audio(member.name, payload)
+
+    def iter_cuts(self, seed: int,
+                  stride: tp.Tuple[int, int] = (0, 1)) -> tp.Iterator[Cut]:
+        """Iterate all cuts; shard ORDER is shuffled by seed, cuts within a
+        shard stay tar-sequential (reference: shard-level shuffle only).
+        stride=(w, W) serves only shards with index % W == w — the worker
+        sharding contract of the reference's multi-worker DataLoader."""
+        w, nw = stride
+        shards = list(self._discover())
+        random.Random(seed).shuffle(shards)
+        shards = shards[w::nw] if nw > 1 else shards
+        extra_fields = [f for f in self.fields if f != "recording"]
+        for cuts_path, tars in shards:
+            with gzip.open(cuts_path, "rt") as f:
+                metas = [json.loads(line) for line in f if line.strip()]
+            by_id = {m["id"]: m for m in metas}
+            t0 = time.perf_counter()
+            main = self._iter_tar_audio(tars["recording"])
+            extra_iters = {f: self._iter_tar_audio(tars[f])
+                           for f in extra_fields}
+            for stem, audio in main:
+                meta = by_id.get(stem)
+                extras = {}
+                for f, it in extra_iters.items():
+                    nxt = next(it, None)
+                    if nxt is None:
+                        # a bare next() would be rewrapped by PEP 479 into
+                        # an opaque "generator raised StopIteration"
+                        raise ValueError(
+                            f"shard field {f} ({tars[f]}) has fewer "
+                            f"members than recording (missing {stem})")
+                    e_stem, e_audio = nxt
+                    if e_stem.split("_" + f)[0] != stem and e_stem != stem:
+                        raise ValueError(
+                            f"misaligned shard field {f}: {e_stem} vs {stem}")
+                    if (f in SAMPLE_ALIGNED_FIELDS
+                            and len(e_audio) != len(audio)):
+                        # farend/echo must be sample-aligned with the
+                        # recording: a length drift would silently shift
+                        # the shared farend/echo crop cursor for every
+                        # later item (the reference concatenates both
+                        # streams and reuses one cursor, shard_on_the_fly
+                        # :941-957, same design here). Other fields (rir)
+                        # are stored at their natural length — the
+                        # reference's test-set builder writes RIRs far
+                        # shorter than the recording
+                        # (shard_test.py:150-158) and its reader never
+                        # length-checks them.
+                        raise ValueError(
+                            f"shard field {f} length {len(e_audio)} != "
+                            f"recording length {len(audio)} for cut {stem}")
+                    extras[f] = e_audio
+                if meta is None:
+                    continue
+                if SHARD_DEBUG and time.perf_counter() - t0 > 1.0:
+                    print(f"[shard-debug] slow cut {stem} from "
+                          f"{tars['recording']}")
+                t0 = time.perf_counter()
+                sups = meta.get("supervisions") or [{}]
+                if "duration" in meta:
+                    duration = float(meta["duration"])
+                else:
+                    # both this repo's writer and lhotse always record
+                    # duration; for foreign shards without it, derive from
+                    # the manifest's sampling rate (48 kHz recipes exist —
+                    # hardcoding 16 kHz would triple those durations)
+                    sr = float(meta.get("sampling_rate") or
+                               (meta.get("recording") or {}).get(
+                                   "sampling_rate") or 16000)
+                    duration = len(audio) / sr
+                yield Cut(id=stem, duration=duration,
+                          audio=audio, custom=meta.get("custom") or {},
+                          extras=extras, sup=sups[0].get("custom") or {})
+
+
+class WeightedMux:
+    """Re-iterable weighted mux over sources; exhausts when all do."""
+
+    def __init__(self, sources: tp.Sequence[ShardSource]):
+        self.sources = list(sources)
+
+    def iter_cuts(self, seed: int,
+                  stride: tp.Tuple[int, int] = (0, 1)) -> tp.Iterator[Cut]:
+        rng = random.Random(seed)
+        iters = [src.iter_cuts(seed ^ (i * 999_983), stride)
+                 for i, src in enumerate(self.sources)]
+        weights = [src.weight for src in self.sources]
+        while iters:
+            i = rng.choices(range(len(iters)), weights=weights)[0]
+            try:
+                yield next(iters[i])
+            except StopIteration:
+                iters.pop(i)
+                weights.pop(i)
+
+
+class CyclicBuffer:
+    """Infinite aux source: fills a reservoir, serves random draws from it.
+
+    Reference semantics (:348-390): a cyclic iterator keeps topping up a
+    buffer; draws are random with replacement into fresh content.
+    """
+
+    def __init__(self, mux: WeightedMux, buffer_size: int):
+        self.mux = mux
+        self.buffer_size = buffer_size
+        self._buf: tp.List[Cut] = []
+        self._iter: tp.Optional[tp.Iterator[Cut]] = None
+        self._seed = 0
+        self._rng = random.Random(0)
+
+    def reset(self, seed: int) -> None:
+        self._seed = seed
+        self._rng = random.Random(seed)
+        self._iter = None
+
+    def release(self) -> None:
+        """Free buffered audio between epochs (reference release_auxiliary)."""
+        self._buf = []
+        self._iter = None
+
+    def _refill(self, n: int = 1) -> None:
+        if self._iter is None:
+            self._iter = self.mux.iter_cuts(self._seed)
+        for _ in range(n):
+            try:
+                cut = next(self._iter)
+            except StopIteration:
+                self._seed += 1
+                self._iter = self.mux.iter_cuts(self._seed)
+                cut = next(self._iter)
+            if len(self._buf) < self.buffer_size:
+                self._buf.append(cut)
+            else:
+                self._buf[self._rng.randrange(self.buffer_size)] = cut
+
+    def draw(self) -> Cut:
+        if not self._buf:
+            self._refill(min(64, self.buffer_size))
+        self._refill(1)
+        return self._rng.choice(self._buf)
+
+
+class ShardDataset:
+    """Iterable over ShardBatch. One epoch = one pass of the speech mux
+    (the wrapper bounds epochs by steps_per_epoch instead)."""
+
+    def __init__(self, hp, keys=None, mode: str = "train",
+                 segment: bool = False):
+        del keys
+        assert mode == "train"
+        sec = hp["train"]
+        self.sr: int = hp.sampling_rate
+        self.segment = segment
+        self.speech = WeightedMux([
+            ShardSource(d["shard_dir"], d.get("weight", 1.0))
+            for d in sec["inputs"]["speech"]])
+        self.noise = None
+        self.rir = None
+        buf = sec.get("aux_buffer_size", 5000)
+        if "noise" in sec["inputs"]:
+            self.noise = CyclicBuffer(WeightedMux([
+                ShardSource(d["shard_dir"], d.get("weight", 1.0))
+                for d in sec["inputs"]["noise"]]), buf)
+        if "rir" in sec["inputs"]:
+            self.rir = CyclicBuffer(WeightedMux([
+                ShardSource(d["shard_dir"], d.get("weight", 1.0))
+                for d in sec["inputs"]["rir"]]), buf)
+
+        self.max_duration: float = hp.get("max_duration", 128)
+        # producer threads; each serves a disjoint shard-index stride
+        # (reference: DataLoader num_workers with per-worker seeds)
+        self.num_workers: int = max(int(sec.get("num_workers", 1)), 1)
+        self.num_buckets: int = sec.get("num_buckets", 30)
+        self.max_utt: float = sec.get("max_utt_duration", 20.0)
+        self.min_utt: float = sec.get("min_utt_duration", 0.5)
+        self.p_reverb: float = sec.get("prob_speech_reverb", 0.0)
+        self.p_noise: float = sec.get("prob_noise", 1.0)
+        self.p_codec: float = sec.get("prob_speech_codec", 0.0)
+        self.p_fe_echo: float = sec.get("prob_farend_echo", 0.0)
+        self.p_fe_only: float = sec.get("prob_farend_only", 0.0)
+        assert self.p_codec + self.p_reverb <= 1.0 + 1e-6, \
+            "prob_speech_codec + prob_speech_reverb must be <= 1.0"
+        if self.p_codec > 0:
+            # speech shards must carry a parallel codec.NNNNNN.tar field
+            self.speech = WeightedMux([
+                ShardSource(d["shard_dir"], d.get("weight", 1.0),
+                            fields=("recording", "codec"))
+                for d in sec["inputs"]["speech"]])
+        self.farend_echo = None
+        if self.p_fe_echo > 0 or self.p_fe_only > 0:
+            fe_fields = (("recording", "echo") if self.p_fe_echo > 0
+                         else ("recording",))
+            self.farend_echo = CyclicBuffer(WeightedMux([
+                ShardSource(d["shard_dir"], d.get("weight", 1.0),
+                            fields=fe_fields)
+                for d in sec["inputs"]["farend_echo"]]), buf)
+        # segment mode defaults to 48000 samples like the reference
+        # (reference utils/data/shard_segment.py:185,541) — the shard
+        # recipes' data.train omits the key and relies on this default
+        self.segment_size: tp.Optional[int] = sec.get(
+            "segment_size", 48_000 if segment else None)
+        self.ids_to_filter = set(sec.get("ids_to_filter") or [])
+        # silence gap between concatenated cuts in segment mode
+        # (reference shard_segment.py:169-213, silence_length seconds)
+        self._silence_len = max(0, int(
+            sec.get("silence_length", 0.1) * self.sr))
+        self.pad_mode: str = sec.get("pad_mode", "zeros")
+        assert self.pad_mode in ("zeros", "repeat")
+        # transcript selection for WER eval (reference text_field, :560-569);
+        # stored in cut custom by the shard builders
+        self.text_field: str = hp.get("text", "")
+        self._epoch_seed = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch_seed = epoch
+
+    def shuffle(self, seed: int) -> None:  # train.py duck-typing
+        self.set_epoch(seed)
+
+    def release_auxiliary(self) -> None:
+        if self.noise:
+            self.noise.release()
+        if self.rir:
+            self.rir.release()
+        if self.farend_echo:
+            self.farend_echo.release()
+
+    # -- assembly --------------------------------------------------------------
+
+    def _pick_rir(self, rng: random.Random, t_rir: int
+                  ) -> tp.Tuple[np.ndarray, int, float]:
+        cut = self.rir.draw()
+        rir = cut.audio[:t_rir]
+        # onset key: "onset_sample" from the reference-layout builders
+        # (scripts/data/shard_dns_rir.py), "rir_onset" from shard_wavdir
+        onset = int(cut.custom.get(
+            "onset_sample",
+            cut.custom.get("rir_onset", int(np.argmax(np.abs(rir))))))
+        t60 = float(cut.custom.get("t60", cut.custom.get("rir_t60", 0.3)))
+        if t60 > 50.0:
+            # milliseconds, not seconds: the reference's BRUDEX builder
+            # stores T60 in ms (reference scripts/data/shard_brudex.py:72)
+            # while get_rts_rir consumes seconds — normalize so shards
+            # built by either tool behave identically (no real room has a
+            # 50 s T60, no ms-valued one is below 50)
+            t60 = t60 / 1000.0
+        return rir, onset, t60
+
+    def _fit(self, audio: np.ndarray, target: int,
+             rng: random.Random) -> np.ndarray:
+        """Wrap-crop/pad to exactly target samples (reference wrap-crop)."""
+        if len(audio) >= target:
+            start = rng.randrange(len(audio) - target + 1)
+            return audio[start: start + target]
+        reps = int(np.ceil(target / max(len(audio), 1)))
+        return np.tile(audio, reps)[:target]
+
+    @staticmethod
+    def _wrap_crop(stream: np.ndarray, cursor: int, n: int) -> np.ndarray:
+        """n samples from stream starting at cursor, wrapping/tiling
+        (reference _wrap_crop, :435-450)."""
+        t = len(stream)
+        if t == 0:
+            return np.zeros(n, np.float32)
+        cursor = cursor % t
+        if cursor + n <= t:
+            return stream[cursor: cursor + n]
+        reps = int(np.ceil((cursor + n) / t))
+        return np.tile(stream, reps)[cursor: cursor + n]
+
+    def _assemble(self, cuts: tp.List[Cut], rng: random.Random) -> ShardBatch:
+        """Reference 11-step _process_batch (:841-1076), host side only —
+        decisions + loads + stacking; all mixing math runs on device in
+        DynamicMixer."""
+        b = len(cuts)
+        if self.segment and self.segment_size:
+            t = self.segment_size
+        else:
+            t = max(len(c.audio) for c in cuts)
+
+        # step 1: per-item decisions. codec and reverb share ONE draw and
+        # are mutually exclusive (reference :851-866); echo likewise.
+        use_codec = [False] * b
+        use_reverb = [False] * b
+        echo_type = ["none"] * b
+        for i in range(b):
+            r = rng.random()
+            if r < self.p_codec:
+                use_codec[i] = True
+            elif r < self.p_codec + self.p_reverb and self.rir is not None:
+                use_reverb[i] = True
+            r = rng.random()
+            if r < self.p_fe_echo:
+                echo_type[i] = "full"
+            elif r < self.p_fe_echo + self.p_fe_only:
+                echo_type[i] = "farend_only"
+
+        # steps 2-3: farend pool + is_real (round-robin, reference :869-886)
+        fe_needed = [i for i in range(b) if echo_type[i] != "none"]
+        fe_pool: tp.List[Cut] = []
+        if fe_needed and self.farend_echo is not None:
+            need_dur = len(fe_needed) * (t / self.sr)
+            pool_dur = 0.0
+            while pool_dur < need_dur and len(fe_pool) < len(fe_needed):
+                fc = self.farend_echo.draw()
+                fe_pool.append(fc)
+                pool_dur += fc.duration
+        is_real = np.zeros(b, bool)
+        if fe_pool:
+            for j, i in enumerate(fe_needed):
+                # round-robin over the pool, replicating the reference
+                # exactly (:885-886): the label is NOT guaranteed to belong
+                # to the pool cut whose audio the shared crop cursor lands
+                # on (the reference has the same property)
+                is_real[i] = bool(
+                    fe_pool[j % len(fe_pool)].custom.get("is_real", False))
+
+        # step 4: noise decisions (skip real full-echo items, reference :889-892)
+        noise_on = [False] * b
+        if self.noise is not None and self.p_noise > 0:
+            for i in range(b):
+                if not (is_real[i] and echo_type[i] == "full"):
+                    noise_on[i] = rng.random() < self.p_noise
+
+        # step 6: speech (codec variant when drawn; clean target always)
+        speech = np.zeros((b, 1, t), np.float32)
+        speech_clean = np.zeros((b, 1, t), np.float32)
+        num_samples = np.zeros(b, np.int64)
+        for i, c in enumerate(cuts):
+            clean = (c.audio[:t] if not self.segment
+                     else self._fit(c.audio, t, rng))
+            inp = clean
+            if use_codec[i]:
+                cod = c.extras["codec"]
+                inp = (cod[:t] if not self.segment
+                       else self._fit(cod, t, rng))
+            if self.pad_mode == "repeat" and len(clean) < t:
+                inp = self._wrap_crop(inp, 0, t)
+                clean = self._wrap_crop(clean, 0, t)
+            speech[i, 0, : len(inp)] = inp[: t]
+            speech_clean[i, 0, : len(clean)] = clean[: t]
+            # valid-sample count: segment/repeat modes fill the row entirely
+            if self.segment or self.pad_mode == "repeat":
+                num_samples[i] = t
+            else:
+                num_samples[i] = min(len(c.audio), t)
+
+        # step 7: farend/echo streams with one advancing cursor (:938-957)
+        farend = echo = None
+        if fe_pool:
+            farend = np.zeros((b, 1, t), np.float32)
+            need_echo = any(echo_type[i] == "full" for i in fe_needed)
+            echo = np.zeros((b, 1, t), np.float32) if need_echo else None
+            fe_stream = np.concatenate([fc.audio for fc in fe_pool])
+            echo_stream = (np.concatenate([fc.extras["echo"]
+                                           for fc in fe_pool])
+                           if need_echo else None)
+            t_fe = len(fe_stream)
+            cursor = rng.randint(0, max(0, t_fe - t))
+            for i in fe_needed:
+                farend[i, 0] = self._wrap_crop(fe_stream, cursor, t)
+                if echo_type[i] == "full" and echo_stream is not None:
+                    echo[i, 0] = self._wrap_crop(echo_stream, cursor, t)
+                cursor = (cursor + t) % t_fe if t_fe > 0 else 0
+
+        # step 8: noise
+        noise = None
+        if self.noise is not None and self.p_noise > 0:
+            noise = np.zeros((b, 1, t), np.float32)
+            for i in range(b):
+                if noise_on[i]:
+                    noise[i, 0] = self._fit(self.noise.draw().audio, t, rng)
+
+        # step 9: RIR (unit impulse for non-reverb items)
+        t_rir = int(0.5 * self.sr)
+        rir = np.zeros((b, 1, t_rir), np.float32)
+        rir[:, 0, 0] = 1.0  # unit impulse = dry
+        rir_onset = np.zeros(b, np.int64)
+        rir_t60 = np.full(b, 1e-3, np.float32)  # <= t60_max => rts passthrough
+        for i in range(b):
+            if use_reverb[i]:
+                r, onset, t60 = self._pick_rir(rng, t_rir)
+                rir[i, 0, : len(r)] = r
+                rir_onset[i] = onset
+                rir_t60[i] = t60
+
+        text = None
+        if self.text_field:
+            text = [str(c.custom.get(self.text_field, "")) for c in cuts]
+        return ShardBatch(
+            speech=speech, speech_clean=speech_clean, noise=noise,
+            rir=rir, rir_onset=rir_onset, rir_t60=rir_t60,
+            num_samples=num_samples, id_speech=[c.id for c in cuts],
+            farend=farend, echo=echo,
+            is_real=is_real if fe_pool else None, text=text)
+
+    def _gen_stream(self, draw: tp.Callable[[], Cut], t: int,
+                    rng: random.Random, extra: tp.Optional[str] = None
+                    ) -> tp.Tuple[np.ndarray, tp.Optional[np.ndarray],
+                                  tp.List[str], bool]:
+        """Concat cuts with silence gaps until exactly t samples; the final
+        overflow cut is random-cropped at a shared offset so a parallel
+        `extra` field stays temporally aligned (reference
+        shard_segment.py:335-426 _gen_audio/_gen_speech)."""
+        chunks: tp.List[np.ndarray] = []
+        echunks: tp.List[np.ndarray] = []
+        ids: tp.List[str] = []
+        is_real = False
+        remaining = t
+        while remaining > 0:
+            cut = draw()
+            if not ids:
+                is_real = bool(cut.custom.get("is_real", False))
+            ids.append(cut.id)
+            a = cut.audio
+            e = cut.extras.get(extra) if extra else None
+            n = len(a)
+            if remaining >= n:
+                chunks.append(a)
+                if e is not None:
+                    echunks.append(e[:n])
+                remaining -= n
+                if remaining > 0 and self._silence_len > 0:
+                    sil = min(remaining, self._silence_len)
+                    chunks.append(np.zeros(sil, np.float32))
+                    if e is not None:
+                        echunks.append(np.zeros(sil, np.float32))
+                    remaining -= sil
+            else:
+                start = rng.randint(0, n - remaining)
+                chunks.append(a[start: start + remaining])
+                if e is not None:
+                    echunks.append(e[start: start + remaining])
+                remaining = 0
+        out = np.concatenate(chunks)
+        eout = np.concatenate(echunks) if echunks else None
+        return out, eout, ids, is_real
+
+    def _iter_segment_batches(self, seed: int, rng: random.Random,
+                              stride: tp.Tuple[int, int] = (0, 1)
+                              ) -> tp.Iterator[ShardBatch]:
+        """Fixed-segment epoch: items are concat-with-silence compositions
+        (reference ShardSegment); aux decisions follow the same probability
+        knobs as the bucketing path."""
+        t = self.segment_size
+        b_items = max(int(self.max_duration * self.sr / t), 1)
+        speech_iter = (c for c in self.speech.iter_cuts(seed, stride)
+                       if c.id not in self.ids_to_filter)
+
+        def draw_speech() -> Cut:
+            return next(speech_iter)  # StopIteration ends the epoch
+
+        while True:
+            items = []
+            try:
+                for _ in range(b_items):
+                    # same joint codec/reverb draw as the bucketing path:
+                    # exclusive, with P(codec)=p_codec and exactly
+                    # P(reverb)=p_reverb (an independent reverb draw gated
+                    # on non-codec items would compound to
+                    # (1-p_codec)*p_reverb)
+                    r_cx = rng.random()
+                    use_codec = r_cx < self.p_codec
+                    use_reverb = (not use_codec
+                                  and r_cx < self.p_codec + self.p_reverb)
+                    r = rng.random()
+                    echo_type = ("full" if r < self.p_fe_echo else
+                                 "farend_only"
+                                 if r < self.p_fe_echo + self.p_fe_only
+                                 else "none")
+                    clean, codec, ids, _ = self._gen_stream(
+                        draw_speech, t, rng,
+                        extra="codec" if use_codec else None)
+                    items.append({"clean": clean,
+                                  "speech": codec if use_codec else clean,
+                                  "ids": ids, "echo_type": echo_type,
+                                  "use_reverb": use_reverb})
+            except StopIteration:
+                if not items:
+                    return
+            b = len(items)
+            speech = np.stack([i["speech"] for i in items])[:, None]
+            clean = np.stack([i["clean"] for i in items])[:, None]
+            farend = echo = None
+            is_real = np.zeros(b, bool)
+            if self.farend_echo is not None and any(
+                    i["echo_type"] != "none" for i in items):
+                farend = np.zeros((b, 1, t), np.float32)
+                echo = np.zeros((b, 1, t), np.float32)
+                for k, it in enumerate(items):
+                    if it["echo_type"] == "none":
+                        continue
+                    fe, ec, _, real = self._gen_stream(
+                        self.farend_echo.draw, t, rng,
+                        extra="echo" if it["echo_type"] == "full" else None)
+                    farend[k, 0] = fe
+                    if ec is not None:
+                        echo[k, 0] = ec
+                    is_real[k] = real
+            noise = None
+            if self.noise is not None and self.p_noise > 0:
+                noise = np.zeros((b, 1, t), np.float32)
+                for k, it in enumerate(items):
+                    if is_real[k] and it["echo_type"] == "full":
+                        continue
+                    if rng.random() < self.p_noise:
+                        noise[k, 0] = self._gen_stream(
+                            self.noise.draw, t, rng)[0]
+            t_rir = int(0.5 * self.sr)
+            rir = np.zeros((b, 1, t_rir), np.float32)
+            rir[:, 0, 0] = 1.0
+            rir_onset = np.zeros(b, np.int64)
+            rir_t60 = np.full(b, 1e-3, np.float32)
+            for k, it in enumerate(items):
+                # reverb is exclusive with codec (joint draw above,
+                # matching the bucketing path); independent of echo
+                if self.rir is not None and it["use_reverb"]:
+                    r_, onset, t60 = self._pick_rir(rng, t_rir)
+                    rir[k, 0, : len(r_)] = r_
+                    rir_onset[k] = onset
+                    rir_t60[k] = t60
+            text = None
+            if self.text_field:
+                text = ["" for _ in items]
+            yield ShardBatch(
+                speech=speech, speech_clean=clean, noise=noise,
+                rir=rir, rir_onset=rir_onset, rir_t60=rir_t60,
+                num_samples=np.full(b, t, np.int64),
+                id_speech=["|".join(i["ids"]) for i in items],
+                farend=farend, echo=echo,
+                is_real=is_real if farend is not None else None, text=text)
+
+    def _aux_buffers(self) -> tp.Dict[str, tp.Optional[CyclicBuffer]]:
+        """Fresh per-worker aux readers (CyclicBuffer is not thread-safe)."""
+        return {
+            "noise": CyclicBuffer(self.noise.mux, self.noise.buffer_size)
+            if self.noise else None,
+            "rir": CyclicBuffer(self.rir.mux, self.rir.buffer_size)
+            if self.rir else None,
+            "farend_echo": CyclicBuffer(self.farend_echo.mux,
+                                        self.farend_echo.buffer_size)
+            if self.farend_echo else None,
+        }
+
+    def _iter_batches(self, seed: int, stride: tp.Tuple[int, int] = (0, 1)
+                      ) -> tp.Iterator[ShardBatch]:
+        rng = random.Random(seed)
+        if self.noise:
+            self.noise.reset(seed + 1)
+        if self.rir:
+            self.rir.reset(seed + 2)
+        if self.farend_echo:
+            self.farend_echo.reset(seed + 3)
+        if self.segment and self.segment_size:
+            yield from self._iter_segment_batches(seed, rng, stride)
+            return
+        buckets: tp.List[tp.List[Cut]] = [[] for _ in range(self.num_buckets)]
+        bucket_dur = [0.0] * self.num_buckets
+        step = (self.max_utt - self.min_utt) / self.num_buckets
+
+        for cut in self.speech.iter_cuts(seed, stride):
+            if cut.id in self.ids_to_filter:
+                continue
+            d = cut.duration
+            if d < self.min_utt or d > self.max_utt:
+                continue
+            idx = min(int((cut.duration - self.min_utt) / max(step, 1e-9)),
+                      self.num_buckets - 1)
+            buckets[idx].append(cut)
+            bucket_dur[idx] += d
+            if bucket_dur[idx] >= self.max_duration:
+                yield self._assemble(buckets[idx], rng)
+                buckets[idx] = []
+                bucket_dur[idx] = 0.0
+        for cuts in buckets:
+            if cuts:
+                yield self._assemble(cuts, rng)
+
+    def __iter__(self) -> tp.Iterator[ShardBatch]:
+        # reference seed contract: epoch_seed + worker (+ 1000*rank, 0 on
+        # one process); each worker thread serves a disjoint shard stride,
+        # like the reference's multi-worker DataLoader
+        # (shard_on_the_fly.py:783-787)
+        import copy
+
+        nw = self.num_workers
+        base_seed = self._epoch_seed
+        q: "queue.Queue" = queue.Queue(maxsize=2 * nw)
+        stop = threading.Event()
+
+        def produce(w: int):
+            ds = self
+            if nw > 1:
+                # per-worker aux buffers: CyclicBuffer is not thread-safe
+                ds = copy.copy(self)
+                bufs = self._aux_buffers()
+                ds.noise = bufs["noise"]
+                ds.rir = bufs["rir"]
+                ds.farend_echo = bufs["farend_echo"]
+            try:
+                for batch in ds._iter_batches(base_seed + w, stride=(w, nw)):
+                    if not _put_until_stop(q, batch, stop):
+                        return
+            except BaseException as e:  # propagate: a dead producer must
+                _put_until_stop(q, e, stop)  # not silently starve training
+                return
+            finally:
+                _put_until_stop(q, None, stop)
+
+        threads = [threading.Thread(target=produce, args=(w,), daemon=True)
+                   for w in range(nw)]
+        for t in threads:
+            t.start()
+        done = 0
+        try:
+            while done < nw:
+                batch = q.get()
+                if batch is None:
+                    done += 1
+                    continue
+                if isinstance(batch, BaseException):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()
+
+
+def build_shard_dataloader(hps, mode: str, keys, segment: bool = False):
+    dataset = ShardDataset(hps["data"], keys, mode=mode, segment=segment)
+    return dataset, dataset  # the dataset is its own (infinite-ish) loader

@@ -17,8 +17,8 @@ and SER from a torch.Generator on the CPU (so a seed gives the same mix on
 every device) and hands them to `DynamicMixer.mix`, a function of the
 draws, which a test can also feed with the JAX package's draws.
 
-`ShardBatch` is the host-side batch the shard loader assembles (a copy of
-the JAX package's dataclass; the loader itself is not ported yet).
+`ShardBatch` is the host-side batch that data/shard.py assembles (a copy
+of the JAX package's dataclass).
 """
 from __future__ import annotations
 

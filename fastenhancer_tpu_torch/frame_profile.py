@@ -42,6 +42,7 @@ from .models import get_model
 from .presets import (BSRNN_S, DPRNN_B, DPT_B, FE_B, FE_T_SHARD, FSPEN,
                       LISENNET, LN_B, NONCAUSAL_HUGE)
 from .utils import cast_floating
+from .utils.hparams import HParams
 from .wrappers import get_wrapper
 
 STREAMS = 256
@@ -107,8 +108,8 @@ def profile_training(dev: torch.device) -> None:
     """The shard recipe's FE-T: a train step (the mix on the card and the
     bf16 step) on a batch of 32 x 4 s (128 s, the recipe's max_duration),
     and a valid step on 64 x 2 s. Random audio; RIRs are unit impulses."""
-    wrapper = get_wrapper(FE_T_SHARD["wrapper"])(FE_T_SHARD, train=True,
-                                                 device=dev)
+    wrapper = get_wrapper(FE_T_SHARD["wrapper"])(HParams(**FE_T_SHARD),
+                                                 train=True, device=dev)
     rng = np.random.default_rng(0)
     rows, n = 32, 64_000
     speech = (rng.standard_normal((rows, 1, n)) * 0.1).astype(np.float32)

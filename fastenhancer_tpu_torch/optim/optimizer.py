@@ -17,6 +17,7 @@ from __future__ import annotations
 import re
 import typing as tp
 
+import numpy as np
 import torch
 
 from ..utils.tree import tree_paths
@@ -112,7 +113,11 @@ class GroupedOptimizer(torch.optim.Optimizer):
     `param_group` per regex group, each carrying its update kwargs
     ("hparams"), its leaf paths ("paths") and its learning rate ("lr",
     which the scheduler sets). A leaf's state is {"m", "v", "step"}.
-    `step()` updates the leaves in place, in float32."""
+    `step()` updates the leaves in place, in float32.
+
+    `state_tree` / `load_state_tree` move the state to and from the JAX
+    package's layout ({"m", "v", "step"}; see `state_tree`), the optimizer
+    half of a checkpoint."""
 
     def __init__(self, name: str, params: Params,
                  assignment: tp.Dict[PathKey, int],
@@ -164,3 +169,67 @@ class GroupedOptimizer(torch.optim.Optimizer):
                     p.float(), g.float(), st["m"], st["v"], st["step"], lr,
                     **group["hparams"])
                 p.copy_(new_p)
+
+    def state_tree(self, params: Params) -> Params:
+        """The state as JAX's `GroupedOptimizer.init` lays it out: {"m":
+        tree, "v": tree, "step": int32 scalar}, the trees at `params`'s
+        paths with None at frozen leaves, every leaf a numpy array on the
+        host. Before the first step the moments are zeros and the step 0.
+        The port counts steps per leaf; every trained leaf is stepped
+        together, so they agree and the one counter is theirs."""
+        moments: tp.Dict[PathKey, tp.Tuple[np.ndarray, np.ndarray]] = {}
+        steps = set()
+        for group in self.param_groups:
+            for path, p in zip(group["paths"], group["params"]):
+                st = self.state.get(p)
+                if st:
+                    moments[path] = (st["m"].cpu().numpy().copy(),
+                                     st["v"].cpu().numpy().copy())
+                    steps.add(int(st["step"]))
+                else:
+                    zeros = np.zeros(tuple(p.shape), np.float32)
+                    moments[path] = (zeros, zeros.copy())
+                    steps.add(0)
+        if len(steps) > 1:
+            raise RuntimeError(f"the leaves' step counts differ: {steps}")
+        return {"m": _map_paths(params, moments, 0),
+                "v": _map_paths(params, moments, 1),
+                "step": np.asarray(steps.pop() if steps else 0, np.int32)}
+
+    @torch.no_grad()
+    def load_state_tree(self, opt_state: Params) -> None:
+        """Set every trained leaf's m, v and step from a `state_tree`-
+        layout state (numpy or tensor leaves), on the leaf's device. The
+        params themselves are not touched."""
+        m = dict(tree_paths(opt_state["m"]))
+        v = dict(tree_paths(opt_state["v"]))
+        step = int(np.asarray(opt_state["step"]))
+        for group in self.param_groups:
+            for path, p in zip(group["paths"], group["params"]):
+                if path not in m or path not in v:
+                    raise KeyError(f"optimizer state has no moments at "
+                                   f"{'.'.join(path)}")
+                st = self.state[p]
+                for key, tree in (("m", m), ("v", v)):
+                    a = torch.from_numpy(np.array(tree[path]))
+                    if tuple(a.shape) != tuple(p.shape):
+                        raise ValueError(
+                            f"optimizer state {key} at {'.'.join(path)}: "
+                            f"shape {tuple(a.shape)} != {tuple(p.shape)}")
+                    st[key] = a.to(device=p.device, dtype=torch.float32,
+                                   copy=True)
+                st["step"] = torch.tensor(step, dtype=torch.int32,
+                                          device=p.device)
+
+
+def _map_paths(tree: tp.Any, values: tp.Dict[PathKey, tp.Any], index: int,
+               prefix: PathKey = ()) -> tp.Any:
+    """`tree`'s shape with values[path][index] at each path in `values`
+    and None elsewhere."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, values, index, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_paths(v, values, index, prefix + (str(i),))
+                for i, v in enumerate(tree)]
+    return values[prefix][index] if prefix in values else None

@@ -1,53 +1,82 @@
 """Noise-suppression training wrapper on one device.
 
 Counterpart of the single-device part of fastenhancer_tpu/wrappers/ns.py.
-`ModelWrapper(hps, train=...)` builds, from a config dict (the YAML's
-sections as plain dicts, e.g. `presets.FE_T_SHARD`), the model and its
-variables, and with train=True the losses, the optimizer, the scheduler
-and the train and valid steps. `train_epoch` and `valid_epoch` run over any
-iterable of {"clean", "noisy"} numpy batches.
+`ModelWrapper(hps, train=...)` builds, from a config HParams (from
+`utils.hparams.get_hparams`, or over a preset as in
+`HParams(**presets.FE_T_SHARD)`), the model and its variables, and with
+train=True the losses, the optimizer, the scheduler, the train and valid
+steps and, where the config has a `pesq` section, the PESQ loader and the
+`Metrics` executor. `train_epoch` and `valid_epoch` run over any iterable of
+{"clean", "noisy"} numpy batches; `valid_epoch(calculate_metrics=True)`
+also enhances the PESQ set (float32, `make_infer_fn`) and scores it.
+`save(epoch)` / `load(epoch=None)` write and read the JAX package's
+checkpoint files (`train/checkpoint.py`).
 
-Not ported yet: several devices and hosts, TensorBoard summaries, the
-profiler, PESQ/STOI evaluation, checkpoints, and the dataloaders built from
-directories (ROADMAP queue 1, "Training, end to end on one card").
+Not ported yet: several devices and hosts, TensorBoard summaries with the
+showcase `infer_epoch`, and the profiler (ROADMAP queue 1, "Training, end
+to end on one card").
 """
 from __future__ import annotations
 
 import copy
+import os
+import time
 import typing as tp
 
 import numpy as np
 import torch
 
 from .. import require_cuda
+from ..data import get_dataset_dataloader
 from ..losses import Losses
+from ..metrics import Metrics
 from ..models import get_model
 from ..optim import get_optimizer, get_scheduler
-from ..train import make_train_step, make_valid_step
+from ..train import (latest_checkpoint, load_checkpoint, make_infer_fn,
+                     make_train_step, make_valid_step, save_checkpoint)
+from ..utils.hparams import HParams
+from ..utils.tree import tree_paths
 
 Tensor = torch.Tensor
 
 
 class ModelWrapper:
-    def __init__(self, hps: tp.Mapping[str, tp.Any], train: bool = False,
+    def __init__(self, hps: HParams, train: bool = False,
                  device: tp.Union[str, torch.device, None] = None):
         """device: the card (`require_cuda()`) unless the caller names
         another, as the CPU tests do with device="cpu"."""
         self.device = (require_cuda() if device is None
                        else torch.device(device))
+        self.hps = hps
+        self.base_dir: str = hps.get("base_dir") or ""
+        hps = hps.to_dict()
         self.model = get_model(hps["model"], **hps["model_kwargs"])
+        self.train_mode = train
+        self.epoch = 0
         self.sr: int = hps["data"]["sampling_rate"]
         self.hop_size: int = self.model.hop_size
+        self.keys: tp.List[str] = []
+        self.infer_keys: tp.List[str] = []
+        self.set_keys()
         hp = hps.get("train", {})
         self.seed = hp.get("seed", 0)
         variables = self.model.init(
             torch.Generator().manual_seed(self.seed), self.device)
+        self.infer_fn = make_infer_fn(self.model)
         self.state: tp.Dict[str, tp.Any] = {"variables": variables}
+        self.metrics: tp.Optional[Metrics] = None
+        self.pesq_loader = None
         self.scheduler = None
         self.test = False
+        # the last epoch's wall seconds: "load" and "step" (waiting for
+        # train batches, mixing and stepping; ns_shard, with "steps"),
+        # "valid" (valid losses), "metrics" (PESQ/STOI)
+        self.timing: tp.Dict[str, float] = {}
         if not train:
             return
         self.test = hp.get("test", False)
+        if self.test:
+            self.hps.train.max_epochs = 1
         # fp16: True in the reference configs means bfloat16 compute over
         # float32 masters here, as in the JAX package (no gradient scaler)
         use_mixed = hp.get("fp16", False) or hp.get("bf16", False)
@@ -70,6 +99,20 @@ class ModelWrapper:
             skip_nonfinite=hp.get("skip_nonfinite_grads", False))
         self.valid_step = make_valid_step(self.model, self.loss,
                                           self.compute_dtype)
+        if "pesq" in hps:
+            pesq = hps["pesq"]
+            self.pesq_interval: int = pesq["interval"]
+            _, self.pesq_loader = get_dataset_dataloader(
+                self.hps, "pesq", ["clean", "noisy", "wav_len"])
+            self.metrics = Metrics(
+                num_workers=pesq.get("num_workers_executor", 8), sr=self.sr,
+                **pesq["metrics_to_calculate"])
+        else:
+            self.pesq_interval = hp["max_epochs"] + 1
+
+    def set_keys(self) -> None:
+        self.keys = ["clean", "noisy"]
+        self.infer_keys = self.keys + ["wav_len"]
 
     def get_lr(self) -> float:
         return self.scheduler.lrs[0] if self.scheduler else 0.0
@@ -121,11 +164,17 @@ class ModelWrapper:
                 break
         return self._end_train_epoch()
 
-    def valid_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]]
+    def valid_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]],
+                    calculate_metrics: bool = False
                     ) -> tp.Dict[str, tp.Any]:
         """Valid losses over {"clean", "noisy"} batches, eval-mode BN; a
-        metric-driven scheduler (ReduceLROnPlateau) steps on their total."""
+        metric-driven scheduler (ReduceLROnPlateau) steps on their total.
+        With calculate_metrics (and a `pesq` section), the PESQ set is
+        enhanced and scored too: "metrics/pesq", "metrics/stoi"."""
+        t0 = time.perf_counter()
         self.loss.initialize()
+        if calculate_metrics and self.metrics is not None:
+            self.metrics.initialize()
         for idx, batch in enumerate(dataloader, start=1):
             dev_batch, rows = self._device_batch(batch, ("clean", "noisy"))
             out = self.valid_step(self.state["variables"], dev_batch)
@@ -135,8 +184,91 @@ class ModelWrapper:
             if self.test and idx >= 10:
                 break
         summary = {"scalars": self.loss.reduce()}
-        if self.scheduler is not None and self.scheduler.requires_metric:
+        self.timing["valid"] = time.perf_counter() - t0
+        if (self.train_mode and self.scheduler is not None
+                and self.scheduler.requires_metric):
             self.scheduler.step(sum(
                 self.loss.weights[k.split("/", 1)[1]] * v
                 for k, v in summary["scalars"].items()))
+        if calculate_metrics and self.metrics is not None and self.pesq_loader:
+            t0 = time.perf_counter()
+            self.calculate_metrics(self.pesq_loader)
+            summary["scalars"].update(self.metrics.retrieve(self.epoch))
+            self.timing["metrics"] = time.perf_counter() - t0
         return summary
+
+    def calculate_metrics(self, dataloader: tp.Iterable[
+            tp.Mapping[str, tp.Any]]) -> None:
+        """Enhance {"clean", "noisy", "wav_len"} batches with the float32
+        offline forward and submit them to the PESQ/STOI executor."""
+        for idx, batch in enumerate(dataloader, start=1):
+            dev_batch, rows = self._device_batch(batch, ("clean", "noisy"))
+            wav_hat = self.infer_fn(self.state["variables"],
+                                    dev_batch["noisy"]).cpu().numpy()
+            clean = dev_batch["clean"].cpu().numpy()
+            wav_len = batch.get("wav_len")
+            if wav_len is not None:
+                wav_len = np.minimum(np.asarray(wav_len), wav_hat.shape[-1])
+            self.metrics.submit(clean[:rows], wav_hat[:rows], wav_len)
+            if self.test and idx >= 2:
+                break
+
+    # -- checkpoints -------------------------------------------------------------
+
+    def save(self, epoch: int) -> str:
+        """{base_dir}/{epoch:05d}.ckpt: the variables, the optimizer state
+        in the JAX layout, the scheduler's and the metrics' state."""
+        state = {"variables": self.state["variables"]}
+        if self.train_mode:
+            state["opt_state"] = self.optim.state_tree(
+                self.state["variables"]["params"])
+        return save_checkpoint(
+            self.base_dir, epoch, state,
+            scheduler_state=(self.scheduler.state_dict() if self.scheduler
+                             else None),
+            metrics=self.metrics.state_dict() if self.metrics else None)
+
+    def load(self, epoch: tp.Optional[int] = None) -> bool:
+        """Resume from {base_dir}/{epoch:05d}.ckpt or the latest one (False
+        when there is none). The values are written into the live leaves,
+        which the optimizer holds, so training goes on from them."""
+        if epoch is not None:
+            path = os.path.join(self.base_dir, f"{epoch:05d}.ckpt")
+            if not os.path.exists(path):
+                raise FileNotFoundError(path)
+        else:
+            path = latest_checkpoint(self.base_dir)
+            if path is None:
+                return False
+        ckpt = load_checkpoint(path)
+        variables = self.state["variables"]
+        for part in ("params", "stats"):
+            _copy_into(variables[part], ckpt["variables"][part],
+                       f"checkpoint {part}")
+        if self.train_mode and ckpt.get("opt_state") is not None:
+            self.optim.load_state_tree(ckpt["opt_state"])
+        if self.scheduler is not None and ckpt.get("scheduler") is not None:
+            self.scheduler.load_state_dict(ckpt["scheduler"])
+        if self.metrics is not None:
+            self.metrics.load_state_dict(ckpt.get("metrics"))
+        self.epoch = ckpt["epoch"]
+        print(f"loaded checkpoint {path} (epoch {self.epoch})")
+        return True
+
+
+@torch.no_grad()
+def _copy_into(live: tp.Any, saved: tp.Any, what: str) -> None:
+    """Copy each array of `saved` into the tensor at the same path of
+    `live`, in place; the paths and shapes must match."""
+    have = dict(tree_paths(live))
+    want = dict(tree_paths(saved))
+    if have.keys() != want.keys():
+        raise ValueError(f"{what}: paths differ: missing "
+                         f"{sorted(have.keys() - want.keys())[:4]}, "
+                         f"unknown {sorted(want.keys() - have.keys())[:4]}")
+    for path, t in have.items():
+        a = torch.from_numpy(np.array(want[path]))
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{what} at {'.'.join(path)}: shape "
+                             f"{tuple(a.shape)} != {tuple(t.shape)}")
+        t.copy_(a)

@@ -6,11 +6,14 @@ fastenhancer_tpu/wrappers/ns_shard.py. Train batches are `ShardBatch`es
 (speech, speech_clean, noise, RIRs) from any iterator; `_mix_to_device`
 moves one to the device and runs the `DynamicMixer` there, two or three
 segmental-RMS kernel launches, ahead of the train step. `steps_per_epoch`
-bounds an epoch; the iterator starts again when it runs out. The valid
-set is paired {"clean", "noisy"} batches, as in the base wrapper.
+bounds an epoch; the iterator starts again when it runs out, and the
+epoch's load / step wall split lands in `timing`. The valid
+and PESQ sets are paired {"clean", "noisy"} batches (`val_keys`), as in
+the base wrapper.
 """
 from __future__ import annotations
 
+import time
 import typing as tp
 
 import numpy as np
@@ -23,9 +26,10 @@ Tensor = torch.Tensor
 
 
 class ModelWrapper(BaseModelWrapper):
-    def __init__(self, hps: tp.Mapping[str, tp.Any], train: bool = False,
+    def __init__(self, hps: tp.Any, train: bool = False,
                  device: tp.Union[str, torch.device, None] = None):
         super().__init__(hps, train, device)
+        hps = self.hps.to_dict()
         data = hps["data"]
         mixer_kwargs = dict(data.get("train", {}).get("mixer") or {})
         mixer_kwargs.update(data.get("dereverberation") or {})
@@ -35,6 +39,11 @@ class ModelWrapper(BaseModelWrapper):
         # the mixer's dBFS/SNR/SER draws (on the CPU: the same on every
         # device for one seed)
         self.mix_generator = torch.Generator().manual_seed(self.seed)
+
+    def set_keys(self) -> None:
+        self.keys = ["speech", "speech_clean", "noise"]
+        self.val_keys = ["clean", "noisy"]
+        self.infer_keys = ["clean", "noisy", "wav_len"]
 
     def _mix_to_device(self, batch: ShardBatch
                        ) -> tp.Tuple[tp.Dict[str, Tensor], int]:
@@ -69,12 +78,17 @@ class ModelWrapper(BaseModelWrapper):
 
     def train_epoch(self, dataloader: tp.Iterable[ShardBatch]
                     ) -> tp.Dict[str, tp.Any]:
-        """steps_per_epoch train steps, each on a freshly mixed batch."""
+        """steps_per_epoch train steps, each on a freshly mixed batch. The
+        load time is the wall spent waiting for batches; the step time is
+        the host's mix and step dispatch, and the closing reduction of the
+        losses waits for the card."""
         self.loss.initialize()
         it = iter(dataloader)
         idx = 0
         fresh = True  # no batch yet from this iterator
+        t_load = t_step = 0.0
         while idx < self.steps_per_epoch:
+            t_mark = time.perf_counter()
             try:
                 batch = next(it)
             except StopIteration:
@@ -83,9 +97,16 @@ class ModelWrapper(BaseModelWrapper):
                                      "first step of a pass") from None
                 it, fresh = iter(dataloader), True  # infinite epochs
                 continue
+            t_load += time.perf_counter() - t_mark
             fresh = False
             idx += 1
+            t_mark = time.perf_counter()
             self._step_and_account(*self._mix_to_device(batch))
+            t_step += time.perf_counter() - t_mark
             if self.test and idx >= 50:
                 break
-        return self._end_train_epoch()
+        t_mark = time.perf_counter()
+        summary = self._end_train_epoch()
+        t_step += time.perf_counter() - t_mark
+        self.timing.update(load=t_load, step=t_step, steps=idx)
+        return summary

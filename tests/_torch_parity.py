@@ -188,3 +188,81 @@ def check_engine_fused_matches_unfused(model, folded, atol):
         results.append(got)
     for k in wav:
         np.testing.assert_allclose(results[1][k], results[0][k], atol=atol)
+
+
+# -- synthetic corpora: shard dirs and paired wav dirs ---------------------------
+
+SR = 16_000
+
+
+def wav_bytes(x, sr=SR):
+    """A mono 16-bit PCM WAV file's bytes."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(np.clip(np.asarray(x) * 32768, -32768, 32767)
+                      .astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def write_shard_dir(root, name, seed, n_shards=2, cuts=4, dur=(0.6, 2.0),
+                    custom=None, silent_first=False):
+    """`n_shards` shards of `cuts` noise-like cuts each (cuts.NNNNNN.jsonl.gz
+    + recording.NNNNNN.tar of 16 kHz WAVs), as ShardSource reads them;
+    silent_first zeroes the first cut of each shard. Returns the dir."""
+    import gzip
+    import io
+    import json
+    import os
+    import tarfile
+
+    d = os.path.join(str(root), name)
+    os.makedirs(d)
+    rng = np.random.default_rng(seed)
+    for s in range(n_shards):
+        metas = []
+        with tarfile.open(os.path.join(d, f"recording.{s:06d}.tar"),
+                          "w") as tar:
+            for c in range(cuts):
+                cid = f"{name}-{s}-{c}"
+                n = int(rng.uniform(*dur) * SR)
+                x = rng.standard_normal(n) * 0.1
+                x[n // 3: n // 2] = 0.0
+                if silent_first and c == 0:
+                    x[:] = 0.0
+                data = wav_bytes(x)
+                info = tarfile.TarInfo(f"{cid}.wav")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+                meta = {"id": cid, "duration": n / SR}
+                if custom:
+                    meta["custom"] = custom
+                metas.append(meta)
+        with gzip.open(os.path.join(d, f"cuts.{s:06d}.jsonl.gz"), "wt") as f:
+            for m in metas:
+                f.write(json.dumps(m) + "\n")
+    return d
+
+
+def write_wav_pairs(root, seed, n=6, dur=(0.5, 1.5)):
+    """{root}/clean and {root}/noisy with n paired 16 kHz WAVs of random
+    lengths; returns (clean_dir, noisy_dir)."""
+    import os
+
+    dirs = [os.path.join(str(root), k) for k in ("clean", "noisy")]
+    for d in dirs:
+        os.makedirs(d)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        t = int(rng.uniform(*dur) * SR)
+        clean = rng.standard_normal(t) * 0.1
+        noisy = clean + rng.standard_normal(t) * 0.05
+        for d, x in zip(dirs, (clean, noisy)):
+            with open(os.path.join(d, f"{i:03d}.wav"), "wb") as f:
+                f.write(wav_bytes(x))
+    return tuple(dirs)

@@ -954,3 +954,76 @@ def test_baseline_streams_on_card_match_cpu(cuda_device, name, kwargs,
     model.stream(cast_floating(dev, torch.bfloat16),
                  wav.to(cuda_device, torch.bfloat16), chunk_frames=4)
     assert scan.gru_scan.tc_launches == before_tc + 2 * per_chunk
+
+
+@pytest.mark.parametrize("t,n", [(257, 64), (129, 16), (161, 63)])
+def test_gru_scan_scalar_form_at_the_pesq_forward_shapes(cuda_device, t, n):
+    """#5 in float32 at the PESQ forward's shapes (FE-T's time GRU, H = 20,
+    N = rows x 16 bins, T = a 16-hop-padded file's frames, a ragged N): the
+    scalar form, against the plain version."""
+    args = _scan_case(t, n, 20, torch.float32, cuda_device, seed=t + n)
+    assert scan.kernel_form(n, 20, torch.float32) == "scalar"
+    before = (scan.gru_scan.launches, scan.gru_scan.tc_launches)
+    ys, h_t = scan.gru_scan(*args)
+    torch.cuda.synchronize()
+    assert (scan.gru_scan.launches, scan.gru_scan.tc_launches) == (
+        before[0] + 1, before[1])
+    ys_r, h_r = scan.gru_scan_reference(*args)
+    _close(ys, ys_r, torch.float32)
+    _close(h_t, h_r, torch.float32)
+
+
+def test_checkpoint_round_trip_on_card_binds_the_live_leaves(cuda_device,
+                                                             tmp_path):
+    """A float32 `ns` wrapper on the card trains 2 steps and saves; another
+    (another seed) loads: params, BN statistics, m, v, step and scheduler
+    equal bit for bit, the optimizer holds the wrapper's live leaves, and
+    a step on both agrees (to 1e-6: the card's backward may sum with
+    atomics, in any order)."""
+    import copy
+
+    from fastenhancer_tpu_torch.utils import tree_paths
+    from fastenhancer_tpu_torch.utils.hparams import HParams
+    from fastenhancer_tpu_torch.wrappers import get_wrapper
+
+    def wrapper(seed):
+        hps = copy.deepcopy(FE_T_SHARD)
+        hps["model_kwargs"] = dict(TINY_KWARGS)
+        hps["wrapper"] = "ns"
+        hps["train"].update(fp16=False, seed=seed)
+        hps["base_dir"] = str(tmp_path)
+        return get_wrapper("ns")(HParams(**hps), train=True,
+                                 device=cuda_device)
+
+    def batch(seed):
+        g = torch.Generator().manual_seed(seed)
+        clean = (torch.randn(3, 64 * 12, generator=g) * 0.1).numpy()
+        return {"clean": clean, "noisy": clean * 1.5}
+
+    def state(w):
+        v = w.state["variables"]
+        return ({p: t.cpu() for p, t in tree_paths(v["params"])},
+                {p: t.cpu() for p, t in tree_paths(v["stats"])},
+                {p: torch.from_numpy(a) for p, a in tree_paths(
+                    w.optim.state_tree(v["params"]))},
+                w.scheduler.state_dict())
+
+    a = wrapper(1)
+    a.train_epoch([batch(0), batch(1)])
+    a.save(1)
+    b = wrapper(7)
+    assert b.load() and b.epoch == 1
+    sa, sb = state(a), state(b)
+    for x, y in zip(sa[:3], sb[:3]):
+        assert x.keys() == y.keys()
+        assert all(torch.equal(x[k], y[k]) for k in x)
+    assert sa[3] == sb[3]
+    leaves = {id(t) for _, t in tree_paths(b.state["variables"]["params"])}
+    assert all(id(p) in leaves and p.device == cuda_device
+               for g in b.optim.param_groups for p in g["params"])
+    a.train_epoch([batch(2)])
+    b.train_epoch([batch(2)])
+    sa, sb = state(a), state(b)
+    for x, y in zip(sa[:3], sb[:3]):
+        assert all((x[k].float() - y[k].float()).abs().max() <= 1e-6
+                   for k in x)

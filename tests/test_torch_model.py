@@ -269,7 +269,8 @@ import importlib, importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "fastenhancer_tpu"):
+        if root in ("jax", "jaxlib", "fastenhancer_tpu", "yaml",
+                    "tensorboardX"):
             raise ImportError(f"blocked import: {name}")
         return None
 
@@ -346,11 +347,12 @@ assert get_model("bsrnn", **BSRNN_S).channels == 64
 import copy, numpy as np
 from fastenhancer_tpu_torch.data import ShardBatch
 from fastenhancer_tpu_torch.presets import FE_T_SHARD
+from fastenhancer_tpu_torch.utils.hparams import HParams
 from fastenhancer_tpu_torch.wrappers import get_wrapper
 hps = copy.deepcopy(FE_T_SHARD)
 hps["model_kwargs"] = dict(kw)
 hps["train"]["steps_per_epoch"] = 1
-w = get_wrapper("ns_shard")(hps, train=True, device="cpu")
+w = get_wrapper("ns_shard")(HParams(**hps), train=True, device="cpu")
 x = np.random.default_rng(0).standard_normal((2, 1, 64 * 8)).astype("f4")
 rir = np.zeros((2, 1, 100), "f4")
 rir[:, 0, 0] = 1.0
@@ -358,7 +360,12 @@ batch = ShardBatch(speech=x, speech_clean=x, noise=x[::-1].copy(), rir=rir,
                    rir_onset=np.zeros(2, "i8"), rir_t60=np.full(2, 1e-3),
                    num_samples=np.full(2, 512), id_speech=["a", "b"])
 assert all(np.isfinite(v) for v in w.train_epoch([batch])["scalars"].values())
-assert not any(m.split(".")[0] in ("jax", "fastenhancer_tpu") for m in sys.modules)
+# the recipe's config through the port's own YAML reader
+from fastenhancer_tpu_torch.utils.hparams import get_hparams
+hps = get_hparams("configs/fastenhancer_shard/t.yaml").to_dict()
+assert hps["train"] == FE_T_SHARD["train"]
+assert not any(m.split(".")[0] in ("jax", "fastenhancer_tpu", "yaml",
+                                   "tensorboardX") for m in sys.modules)
 print("OK", len(names))
 """
 
@@ -367,8 +374,9 @@ def test_port_imports_no_jax():
     """Every port module imports, and the tiny model's init -> fold ->
     fused stream, its whole-frame step, the dpt, bsrnn, dprnn, ln and
     time_kernel models' fused streams, a chunked stream, the noncausal
-    model's forward, the presets and a train step of the shard recipe's
-    wrapper run, with jax and fastenhancer_tpu blocked."""
+    model's forward, the presets, a train step of the shard recipe's
+    wrapper and the recipe's config read run, with jax, fastenhancer_tpu,
+    yaml and tensorboardX blocked (the card has none of them)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

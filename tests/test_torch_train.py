@@ -41,6 +41,7 @@ from fastenhancer_tpu_torch.train import (make_clipper, make_infer_fn,
                                           make_train_step, make_valid_step)
 from fastenhancer_tpu_torch.serving import StreamingEngine
 from fastenhancer_tpu_torch.utils import tree_leaves, tree_paths
+from fastenhancer_tpu_torch.utils.hparams import HParams
 from fastenhancer_tpu_torch.wrappers import get_wrapper
 
 from _torch_parity import (TINY_KWARGS, assert_trees_close, flatten_paths,
@@ -259,7 +260,7 @@ def test_trained_variables_serve_untracked():
     hps = copy.deepcopy(FE_T_SHARD)
     hps["model_kwargs"] = dict(TINY_KWARGS)
     hps["train"].update(fp16=False, test=True)
-    wrapper = get_wrapper("ns")(hps, train=True, device="cpu")
+    wrapper = get_wrapper("ns")(HParams(**hps), train=True, device="cpu")
     wrapper.train_epoch([_batch(8, pad_last=False)])
     variables = wrapper.state["variables"]
     assert not any(t.requires_grad for t in tree_leaves(variables))
@@ -324,7 +325,8 @@ def test_shard_wrapper_trains_and_validates_on_cpu():
     hps = copy.deepcopy(FE_T_SHARD)
     hps["model_kwargs"] = dict(TINY_KWARGS)
     hps["train"]["steps_per_epoch"] = 2
-    wrapper = get_wrapper(hps["wrapper"])(hps, train=True, device="cpu")
+    wrapper = get_wrapper(hps["wrapper"])(HParams(**hps), train=True,
+                                          device="cpu")
     assert wrapper.compute_dtype == torch.bfloat16
     wrapper.compute_dtype = None  # float32 on the CPU
     wrapper.train_step = make_train_step(wrapper.model, wrapper.loss,
@@ -354,12 +356,12 @@ def test_ns_wrapper_epoch_and_unported_options():
     hps = copy.deepcopy(FE_T_SHARD)
     hps["model_kwargs"] = dict(TINY_KWARGS)
     hps["train"].update(fp16=False, test=True)
-    wrapper = get_wrapper("ns")(hps, train=True, device="cpu")
+    wrapper = get_wrapper("ns")(HParams(**hps), train=True, device="cpu")
     summary = wrapper.train_epoch([_batch(7, pad_last=False)] * 2)
     assert all(np.isfinite(v) for v in summary["scalars"].values())
     assert wrapper.get_lr() == pytest.approx(2e-3 * 2 / 500)
     hps["train"]["remat"] = True
-    wrapper = get_wrapper("ns")(hps, train=True, device="cpu")
+    wrapper = get_wrapper("ns")(HParams(**hps), train=True, device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         wrapper.train_epoch([_batch(7, pad_last=False)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-one phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-two phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -128,9 +128,32 @@ each printed on its own line:
      resume from the run dir (no -c, max_epochs 3, -f) whose state right
      after `load` equals 00002.ckpt bit for bit (params, BN statistics, m,
      v, step, scheduler); each epoch's wall, load/step split, valid and
-     PESQ times are printed.
+     PESQ times are printed;
+ 22. train every family through the CLI: (a) `main` in this process on
+     each VoiceBank recipe (configs/fastenhancer/b.yaml, configs/ablation/
+     {dpt,dprnn,ln,time_kernel}_b.yaml, configs/others/{bsrnn_s,fspen,
+     lisennet}.yaml) at its width, batch (64 x 2 s), precision and losses
+     (the `pesq` loss among them), on a synthetic paired-wav corpus (128
+     train pairs of 2-2.5 s: 2 steps; 8 valid/PESQ pairs), one epoch with
+     valid, PESQ/STOI and a checkpoint, FE-B resumed for a second: finite
+     losses, every trained leaf moved, #5 only in the valid (tensor-core
+     form in the bf16 recipes) and PESQ forwards, as often as the model and
+     the files give, and never inside train_epoch, each input it got held
+     against its plain version; each step's ms, the valid ms, PESQ/STOI s,
+     the epoch's wall split and the peak memory printed; (b) one float32
+     train step of each of the eight families (the noncausal one too) at
+     2 x 1 s with silent edges (as phase 20), card against the CPU's plain
+     path (loss 1e-4, grad norm 1e-3 relative); (c) train.remat on FE-L
+     (configs/fastenhancer/l.yaml): one bf16 step at 16 x 2 s with and
+     without from one state, equal losses, every leaf's gradient equal
+     within 1e-3 of its norm plus 4x the card's run-to-run spread of the
+     leaf (the recompute of the backward checked) and a lower peak memory
+     with; with remat at the recipe's 64
+     x 2 s, which without remat does not fit the card; (d) one bf16 step
+     of the huge noncausal model through the ns wrapper at 4 x 4 s. No
+     kernel runs inside any train step.
 
-Each of phases 4 to 21 drives a path: every kernel's launch count is set to
+Each of phases 4 to 22 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -139,9 +162,9 @@ scan's tensor-core forms are counted inside their launches (`.tc_launches`
 of each wrapper), and the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must
 run them on every frame, FE-T's bf16 valid step on every launch. The
 line before the last holds the kernels' JSON record (the GRU scan's
-launches there are the sum over the bf16 paths of phases 15-20 and phase
-21's valid and PESQ forwards, segmental RMS's over phases 14 and 21, each
-listed by path before it); the last line is
+launches there are the sum over the bf16 paths of phases 15-20 and the
+valid and PESQ forwards of phases 21 and 22, segmental RMS's over phases
+14 and 21, each listed by path before it); the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
 """
@@ -373,7 +396,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/21] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/22] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -381,10 +404,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/21] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/22] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/21] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/22] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -505,7 +528,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/21] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/22] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -540,7 +563,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/21] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/22] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -595,7 +618,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/21] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/22] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -616,7 +639,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/21] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/22] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -660,7 +683,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/21] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/22] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -707,7 +730,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/21] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/22] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -750,7 +773,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/21] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/22] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -798,7 +821,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/21] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/22] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -815,7 +838,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/21] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/22] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -871,7 +894,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/21] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/22] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -897,7 +920,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/21] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/22] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -935,7 +958,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/21] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/22] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -988,7 +1011,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/21] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/22] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1107,7 +1130,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/21] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/22] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1146,7 +1169,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/21] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/22] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1203,7 +1226,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/21] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/22] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1358,7 +1381,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/21] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/22] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1406,7 +1429,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/21] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/22] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1451,7 +1474,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/21] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/22] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1515,7 +1538,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/21] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/22] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1524,7 +1547,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/21] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/22] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1562,7 +1585,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/21] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/22] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1611,7 +1634,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/21] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/22] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1701,21 +1724,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/21] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/22] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/21] {tag} bf16 Model.forward, "
+        print(f"[{phase}/22] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/21] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/22] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -1958,7 +1981,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/21] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/22] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -1979,7 +2002,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/21] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/22] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2054,7 +2077,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/21] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/22] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2072,7 +2095,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/21] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/22] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2084,7 +2107,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/21] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/22] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2094,8 +2117,15 @@ def main():
           f"PESQ forward), no other kernel; resume: state after load equal "
           f"to 00002.ckpt bit for bit over {len(want)} arrays, scheduler "
           f"and epoch; segmental_rms launches by path {rms_paths}")
+
+    # -- 22. train every family through the CLI ---------------------------
+    scan_paths["VoiceBank CLI valid + PESQ (22)"] = phase_22(
+        dict(counters=counters, zero_counts=zero_counts,
+             read_counts=read_counts, run_cli=run_cli,
+             record_inputs=record_inputs, seen_scan=seen_scan,
+             compare=compare, speech_like=speech_like, card=card, dev=dev))
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[21/21] gru_scan launches by path: {scan_paths}; "
+    print(f"[22/22] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     sources = {
@@ -2126,6 +2156,409 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# phase 22: the VoiceBank recipes the CLI trains (config, the family's
+# fixed stream of #5 launches per offline forward is worked out from the
+# model), their synthetic paired-wav corpus, FE-L's remat step and the
+# noncausal step
+VB_CONFIGS = ["fastenhancer/b.yaml", "ablation/dpt_b.yaml",
+              "ablation/dprnn_b.yaml", "ablation/ln_b.yaml",
+              "ablation/time_kernel_b.yaml", "others/bsrnn_s.yaml",
+              "others/fspen.yaml", "others/lisennet.yaml"]
+VB_TRAIN_PAIRS, VB_EVAL_PAIRS = 128, 8   # 2 steps of the recipe's 64
+VB_SECONDS = (2.0, 2.5)                  # >= the recipe's 2 s segments
+VB_CPU_ROWS, VB_CPU_SECONDS = 2, 1.0     # 22b: card vs CPU, float32
+VB_LOSS_RTOL, VB_GNORM_RTOL = 1e-4, 1e-3
+REMAT_ROWS, REMAT_SECONDS, REMAT_RTOL = 64, 2.0, 1e-3   # 22c: FE-L
+# each leaf's gradient with remat against without: the norm of the gap
+# within REMAT_GRAD_RTOL of the leaf's norm plus REMAT_SPREAD_K x the
+# card's run-to-run spread of that leaf (two steps of one mode from one
+# state differ: the card's gradients are not reproducible bit for bit, in
+# bf16 by up to ~1e-2 of a GRU leaf, and a bias that a train-mode BN
+# follows has a gradient of float noise only)
+REMAT_GRAD_RTOL, REMAT_SPREAD_K = 1e-3, 4.0
+# without remat, FE-L's bf16 step at 64 x 2 s does not fit the card's 80 GB
+# (72.8 GiB allocated above the earlier phases' when it ran out, H100 80GB
+# HBM3 at 700 W): the two are compared at 16 rows
+REMAT_CMP_ROWS = 16
+NC_TRAIN_ROWS, NC_TRAIN_SECONDS = 4, 4.0                # 22d: noncausal
+
+
+def scans_per_forward(model):
+    """#5 launches of one offline eval forward, from the model: a time GRU
+    a block (FE, dprnn, ln, time_kernel), 2 + groups a block (FSPEN's intra
+    biGRU and grouped time GRUs), 3 a block (LiSenNet), none (dpt's time
+    attention, BSRNN's LSTMs)."""
+    from fastenhancer_tpu_torch.models import bsrnn, fspen, lisennet
+    from fastenhancer_tpu_torch.models.fastenhancer import dptransformer
+
+    if isinstance(model, (bsrnn.Model, dptransformer.Model)):
+        return 0
+    if isinstance(model, fspen.Model):
+        return model.dpe.num_blocks * (2 + model.dpe.groups)
+    if isinstance(model, lisennet.Model):
+        return 3 * model.n_blocks
+    return model.num_blocks
+
+
+def phase_22(ctx):
+    """Phase 22 (see the module docstring); returns #5's launches on its
+    CLI paths (the valid and PESQ forwards)."""
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+    from fastenhancer_tpu_torch.models import get_model
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.optim import get_optimizer
+    from fastenhancer_tpu_torch.train import load_checkpoint, make_train_step
+    from fastenhancer_tpu_torch.utils import tree_map, tree_paths
+    from fastenhancer_tpu_torch.utils.hparams import HParams, get_hparams
+    from fastenhancer_tpu_torch.wrappers import get_wrapper
+    from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
+
+    card, dev = ctx["card"], ctx["dev"]
+    zero_counts, read_counts = ctx["zero_counts"], ctx["read_counts"]
+
+    def mem_base():
+        """Start a peak-memory window; -> the bytes already allocated (the
+        earlier phases' tensors), which peaks are counted above."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_gib(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    print(f"[22/22] train every family through the CLI, cuts: none of width "
+          f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
+          f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
+          f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
+          f"remat compared at {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} s (without"
+          f" remat its recipe's {REMAT_ROWS} x {REMAT_SECONDS:g} s does not "
+          f"fit the card); the noncausal step at {NC_TRAIN_ROWS} x "
+          f"{NC_TRAIN_SECONDS:g} s, not its DNS recipe's (its wrapper is the "
+          f"next slice)")
+
+    def config_hps(config):
+        """A config's dict with the paired-wav wrapper and no PESQ loader
+        (the steps of 22b-d read no files)."""
+        hps = get_hparams(os.path.join(repo, "configs", config)).to_dict()
+        hps["wrapper"] = "ns"
+        hps.pop("pesq", None)
+        return hps
+
+    def corpus(root, seed):
+        """(train, eval) (clean dir, noisy dir) of speech-like wavs."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for name, n in (("train", VB_TRAIN_PAIRS), ("eval", VB_EVAL_PAIRS)):
+            dirs = [os.path.join(root, name, k) for k in ("clean", "noisy")]
+            for d in dirs:
+                os.makedirs(d)
+            for i in range(n):
+                t = int(rng.uniform(*VB_SECONDS) * SR)
+                clean = ctx["speech_like"](rng, 1, t)[0]
+                noisy = clean + rng.standard_normal(t) * rng.uniform(0.01,
+                                                                     0.1)
+                for d, x in zip(dirs, (clean, noisy)):
+                    write_wav(os.path.join(d, f"{i:04d}.wav"), x, SR)
+            out.append(dirs)
+        return out
+
+    # the train step's timing and #5's counter around train_epoch, with
+    # the wrapper's own methods restored after the phase
+    step_ms, scan_in_train = [], []
+    step_and_account = ns_wrapper.ModelWrapper._step_and_account
+    train_epoch = ns_wrapper.ModelWrapper.train_epoch
+
+    def timed_step(self, dev_batch, rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_and_account(self, dev_batch, rows)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def counted_epoch(self, loader):
+        before = read_counts()["gru_scan"]
+        out = train_epoch(self, loader)
+        scan_in_train.append(read_counts()["gru_scan"] - before)
+        return out
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_vb_")
+    total_scans = 0
+    try:
+        t0 = time.perf_counter()
+        (tr_clean, tr_noisy), (ev_clean, ev_noisy) = corpus(root, seed=22)
+        corpus_s = time.perf_counter() - t0
+        logs = os.path.join(root, "logs")
+        paths = [f"data.train.clean_dir={tr_clean!r}",
+                 f"data.train.noisy_dir={tr_noisy!r}",
+                 f"data.valid.clean_dir={ev_clean!r}",
+                 f"data.valid.noisy_dir={ev_noisy!r}",
+                 f"data.pesq.clean_dir={ev_clean!r}",
+                 f"data.pesq.noisy_dir={ev_noisy!r}"]
+        ns_wrapper.ModelWrapper._step_and_account = timed_step
+        ns_wrapper.ModelWrapper.train_epoch = counted_epoch
+        for config in VB_CONFIGS + ["fastenhancer/b.yaml (resumed)"]:
+            resumed = config.endswith("(resumed)")
+            name = config.split("/")[-1].split(".")[0]
+            run = os.path.join(logs, name)
+            argv = (["-n", name, "--base_dir", logs, "-p",
+                     "train.max_epochs=2", "-f"] if resumed else
+                    ["-n", name, "-c", os.path.join(repo, "configs", config),
+                     "--base_dir", logs, "-p", *paths, "train.max_epochs=1",
+                     "train.save_interval=1", "pesq.interval=1"])
+            step_ms.clear()
+            scan_in_train.clear()
+            ctx["seen_scan"].clear()
+            base = mem_base()
+            ctx["record_inputs"](True)
+            try:
+                history, counts, out = ctx["run_cli"](argv)
+            finally:
+                ctx["record_inputs"](False)
+            peak_gb = peak_gib(base)
+            hps = get_hparams(None, run)
+            model = get_model(hps.model, **hps.model_kwargs.to_dict())
+            (r,) = history
+            epoch = 2 if resumed else 1
+            _check(r["epoch"] == epoch and os.path.exists(os.path.join(
+                run, f"{epoch:05d}.ckpt")), f"{config}: epoch {r['epoch']}")
+            _check(not resumed or "loaded checkpoint" in out,
+                   f"{config}: no resume")
+            vals = list(r["train"].values()) + list(r["valid"].values())
+            _check(all(np.isfinite(v) for v in vals), f"{config}: {r}")
+            _check("loss/pesq" in r["train"] and "loss/pesq" in r["valid"],
+                   f"{config}: no pesq loss in {sorted(r['train'])}")
+            _check(1.0 <= r["valid"]["metrics/pesq"] <= 4.65
+                   and -1.0 <= r["valid"]["metrics/stoi"] <= 1.0,
+                   f"{config} metrics: {r['valid']}")
+            # every trained leaf moved, the fixed ones did not
+            ckpt = load_checkpoint(os.path.join(run, f"{epoch:05d}.ckpt"))
+            start = (load_checkpoint(os.path.join(run, "00001.ckpt"))
+                     ["variables"] if resumed else model.init(
+                         torch.Generator().manual_seed(hps.train.seed),
+                         "cpu"))
+            p0 = dict(tree_paths(start["params"]))
+            fixed = set(model.fixed_param_paths())
+            for path, a in tree_paths(ckpt["variables"]["params"]):
+                moved = not np.array_equal(a, np.asarray(p0[path]))
+                _check(moved != (path in fixed),
+                       f"{config}: param {path} moved={moved}")
+            # #5: only in the valid and PESQ forwards, never in train_epoch
+            per = scans_per_forward(model)
+            valid_n = -(-VB_EVAL_PAIRS // hps.valid.batch_size)
+            pesq_n = -(-VB_EVAL_PAIRS // hps.pesq.batch_size)
+            bf16 = bool(hps.train.fp16)
+            want = {k: 0 for k in ctx["counters"]}
+            want["gru_scan"] = per * (valid_n + pesq_n)
+            want[GRU_TC] = per * valid_n if bf16 else 0
+            _check(counts == want, f"{config}: launches {counts} != {want}")
+            _check(scan_in_train == [0], f"{config}: #5 ran {scan_in_train} "
+                   "times in train_epoch")
+            total_scans += counts["gru_scan"]
+            worst = 0.0
+            for (shape, dtype), (form, args) in ctx["seen_scan"].items():
+                ys, h_t = scan.gru_scan(*args)
+                torch.cuda.synchronize()
+                ys_r, h_r = scan.gru_scan_reference(*args)
+                errs = ctx["compare"](f"{config} gru_scan {shape}",
+                                      ((ys, ys_r), (h_t, h_r)), dtype)
+                worst = max(worst, errs[0][0], errs[1][0])
+            tm = r["timing"]
+            rest = (r["seconds"] - tm["load"] - tm["step"] - tm["valid"]
+                    - tm["metrics"])
+            losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
+                               r["train"].items() if k.startswith("loss/"))
+            print(f"[22/22] CLI {config} ({hps.model}, the recipe's width, "
+                  f"{'bf16' if bf16 else 'float32'} over float32 masters, "
+                  f"batch {hps.train.batch_size} x "
+                  f"{hps.data.train.segment_size / SR:g} s): step ms "
+                  f"{', '.join(f'{v:.1f}' for v in step_ms)}; valid "
+                  f"{1e3 * tm['valid']:.1f} ms ({valid_n} batch of "
+                  f"{VB_EVAL_PAIRS}); PESQ/STOI {tm['metrics']:.2f} s; "
+                  f"epoch wall {r['seconds']:.2f} s = load {tm['load']:.2f}"
+                  f" + step {tm['step']:.2f} + valid {tm['valid']:.2f} + "
+                  f"PESQ/STOI {tm['metrics']:.2f} + rest {rest:.2f} s; peak "
+                  f"memory {peak_gb:.2f} GiB above the phase's; #5 "
+                  f"{counts['gru_scan']} launches ({counts[GRU_TC]} tc), none "
+                  f"in train_epoch, {len(ctx['seen_scan'])} input shapes "
+                  f"held to the plain version (max abs err {worst:.3e}); "
+                  f"losses {losses}; PESQ {r['valid']['metrics/pesq']:.3f}; "
+                  f"on {card}")
+    finally:
+        ns_wrapper.ModelWrapper._step_and_account = step_and_account
+        ns_wrapper.ModelWrapper.train_epoch = train_epoch
+        shutil.rmtree(root, ignore_errors=True)
+    t_cli = time.perf_counter() - t_phase
+
+    # 22b. one float32 step of each family, card against CPU
+    rng = np.random.default_rng(23)
+    n = int(VB_CPU_SECONDS * SR)
+    clean = ctx["speech_like"](rng, VB_CPU_ROWS, n)
+    noisy = (clean + rng.standard_normal(clean.shape) * 0.05).astype(
+        np.float32)
+    # silent edges: LiSenNet's phase features sit on their branch cut on
+    # the offline STFT's edge frames of other audio (reflect padding makes
+    # those spectra real), where the two devices' rounding picks +-pi (as
+    # in phase 20)
+    for x in (clean, noisy):
+        x[:, :257] = x[:, -257:] = 0.0
+    batch = {"clean": torch.from_numpy(clean),
+             "noisy": torch.from_numpy(noisy),
+             "row_mask": torch.ones(VB_CPU_ROWS)}
+    lines = []
+    for config in VB_CONFIGS + ["fastenhancer_dns/huge_noncausal.yaml"]:
+        hps = config_hps(config)
+        out = {}
+        for where in ("cpu", "card"):
+            w = get_wrapper("ns")(HParams(**hps), train=True,
+                                  device="cpu" if where == "cpu" else dev)
+            step = make_train_step(w.model, w.loss, w.optim)  # float32
+            lrs = [1e-3] * w.optim.n_groups
+            b = {k: v.to(w.device) for k, v in batch.items()}
+            zero_counts()
+            t0 = time.perf_counter()
+            _, m = step(w.state, b, lrs)
+            if where == "card":
+                torch.cuda.synchronize()
+                _check(not any(read_counts().values()),
+                       f"{config}: a kernel ran in a train step")
+            out[where] = ({k: float(v) for k, v in m.items()},
+                          time.perf_counter() - t0)
+        (mc, tc), (mg, tg) = out["cpu"], out["card"]
+        rel_l = abs(mg["loss/total"] / mc["loss/total"] - 1)
+        rel_g = abs(mg["grad_norm"] / mc["grad_norm"] - 1)
+        _check(rel_l <= VB_LOSS_RTOL and rel_g <= VB_GNORM_RTOL,
+               f"{config} card vs CPU: loss {rel_l:.3e}, grad norm "
+               f"{rel_g:.3e}")
+        lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
+                     f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
+                     f"{tc:.1f} s)")
+    print(f"[22/22] float32 train step, card vs the CPU's plain path, "
+          f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
+          f"variables and batch "
+          f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
+          f"relative): {'; '.join(lines)}")
+
+    # 22c. train.remat on FE-L: one bf16 step with and without from one
+    # state at REMAT_CMP_ROWS rows; with remat at the recipe's batch
+    hps = config_hps("fastenhancer/l.yaml")
+    w = get_wrapper("ns")(HParams(**hps), train=True, device=dev)
+    rng = np.random.default_rng(24)
+    n = int(REMAT_SECONDS * SR)
+    clean = ctx["speech_like"](rng, REMAT_ROWS, n)
+    noisy = (clean + rng.standard_normal(clean.shape) * 0.05).astype(
+        np.float32)
+    b_full = {"clean": torch.from_numpy(clean).to(dev),
+              "noisy": torch.from_numpy(noisy).to(dev),
+              "row_mask": torch.ones(REMAT_ROWS, device=dev)}
+
+    def remat_step(remat, rows):
+        """One bf16 step from a copy of the wrapper's variables ->
+        (loss, grad norm, ms, peak GiB above the window's start, each
+        leaf's gradient as the optimizer got it)."""
+        w.model.remat = remat
+        v = tree_map(lambda a: a.clone(), w.state["variables"])
+        opt = get_optimizer(w.model, v["params"], hps["train"])
+        grads = []
+        opt_step = opt.step
+
+        def spy_step(*a, **kw):
+            grads.extend(p.grad.detach().clone() for g in opt.param_groups
+                         for p in g["params"])
+            return opt_step(*a, **kw)
+
+        opt.step = spy_step
+        step = make_train_step(w.model, w.loss, opt,
+                               compute_dtype=w.compute_dtype)
+        b = {k: t[:rows] for k, t in b_full.items()}
+        base = mem_base()
+        zero_counts()
+        t0 = time.perf_counter()
+        _, m = step({"variables": v}, b, [1e-3] * w.optim.n_groups)
+        torch.cuda.synchronize()
+        out = (float(m["loss/total"]), float(m["grad_norm"]),
+               1e3 * (time.perf_counter() - t0), peak_gib(base), grads)
+        _check(not any(read_counts().values()),
+               "FE-L: a kernel ran in a train step")
+        return out
+
+    def gaps(a, b):
+        """Per leaf, the norm of the gap of two gradient lists."""
+        return np.array([float((y - x).norm()) for x, y in zip(a, b)])
+
+    res = {False: [], True: []}
+    for remat in (False, True, False, True):   # each twice: its spread
+        res[remat].append(remat_step(remat, REMAT_CMP_ROWS))
+    (l0, g0, t0_ms, p0_gb, gr0), (l1, g1, t1_ms, p1_gb, gr1) = (
+        res[False][1], res[True][1])
+    norm0 = np.array([float(x.norm()) for x in gr0])
+    spread = np.maximum(*(gaps(r[0][4], r[1][4]) for r in res.values()))
+    gap = gaps(gr0, gr1)
+    bound = REMAT_GRAD_RTOL * norm0 + REMAT_SPREAD_K * spread
+    worst = int(np.argmax(gap / np.maximum(bound, 1e-30)))
+    _check(abs(l1 / l0 - 1) <= REMAT_RTOL and np.isfinite(g1),
+           f"FE-L remat loss {l1} vs {l0}")
+    _check(len(gr0) == len(gr1) and bool((gap <= bound).all()),
+           f"FE-L remat gradients: leaf {worst} off by {gap[worst]:.3e}, "
+           f"bound {bound[worst]:.3e} (norm {norm0[worst]:.3e}, spread "
+           f"{spread[worst]:.3e})")
+    rel_gap = float((gap / np.maximum(norm0, 1e-30)).max())
+    rel_spread = float((spread / np.maximum(norm0, 1e-30)).max())
+    _check(p1_gb < p0_gb, f"FE-L remat peak {p1_gb:.2f} GiB >= {p0_gb:.2f}")
+    del res, gr0, gr1
+    remat_step(True, REMAT_ROWS)
+    lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
+    _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
+    print(f"[22/22] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+          f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
+          f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
+          f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
+          f" / {g1:.4f}; per-leaf gradient gap up to {rel_gap:.2e} of the "
+          f"leaf's norm, run-to-run spread up to {rel_spread:.2e}, the "
+          f"worst leaf at {gap[worst] / bound[worst]:.2f} of its bound ("
+          f"{REMAT_GRAD_RTOL:g} x norm + {REMAT_SPREAD_K:g} x spread); peak "
+          f"memory {p0_gb:.2f} GiB without, {p1_gb:.2f} "
+          f"GiB with ({100 * (1 - p1_gb / p0_gb):.1f}% less); step "
+          f"{t0_ms:.0f} ms without, {t1_ms:.0f} ms with; at the recipe's "
+          f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
+          f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
+
+    # 22d. the huge noncausal model: one bf16 step through the ns wrapper
+    hps = config_hps("fastenhancer_dns/huge_noncausal.yaml")
+    w = get_wrapper("ns")(HParams(**hps), train=True, device=dev)
+    rng = np.random.default_rng(25)
+    n = int(NC_TRAIN_SECONDS * SR)
+    clean = ctx["speech_like"](rng, NC_TRAIN_ROWS, n)
+    noisy = (clean + rng.standard_normal(clean.shape) * 0.05).astype(
+        np.float32)
+    base = mem_base()
+    zero_counts()
+    summary = w.train_epoch([{"clean": clean, "noisy": noisy}])
+    peak = peak_gib(base)
+    _check(not any(read_counts().values()),
+           "noncausal: a kernel ran in a train step")
+    _check(all(np.isfinite(v) for v in summary["scalars"].values()),
+           f"noncausal train: {summary}")
+    print(f"[22/22] noncausal NONCAUSAL_HUGE bf16 train step through the ns "
+          f"wrapper, {NC_TRAIN_ROWS} x {NC_TRAIN_SECONDS:g} s (its recipe "
+          f"takes 16 x 2 s from the DNS wrapper): step "
+          f"{1e3 * w.timing['step']:.0f} ms (the first, with its "
+          f"allocations), peak memory {peak:.2f} GiB, losses "
+          + ", ".join(f"{k[5:]} {v:.4g}"
+                      for k, v in summary["scalars"].items())
+          + f"; on {card}")
+    del w, summary
+
+    print(f"[22/22] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+          f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
+    return total_scans
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Training losses as functions on tensors.
 
 Counterpart of fastenhancer_tpu/losses.py. Each item loss maps
-(prediction, target) to a [B] tensor of per-item values; `Losses` takes
-the config's {name: {weight, ...}} dict, weights and sums them, and keeps
-the epoch's running sums (`initialize`, `accumulate`, `get`, `reduce`).
+(prediction, target) to a [B] tensor of per-item values (`pesq` is
+pesq_loss.py's, fed (target, prediction) as the JAX package does);
+`Losses` takes the config's {name: {weight, ...}} dict, weights and sums
+them, and keeps the epoch's running sums (`initialize`, `accumulate`,
+`get`, `reduce`).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import typing as tp
 import torch
 
 from .functional import STFTConfig, compressed_stft
+from .pesq_loss import PESQLoss
 
 Tensor = torch.Tensor
 
@@ -104,9 +107,8 @@ def _make(name: str, kwargs: tp.Dict[str, tp.Any]
     if name == "consistency":
         return "wav", ConsistencyLoss(**kwargs).items
     if name == "pesq":
-        raise NotImplementedError("the pesq loss is not ported yet (ROADMAP "
-                                  'queue 1, "Training, end to end on one '
-                                  'card": pesq_loss.py)')
+        fn = PESQLoss(sample_rate=kwargs.get("sample_rate", 16_000))
+        return "wav", lambda a, b: fn.items(b, a)  # (ref, deg), as JAX
     raise ValueError(f"unknown loss: {name}")
 
 

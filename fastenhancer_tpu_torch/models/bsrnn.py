@@ -22,8 +22,12 @@ one CUDA kernel per frame (ops/bsrnn_stack.py). `streaming_chunk` (and
 `stream(chunk_frames=C)`) runs C hops a step, the network time-batched over
 the chunk and each time LSTM over the C frames from its carried (h, c).
 
-Not ported yet (raises NotImplementedError): training mode (train-mode BN
-and its row mask).
+`forward(train=True, row_mask=...)` is the training graph (JAX bsrnn.py:
+226-338): the band split and the mask decoder in the grouped form that
+eval runs (each band's BN statistics its own), every BN in train mode over
+the batch (rows with row_mask 0 left out of the
+statistics), the LSTMs nn.lstm's and nn.bilstm's loops; it returns the new
+statistics.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from ..functional import (
     init_istft_carry,
 )
 from ..ops.bsrnn_stack import bsrnn_stack_step, plan_band_stack
+from ..utils.tree import tree_map
 from .streaming import spectral_step, stream_hops
 
 Tensor = torch.Tensor
@@ -48,11 +53,6 @@ Params = tp.Dict[str, tp.Any]
 SUBBANDS_512 = [2, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
                 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
                 16, 16, 16, 16, 16, 16, 16, 17]  # sum == 257
-
-_TRAIN_TODO = ('training mode is not ported yet (ROADMAP queue 1, "Training, '
-               'end to end on one card": train-mode BatchNorm and its row '
-               "mask)")
-
 
 class Model(torch.nn.Module):
     """BSRNN. Takes the reference's `model_kwargs` unchanged
@@ -88,6 +88,9 @@ class Model(torch.nn.Module):
                                    method=stft_method)
         self.n_bands = len(self.subbands)
         self._groups = self._band_groups()
+        # row inclusion mask [B] of a train forward's BN statistics, held
+        # for the duration of forward(train=True, row_mask=...)
+        self._row_mask: tp.Optional[Tensor] = None
 
     # -- init -----------------------------------------------------------------
 
@@ -153,78 +156,96 @@ class Model(torch.nn.Module):
             i = j
         return groups
 
-    @staticmethod
-    def _bn_eval_grouped(x: Tensor, ps: tp.Sequence[Params],
-                         ss: tp.Sequence[Params],
-                         key: tp.Optional[str] = None) -> Tensor:
-        """Eval-mode BN over a [B, g, T, ch] stack of g bands: the math of
-        g independent batch_norm(train=False) calls (float32, cast back).
-        `key` indexes into nested {mask, residual} entries."""
+    def _bn_bands(self, ps: tp.Sequence[Params], ss: tp.Sequence[Params],
+                  x: Tensor, train: bool, key: tp.Optional[str] = None
+                  ) -> tp.Tuple[Tensor, tp.Optional[tp.List[Params]]]:
+        """BN of a [B, T, g, ch] stack of g bands, each with its own
+        parameters and statistics: one batch_norm over the [B, T, g*ch]
+        view, whose channels are the bands' concatenated channels (train
+        mode reduces over B and T, so each band gets its own statistics,
+        the row mask's rows left out). `key` indexes into nested {mask,
+        residual} entries. Returns y and, in train mode, each band's new
+        {"norm": stats} (None in eval)."""
         pick = (lambda e: e) if key is None else (lambda e: e[key])
-        mean = torch.stack([pick(s)["norm"]["mean"] for s in ss])
-        var = torch.stack([pick(s)["norm"]["var"] for s in ss])
-        y = (x.float() - mean[None, :, None, :]) * torch.rsqrt(
-            var[None, :, None, :].float() + 1e-5)
-        if pick(ps[0])["norm"] is not None:
-            w = torch.stack([pick(p)["norm"]["weight"] for p in ps])
-            b = torch.stack([pick(p)["norm"]["bias"] for p in ps])
-            y = y * w[None, :, None, :] + b[None, :, None, :]
-        return y.to(x.dtype)
+        b, t, g, ch = x.shape
 
-    def _band_split_eval(self, params: tp.Sequence[Params],
-                         stats: tp.Sequence[Params], spec: Tensor) -> Tensor:
-        """spec [B, F, T, 2] -> [T, B, F', C]; one batched product per group
-        of equal-width subbands, whose channels are the (re, im)-interleaved
-        bins of the band."""
+        def cat(trees: tp.Sequence[Params], k: str) -> Tensor:
+            return torch.cat([pick(e)["norm"][k] for e in trees])
+
+        p_cat = (None if pick(ps[0])["norm"] is None else
+                 {k: cat(ps, k) for k in ("weight", "bias")})
+        s_cat = {k: cat(ss, k) for k in ("mean", "var")}
+        bw = None if self._row_mask is None else \
+            self._row_mask.float()[:, None, None]
+        y, st = fnn.batch_norm(p_cat, s_cat, x.reshape(b, t, g * ch),
+                               train=train, weight=bw)
+        per_band = None if not train else [
+            {"norm": {"mean": m, "var": v}}
+            for m, v in zip(st["mean"].split(ch), st["var"].split(ch))]
+        return y.reshape(b, t, g, ch), per_band
+
+    def _band_split(self, params: tp.Sequence[Params],
+                    stats: tp.Sequence[Params], spec: Tensor,
+                    train: bool = False
+                    ) -> tp.Tuple[Tensor, tp.List[Params]]:
+        """spec [B, F, T, 2] -> ([T, B, F', C], each band's statistics, new
+        in train mode); one batched product per group of equal-width
+        subbands, whose channels are the (re, im)-interleaved bins of the
+        band."""
         b, _, t, _ = spec.shape
-        outs = []
+        outs, new_stats = [], []
         for i0, g, sub, bin0 in self._groups:
             x = spec[:, bin0:bin0 + g * sub]                # [B, g*sub, T, 2]
-            x = (x.reshape(b, g, sub, t, 2).permute(0, 1, 3, 2, 4)
-                 .reshape(b, g, t, sub * 2))                # [B, g, T, sub*2]
+            x = (x.reshape(b, g, sub, t, 2).permute(0, 3, 1, 2, 4)
+                 .reshape(b, t, g, sub * 2))                # [B, T, g, sub*2]
             ps, ss = params[i0:i0 + g], stats[i0:i0 + g]
+            st = None
             if ss[0].get("norm") is not None:               # folded: no norms
-                x = self._bn_eval_grouped(x, ps, ss)
+                x, st = self._bn_bands(ps, ss, x, train)
+            new_stats += ss if st is None else st
             wfc = torch.stack([p["fc"]["weight"][:, :, 0] for p in ps])
-            x = torch.einsum("bgts,gcs->bgtc", x, wfc)      # [B, g, T, C]
+            x = torch.einsum("btgs,gcs->btgc", x, wfc)      # [B, T, g, C]
             if "bias" in ps[0]["fc"]:
-                x = x + torch.stack([p["fc"]["bias"]
-                                     for p in ps])[None, :, None, :]
-            outs.append(x.transpose(1, 2))                  # [B, T, g, C]
-        return torch.cat(outs, dim=2).transpose(0, 1)       # [T, B, F', C]
+                x = x + torch.stack([p["fc"]["bias"] for p in ps])
+            outs.append(x)
+        return torch.cat(outs, dim=2).transpose(0, 1), new_stats
 
-    def _mask_decoder_eval(self, params: tp.Sequence[Params],
-                           stats: tp.Sequence[Params], x: Tensor
-                           ) -> tp.Tuple[Tensor, Tensor]:
-        """x [B, F', C, T] -> (mask, residual), each [B, F, T, 2]. The
-        C->4C conv1 batches over all bands, the 4C->sub*4 conv2 and its GLU
-        over each group of equal-width subbands."""
+    def _mask_decoder(self, params: tp.Sequence[Params],
+                      stats: tp.Sequence[Params], x: Tensor,
+                      train: bool = False
+                      ) -> tp.Tuple[Tensor, Tensor, tp.List[Params]]:
+        """x [B, F', C, T] -> (mask, residual, each [B, F, T, 2]; each
+        band's statistics, new in train mode). The C->4C conv1 batches over
+        all bands, the 4C->sub*4 conv2 and its GLU over each group of
+        equal-width subbands."""
         b, _, _, t = x.shape
-        xall = x.permute(0, 1, 3, 2)                        # [B, F', T, C]
+        xall = x.permute(0, 3, 1, 2)                        # [B, T, F', C]
         outs = {}
+        new_stats: tp.List[Params] = [{} for _ in params]
         for which in ("mask", "residual"):
             y = xall
             if stats[0].get(which, {}).get("norm") is not None:
-                y = self._bn_eval_grouped(y, params, stats, key=which)
+                y, st = self._bn_bands(params, stats, y, train, key=which)
+                for e, s in zip(new_stats, st or []):
+                    e[which] = s
             w1 = torch.stack([p[which]["conv1"]["weight"][:, :, 0]
                               for p in params])             # [F', 4C, C]
             b1 = torch.stack([p[which]["conv1"]["bias"] for p in params])
-            y = torch.tanh(torch.einsum("bftc,fdc->bftd", y, w1)
-                           + b1[None, :, None, :])
+            y = torch.tanh(torch.einsum("btfc,fdc->btfd", y, w1) + b1)
             pieces = []
             for i0, g, sub, _ in self._groups:
                 ps = params[i0:i0 + g]
                 w2 = torch.stack([p[which]["conv2"]["weight"][:, :, 0]
                                   for p in ps])             # [g, sub*4, 4C]
                 b2 = torch.stack([p[which]["conv2"]["bias"] for p in ps])
-                z = (torch.einsum("bgtd,gsd->bgts", y[:, i0:i0 + g], w2)
-                     + b2[None, :, None, :])
+                z = torch.einsum("btgd,gsd->btgs", y[:, :, i0:i0 + g],
+                                 w2) + b2
                 a, gate = z.chunk(2, dim=-1)                # torch GLU(dim=1)
-                z = a * torch.sigmoid(gate)                 # [B, g, T, sub*2]
-                pieces.append(z.reshape(b, g, t, sub, 2).permute(0, 2, 1, 3, 4)
+                pieces.append((a * torch.sigmoid(gate))     # [B, T, g, sub*2]
                               .reshape(b, t, g * sub, 2))
             outs[which] = torch.cat(pieces, dim=2).transpose(1, 2)
-        return outs["mask"], outs["residual"]
+        return outs["mask"], outs["residual"], (new_stats if train
+                                                else list(stats))
 
     @staticmethod
     def _apply_mask(spec: Tensor, mask: Tensor, res: Tensor) -> Tensor:
@@ -240,53 +261,70 @@ class Model(torch.nn.Module):
                       ) -> tp.Tuple[Tensor, tp.List[tp.Tuple[Tensor, Tensor]],
                                     Params]:
         """Compressed spec [B, F, T, 2] -> (spec_hat, each layer's (h_T,
-        c_T), stats); eval mode."""
+        c_T), stats). train=True runs every BN in train mode and returns
+        their new statistics (a new tree)."""
+        new_stats = tree_map(lambda a: a, stats) if train else None
+        x, band_stats = self._band_split(params["band_split"],
+                                         stats["band_split"], spec, train)
         if train:
-            raise NotImplementedError(_TRAIN_TODO)
-        x = self._band_split_eval(params["band_split"], stats["band_split"],
-                                  spec)
+            new_stats["band_split"] = band_stats
         t, b, f, c = x.shape
+        bw = None if self._row_mask is None else \
+            self._row_mask.float()[None, :, None, None]
+
+        def norm(p: Params, s: Params, key: str, i: int, x: Tensor
+                 ) -> Tensor:
+            if s.get(key) is None:  # folded: merged into the LSTM
+                return x
+            y, st = fnn.batch_norm(p[key], s[key], x, train=train, weight=bw)
+            if train:
+                new_stats["layers"][i][key] = st
+            return y
+
         carry_out = []
         for i, (p, s) in enumerate(zip(params["layers"], stats["layers"])):
             skip = x
-            y = x
-            if s.get("norm_time") is not None:
-                y, _ = fnn.batch_norm(p["norm_time"], s["norm_time"], x,
-                                      train=False)
+            y = norm(p, s, "norm_time", i, x)
             y, hc = fnn.lstm(p["rnn_time"], y.reshape(t, b * f, c),
                              None if h0 is None else h0[i])
             carry_out.append(hc)
             x = fnn.linear(p["fc_time"], y).reshape(t, b, f, c) + skip
 
             skip = x
-            y = x
-            if s.get("norm_freq") is not None:
-                y, _ = fnn.batch_norm(p["norm_freq"], s["norm_freq"], x,
-                                      train=False)
+            y = norm(p, s, "norm_freq", i, x)
             y = fnn.bilstm(p["rnn_freq"],
                            y.reshape(t * b, f, c).transpose(0, 1))
             y = y.transpose(0, 1).reshape(t, b, f, 4 * c)
             x = fnn.linear(p["fc_freq"], y) + skip
 
-        mask, res = self._mask_decoder_eval(
-            params["mask_decoder"], stats["mask_decoder"],
-            x.permute(1, 2, 3, 0))
-        return self._apply_mask(spec, mask, res), carry_out, stats
+        x = x.permute(1, 2, 3, 0)                           # [B, F', C, T]
+        mask, res, dec_stats = self._mask_decoder(
+            params["mask_decoder"], stats["mask_decoder"], x, train)
+        if train:
+            new_stats["mask_decoder"] = dec_stats
+        return (self._apply_mask(spec, mask, res), carry_out,
+                stats if new_stats is None else new_stats)
 
     # -- offline graph (wav -> wav) ---------------------------------------------
 
     def stft(self, wav: Tensor) -> Tensor:
         return compressed_stft(wav, self.stft_cfg, self.input_compression)
 
-    def forward(self, variables: Params, wav: Tensor, train: bool = False
+    def forward(self, variables: Params, wav: Tensor, train: bool = False,
+                row_mask: tp.Optional[Tensor] = None
                 ) -> tp.Tuple[Tensor, Tensor, Params]:
         """wav [B, T] -> (wav_hat [B, T], spec_hat compressed [B, F, T', 2],
-        stats). Inference only."""
-        if train:
-            raise NotImplementedError(_TRAIN_TODO)
+        stats; the new BN statistics when train=True). row_mask [B] (1 real,
+        0 zero-padded) leaves padded rows out of the train-mode BN
+        statistics; it is held on self for the call."""
         params, stats = variables["params"], variables["stats"]
-        spec = self.stft(wav)
-        spec_hat, _, stats = self.model_forward(params, stats, spec)
+        self._row_mask = row_mask if train else None
+        try:
+            spec = self.stft(wav)
+            spec_hat, _, stats = self.model_forward(params, stats, spec,
+                                                    train=train)
+        finally:
+            self._row_mask = None
         wav_hat = compressed_istft(spec_hat, self.stft_cfg,
                                    self.input_compression,
                                    length=wav.shape[-1])
@@ -350,11 +388,11 @@ class Model(torch.nn.Module):
         params, stats = variables["params"], variables["stats"]
 
         def network(spec):
-            x = self._band_split_eval(params["band_split"],
-                                      stats["band_split"], spec)  # [1,B,F',C]
+            x, _ = self._band_split(params["band_split"],
+                                    stats["band_split"], spec)  # [1,B,F',C]
             xf, h_new = bsrnn_stack_step(
                 plan, x[0].transpose(0, 1).contiguous(), carry["h"])
-            mask, res = self._mask_decoder_eval(
+            mask, res, _ = self._mask_decoder(
                 params["mask_decoder"], stats["mask_decoder"],
                 xf.permute(1, 0, 2)[..., None])             # [B, F', C, 1]
             return self._apply_mask(spec, mask, res), h_new
@@ -427,3 +465,30 @@ class Model(torch.nn.Module):
                         "layers": [{} for _ in range(self.num_layers)],
                         "mask_decoder": [{} for _ in self.subbands]}
         return {"params": out, "stats": folded_stats}
+
+    # -- the reference's parameter names (optimizer groups) ---------------------
+
+    def torch_name(self, path: tp.Tuple[str, ...]) -> str:
+        """band_split.{norm,fc}.{i}, rnn_time.{i}/rnn_freq.{i} with torch's
+        *_l0 and *_l0_reverse LSTM names, mask_decoder.mlp_{mask,residual}.
+        {i}.{0 norm, 1 conv1, 3 conv2} (reference models/bsrnn/model.py)."""
+        head = path[0]
+        if head == "band_split":
+            i, mod, leaf = path[1], path[2], path[3]
+            return f"band_split.{'norm' if mod == 'norm' else 'fc'}.{i}.{leaf}"
+        if head == "layers":
+            i, mod = path[1], path[2]
+            if mod == "rnn_time":
+                return f"rnn_time.{i}.{path[3]}_l0"
+            if mod == "rnn_freq":
+                sfx = "_l0" if path[3] == "fwd" else "_l0_reverse"
+                return f"rnn_freq.{i}.{path[4]}{sfx}"
+            return f"{mod}.{i}.{path[3]}"
+        if head == "mask_decoder":
+            i, which, mod, leaf = path[1], path[2], path[3], path[4]
+            seq = {"norm": 0, "conv1": 1, "conv2": 3}[mod]
+            return f"mask_decoder.mlp_{which}.{i}.{seq}.{leaf}"
+        raise KeyError(f"unmapped bsrnn param path: {path}")
+
+    def fixed_param_paths(self) -> tp.List[tp.Tuple[str, ...]]:
+        return []

@@ -10,8 +10,13 @@ subtree has one).
 
 `forward(train=True, row_mask=...)` is the training graph: train-mode
 BatchNorm over the batch (rows with row_mask 0 left out of the statistics)
-and the time GRU as nn.gru's differentiable loop; it returns the new BN
-statistics. The offline eval forward runs each block's time GRU as one
+and the time GRU as nn.gru's differentiable loop (no kernel runs in a
+train step: the GRU-scan kernel has no backward); it returns the new BN
+statistics. With `remat` (train.remat) each conv unit and each block runs
+under torch.utils.checkpoint, as the JAX package's jax.checkpoint: the
+backward recomputes their insides instead of keeping them, and each unit
+returns its new statistics rather than writing them, so the recompute
+changes nothing. The offline eval forward runs each block's time GRU as one
 `gru_scan` launch (ops/gru_scan.py). `streaming_step_fused` runs the
 RNNFormer block stack as one CUDA kernel (ops/rnnformer_stack.py) on folded
 variables: the serving and benchmark path of FastEnhancer_B.
@@ -20,9 +25,6 @@ kernel (ops/fused_frame.py). `streaming_chunk` (and `stream(chunk_frames=C)`)
 is the throughput form of streaming: C hops a step, the network
 time-batched over the chunk and each block's time GRU one `gru_scan` launch
 over the C frames from the carried state.
-
-Not ported yet (raises NotImplementedError): `train.remat` (gradient
-checkpointing; ROADMAP queue 1, "Training, end to end on one card").
 
 Architecture: complex spectrogram [B, F, T, 2] -> strided "reshape-trick"
 conv encoder over frequency -> frequency resampling -> K RNNFormer blocks
@@ -37,6 +39,7 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ... import nn as fnn
 from ...functional import (
@@ -59,12 +62,13 @@ from ..streaming import stream_hops
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
 
-_TRAIN_TODO = ("training mode of this model is not ported yet (ROADMAP "
-               'queue 1, "Training, end to end on one card": training of '
-               "the other families)")
-_REMAT_TODO = ("train.remat (gradient checkpointing, torch.utils.checkpoint) "
-               'is not ported yet (ROADMAP queue 1, "Training, end to end on '
-               'one card")')
+
+def _put(tree: tp.Optional[tp.Any], key: tp.Any,
+         value: tp.Optional[Params]) -> None:
+    """tree[key] = value where both are given (a train forward's new
+    statistics into model_forward's copy of the stats tree)."""
+    if tree is not None and value is not None:
+        tree[key] = value
 
 
 def _wn_suffix(torch_weight_name: str, sub: tp.Optional[str]) -> str:
@@ -75,14 +79,16 @@ def _wn_suffix(torch_weight_name: str, sub: tp.Optional[str]) -> str:
     return f"parametrizations.{torch_weight_name}.{which}"
 
 
-def _torch_name_default(path: tp.Tuple[str, ...]) -> str:
+def _torch_name_default(path: tp.Tuple[str, ...], prepost: str = "rf",
+                        block: str = "rf_block") -> str:
     """Param-tree path -> the reference's torch parameter name, so that
     `train.optimizer_groups` regexes apply unchanged. A copy of the JAX
-    module's mapping for the default model: enc_pre.{0 conv,1 bn},
-    encoder.{i}.{0,1}, rf_pre.{0 lin,1 conv,2 bn},
+    module's mapping: enc_pre.{0 conv,1 bn}, encoder.{i}.{0,1},
+    rf_pre.{0 lin,1 conv,2 bn},
     rf_block.{i}.{rnn,rnn_fc,rnn_post_norm,attn.qkv,attn_fc,attn_post_norm,
-    pe}, decoder.{i}.{0,1,3,4}, dec_post.{0,1,3}. (The JAX variants rename
-    the rf prefixes; their training is not ported.)"""
+    pe}, decoder.{i}.{0,1,3,4}, dec_post.{0,1,3}; the dprnn and dpt
+    variants rename the prefixes (`prepost`: dprnn_pre, dpt_pre; `block`:
+    dprnn_block, dpt_block)."""
     head, rest = path[0], path[1:]
     if head in ("enc_pre", "dec_post", "encoder"):
         if head == "encoder":
@@ -98,10 +104,10 @@ def _torch_name_default(path: tp.Tuple[str, ...]) -> str:
         mod, leaf = rest[0], rest[1]
         idx = {"lin": 0, "conv": 1, "bn": 2}[mod]
         side = "pre" if head == "rf_pre" else "post"
-        return f"rf_{side}.{idx}.{leaf}"
+        return f"{prepost}_{side}.{idx}.{leaf}"
     if head == "rf_blocks":
         i, mod = rest[0], rest[1]
-        prefix = f"rf_block.{i}"
+        prefix = f"{block}.{i}"
         if mod == "rnn":
             leaf = rest[2]
             sub = rest[3] if len(rest) > 3 else None
@@ -226,10 +232,6 @@ class Model(torch.nn.Module):
     weights live in the variables tree that `init` returns and every apply
     method takes."""
 
-    # why forward(train=True) raises, for a variant whose training is not
-    # ported yet; None where it is
-    train_todo: tp.Optional[str] = None
-
     def __init__(
         self,
         channels: int = 64,
@@ -285,7 +287,8 @@ class Model(torch.nn.Module):
         # both are read at init, apply and fold time
         self.final_scale: tp.Union[bool, str] = True
         self.final_scale_init: str = "one"
-        # train.remat, set by the training wrapper (raises until ported)
+        # train.remat, set by the training wrapper: checkpoint each conv unit
+        # and each block in a train forward
         self.remat = False
         # row inclusion mask [B] for train-mode BatchNorm statistics, held
         # for the duration of forward(train=True, row_mask=...); None = every
@@ -491,24 +494,33 @@ class Model(torch.nn.Module):
 
     def _conv_bn_act(self, p: Params, s: tp.Optional[Params], x: Tensor, *,
                      stride: int = 1, padding: int = 0, act: bool = True,
-                     eps: float = 1e-5, new_s: tp.Optional[Params] = None,
-                     bw: tp.Optional[Tensor] = None) -> Tensor:
+                     eps: float = 1e-5, train: bool = False,
+                     bw: tp.Optional[Tensor] = None
+                     ) -> tp.Tuple[Tensor, tp.Optional[Params]]:
         """conv (+BN, or the ln ablation's GroupNorm, if the subtree has
-        one) (+activation); x: [N, F, Cin]. With `new_s` (a dict) the BN
-        runs in train mode, its statistics weighted by `bw`, and writes its
-        new running statistics to new_s["bn"]."""
-        conv = dict(p["conv"])
-        conv["weight"] = fnn.maybe_wn_weight(p["conv"], "weight")
-        y = fnn.conv1d_cl(conv, x, stride=stride, padding=padding)
-        if p.get("bn") is not None:
-            y, st = fnn.batch_norm(p["bn"], s["bn"], y,
-                                   train=new_s is not None, eps=eps,
-                                   weight=bw)
-            if new_s is not None:
-                new_s["bn"] = st
-        elif p.get("gn") is not None:
-            y = fnn.layer_norm_fc(p["gn"], y, eps=eps)
-        return self.act(y) if act else y
+        one) (+activation); x: [N, F, Cin] -> (y, {"bn": the new running
+        statistics} where a BN ran in train mode, else None). In train mode
+        the BN's statistics are weighted by `bw`; with self.remat the unit
+        runs under checkpoint (JAX default.py:443-460)."""
+        def unit(p: Params, s: tp.Optional[Params], x: Tensor,
+                 bw: tp.Optional[Tensor]
+                 ) -> tp.Tuple[Tensor, tp.Optional[Params]]:
+            conv = dict(p["conv"])
+            conv["weight"] = fnn.maybe_wn_weight(p["conv"], "weight")
+            y = fnn.conv1d_cl(conv, x, stride=stride, padding=padding)
+            new_s = None
+            if p.get("bn") is not None:
+                y, st = fnn.batch_norm(p["bn"], s["bn"], y, train=train,
+                                       eps=eps, weight=bw)
+                if train:
+                    new_s = {"bn": st}
+            elif p.get("gn") is not None:
+                y = fnn.layer_norm_fc(p["gn"], y, eps=eps)
+            return (self.act(y) if act else y), new_s
+
+        if train and self.remat:
+            return checkpoint(unit, p, s, x, bw, use_reentrant=False)
+        return unit(p, s, x, bw)
 
     def _scaled_convt(self, p: Params, x: Tensor) -> Tensor:
         """ScaledConvTranspose1d; an unfolded tree carries the scale."""
@@ -533,12 +545,6 @@ class Model(torch.nn.Module):
 
     # -- core network ---------------------------------------------------------
 
-    def _check_trainable(self) -> None:
-        if self.train_todo is not None:
-            raise NotImplementedError(self.train_todo)
-        if self.remat:
-            raise NotImplementedError(_REMAT_TODO)
-
     def model_forward(self, params: Params, stats: Params, spec: Tensor,
                       h0: tp.Optional[tp.List[Tensor]] = None,
                       train: bool = False
@@ -546,24 +552,52 @@ class Model(torch.nn.Module):
         """Compressed spec [B, F, T, 2] -> (mask [B, F, T, 2], h_T list,
         stats). train=True runs every BatchNorm in train mode and returns
         their new statistics (a new tree; `stats` is left as it is)."""
-        new_stats = None
-        if train:
-            self._check_trainable()
-            new_stats = tree_map(lambda a: a, stats)  # structural copy
+        new_stats = tree_map(lambda a: a, stats) if train else None
         x, x_res, skips, b, t = self._encode(params, stats, spec, new_stats)
-        h_out: tp.List[Tensor] = []
-        for i, (bp, bs) in enumerate(zip(params["rf_blocks"],
-                                         stats["rf_blocks"])):
-            h_i = None if h0 is None else h0[i]
-            if train:
-                x, h_t = self._block_apply(
-                    bp, bs, x, h_i, train_stats=new_stats["rf_blocks"][i])
-            else:
-                x, h_t = self._block_apply(bp, bs, x, h_i)
-            h_out.append(h_t)
+        x, h_out = self._blocks(params, stats, x, h0, new_stats)
         mask = self._decode(params, stats, x, x_res, skips, b, t,
                             spec.shape[1], new_stats)
         return mask, h_out, stats if new_stats is None else new_stats
+
+    def _blocks(self, params: Params, stats: Params, x: Tensor,
+                h0: tp.Optional[tp.List[tp.Any]],
+                new_stats: tp.Optional[Params] = None
+                ) -> tp.Tuple[Tensor, tp.List[tp.Any]]:
+        """The block stack, x [T, B, F', C'] -> (x, each block's carry).
+        With `new_stats` (model_forward's copy of stats) every block runs in
+        train mode and its new statistics are written there."""
+        train = new_stats is not None
+        extra = self._block_extra(params)
+        h_out: tp.List[tp.Any] = []
+        for i, (bp, bs) in enumerate(zip(params["rf_blocks"],
+                                         stats["rf_blocks"])):
+            x, h_t, s = self._apply_block(bp, bs, x,
+                                          None if h0 is None else h0[i],
+                                          train, **extra)
+            h_out.append(h_t)
+            if s is not None:
+                new_stats["rf_blocks"][i] = s
+        return x, h_out
+
+    def _block_extra(self, params: Params) -> Params:
+        """Keyword arguments every block takes besides its own subtree
+        (the dptransformer's shared time bias); none here."""
+        del params
+        return {}
+
+    def _apply_block(self, p: Params, s: Params, x: Tensor, h0: tp.Any,
+                     train: bool, **extra: tp.Any
+                     ) -> tp.Tuple[Tensor, tp.Any, tp.Optional[Params]]:
+        """_block_apply, under checkpoint with self.remat in a train
+        forward (JAX default.py:639-647): the backward keeps the block's
+        inputs only and recomputes its GRU loop and attention. The BN
+        weights of the row mask are taken here and passed in, since the
+        recompute runs after forward() has dropped the mask."""
+        bw = self._bn_w_tb() if train else None
+        if train and self.remat:
+            return checkpoint(self._block_apply, p, s, x, h0, True, bw,
+                              use_reentrant=False, **extra)
+        return self._block_apply(p, s, x, h0, train, bw, **extra)
 
     def _encode(self, params: Params, stats: Params, spec: Tensor,
                 new_stats: tp.Optional[Params] = None
@@ -577,24 +611,24 @@ class Model(torch.nn.Module):
         bw = self._bn_w_bt(b, t) if train else None
         x = spec.permute(0, 2, 1, 3).reshape(b * t, f_in, 2)
         x = self._strided_reshape(x)
-        x = self._conv_bn_act(params["enc_pre"], stats["enc_pre"], x,
-                              new_s=new_stats["enc_pre"] if train else None,
-                              bw=bw)
+        x, s = self._conv_bn_act(params["enc_pre"], stats["enc_pre"], x,
+                                 train=train, bw=bw)
+        _put(new_stats, "enc_pre", s)
         skips = [x]
         for i, (p, st) in enumerate(zip(params["encoder"], stats["encoder"])):
             x_in = x
             k = self.kernel_size[1 + i]
-            x = self._conv_bn_act(
-                p, st, x, padding=(k - 1) // 2,
-                new_s=new_stats["encoder"][i] if train else None, bw=bw)
+            x, s = self._conv_bn_act(p, st, x, padding=(k - 1) // 2,
+                                     train=train, bw=bw)
+            _put(None if new_stats is None else new_stats["encoder"], i, s)
             skips.append(x)
             if self.resnet:
                 x = x + x_in
         x_res = x
         x = torch.einsum("oF,nFc->noc", params["rf_pre"]["lin"]["weight"], x)
-        x = self._conv_bn_act(params["rf_pre"], stats["rf_pre"], x, act=False,
-                              new_s=new_stats["rf_pre"] if train else None,
-                              bw=bw)
+        x, s = self._conv_bn_act(params["rf_pre"], stats["rf_pre"], x,
+                                 act=False, train=train, bw=bw)
+        _put(new_stats, "rf_pre", s)
         x = x.reshape(b, t, self.block_freq, x.shape[-1]).transpose(0, 1)
         return x, x_res, skips, b, t
 
@@ -607,10 +641,9 @@ class Model(torch.nn.Module):
         bw = self._bn_w_bt(b, t) if train else None
         x = x.transpose(0, 1).reshape(b * t, self.block_freq, x.shape[-1])
         x = torch.einsum("oF,nFc->noc", params["rf_post"]["lin"]["weight"], x)
-        x = self._conv_bn_act(params["rf_post"], stats["rf_post"], x,
-                              act=False,
-                              new_s=new_stats["rf_post"] if train else None,
-                              bw=bw)
+        x, s = self._conv_bn_act(params["rf_post"], stats["rf_post"], x,
+                                 act=False, train=train, bw=bw)
+        _put(new_stats, "rf_post", s)
         if self.resnet:
             x = x + x_res
         for i, (p, st) in enumerate(zip(params["decoder"], stats["decoder"])):
@@ -620,43 +653,40 @@ class Model(torch.nn.Module):
                      "gn": p.get("gn1")}
             unit2 = {"conv": p["conv2"], "bn": p.get("bn2"),
                      "gn": p.get("gn2")}
-            new1 = {} if train else None
-            new2 = {} if train else None
-            y = self._conv_bn_act(unit1, {"bn": st.get("bn1")}, x,
-                                  new_s=new1, bw=bw)
+            y, s1 = self._conv_bn_act(unit1, {"bn": st.get("bn1")}, x,
+                                      train=train, bw=bw)
             k = self.kernel_size[len(self.kernel_size) - 1 - i]
-            x = self._conv_bn_act(unit2, {"bn": st.get("bn2")}, y,
-                                  padding=(k - 1) // 2, new_s=new2, bw=bw)
-            if train:
-                new_stats["decoder"][i] = {"bn1": new1["bn"],
-                                           "bn2": new2["bn"]}
+            x, s2 = self._conv_bn_act(unit2, {"bn": st.get("bn2")}, y,
+                                      padding=(k - 1) // 2, train=train,
+                                      bw=bw)
+            if s1 is not None:
+                new_stats["decoder"][i] = {"bn1": s1["bn"], "bn2": s2["bn"]}
             if self.resnet:
                 x = x + x_in
         x = torch.cat([x, skips.pop()], dim=-1)
-        x = self._conv_bn_act(params["dec_post"], stats["dec_post"], x,
-                              new_s=new_stats["dec_post"] if train else None,
-                              bw=bw)
+        x, s = self._conv_bn_act(params["dec_post"], stats["dec_post"], x,
+                                 train=train, bw=bw)
+        _put(new_stats, "dec_post", s)
         x = self._scaled_convt(params["dec_post"]["convt"], x)  # [B*T, F, 2]
         mask = self.mask_act(x)
         return mask.reshape(b, t, f_in, 2).permute(0, 2, 1, 3)
 
     def _block_apply(self, p: Params, s: Params, x: Tensor,
-                     h0: tp.Optional[Tensor],
-                     train_stats: tp.Optional[Params] = None
-                     ) -> tp.Tuple[Tensor, Tensor]:
-        """x: [T, B, F', C] -> (x, h_T [B*F', C]); the time RNN is
-        `_time_rnn_apply`. With `train_stats` (a copy of s) the BNs run in
-        train mode and write their new statistics there."""
+                     h0: tp.Optional[Tensor], train: bool = False,
+                     bw: tp.Optional[Tensor] = None
+                     ) -> tp.Tuple[Tensor, Tensor, tp.Optional[Params]]:
+        """x: [T, B, F', C] -> (x, h_T [B*F', C], the block's new statistics
+        in train mode, else None); the time RNN is `_time_rnn_apply`. In
+        train mode the BNs' statistics are weighted by `bw` [1, B, 1, 1]."""
         rf = self.rf
         t, b, f, c = x.shape
-        train = train_stats is not None
-        bw = self._bn_w_tb() if train else None
+        new_s = dict(s) if train else None
 
         def bn(bn_p: tp.Optional[Params], key: str, y: Tensor) -> Tensor:
             y, st = fnn.batch_norm(bn_p, s[key], y, train=train, eps=rf.eps,
                                    weight=bw)
             if train:
-                train_stats[key] = st
+                new_s[key] = st
             return y
 
         # --- time GRU ---
@@ -686,7 +716,7 @@ class Model(torch.nn.Module):
             y = bn(p["attn_post_norm"], "attn_post_norm", y)
         if rf.post_act:
             y = self.act(y)
-        return y + x_in, h_t
+        return y + x_in, h_t, new_s
 
     # -- offline graph (wav -> wav) --------------------------------------------
 
@@ -706,8 +736,6 @@ class Model(torch.nn.Module):
         train-mode BN statistics. It is held on self for the duration of
         the call, so the BN call sites, which see folded [B*T, ...] and
         [T, B, ...] layouts, derive their weights from it."""
-        if train:
-            self._check_trainable()
         params, stats = variables["params"], variables["stats"]
         self._row_mask = row_mask if train else None
         try:
@@ -959,6 +987,10 @@ class Model(torch.nn.Module):
 
     # -- misc ----------------------------------------------------------------
 
+    # the reference's module prefixes of rf_pre/rf_post and the blocks
+    tname_prepost = "rf"
+    tname_block = "rf_block"
+
     def fixed_param_paths(self) -> tp.List[tp.Tuple[str, ...]]:
         """Param-tree paths that are buffers in the reference (not trained)."""
         fixed: tp.List[tp.Tuple[str, ...]] = []
@@ -974,7 +1006,7 @@ class Model(torch.nn.Module):
         """A param-tree path's name in the reference's torch model, so that
         `train.optimizer_groups` regexes from the reference configs apply
         unchanged (configs/fastenhancer/t.yaml's optimizer_groups)."""
-        return _torch_name_default(path)
+        return _torch_name_default(path, self.tname_prepost, self.tname_block)
 
     def num_params(self, params: Params) -> int:
         """Trainable parameter count (fixed buffers excluded)."""

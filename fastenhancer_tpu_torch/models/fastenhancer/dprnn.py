@@ -19,9 +19,10 @@ Three streaming forms:
   ValueError with a plan and chunk_frames > 1, as the JAX package does).
 
 Outside the fused stack the time GRU is one gru_scan launch per block, as
-in the default model's eval forward. Not ported yet (raises
-NotImplementedError): training mode (the default model's trains; this
-one's block is eval-only).
+in the default model's eval forward. `forward(train=True, row_mask=...)`
+trains it: train-mode BN over the batch and the time GRU and the frequency
+biGRU as nn.gru's and nn.bigru's differentiable loops (JAX dprnn.py:
+132-174).
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ from ... import nn as fnn
 from ...functional import init_istft_carry, init_stft_carry
 from ...ops.dprnn_stack import dprnn_stack_step, plan_dprnn_stack
 from ...ops.gru_scan import gru_fused
-from .default import (Model as DefaultModel, Params, Tensor, _TRAIN_TODO,
-                      fold_fc_bn, fold_prenorm_into_rnn)
+from .default import (Model as DefaultModel, Params, Tensor, fold_fc_bn,
+                      fold_prenorm_into_rnn)
 from .dptransformer import set_ablation_filterbanks
 
 
@@ -52,8 +53,6 @@ class DPRNNConfig:
 class Model(DefaultModel):
     """FastEnhancer dprnn. Takes the reference's `model_kwargs` unchanged
     (configs/ablation/dprnn_*.yaml)."""
-
-    train_todo = _TRAIN_TODO
 
     def __init__(
         self,
@@ -144,37 +143,46 @@ class Model(DefaultModel):
     # -- block: time GRU + bidirectional frequency GRU -------------------------
 
     def _block_apply(self, p: Params, s: Params, x: Tensor,
-                     h0: tp.Optional[Tensor]) -> tp.Tuple[Tensor, Tensor]:
-        """x: [T, B, F', C] -> (x, h_T [B*F', C]); eval mode, the time GRU
-        one gru_scan launch (reference: models/fastenhancer/dprnn/
-        model.py:227-246)."""
+                     h0: tp.Optional[Tensor], train: bool = False,
+                     bw: tp.Optional[Tensor] = None
+                     ) -> tp.Tuple[Tensor, Tensor, tp.Optional[Params]]:
+        """x: [T, B, F', C] -> (x, h_T [B*F', C], the new statistics in
+        train mode, else None) (reference: models/fastenhancer/dprnn/
+        model.py:227-246). In eval the time GRU is one gru_scan launch; in
+        train nn.gru's loop, the BNs in train mode weighted by `bw`."""
         dp = self.dp
         t, b, f, c = x.shape
+        new_s = dict(s) if train and s else None
+
+        def bn(bn_p: tp.Optional[Params], key: str, y: Tensor) -> Tensor:
+            y, st = fnn.batch_norm(bn_p, s[key], y, train=train, eps=dp.eps,
+                                   weight=bw)
+            if new_s is not None:
+                new_s[key] = st
+            return y
+
         # --- time GRU ---
         y = x
         if s and "trnn_pre_norm" in s:
-            y, _ = fnn.batch_norm(None, s["trnn_pre_norm"], y, train=False,
-                                  eps=dp.eps)
+            y = bn(None, "trnn_pre_norm", y)
         if h0 is None:
             h0 = x.new_zeros(b * f, c)
-        y, h_t = gru_fused(p["trnn"], y.reshape(t, b * f, c), h0)
+        gru = fnn.gru if train else gru_fused
+        y, h_t = gru(p["trnn"], y.reshape(t, b * f, c), h0)
         y = fnn.linear(p["trnn_fc"], y.reshape(t, b, f, c))
         if p.get("trnn_post_norm") is not None:
-            y, _ = fnn.batch_norm(p["trnn_post_norm"], s["trnn_post_norm"], y,
-                                  train=False, eps=dp.eps)
+            y = bn(p["trnn_post_norm"], "trnn_post_norm", y)
         x = y + x
         # --- bidirectional frequency GRU, over the bins ---
         y = x
         if s and "frnn_pre_norm" in s:
-            y, _ = fnn.batch_norm(None, s["frnn_pre_norm"], y, train=False,
-                                  eps=dp.eps)
+            y = bn(None, "frnn_pre_norm", y)
         y = fnn.bigru(p["frnn"], y.reshape(t * b, f, c).transpose(0, 1))
         y = y.transpose(0, 1).reshape(t, b, f, 2 * dp.channels_frnn)
         y = fnn.linear(p["frnn_fc"], y)
         if p.get("frnn_post_norm") is not None:
-            y, _ = fnn.batch_norm(p["frnn_post_norm"], s["frnn_post_norm"], y,
-                                  train=False, eps=dp.eps)
-        return y + x, h_t
+            y = bn(p["frnn_post_norm"], "frnn_post_norm", y)
+        return y + x, h_t, new_s
 
     # -- fused-stack streaming (CUDA kernel) -------------------------------------
 
@@ -226,6 +234,28 @@ class Model(DefaultModel):
         return self._stream_back(spec, mask, carry, stft_c, h_t)
 
     # -- deploy-time folding -----------------------------------------------------
+
+    # -- the reference's parameter names (optimizer groups) -------------------
+
+    tname_prepost = "dprnn"
+    tname_block = "dprnn_block"
+
+    def torch_name(self, path: tp.Tuple[str, ...]) -> str:
+        """dprnn_block.{i}.{trnn,frnn}... with torch's *_l0 and
+        *_l0_reverse GRU names; the rest as the default's under the
+        dprnn prefixes."""
+        if path[0] == "rf_blocks" and path[2] in ("trnn", "frnn"):
+            prefix = f"{self.tname_block}.{path[1]}.{path[2]}"
+            if path[2] == "trnn":
+                suffix, leaf, sub = "_l0", path[3], path[4:5]
+            else:
+                suffix = "_l0" if path[3] == "fwd" else "_l0_reverse"
+                leaf, sub = path[4], path[5:6]
+            if leaf.startswith("weight") and sub:
+                which = "original0" if sub[0] == "g" else "original1"
+                return f"{prefix}.parametrizations.{leaf}{suffix}.{which}"
+            return f"{prefix}.{leaf}{suffix}"
+        return super().torch_name(path)
 
     def _block_fold(self, bp: Params, bs: Params) -> Params:
         """Fold one block: strip weight norm, post-BN into each fc,

@@ -20,8 +20,9 @@ Three streaming forms:
   [NB, B, L, F', C'] that is written one slot per block per frame, in
   place, at a slot pointer kept on the device.
 
-Not ported yet (raises NotImplementedError): training mode (the default
-model's trains, this one's does not yet).
+`forward(train=True, row_mask=...)` trains it (JAX dptransformer.py:
+202-259): train-mode BN over the batch, the causal time attention banded
+over the whole segment; no kernel runs.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ from ... import nn as fnn
 from ...functional import init_istft_carry, init_stft_carry
 from ...functional.mel import mel_fbank_weights
 from ...ops.dpt_stack import (cache_shape, dpt_stack_step, plan_dpt_stack)
-from .default import (Model as DefaultModel, Params, Tensor, _TRAIN_TODO,
-                      fold_fc_bn, positional_embedding)
+from .default import (Model as DefaultModel, Params, Tensor, fold_fc_bn,
+                      positional_embedding)
 
 
 def hz_grid_linear_weights(freq: int, n_filter: int, sr: int = 16_000
@@ -105,8 +106,6 @@ def banded_bias(pe: Tensor, tq: int, tk: int, lookbehind: int,
 class Model(DefaultModel):
     """FastEnhancer dptransformer. Takes the reference's `model_kwargs`
     unchanged (configs/ablation/dpt_*.yaml)."""
-
-    train_todo = _TRAIN_TODO
 
     def __init__(
         self,
@@ -241,25 +240,40 @@ class Model(DefaultModel):
         new_carry = {"k": k[:, :, -lb:], "v": v[:, :, -lb:]}
         return out.transpose(1, 2).reshape(bf, t, c), new_carry
 
+    def _block_extra(self, params: Params) -> Params:
+        """The model-level time bias every block's time attention reads."""
+        return {"pe_time": params["time_pe"]["weight"]}
+
     def _block_apply(self, p: Params, s: Params, x: Tensor,
-                     h0: tp.Optional[Params], pe_time: Tensor
-                     ) -> tp.Tuple[Tensor, Params]:
-        """x: [T, B, F', C] -> (x, the block's new {"k", "v"}); eval mode."""
+                     h0: tp.Optional[Params], train: bool = False,
+                     bw: tp.Optional[Tensor] = None,
+                     pe_time: tp.Optional[Tensor] = None
+                     ) -> tp.Tuple[Tensor, Params, tp.Optional[Params]]:
+        """x: [T, B, F', C] -> (x, the block's new {"k", "v"}, its new
+        statistics in train mode, else None); in train mode the BNs run on
+        the batch, weighted by `bw`."""
         cfg = self.dpt
         t, b, f, c = x.shape
+        new_s = dict(s) if train and s else None
+
+        def bn(bn_p: tp.Optional[Params], key: str, y: Tensor) -> Tensor:
+            y, st = fnn.batch_norm(bn_p, s[key], y, train=train, eps=cfg.eps,
+                                   weight=bw)
+            if new_s is not None:
+                new_s[key] = st
+            return y
+
         # --- causal time attention ---
         x_in = x
         y = x
         if s and "time_pre_norm" in s:
-            y, _ = fnn.batch_norm(None, s["time_pre_norm"], y, train=False,
-                                  eps=cfg.eps)
+            y = bn(None, "time_pre_norm", y)
         y = y.permute(1, 2, 0, 3).reshape(b * f, t, c)
         y, h_t = self._time_attn(p["time_attn"], pe_time, y, h0)
         y = y.reshape(b, f, t, c).permute(2, 0, 1, 3)
         y = fnn.linear(p["time_fc"], y)
         if p.get("time_post_norm") is not None:
-            y, _ = fnn.batch_norm(p["time_post_norm"], s["time_post_norm"], y,
-                                  train=False, eps=cfg.eps)
+            y = bn(p["time_post_norm"], "time_post_norm", y)
         if cfg.post_act:
             y = self.act(y)
         x = y + x_in
@@ -269,38 +283,15 @@ class Model(DefaultModel):
         x_in = x
         y = x
         if s and "freq_pre_norm" in s:
-            y, _ = fnn.batch_norm(None, s["freq_pre_norm"], y, train=False,
-                                  eps=cfg.eps)
+            y = bn(None, "freq_pre_norm", y)
         y = fnn.attention(p["freq_attn"], y.reshape(t * b, f, c),
                           cfg.num_heads)
         y = fnn.linear(p["freq_fc"], y.reshape(t, b, f, c))
         if p.get("freq_post_norm") is not None:
-            y, _ = fnn.batch_norm(p["freq_post_norm"], s["freq_post_norm"], y,
-                                  train=False, eps=cfg.eps)
+            y = bn(p["freq_post_norm"], "freq_post_norm", y)
         if cfg.post_act:
             y = self.act(y)
-        return y + x_in, h_t
-
-    def model_forward(self, params: Params, stats: Params, spec: Tensor,
-                      h0: tp.Optional[tp.List[Params]] = None,
-                      train: bool = False
-                      ) -> tp.Tuple[Tensor, tp.List[Params], Params]:
-        """Compressed spec [B, F, T, 2] -> (mask [B, F, T, 2], each block's
-        new {"k", "v"}, stats), with the model-level time bias passed to
-        every block."""
-        if train:
-            raise NotImplementedError(_TRAIN_TODO)
-        x, x_res, skips, b, t = self._encode(params, stats, spec)
-        pe_time = params["time_pe"]["weight"]
-        h_out: tp.List[Params] = []
-        for i, (bp, bs) in enumerate(zip(params["rf_blocks"],
-                                         stats["rf_blocks"])):
-            x, h_t = self._block_apply(bp, bs, x,
-                                       None if h0 is None else h0[i], pe_time)
-            h_out.append(h_t)
-        mask = self._decode(params, stats, x, x_res, skips, b, t,
-                            spec.shape[1])
-        return mask, h_out, stats
+        return y + x_in, h_t, new_s
 
     def _block_carry_init(self, batch: int, dtype: torch.dtype,
                           device: tp.Union[str, torch.device]) -> Params:
@@ -407,3 +398,37 @@ class Model(DefaultModel):
         out = super().fold(variables)
         out["params"]["time_pe"] = variables["params"]["time_pe"]
         return out
+
+    # -- the reference's parameter names (optimizer groups) -------------------
+
+    def fixed_param_paths(self) -> tp.List[tp.Tuple[str, ...]]:
+        fixed = [f for f in super().fixed_param_paths()
+                 if f != ("rf_blocks", "0", "pe", "weight")]
+        if self.dpt.positional_embedding == "fixed":
+            fixed.append(("rf_blocks", "0", "pe", "weight"))
+        return fixed
+
+    tname_prepost = "dpt"
+    tname_block = "dpt_block"
+
+    def torch_name(self, path: tp.Tuple[str, ...]) -> str:
+        """dpt_block.{i}.{time,freq}_attn.qkv..., the shared time bias as
+        `pe`; the rest as the default's under the dpt prefixes."""
+        if path[0] == "time_pe":
+            return "pe"
+        if path[0] == "rf_blocks":
+            i, mod = path[1], path[2]
+            prefix = f"dpt_block.{i}"
+            if mod in ("time_attn", "freq_attn"):
+                leaf = path[4]
+                sub = path[5] if len(path) > 5 else None
+                if leaf == "weight":
+                    if sub is None:
+                        return f"{prefix}.{mod}.qkv.weight"
+                    which = "original0" if sub == "g" else "original1"
+                    return f"{prefix}.{mod}.qkv.parametrizations.weight.{which}"
+                return f"{prefix}.{mod}.qkv.{leaf}"
+            if mod == "pe":
+                return f"{prefix}.pe"
+            return f"{prefix}.{mod}.{path[3]}"
+        return super().torch_name(path)

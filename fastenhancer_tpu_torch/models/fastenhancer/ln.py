@@ -18,8 +18,9 @@ Three streaming forms:
   `plan_stack(..., ln_eps=...)`), which applies both LayerNorms inline.
 
 The whole-frame kernel (ops/fused_frame.py) has no GroupNorm or LayerNorm,
-so `build_frame_plan` (its `plan_frame`) raises. Not ported yet (raises
-NotImplementedError): training mode.
+so `build_frame_plan` (its `plan_frame`) raises. `forward(train=True)`
+trains it (JAX ln.py:94 onwards): no norm keeps batch statistics, so train
+mode differs from eval only in the time GRU, nn.gru's differentiable loop.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from ... import nn as fnn
 from ...ops.gru_scan import gru_fused
 from ...ops.rnnformer_stack import plan_stack
-from .default import Model as DefaultModel, Params, Tensor, _TRAIN_TODO
+from .default import Model as DefaultModel, Params, Tensor
 from .dptransformer import set_ablation_filterbanks
 
 def ref_layer_norm(params: tp.Optional[Params], x: Tensor,
@@ -57,8 +58,6 @@ def ref_layer_norm(params: tp.Optional[Params], x: Tensor,
 class Model(DefaultModel):
     """FastEnhancer ln. Takes the reference's `model_kwargs` unchanged
     (configs/ablation/ln_b.yaml)."""
-
-    train_todo = _TRAIN_TODO
 
     # per-site conv bias (reference: models/fastenhancer/ln/model.py:422-510)
     _SITE_BIAS = {"enc_pre": True, "encoder": True, "rf_pre": True,
@@ -110,13 +109,13 @@ class Model(DefaultModel):
         return bp, {}
 
     def _block_apply(self, p: Params, s: Params, x: Tensor,
-                     h0: tp.Optional[Tensor],
-                     train_stats: tp.Optional[Params] = None
-                     ) -> tp.Tuple[Tensor, Tensor]:
-        """x: [T, B, F', C] -> (x, h_T [B*F', C]); eval only (the time GRU
-        is one gru_scan launch)."""
-        if train_stats is not None:
-            raise NotImplementedError(self.train_todo)
+                     h0: tp.Optional[Tensor], train: bool = False,
+                     bw: tp.Optional[Tensor] = None
+                     ) -> tp.Tuple[Tensor, Tensor, None]:
+        """x: [T, B, F', C] -> (x, h_T [B*F', C], None: no statistics).
+        The time GRU is one gru_scan launch in eval, nn.gru's loop in
+        train; `bw` is unused (LayerNorm is per frame)."""
+        del s, bw
         rf = self.rf
         t, b, f, c = x.shape
         eps = rf.eps
@@ -127,7 +126,8 @@ class Model(DefaultModel):
             y = ref_layer_norm(p["rnn_pre_norm"]["ln"], y, eps)
         if h0 is None:
             h0 = x.new_zeros(b * f, c)
-        y, h_t = gru_fused(p["rnn"], y.reshape(t, b * f, c), h0)
+        gru = fnn.gru if train else gru_fused
+        y, h_t = gru(p["rnn"], y.reshape(t, b * f, c), h0)
         y = fnn.linear(p["rnn_fc"], y.reshape(t, b, f, c))
         if p.get("rnn_post_norm") is not None:
             y = ref_layer_norm(p["rnn_post_norm"]["ln"], y, eps)
@@ -148,7 +148,7 @@ class Model(DefaultModel):
             y = ref_layer_norm(p["attn_post_norm"]["ln"], y, eps)
         if rf.post_act:
             y = self.act(y)
-        return y + x_in, h_t
+        return y + x_in, h_t, None
 
     def fold(self, variables: Params) -> Params:
         """Strip weight norm and the final scale only: GroupNorm and

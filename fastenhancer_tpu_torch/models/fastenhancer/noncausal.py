@@ -12,7 +12,9 @@ model.py). It differs from the default model in three places:
 * there is no streaming graph (the reference has no ONNXModel, :348):
   every streaming entry point raises NotImplementedError, as in JAX.
 
-Not ported yet (raises NotImplementedError): training mode.
+`forward(train=True, row_mask=...)` trains it (JAX noncausal.py:95-139):
+the default model's train-mode BN, and the biGRU as nn.bigru's
+differentiable loop over both directions.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from ... import nn as fnn
 from ...ops.gru_scan import bigru_fused
-from .default import Model as DefaultModel, Params, Tensor, _TRAIN_TODO
+from .default import Model as DefaultModel, Params, Tensor
 from .dptransformer import set_ablation_filterbanks
 
 _NO_STREAMING = ("the noncausal model has no streaming graph (the reference "
@@ -33,8 +35,6 @@ _DIRECTIONS = ("fwd", "bwd")
 class Model(DefaultModel):
     """FastEnhancer noncausal. Takes the reference's `model_kwargs`
     unchanged (configs/fastenhancer_dns/huge_noncausal.yaml)."""
-
-    train_todo = _TRAIN_TODO
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -69,11 +69,11 @@ class Model(DefaultModel):
     def _time_rnn_apply(self, p: Params, y: Tensor, h0: tp.Optional[Tensor],
                         train: bool) -> tp.Tuple[Tensor, Tensor]:
         """y [T, N, C] -> (ys [T, N, 2C] in [fwd, bwd] order, an empty
-        carry: a bidirectional GRU has no streaming state); eval only, h0
-        unused. Two gru_scan launches (ops/gru_scan.py::bigru_fused)."""
-        if train:
-            raise NotImplementedError(self.train_todo)
-        return bigru_fused(p, y), y.new_zeros(0)
+        carry: a bidirectional GRU has no streaming state); h0 unused. Two
+        gru_scan launches in eval (ops/gru_scan.py::bigru_fused), nn.bigru's
+        loop in train."""
+        bigru = fnn.bigru if train else bigru_fused
+        return bigru(p, y), y.new_zeros(0)
 
     def _time_rnn_fold(self, rnn: Params, pre_norm: tp.Optional[Params]
                        ) -> Params:

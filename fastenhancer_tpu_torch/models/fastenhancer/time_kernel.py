@@ -22,8 +22,10 @@ Three streaming forms:
   fused path would take frame 0 only).
 
 The whole-frame kernel (ops/fused_frame.py) has no 2-D conv, so
-`build_frame_plan` (its `plan_frame`) raises. Not ported yet (raises
-NotImplementedError): training mode.
+`build_frame_plan` (its `plan_frame`) raises. `forward(train=True,
+row_mask=...)` trains it (JAX time_kernel.py:102-214): every BN in train
+mode, the 2-D convs' weighted per batch row ([B, 1, 1, 1]), the others per
+frame row ([B*T, 1, 1]); the blocks as the default model's.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 
 from ... import nn as fnn
 from ...ops.rnnformer_stack import rnnformer_stack_step
-from .default import Model as DefaultModel, Params, Tensor, _TRAIN_TODO
+from ...utils.tree import tree_map
+from .default import Model as DefaultModel, Params, Tensor, _put
 from .dptransformer import set_ablation_filterbanks
 
 Carry = tp.Dict[str, tp.Any]
@@ -58,8 +61,6 @@ def causal_conv2d(p: Params, x: Tensor, cache: tp.Optional[Tensor], k_t: int,
 class Model(DefaultModel):
     """FastEnhancer time_kernel. Takes the reference's `model_kwargs`
     unchanged (configs/ablation/time_kernel_b.yaml)."""
-
-    train_todo = _TRAIN_TODO
 
     def __init__(self, channels: int = 64,
                  kernel_size_freq: tp.Sequence[int] = (8, 3, 3),
@@ -113,9 +114,8 @@ class Model(DefaultModel):
         {"h", "enc", "dec"}. fused_plan (build_stack_plan() of folded
         variables) runs the block stack as one kernel launch; it takes one
         frame (T == 1) and h0["h"] stacked [NB, B*F', C]
-        (init_streaming_carry(fused=True))."""
-        if train:
-            self._check_trainable()
+        (init_streaming_carry(fused=True)). train=True runs every BN in
+        train mode and returns their new statistics."""
         k_t = self.kernel_size_time
         c = self.channels
         b, f_in, t, _ = spec.shape
@@ -125,11 +125,25 @@ class Model(DefaultModel):
         enc_caches = None if h0 is None else h0["enc"]
         dec_caches = None if h0 is None else h0["dec"]
         block_h = None if h0 is None else h0["h"]
+        new_stats = tree_map(lambda a: a, stats) if train else None
+        bw_bt = self._bn_w_bt(b, t) if train else None
+        bw_b4 = self._bn_w_b(4) if train else None
+
+        def bn2d(p: Params, st: Params, key: str, y: Tensor
+                 ) -> tp.Tuple[Tensor, tp.Optional[Params]]:
+            """The BN after a 2-D conv (merged away in a folded tree)."""
+            if p.get(key) is None:
+                return y, None
+            y, new = fnn.batch_norm(p[key], st[key], y, train=train,
+                                    weight=bw_b4)
+            return y, new if train else None
 
         # Encoder PreNet (per-frame 1-D, as the default model's)
         x = spec.permute(0, 2, 1, 3).reshape(b * t, f_in, 2)
-        x = self._conv_bn_act(params["enc_pre"], stats["enc_pre"],
-                              self._strided_reshape(x))
+        x, s = self._conv_bn_act(params["enc_pre"], stats["enc_pre"],
+                                 self._strided_reshape(x), train=train,
+                                 bw=bw_bt)
+        _put(new_stats, "enc_pre", s)
         f_enc = x.shape[1]
         x = x.reshape(b, t, f_enc, c)
         skips = [x]
@@ -140,16 +154,18 @@ class Model(DefaultModel):
                 p["conv"], x, None if enc_caches is None else enc_caches[i],
                 k_t, (k - 1) // 2)
             enc_out.append(cache)
-            if p.get("bn") is not None:  # folded models have it merged
-                y, _ = fnn.batch_norm(p["bn"], st["bn"], y, train=False)
+            y, s = bn2d(p, st, "bn", y)
+            _put(None if new_stats is None else new_stats["encoder"], i,
+                 None if s is None else {"bn": s})
             x = self.act(y)
             skips.append(x)
 
         # rf_pre: frequency resample + 1x1 conv (+BN), per frame
         x2 = torch.einsum("oF,nFc->noc", params["rf_pre"]["lin"]["weight"],
                           x.reshape(b * t, f_enc, c))
-        x2 = self._conv_bn_act(params["rf_pre"], stats["rf_pre"], x2,
-                               act=False)
+        x2, s = self._conv_bn_act(params["rf_pre"], stats["rf_pre"], x2,
+                                  act=False, train=train, bw=bw_bt)
+        _put(new_stats, "rf_pre", s)
         cc = x2.shape[-1]
         xb = x2.reshape(b, t, self.block_freq, cc).transpose(0, 1)
         if fused_plan is not None:
@@ -160,43 +176,44 @@ class Model(DefaultModel):
                                             block_h, self.rf.num_heads)
             xb = y[None]
         else:
-            h_out = []
-            for i, (bp, bs) in enumerate(zip(params["rf_blocks"],
-                                             stats["rf_blocks"])):
-                xb, h_t = self._block_apply(
-                    bp, bs, xb, None if block_h is None else block_h[i])
-                h_out.append(h_t)
+            xb, h_out = self._blocks(params, stats, xb, block_h, new_stats)
 
         x2 = xb.transpose(0, 1).reshape(b * t, self.block_freq, cc)
         x2 = torch.einsum("oF,nFc->noc", params["rf_post"]["lin"]["weight"],
                           x2)
-        x2 = self._conv_bn_act(params["rf_post"], stats["rf_post"], x2,
-                               act=False)
+        x2, s = self._conv_bn_act(params["rf_post"], stats["rf_post"], x2,
+                                  act=False, train=train, bw=bw_bt)
+        _put(new_stats, "rf_post", s)
         x = x2.reshape(b, t, f_enc, c)
 
         # Decoder: 1x1 conv (per frame), then the causal 2-D conv
         dec_out = []
         for i, (p, st) in enumerate(zip(params["decoder"], stats["decoder"])):
             x = torch.cat([x, skips.pop()], dim=-1)
-            y = self._conv_bn_act({"conv": p["conv1"], "bn": p.get("bn1")},
-                                  {"bn": st.get("bn1")},
-                                  x.reshape(b * t, f_enc, 2 * c))
+            y, s1 = self._conv_bn_act(
+                {"conv": p["conv1"], "bn": p.get("bn1")},
+                {"bn": st.get("bn1")}, x.reshape(b * t, f_enc, 2 * c),
+                train=train, bw=bw_bt)
             k = self.kernel_size[len(self.kernel_size) - 1 - i]
             y, cache = causal_conv2d(
                 p["conv2"], y.reshape(b, t, f_enc, c),
                 None if dec_caches is None else dec_caches[i], k_t,
                 (k - 1) // 2)
             dec_out.append(cache)
-            if p.get("bn2") is not None:
-                y, _ = fnn.batch_norm(p["bn2"], st["bn2"], y, train=False)
+            y, s2 = bn2d(p, st, "bn2", y)
+            if s2 is not None:
+                new_stats["decoder"][i] = {"bn1": s1["bn"], "bn2": s2}
             x = self.act(y)
 
         # Decoder PostNet (per-frame 1-D)
         x = torch.cat([x, skips.pop()], dim=-1).reshape(b * t, f_enc, 2 * c)
-        x = self._conv_bn_act(params["dec_post"], stats["dec_post"], x)
+        x, s = self._conv_bn_act(params["dec_post"], stats["dec_post"], x,
+                                 train=train, bw=bw_bt)
+        _put(new_stats, "dec_post", s)
         x = self._scaled_convt(params["dec_post"]["convt"], x)
         mask = self.mask_act(x).reshape(b, t, f_in, 2).permute(0, 2, 1, 3)
-        return mask, {"h": h_out, "enc": enc_out, "dec": dec_out}, stats
+        return (mask, {"h": h_out, "enc": enc_out, "dec": dec_out},
+                stats if new_stats is None else new_stats)
 
     # -- streaming -------------------------------------------------------------
 

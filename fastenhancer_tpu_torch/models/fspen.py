@@ -27,9 +27,12 @@ ConvTransposes. The streaming carry is blocks x groups GRU states
 `stream(chunk_frames=C)`) runs C hops a step, each time GRU one launch over
 the C frames.
 
-Not ported yet (raises NotImplementedError): training mode (train-mode
-BatchNorm and its row mask). There is no fused stack plan: the engine runs
-this model unfused.
+`forward(train=True, row_mask=...)` is the training graph (JAX fspen.py:
+238-335): train-mode BN over the batch (rows with row_mask 0 left out of
+the statistics), every GRU nn.gru's or nn.bigru's differentiable loop (no
+kernel runs in a train step), the last ConvTranspose and the mask in
+float32 as in eval. There is no fused stack plan: the engine runs this
+model unfused.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from ..functional import (
     init_istft_carry,
 )
 from ..ops.gru_scan import bigru_fused, gru_fused
-from .fastenhancer.default import _TRAIN_TODO
+from ..utils.tree import tree_map
 from .streaming import spectral_step, stream_hops
 
 Tensor = torch.Tensor
@@ -91,8 +94,6 @@ class Model(torch.nn.Module):
     (configs/others/fspen.yaml). The module holds the configuration only;
     weights live in the variables tree that `init` returns."""
 
-    train_todo = _TRAIN_TODO
-
     def __init__(
         self,
         channels: tp.Sequence[int] = (4, 16, 32),
@@ -123,6 +124,9 @@ class Model(torch.nn.Module):
                                    win_size=win_size, win_type=window,
                                    method=stft_method)
         self.num_blocks = self.dpe.num_blocks
+        # row inclusion mask [B] of a train forward's BN statistics, held
+        # for the duration of forward(train=True, row_mask=...)
+        self._row_mask: tp.Optional[Tensor] = None
 
     # -- init -----------------------------------------------------------------
 
@@ -221,14 +225,17 @@ class Model(torch.nn.Module):
         return torch.cat(outs, dim=1)
 
     def _dpe_block(self, p: Params, x: Tensor,
-                   h0: tp.Optional[tp.Sequence[Tensor]]
+                   h0: tp.Optional[tp.Sequence[Tensor]], train: bool = False
                    ) -> tp.Tuple[Tensor, tp.List[Tensor]]:
         """x [T, B, F, C]; h0: the groups' carried states or None (zeros)
-        -> (x, the groups' h_T). 2 + groups gru_scan launches."""
+        -> (x, the groups' h_T). 2 + groups gru_scan launches in eval;
+        nn.bigru's and nn.gru's loops in train."""
         t, b, f, c = x.shape
+        bigru = fnn.bigru if train else bigru_fused
+        gru = fnn.gru if train else gru_fused
         # intra: a biGRU over the bins of each frame, then LayerNorm([F, C])
         x_in = x
-        y = bigru_fused(p["intra_rnn"], x.reshape(t * b, f, c).transpose(0, 1))
+        y = bigru(p["intra_rnn"], x.reshape(t * b, f, c).transpose(0, 1))
         y = fnn.linear(p["intra_fc"],
                        y.transpose(0, 1).reshape(t, b, f, 2 * c))
         yf = y.float()
@@ -243,7 +250,7 @@ class Model(torch.nn.Module):
         outs, h_out = [], []
         for gi, (rnn, fc) in enumerate(zip(p["inter_rnn"], p["inter_fc"])):
             xg = x[:, :, gi * fg:(gi + 1) * fg].reshape(t, b * fg, c)
-            yg, h_t = gru_fused(rnn, xg, None if h0 is None else h0[gi])
+            yg, h_t = gru(rnn, xg, None if h0 is None else h0[gi])
             h_out.append(h_t)
             outs.append(fnn.linear(fc, yg).reshape(t, b, fg, c))
         # the reference adds the inter residual twice (InterRNNPathExtension
@@ -257,11 +264,22 @@ class Model(torch.nn.Module):
                       train: bool = False
                       ) -> tp.Tuple[Tensor, tp.List[tp.List[Tensor]], Params]:
         """Compressed spec [B, F=257, T, 2] -> (spec_hat, each block's
-        groups' h_T, stats); eval mode."""
-        if train:
-            raise NotImplementedError(self.train_todo)
+        groups' h_T, stats). train=True runs every BN in train mode and
+        returns their new statistics (a new tree)."""
         dpe = self.dpe
         b, f0, t, _ = spec.shape
+        new_stats = tree_map(lambda a: a, stats) if train else None
+        bw = (None if self._row_mask is None else
+              self._row_mask.float().repeat_interleave(t)[:, None, None])
+
+        def bn(p: Params, s: Params, group: str, i: int, x: Tensor
+               ) -> Tensor:
+            x, st = fnn.batch_norm(p["bn"], s["bn"], x, train=train,
+                                   weight=bw)
+            if train:
+                new_stats[group][i] = {"bn": st}
+            return x
+
         x = spec.permute(0, 2, 1, 3).reshape(b * t, f0, 2)   # [BT, F, 2]
         mag = x.square().sum(dim=2).sqrt()                   # [BT, F]
         x_sub1 = self._subband_encode(params["subband_encoder"], mag)
@@ -272,7 +290,7 @@ class Model(torch.nn.Module):
             k, st = self.kernel_size[i], self.stride[i]
             x = fnn.conv1d_cl(p["conv"], x, stride=st, padding=(k - st) // 2)
             if s.get("bn") is not None:  # folded models have BN fused away
-                x, _ = fnn.batch_norm(p["bn"], s["bn"], x, train=False)
+                x = bn(p, s, "fullband_encoder", i, x)
             x = F.elu(x)
             enc_out.append(x)
         x = fnn.conv1d_cl(params["fullband_encoder_post"], x)  # [BT, 32, C]
@@ -286,7 +304,8 @@ class Model(torch.nn.Module):
         xb = x.reshape(b, t, dpe.freq, dpe.channels).transpose(0, 1)
         carry_out = []
         for i, p in enumerate(params["dpe_blocks"]):
-            xb, h_out = self._dpe_block(p, xb, None if h0 is None else h0[i])
+            xb, h_out = self._dpe_block(p, xb, None if h0 is None else h0[i],
+                                        train)
             carry_out.append(h_out)
         x = xb.transpose(0, 1).reshape(b * t, dpe.freq, dpe.channels)
 
@@ -311,9 +330,10 @@ class Model(torch.nn.Module):
             x = fnn.conv_transpose1d_cl(p["convt"], x, stride=st,
                                         padding=(k - st) // 2)
             if p.get("bn") is not None and s.get("bn") is not None:
-                x, _ = fnn.batch_norm(p["bn"], s["bn"], x, train=False)
+                x = bn(p, s, "fullband_decoder", i, x)
             x = F.elu(x)  # after the BN, or the convt it was folded into
-        return self._mask(p["convt"], x, spec, mask_sub), carry_out, stats
+        return (self._mask(p["convt"], x, spec, mask_sub), carry_out,
+                stats if new_stats is None else new_stats)
 
     def _mask(self, convt: Params, x: Tensor, spec: Tensor,
               mask_sub: Tensor) -> Tensor:
@@ -344,14 +364,20 @@ class Model(torch.nn.Module):
     def stft(self, wav: Tensor) -> Tensor:
         return compressed_stft(wav, self.stft_cfg, self.input_compression)
 
-    def forward(self, variables: Params, wav: Tensor, train: bool = False
+    def forward(self, variables: Params, wav: Tensor, train: bool = False,
+                row_mask: tp.Optional[Tensor] = None
                 ) -> tp.Tuple[Tensor, Tensor, Params]:
         """wav [B, T] -> (wav_hat [B, T], spec_hat compressed [B, F, T', 2],
-        stats). Inference only."""
-        if train:
-            raise NotImplementedError(self.train_todo)
-        spec_hat, _, stats = self.model_forward(
-            variables["params"], variables["stats"], self.stft(wav))
+        stats; the new BN statistics when train=True). row_mask [B] (1 real,
+        0 zero-padded) leaves padded rows out of the train-mode BN
+        statistics; it is held on self for the call."""
+        self._row_mask = row_mask if train else None
+        try:
+            spec_hat, _, stats = self.model_forward(
+                variables["params"], variables["stats"], self.stft(wav),
+                train=train)
+        finally:
+            self._row_mask = None
         wav_hat = compressed_istft(spec_hat, self.stft_cfg,
                                    self.input_compression,
                                    length=wav.shape[-1])
@@ -432,3 +458,43 @@ class Model(torch.nn.Module):
                         "fullband_decoder": [{} for _ in self.channels],
                         "dpe_blocks": [{} for _ in range(self.num_blocks)]}
         return {"params": out, "stats": folded_stats}
+
+    # -- the reference's parameter names (optimizer groups) ---------------------
+
+    def torch_name(self, path: tp.Tuple[str, ...]) -> str:
+        """The reference's module names (models/fspen/model.py), as the
+        JAX package maps them."""
+        head = path[0]
+        if head == "subband_encoder":
+            return f"subband_encoder.conv{int(path[1]) + 1}.0.{path[2]}"
+        if head == "subband_decoder":
+            return f"subband_decoder.lin{int(path[1]) + 1}.0.{path[2]}"
+        if head == "fullband_encoder":
+            i, mod, leaf = path[1], path[2], path[3]
+            return f"fullband_encoder.{i}.{0 if mod == 'conv' else 1}.{leaf}"
+        if head == "fullband_encoder_post":
+            return f"fullband_encoder_post.{path[1]}"
+        if head in ("feature_merge", "feature_split"):
+            order = ({"lin": 0, "conv": 2} if head == "feature_merge"
+                     else {"conv": 0, "lin": 1})
+            return f"{head}.{order[path[1]]}.{path[2]}"
+        if head == "dpe_blocks":
+            i, mod = path[1], path[2]
+            prefix = f"dpe_blocks.{i}"
+            if mod == "intra_rnn":
+                sfx = "_l0" if path[3] == "fwd" else "_l0_reverse"
+                return f"{prefix}.intra_rnn.{path[4]}{sfx}"
+            if mod in ("intra_fc", "intra_ln"):
+                return f"{prefix}.{mod}.{path[3]}"
+            if mod == "inter_rnn":
+                return f"{prefix}.inter_rnn.inter_rnn.{path[3]}.{path[4]}_l0"
+            if mod == "inter_fc":
+                return f"{prefix}.inter_rnn.inter_fc.{path[3]}.{path[4]}"
+        if head == "fullband_decoder":
+            i, mod, leaf = path[1], path[2], path[3]
+            idx = {"conv1": 0, "convt": 1, "bn": 2}[mod]
+            return f"fullband_decoder.{i}.{idx}.{leaf}"
+        raise KeyError(f"unmapped fspen param path: {path}")
+
+    def fixed_param_paths(self) -> tp.List[tp.Tuple[str, ...]]:
+        return []

@@ -27,8 +27,11 @@ JAX subtracts 2 pi (hop / n_fft) k, up to ~804 rad at k = 256, where a
 bf16 ulp is 4 rad, so its IFD feature is rounding noise (ROADMAP queue 3;
 tests/test_torch_baselines.py).
 
-Not ported yet (raises NotImplementedError): training mode. There is no
-fused stack plan: the engine runs this model unfused.
+`forward(train=True)` is the training graph (JAX lisennet.py:305-370):
+no norm keeps batch statistics, so it differs from eval only in its GRUs,
+nn.gru's and nn.bigru's differentiable loops (no kernel runs in a train
+step); the phase features stay float32. There is no fused stack plan: the
+engine runs this model unfused.
 """
 from __future__ import annotations
 
@@ -47,7 +50,6 @@ from ..functional import (
     init_istft_carry,
 )
 from ..ops.gru_scan import bigru_fused, gru_fused
-from .fastenhancer.default import _TRAIN_TODO
 from .streaming import spectral_step, stream_hops
 
 Tensor = torch.Tensor
@@ -94,8 +96,6 @@ class Model(torch.nn.Module):
     """LiSenNet. Takes the reference's `model_kwargs` unchanged
     (configs/others/lisennet.yaml). The module holds the configuration only;
     weights live in the variables tree that `init` returns."""
-
-    train_todo = _TRAIN_TODO
 
     def __init__(
         self,
@@ -250,19 +250,22 @@ class Model(torch.nn.Module):
         return _conv2d_cl(p["fc2"], y) + x, a[:, -2:]
 
     def _dpr(self, p: Params, x: Tensor, cache_rnn: tp.Optional[Tensor],
-             cache_conv: tp.Optional[Tensor]
+             cache_conv: tp.Optional[Tensor], train: bool = False
              ) -> tp.Tuple[Tensor, Tensor, Tensor]:
         """x [B, T, F, C] -> (x', the time GRU's h_T [B*F, hdim], the GLU's
-        cache). 3 gru_scan launches."""
+        cache). 3 gru_scan launches in eval; nn.bigru's and nn.gru's loops
+        in train."""
         b, t, f, c = x.shape
+        bigru = fnn.bigru if train else bigru_fused
+        gru = fnn.gru if train else gru_fused
         y = layer_norm_fc_affine(p["intra_norm"], x)
-        y = bigru_fused(p["intra_rnn"], y.reshape(b * t, f, c).transpose(0, 1))
+        y = bigru(p["intra_rnn"], y.reshape(b * t, f, c).transpose(0, 1))
         y = fnn.linear(p["intra_fc"], y.transpose(0, 1))
         x = y.reshape(b, t, f, c) + x
 
         y = layer_norm_fc_affine(p["inter_norm"], x)
         y = y.transpose(1, 2).reshape(b * f, t, c).transpose(0, 1)
-        y, h_out = gru_fused(p["inter_rnn"], y, cache_rnn)    # [T, BF, hdim]
+        y, h_out = gru(p["inter_rnn"], y, cache_rnn)          # [T, BF, hdim]
         y = fnn.linear(p["inter_fc"], y)                      # [T, BF, C]
         x = y.transpose(0, 1).reshape(b, f, t, c).transpose(1, 2) + x
 
@@ -300,10 +303,10 @@ class Model(torch.nn.Module):
     def model_forward(self, params: Params, stats: Params, spec: Tensor,
                       h0: tp.Optional[Params] = None, train: bool = False
                       ) -> tp.Tuple[Tensor, Params, Params]:
-        """Compressed spec [B, F, T, 2] -> (spec_hat, carry, stats); eval
-        mode. h0 is the streaming carry's "h" (None: zero caches)."""
-        if train:
-            raise NotImplementedError(self.train_todo)
+        """Compressed spec [B, F, T, 2] -> (spec_hat, carry, stats). h0 is
+        the streaming carry's "h" (None: zero caches); train=True runs the
+        GRUs as differentiable loops (stats, empty, are returned as they
+        are)."""
         P = params
         feats, last_pha = self._features(spec, None if h0 is None
                                          else h0["pha"])
@@ -322,7 +325,7 @@ class Model(torch.nn.Module):
         rnn_out, conv_out = [], []
         for i, bp in enumerate(P["blocks"]):
             x, h, cc = self._dpr(bp, x, caches["dpr_rnn"][i],
-                                 caches["dpr_conv"][i])
+                                 caches["dpr_conv"][i], train)
             rnn_out.append(h)
             conv_out.append(cc)
 
@@ -353,14 +356,16 @@ class Model(torch.nn.Module):
     def stft(self, wav: Tensor) -> Tensor:
         return compressed_stft(wav, self.stft_cfg, self.input_compression)
 
-    def forward(self, variables: Params, wav: Tensor, train: bool = False
+    def forward(self, variables: Params, wav: Tensor, train: bool = False,
+                row_mask: tp.Optional[Tensor] = None
                 ) -> tp.Tuple[Tensor, Tensor, Params]:
         """wav [B, T] -> (wav_hat [B, T], spec_hat compressed [B, F, T', 2],
-        stats). Inference only."""
-        if train:
-            raise NotImplementedError(self.train_todo)
+        stats). row_mask is taken for a uniform signature: every norm here
+        is per item, so a padded row touches no other row."""
+        del row_mask
         spec_hat, _, stats = self.model_forward(
-            variables["params"], variables["stats"], self.stft(wav))
+            variables["params"], variables["stats"], self.stft(wav),
+            train=train)
         wav_hat = compressed_istft(spec_hat, self.stft_cfg,
                                    self.input_compression,
                                    length=wav.shape[-1])
@@ -426,3 +431,53 @@ class Model(torch.nn.Module):
     def fold(self, variables: Params) -> Params:
         """No reparameterization to remove (reference: :476-477)."""
         return variables
+
+    # -- the reference's parameter names (optimizer groups) ---------------------
+
+    def torch_name(self, path: tp.Tuple[str, ...]) -> str:
+        """The reference's module names (models/lisennet/model.py), as the
+        JAX package maps them."""
+        head = path[0]
+        if head == "encoder":
+            mod, sub = path[1], path[2]
+            if mod == "conv_1":
+                if sub == "act":
+                    return "encoder.conv_1.2.weight"  # PReLU
+                return f"encoder.conv_1.{0 if sub == 'conv' else 1}.{path[3]}"
+            if sub == "act":
+                return f"encoder.{mod}.act.weight"
+            return f"encoder.{mod}.{sub}.{path[3]}"
+        if head == "blocks":
+            i, mod = path[1], path[2]
+            prefix = f"blocks.{i}"
+            if mod in ("intra_norm", "inter_norm"):
+                return f"{prefix}.dp_rnn_attn.{mod}.{path[3]}"
+            kind = mod.split("_")[0]
+            if mod == "intra_rnn":
+                sfx = "_l0" if path[3] == "fwd" else "_l0_reverse"
+                return (f"{prefix}.dp_rnn_attn.{kind}_rnn_attn.rnn."
+                        f"{path[4]}{sfx}")
+            if mod == "inter_rnn":
+                return (f"{prefix}.dp_rnn_attn.{kind}_rnn_attn.rnn."
+                        f"{path[3]}_l0")
+            if mod in ("intra_fc", "inter_fc"):
+                return f"{prefix}.dp_rnn_attn.{kind}_rnn_attn.dense.{path[3]}"
+            if mod == "glu":
+                return f"{prefix}.conv_glu.{path[3]}.{path[4]}"
+        if head == "decoder":
+            mod = path[1]
+            if mod in ("up1", "up2", "up3"):
+                sub, leaf = path[2], path[3]
+                if sub == "high_conv":
+                    return f"decoder.{mod}.high_conv.conv.{leaf}"
+                return f"decoder.{mod}.low_conv.{leaf}"
+            if mod == "mask_conv":
+                idx = {"conv1": 0, "norm": 1, "act": 2, "conv2": 3}[path[2]]
+                leaf = path[3] if len(path) > 3 else "weight"
+                return f"decoder.mask_conv.{idx}.{leaf}"
+            if mod == "lsigmoid":
+                return "decoder.lsigmoid.slope"
+        raise KeyError(f"unmapped lisennet param path: {path}")
+
+    def fixed_param_paths(self) -> tp.List[tp.Tuple[str, ...]]:
+        return []

@@ -1,9 +1,12 @@
 """Training entry point on one device.
 
-    python -m fastenhancer_tpu_torch.train -n NAME -c configs/fastenhancer_shard/t.yaml \
+    python -m fastenhancer_tpu_torch.train -n NAME -c configs/<recipe>.yaml \
         [-p a.b=v ...] [-f] [--base_dir logs] [--device cuda]
 
-The counterpart of the repo's `train.py` for one card: the same flags
+The counterpart of the repo's `train.py` for one card, for every family:
+the VoiceBank recipes (configs/fastenhancer/*.yaml, configs/ablation/,
+configs/others/: paired wavs, the `pesq` loss among their losses) and the
+shard recipes (configs/fastenhancer_shard/); the same flags
 (`-n`, `-c`, `-p`, `-f`, `--base_dir`) and the same epoch loop, plus
 `--device` (the card unless named; `--device cpu` runs the plain PyTorch
 versions of the kernels, as the CPU tests do). It reads the config without
@@ -15,9 +18,10 @@ checkpoint every `train.save_interval` epochs, on the last and in `test`
 mode. Run again with the same `-n` (and no `-c`) to resume from the newest
 checkpoint.
 
-Not ported: the multi-host flags (ROADMAP queue 1, "Several cards"), and
-TensorBoard summaries with the showcase `infer_epoch` (queue 1, "Training,
-end to end on one card"); each epoch's results are printed and returned.
+Not ported: the DNS recipe (the `ns_on_the_fly` wrapper, ROADMAP queue
+1, "Training, end to end on one card"), TensorBoard summaries with the
+showcase `infer_epoch` (same item), and the multi-host flags (queue 1,
+"Several cards"); each epoch's results are printed and returned.
 """
 from __future__ import annotations
 
@@ -66,10 +70,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
     base_dir = os.path.join(args.base_dir, args.name)
     hps = get_hparams(args.config, base_dir, save=True, params=args.params,
                       force_save=args.force_save)
-    print("TensorBoard summaries and the showcase infer_epoch are not "
-          'ported yet (ROADMAP queue 1, "Training, end to end on one '
-          'card"): each epoch is printed, and checkpointed at '
-          "save_interval")
+    print("The DNS recipe (ns_on_the_fly), TensorBoard summaries with the "
+          "showcase infer_epoch (ROADMAP queue 1, \"Training, end to end on "
+          'one card") and several hosts ("Several cards") are not ported '
+          "yet: each epoch is printed, and checkpointed at save_interval")
 
     seed = getattr(hps.train, "seed", 1)
     random.seed(seed)

@@ -3,10 +3,11 @@
 Counterpart of the single-device part of fastenhancer_tpu/wrappers/ns.py.
 `ModelWrapper(hps, train=...)` builds, from a config HParams (from
 `utils.hparams.get_hparams`, or over a preset as in
-`HParams(**presets.FE_T_SHARD)`), the model and its variables, and with
-train=True the losses, the optimizer, the scheduler, the train and valid
-steps and, where the config has a `pesq` section, the PESQ loader and the
-`Metrics` executor. `train_epoch` and `valid_epoch` run over any iterable of
+`HParams(**presets.FE_T_SHARD)`), the model of any family and its
+variables, and with train=True the losses (the `pesq` loss at the data's
+sampling rate), the optimizer, the scheduler, the train and valid steps
+(train.remat sets the model's gradient checkpointing) and, where the
+config has a `pesq` section, the PESQ loader and the `Metrics` executor. `train_epoch` and `valid_epoch` run over any iterable of
 {"clean", "noisy"} numpy batches; `valid_epoch(calculate_metrics=True)`
 also enhances the PESQ set (float32, `make_infer_fn`) and scores it.
 `save(epoch)` / `load(epoch=None)` write and read the JAX package's
@@ -88,6 +89,8 @@ class ModelWrapper:
             losses_cfg["consistency"].update(
                 n_fft=mk["n_fft"], hop_size=mk["hop_size"],
                 win_size=mk.get("win_size"), win_type=mk.get("window"))
+        if "pesq" in losses_cfg:
+            losses_cfg["pesq"].setdefault("sample_rate", self.sr)
         self.loss = Losses(losses_cfg)
         self.optim = get_optimizer(self.model, variables["params"], hp)
         self.scheduler = get_scheduler(self.optim, hp)
@@ -155,13 +158,30 @@ class ModelWrapper:
 
     def train_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]]
                     ) -> tp.Dict[str, tp.Any]:
-        """One pass over {"clean", "noisy"} batches."""
+        """One pass over {"clean", "noisy"} batches; self.timing gets the
+        epoch's wall seconds waiting for batches ("load") and moving and
+        stepping them ("step", host clock, the queue drained at the end),
+        and the step count ("steps")."""
         self.loss.initialize()
-        for idx, batch in enumerate(dataloader, start=1):
+        load = step = 0.0
+        steps = 0
+        batches = iter(dataloader)
+        while not (self.test and steps >= 10):
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            t1 = time.perf_counter()
+            load += t1 - t0
+            if batch is None:
+                break
             self._step_and_account(*self._device_batch(batch,
                                                        ("clean", "noisy")))
-            if self.test and idx >= 10:
-                break
+            steps += 1
+            step += time.perf_counter() - t1
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timing.update(load=load, steps=steps,
+                           step=step + time.perf_counter() - t0)
         return self._end_train_epoch()
 
     def valid_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]],

@@ -266,3 +266,27 @@ def write_wav_pairs(root, seed, n=6, dur=(0.5, 1.5)):
             with open(os.path.join(d, f"{i:03d}.wav"), "wb") as f:
                 f.write(wav_bytes(x))
     return tuple(dirs)
+
+
+def check_train_forward_runs(model, variables, wav, moves_stats=True):
+    """forward(train=True) runs: finite outputs and new statistics at the
+    paths of the old ones, some of them moved where the model keeps any
+    (tests/test_torch_train_*.py hold it against JAX)."""
+    w, s, new_stats = model.forward(variables, wav, train=True)
+    assert torch.isfinite(w).all() and torch.isfinite(s).all()
+    new, old = flatten_paths(new_stats), flatten_paths(variables["stats"])
+    assert new.keys() == old.keys()
+    assert all(torch.isfinite(v).all() for v in new.values())
+    assert any(not torch.equal(new[k], old[k]) for k in old) == moves_stats
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """One intra-op thread while the module's tests run, restored after:
+    the driver runs six xdist workers on eight cores, and the tiny ops of
+    the training tests spend an eight-thread run waiting on the threads of
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

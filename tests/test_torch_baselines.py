@@ -38,8 +38,8 @@ from fastenhancer_tpu_torch.presets import FSPEN, LISENNET
 from fastenhancer_tpu_torch.serving import StreamingEngine
 from fastenhancer_tpu_torch.utils import cast_floating
 
-from _torch_parity import (assert_trees_close, flatten_paths,
-                           perturb_bn_stats, port_variables)
+from _torch_parity import (assert_trees_close, check_train_forward_runs,
+                           flatten_paths, perturb_bn_stats, port_variables)
 
 ATOL = 1e-5
 HOP = 256
@@ -296,11 +296,12 @@ def test_silence_stays_finite_in_both_packages(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_training_and_a_fused_engine_raise(name):
+    """Training runs (its parity with JAX: tests/test_torch_train_
+    baselines.py); a fused engine raises: neither model has a stack
+    plan."""
     _, tm, _, tv = _setup(name)
     wav = torch.tensor(_wav(1, 4, seed=7))
-    with pytest.raises(NotImplementedError,
-                       match="Training, end to end on one card"):
-        tm.forward(tv, wav, train=True)
+    check_train_forward_runs(tm, tv, wav, moves_stats=name == "fspen")
     with pytest.raises(ValueError, match="no fused stack plan"):
         StreamingEngine(tm, tv, capacity=2, fused=True, device="cpu")
 

@@ -30,7 +30,8 @@ from fastenhancer_tpu_torch.ops import bsrnn_stack as tstack
 from fastenhancer_tpu_torch.presets import BSRNN_S
 
 from _torch_parity import (as_np, assert_trees_close,
-                           check_engine_fused_matches_unfused, flatten_paths,
+                           check_engine_fused_matches_unfused,
+                           check_train_forward_runs, flatten_paths,
                            perturb_bn_stats, port_variables)
 
 ATOL = 1e-5
@@ -158,8 +159,8 @@ def test_forward_and_streaming_step_match_jax(folded):
     for (hj, c_j), (ht, c_t) in zip(cj["h"], ct["h"]):
         np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-4)
         np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tv, torch.tensor(wav), train=True)
+    check_train_forward_runs(tm, tv, torch.tensor(wav),
+                             moves_stats=not folded)
 
 
 def test_fused_stream_matches_jax_and_unfused():

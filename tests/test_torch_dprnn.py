@@ -30,7 +30,8 @@ from fastenhancer_tpu_torch.ops import dprnn_stack as tstack
 from fastenhancer_tpu_torch.presets import DPRNN_B
 
 from _torch_parity import (as_np, assert_trees_close,
-                           check_engine_fused_matches_unfused, flatten_paths,
+                           check_engine_fused_matches_unfused,
+                           check_train_forward_runs, flatten_paths,
                            perturb_bn_stats, port_variables, to_np_tree)
 from test_model_variants import DPRNN_KWARGS
 
@@ -148,8 +149,8 @@ def test_forward_and_streaming_step_match_jax(folded):
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-4)
     for hj, ht in zip(cj["h"], ct["h"]):
         np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tv, torch.tensor(wav), train=True)
+    check_train_forward_runs(tm, tv, torch.tensor(wav),
+                             moves_stats=not folded)
 
 
 def test_fused_stream_matches_jax_and_unfused():

@@ -19,8 +19,9 @@ from fastenhancer_tpu_torch.models.fastenhancer.default import (
 from fastenhancer_tpu_torch.models.fastenhancer.dptransformer import (
     Model as TModel, hz_grid_linear_weights)
 
-from _torch_parity import (assert_trees_close, flatten_paths,
-                           perturb_bn_stats, port_variables, to_np_tree)
+from _torch_parity import (assert_trees_close, check_train_forward_runs,
+                           flatten_paths, perturb_bn_stats, port_variables,
+                           to_np_tree)
 
 HOP = 64
 N_FRAMES = 9  # beyond the lookbehind of 5
@@ -134,8 +135,7 @@ def test_registry_and_unported_modes():
     assert isinstance(m, TModel) and m.dpt.lookbehind == 5
     _, tv = _variables(_models()[0], 4)
     wav = torch.tensor(_wav(1, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.forward(tv, wav, train=True)
+    check_train_forward_runs(m, tv, wav)
     # chunked streaming runs (unfused), the tail cut to a multiple of 2
     assert m.stream(tv, wav, chunk_frames=2).shape == (1, HOP * 8)
     with pytest.raises(ValueError, match="final_scale"):

@@ -20,7 +20,8 @@ from fastenhancer_tpu_torch.models.fastenhancer.ln import Model as TModel
 from fastenhancer_tpu_torch.ops import fused_frame
 
 from _torch_parity import (TINY_KWARGS, assert_trees_close,
-                           check_engine_fused_matches_unfused, flatten_paths,
+                           check_engine_fused_matches_unfused,
+                           check_train_forward_runs, flatten_paths,
                            perturb_norms, port_variables, to_np_tree)
 
 HOP = TINY_KWARGS["hop_size"]
@@ -81,8 +82,7 @@ def test_fold_and_forward_match_jax():
         wt, st, _ = tm.forward(t_vars, torch.tensor(wav))
         np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=ATOL)
         np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tv, torch.tensor(wav), train=True)
+    check_train_forward_runs(tm, tv, torch.tensor(wav), moves_stats=False)
 
 
 @pytest.mark.parametrize("freq", [8, 10])

@@ -122,14 +122,21 @@ def test_offline_forward_matches_jax(over):
 
 
 def test_remat_raises():
-    """train.remat (gradient checkpointing) is not ported: forward with
-    train=True raises; eval mode ignores it, as in the JAX package."""
+    """train.remat (gradient checkpointing), once refused, runs: the train
+    forward with remat equals the one without bit for bit (outputs and new
+    statistics; its gradients: tests/test_torch_train.py), and eval mode
+    ignores it, as in the JAX package."""
     jm, tm = _models()
     _, tv = _variables(jm, 3)
     wav = torch.tensor(_wav(2, 3))
+    plain = tm.forward(tv, wav, train=True)
     tm.remat = True
-    with pytest.raises(NotImplementedError, match="remat"):
-        tm.forward(tv, wav, train=True)
+    remat = tm.forward(tv, wav, train=True)
+    for a, b in zip(plain[:2], remat[:2]):
+        assert torch.equal(a, b)
+    new, want = flatten_paths(remat[2]), flatten_paths(plain[2])
+    assert new.keys() == want.keys()
+    assert all(torch.equal(new[k], want[k]) for k in want)
     assert torch.isfinite(tm.forward(tv, wav)[0]).all()
 
 

@@ -24,7 +24,8 @@ from fastenhancer_tpu_torch.ops import gru_scan as tscan
 from fastenhancer_tpu_torch.presets import NONCAUSAL_HUGE
 from fastenhancer_tpu_torch.utils import cast_floating
 
-from _torch_parity import (TINY_KWARGS, assert_trees_close, flatten_paths,
+from _torch_parity import (TINY_KWARGS, assert_trees_close,
+                           check_train_forward_runs, flatten_paths,
                            perturb_bn_stats, port_variables, to_np_tree)
 
 ATOL = 1e-5
@@ -169,8 +170,9 @@ def test_bf16_forward_and_bigru_match_jax():
 
 
 def test_streaming_and_training_raise():
-    """No streaming graph (as in JAX and the reference), and training is not
-    ported yet; a mel filterbank init is refused."""
+    """No streaming graph (as in JAX and the reference), and training runs
+    (its parity with JAX: tests/test_torch_train_fe_variants.py); a mel
+    filterbank init is refused."""
     jm, tm = _models()
     _, tv = _variables(jm, 3)
     wav = torch.tensor(_wav(1, 8, 3))
@@ -183,8 +185,7 @@ def test_streaming_and_training_raise():
                  lambda: tm.stream(tv, wav, chunk_frames=4)):
         with pytest.raises(NotImplementedError, match="streaming graph"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tv, wav, train=True)
+    check_train_forward_runs(tm, tv, wav)
     with pytest.raises(ValueError, match="linear"):
         TModel(**dict(TINY_KWARGS, pre_post_init="mel_fixed"))
 

@@ -21,7 +21,8 @@ from fastenhancer_tpu_torch.models.fastenhancer.time_kernel import (
 from fastenhancer_tpu_torch.serving import StreamingEngine
 
 from _torch_parity import (assert_trees_close,
-                           check_engine_fused_matches_unfused, flatten_paths,
+                           check_engine_fused_matches_unfused,
+                           check_train_forward_runs, flatten_paths,
                            perturb_bn_stats, port_variables, to_np_tree)
 
 KWARGS = dict(
@@ -84,8 +85,7 @@ def test_fold_and_forward_match_jax():
         wt, st, _ = tm.forward(t_vars, torch.tensor(wav))
         np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=ATOL)
         np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tv, torch.tensor(wav), train=True)
+    check_train_forward_runs(tm, tv, torch.tensor(wav))
 
 
 def test_stream_unfused_and_fused_match_jax():

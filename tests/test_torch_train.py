@@ -353,6 +353,9 @@ def test_shard_wrapper_trains_and_validates_on_cpu():
 
 
 def test_ns_wrapper_epoch_and_unported_options():
+    """The ns wrapper's epoch (and its load/step timing); train.remat, once
+    refused, trains to the same losses; the ns_on_the_fly wrapper is not
+    ported yet."""
     hps = copy.deepcopy(FE_T_SHARD)
     hps["model_kwargs"] = dict(TINY_KWARGS)
     hps["train"].update(fp16=False, test=True)
@@ -360,9 +363,50 @@ def test_ns_wrapper_epoch_and_unported_options():
     summary = wrapper.train_epoch([_batch(7, pad_last=False)] * 2)
     assert all(np.isfinite(v) for v in summary["scalars"].values())
     assert wrapper.get_lr() == pytest.approx(2e-3 * 2 / 500)
+    assert wrapper.timing.keys() == {"load", "step", "steps"}
+    assert wrapper.timing["steps"] == 2
     hps["train"]["remat"] = True
-    wrapper = get_wrapper("ns")(HParams(**hps), train=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        wrapper.train_epoch([_batch(7, pad_last=False)])
+    remat = get_wrapper("ns")(HParams(**hps), train=True, device="cpu")
+    assert remat.model.remat
+    got = remat.train_epoch([_batch(7, pad_last=False)] * 2)
+    for k, v in summary["scalars"].items():
+        assert got["scalars"][k] == pytest.approx(v, rel=1e-6), k
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_wrapper("ns_on_the_fly")
+
+
+def test_remat_matches_plain_and_jax():
+    """train.remat on the tiny FE with the shard recipe's losses and a
+    padded row: the port's loss, every gradient and every new statistic
+    with remat equal to the port's without (bit for bit: the recompute
+    runs the same operations), and match JAX's train step with remat
+    (jax.checkpoint), tolerances of tests/_torch_train_parity.py."""
+    import _torch_train_parity as tp
+    hp = _hp_train()
+    jm, tm = _models()
+    jv = jm.init(jax.random.PRNGKey(4))
+    tv = port_variables(jv)
+    batch = dict(_batch(4), row_mask=ROW_MASK)
+    jm.remat = True
+    (_, jmetrics, jgrads, jvars, _), = tp.run_jax_steps(jm, jv, hp, batch,
+                                                        steps=1)
+    loss, grads = tp.port_grads(tm, tv, hp, batch)
+    tm.remat = True
+    loss_r, grads_r = tp.port_grads(tm, tv, hp, batch)
+    assert loss_r == loss
+    assert all(torch.equal(grads_r[p], grads[p]) for p in grads)
+    assert abs(loss_r / jmetrics["loss/total"] - 1) < 1e-5
+    tp.assert_grads_close(grads_r, jgrads)
+    stats = {}
+    for remat in (True, False):
+        tm.remat = remat
+        stats[remat] = flatten_paths(tm.forward(
+            tv, torch.from_numpy(batch["noisy"]), train=True,
+            row_mask=torch.from_numpy(ROW_MASK))[2])
+    assert stats[True].keys() == stats[False].keys()
+    assert all(torch.equal(t, stats[False][p])
+               for p, t in stats[True].items())
+    assert_trees_close(tm.forward(tv, torch.from_numpy(batch["noisy"]),
+                                  train=True,
+                                  row_mask=torch.from_numpy(ROW_MASK))[2],
+                       jvars["stats"], atol=1e-5)

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-two phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-four phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -149,11 +149,39 @@ each printed on its own line:
      within 1e-3 of its norm plus 4x the card's run-to-run spread of the
      leaf (the recompute of the backward checked) and a lower peak memory
      with; with remat at the recipe's 64
-     x 2 s, which without remat does not fit the card; (d) one bf16 step
-     of the huge noncausal model through the ns wrapper at 4 x 4 s. No
-     kernel runs inside any train step.
+     x 2 s, which without remat does not fit the card. No kernel runs
+     inside any train step;
+ 23. train the on-the-fly recipes through the CLI: `main` in this process
+     on configs/fastenhancer_dns/b.yaml (bf16), configs/fastenhancer_48khz/
+     b.yaml (bf16, the dynamic low-pass at p 0.5), configs/others_dns/
+     bsrnn_xt.yaml (float32), configs/fastenhancer_dns/huge_noncausal.yaml
+     (bf16, 16 x 2 s) and a copy of configs/fastenhancer_dns/t.yaml with
+     reverb at p 0.5 (the RIR convolution), each at its width and batch, 2
+     steps, 1 epoch with valid, PESQ/STOI and a checkpoint, on a synthetic
+     corpus at 16 and 48 kHz (speech-like clean files of 1-5 s, so that
+     clips are both concatenated and cropped, one at -80 dBFS that the
+     dataset skips, noise, 16 valid/PESQ pairs of 2-2.5 s, RIRs): finite
+     losses, #5 only in the valid and PESQ forwards and never inside
+     train_epoch, each input shape it got held against its plain version;
+     the step ms, the data-load share of the epoch and the peak memory
+     printed; the mixer (its RIR convolution too) and the low-pass on the
+     card against the CPU in float32 on a run's own first batch and
+     draws (to 1e-5 of the peak); #5 timed at the recipes' own valid
+     shapes (the 48 kHz FE-B, the noncausal model at 16 and 24 kHz);
+ 24. the entry points on three of those runs, in this process: `python -m
+     fastenhancer_tpu_torch.scripts.enhance` on the FE-B DNS run (the
+     card's float32 outputs against the CPU's to 1e-4 of the peak, #5's
+     inputs held to its plain version), `...scripts.serve --fused --dtype
+     bf16` (capacity 8) on the FE-B DNS (#1 at F = 24), FE-B 48 kHz (#1 at
+     F = 36) and BSRNN-XT (#3 at C = 16) runs, every launch held against
+     the plain version and the outputs against the same checkpoint served
+     unfused in float32 (to 2^-5 of the peak), tick p50/p99 and RTF
+     printed; `...scripts.metrics_ns` on the FE-B DNS run (SISDR, STOI,
+     ESTOI, PESQ finite and the card's equal to the CPU's to 1e-4); #1 at
+     F = 36 and #3 at C = 16 timed at 256 streams with the checkpoints'
+     plans.
 
-Each of phases 4 to 22 drives a path: every kernel's launch count is set to
+Each of phases 4 to 24 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -162,9 +190,11 @@ scan's tensor-core forms are counted inside their launches (`.tc_launches`
 of each wrapper), and the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must
 run them on every frame, FE-T's bf16 valid step on every launch. The
 line before the last holds the kernels' JSON record (the GRU scan's
-launches there are the sum over the bf16 paths of phases 15-20 and the
-valid and PESQ forwards of phases 21 and 22, segmental RMS's over phases
-14 and 21, each listed by path before it); the last line is
+launches there are the sum over the bf16 paths of phases 15-20, the valid
+and PESQ forwards of phases 21-23 and the entry points of phase 24, the
+block stack's and the BSRNN stack's over their serving phases and phase
+24, segmental RMS's over phases 14 and 21, each listed by path before it);
+the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
 """
@@ -396,7 +426,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/22] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/24] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -404,10 +434,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/22] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/24] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/22] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/24] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -528,7 +558,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/22] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/24] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -563,7 +593,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/22] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/24] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -618,7 +648,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/22] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/24] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -639,7 +669,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/22] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/24] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -683,7 +713,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/22] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/24] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -730,7 +760,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/22] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/24] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -773,7 +803,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/22] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/24] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -821,7 +851,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/22] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/24] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -838,7 +868,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/22] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/24] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -894,7 +924,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/22] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/24] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -920,7 +950,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/22] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/24] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -958,7 +988,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/22] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/24] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1011,7 +1041,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/22] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/24] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1130,7 +1160,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/22] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/24] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1169,7 +1199,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/22] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/24] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1226,7 +1256,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/22] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/24] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1381,7 +1411,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/22] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/24] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1429,7 +1459,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/22] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/24] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1474,7 +1504,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/22] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/24] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1538,7 +1568,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/22] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/24] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1547,7 +1577,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/22] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/24] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1585,7 +1615,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/22] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/24] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1634,7 +1664,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/22] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/24] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1724,21 +1754,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/22] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/24] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/22] {tag} bf16 Model.forward, "
+        print(f"[{phase}/24] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/22] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/24] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -1840,15 +1870,16 @@ def main():
         def flush(self):
             self.out.flush()
 
-    def run_cli(argv):
-        """train_main(argv) with its stdout kept; the launch counts zeroed
-        just before and read just after; -> (history, counts, stdout)."""
+    def run_cli(argv, entry=None):
+        """train_main(argv), or another entry point's main, with its stdout
+        kept; the launch counts zeroed just before and read just after; ->
+        (what main returned, counts, stdout)."""
         tee, old = Tee(sys.stdout), sys.stdout
         sys.stdout = tee
         torch.cuda.synchronize()
         zero_counts()
         try:
-            history = train_main(argv)
+            history = (entry or train_main)(argv)
             torch.cuda.synchronize()
         finally:
             sys.stdout = old
@@ -1981,7 +2012,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/22] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/24] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2002,7 +2033,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/22] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/24] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2077,7 +2108,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/22] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/24] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2095,7 +2126,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/22] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/24] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2107,7 +2138,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/22] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/24] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2124,8 +2155,31 @@ def main():
              read_counts=read_counts, run_cli=run_cli,
              record_inputs=record_inputs, seen_scan=seen_scan,
              compare=compare, speech_like=speech_like, card=card, dev=dev))
+
+    # -- 23. the on-the-fly recipes; 24. the entry points on their runs ------
+    ctx = dict(counters=counters, zero_counts=zero_counts,
+               read_counts=read_counts, run_cli=run_cli,
+               record_inputs=record_inputs, seen_scan=seen_scan,
+               compare=compare, speech_like=speech_like, card=card, dev=dev,
+               check_launches=check_launches, check_and_time=check_and_time,
+               timed=timed, bound=bound, nbytes=nbytes,
+               stack_flops=stack_flops, band_flops=band_flops)
+    otf_root = tempfile.mkdtemp(prefix="chip_smoke_otf_")
+    try:
+        runs, scan_paths["on-the-fly CLI valid + PESQ (23)"] = phase_23(
+            ctx, otf_root)
+        paths = phase_24(ctx, runs)
+    finally:
+        shutil.rmtree(otf_root, ignore_errors=True)
+    scan_paths.update(paths["gru_scan"])
+    for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
+                        ("bsrnn_stack_step", "BSRNN-S serving (9)")):
+        by_path = {first: record[name]["launches"], **paths[name]}
+        record[name]["launches"] = sum(by_path.values())
+        print(f"[24/24] {name} launches by path: {by_path}; "
+              f"{record[name]['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[22/22] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/24] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     sources = {
@@ -2160,8 +2214,7 @@ def main():
 
 # phase 22: the VoiceBank recipes the CLI trains (config, the family's
 # fixed stream of #5 launches per offline forward is worked out from the
-# model), their synthetic paired-wav corpus, FE-L's remat step and the
-# noncausal step
+# model), their synthetic paired-wav corpus and FE-L's remat step
 VB_CONFIGS = ["fastenhancer/b.yaml", "ablation/dpt_b.yaml",
               "ablation/dprnn_b.yaml", "ablation/ln_b.yaml",
               "ablation/time_kernel_b.yaml", "others/bsrnn_s.yaml",
@@ -2182,24 +2235,43 @@ REMAT_GRAD_RTOL, REMAT_SPREAD_K = 1e-3, 4.0
 # (72.8 GiB allocated above the earlier phases' when it ran out, H100 80GB
 # HBM3 at 700 W): the two are compared at 16 rows
 REMAT_CMP_ROWS = 16
-NC_TRAIN_ROWS, NC_TRAIN_SECONDS = 4, 4.0                # 22d: noncausal
 
 
 def scans_per_forward(model):
     """#5 launches of one offline eval forward, from the model: a time GRU
-    a block (FE, dprnn, ln, time_kernel), 2 + groups a block (FSPEN's intra
-    biGRU and grouped time GRUs), 3 a block (LiSenNet), none (dpt's time
-    attention, BSRNN's LSTMs)."""
+    a block (FE, dprnn, ln, time_kernel), a biGRU's two directions a block
+    (noncausal), 2 + groups a block (FSPEN's intra biGRU and grouped time
+    GRUs), 3 a block (LiSenNet), none (dpt's time attention, BSRNN's
+    LSTMs)."""
     from fastenhancer_tpu_torch.models import bsrnn, fspen, lisennet
-    from fastenhancer_tpu_torch.models.fastenhancer import dptransformer
+    from fastenhancer_tpu_torch.models.fastenhancer import (dptransformer,
+                                                            noncausal)
 
     if isinstance(model, (bsrnn.Model, dptransformer.Model)):
         return 0
+    if isinstance(model, noncausal.Model):
+        return 2 * model.num_blocks
     if isinstance(model, fspen.Model):
         return model.dpe.num_blocks * (2 + model.dpe.groups)
     if isinstance(model, lisennet.Model):
         return 3 * model.n_blocks
     return model.num_blocks
+
+
+def mem_base():
+    """Start a peak-memory window; -> the bytes already allocated (the
+    earlier phases' tensors), which peaks are counted above."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gib(base):
+    import torch
+
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
 def phase_22(ctx):
@@ -2221,31 +2293,19 @@ def phase_22(ctx):
     card, dev = ctx["card"], ctx["dev"]
     zero_counts, read_counts = ctx["zero_counts"], ctx["read_counts"]
 
-    def mem_base():
-        """Start a peak-memory window; -> the bytes already allocated (the
-        earlier phases' tensors), which peaks are counted above."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        return torch.cuda.memory_allocated()
-
-    def peak_gib(base):
-        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/22] train every family through the CLI, cuts: none of width "
+    print(f"[22/24] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
           f"remat compared at {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} s (without"
           f" remat its recipe's {REMAT_ROWS} x {REMAT_SECONDS:g} s does not "
-          f"fit the card); the noncausal step at {NC_TRAIN_ROWS} x "
-          f"{NC_TRAIN_SECONDS:g} s, not its DNS recipe's (its wrapper is the "
-          f"next slice)")
+          f"fit the card); the noncausal recipe trains in phase 23")
 
     def config_hps(config):
         """A config's dict with the paired-wav wrapper and no PESQ loader
-        (the steps of 22b-d read no files)."""
+        (the steps of 22b-c read no files)."""
         hps = get_hparams(os.path.join(repo, "configs", config)).to_dict()
         hps["wrapper"] = "ns"
         hps.pop("pesq", None)
@@ -2375,7 +2435,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/22] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/24] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2440,7 +2500,7 @@ def phase_22(ctx):
         lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
                      f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
                      f"{tc:.1f} s)")
-    print(f"[22/22] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/24] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2516,7 +2576,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/22] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/24] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2530,35 +2590,593 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    # 22d. the huge noncausal model: one bf16 step through the ns wrapper
-    hps = config_hps("fastenhancer_dns/huge_noncausal.yaml")
-    w = get_wrapper("ns")(HParams(**hps), train=True, device=dev)
-    rng = np.random.default_rng(25)
-    n = int(NC_TRAIN_SECONDS * SR)
-    clean = ctx["speech_like"](rng, NC_TRAIN_ROWS, n)
-    noisy = (clean + rng.standard_normal(clean.shape) * 0.05).astype(
-        np.float32)
-    base = mem_base()
-    zero_counts()
-    summary = w.train_epoch([{"clean": clean, "noisy": noisy}])
-    peak = peak_gib(base)
-    _check(not any(read_counts().values()),
-           "noncausal: a kernel ran in a train step")
-    _check(all(np.isfinite(v) for v in summary["scalars"].values()),
-           f"noncausal train: {summary}")
-    print(f"[22/22] noncausal NONCAUSAL_HUGE bf16 train step through the ns "
-          f"wrapper, {NC_TRAIN_ROWS} x {NC_TRAIN_SECONDS:g} s (its recipe "
-          f"takes 16 x 2 s from the DNS wrapper): step "
-          f"{1e3 * w.timing['step']:.0f} ms (the first, with its "
-          f"allocations), peak memory {peak:.2f} GiB, losses "
-          + ", ".join(f"{k[5:]} {v:.4g}"
-                      for k, v in summary["scalars"].items())
-          + f"; on {card}")
-    del w, summary
-
-    print(f"[22/22] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/24] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
+
+
+# phases 23-24: the on-the-fly recipes the CLI trains (a config marked
+# "(reverb)" runs a copy of it with reverb on, written to the temp dir: the
+# config reader refuses keys a config lacks, and t.yaml has no rir_length
+# or rir_dir), their synthetic corpus (files a rate; the RIRs at 16 kHz),
+# then the entry points on three of the runs
+OTF_CONFIGS = ["fastenhancer_dns/b.yaml", "fastenhancer_48khz/b.yaml",
+               "others_dns/bsrnn_xt.yaml",
+               "fastenhancer_dns/huge_noncausal.yaml",
+               "fastenhancer_dns/t.yaml (reverb)"]
+OTF_STEPS = 2
+OTF_CLEAN, OTF_NOISE, OTF_EVAL = 48, 16, 16
+OTF_CLEAN_SECONDS, OTF_EVAL_SECONDS = (1.0, 5.0), (2.0, 2.5)
+OTF_RIRS, OTF_RIR_SECONDS, OTF_REVERB_PROB = 4, 0.25, 0.5
+# the mixer, the RIR convolution and the low-pass on the card against the
+# CPU in float32: of the output's peak
+OTF_MIX_REL = 1e-5
+# phase 24: the engine's slots and ticks between admissions; the scores of
+# metrics_ns, card against the CPU (tests/test_torch_scripts.py's
+# tolerance)
+SERVE_CAPACITY, SERVE_STAGGER = 8, 5
+METRICS_TOL = 1e-4
+
+
+def phase_23(ctx, root):
+    """Phase 23 (see the module docstring), its files in `root`; -> ({config:
+    its run dir}, #5's launches on its CLI paths)."""
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch.data import ns_on_the_fly as otf
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+    from fastenhancer_tpu_torch.models import get_model
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.utils import yaml_subset
+    from fastenhancer_tpu_torch.utils.hparams import get_hparams
+    from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
+    from fastenhancer_tpu_torch.wrappers import ns_on_the_fly as otf_wrapper
+
+    card, dev = ctx["card"], ctx["dev"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    print(f"[23/24] the on-the-fly recipes through the CLI, cuts: none of "
+          f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
+          f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
+          f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
+          f"-80 dBFS, {OTF_NOISE} noise files, {OTF_EVAL} valid/PESQ pairs "
+          f"of {OTF_EVAL_SECONDS[0]:g}-{OTF_EVAL_SECONDS[1]:g} s, "
+          f"{OTF_RIRS} RIRs of {OTF_RIR_SECONDS:g} s")
+
+    def corpus(sr, rng):
+        """{clean, noise, eval_clean, eval_noisy, rir: dir} at sr."""
+        dirs = {k: os.path.join(root, str(sr), k) for k in
+                ("clean", "noise", "eval_clean", "eval_noisy", "rir")}
+        for d in dirs.values():
+            os.makedirs(d)
+
+        def speech(seconds):
+            n = int(rng.uniform(*seconds) * sr)
+            return ctx["speech_like"](rng, 1, n)[0]
+
+        for i in range(OTF_CLEAN):
+            write_wav(os.path.join(dirs["clean"], f"{i:03d}.wav"),
+                      speech(OTF_CLEAN_SECONDS), sr)
+        # no segment above the recipes' -40 dB activity threshold: the
+        # dataset gives it RMS 0 and skips it
+        write_wav(os.path.join(dirs["clean"], "quiet.wav"),
+                  1e-3 * speech(OTF_CLEAN_SECONDS), sr)
+        for i in range(OTF_NOISE):
+            n = int(rng.uniform(*OTF_CLEAN_SECONDS) * sr)
+            write_wav(os.path.join(dirs["noise"], f"{i:03d}.wav"),
+                      rng.standard_normal(n) * 0.05, sr)
+        for i in range(OTF_EVAL):
+            clean = speech(OTF_EVAL_SECONDS)
+            noisy = clean + rng.standard_normal(len(clean)) * rng.uniform(
+                0.01, 0.1)
+            for k, x in (("eval_clean", clean), ("eval_noisy", noisy)):
+                write_wav(os.path.join(dirs[k], f"{i:03d}.wav"), x, sr)
+        t = np.arange(int(OTF_RIR_SECONDS * sr))
+        for i in range(OTF_RIRS):
+            r = rng.standard_normal(len(t)) * np.exp(-6.9 * t / (0.2 * sr))
+            r[0] = np.abs(r).max()
+            write_wav(os.path.join(dirs["rir"], f"{i:03d}.wav"),
+                      0.9 * r / np.abs(r).max(), sr)
+        return dirs
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    corpora = {sr: corpus(sr, rng) for sr in (SR, 48_000)}
+    corpus_s = time.perf_counter() - t0
+
+    # spies, restored after the phase: the dataset's RMS-0 skips and files
+    # a clip; the first raw train batch of each run with its wrapper's
+    # mixer and low-pass; the step times; #5 inside train_epoch
+    current, raw_batches, skipped, files_a_clip = [None], {}, [], []
+    step_ms, scan_in_train = [], []
+    rms, gen_audio = otf.NSOnTheFlyDataset.rms, otf.NSOnTheFlyDataset.gen_audio
+    device_batch = otf_wrapper.ModelWrapper._device_batch
+    step_and_account = ns_wrapper.ModelWrapper._step_and_account
+    train_epoch = ns_wrapper.ModelWrapper.train_epoch
+
+    def spy_rms(self, wav, activity_ratio):
+        out = rms(self, wav, activity_ratio)
+        skipped.append(out == 0.0)
+        return out
+
+    def spy_gen_audio(self, *args):
+        out = gen_audio(self, *args)
+        files_a_clip.append(len(out[1]))
+        return out
+
+    def spy_device_batch(self, batch, keys):
+        if "noise" in batch and current[0] not in raw_batches:
+            raw_batches[current[0]] = (
+                {k: np.array(batch[k]) for k in ("clean", "noise", "rir")
+                 if k in batch},
+                (self.snr_mixer, self.dynamic_lpf, self.hop_size))
+        return device_batch(self, batch, keys)
+
+    def timed_step(self, dev_batch, rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_and_account(self, dev_batch, rows)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def counted_epoch(self, loader):
+        before = ctx["read_counts"]()["gru_scan"]
+        out = train_epoch(self, loader)
+        scan_in_train.append(ctx["read_counts"]()["gru_scan"] - before)
+        return out
+
+    logs = os.path.join(root, "logs")
+    runs, total_scans = {}, 0
+    otf.NSOnTheFlyDataset.rms = spy_rms
+    otf.NSOnTheFlyDataset.gen_audio = spy_gen_audio
+    otf_wrapper.ModelWrapper._device_batch = spy_device_batch
+    ns_wrapper.ModelWrapper._step_and_account = timed_step
+    ns_wrapper.ModelWrapper.train_epoch = counted_epoch
+    try:
+        for config in OTF_CONFIGS:
+            path = config.split()[0]
+            reverb = config.endswith("(reverb)")
+            name = path[:-5].replace("/", "_") + ("_reverb" if reverb
+                                                   else "")
+            cfg_path = os.path.join(repo, "configs", path)
+            hps0 = get_hparams(cfg_path)
+            dirs = corpora[hps0.data.sampling_rate]
+            if reverb:
+                cfg = hps0.to_dict()
+                cfg["data"].update(reverb_prob=OTF_REVERB_PROB,
+                                   rir_length=int(OTF_RIR_SECONDS
+                                                  * hps0.data.sampling_rate))
+                cfg["data"]["train"]["rir_dir"] = dirs["rir"]
+                cfg_path = os.path.join(root, f"{name}.yaml")
+                with open(cfg_path, "w") as f:
+                    f.write(yaml_subset.dump(cfg))
+            argv = ["-n", name, "-c", cfg_path, "--base_dir", logs, "-p",
+                    f"data.train.clean_dir={dirs['clean']!r}",
+                    f"data.train.noise_dir={dirs['noise']!r}",
+                    f"data.train.length={OTF_STEPS * hps0.train.batch_size}",
+                    f"data.valid.clean_dir={dirs['eval_clean']!r}",
+                    f"data.valid.noisy_dir={dirs['eval_noisy']!r}",
+                    f"data.pesq.clean_dir={dirs['eval_clean']!r}",
+                    f"data.pesq.noisy_dir={dirs['eval_noisy']!r}",
+                    "train.max_epochs=1", "train.save_interval=1",
+                    "pesq.interval=1"]
+            current[0] = name
+            step_ms.clear()
+            scan_in_train.clear()
+            ctx["seen_scan"].clear()
+            base = mem_base()
+            ctx["record_inputs"](True)
+            try:
+                history, counts, out = ctx["run_cli"](argv)
+            finally:
+                ctx["record_inputs"](False)
+            peak = peak_gib(base)
+            run = os.path.join(logs, name)
+            runs[config] = run
+            hps = get_hparams(None, run)
+            (r,) = history
+            files = sorted(os.listdir(run))
+            _check(r["epoch"] == 1 and files == ["00001.ckpt", "config.yaml"],
+                   f"{config}: epoch {r['epoch']}, files {files}")
+            vals = list(r["train"].values()) + list(r["valid"].values())
+            _check(all(np.isfinite(v) for v in vals), f"{config}: {r}")
+            _check(1.0 <= r["valid"]["metrics/pesq"] <= 4.65
+                   and -1.0 <= r["valid"]["metrics/stoi"] <= 1.0,
+                   f"{config} metrics: {r['valid']}")
+            tm = r["timing"]
+            _check(tm["steps"] == OTF_STEPS, f"{config}: {tm['steps']} steps")
+            # #5: only in the valid and PESQ forwards, never in train_epoch
+            model = get_model(hps.model, **hps.model_kwargs.to_dict())
+            per = scans_per_forward(model)
+            valid_n = -(-OTF_EVAL // hps.valid.batch_size)
+            pesq_n = -(-OTF_EVAL // hps.pesq.batch_size)
+            bf16 = bool(hps.train.fp16)
+            want = {k: 0 for k in ctx["counters"]}
+            want["gru_scan"] = per * (valid_n + pesq_n)
+            want[GRU_TC] = per * valid_n if bf16 else 0
+            _check(counts == want, f"{config}: launches {counts} != {want}")
+            _check(scan_in_train == [0], f"{config}: #5 ran {scan_in_train} "
+                   "times in train_epoch")
+            total_scans += counts["gru_scan"]
+            worst, shapes = 0.0, []
+            for (shape, dtype), (form, args) in ctx["seen_scan"].items():
+                ys, h_t = scan.gru_scan(*args)
+                torch.cuda.synchronize()
+                ys_r, h_r = scan.gru_scan_reference(*args)
+                errs = ctx["compare"](f"{config} gru_scan {shape}",
+                                      ((ys, ys_r), (h_t, h_r)), dtype)
+                worst = max(worst, errs[0][0], errs[1][0])
+                shapes.append(f"({shape[0]}, {shape[1]}, {shape[2] // 3}) "
+                              f"{str(dtype)[6:]} {form}")
+            rest = (r["seconds"] - tm["load"] - tm["step"] - tm["valid"]
+                    - tm["metrics"])
+            losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
+                               r["train"].items() if k.startswith("loss/"))
+            print(f"[23/24] CLI {config} ({hps.model}, "
+                  f"{'bf16' if bf16 else 'float32'} over float32 masters, "
+                  f"batch {hps.train.batch_size} x "
+                  f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
+                  f" s at {hps.data.sampling_rate} Hz): step ms "
+                  f"{', '.join(f'{v:.1f}' for v in step_ms)}; data load "
+                  f"{tm['load']:.2f} s ({100 * tm['load'] / r['seconds']:.1f}"
+                  f"% of the epoch); valid {1e3 * tm['valid']:.1f} ms "
+                  f"({valid_n} batch of {OTF_EVAL}); PESQ/STOI "
+                  f"{tm['metrics']:.2f} s; epoch wall {r['seconds']:.2f} s = "
+                  f"load {tm['load']:.2f} + step {tm['step']:.2f} + valid "
+                  f"{tm['valid']:.2f} + PESQ/STOI {tm['metrics']:.2f} + rest "
+                  f"{rest:.2f} s; peak memory {peak:.2f} GiB above the "
+                  f"phase's; #5 {counts['gru_scan']} launches "
+                  f"({counts[GRU_TC]} tc), none in train_epoch, inputs "
+                  f"{'; '.join(shapes) or 'none'} held to the plain version "
+                  f"(max abs err {worst:.3e}); losses {losses}; PESQ "
+                  f"{r['valid']['metrics/pesq']:.3f}; on {card}")
+    finally:
+        otf.NSOnTheFlyDataset.rms = rms
+        otf.NSOnTheFlyDataset.gen_audio = gen_audio
+        otf_wrapper.ModelWrapper._device_batch = device_batch
+        ns_wrapper.ModelWrapper._step_and_account = step_and_account
+        ns_wrapper.ModelWrapper.train_epoch = train_epoch
+    _check(any(skipped) and max(files_a_clip) > 1,
+           f"the dataset's branches: {sum(skipped)} RMS-0 skips, up to "
+           f"{max(files_a_clip)} files a clip")
+
+    # the mixer (its RIR convolution too) and the low-pass on the card
+    # against the CPU, float32, on each run's first raw batch with one set
+    # of host draws
+    lines = []
+    for config in ("fastenhancer_48khz/b.yaml",
+                   "fastenhancer_dns/t.yaml (reverb)"):
+        name = os.path.basename(runs[config])
+        raw, (mixer, lpf, hop) = raw_batches[name]
+        rows = raw["clean"].shape[0]
+        t = min(raw["clean"].shape[-1], raw["noise"].shape[-1]) // hop * hop
+        snr, rms_target = mixer.sample_params()
+        kernels = lpf.sample_kernels(rows, np.random.default_rng(23))
+        low_passed = sum(not np.array_equal(k, lpf.delta) for k in kernels)
+        reverb_rows = (int((raw["rir"][:, 1:] != 0).any(1).sum())
+                       if "rir" in raw else 0)
+        _check(low_passed if lpf.p_lpf > 0 else reverb_rows,
+               f"{config}: {low_passed} rows low-passed, {reverb_rows} "
+               "reverberant")
+        outs = {}
+        for where in ("cpu", dev):
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(
+                    a, dtype=np.float32)).to(where)
+
+            rir = put(raw["rir"]) if "rir" in raw else None
+            c, n, y = mixer(put(raw["clean"][:, :t]),
+                            put(raw["noise"][:, :t]), snr, rms_target, rir)
+            if lpf.p_lpf > 0:
+                c, y = lpf(c, kernels), lpf(y, kernels)
+            outs[where] = [c, n, y] + ([] if rir is None else [
+                otf.batch_rir_conv(put(raw["clean"][:, :t]), rir)])
+        errs = []
+        for got, want in zip(outs[dev], outs["cpu"]):
+            err = float((got.cpu() - want).abs().max())
+            peak = float(want.abs().max())
+            _check(err <= OTF_MIX_REL * peak, f"{config} mix card vs CPU: "
+                   f"{err:.3e} of a peak {peak:.3e}")
+            errs.append(err / peak)
+        lines.append(f"{config} ({rows} x {t} samples, SNR {snr} dB, "
+                     f"{rms_target} dBFS, {low_passed} rows low-passed, "
+                     f"{reverb_rows} reverberant): max abs err of the peak "
+                     f"clean {errs[0]:.2e}, noise {errs[1]:.2e}, noisy "
+                     f"{errs[2]:.2e}"
+                     + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
+                        else ""))
+    print(f"[23/24] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+          f"the CPU in float32 on each run's first train batch and one set "
+          f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
+          f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
+          f"RMS 0, up to {max(files_a_clip)} files a clip")
+
+    # #5 at the shapes these recipes give it at their own valid batch: the
+    # 48 kHz FE-B (H = 36), the noncausal recipes at 16 and 24 kHz (H =
+    # 128), both directions
+    shapes = []
+    for path in ("fastenhancer_48khz/b.yaml",
+                 "fastenhancer_dns/huge_noncausal.yaml",
+                 "fastenhancer_dns/huge_noncausal_24khz.yaml"):
+        hps = get_hparams(os.path.join(repo, "configs", path))
+        mk = hps.model_kwargs
+        t = hps.data.valid.segment_size // mk.hop_size + 1
+        n = hps.valid.batch_size * mk.rnnformer_kwargs.freq
+        h = mk.rnnformer_kwargs.channels
+        what = f"{path} valid forward ({hps.valid.batch_size} x 2 s)"
+        shapes.append((t, n, h, False, False, True, what))
+        if "noncausal" in path:
+            shapes.append((t, n, h, False, True, False, what + " backward"))
+    ctx["check_and_time"](shapes, phase=23)
+    print(f"[23/24] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"(corpus written in {corpus_s:.2f} s)")
+    return runs, total_scans
+
+
+def phase_24(ctx, runs):
+    """Phase 24 (see the module docstring) on phase 23's runs; -> the
+    launches of its paths: {kernel: {path: launches}}."""
+    import numpy as np
+    import torch
+
+    import fastenhancer_tpu_torch.data as data_pkg
+    from fastenhancer_tpu_torch import serving
+    from fastenhancer_tpu_torch.models import bsrnn as bsrnn_model
+    from fastenhancer_tpu_torch.models.fastenhancer import default as fe_model
+    from fastenhancer_tpu_torch.ops import bsrnn_stack as band
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
+    from fastenhancer_tpu_torch.scripts import enhance, metrics_ns, serve
+    from fastenhancer_tpu_torch.utils.hparams import get_hparams
+
+    card, dev = ctx["card"], ctx["dev"]
+    t_phase = time.perf_counter()
+    out_root = os.path.join(os.path.dirname(os.path.dirname(
+        runs[OTF_CONFIGS[0]])), "out")
+    paths = {"gru_scan": {}, "rnnformer_stack_step": {},
+             "bsrnn_stack_step": {}}
+
+    # the float outputs each script writes, by file name
+    written, write_wav = {}, data_pkg.write_wav
+
+    def keep_wav(path, x, sr):
+        written[os.path.basename(path)] = np.array(x, np.float32)
+        write_wav(path, x, sr)
+
+    def run(entry, config, extra, record=False):
+        """entry.main on the config's run, its launches counted and #5's
+        inputs recorded (record) -> (returned, counts, stdout, outputs)."""
+        base, name = os.path.split(runs[config])
+        written.clear()
+        ctx["seen_scan"].clear()
+        ctx["record_inputs"](record)
+        try:
+            ret, counts, out = ctx["run_cli"](
+                ["-n", name, "--base_dir", base, *extra], entry.main)
+        finally:
+            ctx["record_inputs"](False)
+        return ret, counts, out, dict(written)
+
+    def scan_inputs(what):
+        """#5 on each input shape the run gave it, against the plain
+        version -> (shapes, max abs err)."""
+        worst = 0.0
+        for (shape, dtype), (_, args) in ctx["seen_scan"].items():
+            ys, h_t = scan.gru_scan(*args)
+            torch.cuda.synchronize()
+            ys_r, h_r = scan.gru_scan_reference(*args)
+            errs = ctx["compare"](f"{what} gru_scan {shape}",
+                                  ((ys, ys_r), (h_t, h_r)), dtype)
+            worst = max(worst, errs[0][0], errs[1][0])
+        return len(ctx["seen_scan"]), worst
+
+    def worst_rel(got, want):
+        """The largest per-file max abs error over the file's peak."""
+        _check(got.keys() == want.keys() and len(want) == OTF_EVAL,
+               f"outputs {sorted(got)} != {sorted(want)}")
+        return max(float(np.abs(got[f] - w).max()) / float(np.abs(w).max())
+                   for f, w in want.items())
+
+    def after(text, key):
+        return float(text.split(key, 1)[1].split()[0].rstrip(")"))
+
+    data_pkg.write_wav = keep_wav
+    try:
+        # 24a. enhance on the FE-B DNS run, card against the CPU
+        dns = "fastenhancer_dns/b.yaml"
+        hps = get_hparams(None, runs[dns])
+        blocks = hps.model_kwargs.rnnformer_kwargs.num_blocks
+        io_args = ["-i", hps.data.pesq.noisy_dir]
+        _, counts, out, y_card = run(
+            enhance, dns, [*io_args, "-o", os.path.join(out_root, "enh")],
+            record=True)
+        n_shapes, worst = scan_inputs("enhance")
+        batches = -(-OTF_EVAL // 8)
+        ctx["check_launches"](counts, "gru_scan", blocks * batches,
+                              "enhance", tc=0)
+        paths["gru_scan"]["enhance FE-B DNS, float32 (24)"] = counts[
+            "gru_scan"]
+        _, _, _, y_cpu = run(enhance, dns, [
+            *io_args, "-o", os.path.join(out_root, "enh_cpu"), "--device",
+            "cpu"])
+        rel = worst_rel(y_card, y_cpu)
+        _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
+               "peak")
+        print(f"[24/24] enhance {dns} on {OTF_EVAL} files: the card's float32"
+              f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
+              f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
+              f"launches ({batches} batches of 8, scalar form), "
+              f"{n_shapes} input shapes held to the plain version (max abs "
+              f"err {worst:.3e}); RTF {after(out, 'RTF ')} on the card; on "
+              f"{card}")
+
+        # 24b. serve --fused --dtype bf16 against serve in float32
+        launches, ticks = [], [0]
+        tick = serving.StreamingEngine.tick
+
+        def counted_tick(self, hops):
+            ticks[0] += 1
+            return tick(self, hops)
+
+        def spy(real):
+            def launch(plan, *args):
+                out = real(plan, *args)
+                launches.append((plan, [a.clone() if torch.is_tensor(a)
+                                        else a for a in args],
+                                 [o.clone() for o in out]))
+                return out
+            return launch
+
+        timing_cases = {}
+        for config, tag, module, kernel, reference in (
+                (dns, "FE-B DNS", fe_model, "rnnformer_stack_step",
+                 stack.rnnformer_stack_reference),
+                ("fastenhancer_48khz/b.yaml", "FE-B 48 kHz", fe_model,
+                 "rnnformer_stack_step", stack.rnnformer_stack_reference),
+                ("others_dns/bsrnn_xt.yaml", "BSRNN-XT", bsrnn_model,
+                 "bsrnn_stack_step", band.bsrnn_stack_reference)):
+            hps = get_hparams(None, runs[config])
+            serve_args = ["-i", hps.data.pesq.noisy_dir, "--capacity",
+                          str(SERVE_CAPACITY), "--stagger",
+                          str(SERVE_STAGGER)]
+            real = getattr(module, kernel)
+            launches.clear()
+            ticks[0] = 0
+            setattr(module, kernel, spy(real))
+            serving.StreamingEngine.tick = counted_tick
+            try:
+                _, counts, out_b, y_b = run(serve, config, [
+                    *serve_args, "-o", os.path.join(out_root, f"{tag}_bf16"),
+                    "--fused", "--dtype", "bf16"])
+            finally:
+                setattr(module, kernel, real)
+            n = len(launches)
+            _check(n == ticks[0] > 0, f"{tag}: {n} launches in {ticks[0]} "
+                   "ticks")
+            _, first_args, _ = launches[0]
+            form = "tc"
+            if kernel == "bsrnn_stack_step":
+                x, h = first_args
+                form = band.kernel_form(x.shape[0], x.shape[2], h.shape[-1],
+                                        torch.bfloat16)
+            ctx["check_launches"](counts, kernel, n,
+                                  f"serve --fused bf16 {tag}",
+                                  tc=n if form == "tc" else 0)
+            worst = 0.0
+            for plan, args, outs in launches:
+                errs = ctx["compare"](f"{tag} {kernel} in serve",
+                                      zip(outs, reference(plan, *args)),
+                                      torch.bfloat16)
+                worst = max(worst, *(e for e, _ in errs))
+            timing_cases[tag] = launches[0][:2]
+            launches.clear()
+            paths[kernel][f"serve --fused bf16 {tag} (24)"] = n
+            # the same checkpoint served unfused in float32
+            ticks[0] = 0
+            try:
+                _, counts_f, out_f, y_f = run(serve, config, [
+                    *serve_args, "-o", os.path.join(out_root, f"{tag}_f32")],
+                    record=True)
+            finally:
+                serving.StreamingEngine.tick = tick
+            n_shapes, worst_scan = scan_inputs(f"serve {tag}")
+            per_tick = blocks if kernel == "rnnformer_stack_step" else 0
+            ctx["check_launches"](counts_f, "gru_scan", per_tick * ticks[0],
+                                  f"serve float32 {tag}", tc=0)
+            if per_tick:
+                paths["gru_scan"][f"serve float32 {tag} (24)"] = counts_f[
+                    "gru_scan"]
+            rel = worst_rel(y_b, y_f)
+            _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
+                   f"{rel:.3e} of the peak")
+            print(f"[24/24] serve {config} (capacity {SERVE_CAPACITY}, a "
+                  f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
+                  f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
+                  f"ticks ({form} form), each held to the plain version (max "
+                  f"abs err {worst:.3e}), tick ms p50 "
+                  f"{after(out_b, 'p50 ')} p90 {after(out_b, 'p90 ')} p99 "
+                  f"{after(out_b, 'p99 ')}, RTF "
+                  f"{after(out_b, 'aggregate RTF ')}; float32 unfused "
+                  f"{ticks[0]} ticks, #5 {counts_f['gru_scan']} launches "
+                  f"({n_shapes} shapes held, max abs err {worst_scan:.3e}), "
+                  f"tick ms p50 {after(out_f, 'p50 ')} p99 "
+                  f"{after(out_f, 'p99 ')}, RTF "
+                  f"{after(out_f, 'aggregate RTF ')}; bf16 fused vs float32 "
+                  f"max abs err {rel:.2e} of the file's peak (tol "
+                  f"{BF16_REL:g}); on {card}")
+
+        # 24c. metrics_ns on the FE-B DNS run, card against the CPU
+        pesq_n = -(-OTF_EVAL // get_hparams(None, runs[dns]).pesq.batch_size)
+        got, counts, _, _ = run(metrics_ns, dns, ["--no-external"],
+                                record=True)
+        n_shapes, worst = scan_inputs("metrics_ns")
+        ctx["check_launches"](counts, "gru_scan", blocks * pesq_n,
+                              "metrics_ns", tc=0)
+        paths["gru_scan"]["metrics_ns FE-B DNS, float32 (24)"] = counts[
+            "gru_scan"]
+        want, _, _, _ = run(metrics_ns, dns, ["--no-external", "--device",
+                                              "cpu"])
+        _check(got.keys() == want.keys() == {"sisdr", "stoi", "estoi",
+                                              "pesq"}
+               and all(np.isfinite(v) for v in got.values())
+               and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
+               f"metrics_ns card {got} vs CPU {want}")
+        print(f"[24/24] metrics_ns {dns} on {OTF_EVAL} files: "
+              + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
+                          for k, v in got.items())
+              + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
+              f"{n_shapes} shapes held (max abs err {worst:.3e}); on {card}")
+    finally:
+        data_pkg.write_wav = write_wav
+
+    # 24d. #1 at the 48 kHz FE-B's F = 36 and #3 at BSRNN-XT's C = 16 with
+    # the checkpoints' bf16 plans, at 256 streams, timed beside the plain
+    # version and the bound
+    g = torch.Generator().manual_seed(24)
+    for tag, kernel, reference, flops in (
+            ("FE-B 48 kHz", stack.rnnformer_stack_step,
+             stack.rnnformer_stack_reference, ctx["stack_flops"]),
+            ("BSRNN-XT", band.bsrnn_stack_step, band.bsrnn_stack_reference,
+             ctx["band_flops"])):
+        plan, (x1, h1, *rest) = timing_cases[tag]
+        if kernel is stack.rnnformer_stack_step:
+            nb, f, c = h1.shape[0], x1.shape[1], x1.shape[2]
+            x = torch.randn(STREAMS, f, c, generator=g)
+            h = torch.randn(nb, STREAMS * f, c, generator=g) * 0.5
+            shape = f"B={STREAMS} F={f} C={c} H={rest[0]} NB={nb}"
+        else:
+            f, c, nb = x1.shape[0], x1.shape[2], h1.shape[0]
+            x = torch.randn(f, STREAMS, c, generator=g)
+            h = torch.randn(*h1.shape[:3], STREAMS, h1.shape[-1],
+                            generator=g) * 0.5
+            shape = f"B={STREAMS} F={f} C={c} H={h1.shape[-1]} L={nb}"
+        x, h = (t.to(dev, torch.bfloat16) for t in (x, h))
+        xo, ho = kernel(plan, x, h, *rest)
+        torch.cuda.synchronize()
+        errs = ctx["compare"](f"{tag} timing case",
+                              zip((xo, ho), reference(plan, x, h, *rest)),
+                              torch.bfloat16)
+        tensors = [v for v in plan.values() if torch.is_tensor(v)]
+        rec = ctx["timed"](
+            lambda: kernel(plan, x, h, *rest),
+            lambda: reference(plan, x, h, *rest),
+            max(e for e, _ in errs),
+            ctx["bound"](flops(STREAMS, f, c, nb),
+                         ctx["nbytes"](x, h, xo, ho, *tensors),
+                         torch.bfloat16),
+            plain_graph=kernel is band.bsrnn_stack_step)
+        print(f"[24/24] time {kernel.__name__} {tag} {shape} bf16 (the "
+              f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
+              f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
+              f"bound {1e3 * rec['bound_ms']:.3f} us, "
+              f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of the kernel's "
+              f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
+              f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
+              f"{rec['max_abs_err']:.3e}; on {card}")
+    print(f"[24/24] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 if __name__ == "__main__":

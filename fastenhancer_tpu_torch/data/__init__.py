@@ -1,5 +1,5 @@
-"""Host-side data (wav IO, the paired-wav dataset, the threaded loader, the
-shard reader) and the shard recipe's device-side mixer.
+"""Host-side data (wav IO, the paired-wav and on-the-fly datasets, the
+threaded loader, the shard reader) and the device-side mixers.
 
 `get_dataset_dataloader` is the counterpart of
 fastenhancer_tpu/data/__init__.py's for one process: a mode-keyed dataset
@@ -13,6 +13,8 @@ import typing as tp
 from .audio_io import read_wav, resample, wav_duration, write_wav
 from .loader import DataLoader, collate
 from .noise_suppression import NSDataset
+from .ns_on_the_fly import (DynamicBatchLPF, NSOnTheFlyDataset, SNRMixer,
+                            batch_rir_conv)
 from .shard_mixer import (
     DynamicMixer,
     ShardBatch,
@@ -26,7 +28,9 @@ from .shard_mixer import (
 def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
                            ) -> tp.Tuple[tp.Any, tp.Any]:
     """(dataset, loader) for `mode` in train/valid/pesq; `hps` is an
-    HParams. The shard datasets are their own (endless) loaders. (The
+    HParams. Datasets: NoiseSuppression (paired wavs),
+    NoiseSuppressionOnTheFly (clean and noise drawn and mixed per item),
+    and the shard datasets, which are their own (endless) loaders. (The
     showcase `infer` mode is not ported, with `infer_epoch`.)"""
     dataset_name = hps["data"]["dataset"]
     if not isinstance(dataset_name, str):
@@ -35,9 +39,7 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
     if dataset_name == "NoiseSuppression":
         cls = NSDataset
     elif dataset_name == "NoiseSuppressionOnTheFly":
-        raise NotImplementedError(
-            "the NoiseSuppressionOnTheFly dataset is not ported yet (ROADMAP "
-            'queue 1, "Training, end to end on one card": the DNS recipe)')
+        cls = NSOnTheFlyDataset
     elif dataset_name in ("ShardOnTheFly", "ShardSegment"):
         from .shard import build_shard_dataloader
 
@@ -74,7 +76,8 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
 
 
 __all__ = [
-    "get_dataset_dataloader", "NSDataset", "DataLoader", "collate",
+    "get_dataset_dataloader", "NSDataset", "NSOnTheFlyDataset",
+    "SNRMixer", "DynamicBatchLPF", "batch_rir_conv", "DataLoader", "collate",
     "read_wav", "write_wav", "wav_duration", "resample",
     "DynamicMixer", "ShardBatch", "batch_convolve_rir", "get_early_rir",
     "get_rts_rir", "get_weighted_rir",

@@ -5,23 +5,25 @@
 
 The counterpart of the repo's `train.py` for one card, for every family:
 the VoiceBank recipes (configs/fastenhancer/*.yaml, configs/ablation/,
-configs/others/: paired wavs, the `pesq` loss among their losses) and the
-shard recipes (configs/fastenhancer_shard/); the same flags
+configs/others/: paired wavs, the `pesq` loss among their losses), the
+on-the-fly DNS and 48 kHz recipes (configs/fastenhancer_dns/,
+configs/others_dns/, configs/fastenhancer_48khz/: clean and noise files
+drawn per item, mixed on the device) and the shard recipes
+(configs/fastenhancer_shard/); the same flags
 (`-n`, `-c`, `-p`, `-f`, `--base_dir`) and the same epoch loop, plus
 `--device` (the card unless named; `--device cpu` runs the plain PyTorch
 versions of the kernels, as the CPU tests do). It reads the config without
 pyyaml (`utils/hparams.py`), writes it to `{base_dir}/{name}/config.yaml`,
-builds the train loader (the shard reader, or paired wavs) and the
-paired-wav valid and PESQ loaders, and then runs each epoch:
-`train_epoch`, valid losses, PESQ/STOI every `pesq.interval` epochs, and a
-checkpoint every `train.save_interval` epochs, on the last and in `test`
-mode. Run again with the same `-n` (and no `-c`) to resume from the newest
+builds the train loader (the shard reader, the on-the-fly dataset, or
+paired wavs) and the paired-wav valid and PESQ loaders, and then runs each
+epoch: `train_epoch`, valid losses, PESQ/STOI every `pesq.interval`
+epochs, and a checkpoint every `train.save_interval` epochs, on the last
+and in `test` mode. Run again with the same `-n` (and no `-c`) to resume from the newest
 checkpoint.
 
-Not ported: the DNS recipe (the `ns_on_the_fly` wrapper, ROADMAP queue
-1, "Training, end to end on one card"), TensorBoard summaries with the
-showcase `infer_epoch` (same item), and the multi-host flags (queue 1,
-"Several cards"); each epoch's results are printed and returned.
+Not ported: TensorBoard summaries with the showcase `infer_epoch` (ROADMAP
+queue 1, "Training, end to end on one card") and the multi-host flags
+(queue 1, "Several cards"); each epoch's results are printed and returned.
 """
 from __future__ import annotations
 
@@ -70,10 +72,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
     base_dir = os.path.join(args.base_dir, args.name)
     hps = get_hparams(args.config, base_dir, save=True, params=args.params,
                       force_save=args.force_save)
-    print("The DNS recipe (ns_on_the_fly), TensorBoard summaries with the "
-          "showcase infer_epoch (ROADMAP queue 1, \"Training, end to end on "
-          'one card") and several hosts ("Several cards") are not ported '
-          "yet: each epoch is printed, and checkpointed at save_interval")
+    print("TensorBoard summaries with the showcase infer_epoch (ROADMAP "
+          'queue 1, "Training, end to end on one card") and several hosts '
+          '("Several cards") are not ported yet: each epoch is printed, and '
+          "checkpointed at save_interval")
 
     seed = getattr(hps.train, "seed", 1)
     random.seed(seed)

@@ -5,11 +5,10 @@ import importlib
 
 
 def get_wrapper(name: str):
-    """The ModelWrapper class of wrappers/<name>.py (ns or ns_shard)."""
-    if name not in ("ns", "ns_shard"):
-        raise NotImplementedError(
-            f"wrapper {name!r} is not ported yet (ROADMAP queue 1, "
-            '"Training, end to end on one card": the DNS recipe)')
+    """The ModelWrapper class of wrappers/<name>.py (ns, ns_shard or
+    ns_on_the_fly)."""
+    if name not in ("ns", "ns_shard", "ns_on_the_fly"):
+        raise ValueError(f"unknown wrapper: {name!r}")
     module = importlib.import_module(f"{__name__}.{name}")
     return module.ModelWrapper
 

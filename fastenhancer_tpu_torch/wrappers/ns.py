@@ -13,9 +13,9 @@ also enhances the PESQ set (float32, `make_infer_fn`) and scores it.
 `save(epoch)` / `load(epoch=None)` write and read the JAX package's
 checkpoint files (`train/checkpoint.py`).
 
-Not ported yet: several devices and hosts, TensorBoard summaries with the
-showcase `infer_epoch`, and the profiler (ROADMAP queue 1, "Training, end
-to end on one card").
+Not ported yet: several devices and hosts (ROADMAP queue 1, "Several
+cards"), TensorBoard summaries with the showcase `infer_epoch`, and the
+profiler (queue 1, "Training, end to end on one card").
 """
 from __future__ import annotations
 

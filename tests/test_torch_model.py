@@ -22,7 +22,7 @@ from fastenhancer_tpu_torch.utils import from_jax, to_numpy
 
 from _torch_parity import (TINY_KWARGS, as_np, assert_trees_close,
                            flatten_paths, perturb_bn_stats, port_variables,
-                           to_np_tree)
+                           real_triton_only, to_np_tree)  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOP = TINY_KWARGS["hop_size"]
@@ -121,11 +121,13 @@ def test_offline_forward_matches_jax(over):
     assert any(not torch.equal(new[k], old[k]) for k in old)
 
 
-def test_remat_raises():
-    """train.remat (gradient checkpointing), once refused, runs: the train
-    forward with remat equals the one without bit for bit (outputs and new
-    statistics; its gradients: tests/test_torch_train.py), and eval mode
-    ignores it, as in the JAX package."""
+@pytest.mark.usefixtures("real_triton_only")
+def test_remat_matches_plain_forward():
+    """train.remat (gradient checkpointing): the train forward with remat
+    equals the one without bit for bit (outputs and new statistics; its
+    gradients: tests/test_torch_train.py), and eval mode ignores it, as in
+    the JAX package. torch.utils.checkpoint imports torch._dynamo, hence
+    the real_triton_only fixture."""
     jm, tm = _models()
     _, tv = _variables(jm, 3)
     wav = torch.tensor(_wav(2, 3))
@@ -371,8 +373,25 @@ assert all(np.isfinite(v) for v in w.train_epoch([batch])["scalars"].values())
 from fastenhancer_tpu_torch.utils.hparams import get_hparams
 hps = get_hparams("configs/fastenhancer_shard/t.yaml").to_dict()
 assert hps["train"] == FE_T_SHARD["train"]
+# the on-the-fly recipe's wrapper (the 48 kHz config: its low-pass, and
+# reverb on): one mixed train step
+hps = get_hparams("configs/fastenhancer_48khz/t.yaml").to_dict()
+hps["model_kwargs"] = dict(kw)
+hps["data"].update(reverb_prob=0.5, rir_length=64)
+hps.pop("pesq")
+w = get_wrapper("ns_on_the_fly")(HParams(**hps), train=True, device="cpu")
+rng = np.random.default_rng(1)
+raw = {"clean": (rng.standard_normal((2, 64 * 8)) * 0.1).astype("f4"),
+       "noise": (rng.standard_normal((2, 64 * 8)) * 0.1).astype("f4"),
+       "rir": np.eye(2, 64, dtype="f4")}
+assert all(np.isfinite(v) for v in w.train_epoch([raw])["scalars"].values())
 assert not any(m.split(".")[0] in ("jax", "fastenhancer_tpu", "yaml",
                                    "tensorboardX") for m in sys.modules)
+assert {"fastenhancer_tpu_torch.scripts.enhance",
+        "fastenhancer_tpu_torch.scripts.serve",
+        "fastenhancer_tpu_torch.scripts.metrics_ns",
+        "fastenhancer_tpu_torch.data.ns_on_the_fly",
+        "fastenhancer_tpu_torch.wrappers.ns_on_the_fly"} <= set(names)
 print("OK", len(names))
 """
 
@@ -382,8 +401,11 @@ def test_port_imports_no_jax():
     fused stream, its whole-frame step, the dpt, bsrnn, dprnn, ln and
     time_kernel models' fused streams, a chunked stream, the noncausal
     model's forward, the presets, a train step of the shard recipe's
-    wrapper and the recipe's config read run, with jax, fastenhancer_tpu,
-    yaml and tensorboardX blocked (the card has none of them)."""
+    wrapper and the recipe's config read, and a train step of the
+    on-the-fly wrapper run, with jax, fastenhancer_tpu, yaml and
+    tensorboardX blocked (the card has none of them). Every port module
+    imports, the scripts (`fastenhancer_tpu_torch.scripts.*`) among
+    them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

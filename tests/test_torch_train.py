@@ -354,8 +354,9 @@ def test_shard_wrapper_trains_and_validates_on_cpu():
 
 def test_ns_wrapper_epoch_and_unported_options():
     """The ns wrapper's epoch (and its load/step timing); train.remat, once
-    refused, trains to the same losses; the ns_on_the_fly wrapper is not
-    ported yet."""
+    refused, trains to the same losses; the ns_on_the_fly wrapper, once
+    refused, is the on-the-fly module's (tests/test_torch_ns_on_the_fly.py
+    trains it), and an unknown name raises."""
     hps = copy.deepcopy(FE_T_SHARD)
     hps["model_kwargs"] = dict(TINY_KWARGS)
     hps["train"].update(fp16=False, test=True)
@@ -371,8 +372,10 @@ def test_ns_wrapper_epoch_and_unported_options():
     got = remat.train_epoch([_batch(7, pad_last=False)] * 2)
     for k, v in summary["scalars"].items():
         assert got["scalars"][k] == pytest.approx(v, rel=1e-6), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_wrapper("ns_on_the_fly")
+    otf = get_wrapper("ns_on_the_fly")
+    assert otf.__module__ == "fastenhancer_tpu_torch.wrappers.ns_on_the_fly"
+    with pytest.raises(ValueError, match="unknown wrapper"):
+        get_wrapper("ns_unknown")
 
 
 def test_remat_matches_plain_and_jax():

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-four phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-five phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -179,9 +179,30 @@ each printed on its own line:
      printed; `...scripts.metrics_ns` on the FE-B DNS run (SISDR, STOI,
      ESTOI, PESQ finite and the card's equal to the CPU's to 1e-4); #1 at
      F = 36 and #3 at C = 16 timed at 256 streams with the checkpoints'
-     plans.
+     plans;
+ 25. the training CLI's summaries, in this process: `main` on a copy of
+     configs/fastenhancer_shard/t.yaml with train.profile {start: 1,
+     steps: 2} (FE-T at its width, phase 21's synthetic corpus and valid
+     batch), 2 epochs of 5 steps with infer.interval=1 (4 showcase files)
+     and train.plot_param_and_grad: the run dir's train/ and valid/ event
+     files read back with every record's CRCs checked, one param/ and one
+     grad/ histogram a leaf an epoch, the losses and lr, the showcase's
+     audio (noisy and clean only in epoch 1), spectrogram and log-mel
+     images and infer/sisdr; #4 twice a step, #5 once a block in every
+     valid batch (tensor-core form) and in infer_epoch once a block a file
+     (float32 scalar form), no other kernel; the profiler's Chrome trace
+     holding CUDA kernel events and #4 twice for its one step; the
+     showcase of 00002.ckpt enhanced on the card against the CPU (to 1e-5
+     of the peak) and against the logged PCM16 audio; the shard reader on
+     the native decoder (its walks counted), its members equal to the
+     Python walker's bit for bit, both decode rates printed (in turns:
+     native, Python, Python, native); then one more
+     epoch of phase 23's 48 kHz FE-B run with infer.interval=1 (the log-mel
+     at 48 kHz), checked the same way; the summarize and infer_epoch walls
+     and their shares of an epoch, and the step ms inside and outside the
+     profiler's window, printed.
 
-Each of phases 4 to 24 drives a path: every kernel's launch count is set to
+Each of phases 4 to 25 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -191,9 +212,10 @@ of each wrapper), and the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must
 run them on every frame, FE-T's bf16 valid step on every launch. The
 line before the last holds the kernels' JSON record (the GRU scan's
 launches there are the sum over the bf16 paths of phases 15-20, the valid
-and PESQ forwards of phases 21-23 and the entry points of phase 24, the
-block stack's and the BSRNN stack's over their serving phases and phase
-24, segmental RMS's over phases 14 and 21, each listed by path before it);
+and PESQ forwards of phases 21-23, the entry points of phase 24 and the
+valid and showcase forwards of phase 25, the block stack's and the BSRNN
+stack's over their serving phases and phase 24, segmental RMS's over
+phases 14, 21 and 25, each listed by path before it);
 the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -426,7 +448,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/24] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/25] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -434,10 +456,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/24] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/25] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/24] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/25] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -558,7 +580,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/24] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/25] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -593,7 +615,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/24] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/25] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -648,7 +670,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/24] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/25] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -669,7 +691,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/24] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/25] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -713,7 +735,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/24] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/25] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -760,7 +782,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/24] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/25] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -803,7 +825,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/24] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/25] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -851,7 +873,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/24] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/25] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -868,7 +890,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/24] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/25] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -924,7 +946,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/24] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/25] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -950,7 +972,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/24] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/25] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -988,7 +1010,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/24] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/25] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1041,7 +1063,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/24] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/25] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1160,7 +1182,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/24] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/25] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1199,7 +1221,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/24] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/25] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1256,7 +1278,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/24] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/25] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1411,7 +1433,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/24] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/25] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1459,7 +1481,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/24] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/25] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1504,7 +1526,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/24] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/25] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1568,7 +1590,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/24] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/25] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1577,7 +1599,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/24] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/25] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1615,7 +1637,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/24] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/25] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1664,7 +1686,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/24] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/25] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1754,21 +1776,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/24] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/25] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/24] {tag} bf16 Model.forward, "
+        print(f"[{phase}/25] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/24] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/25] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -1971,8 +1993,8 @@ def main():
         finally:
             record_inputs(False)
         files = sorted(os.listdir(run_dir))
-        _check(files == ["00001.ckpt", "00002.ckpt", "config.yaml"],
-               f"CLI run dir holds {files}")
+        _check(files == ["00001.ckpt", "00002.ckpt", "config.yaml", "train",
+                         "valid"], f"CLI run dir holds {files}")
         run_hps = get_hparams(None, run_dir)
         blocks = FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"]["num_blocks"]
         pesq_batch = run_hps.pesq.batch_size
@@ -2012,7 +2034,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/24] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/25] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2033,7 +2055,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/24] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/25] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2108,7 +2130,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/24] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/25] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2126,7 +2148,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/24] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/25] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2138,7 +2160,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/24] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/25] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2163,23 +2185,32 @@ def main():
                compare=compare, speech_like=speech_like, card=card, dev=dev,
                check_launches=check_launches, check_and_time=check_and_time,
                timed=timed, bound=bound, nbytes=nbytes,
-               stack_flops=stack_flops, band_flops=band_flops)
+               stack_flops=stack_flops, band_flops=band_flops,
+               write_corpus=write_corpus)
     otf_root = tempfile.mkdtemp(prefix="chip_smoke_otf_")
     try:
         runs, scan_paths["on-the-fly CLI valid + PESQ (23)"] = phase_23(
             ctx, otf_root)
         paths = phase_24(ctx, runs)
+        # -- 25. summaries, showcase, histograms, profiler, native decoder ----
+        launches_25 = phase_25(ctx, runs, otf_root)
     finally:
         shutil.rmtree(otf_root, ignore_errors=True)
+    scan_paths["summaries CLI valid + infer_epoch (25)"] = launches_25[
+        "gru_scan"]
+    rms_paths["summaries CLI (25)"] = launches_25["segmental_rms_fused"]
+    record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
+    print(f"[25/25] segmental_rms launches by path: {rms_paths}; "
+          f"{record['segmental_rms_fused']['launches']} in all")
     scan_paths.update(paths["gru_scan"])
     for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
                         ("bsrnn_stack_step", "BSRNN-S serving (9)")):
         by_path = {first: record[name]["launches"], **paths[name]}
         record[name]["launches"] = sum(by_path.values())
-        print(f"[24/24] {name} launches by path: {by_path}; "
+        print(f"[24/25] {name} launches by path: {by_path}; "
               f"{record[name]['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[24/24] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/25] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     sources = {
@@ -2295,7 +2326,7 @@ def phase_22(ctx):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/24] train every family through the CLI, cuts: none of width "
+    print(f"[22/25] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
@@ -2435,7 +2466,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/24] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/25] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2500,7 +2531,7 @@ def phase_22(ctx):
         lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
                      f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
                      f"{tc:.1f} s)")
-    print(f"[22/24] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/25] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2576,7 +2607,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/24] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/25] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2590,7 +2621,7 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    print(f"[22/24] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/25] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
 
@@ -2636,7 +2667,7 @@ def phase_23(ctx, root):
     card, dev = ctx["card"], ctx["dev"]
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[23/24] the on-the-fly recipes through the CLI, cuts: none of "
+    print(f"[23/25] the on-the-fly recipes through the CLI, cuts: none of "
           f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
           f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
           f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
@@ -2778,7 +2809,8 @@ def phase_23(ctx, root):
             hps = get_hparams(None, run)
             (r,) = history
             files = sorted(os.listdir(run))
-            _check(r["epoch"] == 1 and files == ["00001.ckpt", "config.yaml"],
+            _check(r["epoch"] == 1 and files == ["00001.ckpt", "config.yaml",
+                                                 "train", "valid"],
                    f"{config}: epoch {r['epoch']}, files {files}")
             vals = list(r["train"].values()) + list(r["valid"].values())
             _check(all(np.isfinite(v) for v in vals), f"{config}: {r}")
@@ -2814,7 +2846,7 @@ def phase_23(ctx, root):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[23/24] CLI {config} ({hps.model}, "
+            print(f"[23/25] CLI {config} ({hps.model}, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
@@ -2887,7 +2919,7 @@ def phase_23(ctx, root):
                      f"{errs[2]:.2e}"
                      + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
                         else ""))
-    print(f"[23/24] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+    print(f"[23/25] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
           f"the CPU in float32 on each run's first train batch and one set "
           f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
           f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
@@ -2910,7 +2942,7 @@ def phase_23(ctx, root):
         if "noncausal" in path:
             shapes.append((t, n, h, False, True, False, what + " backward"))
     ctx["check_and_time"](shapes, phase=23)
-    print(f"[23/24] phase wall {time.perf_counter() - t_phase:.1f} s "
+    print(f"[23/25] phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(corpus written in {corpus_s:.2f} s)")
     return runs, total_scans
 
@@ -3004,7 +3036,7 @@ def phase_24(ctx, runs):
         rel = worst_rel(y_card, y_cpu)
         _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
                "peak")
-        print(f"[24/24] enhance {dns} on {OTF_EVAL} files: the card's float32"
+        print(f"[24/25] enhance {dns} on {OTF_EVAL} files: the card's float32"
               f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
               f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
               f"launches ({batches} batches of 8, scalar form), "
@@ -3091,7 +3123,7 @@ def phase_24(ctx, runs):
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
-            print(f"[24/24] serve {config} (capacity {SERVE_CAPACITY}, a "
+            print(f"[24/25] serve {config} (capacity {SERVE_CAPACITY}, a "
                   f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
                   f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
                   f"ticks ({form} form), each held to the plain version (max "
@@ -3123,7 +3155,7 @@ def phase_24(ctx, runs):
                and all(np.isfinite(v) for v in got.values())
                and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
                f"metrics_ns card {got} vs CPU {want}")
-        print(f"[24/24] metrics_ns {dns} on {OTF_EVAL} files: "
+        print(f"[24/25] metrics_ns {dns} on {OTF_EVAL} files: "
               + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
                           for k, v in got.items())
               + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
@@ -3167,7 +3199,7 @@ def phase_24(ctx, runs):
                          ctx["nbytes"](x, h, xo, ho, *tensors),
                          torch.bfloat16),
             plain_graph=kernel is band.bsrnn_stack_step)
-        print(f"[24/24] time {kernel.__name__} {tag} {shape} bf16 (the "
+        print(f"[24/25] time {kernel.__name__} {tag} {shape} bf16 (the "
               f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
               f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
               f"bound {1e3 * rec['bound_ms']:.3f} us, "
@@ -3175,8 +3207,344 @@ def phase_24(ctx, runs):
               f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
               f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
               f"{rec['max_abs_err']:.3e}; on {card}")
-    print(f"[24/24] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[24/25] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+# phase 25: the training CLI's summaries, showcase, histograms, profiler
+# window and native decoder. FE-T on the shard recipe (phase 21's corpus
+# writer, its valid batch): SUM_STEPS steps an epoch, 2 epochs, the
+# profiler window of SUM_PROFILE (a copy of t.yaml with train.profile set:
+# the config reader refuses keys a config lacks), SUM_FILES showcase files
+# (the recipes name 4); then one more epoch of phase 23's 48 kHz FE-B run
+SUM_STEPS = 5
+SUM_PROFILE = {"start": 1, "steps": 2}
+SUM_FILES = 4
+# the showcase's float32 audio, card against the CPU on one checkpoint: of
+# the peak (phase 24's enhance holds the same forward to 1e-4; measured
+# 4.1e-07 there)
+INFER_REL = 1e-5
+
+
+def trace_kernels(path):
+    """The CUDA kernel events of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def phase_25(ctx, runs, root):
+    """Phase 25 (see the module docstring), its files in `root`; -> the
+    launches of its CLI runs: {kernel: launches}."""
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch import native
+    from fastenhancer_tpu_torch.data import get_dataset_dataloader
+    from fastenhancer_tpu_torch.data.shard import ShardSource
+    from fastenhancer_tpu_torch.models import get_model
+    from fastenhancer_tpu_torch.train import load_checkpoint
+    from fastenhancer_tpu_torch.utils import tree_paths, yaml_subset
+    from fastenhancer_tpu_torch.utils.event_file import (decode_png,
+                                                         read_events)
+    from fastenhancer_tpu_torch.utils.hparams import get_hparams
+    from fastenhancer_tpu_torch.wrappers import get_wrapper
+    from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
+
+    card, dev = ctx["card"], ctx["dev"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    _check(native.available(), "the native decoder did not build (g++)")
+    logs = os.path.join(root, "summaries_logs")
+    names = [f"{i:02d}" for i in range(SUM_FILES)]
+    files = [f"{i:03d}" for i in range(SUM_FILES)]
+
+    # spies, restored after the phase: each step's wall (synchronised) and
+    # whether the profiler's window was open at its dispatch; the launches
+    # inside each infer_epoch
+    step_ms, infer_counts = [], []
+    step_and_account = ns_wrapper.ModelWrapper._step_and_account
+    infer_epoch = ns_wrapper.ModelWrapper.infer_epoch
+
+    def timed_step(self, dev_batch, rows):
+        open_ = self.profiler is not None and self.profiler.active
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_and_account(self, dev_batch, rows)
+        torch.cuda.synchronize()
+        step_ms.append((open_, 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def counted_infer(self, loader):
+        before = ctx["read_counts"]()
+        t0 = time.perf_counter()
+        out = infer_epoch(self, loader)
+        after = ctx["read_counts"]()
+        infer_counts.append(({k: after[k] - before[k] for k in after},
+                             time.perf_counter() - t0))
+        return out
+
+    def run_cli(argv):
+        ns_wrapper.ModelWrapper._step_and_account = timed_step
+        ns_wrapper.ModelWrapper.infer_epoch = counted_infer
+        try:
+            return ctx["run_cli"](argv)
+        finally:
+            ns_wrapper.ModelWrapper._step_and_account = step_and_account
+            ns_wrapper.ModelWrapper.infer_epoch = infer_epoch
+
+    def events(run, part):
+        """Every event of the run's `part` files (each record's CRCs
+        checked by read_events) -> {step: [(tag, kind, value)]}."""
+        out = {}
+        for name in sorted(os.listdir(os.path.join(run, part))):
+            for e in read_events(os.path.join(run, part, name)):
+                if e["values"]:  # not the file_version event
+                    out.setdefault(e["step"], []).extend(e["values"])
+        return out
+
+    def showcase_tags(values, epoch, interval):
+        audio = sorted(t for t, k, _ in values if k == "audio")
+        images = sorted(t for t, k, _ in values if k == "image")
+        kinds = ("noisy", "clean", "enhanced") if epoch <= interval else (
+            "enhanced",)
+        _check(audio == sorted(f"{k}/{n}" for k in kinds for n in names),
+               f"showcase audio tags at epoch {epoch}: {audio}")
+        _check(images == sorted(f"{k}/{n}" for k in ("enhanced",
+                                                     "enhanced_mel")
+                                for n in names),
+               f"showcase image tags at epoch {epoch}: {images}")
+        sisdr = [v for t, k, v in values if t == "infer/sisdr"]
+        _check(len(sisdr) == 1 and np.isfinite(sisdr[0]),
+               f"infer/sisdr at epoch {epoch}: {sisdr}")
+        shapes = {t: decode_png(v["encoded_image_string"]).shape
+                  for t, k, v in values if k == "image"}
+        for n in names:
+            frames = shapes[f"enhanced/{n}"][1]
+            _check(shapes[f"enhanced/{n}"] == (513, frames, 3)
+                   and shapes[f"enhanced_mel/{n}"] == (80, frames, 3),
+                   f"showcase images {n}: {shapes}")
+        return sisdr[0], {t: v for t, k, v in values if k == "audio"}
+
+    def card_vs_cpu(run, epoch, logged):
+        """The showcase of the run's checkpoint `epoch` enhanced on the card
+        and on the CPU: the float32 audio within INFER_REL of the peak, and
+        the card's equal to what the event file holds (PCM16, one step)."""
+        hps = get_hparams(None, run)
+        out = {}
+        for where in (dev, "cpu"):
+            w = get_wrapper(hps.wrapper)(hps, train=False, device=where)
+            w.load(epoch)
+            w.epoch = epoch
+            _, loader = get_dataset_dataloader(hps, "infer", w.infer_keys)
+            out[str(where)] = w.infer_epoch(loader)
+        worst = pcm_worst = 0.0
+        for n in names:
+            got = out[str(dev)]["audios"][f"enhanced/{n}"]
+            want = out["cpu"]["audios"][f"enhanced/{n}"]
+            peak = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            _check(got.shape == want.shape and err <= INFER_REL * peak,
+                   f"{run} showcase {n} card vs CPU: {err:.3e} of a peak "
+                   f"{peak:.3e}")
+            worst = max(worst, err / peak)
+            pcm = np.frombuffer(logged[f"enhanced/{n}"][
+                "encoded_audio_string"][44:], "<i2").astype(np.int64)
+            mine = np.clip(got / max(1.0, float(np.abs(got).max())) * 32768,
+                           -32768, 32767).astype(np.int64)
+            pcm_err = int(np.abs(pcm - mine).max())
+            _check(pcm.shape == mine.shape and pcm_err <= 1,
+                   f"{run} logged showcase {n} vs the card's: {pcm_err} "
+                   "PCM steps")
+            pcm_worst = max(pcm_worst, pcm_err)
+        return worst, pcm_worst
+
+    # -- 25a. FE-T on the shard recipe: summaries, histograms, profiler --------
+    t0 = time.perf_counter()
+    inputs, (clean_dir, noisy_dir), _ = ctx["write_corpus"](
+        os.path.join(root, "fe_t"), seed=25)
+    corpus_s = time.perf_counter() - t0
+    cfg = get_hparams(os.path.join(repo, "configs", "fastenhancer_shard",
+                                   "t.yaml")).to_dict()
+    cfg["train"]["profile"] = dict(SUM_PROFILE)
+    cfg_path = os.path.join(root, "t_profile.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(yaml_subset.dump(cfg))
+    argv = ["-n", "summaries", "-c", cfg_path, "--base_dir", logs, "-p",
+            f"data.train.inputs={inputs!r}",
+            f"data.valid.clean_dir={clean_dir!r}",
+            f"data.valid.noisy_dir={noisy_dir!r}",
+            f"data.pesq.clean_dir={clean_dir!r}",
+            f"data.pesq.noisy_dir={noisy_dir!r}",
+            f"data.infer.clean_dir={clean_dir!r}",
+            f"data.infer.noisy_dir={noisy_dir!r}",
+            f"data.infer.files={files!r}",
+            f"train.steps_per_epoch={SUM_STEPS}", "train.max_epochs=2",
+            "train.save_interval=1", "infer.interval=1",
+            "train.plot_param_and_grad=True",
+            f"valid.batch_size={CLI_VALID_BATCH}"]
+    walks = native.shard_members.launches
+    history, counts, _ = run_cli(argv)
+    walks = native.shard_members.launches - walks
+    _check(walks > 0, "the shard reader did not take the native decoder")
+    run = os.path.join(logs, "summaries")
+    _check(sorted(os.listdir(run)) == ["00001.ckpt", "00002.ckpt",
+                                       "config.yaml", "profile", "train",
+                                       "valid"],
+           f"summaries run dir: {sorted(os.listdir(run))}")
+    hps = get_hparams(None, run)
+    blocks = hps.model_kwargs.rnnformer_kwargs.num_blocks
+    valid_n = -(-CLI_WAVS // CLI_VALID_BATCH)
+    want = {k: 0 for k in ctx["counters"]}
+    want.update({"segmental_rms_fused": 2 * SUM_STEPS * 2,
+                 "gru_scan": blocks * (valid_n + SUM_FILES) * 2,
+                 GRU_TC: blocks * valid_n * 2})
+    _check(counts == want, f"summaries CLI: launches {counts} != {want}")
+    # #5 inside infer_epoch: once a time GRU a file, its float32 (scalar)
+    # form, no other kernel
+    per_infer = {k: 0 for k in ctx["counters"]}
+    per_infer["gru_scan"] = blocks * SUM_FILES
+    _check([c for c, _ in infer_counts] == [per_infer] * 2,
+           f"launches in infer_epoch: {infer_counts} != {per_infer} x 2")
+    leaves = ["/".join(p) for p, _ in tree_paths(load_checkpoint(
+        os.path.join(run, "00002.ckpt"))["variables"]["params"])]
+    train_ev, valid_ev = events(run, "train"), events(run, "valid")
+    _check(sorted(train_ev) == sorted(valid_ev) == [1, 2],
+           f"event steps {sorted(train_ev)}, {sorted(valid_ev)}")
+    loss_tags = {f"loss/{n}" for n in hps.train.losses.keys()}
+    for epoch in (1, 2):
+        tv = train_ev[epoch]
+        hists = sorted(t for t, k, _ in tv if k == "histo")
+        _check(hists == sorted([f"param/{p}" for p in leaves]
+                               + [f"grad/{p}" for p in leaves]),
+               f"epoch {epoch}: {len(hists)} histograms for {len(leaves)} "
+               "leaves")
+        _check({t for t, k, _ in tv if k == "simple_value"}
+               == loss_tags | {"lr"}, f"train scalars at epoch {epoch}")
+        vv = valid_ev[epoch]
+        _check(loss_tags <= {t for t, k, _ in vv if k == "simple_value"},
+               f"valid scalars at epoch {epoch}")
+        _, logged = showcase_tags(vv, epoch, 1)
+    infer_err, pcm_err = card_vs_cpu(run, 2, logged)
+    # the profiler's window: CUDA kernels, #4 twice a step inside it
+    (trace,) = [os.path.join(run, "profile", f) for f in os.listdir(
+        os.path.join(run, "profile")) if f.endswith(".pt.trace.json")]
+    kernels = trace_kernels(trace)
+    _check(kernels, f"no CUDA kernel event in the profiler's trace {trace}")
+    window = [ms for open_, ms in step_ms if open_]
+    outside = [ms for open_, ms in step_ms if not open_]
+    rms_events = [e for e in kernels if "segmental_rms" in e.get("name", "")]
+    _check(len(window) == SUM_PROFILE["steps"] - 1
+           and len(rms_events) == 2 * len(window),
+           f"profiler window: {len(window)} steps, {len(rms_events)} "
+           "segmental_rms kernels in the trace")
+    busy_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    # the native decoder against the Python walker on the run's speech
+    speech_dir = inputs["speech"][0]["shard_dir"]
+    tars = sorted(os.path.join(speech_dir, f) for f in os.listdir(speech_dir)
+                  if f.startswith("recording.") and f.endswith(".tar"))
+    mb = sum(os.path.getsize(t) for t in tars) / 1e6
+
+    def walk(native_path):
+        """All members of the speech tars and the walk's MB/s, natively
+        or by the Python walker (FE_NATIVE=0)."""
+        if not native_path:
+            os.environ["FE_NATIVE"] = "0"
+        try:
+            t0 = time.perf_counter()
+            got = [m for t in tars for m in ShardSource._iter_tar_audio(t)]
+            return got, mb / (time.perf_counter() - t0)
+        finally:
+            os.environ.pop("FE_NATIVE", None)
+
+    # in turns, native, Python, Python, native, on a warm page cache
+    (nat, nat_a), (py, py_a), (_, py_b), (_, nat_b) = (
+        walk(True), walk(False), walk(False), walk(True))
+    nat_mbs, py_mbs = f"{nat_a:.1f}, {nat_b:.1f}", f"{py_a:.1f}, {py_b:.1f}"
+    _check(len(nat) == len(py) and all(
+        a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(nat, py)),
+        "native shard members != the Python walker's")
+    for r in history:
+        tm = r["timing"]
+        print(f"[25/25] summaries CLI epoch {r['epoch']} (FE-T, shard "
+              f"recipe, {SUM_STEPS} steps, bf16): wall {r['seconds']:.2f} "
+              f"s; summarize {tm['summarize']:.3f} s ("
+              f"{100 * tm['summarize'] / r['seconds']:.1f}% of the epoch; "
+              f"{2 * len(leaves)} histograms, {len(loss_tags) + 1} train "
+              f"and {len(loss_tags) + 1} valid scalars, the showcase's "
+              f"audio and images); "
+              f"infer_epoch {tm['infer']:.3f} s ("
+              f"{100 * tm['infer'] / r['seconds']:.1f}%; {SUM_FILES} "
+              f"files); infer/sisdr {r['infer']['infer/sisdr']:.3f} dB; "
+              f"on {card}")
+    print(f"[25/25] summaries CLI: step ms "
+          f"{', '.join(f'{ms:.1f}' for _, ms in step_ms)}; inside the "
+          f"profiler window ({SUM_PROFILE}: {len(window)} step) "
+          f"{', '.join(f'{ms:.1f}' for ms in window)}, outside median "
+          f"{statistics.median(outside):.1f}; the trace holds "
+          f"{len(kernels)} CUDA kernel events, {busy_ms:.2f} ms of kernel "
+          f"time ({100 * busy_ms / sum(window):.1f}% of the window's step "
+          f"wall), segmental_rms {len(rms_events)} times; launches "
+          f"segmental_rms {counts['segmental_rms_fused']}, gru_scan "
+          f"{counts['gru_scan']} ({counts[GRU_TC]} tc in the bf16 valid "
+          f"step, {blocks} scalar a file in each infer_epoch), no other "
+          f"kernel; event files' CRCs and tags checked: a param/ and a "
+          f"grad/ histogram for each of {len(leaves)} leaves an epoch; "
+          f"showcase card vs CPU on "
+          f"00002.ckpt max abs err {infer_err:.3e} of the peak (tol "
+          f"{INFER_REL:g}), the logged PCM16 within {pcm_err:g} step of the "
+          f"card's; on {card}")
+    print(f"[25/25] native decoder: {walks} tars walked natively in the "
+          f"run; {len(nat)} members of {len(tars)} speech tars ({mb:.1f} "
+          f"MB) equal to the Python walker's bit for bit; decode MB/s in "
+          f"turns (native, Python, Python, native; warm page cache): native "
+          f"{nat_mbs}, Python {py_mbs}; corpus written in {corpus_s:.2f} s")
+
+    # -- 25b. one more epoch of phase 23's 48 kHz FE-B run: mel at 48 kHz -------
+    config = "fastenhancer_48khz/b.yaml"
+    base, name = os.path.split(runs[config])
+    hps48 = get_hparams(None, runs[config])
+    eval_clean, eval_noisy = (hps48.data.valid.clean_dir,
+                              hps48.data.valid.noisy_dir)
+    infer_counts.clear()
+    step_ms.clear()
+    history48, counts48, out48 = run_cli(
+        ["-n", name, "--base_dir", base, "-p", "train.max_epochs=2",
+         "infer.interval=1", f"data.infer.clean_dir={eval_clean!r}",
+         f"data.infer.noisy_dir={eval_noisy!r}", f"data.infer.files={files!r}",
+         "-f"])
+    (r48,) = history48
+    _check(r48["epoch"] == 2 and "loaded checkpoint" in out48,
+           f"48 kHz resume: {r48['epoch']}")
+    model = get_model(hps48.model, **hps48.model_kwargs.to_dict())
+    per = scans_per_forward(model)
+    valid_n48 = -(-OTF_EVAL // hps48.valid.batch_size)
+    pesq_n48 = -(-OTF_EVAL // hps48.pesq.batch_size)
+    want = {k: 0 for k in ctx["counters"]}
+    want.update({"gru_scan": per * (valid_n48 + pesq_n48 + SUM_FILES),
+                 GRU_TC: per * valid_n48})
+    _check(counts48 == want, f"48 kHz epoch: launches {counts48} != {want}")
+    per_infer = {k: 0 for k in ctx["counters"]}
+    per_infer["gru_scan"] = per * SUM_FILES
+    _check([c for c, _ in infer_counts] == [per_infer],
+           f"48 kHz infer_epoch launches {infer_counts}")
+    sisdr48, logged48 = showcase_tags(events(runs[config], "valid")[2], 2, 1)
+    infer_err48, pcm_err48 = card_vs_cpu(runs[config], 2, logged48)
+    tm = r48["timing"]
+    print(f"[25/25] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
+          f"wall {r48['seconds']:.2f} s; summarize {tm['summarize']:.3f} s "
+          f"({100 * tm['summarize'] / r48['seconds']:.1f}%), infer_epoch "
+          f"{tm['infer']:.3f} s ({100 * tm['infer'] / r48['seconds']:.1f}%;"
+          f" {SUM_FILES} files of "
+          f"{OTF_EVAL_SECONDS[0]:g}-{OTF_EVAL_SECONDS[1]:g} s, 80-band mel at"
+          f" 48 kHz); gru_scan {counts48['gru_scan']} launches ({per} a "
+          f"file in infer_epoch, float32 scalar form); infer/sisdr "
+          f"{sisdr48:.3f} dB; showcase card vs CPU max abs err "
+          f"{infer_err48:.3e} of the peak, the logged PCM16 within "
+          f"{pcm_err48:g} step; on {card}")
+    print(f"[25/25] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"gru_scan": counts["gru_scan"] + counts48["gru_scan"],
+            "segmental_rms_fused": counts["segmental_rms_fused"]}
 
 
 if __name__ == "__main__":

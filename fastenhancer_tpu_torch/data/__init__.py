@@ -27,11 +27,14 @@ from .shard_mixer import (
 
 def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
                            ) -> tp.Tuple[tp.Any, tp.Any]:
-    """(dataset, loader) for `mode` in train/valid/pesq; `hps` is an
+    """(dataset, loader) for `mode` in train/valid/pesq/infer; `hps` is an
     HParams. Datasets: NoiseSuppression (paired wavs),
     NoiseSuppressionOnTheFly (clean and noise drawn and mixed per item),
-    and the shard datasets, which are their own (endless) loaders. (The
-    showcase `infer` mode is not ported, with `infer_epoch`.)"""
+    and the shard datasets, which are their own (endless) loaders. The
+    showcase `infer` mode reads `data.infer.files` (every file: one
+    process), `infer.batch_size` (1) and `infer.num_workers` (0), and pads
+    a batch to a multiple of 16 hops, as pesq mode does; "wav_len" keeps
+    each file's length."""
     dataset_name = hps["data"]["dataset"]
     if not isinstance(dataset_name, str):
         dataset_name = dataset_name[mode]
@@ -58,6 +61,11 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
         batch_size = getattr(sec, "batch_size", batch_size)
         num_workers = getattr(sec, "num_workers", num_workers)
         drop_last = getattr(sec, "drop_last", drop_last)
+    elif mode == "infer":
+        sec = getattr(hps, "infer", {})
+        batch_size = getattr(sec, "batch_size", 1)
+        num_workers = getattr(sec, "num_workers", 0)
+        pad_multiple = 16 * getattr(hps["model_kwargs"], "hop_size", 256)
     elif mode == "pesq":
         sec = getattr(hps, "pesq", {})
         batch_size = getattr(sec, "batch_size", batch_size)

@@ -1,9 +1,10 @@
 """Audio file IO without librosa/soundfile: stdlib `wave` + numpy.
 
 A copy of fastenhancer_tpu/data/audio_io.py (the port imports nothing of
-the JAX package) without its optional native decoder. PCM 8/16/24/32-bit
-and IEEE-float wavs are decoded to float32 in [-1, 1]; resampling is
-polyphase (scipy.signal.resample_poly).
+the JAX package). PCM 8/16/24/32-bit and IEEE-float wavs are decoded to
+float32 in [-1, 1], a whole mono read by the native library
+(`fastenhancer_tpu_torch/native`) where it is available, else by numpy;
+resampling is polyphase (scipy.signal.resample_poly).
 """
 from __future__ import annotations
 
@@ -30,12 +31,18 @@ def read_wav(path: str, sr: tp.Optional[int] = None,
     of decoding the whole file, so drawing short crops from hour-long
     recordings stays O(window).
     """
-    with open(path, "rb") as fh:
-        header = fh.read(12)
-        if header[:4] == b"RIFF" and header[8:12] == b"WAVE":
-            x, file_sr = _read_riff(fh, offset=offset, duration=duration)
-        else:
-            raise ValueError(f"not a RIFF/WAVE file: {path}")
+    from .. import native
+
+    windowed = offset > 0.0 or duration is not None
+    if mono and not windowed and native.available():
+        x, file_sr = native.read_wav_file(path)  # native decodes to mono
+    else:
+        with open(path, "rb") as fh:
+            header = fh.read(12)
+            if header[:4] == b"RIFF" and header[8:12] == b"WAVE":
+                x, file_sr = _read_riff(fh, offset=offset, duration=duration)
+            else:
+                raise ValueError(f"not a RIFF/WAVE file: {path}")
     if x.ndim == 2:
         x = x.mean(axis=1) if mono else np.ascontiguousarray(x.T)
     if sr is not None and sr != file_sr:

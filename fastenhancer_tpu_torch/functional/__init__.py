@@ -18,11 +18,13 @@ from .stft import (
     stft_streaming_chunk,
     istft_streaming_chunk,
 )
+from .mel import mel_fbank_weights, spec_to_mel
 
 __all__ = [
     "STFTConfig", "make_window", "padded_window", "ola_window_sq_sum",
     "frame_signal", "overlap_add", "stft", "istft", "compress", "uncompress",
     "compressed_stft", "compressed_istft", "init_stft_carry",
     "init_istft_carry", "stft_streaming_step", "istft_streaming_step",
-    "stft_streaming_chunk", "istft_streaming_chunk",
+    "stft_streaming_chunk", "istft_streaming_chunk", "mel_fbank_weights",
+    "spec_to_mel",
 ]

@@ -1,13 +1,15 @@
-"""Mel filterbank weights (numpy), for the `mel*` pre_post_init of the
-dptransformer model.
+"""Mel filterbanks (numpy): the `mel*` pre_post_init of the dptransformer
+model, and the log-mel images of the training summaries.
 
-Copy of fastenhancer_tpu/functional/mel.py::mel_fbank_weights: the
+Copy of fastenhancer_tpu/functional/mel.py: `mel_fbank_weights` is the
 slaney-normalized HTK-mel filterbank scaled by f_n/freq, with its
 pseudo-inverse and one-hot patching of empty rows (reference:
-models/fastenhancer/dprnn/model.py:263-298).
+models/fastenhancer/dprnn/model.py:263-298); `spec_to_mel` renders the
+log-mel image of a magnitude spectrogram on the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 import typing as tp
 
@@ -55,4 +57,17 @@ def mel_fbank_weights(freq: int, n_filter: int, sr: int
     return mel_fb.astype(np.float32), mel_fb_inv.astype(np.float32)
 
 
-__all__ = ["mel_fbank_weights"]
+@functools.lru_cache(maxsize=8)
+def _mel_fbank(n_freq: int, n_mels: int, sr: int) -> np.ndarray:
+    pre, _ = mel_fbank_weights(n_freq, n_mels, sr)
+    return pre  # [n_mels, n_freq]
+
+
+def spec_to_mel(mag: np.ndarray, n_mels: int = 80, sr: int = 16_000,
+                eps: float = 1e-5) -> np.ndarray:
+    """magnitude [F, T] -> log-mel [n_mels, T] (numpy, host side)."""
+    fb = _mel_fbank(mag.shape[0], n_mels, sr)
+    return np.log10(fb @ np.asarray(mag) + eps)
+
+
+__all__ = ["mel_fbank_weights", "spec_to_mel"]

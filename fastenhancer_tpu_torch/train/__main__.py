@@ -17,13 +17,18 @@ pyyaml (`utils/hparams.py`), writes it to `{base_dir}/{name}/config.yaml`,
 builds the train loader (the shard reader, the on-the-fly dataset, or
 paired wavs) and the paired-wav valid and PESQ loaders, and then runs each
 epoch: `train_epoch`, valid losses, PESQ/STOI every `pesq.interval`
-epochs, and a checkpoint every `train.save_interval` epochs, on the last
-and in `test` mode. Run again with the same `-n` (and no `-c`) to resume from the newest
-checkpoint.
+epochs, the showcase `infer_epoch` every `infer.interval` epochs (its
+loader built the first time), and a checkpoint every `train.save_interval`
+epochs, on the last and in `test` mode. Each epoch's summaries go to
+TensorBoard event files (`utils/event_file.py`), the train ones (losses,
+`lr`, with `train.plot_param_and_grad` the parameter and gradient
+histograms) under `{base_dir}/{name}/train/`, the valid and showcase ones
+(losses, PESQ/STOI, audio, spectrograms, `infer/sisdr`) under `valid/`;
+`train.profile` traces a window of train steps into `profile/`. Run again
+with the same `-n` (and no `-c`) to resume from the newest checkpoint.
 
-Not ported: TensorBoard summaries with the showcase `infer_epoch` (ROADMAP
-queue 1, "Training, end to end on one card") and the multi-host flags
-(queue 1, "Several cards"); each epoch's results are printed and returned.
+Not ported: the multi-host flags (ROADMAP queue 1, "Several cards"); each
+epoch's results are also printed and returned.
 """
 from __future__ import annotations
 
@@ -38,7 +43,9 @@ import torch
 
 from .. import require_cuda
 from ..data import get_dataset_dataloader
+from ..utils.event_file import EventWriter
 from ..utils.hparams import get_hparams
+from ..utils.summarize import summarize
 from ..wrappers import get_wrapper
 
 
@@ -64,18 +71,18 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
          ) -> tp.List[tp.Dict[str, tp.Any]]:
     """Train as the command line says; returns one record per epoch run:
     {"epoch", "train" (scalars), "valid" (scalars, PESQ/STOI included
-    where computed), "seconds" (the epoch's wall), "timing" (the wrapper's
-    load / step / valid / metrics wall split)}."""
+    where computed), "infer" (scalars, where the showcase ran), "seconds"
+    (the epoch's wall), "timing" (the wrapper's load / step / valid /
+    metrics wall split, with "infer" and "summarize": the showcase's and
+    the event files' walls)}."""
     args = parse_args(argv)
     device = (require_cuda() if args.device is None
               else torch.device(args.device))
     base_dir = os.path.join(args.base_dir, args.name)
     hps = get_hparams(args.config, base_dir, save=True, params=args.params,
                       force_save=args.force_save)
-    print("TensorBoard summaries with the showcase infer_epoch (ROADMAP "
-          'queue 1, "Training, end to end on one card") and several hosts '
-          '("Several cards") are not ported yet: each epoch is printed, and '
-          "checkpointed at save_interval")
+    print('Several hosts (ROADMAP queue 1, "Several cards") are not ported '
+          "yet: this run trains on one device")
 
     seed = getattr(hps.train, "seed", 1)
     random.seed(seed)
@@ -92,47 +99,79 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
         hps, "valid", getattr(wrapper, "val_keys", wrapper.keys))
 
     save_interval = getattr(hps.train, "save_interval", 20)
+    infer_interval = (getattr(hps.infer, "interval", 20) if "infer" in hps
+                      else 0)
     pesq_interval = wrapper.pesq_interval
     max_epochs = hps.train.max_epochs
+    sr = hps.data.sampling_rate
+    writer_train = EventWriter(os.path.join(base_dir, "train"))
+    writer_valid = EventWriter(os.path.join(base_dir, "valid"))
+    infer_loader = None
+
+    def write(writer: EventWriter, epoch: int,
+              summary: tp.Dict[str, tp.Any]) -> None:
+        t = time.perf_counter()
+        summarize(writer, epoch, sr, **summary)
+        writer.flush()
+        wrapper.timing["summarize"] = (wrapper.timing.get("summarize", 0.0)
+                                       + time.perf_counter() - t)
 
     history = []
-    for epoch in range(wrapper.epoch + 1, max_epochs + 1):
-        wrapper.epoch = epoch
-        wrapper.timing.clear()
-        t0 = time.time()
-        if hasattr(train_dataset, "shuffle"):
-            train_dataset.shuffle(seed + epoch)
+    try:
+        for epoch in range(wrapper.epoch + 1, max_epochs + 1):
+            wrapper.epoch = epoch
+            wrapper.timing.clear()
+            t0 = time.time()
+            if hasattr(train_dataset, "shuffle"):
+                train_dataset.shuffle(seed + epoch)
 
-        summary = wrapper.train_epoch(train_loader)
-        if "load" in wrapper.timing:
-            print(f"epoch {epoch} timing: load {wrapper.timing['load']:.2f}s"
-                  f" mix+step {wrapper.timing['step']:.2f}s "
-                  f"({wrapper.timing['steps']} steps)")
-        # free the shard reader's noise/RIR buffers between epochs
-        if hasattr(train_dataset, "release_auxiliary"):
-            train_dataset.release_auxiliary()
-        summary["scalars"]["lr"] = wrapper.get_lr()
+            summary = wrapper.train_epoch(train_loader)
+            if "load" in wrapper.timing:
+                print(f"epoch {epoch} timing: load "
+                      f"{wrapper.timing['load']:.2f}s mix+step "
+                      f"{wrapper.timing['step']:.2f}s "
+                      f"({wrapper.timing['steps']} steps)")
+            # free the shard reader's noise/RIR buffers between epochs
+            if hasattr(train_dataset, "release_auxiliary"):
+                train_dataset.release_auxiliary()
+            summary["scalars"]["lr"] = wrapper.get_lr()
+            write(writer_train, epoch, summary)
 
-        calc_metrics = bool(pesq_interval and epoch % pesq_interval == 0)
-        summary_v = wrapper.valid_epoch(valid_loader,
-                                        calculate_metrics=calc_metrics)
+            calc_metrics = bool(pesq_interval and epoch % pesq_interval == 0)
+            summary_v = wrapper.valid_epoch(valid_loader,
+                                            calculate_metrics=calc_metrics)
+            write(writer_valid, epoch, summary_v)
 
-        if (epoch % save_interval == 0 or epoch == max_epochs
-                or wrapper.test):
-            wrapper.save(epoch)
+            record = {"epoch": epoch, "train": summary["scalars"],
+                      "valid": summary_v["scalars"]}
+            if infer_interval and epoch % infer_interval == 0:
+                t = time.perf_counter()
+                if infer_loader is None:
+                    _, infer_loader = get_dataset_dataloader(
+                        hps, "infer", wrapper.infer_keys)
+                summary_i = wrapper.infer_epoch(infer_loader)
+                wrapper.timing["infer"] = time.perf_counter() - t
+                write(writer_valid, epoch, summary_i)
+                record["infer"] = summary_i["scalars"]
 
-        seconds = time.time() - t0
-        msg = "  ".join(f"{k.split('/')[-1]} {v:.4f}"
-                        for k, v in summary_v["scalars"].items())
-        extra = (wrapper.metrics.print()
-                 if (wrapper.metrics and calc_metrics) else "")
-        print(f"Epoch {epoch}/{max_epochs}  valid: {msg}{extra}"
-              f"  [{seconds:.1f}s]")
-        history.append({"epoch": epoch, "train": summary["scalars"],
-                        "valid": summary_v["scalars"], "seconds": seconds,
-                        "timing": dict(wrapper.timing)})
-        if wrapper.test:
-            break
+            if (epoch % save_interval == 0 or epoch == max_epochs
+                    or wrapper.test):
+                wrapper.save(epoch)
+
+            seconds = time.time() - t0
+            msg = "  ".join(f"{k.split('/')[-1]} {v:.4f}"
+                            for k, v in summary_v["scalars"].items())
+            extra = (wrapper.metrics.print()
+                     if (wrapper.metrics and calc_metrics) else "")
+            print(f"Epoch {epoch}/{max_epochs}  valid: {msg}{extra}"
+                  f"  [{seconds:.1f}s]")
+            history.append(dict(record, seconds=seconds,
+                                timing=dict(wrapper.timing)))
+            if wrapper.test:
+                break
+    finally:
+        writer_train.close()
+        writer_valid.close()
     return history
 
 

@@ -44,12 +44,15 @@ def make_train_step(model, losses: Losses, optimizer: GroupedOptimizer,
                     clip_grad_kwargs: tp.Optional[
                         tp.Mapping[str, tp.Any]] = None,
                     compute_dtype: tp.Optional[torch.dtype] = None,
-                    skip_nonfinite: bool = False):
+                    skip_nonfinite: bool = False,
+                    return_grads: bool = False):
     """The train step. compute_dtype=torch.bfloat16 casts the params and
     wavs for the forward and backward; master params, moments and BN
     statistics stay float32. skip_nonfinite keeps the old params, moments
     and statistics when any gradient is NaN or Inf (one host read of a
-    flag per step, so only when asked for)."""
+    flag per step, so only when asked for). return_grads puts the step's
+    float32 gradients, clipped, in the params' tree under metrics["grads"]
+    (for train.plot_param_and_grad's histograms)."""
     clipper = make_clipper(clip_grad, clip_grad_kwargs)
 
     def loss_fn(params: Params, stats: Params, clean: Tensor, noisy: Tensor,
@@ -95,6 +98,9 @@ def make_train_step(model, losses: Losses, optimizer: GroupedOptimizer,
         grads, gnorm = clipper(grads)
         metrics = {"loss/total": total.detach(), "grad_norm": gnorm,
                    **{f"loss/{k}": v.detach() for k, v in per_loss.items()}}
+        if return_grads:
+            it = iter(grads)
+            metrics["grads"] = tree_map(lambda _: next(it), params)
         finite = True
         if skip_nonfinite:
             finite = bool(torch.stack([torch.isfinite(g).all()

@@ -7,15 +7,20 @@ Counterpart of the single-device part of fastenhancer_tpu/wrappers/ns.py.
 variables, and with train=True the losses (the `pesq` loss at the data's
 sampling rate), the optimizer, the scheduler, the train and valid steps
 (train.remat sets the model's gradient checkpointing) and, where the
-config has a `pesq` section, the PESQ loader and the `Metrics` executor. `train_epoch` and `valid_epoch` run over any iterable of
-{"clean", "noisy"} numpy batches; `valid_epoch(calculate_metrics=True)`
-also enhances the PESQ set (float32, `make_infer_fn`) and scores it.
-`save(epoch)` / `load(epoch=None)` write and read the JAX package's
-checkpoint files (`train/checkpoint.py`).
+config has a `pesq` section, the PESQ loader and the `Metrics` executor.
+`train_epoch` and `valid_epoch` run over any iterable of {"clean",
+"noisy"} numpy batches; `valid_epoch(calculate_metrics=True)` also
+enhances the PESQ set (float32, `make_infer_fn`) and scores it;
+`infer_epoch` enhances the showcase files into audio, spectrogram and
+SISDR summaries. Each returns the summary dicts `utils.summarize`
+writes. `train.plot_param_and_grad` adds the last step's parameters and
+gradients to the train summary as histograms, and `train.profile` traces
+a window of train steps (`utils/profiler.py`). `save(epoch)` /
+`load(epoch=None)` write and read the JAX package's checkpoint files
+(`train/checkpoint.py`).
 
 Not ported yet: several devices and hosts (ROADMAP queue 1, "Several
-cards"), TensorBoard summaries with the showcase `infer_epoch`, and the
-profiler (queue 1, "Training, end to end on one card").
+cards").
 """
 from __future__ import annotations
 
@@ -29,13 +34,17 @@ import torch
 
 from .. import require_cuda
 from ..data import get_dataset_dataloader
+from ..functional import STFTConfig, spec_to_mel, stft
 from ..losses import Losses
-from ..metrics import Metrics
+from ..metrics import Metrics, sisdr
 from ..models import get_model
 from ..optim import get_optimizer, get_scheduler
 from ..train import (latest_checkpoint, load_checkpoint, make_infer_fn,
                      make_train_step, make_valid_step, save_checkpoint)
 from ..utils.hparams import HParams
+from ..utils.profiler import make_profiler
+from ..utils.summarize import plot_param_and_grad
+from ..utils.terminal import clear_current_line, verbose
 from ..utils.tree import tree_paths
 
 Tensor = torch.Tensor
@@ -73,6 +82,9 @@ class ModelWrapper:
         # train batches, mixing and stepping; ns_shard, with "steps"),
         # "valid" (valid losses), "metrics" (PESQ/STOI)
         self.timing: tp.Dict[str, float] = {}
+        self.print_interval: int = hp.get("print_interval", 1)
+        self.plot_param_and_grad = False
+        self.profiler = None
         if not train:
             return
         self.test = hp.get("test", False)
@@ -83,6 +95,8 @@ class ModelWrapper:
         use_mixed = hp.get("fp16", False) or hp.get("bf16", False)
         self.compute_dtype = torch.bfloat16 if use_mixed else None
         self.model.remat = bool(hp.get("remat", False))
+        self.plot_param_and_grad = bool(hp.get("plot_param_and_grad", False))
+        self.profiler = make_profiler(hp, self.base_dir, self.device)
         losses_cfg = copy.deepcopy(dict(hp["losses"]))
         if "consistency" in losses_cfg:
             mk = hps["model_kwargs"]
@@ -99,7 +113,8 @@ class ModelWrapper:
             clip_grad=hp.get("clip_grad"),
             clip_grad_kwargs=hp.get("clip_grad_kwargs"),
             compute_dtype=self.compute_dtype,
-            skip_nonfinite=hp.get("skip_nonfinite_grads", False))
+            skip_nonfinite=hp.get("skip_nonfinite_grads", False),
+            return_grads=self.plot_param_and_grad)
         self.valid_step = make_valid_step(self.model, self.loss,
                                           self.compute_dtype)
         if "pesq" in hps:
@@ -151,10 +166,38 @@ class ModelWrapper:
         self.scheduler.warmup_step()
         return metrics
 
-    def _end_train_epoch(self) -> tp.Dict[str, tp.Any]:
+    def _after_step(self, idx: int, total: tp.Optional[int], t0: float,
+                    extra: str = "") -> None:
+        """The progress line every `print_interval` steps (no wait for the
+        card), then the profiler's step."""
+        if verbose() and idx % self.print_interval == 0:
+            dt = time.perf_counter() - t0
+            line = f"\rEpoch {self.epoch} - Train {idx}"
+            if total:
+                line += (f"/{total} ({idx / total * 100:>4.1f}%){extra}"
+                         f"  [{int(dt)}/{int(dt / idx * total)} sec]")
+            print(line, end="", flush=True)
+        if self.profiler is not None:
+            self.profiler.step()
+
+    def _end_train_epoch(self, last_grads: tp.Any = None
+                         ) -> tp.Dict[str, tp.Any]:
+        """Close the profiler's window, clear the progress line, step the
+        schedule; the losses' means, and with plot_param_and_grad the last
+        step's params and gradients as histograms."""
+        if self.profiler is not None:
+            self.profiler.close()
+        if verbose():
+            clear_current_line()
         if not self.scheduler.requires_metric:
             self.scheduler.step()  # else valid_epoch steps with the metric
-        return {"scalars": self.loss.reduce()}
+        summary: tp.Dict[str, tp.Any] = {"scalars": self.loss.reduce(),
+                                         "hists": {}}
+        if self.plot_param_and_grad:
+            plot_param_and_grad(summary["hists"],
+                                self.state["variables"]["params"],
+                                grads=last_grads)
+        return summary
 
     def train_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]]
                     ) -> tp.Dict[str, tp.Any]:
@@ -163,8 +206,11 @@ class ModelWrapper:
         stepping them ("step", host clock, the queue drained at the end),
         and the step count ("steps")."""
         self.loss.initialize()
+        total = len(dataloader) if hasattr(dataloader, "__len__") else None
         load = step = 0.0
         steps = 0
+        last_grads = None
+        t_start = time.perf_counter()
         batches = iter(dataloader)
         while not (self.test and steps >= 10):
             t0 = time.perf_counter()
@@ -173,16 +219,18 @@ class ModelWrapper:
             load += t1 - t0
             if batch is None:
                 break
-            self._step_and_account(*self._device_batch(batch,
-                                                       ("clean", "noisy")))
+            metrics = self._step_and_account(
+                *self._device_batch(batch, ("clean", "noisy")))
+            last_grads = metrics.get("grads")
             steps += 1
             step += time.perf_counter() - t1
+            self._after_step(steps, total, t_start)
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timing.update(load=load, steps=steps,
                            step=step + time.perf_counter() - t0)
-        return self._end_train_epoch()
+        return self._end_train_epoch(last_grads)
 
     def valid_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]],
                     calculate_metrics: bool = False
@@ -232,6 +280,52 @@ class ModelWrapper:
             self.metrics.submit(clean[:rows], wav_hat[:rows], wav_len)
             if self.test and idx >= 2:
                 break
+
+    def infer_epoch(self, dataloader: tp.Iterable[tp.Mapping[str, tp.Any]]
+                    ) -> tp.Dict[str, tp.Any]:
+        """Enhance the showcase files (the first row of each batch, float32
+        offline forward) -> audio, spectrogram and "infer/sisdr" summaries,
+        under the batch's "filename" or else its index ("enhanced/00").
+        The loader pads each file to a bucket length; the padding is cut
+        off again by "wav_len". The noisy and clean audio are written only
+        while epoch <= infer.interval; the spectrograms are the log10
+        magnitude of STFT(1024, 256, 1024) of the enhanced audio and its
+        80-band log-mel at the data's rate."""
+        summary: tp.Dict[str, tp.Any] = {"audios": {}, "specs": {},
+                                         "scalars": {}}
+        cfg = STFTConfig(n_fft=1024, hop_size=256, win_size=1024)
+        interval = self.hps.get("infer", {}).get("interval", 20)
+        sisdrs = []
+        for i, batch in enumerate(dataloader):
+            noisy = np.asarray(batch["noisy"])
+            clean = np.asarray(batch["clean"])
+            t = (noisy.shape[-1] // self.hop_size) * self.hop_size
+            wav_hat = self.infer_fn(
+                self.state["variables"],
+                torch.from_numpy(np.ascontiguousarray(
+                    noisy[..., :t], np.float32)).to(self.device))
+            spec_in = wav_hat[:1]
+            wav_hat = wav_hat.cpu().numpy()
+            wl = batch.get("wav_len")
+            if wl is not None:
+                n = min(int(wl[0]), t)
+                noisy, clean, wav_hat = (noisy[..., :n], clean[..., :n],
+                                         wav_hat[..., :n])
+                spec_in = spec_in[..., :n]
+                t = (n // self.hop_size) * self.hop_size
+            name = batch.get("filename", [f"{i:02d}"])[0]
+            if self.epoch <= interval:
+                summary["audios"][f"noisy/{name}"] = noisy[0]
+                summary["audios"][f"clean/{name}"] = clean[0]
+            summary["audios"][f"enhanced/{name}"] = wav_hat[0]
+            spec = stft(spec_in, cfg)
+            mag = spec.square().sum(-1).sqrt()[0].cpu().numpy()
+            summary["specs"][f"enhanced/{name}"] = np.log10(mag + 1e-5)
+            summary["specs"][f"enhanced_mel/{name}"] = spec_to_mel(
+                mag, sr=self.sr)
+            sisdrs.append(sisdr(wav_hat[0, :t], clean[0, :t]))
+        summary["scalars"]["infer/sisdr"] = float(np.mean(sisdrs))
+        return summary
 
     # -- checkpoints -------------------------------------------------------------
 

@@ -7,9 +7,10 @@ fastenhancer_tpu/wrappers/ns_shard.py. Train batches are `ShardBatch`es
 moves one to the device and runs the `DynamicMixer` there, two or three
 segmental-RMS kernel launches, ahead of the train step. `steps_per_epoch`
 bounds an epoch; the iterator starts again when it runs out, and the
-epoch's load / step wall split lands in `timing`. The valid
-and PESQ sets are paired {"clean", "noisy"} batches (`val_keys`), as in
-the base wrapper.
+epoch's load / step wall split lands in `timing`; the progress line, the
+profiler's window and the histograms are the base wrapper's. The valid,
+PESQ and showcase sets are paired {"clean", "noisy"} batches
+(`val_keys`, `infer_keys`), as in the base wrapper.
 """
 from __future__ import annotations
 
@@ -87,6 +88,8 @@ class ModelWrapper(BaseModelWrapper):
         idx = 0
         fresh = True  # no batch yet from this iterator
         t_load = t_step = 0.0
+        last_grads = None
+        t_start = time.perf_counter()
         while idx < self.steps_per_epoch:
             t_mark = time.perf_counter()
             try:
@@ -101,12 +104,15 @@ class ModelWrapper(BaseModelWrapper):
             fresh = False
             idx += 1
             t_mark = time.perf_counter()
-            self._step_and_account(*self._mix_to_device(batch))
+            metrics = self._step_and_account(*self._mix_to_device(batch))
+            last_grads = metrics.get("grads")
             t_step += time.perf_counter() - t_mark
+            self._after_step(idx, self.steps_per_epoch, t_start,
+                             f"  [load {t_load:.1f}s step {t_step:.1f}s]")
             if self.test and idx >= 50:
                 break
         t_mark = time.perf_counter()
-        summary = self._end_train_epoch()
+        summary = self._end_train_epoch(last_grads)
         t_step += time.perf_counter() - t_mark
         self.timing.update(load=t_load, step=t_step, steps=idx)
         return summary

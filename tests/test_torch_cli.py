@@ -64,7 +64,7 @@ def test_cli_trains_validates_checkpoints_and_resumes(tmp_path, monkeypatch,
                     "--device", "cpu", "-p", *params])
     run = os.path.join(logs, "run")
     assert sorted(os.listdir(run)) == ["00001.ckpt", "00002.ckpt",
-                                       "config.yaml"]
+                                       "config.yaml", "train", "valid"]
     hps = get_hparams(None, run)
     assert hps.train.steps_per_epoch == 2 and hps.model_kwargs.channels == 12
     assert [r["epoch"] for r in history] == [1, 2]
@@ -77,7 +77,7 @@ def test_cli_trains_validates_checkpoints_and_resumes(tmp_path, monkeypatch,
         assert 1.0 <= r["valid"]["metrics/pesq"] <= 4.65
         assert 0.0 <= r["valid"]["metrics/stoi"] <= 1.0
         assert r["timing"].keys() == {"load", "step", "steps", "valid",
-                                      "metrics"}
+                                      "metrics", "summarize"}
     out = capsys.readouterr().out
     assert "not ported yet" in out and "Epoch 2/2  valid:" in out
     assert "best PESQ" in out

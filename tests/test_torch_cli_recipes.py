@@ -83,7 +83,8 @@ def test_cli_trains_a_voicebank_recipe(config, tmp_path, monkeypatch):
         "valid.batch_size=2", "pesq.batch_size=2",
         "pesq.interval=1", "train.fp16=False"])
     run = os.path.join(logs, "run")
-    assert sorted(os.listdir(run)) == ["00001.ckpt", "config.yaml"]
+    assert sorted(os.listdir(run)) == ["00001.ckpt", "config.yaml", "train",
+                                       "valid"]
     (r,) = history
     assert "loss/pesq" in r["train"] and "loss/pesq" in r["valid"]
     assert all(np.isfinite(v) for v in r["train"].values())

@@ -275,11 +275,17 @@ def test_conv_stft_forward_matches_jax():
 _NO_JAX = r"""
 import importlib, importlib.abc, pkgutil, sys
 
+BLOCKED = ("jax", "jaxlib", "fastenhancer_tpu", "yaml", "tensorboardX",
+           "matplotlib", "google.protobuf", "PIL")
+
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "fastenhancer_tpu", "yaml",
-                    "tensorboardX"):
+        if blocked(name):
             raise ImportError(f"blocked import: {name}")
         return None
 
@@ -385,13 +391,35 @@ raw = {"clean": (rng.standard_normal((2, 64 * 8)) * 0.1).astype("f4"),
        "noise": (rng.standard_normal((2, 64 * 8)) * 0.1).astype("f4"),
        "rir": np.eye(2, 64, dtype="f4")}
 assert all(np.isfinite(v) for v in w.train_epoch([raw])["scalars"].values())
-assert not any(m.split(".")[0] in ("jax", "fastenhancer_tpu", "yaml",
-                                   "tensorboardX") for m in sys.modules)
+# the summaries, the profiler and the native decoder
+import os, tempfile
+from fastenhancer_tpu_torch import native
+from fastenhancer_tpu_torch.utils.event_file import EventWriter, read_events
+from fastenhancer_tpu_torch.utils.profiler import StepProfiler
+from fastenhancer_tpu_torch.utils.summarize import summarize
+d = tempfile.mkdtemp()
+ew = EventWriter(d)
+summarize(ew, 1, 16000, scalars={"s": 1.0}, hists={"h": np.arange(5.0)},
+          audios={"a": np.zeros(64)}, specs={"p": np.ones((4, 3))})
+ew.close()
+assert len([v for e in read_events(ew.path) for v in e["values"]]) == 4
+prof = StepProfiler(d, start=0, steps=2)
+for _ in range(3):
+    torch.ones(3).sum()
+    prof.step()
+assert prof.done and os.path.exists(prof.trace_path)
+assert native.available()
+assert not any(blocked(m) for m in sys.modules)
 assert {"fastenhancer_tpu_torch.scripts.enhance",
         "fastenhancer_tpu_torch.scripts.serve",
         "fastenhancer_tpu_torch.scripts.metrics_ns",
         "fastenhancer_tpu_torch.data.ns_on_the_fly",
-        "fastenhancer_tpu_torch.wrappers.ns_on_the_fly"} <= set(names)
+        "fastenhancer_tpu_torch.wrappers.ns_on_the_fly",
+        "fastenhancer_tpu_torch.utils.event_file",
+        "fastenhancer_tpu_torch.utils.summarize",
+        "fastenhancer_tpu_torch.utils.profiler",
+        "fastenhancer_tpu_torch.utils.terminal",
+        "fastenhancer_tpu_torch.native"} <= set(names)
 print("OK", len(names))
 """
 
@@ -402,12 +430,14 @@ def test_port_imports_no_jax():
     time_kernel models' fused streams, a chunked stream, the noncausal
     model's forward, the presets, a train step of the shard recipe's
     wrapper and the recipe's config read, and a train step of the
-    on-the-fly wrapper run, with jax, fastenhancer_tpu, yaml and
-    tensorboardX blocked (the card has none of them). Every port module
-    imports, the scripts (`fastenhancer_tpu_torch.scripts.*`) among
-    them."""
+    on-the-fly wrapper run, and the summaries are written and read back,
+    a profiler window traced and the native decoder built, with jax,
+    fastenhancer_tpu, yaml, tensorboardX, matplotlib, google.protobuf and
+    PIL blocked (the card has none of them). Every port module imports,
+    the scripts (`fastenhancer_tpu_torch.scripts.*`), the summaries, the
+    profiler and the native decoder among them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.startswith("OK")
+    assert proc.stdout.splitlines()[-1].startswith("OK")

@@ -414,7 +414,7 @@ def test_cli_trains_on_the_fly_and_resumes(config, sr, tmp_path, monkeypatch):
                           *params])
     run = os.path.join(logs, "run")
     assert sorted(os.listdir(run)) == ["00001.ckpt", "00002.ckpt",
-                                       "config.yaml"]
+                                       "config.yaml", "train", "valid"]
     assert [r["epoch"] for r in history] == [1, 2]
     for r in history:
         assert all(np.isfinite(v) for v in r["train"].values())

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-five phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-six phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -200,9 +200,31 @@ each printed on its own line:
      epoch of phase 23's 48 kHz FE-B run with infer.interval=1 (the log-mel
      at 48 kHz), checked the same way; the summarize and infer_epoch walls
      and their shares of an epoch, and the step ms inside and outside the
-     profiler's window, printed.
+     profiler's window, printed;
+ 26. several devices: (a) FE_B's fused bf16 engine at capacity 256 with
+     its slots split over the one card listed twice (two shards of 128,
+     each its own carry, plan and step), against the engine at 256 on the
+     card, over the same 320 requests of 0.5-2 s that join as slots free
+     and leave on both shards, on the block stack (#1) and on the whole
+     frame (#7, its plan and step in the stack's place): the kernel twice
+     a tick sharded and once unsharded, every output within 2^-5 of the
+     peak and reported bitwise or not, tick p50/p99; (b) the training CLI
+     on configs/fastenhancer/b.yaml at its width and batch (64), float32,
+     2 epochs of 2 steps on synthetic length-sorted paired wavs, with
+     `--coordinator 127.0.0.1:<port> --num_processes 1 --process_id 0`
+     (the group over NCCL, left at the end) against the same run without
+     the flags: the final checkpoint; (c) two ranks on the one card:
+     over NCCL each rank's `parallel.init` raises (NCCL takes one rank a
+     card), then over gloo (`parallel.init(..., backend="gloo")` in two
+     spawned processes, the CLI's `main` in each) at batch 32 against
+     (b)'s one process at 64 on the same items: every param and BN
+     statistic of the final checkpoint and every epoch's losses, each
+     step's wall and its all-reduce share, rank 1 silent; #5 once a block
+     in each valid forward of (b) and (c); the first launches of #1 and
+     #7 in each engine of (a), at the shard's batch of 128, held against
+     the plain versions.
 
-Each of phases 4 to 25 drives a path: every kernel's launch count is set to
+Each of phases 4 to 26 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -212,9 +234,11 @@ of each wrapper), and the bf16 paths of BSRNN-S, DPRNN-B and DPT-B must
 run them on every frame, FE-T's bf16 valid step on every launch. The
 line before the last holds the kernels' JSON record (the GRU scan's
 launches there are the sum over the bf16 paths of phases 15-20, the valid
-and PESQ forwards of phases 21-23, the entry points of phase 24 and the
-valid and showcase forwards of phase 25, the block stack's and the BSRNN
-stack's over their serving phases and phase 24, segmental RMS's over
+and PESQ forwards of phases 21-23, the entry points of phase 24, the
+valid and showcase forwards of phase 25 and the valid forwards of phase
+26 (its ranks report theirs), the block stack's over its serving phases
+and phases 24 and 26, the whole frame's over phases 7 and 26, the BSRNN
+stack's over its serving phases and phase 24, segmental RMS's over
 phases 14, 21 and 25, each listed by path before it);
 the last line is
 {"ok": true, "device": {...}}. Any failure raises
@@ -448,7 +472,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/25] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/26] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -456,10 +480,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/25] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/26] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/25] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/26] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -580,7 +604,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/25] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/26] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -615,7 +639,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/25] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/26] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -670,7 +694,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/25] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/26] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -691,7 +715,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/25] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/26] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -735,7 +759,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/25] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/26] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -782,7 +806,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/25] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/26] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -825,7 +849,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/25] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/26] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -873,7 +897,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/25] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/26] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -890,7 +914,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/25] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/26] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -946,7 +970,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/25] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/26] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -972,7 +996,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/25] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/26] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -1010,7 +1034,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/25] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/26] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1063,7 +1087,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/25] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/26] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1182,7 +1206,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/25] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/26] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1221,7 +1245,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/25] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/26] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1278,7 +1302,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/25] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/26] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1433,7 +1457,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/25] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/26] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1481,7 +1505,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/25] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/26] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1526,7 +1550,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/25] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/26] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1590,7 +1614,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/25] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/26] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1599,7 +1623,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/25] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/26] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1637,7 +1661,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/25] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/26] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1686,7 +1710,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/25] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/26] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1776,21 +1800,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/25] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/26] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/25] {tag} bf16 Model.forward, "
+        print(f"[{phase}/26] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/25] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/26] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -2034,7 +2058,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/25] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/26] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2055,7 +2079,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/25] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/26] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2130,7 +2154,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/25] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/26] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2148,7 +2172,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/25] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/26] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2160,7 +2184,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/25] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/26] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2196,21 +2220,30 @@ def main():
         launches_25 = phase_25(ctx, runs, otf_root)
     finally:
         shutil.rmtree(otf_root, ignore_errors=True)
+    # -- 26. several devices: the sharded engine, NCCL and gloo ranks -----------
+    launches_26 = phase_26(ctx)
+    scan_paths.update(launches_26["gru_scan"])
     scan_paths["summaries CLI valid + infer_epoch (25)"] = launches_25[
         "gru_scan"]
     rms_paths["summaries CLI (25)"] = launches_25["segmental_rms_fused"]
     record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
-    print(f"[25/25] segmental_rms launches by path: {rms_paths}; "
+    print(f"[25/26] segmental_rms launches by path: {rms_paths}; "
           f"{record['segmental_rms_fused']['launches']} in all")
     scan_paths.update(paths["gru_scan"])
     for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
                         ("bsrnn_stack_step", "BSRNN-S serving (9)")):
-        by_path = {first: record[name]["launches"], **paths[name]}
+        by_path = {first: record[name]["launches"], **paths[name],
+                   **launches_26.get(name, {})}
         record[name]["launches"] = sum(by_path.values())
-        print(f"[24/25] {name} launches by path: {by_path}; "
+        print(f"[24/26] {name} launches by path: {by_path}; "
               f"{record[name]['launches']} in all")
+    by_path = {"FE_B whole frame (7)": record["fused_frame_step"][
+        "launches"], **launches_26["fused_frame_step"]}
+    record["fused_frame_step"]["launches"] = sum(by_path.values())
+    print(f"[26/26] fused_frame_step launches by path: {by_path}; "
+          f"{record['fused_frame_step']['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[24/25] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/26] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     sources = {
@@ -2326,7 +2359,7 @@ def phase_22(ctx):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/25] train every family through the CLI, cuts: none of width "
+    print(f"[22/26] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
@@ -2466,7 +2499,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/25] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/26] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2531,7 +2564,7 @@ def phase_22(ctx):
         lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
                      f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
                      f"{tc:.1f} s)")
-    print(f"[22/25] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/26] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2607,7 +2640,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/25] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/26] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2621,7 +2654,7 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    print(f"[22/25] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/26] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
 
@@ -2667,7 +2700,7 @@ def phase_23(ctx, root):
     card, dev = ctx["card"], ctx["dev"]
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[23/25] the on-the-fly recipes through the CLI, cuts: none of "
+    print(f"[23/26] the on-the-fly recipes through the CLI, cuts: none of "
           f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
           f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
           f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
@@ -2736,13 +2769,13 @@ def phase_23(ctx, root):
         files_a_clip.append(len(out[1]))
         return out
 
-    def spy_device_batch(self, batch, keys):
+    def spy_device_batch(self, batch, keys, **kwargs):
         if "noise" in batch and current[0] not in raw_batches:
             raw_batches[current[0]] = (
                 {k: np.array(batch[k]) for k in ("clean", "noise", "rir")
                  if k in batch},
                 (self.snr_mixer, self.dynamic_lpf, self.hop_size))
-        return device_batch(self, batch, keys)
+        return device_batch(self, batch, keys, **kwargs)
 
     def timed_step(self, dev_batch, rows):
         torch.cuda.synchronize()
@@ -2846,7 +2879,7 @@ def phase_23(ctx, root):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[23/25] CLI {config} ({hps.model}, "
+            print(f"[23/26] CLI {config} ({hps.model}, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
@@ -2919,7 +2952,7 @@ def phase_23(ctx, root):
                      f"{errs[2]:.2e}"
                      + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
                         else ""))
-    print(f"[23/25] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+    print(f"[23/26] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
           f"the CPU in float32 on each run's first train batch and one set "
           f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
           f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
@@ -2942,7 +2975,7 @@ def phase_23(ctx, root):
         if "noncausal" in path:
             shapes.append((t, n, h, False, True, False, what + " backward"))
     ctx["check_and_time"](shapes, phase=23)
-    print(f"[23/25] phase wall {time.perf_counter() - t_phase:.1f} s "
+    print(f"[23/26] phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(corpus written in {corpus_s:.2f} s)")
     return runs, total_scans
 
@@ -3036,7 +3069,7 @@ def phase_24(ctx, runs):
         rel = worst_rel(y_card, y_cpu)
         _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
                "peak")
-        print(f"[24/25] enhance {dns} on {OTF_EVAL} files: the card's float32"
+        print(f"[24/26] enhance {dns} on {OTF_EVAL} files: the card's float32"
               f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
               f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
               f"launches ({batches} batches of 8, scalar form), "
@@ -3123,7 +3156,7 @@ def phase_24(ctx, runs):
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
-            print(f"[24/25] serve {config} (capacity {SERVE_CAPACITY}, a "
+            print(f"[24/26] serve {config} (capacity {SERVE_CAPACITY}, a "
                   f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
                   f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
                   f"ticks ({form} form), each held to the plain version (max "
@@ -3155,7 +3188,7 @@ def phase_24(ctx, runs):
                and all(np.isfinite(v) for v in got.values())
                and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
                f"metrics_ns card {got} vs CPU {want}")
-        print(f"[24/25] metrics_ns {dns} on {OTF_EVAL} files: "
+        print(f"[24/26] metrics_ns {dns} on {OTF_EVAL} files: "
               + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
                           for k, v in got.items())
               + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
@@ -3199,7 +3232,7 @@ def phase_24(ctx, runs):
                          ctx["nbytes"](x, h, xo, ho, *tensors),
                          torch.bfloat16),
             plain_graph=kernel is band.bsrnn_stack_step)
-        print(f"[24/25] time {kernel.__name__} {tag} {shape} bf16 (the "
+        print(f"[24/26] time {kernel.__name__} {tag} {shape} bf16 (the "
               f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
               f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
               f"bound {1e3 * rec['bound_ms']:.3f} us, "
@@ -3207,7 +3240,7 @@ def phase_24(ctx, runs):
               f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
               f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
               f"{rec['max_abs_err']:.3e}; on {card}")
-    print(f"[24/25] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[24/26] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -3466,7 +3499,7 @@ def phase_25(ctx, runs, root):
         "native shard members != the Python walker's")
     for r in history:
         tm = r["timing"]
-        print(f"[25/25] summaries CLI epoch {r['epoch']} (FE-T, shard "
+        print(f"[25/26] summaries CLI epoch {r['epoch']} (FE-T, shard "
               f"recipe, {SUM_STEPS} steps, bf16): wall {r['seconds']:.2f} "
               f"s; summarize {tm['summarize']:.3f} s ("
               f"{100 * tm['summarize'] / r['seconds']:.1f}% of the epoch; "
@@ -3477,7 +3510,7 @@ def phase_25(ctx, runs, root):
               f"{100 * tm['infer'] / r['seconds']:.1f}%; {SUM_FILES} "
               f"files); infer/sisdr {r['infer']['infer/sisdr']:.3f} dB; "
               f"on {card}")
-    print(f"[25/25] summaries CLI: step ms "
+    print(f"[25/26] summaries CLI: step ms "
           f"{', '.join(f'{ms:.1f}' for _, ms in step_ms)}; inside the "
           f"profiler window ({SUM_PROFILE}: {len(window)} step) "
           f"{', '.join(f'{ms:.1f}' for ms in window)}, outside median "
@@ -3494,7 +3527,7 @@ def phase_25(ctx, runs, root):
           f"00002.ckpt max abs err {infer_err:.3e} of the peak (tol "
           f"{INFER_REL:g}), the logged PCM16 within {pcm_err:g} step of the "
           f"card's; on {card}")
-    print(f"[25/25] native decoder: {walks} tars walked natively in the "
+    print(f"[25/26] native decoder: {walks} tars walked natively in the "
           f"run; {len(nat)} members of {len(tars)} speech tars ({mb:.1f} "
           f"MB) equal to the Python walker's bit for bit; decode MB/s in "
           f"turns (native, Python, Python, native; warm page cache): native "
@@ -3531,7 +3564,7 @@ def phase_25(ctx, runs, root):
     sisdr48, logged48 = showcase_tags(events(runs[config], "valid")[2], 2, 1)
     infer_err48, pcm_err48 = card_vs_cpu(runs[config], 2, logged48)
     tm = r48["timing"]
-    print(f"[25/25] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
+    print(f"[25/26] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
           f"wall {r48['seconds']:.2f} s; summarize {tm['summarize']:.3f} s "
           f"({100 * tm['summarize'] / r48['seconds']:.1f}%), infer_epoch "
           f"{tm['infer']:.3f} s ({100 * tm['infer'] / r48['seconds']:.1f}%;"
@@ -3542,9 +3575,562 @@ def phase_25(ctx, runs, root):
           f"{sisdr48:.3f} dB; showcase card vs CPU max abs err "
           f"{infer_err48:.3e} of the peak, the logged PCM16 within "
           f"{pcm_err48:g} step; on {card}")
-    print(f"[25/25] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[25/26] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"gru_scan": counts["gru_scan"] + counts48["gru_scan"],
             "segmental_rms_fused": counts["segmental_rms_fused"]}
+
+
+
+# phase 26: several devices. (a) the engine's slots split over the one card
+# listed twice, against the engine on it at the same capacity: the stack
+# kernel (#1) and the whole-frame kernel (#7), every output held to
+# BF16_REL of the peak (phase 4's bound for the engine against an isolated
+# run) and reported bitwise or not; (b) the training CLI with the multi-host
+# flags at world size 1 over NCCL against the same run without them; (c) two
+# gloo ranks on the card at DP_BATCH // 2 against one process at DP_BATCH
+SHARD_DEVICES = 2
+SHARD_REQUESTS = 320                 # the first 256 fill every slot
+SHARD_SECONDS = (0.5, 2.0)
+DP_CONFIG = "fastenhancer/b.yaml"
+DP_BATCH, DP_EPOCHS = 64, 2          # the recipe's batch; 2 steps an epoch
+DP_TRAIN_PAIRS, DP_EVAL_PAIRS = 128, 8
+DP_SECONDS = (2.0, 2.5)
+DP_WORLD = 2
+# the final checkpoint of two ranks against one process: every param and
+# BN statistic within DP_ATOL + DP_RTOL x its value (tests/test_multihost.py
+# holds JAX's two processes so) plus DP_SPREAD_K x the leaf's largest
+# difference between the two one-process runs of (b) (the card's run-to-run
+# spread), a param also within twice the sum of the steps' learning rates
+# (an element whose gradient is float noise may step either way: AdamP
+# moves it by up to the learning rate); the epochs' losses within
+# DP_LOSS_RTOL. The recipe's 500-step warmup keeps the learning rate small
+DP_RTOL, DP_ATOL, DP_SPREAD_K, DP_LOSS_RTOL = 5e-4, 1e-6, 4.0, 1e-3
+DP_TIMEOUT = 600
+
+
+class WholeFrame:
+    """A model's fused serving hooks on its whole-frame kernel (#7): the
+    engine builds `build_frame_plan` where it builds the stack's plan and
+    steps `streaming_step_fused_frame`; the carry is the same."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def build_stack_plan(self, variables, dtype=None):
+        return self.model.build_frame_plan(variables, dtype=dtype)
+
+    def streaming_step_fused(self, variables, plan, carry, hops):
+        return self.model.streaming_step_fused_frame(variables, plan, carry,
+                                                     hops)
+
+
+def phase_26_rank(rank, world, coordinator, device, argv, out_path):
+    """One rank of phase 26 (c), in a process of its own: joins the gloo
+    group, trains through the CLI's `main` (stdout to out_path + ".log")
+    and writes out_path (JSON): the history, each step's wall and its
+    all-reduce wall (host clock, the card synchronised around each), the
+    kernels' launches, and whether gloo reduced CUDA tensors itself."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fastenhancer_tpu_torch import parallel
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.train.__main__ import main as train_main
+    from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    parallel.init(coordinator, world, rank, backend="gloo", device=device)
+    real_all_reduce = dist.all_reduce
+    staged = False
+    try:
+        real_all_reduce(torch.ones(1, device=device))
+    except RuntimeError:
+        # gloo does not take this device's tensors: the phase (not the
+        # port) stages them through the host
+        staged = True
+    reduce_s = [0.0]
+
+    def all_reduce(t, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        if staged and t.is_cuda:
+            host = t.cpu()
+            out = real_all_reduce(host, *args, **kwargs)
+            t.copy_(host)
+        else:
+            out = real_all_reduce(t, *args, **kwargs)
+        sync()
+        reduce_s[0] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = all_reduce
+    steps = []
+    step_and_account = ns_wrapper.ModelWrapper._step_and_account
+
+    def timed_step(self, dev_batch, rows):
+        sync()
+        t0, r0 = time.perf_counter(), reduce_s[0]
+        out = step_and_account(self, dev_batch, rows)
+        sync()
+        steps.append((1e3 * (time.perf_counter() - t0),
+                      1e3 * (reduce_s[0] - r0)))
+        return out
+
+    ns_wrapper.ModelWrapper._step_and_account = timed_step
+    scan.gru_scan.launches = scan.gru_scan.tc_launches = 0
+    stdout = sys.stdout
+    try:
+        with open(out_path + ".log", "w") as f:
+            sys.stdout = f
+            history = train_main(argv)
+    finally:
+        sys.stdout = stdout
+        parallel.destroy()
+    with open(out_path, "w") as f:
+        json.dump({"history": [{k: r[k] for k in ("epoch", "train", "valid")}
+                               for r in history],
+                   "steps": steps, "staged": staged,
+                   "gru_scan": scan.gru_scan.launches,
+                   "gru_scan_tc": scan.gru_scan.tc_launches}, f)
+
+
+def phase_26(ctx):
+    """Phase 26 (see the module docstring); -> {kernel: launches by
+    path}."""
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch import parallel
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+    from fastenhancer_tpu_torch.models import get_model
+    from fastenhancer_tpu_torch.models.fastenhancer import (default as
+                                                            fe_default)
+    from fastenhancer_tpu_torch.ops import fused_frame as frame
+    from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
+    from fastenhancer_tpu_torch.presets import FE_B
+    from fastenhancer_tpu_torch.serving import StreamingEngine
+    from fastenhancer_tpu_torch.train import load_checkpoint
+    from fastenhancer_tpu_torch.utils import cast_floating, tree_paths
+    from fastenhancer_tpu_torch.utils.hparams import get_hparams
+    from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
+
+    card, dev = ctx["card"], ctx["dev"]
+    zero_counts, read_counts = ctx["zero_counts"], ctx["read_counts"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    launches = {"rnnformer_stack_step": {}, "fused_frame_step": {},
+                "gru_scan": {}}
+
+    # -- (a) the engine's slots over [card, card] --------------------------------
+    model = get_model("fastenhancer.default", **FE_B, stft_method="matmul")
+    hop = model.hop_size
+    folded = cast_floating(model.fold(model.init(
+        torch.Generator().manual_seed(0), device=dev)), torch.bfloat16)
+    rng = np.random.default_rng(26)
+    wavs = [rng.uniform(-0.1, 0.1, int(rng.uniform(*SHARD_SECONDS) * SR)
+                        ).astype(np.float32) for _ in range(SHARD_REQUESTS)]
+
+    def serve(engine):
+        """Every request through the engine, a request opening as soon as
+        a slot is free, a stream closing once its delay is drained; ->
+        ({request: output}, tick walls ms, ticks, slots that served two
+        requests or more, counts)."""
+        delay_ticks = -(-engine.delay_samples // hop)
+        outs, handles, pos, slot_of = {}, {}, {}, {}
+        waiting = list(range(len(wavs)))
+        tick_ms, ticks = [], 0
+        torch.cuda.synchronize()
+        zero_counts()
+        while waiting or handles:
+            while waiting and len(handles) < engine.capacity:
+                k = waiting.pop(0)
+                handles[k] = engine.open_stream()
+                slot_of[k] = engine._slot_of[handles[k]]
+                pos[k], outs[k] = 0, []
+            feed = {}
+            for k, h in handles.items():
+                seg = np.zeros(hop, np.float32)
+                w = wavs[k][pos[k] * hop:(pos[k] + 1) * hop]
+                seg[:len(w)] = w
+                feed[h] = seg
+            t0 = time.perf_counter()
+            got = engine.tick(feed)
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+            ticks += 1
+            for k in list(handles):
+                outs[k].append(got[handles[k]])
+                pos[k] += 1
+                if pos[k] == -(-len(wavs[k]) // hop) + delay_ticks:
+                    engine.close_stream(handles.pop(k))
+        counts = read_counts()
+        reused = len(slot_of) - len(set(slot_of.values()))
+        shards = {s // (engine.capacity // len(engine.devices))
+                  for k, s in slot_of.items() if k >= engine.capacity}
+        out = {k: np.concatenate(v)[engine.delay_samples:
+                                    engine.delay_samples + len(wavs[k])]
+               for k, v in outs.items()}
+        return out, tick_ms, ticks, (reused, shards), counts
+
+    def spy(real, keep):
+        """`real`, keeping the inputs and outputs of its first `keep`
+        launches in `kept`."""
+        def launch(plan, x, h, *args, **kwargs):
+            out = real(plan, x, h, *args, **kwargs)
+            if len(kept) < keep:
+                kept.append((x.clone(), h.clone(), args, kwargs,
+                             [o.clone() for o in out]))
+            return out
+        return launch
+
+    kept = []
+    for name, kernel, served, reference in (
+            ("the block stack (#1)", "rnnformer_stack_step", model,
+             lambda plan, x, h, heads: stack.rnnformer_stack_reference(
+                 plan, x, h, heads)),
+            ("the whole frame (#7)", "fused_frame_step", WholeFrame(model),
+             lambda plan, x, h, num_blocks, **kw:
+                 frame.fused_frame_reference(plan, x, h, **kw))):
+        runs = {}
+        for tag, where in (("sharded", {"devices": [dev] * SHARD_DEVICES}),
+                           ("one device", {"device": dev})):
+            engine = StreamingEngine(served, folded, capacity=STREAMS,
+                                     dtype=torch.bfloat16, fused=True,
+                                     **where)
+            real = getattr(fe_default, kernel)
+            kept.clear()
+            setattr(fe_default, kernel, spy(real, 2 * len(engine.devices)))
+            try:
+                runs[tag] = serve(engine)
+            finally:
+                setattr(fe_default, kernel, real)
+            # the first two ticks' launches, one a shard a tick, against
+            # the plain version on the same inputs, at the shard's batch
+            worst = 0.0
+            plans = [shard.step.args[1] for shard in engine._shards]
+            for i, (x, h, args, kwargs, outs) in enumerate(kept):
+                plan = plans[i % len(plans)]
+                errs = ctx["compare"](f"{kernel} in the {tag} engine",
+                                      zip(outs, reference(plan, x, h, *args,
+                                                          **kwargs)),
+                                      torch.bfloat16)
+                worst = max(worst, *(e for e, _ in errs))
+            _check(len(kept) == 2 * len(engine.devices),
+                   f"{tag} engine: {len(kept)} launches kept")
+            print(f"[26/26] (a) {kernel} in the {tag} engine: its first "
+                  f"{len(kept)} launches (batch {kept[0][0].shape}) against "
+                  f"the plain version, max abs err {worst:.3e} (bound "
+                  f"{BF16_REL:g} of each output's peak)")
+            out, tick_ms, ticks, (reused, shards), counts = runs[tag]
+            n = SHARD_DEVICES if tag == "sharded" else 1
+            ctx["check_launches"](counts, kernel, n * ticks,
+                                  f"{tag} engine, {name}")
+            launches[kernel][f"{tag} engine (26a)"] = counts[kernel]
+            _check(reused > 0 and shards == set(range(n)),
+                   f"{tag} engine: the later requests reused slots "
+                   f"{reused} on shards {shards}")
+            _check(all(np.isfinite(y).all() and len(y) == len(wavs[k])
+                       for k, y in out.items()), f"{tag} engine: outputs")
+        (a, ms_a, ticks_a, _, _), (b, ms_b, ticks_b, _, _) = (
+            runs["sharded"], runs["one device"])
+        _check(ticks_a == ticks_b, f"ticks {ticks_a} != {ticks_b}")
+        peak = max(float(np.abs(y).max()) for y in b.values())
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+        bitwise = all(np.array_equal(a[k], b[k]) for k in b)
+        _check(err <= BF16_REL * peak,
+               f"sharded vs one device ({name}): {err} > {BF16_REL * peak}")
+        print(f"[26/26] (a) FE_B bf16 fused engine, {name}, capacity "
+              f"{STREAMS} over {SHARD_DEVICES} shards of "
+              f"{STREAMS // SHARD_DEVICES} (the card listed twice) against "
+              f"capacity {STREAMS} on one device: {SHARD_REQUESTS} requests "
+              f"of {SHARD_SECONDS[0]:g}-{SHARD_SECONDS[1]:g} s in {ticks_a} "
+              f"ticks, joins and leaves on both shards; {kernel} "
+              f"{SHARD_DEVICES} launches a tick sharded, 1 on one device; "
+              f"outputs {'bitwise equal' if bitwise else 'not bitwise equal'}"
+              f", max abs err {err:.3e} (bound {BF16_REL:g} of the peak "
+              f"{peak:.3e}); tick ms p50 / p99 sharded "
+              f"{np.percentile(ms_a, 50):.3f} / {np.percentile(ms_a, 99):.3f}"
+              f", one device {np.percentile(ms_b, 50):.3f} / "
+              f"{np.percentile(ms_b, 99):.3f} (host clock, outputs read back "
+              f"each tick); on {card}")
+    del folded
+    torch.cuda.empty_cache()
+
+    # -- (b), (c): data-parallel training through the CLI ------------------------
+    config = os.path.join(repo, "configs", DP_CONFIG)
+    hps = get_hparams(config)
+    optim_kw = dict(hps.train.optimizer_kwargs.to_dict(),
+                    projection="disabled", eps=1e-4)
+    blocks = hps.model_kwargs.rnnformer_kwargs.num_blocks
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    step_ms, step_lr = [], []
+    step_and_account = ns_wrapper.ModelWrapper._step_and_account
+
+    def timed_step(self, dev_batch, rows):
+        step_lr.append(max(self._lrs()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_and_account(self, dev_batch, rows)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    backends = []
+    init = parallel.init
+
+    def recorded_init(*args, **kwargs):
+        device = init(*args, **kwargs)
+        backends.append(torch.distributed.get_backend())
+        return device
+
+    try:
+        rng = np.random.default_rng(27)
+        dirs = {}
+        for part, n in (("train", DP_TRAIN_PAIRS), ("eval", DP_EVAL_PAIRS)):
+            dirs[part] = [os.path.join(root, part, k)
+                          for k in ("clean", "noisy")]
+            for d in dirs[part]:
+                os.makedirs(d)
+            for i in range(n):
+                t = int(rng.uniform(*DP_SECONDS) * SR)
+                clean = ctx["speech_like"](rng, 1, t)[0]
+                noisy = clean + rng.standard_normal(t) * 0.05
+                for d, x in zip(dirs[part], (clean, noisy)):
+                    write_wav(os.path.join(d, f"{i:04d}.wav"), x, SR)
+        logs = os.path.join(root, "logs")
+
+        def argv(name, batch):
+            """The recipe at its width, float32, segment_size None (the
+            length-sorted files: a random crop would draw from each
+            process's own RNG), the de-chaos settings of
+            tests/test_multihost.py, no PESQ and no showcase."""
+            (tc, tn), (ec, en) = dirs["train"], dirs["eval"]
+            return ["-n", name, "-c", config, "--base_dir", logs, "-p",
+                    f"data.train.clean_dir={tc!r}",
+                    f"data.train.noisy_dir={tn!r}",
+                    f"data.valid.clean_dir={ec!r}",
+                    f"data.valid.noisy_dir={en!r}",
+                    f"data.pesq.clean_dir={ec!r}",
+                    f"data.pesq.noisy_dir={en!r}",
+                    "data.train.segment_size=None",
+                    "data.valid.segment_size=None",
+                    f"train.batch_size={batch}", f"valid.batch_size={batch}",
+                    f"train.max_epochs={DP_EPOCHS}",
+                    f"train.save_interval={DP_EPOCHS}", "train.fp16=False",
+                    "train.seed=11", "train.num_workers=2",
+                    f"train.optimizer_kwargs={optim_kw!r}",
+                    "train.optimizer_groups=None",
+                    "pesq.interval=99", "infer.interval=99"]
+
+        valid_batches = -(-DP_EVAL_PAIRS // DP_BATCH)
+        ns_wrapper.ModelWrapper._step_and_account = timed_step
+        parallel.init = recorded_init
+        results = {}
+        try:
+            for tag, extra in (
+                    ("one process", []),
+                    ("NCCL world 1", ["--coordinator",
+                                      f"127.0.0.1:{free_port()}",
+                                      "--num_processes", "1",
+                                      "--process_id", "0"])):
+                step_ms.clear()
+                step_lr.clear()
+                name = tag.split()[0].lower()
+                history, counts, _ = ctx["run_cli"](
+                    argv(name, DP_BATCH) + extra)
+                want = {k: 0 for k in counts}
+                want["gru_scan"] = blocks * valid_batches * DP_EPOCHS
+                _check(counts == want, f"{tag}: launches {counts} != {want}")
+                launches["gru_scan"][f"{tag} CLI valid (26b)"] = counts[
+                    "gru_scan"]
+                results[tag] = (history, list(step_ms), load_checkpoint(
+                    os.path.join(logs, name, f"{DP_EPOCHS:05d}.ckpt")))
+        finally:
+            ns_wrapper.ModelWrapper._step_and_account = step_and_account
+            parallel.init = init
+        _check(backends == ["nccl"], f"the CLI's group: {backends}")
+        _check(not torch.distributed.is_initialized(),
+               "the CLI left its process group")
+
+        def leaves(ckpt):
+            v = ckpt["variables"]
+            return {(part,) + p: np.asarray(a) for part in ("params", "stats")
+                    for p, a in tree_paths(v[part])}
+
+        one, nccl = (leaves(results[t][2]) for t in ("one process",
+                                                     "NCCL world 1"))
+        _check(one.keys() == nccl.keys(), "checkpoint paths")
+        spread = {p: float(np.abs(nccl[p] - one[p]).max()) for p in one}
+        _check(all(np.allclose(nccl[p], one[p], rtol=DP_RTOL, atol=DP_ATOL)
+                   for p in one), f"NCCL world 1 vs one process: largest "
+                                  f"difference {max(spread.values())}")
+        for tag in results:
+            history, ms, _ = results[tag]
+            print(f"[26/26] (b) {tag}: the training CLI on {DP_CONFIG} "
+                  f"(FE-B's width) float32, {DP_EPOCHS} epochs of "
+                  f"{DP_TRAIN_PAIRS // DP_BATCH} steps at {DP_BATCH} x "
+                  f"{DP_SECONDS[0]:g}-{DP_SECONDS[1]:g} s: step ms "
+                  f"{', '.join(f'{x:.1f}' for x in ms)}; train losses by "
+                  f"epoch {[round(r['train']['loss/mag_mse'], 6) for r in history]}"
+                  f" (mag_mse); gru_scan {blocks * valid_batches * DP_EPOCHS}"
+                  f" launches in the valid forwards; on {card}")
+        bitwise = all(np.array_equal(nccl[p], one[p]) for p in one)
+        print(f"[26/26] (b) the group's backend {backends[0]}; checkpoint "
+              f"{DP_EPOCHS:05d}.ckpt with the flags against without: "
+              f"{'bitwise equal' if bitwise else 'not bitwise equal'}, "
+              f"largest difference {max(spread.values()):.3e} over "
+              f"{len(one)} leaves")
+
+        # (c) two ranks on the one card: NCCL refuses them (each rank's
+        # init raises, nothing falls back to one rank), so they run over
+        # gloo, at DP_BATCH // 2 each
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        refused = "not tried: no card"
+        if dev.type == "cuda":
+            nccl_paths = [os.path.join(root, f"nccl{r}.txt")
+                          for r in range(DP_WORLD)]
+            spawned(_phase_26_nccl_pair, DP_WORLD, str(dev), nccl_paths)
+            said = []
+            for path in nccl_paths:
+                with open(path) as f:
+                    said.append(f.read())
+            _check(all(m.startswith("raised") for m in said),
+                   f"two NCCL ranks on one card: {said}")
+            refused = said[0]
+        out_paths = [os.path.join(root, f"rank{r}.json")
+                     for r in range(DP_WORLD)]
+        rank_argv = argv("ranks", DP_BATCH // DP_WORLD)
+        if dev.type != "cuda":
+            rank_argv += ["--device", str(dev)]
+        t0 = time.perf_counter()
+        spawned(_phase_26_spawned, DP_WORLD, str(dev), rank_argv, out_paths)
+        ranks_s = time.perf_counter() - t0
+        rank_out = []
+        for path in out_paths:
+            with open(path) as f:
+                rank_out.append(json.load(f))
+        with open(out_paths[1] + ".log") as f:
+            _check("Epoch" not in f.read(), "rank 1 printed an epoch")
+        ranks = leaves(load_checkpoint(
+            os.path.join(logs, "ranks", f"{DP_EPOCHS:05d}.ckpt")))
+        _check(ranks.keys() == one.keys(), "checkpoint paths (c)")
+        lr_sum = sum(step_lr)
+        worst, flipped, n_el = 0.0, 0, 0
+        for p in one:
+            diff = np.abs(ranks[p] - one[p])
+            tight = DP_ATOL + DP_RTOL * np.abs(one[p]) + DP_SPREAD_K * spread[p]
+            excess = diff - tight - (2 * lr_sum if p[0] == "params" else 0.0)
+            worst = max(worst, float(excess.max()))
+            flipped += int((diff > tight).sum())
+            n_el += diff.size
+            _check(excess.max() <= 0, f"(c) {p}: two ranks vs one process "
+                                      f"by {excess.max()} over the bound")
+        largest = max(float(np.abs(ranks[p] - one[p]).max()) for p in one)
+        for r_hist, o_hist in zip(rank_out[0]["history"],
+                                  results["one process"][0]):
+            for part in ("train", "valid"):
+                for k, v in o_hist[part].items():
+                    _check(abs(r_hist[part][k] - v) <= DP_LOSS_RTOL * abs(v),
+                           f"(c) epoch {o_hist['epoch']} {part} {k}: "
+                           f"{r_hist[part][k]} vs {v}")
+        per_rank = -(-(-(-DP_EVAL_PAIRS // (DP_BATCH // DP_WORLD)))
+                     // DP_WORLD)
+        for r, out in enumerate(rank_out):
+            _check(out["gru_scan"] == blocks * per_rank * DP_EPOCHS
+                   and out["gru_scan_tc"] == 0,
+                   f"rank {r}: gru_scan launches {out['gru_scan']}")
+            launches["gru_scan"][f"rank {r} CLI valid (26c)"] = out[
+                "gru_scan"]
+            ms = [s for s, _ in out["steps"]]
+            share = [a / s for s, a in out["steps"]]
+            print(f"[26/26] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
+                  f" {'staged through the host by the phase' if out['staged'] else 'CUDA tensors reduced by gloo'}"
+                  f"), batch {DP_BATCH // DP_WORLD}: step ms "
+                  f"{', '.join(f'{x:.1f}' for x in ms)}; all-reduce share of"
+                  f" the step {', '.join(f'{100 * x:.1f}%' for x in share)} "
+                  f"(every all-reduce: the gradient bucket, each train-mode "
+                  f"BN's sums forward and backward, the loss counts and "
+                  f"values; host clock, the card synchronised around each); "
+                  f"gru_scan {out['gru_scan']} launches; on {card}")
+        print(f"[26/26] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
+              f" against one process x {DP_BATCH}: {len(one)} params and BN "
+              f"statistics of {DP_EPOCHS:05d}.ckpt, largest difference "
+              f"{largest:.3e}, every one within {DP_ATOL:g} + {DP_RTOL:g} x "
+              f"|value| + {DP_SPREAD_K:g} x (b)'s spread, a param also within"
+              f" 2 x the steps' summed learning rate {lr_sum:.3e} (worst "
+              f"margin {worst:.3e}; {flipped} of {n_el} elements beyond the "
+              f"first three terms); losses of every epoch within "
+              f"{DP_LOSS_RTOL:g};"
+              f" rank 1 printed no epoch; the ranks' wall {ranks_s:.1f} s "
+              f"(spawn and CUDA start included); two NCCL ranks on the one "
+              f"card first: each init raised ({refused})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[26/26] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _phase_26_spawned(rank, world, coordinator, device, argv, out_paths):
+    phase_26_rank(rank, world, coordinator, device, argv, out_paths[rank])
+
+
+def _phase_26_nccl_pair(rank, world, coordinator, device, out_paths):
+    """Rank `rank` of two NCCL ranks on one card: writes "joined", or
+    "raised" and the error's last line, to out_paths[rank]."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fastenhancer_tpu_torch import parallel
+
+    try:
+        parallel.init(coordinator, world, rank, device=device)
+        said = "joined"
+        parallel.destroy()
+    except Exception as e:  # the outcome under test: recorded, not raised
+        said = f"raised {type(e).__name__}: {str(e).strip().splitlines()[-1]}"
+    with open(out_paths[rank], "w") as f:
+        f.write(said)
+
+
+def spawned(fn, world, *args):
+    """fn(rank, world, coordinator, *args) in `world` spawned processes,
+    each rank its own; fails if a rank raises or they are not all done
+    within DP_TIMEOUT seconds (then every rank is killed)."""
+    import torch.multiprocessing as mp
+
+    procs = mp.start_processes(
+        fn, args=(world, f"127.0.0.1:{free_port()}") + args, nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while not procs.join(timeout=max(deadline - time.monotonic(), 1.0)):
+            _check(time.monotonic() < deadline, f"{fn.__name__}: the "
+                   f"ranks were not done in {DP_TIMEOUT} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def free_port():
+    """A TCP port that is free on this host now: the one a store on port 0
+    was given, closed again."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False)
+    port = store.port
+    del store
+    return port
 
 
 if __name__ == "__main__":

@@ -2,14 +2,17 @@
 threaded loader, the shard reader) and the device-side mixers.
 
 `get_dataset_dataloader` is the counterpart of
-fastenhancer_tpu/data/__init__.py's for one process: a mode-keyed dataset
-with per-mode batch-size and worker overrides; `data.dataset` may be one
-name or a {mode: name} map.
+fastenhancer_tpu/data/__init__.py's: a mode-keyed dataset with per-mode
+batch-size and worker overrides; `data.dataset` may be one name or a
+{mode: name} map. Under several ranks (`parallel`) each rank loads its
+own stride of the batches and the shard reader seeds by rank; the
+showcase (`infer`) loader serves every file on one rank.
 """
 from __future__ import annotations
 
 import typing as tp
 
+from .. import parallel
 from .audio_io import read_wav, resample, wav_duration, write_wav
 from .loader import DataLoader, collate
 from .noise_suppression import NSDataset
@@ -34,7 +37,13 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
     showcase `infer` mode reads `data.infer.files` (every file: one
     process), `infer.batch_size` (1) and `infer.num_workers` (0), and pads
     a batch to a multiple of 16 hops, as pesq mode does; "wav_len" keeps
-    each file's length."""
+    each file's length. Under W ranks a paired-wav or on-the-fly loader
+    serves this rank's stride of batches of `batch_size`, and the dataset
+    shuffles length-sorted blocks of W * batch_size items, so W ranks at B
+    see the items of one process at W * B."""
+    world, rank = parallel.world(), parallel.rank()
+    if mode == "infer":
+        world, rank = 1, 0
     dataset_name = hps["data"]["dataset"]
     if not isinstance(dataset_name, str):
         dataset_name = dataset_name[mode]
@@ -47,7 +56,8 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
         from .shard import build_shard_dataloader
 
         return build_shard_dataloader(hps, mode=mode, keys=keys,
-                                      segment=(dataset_name == "ShardSegment"))
+                                      segment=(dataset_name == "ShardSegment"),
+                                      rank=rank)
     else:
         raise ValueError(f"unknown dataset: {dataset_name}")
 
@@ -76,10 +86,12 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
     elif mode != "train":
         raise ValueError(f"unknown dataset mode: {mode}")
 
-    dataset = cls(hps["data"], keys, mode=mode, batch_size=batch_size)
+    dataset = cls(hps["data"], keys, mode=mode,
+                  batch_size=batch_size * world)
     loader = DataLoader(dataset, batch_size=batch_size,
                         num_workers=max(num_workers, 1),
-                        drop_last=drop_last, pad_multiple=pad_multiple)
+                        drop_last=drop_last, pad_multiple=pad_multiple,
+                        process_stride=(rank, world))
     return dataset, loader
 
 

@@ -6,8 +6,9 @@ GIL in numpy) and whole batches are prefetched ahead of the train step; an
 error in a worker is raised to the caller at the batch it would have made.
 Variable-length batches may be padded up to a `pad_multiple`, so that
 evaluation over length-sorted batches meets a bounded set of shapes.
-One process serves every batch (the reference's `process_stride` is left
-out with several cards).
+Under several ranks each rank serves its stride of the batches,
+`process_stride=(rank, world)`, wrap-padded so that every rank serves as
+many batches as the others (DistributedSampler's padding).
 """
 from __future__ import annotations
 
@@ -48,7 +49,9 @@ def collate(items: tp.Sequence[tp.Dict[str, tp.Any]],
 class DataLoader:
     """Iterable over collated batches with background prefetch.
 
-    A short tail batch is kept, or dropped with drop_last.
+    A short tail batch is kept, or dropped with drop_last. With
+    process_stride=(rank, world) this rank serves batches[rank::world] of
+    the list wrap-padded to a multiple of world.
     """
 
     def __init__(
@@ -59,6 +62,7 @@ class DataLoader:
         drop_last: bool = False,
         pad_multiple: int = 1,
         prefetch: int = 2,
+        process_stride: tp.Tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -66,12 +70,16 @@ class DataLoader:
         self.drop_last = drop_last
         self.pad_multiple = pad_multiple
         self.prefetch = prefetch
+        self.process_stride = process_stride
 
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            total = n // self.batch_size
+        else:
+            total = (n + self.batch_size - 1) // self.batch_size
+        w = self.process_stride[1]
+        return -(-total // w)
 
     def _index_batches(self) -> tp.List[tp.List[int]]:
         n = len(self.dataset)
@@ -80,6 +88,13 @@ class DataLoader:
                    for i in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        r, w = self.process_stride
+        if w > 1:
+            # every rank serves as many batches: unequal counts would
+            # leave a rank waiting in a step's collectives
+            if len(batches) % w:
+                batches = batches + batches[: w - len(batches) % w]
+            return batches[r::w]
         return batches
 
     def __iter__(self) -> tp.Iterator[Batch]:

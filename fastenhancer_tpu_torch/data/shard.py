@@ -27,8 +27,8 @@ the `ShardBatch` of data/shard_mixer.py, which mixes them on the device.
 
 Threading replaces the reference's worker processes: one background thread
 prefetches assembled batches (decode is numpy/IO-bound and releases the GIL).
-Seed contract kept for one process, rank 0 of the reference's
-epoch_seed + iteration + worker + 1000*rank.
+Seed contract kept: seed = epoch_seed + iteration + worker + 1000*rank
+(each rank of several reads its own draws).
 """
 from __future__ import annotations
 
@@ -349,10 +349,11 @@ class ShardDataset:
     (the wrapper bounds epochs by steps_per_epoch instead)."""
 
     def __init__(self, hp, keys=None, mode: str = "train",
-                 segment: bool = False):
+                 segment: bool = False, rank: int = 0):
         del keys
         assert mode == "train"
         sec = hp["train"]
+        self.rank = rank
         self.sr: int = hp.sampling_rate
         self.segment = segment
         self.speech = WeightedMux([
@@ -781,14 +782,13 @@ class ShardDataset:
                 yield self._assemble(cuts, rng)
 
     def __iter__(self) -> tp.Iterator[ShardBatch]:
-        # reference seed contract: epoch_seed + worker (+ 1000*rank, 0 on
-        # one process); each worker thread serves a disjoint shard stride,
-        # like the reference's multi-worker DataLoader
-        # (shard_on_the_fly.py:783-787)
+        # reference seed contract: epoch_seed + worker + 1000*rank; each
+        # worker thread serves a disjoint shard stride, like the
+        # reference's multi-worker DataLoader (shard_on_the_fly.py:783-787)
         import copy
 
         nw = self.num_workers
-        base_seed = self._epoch_seed
+        base_seed = self._epoch_seed + 1000 * self.rank
         q: "queue.Queue" = queue.Queue(maxsize=2 * nw)
         stop = threading.Event()
 
@@ -829,6 +829,8 @@ class ShardDataset:
             stop.set()
 
 
-def build_shard_dataloader(hps, mode: str, keys, segment: bool = False):
-    dataset = ShardDataset(hps["data"], keys, mode=mode, segment=segment)
+def build_shard_dataloader(hps, mode: str, keys, segment: bool = False,
+                           rank: int = 0):
+    dataset = ShardDataset(hps["data"], keys, mode=mode, segment=segment,
+                           rank=rank)
     return dataset, dataset  # the dataset is its own (infinite-ish) loader

@@ -145,16 +145,22 @@ class DynamicMixer:
                  rir_onset: tp.Optional[Tensor] = None,
                  rir_t60: tp.Optional[Tensor] = None,
                  echo: tp.Optional[Tensor] = None,
-                 is_real: tp.Optional[Tensor] = None
+                 is_real: tp.Optional[Tensor] = None, *,
+                 share: tp.Tuple[int, int] = (0, 1)
                  ) -> tp.Dict[str, tp.Optional[Tensor]]:
         """Every signal [B, 1, T] ([B] for onset, t60, is_real). Draws
         dBFS, SNR and SER uniformly in their ranges from `generator` (a
-        CPU generator), then mixes. Returns {"speech" (the noisy input),
-        "speech_clean" (the target), "dbFS", "snr", "ser"}."""
+        CPU generator), then mixes. share=(rank, world): the draws are made
+        for the world's global batch of world * B rows, one generator state
+        on every rank, and this rank takes rows [rank * B, (rank + 1) * B).
+        Returns {"speech" (the noisy input), "speech_clean" (the target),
+        "dbFS", "snr", "ser"}."""
         b = speech.shape[0]
+        rank, world = share
 
         def draw(lo_hi: tp.Sequence[float]) -> Tensor:
-            u = torch.rand(b, generator=generator, dtype=torch.float32)
+            u = torch.rand(b * world, generator=generator,
+                           dtype=torch.float32)[rank * b:(rank + 1) * b]
             return (lo_hi[0] + u * (lo_hi[1] - lo_hi[0])).to(speech.device)
 
         dbfs, snr = draw(self.dbFS), draw(self.snr)

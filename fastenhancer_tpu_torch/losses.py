@@ -14,6 +14,7 @@ import typing as tp
 
 import torch
 
+from . import parallel
 from .functional import STFTConfig, compressed_stft
 from .pesq_loss import PESQLoss
 
@@ -132,10 +133,15 @@ class Losses:
         replaced by row 0 (always real: padding is appended), detached, so
         every item loss stays finite in value and gradient (atan2(0, 0) in
         the phase loss has a NaN derivative, and NaN * 0 would poison the
-        masked mean's backward); the mask then zeroes both."""
+        masked mean's backward); the mask then zeroes both. Under several
+        ranks each value is this rank's share of the global mean: its row
+        sum over the count of real rows of every rank, so the ranks'
+        values add up to the mean over the global batch."""
+        if row_mask is None and parallel.world() > 1:
+            row_mask = wav.new_ones(wav.shape[0])
         if row_mask is not None:
             w = row_mask.float()
-            denom = w.sum().clamp_min(1.0)
+            denom = parallel.all_reduce_sum(w.sum().detach()).clamp_min(1.0)
             real = w > 0
 
             def safe(x: Tensor) -> Tensor:

@@ -87,8 +87,11 @@ class Metrics:
     """In-training PESQ/STOI aggregator.
 
     With the `pesq` library PESQ runs on a process pool (it is
-    single-threaded C); the native PESQ and STOI run inline. One process:
-    nothing is reduced across ranks.
+    single-threaded C); the native PESQ and STOI run inline. Under several
+    ranks each rank submits its own rows and retrieves its own means, in
+    step with the others (every rank runs the same PESQ batches); the
+    training wrapper averages them over the ranks
+    (`wrappers/ns.py::_merge_across_hosts`).
     """
 
     def __init__(self, num_workers: int = 8, sr: int = 16_000,

@@ -16,6 +16,8 @@ import typing as tp
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
 
@@ -118,14 +120,29 @@ def batch_norm(params: tp.Optional[Params], stats: Params, x: Tensor, *,
     normalizes with the batch's statistics and returns the running ones
     moved by `momentum`; `weight`, broadcastable to x.shape[:-1] + (1,),
     includes (1) or excludes (0) each position from those statistics (the
-    row mask of zero-padded batch rows). Eval mode uses the running
-    statistics and returns `stats` unchanged. Statistics and normalization
-    run in float32; the output has x's dtype."""
+    row mask of zero-padded batch rows). Under several ranks
+    (`parallel.world() > 1`) train mode takes the statistics of every
+    rank's batch: the sums [sum w*x, sum w*x^2, sum w] are all-reduced,
+    differentiably, before the mean and variance are formed, so every rank
+    normalises alike and moves its running statistics alike. Eval mode
+    uses the running statistics and returns `stats` unchanged. Statistics
+    and normalization run in float32; the output has x's dtype."""
     in_dtype = x.dtype
     xf = x.float()
     if train:
         red = tuple(range(x.ndim - 1))
-        if weight is None:
+        c = x.shape[-1]
+        if parallel.world() > 1:
+            w = (xf.new_ones(()) if weight is None
+                 else weight.float()).expand(*x.shape[:-1], 1)
+            sums = parallel.all_reduce_sum(torch.cat([
+                (xf * w).sum(dim=red), (xf.square() * w).sum(dim=red),
+                w.sum().reshape(1)]))
+            n = sums[2 * c].clamp_min(1.0)
+            mean = sums[:c] / n
+            var = sums[c:2 * c] / n - mean.square()
+            unbiased = var * (n / (n - 1.0).clamp_min(1.0))
+        elif weight is None:
             mean = xf.mean(dim=red)
             var = xf.square().mean(dim=red) - mean.square()
             n = x.numel() // x.shape[-1]

@@ -1,9 +1,9 @@
 """Slot-based streaming serving engine: streams join and leave one batch.
 
-Counterpart of fastenhancer_tpu/serving.py, on one device. Many concurrent
-streams share one per-hop step over a fixed-capacity batch. Streams arrive
-and finish at different times, so the engine owns a slot pool over one
-carry and lets callers open and close streams between ticks.
+Counterpart of fastenhancer_tpu/serving.py. Many concurrent streams share
+one per-hop step over a fixed-capacity batch. Streams arrive and finish at
+different times, so the engine owns a slot pool over one carry and lets
+callers open and close streams between ticks.
 
 * **Fixed capacity.** The batch axis is `capacity`; inactive slots process
   silence.
@@ -22,6 +22,13 @@ carry and lets callers open and close streams between ticks.
 * **Stable carry structure.** Every tick checks that the step returned a
   carry of the same structure, shapes and dtypes, since the slot axes and
   the reset depend on it.
+* **Several devices.** `devices` splits the slots into equal shards, one
+  per device (JAX's `devices=N` over a mesh): each shard has its own carry,
+  cut from the capacity's carry along the slot axes, its own copy of the
+  variables and plan, and its own step at capacity / N. A tick is
+  batch-parallel with no collectives: it moves every shard's hops to its
+  device, launches every shard's step, and only then reads the outputs. A
+  slot reset touches only the shard that owns the slot.
 
 Typical use:
 
@@ -32,9 +39,6 @@ Typical use:
         out = engine.tick({h: hop_samples})   # {handle: [hop]}
     tail = engine.flush(h)                    # drain the n_fft-hop delay
     engine.close_stream(h)
-
-Sharding the slots over several devices (`devices>1` in the JAX engine) is
-not ported yet (ROADMAP queue 1, "Serving, the rest").
 """
 from __future__ import annotations
 
@@ -80,32 +84,83 @@ def _signature(carry: Params) -> tp.Any:
     return tree_map(lambda t: (tuple(t.shape), t.dtype), carry)
 
 
+class _Shard:
+    """One device's slots: their carry, fresh one-stream state and step."""
+
+    def __init__(self, device: torch.device, carry: Params,
+                 one_leaves: tp.List[Tensor], step: tp.Callable):
+        self.device = device
+        self.carry = carry
+        self.one_leaves = one_leaves
+        self.step = step
+        self.signature = _signature(carry)
+
+
+def _resolve_devices(device: tp.Union[str, torch.device, None],
+                     devices: tp.Union[int, tp.Sequence[tp.Union[
+                         str, torch.device]], None]
+                     ) -> tp.List[torch.device]:
+    if devices is None:
+        if device is None:
+            raise TypeError("StreamingEngine needs device= or devices=")
+        devices = [device]
+    elif device is not None:
+        raise TypeError("StreamingEngine takes device= or devices=, not "
+                        "both")
+    elif isinstance(devices, int):
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if devices > have:
+            raise ValueError(f"devices={devices} but only {have} devices "
+                             "are available")
+        devices = [torch.device("cuda", i) for i in range(devices)]
+    # e.g. cuda -> cuda:0
+    return [torch.empty(0, device=d).device for d in devices]
+
+
 class StreamingEngine:
     """Fixed-capacity dynamic-batching engine over one model's streaming
-    step, on one device.
+    step, on one device or with its slots split over several.
 
     Args:
       model: exposes `init_streaming_carry(batch, dtype, device, fused=)`
         and `streaming_step(variables, carry, hops)`; with fused=True also
-        `build_stack_plan` and `streaming_step_fused` (folded variables).
+        `build_stack_plan` and `streaming_step_fused` (folded variables),
+        and where the fused step's kernel takes only some batches,
+        `validate_fused_batch(batch, dtype)`, which raises ValueError for
+        the batch of one shard.
       variables: parameter tree, fold()ed when fused=True, with every float
-        leaf already of `dtype` and on `device`.
+        leaf already of `dtype` and on `device` (on the first of
+        `devices`; each other device gets a copy).
       capacity: slot count == batch size of every step; at least 2 (the
         slot axes are inferred from how shapes scale with it).
       dtype: carry and activation dtype (bfloat16 for serving).
-      fused: run the block stack as one kernel per tick.
+      fused: run the block stack as one kernel per tick (per shard).
       device: where the carry lives and the step runs.
+      devices: instead of `device`, split the slots over several: an int N
+        (the first N cards; ValueError when there are fewer) or a sequence
+        of devices (one may be listed more than once). capacity must
+        divide evenly over them; slot i lives on shard i // (capacity /
+        N).
     """
 
     def __init__(self, model, variables: Params, capacity: int,
                  dtype: torch.dtype = torch.float32, fused: bool = False, *,
-                 device: tp.Union[str, torch.device]):
+                 device: tp.Union[str, torch.device, None] = None,
+                 devices: tp.Union[int, tp.Sequence[tp.Union[
+                     str, torch.device]], None] = None):
         if capacity < 2:
             raise ValueError("capacity must be >= 2")
+        shard_devices = _resolve_devices(device, devices)
+        n = len(shard_devices)
+        if capacity % n:
+            raise ValueError(f"capacity {capacity} must divide evenly over "
+                             f"{n} devices")
         self.model = model
         self.capacity = capacity
         self.dtype = dtype
-        self.device = torch.empty(0, device=device).device  # e.g. cuda -> cuda:0
+        self.devices = shard_devices
+        self.device = shard_devices[0]
+        self.per_shard = capacity // n
         self.hop = model.stft_cfg.hop_size
         self.delay_samples = model.stft_cfg.n_fft - self.hop
         # The engine's contract: the variables are already of `dtype` and on
@@ -122,32 +177,63 @@ class StreamingEngine:
                     f"StreamingEngine(device={self.device}) requires the "
                     f"variables on that device (found a leaf on "
                     f"{leaf.device})")
-        self._carry = model.init_streaming_carry(capacity, dtype, self.device,
-                                                 fused=fused)
-        one = model.init_streaming_carry(1, dtype, self.device, fused=fused)
-        self._one_leaves = tree_leaves(one)
-        self._axes = _slot_axes(self._one_leaves, tree_leaves(self._carry),
-                                capacity)
-        self._signature = _signature(self._carry)
-        if fused:
-            plan = model.build_stack_plan(variables, dtype=dtype)
-            self._step = functools.partial(model.streaming_step_fused,
-                                           variables, plan)
-        else:
-            self._step = functools.partial(model.streaming_step, variables)
+        if fused and hasattr(model, "validate_fused_batch"):
+            # each shard's step runs the kernel at capacity / N rows
+            model.validate_fused_batch(self.per_shard, dtype)
+        full = model.init_streaming_carry(capacity, dtype, self.device,
+                                          fused=fused)
+        self._axes = _slot_axes(
+            tree_leaves(model.init_streaming_carry(1, dtype, self.device,
+                                                   fused=fused)),
+            tree_leaves(full), capacity)
+        self._shards: tp.List[_Shard] = []
+        for i, dev in enumerate(shard_devices):
+            v = variables if dev == self.device else tree_map(
+                lambda t: t.to(dev), variables)
+            if fused:
+                plan = model.build_stack_plan(v, dtype=dtype)
+                step = functools.partial(model.streaming_step_fused, v, plan)
+            else:
+                step = functools.partial(model.streaming_step, v)
+            carry = full if n == 1 else self._cut(full, i, dev)
+            one = tree_leaves(model.init_streaming_carry(1, dtype, dev,
+                                                         fused=fused))
+            self._shards.append(_Shard(dev, carry, one, step))
         self._slot_of: tp.Dict[int, int] = {}        # handle -> slot
         self._free = list(range(capacity - 1, -1, -1))
         self._next_handle = 0
 
+    def _cut(self, full: Params, i: int, dev: torch.device) -> Params:
+        """Shard i's carry: its slots' rows of every leaf with a slot axis,
+        a copy of every other leaf, on `dev`."""
+        per = self.per_shard
+        axes = iter(self._axes)
+
+        def cut(leaf: Tensor) -> Tensor:
+            axis = next(axes)
+            if axis is not None:
+                unit = leaf.shape[axis] // self.capacity
+                leaf = leaf.narrow(axis, i * per * unit, per * unit)
+            return leaf.to(dev, copy=True).contiguous()
+        return tree_map(cut, full)
+
+    @property
+    def _carry(self) -> Params:
+        """The carry of the first (on one device, the only) shard."""
+        return self._shards[0].carry
+
     # -- slot lifecycle ------------------------------------------------------
 
     def _reset(self, slot: int) -> None:
-        """Re-initialise one slot's rows in every carry leaf, in place."""
-        for leaf, fresh, axis in zip(tree_leaves(self._carry),
-                                     self._one_leaves, self._axes):
+        """Re-initialise one slot's rows in every carry leaf of the shard
+        that owns it, in place."""
+        shard = self._shards[slot // self.per_shard]
+        local = slot % self.per_shard
+        for leaf, fresh, axis in zip(tree_leaves(shard.carry),
+                                     shard.one_leaves, self._axes):
             if axis is not None:
                 per = fresh.shape[axis]
-                leaf.narrow(axis, slot * per, per).copy_(fresh)
+                leaf.narrow(axis, local * per, per).copy_(fresh)
 
     def open_stream(self) -> int:
         """Claim a slot with fresh state; returns a handle for tick()."""
@@ -186,17 +272,25 @@ class StreamingEngine:
                     f"hop for handle {handle} has shape {wav.shape}, "
                     f"expected ({self.hop},)")
             buf[slot] = wav
-        x = torch.from_numpy(buf).to(device=self.device, dtype=self.dtype)
+        # every shard's input first: a copy from pageable host memory waits
+        # for the steps queued before it on the same stream
+        per = self.per_shard
+        xs = [torch.from_numpy(buf[i * per:(i + 1) * per]).to(
+            device=shard.device, dtype=self.dtype)
+            for i, shard in enumerate(self._shards)]
+        outs = []
         # the outputs leave as numpy: no graph is wanted, whatever the
         # variables' requires_grad
         with torch.no_grad():
-            carry, out = self._step(self._carry, x)
-        if _signature(carry) != self._signature:
-            raise ValueError("the streaming step changed its carry "
-                             "structure; StreamingEngine requires a stable "
-                             "carry")
-        self._carry = carry
-        out = out.float().cpu().numpy()
+            for shard, x in zip(self._shards, xs):
+                carry, out = shard.step(shard.carry, x)
+                if _signature(carry) != shard.signature:
+                    raise ValueError("the streaming step changed its carry "
+                                     "structure; StreamingEngine requires a "
+                                     "stable carry")
+                shard.carry = carry
+                outs.append(out)
+        out = np.concatenate([o.float().cpu().numpy() for o in outs])
         return {h: out[self._slot_of[h]].copy() for h in hops}
 
     def flush(self, handle: int) -> np.ndarray:

@@ -1,20 +1,22 @@
-"""Training entry point on one device.
+"""Training entry point, on one device or as one rank of several.
 
     python -m fastenhancer_tpu_torch.train -n NAME -c configs/<recipe>.yaml \
-        [-p a.b=v ...] [-f] [--base_dir logs] [--device cuda]
+        [-p a.b=v ...] [-f] [--base_dir logs] [--device cuda] \
+        [--coordinator HOST:PORT --num_processes W --process_id R]
 
-The counterpart of the repo's `train.py` for one card, for every family:
+The counterpart of the repo's `train.py`, for every family:
 the VoiceBank recipes (configs/fastenhancer/*.yaml, configs/ablation/,
 configs/others/: paired wavs, the `pesq` loss among their losses), the
 on-the-fly DNS and 48 kHz recipes (configs/fastenhancer_dns/,
 configs/others_dns/, configs/fastenhancer_48khz/: clean and noise files
 drawn per item, mixed on the device) and the shard recipes
 (configs/fastenhancer_shard/); the same flags
-(`-n`, `-c`, `-p`, `-f`, `--base_dir`) and the same epoch loop, plus
-`--device` (the card unless named; `--device cpu` runs the plain PyTorch
-versions of the kernels, as the CPU tests do). It reads the config without
-pyyaml (`utils/hparams.py`), writes it to `{base_dir}/{name}/config.yaml`,
-builds the train loader (the shard reader, the on-the-fly dataset, or
+(`-n`, `-c`, `-p`, `-f`, `--base_dir`, and the multi-host
+`--coordinator`, `--num_processes`, `--process_id`) and the same epoch
+loop, plus `--device` (the card unless named; `--device cpu` runs the
+plain PyTorch versions of the kernels, as the CPU tests do). It reads
+the config without pyyaml (`utils/hparams.py`), writes it to
+`{base_dir}/{name}/config.yaml`, builds the train loader (the shard reader, the on-the-fly dataset, or
 paired wavs) and the paired-wav valid and PESQ loaders, and then runs each
 epoch: `train_epoch`, valid losses, PESQ/STOI every `pesq.interval`
 epochs, the showcase `infer_epoch` every `infer.interval` epochs (its
@@ -26,9 +28,18 @@ histograms) under `{base_dir}/{name}/train/`, the valid and showcase ones
 (losses, PESQ/STOI, audio, spectrograms, `infer/sisdr`) under `valid/`;
 `train.profile` traces a window of train steps into `profile/`. Run again
 with the same `-n` (and no `-c`) to resume from the newest checkpoint.
+Each epoch's results are also printed and returned.
 
-Not ported: the multi-host flags (ROADMAP queue 1, "Several cards"); each
-epoch's results are also printed and returned.
+Several ranks: run the command W times with the same `--coordinator`
+(rank 0's host:port) and `--num_processes W`, and `--process_id` 0 to W -
+1, one process per card (JAX runs one per host): rank r takes card
+`r % device_count` unless `--device` names one, and joins the group over
+NCCL on a card, gloo on the CPU (`parallel.init`; a caller that has
+joined a group before calling `main` keeps its own). Each rank loads its
+own stride of the batches, and W ranks at `train.batch_size` B train as
+one process at W * B (`parallel`). Rank 0 alone writes the config, the
+event files, the showcase and the checkpoints, and prints; every rank
+loads a checkpoint to resume. The group is left at the end.
 """
 from __future__ import annotations
 
@@ -41,7 +52,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from .. import require_cuda
+from .. import parallel, require_cuda
 from ..data import get_dataset_dataloader
 from ..utils.event_file import EventWriter
 from ..utils.hparams import get_hparams
@@ -62,8 +73,13 @@ def parse_args(argv: tp.Optional[tp.Sequence[str]] = None
                    help="overwrite an existing saved config")
     p.add_argument("--base_dir", default="logs")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the first CUDA card; "
-                        "raises when there is none)")
+                   help="torch device (default: the first CUDA card, or "
+                        "card process_id %% device_count under several "
+                        "processes; raises when there is none)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 for multi-host training")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -76,18 +92,38 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
     metrics wall split, with "infer" and "summarize": the showcase's and
     the event files' walls)}."""
     args = parse_args(argv)
-    device = (require_cuda() if args.device is None
-              else torch.device(args.device))
+    joined = False
+    if args.coordinator:
+        # before get_hparams, so that only rank 0 writes the run's config
+        device = parallel.init(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+        joined = True
+    elif args.device is not None:
+        device = torch.device(args.device)
+    elif parallel.world() > 1:
+        require_cuda()
+        device = torch.device(
+            "cuda", parallel.rank() % torch.cuda.device_count())
+    else:
+        device = require_cuda()
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            parallel.destroy()
+
+
+def _train(args: argparse.Namespace, device: torch.device
+           ) -> tp.List[tp.Dict[str, tp.Any]]:
+    is_main = parallel.rank() == 0
     base_dir = os.path.join(args.base_dir, args.name)
-    hps = get_hparams(args.config, base_dir, save=True, params=args.params,
-                      force_save=args.force_save)
-    print('Several hosts (ROADMAP queue 1, "Several cards") are not ported '
-          "yet: this run trains on one device")
+    hps = get_hparams(args.config, base_dir, save=is_main,
+                      params=args.params, force_save=args.force_save)
 
     seed = getattr(hps.train, "seed", 1)
     random.seed(seed)
     np.random.seed(seed)
-    print(f"device: {device}"
+    print(f"rank {parallel.rank()} of {parallel.world()}, device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
     wrapper = get_wrapper(hps.wrapper)(hps, train=True, device=device)
@@ -104,12 +140,16 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
     pesq_interval = wrapper.pesq_interval
     max_epochs = hps.train.max_epochs
     sr = hps.data.sampling_rate
-    writer_train = EventWriter(os.path.join(base_dir, "train"))
-    writer_valid = EventWriter(os.path.join(base_dir, "valid"))
+    writer_train = writer_valid = None
+    if is_main:
+        writer_train = EventWriter(os.path.join(base_dir, "train"))
+        writer_valid = EventWriter(os.path.join(base_dir, "valid"))
     infer_loader = None
 
-    def write(writer: EventWriter, epoch: int,
+    def write(writer: tp.Optional[EventWriter], epoch: int,
               summary: tp.Dict[str, tp.Any]) -> None:
+        if writer is None:
+            return
         t = time.perf_counter()
         summarize(writer, epoch, sr, **summary)
         writer.flush()
@@ -126,7 +166,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
                 train_dataset.shuffle(seed + epoch)
 
             summary = wrapper.train_epoch(train_loader)
-            if "load" in wrapper.timing:
+            if "load" in wrapper.timing and is_main:
                 print(f"epoch {epoch} timing: load "
                       f"{wrapper.timing['load']:.2f}s mix+step "
                       f"{wrapper.timing['step']:.2f}s "
@@ -144,7 +184,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
 
             record = {"epoch": epoch, "train": summary["scalars"],
                       "valid": summary_v["scalars"]}
-            if infer_interval and epoch % infer_interval == 0:
+            if infer_interval and epoch % infer_interval == 0 and is_main:
                 t = time.perf_counter()
                 if infer_loader is None:
                     _, infer_loader = get_dataset_dataloader(
@@ -154,8 +194,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
                 write(writer_valid, epoch, summary_i)
                 record["infer"] = summary_i["scalars"]
 
-            if (epoch % save_interval == 0 or epoch == max_epochs
-                    or wrapper.test):
+            if is_main and (epoch % save_interval == 0
+                            or epoch == max_epochs or wrapper.test):
                 wrapper.save(epoch)
 
             seconds = time.time() - t0
@@ -163,15 +203,17 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
                             for k, v in summary_v["scalars"].items())
             extra = (wrapper.metrics.print()
                      if (wrapper.metrics and calc_metrics) else "")
-            print(f"Epoch {epoch}/{max_epochs}  valid: {msg}{extra}"
-                  f"  [{seconds:.1f}s]")
+            if is_main:
+                print(f"Epoch {epoch}/{max_epochs}  valid: {msg}{extra}"
+                      f"  [{seconds:.1f}s]")
             history.append(dict(record, seconds=seconds,
                                 timing=dict(wrapper.timing)))
             if wrapper.test:
                 break
     finally:
-        writer_train.close()
-        writer_valid.close()
+        if is_main:
+            writer_train.close()
+            writer_valid.close()
     return history
 
 

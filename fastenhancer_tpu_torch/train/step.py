@@ -16,6 +16,13 @@ is no gradient scaler: bfloat16 has float32's exponent range.
 Every param leaf, frozen ones included, gets a gradient, so the reported
 grad norm is the JAX step's; the optimizer updates only its groups'
 leaves.
+
+Under several ranks (`parallel`), each rank's loss is its share of the
+global batch's mean (`Losses.calculate`), so the step sums the gradients
+over the ranks, in one flat all-reduce, before the clipper and the
+non-finite check; every rank then takes the same branch and the same
+update. The reported losses are summed over the ranks the same way: each
+step, train or valid, reports the global batch's values on every rank.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import typing as tp
 
 import torch
 
+from .. import parallel
 from ..losses import Losses
 from ..optim import GroupedOptimizer
 from ..utils.tree import cast_floating, tree_leaves, tree_map
@@ -37,6 +45,15 @@ def _truncate(model, batch: Params) -> tp.Tuple[Tensor, Tensor]:
     hop = model.hop_size
     t = (batch["clean"].shape[-1] // hop) * hop
     return batch["clean"][..., :t], batch["noisy"][..., :t]
+
+
+def _global_losses(total: Tensor, per_loss: tp.Dict[str, Tensor]
+                   ) -> tp.Dict[str, Tensor]:
+    """{"loss/total", "loss/<name>"}, detached, each summed over the ranks
+    (one all-reduce; as they are on one rank)."""
+    vals = parallel.all_reduce_flat(
+        [total.detach()] + [v.detach() for v in per_loss.values()])
+    return dict(zip(["loss/total"] + [f"loss/{k}" for k in per_loss], vals))
 
 
 def make_train_step(model, losses: Losses, optimizer: GroupedOptimizer,
@@ -93,11 +110,13 @@ def make_train_step(model, losses: Losses, optimizer: GroupedOptimizer,
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grads = [torch.zeros_like(p) if g is None else g.float()
-                 for p, g in zip(leaves, grads)]
+        grads = parallel.all_reduce_flat(
+            [torch.zeros_like(p) if g is None else g.float()
+             for p, g in zip(leaves, grads)])
         grads, gnorm = clipper(grads)
-        metrics = {"loss/total": total.detach(), "grad_norm": gnorm,
-                   **{f"loss/{k}": v.detach() for k, v in per_loss.items()}}
+        reported = _global_losses(total, per_loss)
+        metrics = {"loss/total": reported.pop("loss/total"),
+                   "grad_norm": gnorm, **reported}
         if return_grads:
             it = iter(grads)
             metrics["grads"] = tree_map(lambda _: next(it), params)
@@ -137,8 +156,7 @@ def make_valid_step(model, losses: Losses,
         total, per_loss = losses.calculate(
             wav_hat.float(), spec_hat.float(), clean.float(),
             spec_clean.float(), row_mask=row_mask)
-        return {"loss/total": total,
-                **{f"loss/{k}": v for k, v in per_loss.items()}}
+        return _global_losses(total, per_loss)
 
     return valid_step
 

@@ -13,7 +13,9 @@ The trace is `torch.profiler`'s Chrome trace (where the JAX package writes
 XLA's), `{logdir}/<host>_<pid>.<ms>.pt.trace.json`, logdir
 `{base_dir}/profile/` unless `train.profile` names one; Perfetto or
 chrome://tracing open it. Its activities are the CPU's and, on a card,
-CUDA's: the card's kernels are events of category "kernel".
+CUDA's: the card's kernels are events of category "kernel". Under several
+ranks every rank traces its own window into the same logdir, one file per
+process, as each JAX process does.
 """
 from __future__ import annotations
 

@@ -1,17 +1,19 @@
 """ANSI in-place progress helpers and main-process printing.
 
-Counterpart of fastenhancer_tpu/utils/terminal.py for one process: the
-train loop's `\\rEpoch e - Train i/n (x%)` line is rewritten in place and
-cleared at the end of the epoch.
+Counterpart of fastenhancer_tpu/utils/terminal.py: the train loop's
+`\\rEpoch e - Train i/n (x%)` line is rewritten in place and cleared at
+the end of the epoch, on rank 0 only.
 """
 from __future__ import annotations
 
 import sys
 
+from .. import parallel
+
 
 def verbose() -> bool:
-    """True on the logging process (one process: always)."""
-    return True
+    """True on the logging process, rank 0 (`parallel`)."""
+    return parallel.rank() == 0
 
 
 def clear_current_line() -> None:

@@ -1,6 +1,6 @@
-"""Noise-suppression training wrapper on one device.
+"""Noise-suppression training wrapper, on one device or one rank of several.
 
-Counterpart of the single-device part of fastenhancer_tpu/wrappers/ns.py.
+Counterpart of fastenhancer_tpu/wrappers/ns.py.
 `ModelWrapper(hps, train=...)` builds, from a config HParams (from
 `utils.hparams.get_hparams`, or over a preset as in
 `HParams(**presets.FE_T_SHARD)`), the model of any family and its
@@ -19,8 +19,14 @@ a window of train steps (`utils/profiler.py`). `save(epoch)` /
 `load(epoch=None)` write and read the JAX package's checkpoint files
 (`train/checkpoint.py`).
 
-Not ported yet: several devices and hosts (ROADMAP queue 1, "Several
-cards").
+Under W ranks (`parallel`, one process per card) each rank loads its own
+stride of the batches; `_device_batch` pads each rank's batch to the
+shapes the ranks agree on (`_reconcile_multihost`, with padded rows masked
+out), and the steps take the global batch's BN statistics, losses and
+gradients, so W ranks at batch B train as one process at W * B. The valid
+losses and PESQ/STOI are averaged over the ranks
+(`_merge_across_hosts`); each rank scores its own rows. The caller runs
+`infer_epoch` and `save` on rank 0 only and `load` on every rank.
 """
 from __future__ import annotations
 
@@ -28,11 +34,12 @@ import copy
 import os
 import time
 import typing as tp
+import zlib
 
 import numpy as np
 import torch
 
-from .. import require_cuda
+from .. import parallel, require_cuda
 from ..data import get_dataset_dataloader
 from ..functional import STFTConfig, spec_to_mel, stft
 from ..losses import Losses
@@ -73,6 +80,14 @@ class ModelWrapper:
         variables = self.model.init(
             torch.Generator().manual_seed(self.seed), self.device)
         self.infer_fn = make_infer_fn(self.model)
+        self.n_devices = parallel.world()
+        # the ranks' agreed batch shapes: fixed-segment training that drops
+        # its ragged tail has one shape, agreed once and cached
+        # (_reconcile_multihost)
+        self._mh_dims_cache: tp.Dict[tuple, tuple] = {}
+        self._mh_static_train = bool(
+            hp and (hps["data"].get("train") or {}).get("segment_size")
+            and hp.get("drop_last", False))
         self.state: tp.Dict[str, tp.Any] = {"variables": variables}
         self.metrics: tp.Optional[Metrics] = None
         self.pesq_loader = None
@@ -139,19 +154,112 @@ class ModelWrapper:
         return list(self.scheduler.lrs)
 
     def _device_batch(self, batch: tp.Mapping[str, np.ndarray],
-                      keys: tp.Sequence[str]
+                      keys: tp.Sequence[str], static_shapes: bool = False
                       ) -> tp.Tuple[tp.Dict[str, Tensor], int]:
         """The batch's `keys` cut to a multiple of the hop and moved to the
-        device, with "row_mask" [B] of ones (every row is real on one
-        device); returns (batch, rows)."""
+        device as float32, with "row_mask" [B] (1 a real row, 0 a padded
+        one); returns (batch, this rank's real rows). Under several ranks
+        the arrays are padded to the ranks' agreed shapes first
+        (_reconcile_multihost; static_shapes: see there)."""
         arrs = {k: np.asarray(batch[k]) for k in keys if k in batch}
         b = next(iter(arrs.values())).shape[0]
-        t = min(a.shape[-1] for a in arrs.values()) // self.hop_size
-        out = {k: torch.from_numpy(np.ascontiguousarray(
-            a[..., :t * self.hop_size], dtype=np.float32)).to(self.device)
-            for k, a in arrs.items()}
-        out["row_mask"] = torch.ones(b, device=self.device)
-        return out, b
+        arrs["row_mask"] = np.ones(b, np.float32)
+        if self.n_devices > 1:
+            # hop-floored after the ranks' max, so no rank drops samples
+            # that another keeps
+            shared = tuple(k for k, a in arrs.items()
+                           if k != "row_mask" and a.ndim > 1)
+            arrs = self._reconcile_multihost(arrs, shared,
+                                             static_shapes=static_shapes)
+        else:
+            t = min(a.shape[-1] for a in arrs.values() if a.ndim > 1)
+            t = (t // self.hop_size) * self.hop_size
+            arrs = {k: (a[..., :t] if a.ndim > 1 else a)
+                    for k, a in arrs.items()}
+            arrs, _ = parallel.pad_batch_to(arrs, self.n_devices)
+        return {k: torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(self.device)
+            for k, a in arrs.items()}, b
+
+    def _reconcile_multihost(self, arrs: tp.Dict[str, np.ndarray],
+                             shared_time_keys: tp.Sequence[str],
+                             static_shapes: bool = False
+                             ) -> tp.Dict[str, np.ndarray]:
+        """Pad this rank's arrays to the shapes every rank agrees on.
+
+        Each rank loads its own stride of the batches, so a step's global
+        batch is the rows of every rank. The ranks agree on its shapes in
+        one small all-gather of their dims a step:
+          * `shared_time_keys` (waveforms sharing the sample axis) are cut
+            or zero-padded to the hop-floored maximum over the ranks of
+            their shortest length, as one process's collate pads to the
+            batch's longest item, so W ranks at B see the batch of one
+            process at W * B;
+          * other arrays of two or more dims (`rir`, at its natural
+            length) are zero-padded, never cut, to their own maximum;
+          * rows are zero-padded to the ranks' largest row count and
+            masked out in "row_mask".
+        A fingerprint of the key sets rides along: ranks that run
+        different configs raise instead of pairing the wrong columns.
+
+        `static_shapes=True` (fixed-segment training with drop_last)
+        promises that this rank's dims repeat each step: the all-gather
+        runs once and is cached. Every rank takes the same branch, so the
+        collectives stay in step; a rank whose dims change raises before
+        any collective instead of leaving the others waiting."""
+        world = self.n_devices
+        keys = sorted(arrs)
+        shared = [k for k in keys if k in shared_time_keys]
+        pad_only = [k for k in keys if k not in shared_time_keys
+                    and np.ndim(arrs[k]) >= 2]
+        b = int(np.shape(arrs[keys[0]])[0])
+        t_shared = (min(int(np.shape(arrs[k])[-1]) for k in shared)
+                    if shared else 0)
+        fp = zlib.crc32(repr((keys, shared, pad_only)).encode()) & 0x7FFFFFFF
+        sig = (fp, b, t_shared) + tuple(
+            int(np.shape(arrs[k])[-1]) for k in pad_only)
+
+        cached = self._mh_dims_cache.get(sig) if static_shapes else None
+        if cached is None:
+            if static_shapes and self._mh_dims_cache:
+                raise RuntimeError(
+                    "multihost static_shapes promised but the local batch "
+                    f"dims changed (cached {sorted(self._mh_dims_cache)}, "
+                    f"got {sig}); fixed-segment training must use "
+                    "drop_last=True so every step has one batch shape")
+            g = parallel.all_gather_ints(sig).reshape(world, len(sig))
+            if not (g[:, 0] == g[0, 0]).all():
+                raise RuntimeError(
+                    "multihost batch key sets differ across processes "
+                    f"(fingerprints {g[:, 0].tolist()}); every process must "
+                    "run the identical config")
+            rows = int(g[:, 1].max())  # one card a rank: no row multiple
+            t_c = ((int(g[:, 2].max()) // self.hop_size) * self.hop_size
+                   if shared else 0)
+            pad_dims = {k: int(g[:, 3 + i].max())
+                        for i, k in enumerate(pad_only)}
+            cached = (rows, t_c, pad_dims)
+            if static_shapes:
+                self._mh_dims_cache[sig] = cached
+        rows, t_c, pad_dims = cached
+
+        out = {}
+        for k, a in arrs.items():
+            a = np.asarray(a)
+            widths = [(0, 0)] * a.ndim
+            if k in shared_time_keys:
+                if a.shape[-1] > t_c:
+                    a = a[..., :t_c]
+                elif a.shape[-1] < t_c:
+                    widths[-1] = (0, t_c - a.shape[-1])
+            elif k in pad_dims and a.shape[-1] < pad_dims[k]:
+                widths[-1] = (0, pad_dims[k] - a.shape[-1])
+            if a.shape[0] < rows:
+                widths[0] = (0, rows - a.shape[0])
+            if any(wd != (0, 0) for wd in widths):
+                a = np.pad(a, widths)
+            out[k] = a
+        return out
 
     def _step_and_account(self, dev_batch: tp.Dict[str, Tensor],
                           rows: int) -> tp.Dict[str, Tensor]:
@@ -219,8 +327,9 @@ class ModelWrapper:
             load += t1 - t0
             if batch is None:
                 break
-            metrics = self._step_and_account(
-                *self._device_batch(batch, ("clean", "noisy")))
+            metrics = self._step_and_account(*self._device_batch(
+                batch, ("clean", "noisy"),
+                static_shapes=self._mh_static_train))
             last_grads = metrics.get("grads")
             steps += 1
             step += time.perf_counter() - t1
@@ -251,7 +360,7 @@ class ModelWrapper:
                                   if k != "loss/total"}, rows)
             if self.test and idx >= 10:
                 break
-        summary = {"scalars": self.loss.reduce()}
+        summary = {"scalars": self._merge_across_hosts(self.loss.reduce())}
         self.timing["valid"] = time.perf_counter() - t0
         if (self.train_mode and self.scheduler is not None
                 and self.scheduler.requires_metric):
@@ -261,9 +370,29 @@ class ModelWrapper:
         if calculate_metrics and self.metrics is not None and self.pesq_loader:
             t0 = time.perf_counter()
             self.calculate_metrics(self.pesq_loader)
-            summary["scalars"].update(self.metrics.retrieve(self.epoch))
+            summary["scalars"].update(self._merge_across_hosts(
+                self.metrics.retrieve(self.epoch)))
             self.timing["metrics"] = time.perf_counter() - t0
         return summary
+
+    def _merge_across_hosts(self, scalars: tp.Dict[str, float]
+                            ) -> tp.Dict[str, float]:
+        """Under several ranks, each scalar averaged over the ranks in
+        float32 (each rank evaluated its own stride of the data); the
+        ranks' key sets must agree. One rank: the scalars as they are."""
+        if self.n_devices == 1:
+            return scalars
+        keys = sorted(scalars)
+        fp = zlib.crc32(repr(keys).encode()) & 0x7FFFFFFF
+        g = parallel.all_gather_ints([fp])
+        if not (g == g[0]).all():
+            raise RuntimeError(f"the ranks report different scalars "
+                               f"(fingerprints {g[:, 0].tolist()}, here "
+                               f"{keys})")
+        if not keys:
+            return scalars
+        vals = parallel.all_gather_floats([scalars[k] for k in keys])
+        return dict(zip(keys, vals.mean(axis=0).tolist()))
 
     def calculate_metrics(self, dataloader: tp.Iterable[
             tp.Mapping[str, tp.Any]]) -> None:
@@ -366,7 +495,8 @@ class ModelWrapper:
         if self.metrics is not None:
             self.metrics.load_state_dict(ckpt.get("metrics"))
         self.epoch = ckpt["epoch"]
-        print(f"loaded checkpoint {path} (epoch {self.epoch})")
+        if verbose():
+            print(f"loaded checkpoint {path} (epoch {self.epoch})")
         return True
 
 

@@ -1,16 +1,20 @@
 """Shard-recipe training wrapper: fixed steps per epoch, the mixer on the
 device.
 
-Counterpart of the single-device part of
-fastenhancer_tpu/wrappers/ns_shard.py. Train batches are `ShardBatch`es
-(speech, speech_clean, noise, RIRs) from any iterator; `_mix_to_device`
-moves one to the device and runs the `DynamicMixer` there, two or three
-segmental-RMS kernel launches, ahead of the train step. `steps_per_epoch`
-bounds an epoch; the iterator starts again when it runs out, and the
+Counterpart of fastenhancer_tpu/wrappers/ns_shard.py. Train batches are
+`ShardBatch`es (speech, speech_clean, noise, RIRs) from any iterator;
+`_mix_to_device` moves one to the device and runs the `DynamicMixer`
+there, two or three segmental-RMS kernel launches, ahead of the train
+step. `steps_per_epoch` bounds an epoch; the iterator starts again when
+it runs out, and the
 epoch's load / step wall split lands in `timing`; the progress line, the
 profiler's window and the histograms are the base wrapper's. The valid,
 PESQ and showcase sets are paired {"clean", "noisy"} batches
-(`val_keys`, `infer_keys`), as in the base wrapper.
+(`val_keys`, `infer_keys`), as in the base wrapper. Under several ranks
+each rank reads its own shard draws (the reader seeds by rank), pads its
+batch to the ranks' agreed shapes (`_reconcile_multihost`: a length bucket
+differs from rank to rank, so every step agrees anew) and mixes its rows
+with its share of the global batch's draws.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.shard_mixer import DynamicMixer, ShardBatch
 from .ns import ModelWrapper as BaseModelWrapper
 
@@ -49,33 +54,38 @@ class ModelWrapper(BaseModelWrapper):
     def _mix_to_device(self, batch: ShardBatch
                        ) -> tp.Tuple[tp.Dict[str, Tensor], int]:
         """ShardBatch -> the mixed {"clean", "noisy", "row_mask"} on the
-        device, cut to a multiple of the hop; returns (batch, rows)."""
-        dev = self.device
-        rows = batch.speech.shape[0]
-        t = (batch.speech.shape[-1] // self.hop_size) * self.hop_size
-
-        def put(a: tp.Optional[np.ndarray],
-                dtype: torch.dtype = torch.float32,
-                cut: bool = False) -> tp.Optional[Tensor]:
-            if a is None:
-                return None
-            a = np.asarray(a)
-            a = np.ascontiguousarray(a[..., :t] if cut else a)
-            return torch.from_numpy(a).to(dev, dtype)
-
-        rir = batch.rir
+        device, cut to a multiple of the hop; returns (batch, this rank's
+        real rows)."""
+        arrs = {"speech": batch.speech, "speech_clean": batch.speech_clean,
+                "noise": batch.noise, "echo": batch.echo}
+        if batch.rir is not None:
+            arrs.update(rir=batch.rir, rir_onset=batch.rir_onset,
+                        rir_t60=batch.rir_t60)
+        if batch.echo is not None:
+            arrs["is_real"] = batch.is_real
+        arrs = {k: np.asarray(a) for k, a in arrs.items() if a is not None}
+        rows = arrs["speech"].shape[0]
+        arrs["row_mask"] = np.ones(rows, np.float32)
+        shared = tuple(k for k in ("speech", "speech_clean", "noise", "echo")
+                       if k in arrs)
+        if self.n_devices > 1:
+            arrs = self._reconcile_multihost(arrs, shared_time_keys=shared)
+        else:
+            t = (arrs["speech"].shape[-1] // self.hop_size) * self.hop_size
+            arrs.update({k: arrs[k][..., :t] for k in shared})
+        dtypes = {"rir_onset": torch.int64, "is_real": torch.bool}
+        dev = {k: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, dtypes.get(k, torch.float32))
+            for k, a in arrs.items()}
         mixed = self.mixer(
-            self.mix_generator, put(batch.speech, cut=True),
-            put(batch.speech_clean, cut=True), put(batch.noise, cut=True),
-            put(rir), put(None if rir is None else batch.rir_onset,
-                          torch.int64),
-            put(None if rir is None else batch.rir_t60),
-            echo=put(batch.echo, cut=True),
-            is_real=put(None if batch.echo is None else batch.is_real,
-                        torch.bool))
+            self.mix_generator, dev["speech"], dev.get("speech_clean"),
+            dev.get("noise"), dev.get("rir"), dev.get("rir_onset"),
+            dev.get("rir_t60"), echo=dev.get("echo"),
+            is_real=dev.get("is_real"),
+            share=(parallel.rank(), self.n_devices))
         return {"clean": mixed["speech_clean"][:, 0],
                 "noisy": mixed["speech"][:, 0],
-                "row_mask": torch.ones(rows, device=dev)}, rows
+                "row_mask": dev["row_mask"]}, rows
 
     def train_epoch(self, dataloader: tp.Iterable[ShardBatch]
                     ) -> tp.Dict[str, tp.Any]:

@@ -79,7 +79,7 @@ def test_cli_trains_validates_checkpoints_and_resumes(tmp_path, monkeypatch,
         assert r["timing"].keys() == {"load", "step", "steps", "valid",
                                       "metrics", "summarize"}
     out = capsys.readouterr().out
-    assert "not ported yet" in out and "Epoch 2/2  valid:" in out
+    assert "rank 0 of 1, device: cpu" in out and "Epoch 2/2  valid:" in out
     assert "best PESQ" in out
 
     # resume: no -c; the run dir's config with max_epochs raised

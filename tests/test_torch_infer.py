@@ -213,7 +213,7 @@ def test_cli_writes_jax_summary_tags(wavs, jax_showcase, tmp_path,
     history = main(["-n", "run", "-c", CONFIG, "--base_dir", str(logs),
                     "--device", "cpu", "-p", *params])
     out = capsys.readouterr().out
-    assert "Several cards" in out and "Training, end to end" not in out
+    assert "rank 0 of 1, device: cpu" in out and "not ported" not in out
     assert "Epoch 1 - Train 1/1 (100.0%)" in out
     assert [sorted(r["infer"]) for r in history] == [["infer/sisdr"]] * 2
     assert all({"summarize", "infer"} <= set(r["timing"]) for r in history)

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-six phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-seven phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -222,9 +222,30 @@ each printed on its own line:
      step's wall and its all-reduce share, rank 1 silent; #5 once a block
      in each valid forward of (b) and (c); the first launches of #1 and
      #7 in each engine of (a), at the shard's batch of 128, held against
-     the plain versions.
+     the plain versions;
+ 27. export (run after 25, before 26, while phase 23's runs exist): the
+     folded float32 streaming step exported at 256 streams through
+     `python -m fastenhancer_tpu_torch.scripts.export`'s `main` with
+     `--save` (phase 23's FE-B DNS run as wav2wav --fused, spec2spec
+     --fused and wav2wav, its BSRNN-XT run as wav2wav --fused, DPT-B and
+     DPRNN-B --fused from untrained checkpoints of their configs), the
+     export's kernel nodes, seconds, artifact bytes, per-tick p50/p99 and
+     slope (16 vs 80 frames; BSRNN-XT's float32 frame, ~70 ms, 4 vs 12)
+     printed, its launches the kernel's alone; then one fresh spawned
+     process, which must load no model, wrapper or trainer module, runs
+     each artifact through the runner's `main` on 0.5 s of audio (its
+     lines printed; the kernel once a frame, NB times for #5, and no
+     other) and over 32 seeded hops from the zero carry, against the
+     eager step the program was exported from on the same variables,
+     carry and hops (output and every carry leaf within 1e-5 of the peak,
+     TF32 off in both processes); #2's artifact, which writes its
+     K/V caches in place, timed against its functional form
+     (`run_decompositions`: the caches cloned and copied back a frame);
+     the host cost a call of #5's CUDA implementation called directly,
+     through `torch.ops.fastenhancer.gru_scan` and through the wrapper,
+     1,000 calls each.
 
-Each of phases 4 to 26 drives a path: every kernel's launch count is set to
+Each of phases 4 to 27 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -239,7 +260,8 @@ valid and showcase forwards of phase 25 and the valid forwards of phase
 26 (its ranks report theirs), the block stack's over its serving phases
 and phases 24 and 26, the whole frame's over phases 7 and 26, the BSRNN
 stack's over its serving phases and phase 24, segmental RMS's over
-phases 14, 21 and 25, each listed by path before it);
+phases 14, 21 and 25, each listed by path before it; phase 27's
+launches of #1, #2, #3, #5 and #6 are added to theirs);
 the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -391,6 +413,33 @@ def ptxas_summary(reports):
     return out
 
 
+def kernel_counters():
+    """Each kernel's launch counter: {name: (wrapper, attribute)}; the
+    block stack's LN form is a kernel of its own, counted apart. The
+    counts grow in the ops' CUDA implementations (ops/_library.py)."""
+    from fastenhancer_tpu_torch.ops import bsrnn_stack as band
+    from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
+    from fastenhancer_tpu_torch.ops import dpt_stack as dpt
+    from fastenhancer_tpu_torch.ops import fused_frame as frame
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
+    from fastenhancer_tpu_torch.ops import segmental_rms as seg
+
+    return {
+        "rnnformer_stack_step": (stack.rnnformer_stack_step, "launches"),
+        LN_KERNEL: (stack.rnnformer_stack_step, "ln_launches"),
+        "fused_frame_step": (frame.fused_frame_step, "launches"),
+        "dpt_stack_step": (dpt.dpt_stack_step, "launches"),
+        DPT_TC: (dpt.dpt_stack_step, "tc_launches"),
+        "bsrnn_stack_step": (band.bsrnn_stack_step, "launches"),
+        BAND_TC: (band.bsrnn_stack_step, "tc_launches"),
+        "dprnn_stack_step": (dprnn.dprnn_stack_step, "launches"),
+        DPRNN_TC: (dprnn.dprnn_stack_step, "tc_launches"),
+        "segmental_rms_fused": (seg.segmental_rms_fused, "launches"),
+        "gru_scan": (scan.gru_scan, "launches"),
+        GRU_TC: (scan.gru_scan, "tc_launches")}
+
+
 def main():
     import numpy as np
     import torch
@@ -429,21 +478,7 @@ def main():
     from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
 
     dev = require_cuda()
-    # each kernel's launch counter: (wrapper, attribute); the block stack's
-    # LN form is a kernel of its own, counted apart
-    counters = {
-        "rnnformer_stack_step": (stack.rnnformer_stack_step, "launches"),
-        LN_KERNEL: (stack.rnnformer_stack_step, "ln_launches"),
-        "fused_frame_step": (frame.fused_frame_step, "launches"),
-        "dpt_stack_step": (dpt.dpt_stack_step, "launches"),
-        DPT_TC: (dpt.dpt_stack_step, "tc_launches"),
-        "bsrnn_stack_step": (band.bsrnn_stack_step, "launches"),
-        BAND_TC: (band.bsrnn_stack_step, "tc_launches"),
-        "dprnn_stack_step": (dprnn.dprnn_stack_step, "launches"),
-        DPRNN_TC: (dprnn.dprnn_stack_step, "tc_launches"),
-        "segmental_rms_fused": (seg.segmental_rms_fused, "launches"),
-        "gru_scan": (scan.gru_scan, "launches"),
-        GRU_TC: (scan.gru_scan, "tc_launches")}
+    counters = kernel_counters()
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -472,7 +507,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/26] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/27] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -480,10 +515,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/26] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/27] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/26] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/27] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -604,7 +639,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/26] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/27] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -639,7 +674,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/26] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/27] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -694,7 +729,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/26] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/27] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -715,7 +750,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/26] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/27] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -759,7 +794,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/26] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/27] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -806,7 +841,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/26] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/27] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -849,7 +884,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/26] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/27] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -897,7 +932,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/26] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/27] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -914,7 +949,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/26] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/27] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -970,7 +1005,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/26] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/27] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -996,7 +1031,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/26] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/27] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -1034,7 +1069,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/26] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/27] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1087,7 +1122,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/26] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/27] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1206,7 +1241,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/26] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/27] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1245,7 +1280,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/26] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/27] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1302,7 +1337,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/26] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/27] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1457,7 +1492,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/26] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/27] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1505,7 +1540,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/26] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/27] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1550,7 +1585,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/26] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/27] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1614,7 +1649,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/26] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/27] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1623,7 +1658,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/26] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/27] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1661,7 +1696,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/26] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/27] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1710,7 +1745,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/26] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/27] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1800,21 +1835,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/26] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/27] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/26] {tag} bf16 Model.forward, "
+        print(f"[{phase}/27] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/26] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/27] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -2058,7 +2093,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/26] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/27] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2079,7 +2114,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/26] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/27] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2154,7 +2189,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/26] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/27] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2172,7 +2207,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/26] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/27] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2184,7 +2219,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/26] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/27] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2218,6 +2253,8 @@ def main():
         paths = phase_24(ctx, runs)
         # -- 25. summaries, showcase, histograms, profiler, native decoder ----
         launches_25 = phase_25(ctx, runs, otf_root)
+        # -- 27. the streaming step exported, run with no model code -------
+        launches_27 = phase_27(ctx, runs, otf_root)
     finally:
         shutil.rmtree(otf_root, ignore_errors=True)
     # -- 26. several devices: the sharded engine, NCCL and gloo ranks -----------
@@ -2227,7 +2264,7 @@ def main():
         "gru_scan"]
     rms_paths["summaries CLI (25)"] = launches_25["segmental_rms_fused"]
     record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
-    print(f"[25/26] segmental_rms launches by path: {rms_paths}; "
+    print(f"[25/27] segmental_rms launches by path: {rms_paths}; "
           f"{record['segmental_rms_fused']['launches']} in all")
     scan_paths.update(paths["gru_scan"])
     for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
@@ -2235,16 +2272,21 @@ def main():
         by_path = {first: record[name]["launches"], **paths[name],
                    **launches_26.get(name, {})}
         record[name]["launches"] = sum(by_path.values())
-        print(f"[24/26] {name} launches by path: {by_path}; "
+        print(f"[24/27] {name} launches by path: {by_path}; "
               f"{record[name]['launches']} in all")
     by_path = {"FE_B whole frame (7)": record["fused_frame_step"][
         "launches"], **launches_26["fused_frame_step"]}
     record["fused_frame_step"]["launches"] = sum(by_path.values())
-    print(f"[26/26] fused_frame_step launches by path: {by_path}; "
+    print(f"[26/27] fused_frame_step launches by path: {by_path}; "
           f"{record['fused_frame_step']['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[24/26] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/27] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
+
+    for name, by_path in launches_27.items():
+        record[name]["launches"] += sum(by_path.values())
+        print(f"[27/27] {name} launches in phase 27 by path: {by_path}; "
+              f"{record[name]['launches']} in all")
 
     sources = {
         "rnnformer_stack_step": ("rnnformer_stack", "rnnformer_stack.py:394"),
@@ -2359,7 +2401,7 @@ def phase_22(ctx):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/26] train every family through the CLI, cuts: none of width "
+    print(f"[22/27] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
@@ -2499,7 +2541,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/26] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/27] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2564,7 +2606,7 @@ def phase_22(ctx):
         lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
                      f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
                      f"{tc:.1f} s)")
-    print(f"[22/26] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/27] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2640,7 +2682,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/26] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/27] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2654,7 +2696,7 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    print(f"[22/26] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/27] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
 
@@ -2700,7 +2742,7 @@ def phase_23(ctx, root):
     card, dev = ctx["card"], ctx["dev"]
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[23/26] the on-the-fly recipes through the CLI, cuts: none of "
+    print(f"[23/27] the on-the-fly recipes through the CLI, cuts: none of "
           f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
           f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
           f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
@@ -2879,7 +2921,7 @@ def phase_23(ctx, root):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[23/26] CLI {config} ({hps.model}, "
+            print(f"[23/27] CLI {config} ({hps.model}, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
@@ -2952,7 +2994,7 @@ def phase_23(ctx, root):
                      f"{errs[2]:.2e}"
                      + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
                         else ""))
-    print(f"[23/26] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+    print(f"[23/27] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
           f"the CPU in float32 on each run's first train batch and one set "
           f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
           f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
@@ -2975,7 +3017,7 @@ def phase_23(ctx, root):
         if "noncausal" in path:
             shapes.append((t, n, h, False, True, False, what + " backward"))
     ctx["check_and_time"](shapes, phase=23)
-    print(f"[23/26] phase wall {time.perf_counter() - t_phase:.1f} s "
+    print(f"[23/27] phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(corpus written in {corpus_s:.2f} s)")
     return runs, total_scans
 
@@ -3069,7 +3111,7 @@ def phase_24(ctx, runs):
         rel = worst_rel(y_card, y_cpu)
         _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
                "peak")
-        print(f"[24/26] enhance {dns} on {OTF_EVAL} files: the card's float32"
+        print(f"[24/27] enhance {dns} on {OTF_EVAL} files: the card's float32"
               f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
               f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
               f"launches ({batches} batches of 8, scalar form), "
@@ -3156,7 +3198,7 @@ def phase_24(ctx, runs):
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
-            print(f"[24/26] serve {config} (capacity {SERVE_CAPACITY}, a "
+            print(f"[24/27] serve {config} (capacity {SERVE_CAPACITY}, a "
                   f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
                   f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
                   f"ticks ({form} form), each held to the plain version (max "
@@ -3188,7 +3230,7 @@ def phase_24(ctx, runs):
                and all(np.isfinite(v) for v in got.values())
                and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
                f"metrics_ns card {got} vs CPU {want}")
-        print(f"[24/26] metrics_ns {dns} on {OTF_EVAL} files: "
+        print(f"[24/27] metrics_ns {dns} on {OTF_EVAL} files: "
               + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
                           for k, v in got.items())
               + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
@@ -3232,7 +3274,7 @@ def phase_24(ctx, runs):
                          ctx["nbytes"](x, h, xo, ho, *tensors),
                          torch.bfloat16),
             plain_graph=kernel is band.bsrnn_stack_step)
-        print(f"[24/26] time {kernel.__name__} {tag} {shape} bf16 (the "
+        print(f"[24/27] time {kernel.__name__} {tag} {shape} bf16 (the "
               f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
               f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
               f"bound {1e3 * rec['bound_ms']:.3f} us, "
@@ -3240,7 +3282,7 @@ def phase_24(ctx, runs):
               f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
               f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
               f"{rec['max_abs_err']:.3e}; on {card}")
-    print(f"[24/26] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[24/27] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -3499,7 +3541,7 @@ def phase_25(ctx, runs, root):
         "native shard members != the Python walker's")
     for r in history:
         tm = r["timing"]
-        print(f"[25/26] summaries CLI epoch {r['epoch']} (FE-T, shard "
+        print(f"[25/27] summaries CLI epoch {r['epoch']} (FE-T, shard "
               f"recipe, {SUM_STEPS} steps, bf16): wall {r['seconds']:.2f} "
               f"s; summarize {tm['summarize']:.3f} s ("
               f"{100 * tm['summarize'] / r['seconds']:.1f}% of the epoch; "
@@ -3510,7 +3552,7 @@ def phase_25(ctx, runs, root):
               f"{100 * tm['infer'] / r['seconds']:.1f}%; {SUM_FILES} "
               f"files); infer/sisdr {r['infer']['infer/sisdr']:.3f} dB; "
               f"on {card}")
-    print(f"[25/26] summaries CLI: step ms "
+    print(f"[25/27] summaries CLI: step ms "
           f"{', '.join(f'{ms:.1f}' for _, ms in step_ms)}; inside the "
           f"profiler window ({SUM_PROFILE}: {len(window)} step) "
           f"{', '.join(f'{ms:.1f}' for ms in window)}, outside median "
@@ -3527,7 +3569,7 @@ def phase_25(ctx, runs, root):
           f"00002.ckpt max abs err {infer_err:.3e} of the peak (tol "
           f"{INFER_REL:g}), the logged PCM16 within {pcm_err:g} step of the "
           f"card's; on {card}")
-    print(f"[25/26] native decoder: {walks} tars walked natively in the "
+    print(f"[25/27] native decoder: {walks} tars walked natively in the "
           f"run; {len(nat)} members of {len(tars)} speech tars ({mb:.1f} "
           f"MB) equal to the Python walker's bit for bit; decode MB/s in "
           f"turns (native, Python, Python, native; warm page cache): native "
@@ -3564,7 +3606,7 @@ def phase_25(ctx, runs, root):
     sisdr48, logged48 = showcase_tags(events(runs[config], "valid")[2], 2, 1)
     infer_err48, pcm_err48 = card_vs_cpu(runs[config], 2, logged48)
     tm = r48["timing"]
-    print(f"[25/26] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
+    print(f"[25/27] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
           f"wall {r48['seconds']:.2f} s; summarize {tm['summarize']:.3f} s "
           f"({100 * tm['summarize'] / r48['seconds']:.1f}%), infer_epoch "
           f"{tm['infer']:.3f} s ({100 * tm['infer'] / r48['seconds']:.1f}%;"
@@ -3575,7 +3617,7 @@ def phase_25(ctx, runs, root):
           f"{sisdr48:.3f} dB; showcase card vs CPU max abs err "
           f"{infer_err48:.3e} of the peak, the logged PCM16 within "
           f"{pcm_err48:g} step; on {card}")
-    print(f"[25/26] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[25/27] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"gru_scan": counts["gru_scan"] + counts48["gru_scan"],
             "segmental_rms_fused": counts["segmental_rms_fused"]}
 
@@ -3828,7 +3870,7 @@ def phase_26(ctx):
                 worst = max(worst, *(e for e, _ in errs))
             _check(len(kept) == 2 * len(engine.devices),
                    f"{tag} engine: {len(kept)} launches kept")
-            print(f"[26/26] (a) {kernel} in the {tag} engine: its first "
+            print(f"[26/27] (a) {kernel} in the {tag} engine: its first "
                   f"{len(kept)} launches (batch {kept[0][0].shape}) against "
                   f"the plain version, max abs err {worst:.3e} (bound "
                   f"{BF16_REL:g} of each output's peak)")
@@ -3850,7 +3892,7 @@ def phase_26(ctx):
         bitwise = all(np.array_equal(a[k], b[k]) for k in b)
         _check(err <= BF16_REL * peak,
                f"sharded vs one device ({name}): {err} > {BF16_REL * peak}")
-        print(f"[26/26] (a) FE_B bf16 fused engine, {name}, capacity "
+        print(f"[26/27] (a) FE_B bf16 fused engine, {name}, capacity "
               f"{STREAMS} over {SHARD_DEVICES} shards of "
               f"{STREAMS // SHARD_DEVICES} (the card listed twice) against "
               f"capacity {STREAMS} on one device: {SHARD_REQUESTS} requests "
@@ -3977,7 +4019,7 @@ def phase_26(ctx):
                                   f"difference {max(spread.values())}")
         for tag in results:
             history, ms, _ = results[tag]
-            print(f"[26/26] (b) {tag}: the training CLI on {DP_CONFIG} "
+            print(f"[26/27] (b) {tag}: the training CLI on {DP_CONFIG} "
                   f"(FE-B's width) float32, {DP_EPOCHS} epochs of "
                   f"{DP_TRAIN_PAIRS // DP_BATCH} steps at {DP_BATCH} x "
                   f"{DP_SECONDS[0]:g}-{DP_SECONDS[1]:g} s: step ms "
@@ -3986,7 +4028,7 @@ def phase_26(ctx):
                   f" (mag_mse); gru_scan {blocks * valid_batches * DP_EPOCHS}"
                   f" launches in the valid forwards; on {card}")
         bitwise = all(np.array_equal(nccl[p], one[p]) for p in one)
-        print(f"[26/26] (b) the group's backend {backends[0]}; checkpoint "
+        print(f"[26/27] (b) the group's backend {backends[0]}; checkpoint "
               f"{DP_EPOCHS:05d}.ckpt with the flags against without: "
               f"{'bitwise equal' if bitwise else 'not bitwise equal'}, "
               f"largest difference {max(spread.values()):.3e} over "
@@ -4055,7 +4097,7 @@ def phase_26(ctx):
                 "gru_scan"]
             ms = [s for s, _ in out["steps"]]
             share = [a / s for s, a in out["steps"]]
-            print(f"[26/26] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
+            print(f"[26/27] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
                   f" {'staged through the host by the phase' if out['staged'] else 'CUDA tensors reduced by gloo'}"
                   f"), batch {DP_BATCH // DP_WORLD}: step ms "
                   f"{', '.join(f'{x:.1f}' for x in ms)}; all-reduce share of"
@@ -4064,7 +4106,7 @@ def phase_26(ctx):
                   f"BN's sums forward and backward, the loss counts and "
                   f"values; host clock, the card synchronised around each); "
                   f"gru_scan {out['gru_scan']} launches; on {card}")
-        print(f"[26/26] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
+        print(f"[26/27] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
               f" against one process x {DP_BATCH}: {len(one)} params and BN "
               f"statistics of {DP_EPOCHS:05d}.ckpt, largest difference "
               f"{largest:.3e}, every one within {DP_ATOL:g} + {DP_RTOL:g} x "
@@ -4078,7 +4120,7 @@ def phase_26(ctx):
               f"card first: each init raised ({refused})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[26/26] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[26/27] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4100,6 +4142,326 @@ def _phase_26_nccl_pair(rank, world, coordinator, device, out_paths):
         said = f"raised {type(e).__name__}: {str(e).strip().splitlines()[-1]}"
     with open(out_paths[rank], "w") as f:
         f.write(said)
+
+
+# phase 27: the folded streaming step exported with torch.export and run
+# with no model code. (what, phase 23's run or an untrained checkpoint's
+# config, the export's flags, the kernel each frame launches, the slope's
+# two run lengths: the CLI's are 128 and 640, cut here to keep the phase
+# short, and BSRNN-XT's float32 frame takes ~70 ms on #3's scalar form)
+EXPORT_UNTRAINED = ["ablation/dpt_b.yaml", "ablation/dprnn_b.yaml"]
+EXPORT_CASES = [
+    ("FE-B DNS wav2wav --fused", "fastenhancer_dns/b.yaml", ["--fused"],
+     "rnnformer_stack_step", (16, 80)),
+    ("FE-B DNS spec2spec --fused", "fastenhancer_dns/b.yaml",
+     ["--spec2spec", "--fused"], "rnnformer_stack_step", (16, 80)),
+    ("FE-B DNS wav2wav", "fastenhancer_dns/b.yaml", [], "gru_scan",
+     (16, 80)),
+    ("BSRNN-XT wav2wav --fused", "others_dns/bsrnn_xt.yaml", ["--fused"],
+     "bsrnn_stack_step", (4, 12)),
+    ("DPT-B wav2wav --fused", "ablation/dpt_b.yaml", ["--fused"],
+     "dpt_stack_step", (16, 80)),
+    ("DPRNN-B wav2wav --fused", "ablation/dprnn_b.yaml", ["--fused"],
+     "dprnn_stack_step", (16, 80))]
+EXPORT_FRAMES = 32         # the loaded artifact against the eager step
+EXPORT_TICK_SECONDS = 0.25  # the export's per-tick line over 15 hops
+EXPORT_WAV_SECONDS = 0.5    # the runner's input
+EXPORT_REL = 1e-5          # float32, of the peak: artifact vs eager step
+DISPATCH_CALLS = 1000      # the op route against the CUDA implementation
+COPY_FRAMES = 64           # #2's artifact in place against functional
+
+
+def _leaves(tree):
+    from torch.utils import _pytree as pytree
+
+    return [t.detach().float().cpu().numpy() for t in pytree.tree_leaves(tree)
+            if hasattr(t, "detach")]
+
+
+def phase_27(ctx, runs, root):
+    """Phase 27 (see the module docstring) on phase 23's runs, its files in
+    `root`; -> {kernel: {path: launches}}."""
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.scripts import export, run_exported
+    from fastenhancer_tpu_torch.utils.hparams import get_hparams
+    from fastenhancer_tpu_torch.wrappers import get_wrapper
+
+    card, dev = ctx["card"], ctx["dev"]
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "export")
+    run_dirs = dict(runs)
+    for config in EXPORT_UNTRAINED:
+        run = os.path.join(out_dir, "logs",
+                           os.path.basename(config).replace(".yaml", ""))
+        os.makedirs(run)
+        shutil.copy(os.path.join(repo, "configs", config),
+                    os.path.join(run, "config.yaml"))
+        hps = get_hparams(None, base_dir=run)
+        get_wrapper(hps.wrapper)(hps, train=False, device=dev).save(1)
+        run_dirs[config] = run
+
+    def after(text, key):
+        """The number that follows `key` in text."""
+        return float(text.split(key, 1)[1].split()[0].rstrip(")"))
+
+    paths = {}
+    specs, rows = [], []
+    wavs = {}
+    slope = export.SLOPE_FRAMES
+    try:
+        for i, case in enumerate(EXPORT_CASES):
+            tag, config, flags, kernel, lengths = case
+            base, name = os.path.split(run_dirs[config])
+            art = os.path.join(out_dir, f"step{i}.pt2")
+            export.SLOPE_FRAMES = lengths
+            got, counts, out = ctx["run_cli"](
+                ["-n", name, "--base_dir", base, "--streams", str(STREAMS),
+                 "--save", art, "--seconds", str(EXPORT_TICK_SECONDS),
+                 *flags], export.main)
+            model, sr = got["model"], got["hps"].data.sampling_rate
+            hop = model.hop_size
+            per_frame = model.num_blocks if kernel == "gru_scan" else 1
+            ticks = min(int(EXPORT_TICK_SECONDS * sr) // hop, 200)
+            frames = 2 + ticks + 3 * sum(lengths)
+            ctx["check_launches"](counts, kernel, per_frame * frames,
+                                  f"export {tag}", tc=0)
+            paths.setdefault(kernel, {})[f"export {tag} (27)"] = (
+                per_frame * frames)
+            row = dict(
+                tag=tag, kernel=kernel, per_frame=per_frame, slope=lengths,
+                export_s=after(out.split("streaming step:")[1], ", in "),
+                bytes=int(after(out, f"{art} (")),
+                nodes=out.split("kernel nodes: ")[1].split("\n")[0],
+                tick_p50=after(out, "(sync each): p50"),
+                tick_p99=after(out.split("(sync each): ")[1], "p99"),
+                slope_us=after(out.split("per-tick slope")[1], "run): "))
+            # the eager step the program was exported from, on the same
+            # variables, carry and hops
+            step, variables = got["step"], got["variables"]
+            rng = np.random.default_rng(270 + i)
+            feeds = (rng.standard_normal(
+                (EXPORT_FRAMES,) + tuple(got["feed"].shape)) * 0.1
+            ).astype(np.float32)
+            with torch.no_grad():
+                carry, ys = export.clone_tree(got["carry0"]), []
+                for x in feeds:
+                    carry, y = step(variables, carry,
+                                    torch.from_numpy(x).to(dev))
+                    ys.append(y)
+                ys = torch.stack(ys).cpu().numpy()
+            ref = os.path.join(out_dir, f"step{i}_ref.npz")
+            np.savez(ref, feeds=feeds, ys=ys,
+                     **{f"carry{j}": a for j, a in enumerate(_leaves(carry))})
+            if sr not in wavs:
+                wavs[sr] = os.path.join(out_dir, f"in_{sr}.wav")
+                write_wav(wavs[sr], ctx["speech_like"](
+                    np.random.default_rng(27), 1,
+                    int(EXPORT_WAV_SECONDS * sr))[0], sr)
+            n = int(EXPORT_WAV_SECONDS * sr)
+            n_fft = model.stft_cfg.n_fft
+            hops = ((n - n_fft) // hop + 1 if "--spec2spec" in flags
+                    else n // hop)
+            row["runner_launches"] = per_frame * (hops + min(hops - 1, 256))
+            specs.append(dict(tag=tag, artifact=art,
+                              params=art + ".params.pkl", ref=ref,
+                              wav=wavs[sr], out=art + ".wav"))
+            rows.append(row)
+            del got, step, variables, carry
+    finally:
+        export.SLOPE_FRAMES = slope
+
+    # every artifact in one fresh process through the runner: no model code
+    spec_path = os.path.join(out_dir, "specs.json")
+    with open(spec_path, "w") as f:
+        json.dump(specs, f)
+    res_path = os.path.join(out_dir, "results.json")
+    t0 = time.perf_counter()
+    spawned(_phase_27_child, 1, spec_path, res_path)
+    child_s = time.perf_counter() - t0
+    with open(res_path) as f:
+        res = json.load(f)
+    _check(not res["loaded"], f"the runner's process loaded {res['loaded']}")
+    for row, got in zip(rows, res["results"]):
+        tag, kernel, per_frame = row["tag"], row["kernel"], row["per_frame"]
+        sys.stdout.write(got["lines"])
+        for key in ("streamed ", "steady-state RTF", "per-tick latency ms",
+                    "amortized (pipelined dispatch)"):
+            _check(key in got["lines"], f"runner {tag}: no {key!r} line")
+        ctx["check_launches"](got["counts"], kernel,
+                              per_frame * EXPORT_FRAMES,
+                              f"artifact {tag}, {EXPORT_FRAMES} frames",
+                              tc=0)
+        ctx["check_launches"](got["runner_counts"], kernel,
+                              row["runner_launches"], f"runner {tag}", tc=0)
+        for what, err, peak in got["errs"]:
+            _check(err <= EXPORT_REL * peak, f"artifact {tag} {what} vs "
+                   f"the eager step: {err:.3e} of a peak {peak:.3e}")
+        worst = max(err / max(peak, 1e-30) for _, err, peak in got["errs"])
+        paths.setdefault(kernel, {})[f"artifact {tag} (27)"] = (
+            per_frame * EXPORT_FRAMES + row["runner_launches"])
+        tick = got["lines"].split("per-tick latency ms:")[1]
+        print(f"[27/27] {tag} at {STREAMS} streams, float32: export "
+              f"{row['export_s']:.2f} s, artifact {row['bytes']} bytes, "
+              f"kernel nodes {row['nodes']}; export's per-tick p50 "
+              f"{row['tick_p50']:.2f} ms, p99 {row['tick_p99']:.2f} ms, "
+              f"slope {row['slope_us']:.1f} us/frame ({row['slope'][0]} vs "
+              f"{row['slope'][1]} frames); runner (fresh process) tick p50 "
+              f"{after(tick, 'p50')} ms, p99 {after(tick, 'p99')} ms; "
+              f"{EXPORT_FRAMES} "
+              f"frames against the eager step: worst {worst:.2e} of the "
+              f"peak (tol {EXPORT_REL:g}), output and {len(got['errs']) - 1}"
+              f" carry leaves; {kernel} {per_frame} a frame and no other "
+              f"kernel; on {card}")
+
+    # #2's artifact in place (the op writes kc/vc) against its functional
+    # form (run_decompositions: the caches cloned and copied back a frame)
+    i = [c[0] for c in EXPORT_CASES].index("DPT-B wav2wav --fused")
+    program, variables, carry0, _ = run_exported.load(
+        specs[i]["artifact"], specs[i]["params"], dev)
+    forms = {"in place": program.module(),
+             "functional": program.run_decompositions().module()}
+    ref = np.load(specs[i]["ref"])
+    xs = [torch.from_numpy(x).to(dev) for x in ref["feeds"]]
+    xs = (xs * (COPY_FRAMES // len(xs) + 1))[:COPY_FRAMES]
+    walls, outs = {k: [] for k in forms}, {}
+    with torch.no_grad():
+        for name in ["in place", "functional", "functional", "in place"]:
+            carry = {k: v.clone() for k, v in carry0.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x in xs:
+                carry, y = forms[name](variables, carry, x)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / len(xs) * 1e3)
+            outs[name] = y.float().cpu()
+    err = float((outs["functional"] - outs["in place"]).abs().max())
+    peak = float(outs["in place"].abs().max())
+    _check(err <= EXPORT_REL * peak, f"DPT-B's functional artifact: "
+           f"{err:.3e} of a peak {peak:.3e} from the in-place one")
+    cache_bytes = 2 * carry0["kc"].numel() * carry0["kc"].element_size()
+    best = {k: min(v) for k, v in walls.items()}
+    walls = {k: [round(w, 3) for w in v] for k, v in walls.items()}
+    print(f"[27/27] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
+          f"{COPY_FRAMES} frames at {STREAMS} streams, ms a frame (best of "
+          f"two; runs in place, functional, functional, in place: "
+          f"{walls}): the artifact (the op writes them in place) "
+          f"{best['in place']:.3f}, its functional form (run_decompositions:"
+          f" cloned and copied back each frame) {best['functional']:.3f}; "
+          f"the copies {best['functional'] - best['in place']:.3f} (their "
+          f"bytes, read and written twice, at 3.35 TB/s: "
+          f"{4 * cache_bytes / PEAK_BYTES_S * 1e3:.4f}); outputs {err:.2e} "
+          f"of the peak apart; on {card}")
+
+    # the op route's cost per call on this host: the CUDA implementation
+    # called directly, through torch.ops, and through the wrapper
+    rng = np.random.default_rng(28)
+    n, h = 16, 36
+    args = [torch.from_numpy((rng.standard_normal(s) * 0.3).astype(
+        np.float32)).to(dev) for s in ((1, n, 3 * h), (n, h), (3 * h, h),
+                                       (3 * h,))]
+    routes = {"direct": lambda: scan.cuda_impl(*args),
+              "torch.ops": lambda: torch.ops.fastenhancer.gru_scan(*args),
+              "wrapper": lambda: scan.gru_scan(*args)}
+    per_call = {k: [] for k in routes}
+    with torch.no_grad():
+        for name in ["direct", "torch.ops", "wrapper", "wrapper",
+                     "torch.ops", "direct"]:
+            for _ in range(10):
+                routes[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                routes[name]()
+            torch.cuda.synchronize()
+            per_call[name].append((time.perf_counter() - t0)
+                                  / DISPATCH_CALLS * 1e6)
+    best = {k: min(v) for k, v in per_call.items()}
+    per_call = {k: [round(w, 2) for w in v] for k, v in per_call.items()}
+    print(f"[27/27] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
+          f"over {DISPATCH_CALLS} calls (best of two; runs direct, "
+          f"torch.ops, wrapper, wrapper, torch.ops, direct: {per_call}): "
+          f"the CUDA implementation called directly {best['direct']:.2f}, "
+          f"through torch.ops.fastenhancer.gru_scan {best['torch.ops']:.2f} "
+          f"(+{best['torch.ops'] - best['direct']:.2f}), through the "
+          f"wrapper gru_scan {best['wrapper']:.2f} "
+          f"(+{best['wrapper'] - best['direct']:.2f}); on {card}")
+    print(f"[27/27] phase wall {time.perf_counter() - t_phase:.1f} s (the "
+          f"runner's process {child_s:.1f} s)")
+    return paths
+
+
+def _phase_27_child(rank, world, coordinator, spec_path, out_path):
+    """Phase 27's fresh process: each artifact through the runner's main
+    (its lines and launches kept), then loaded again and run over the
+    eager step's hops from its zero carry (launches and errors kept);
+    which model, wrapper or trainer modules it loaded, written with the
+    results to out_path."""
+    del rank, world, coordinator
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch import require_cuda
+    from fastenhancer_tpu_torch.scripts import run_exported
+
+    dev = require_cuda()
+    # the parent's float32 settings: TF32 off for products and convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+
+    def zero():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    with open(spec_path) as f:
+        specs = json.load(f)
+    results = []
+    for s in specs:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        zero()
+        stdout, sys.stdout = sys.stdout, buf
+        try:
+            run_exported.main([s["artifact"], "--params", s["params"], "-i",
+                               s["wav"], "-o", s["out"]])
+        finally:
+            sys.stdout = stdout
+        torch.cuda.synchronize()
+        runner_counts = read()
+        program, variables, carry, _ = run_exported.load(
+            s["artifact"], s["params"], dev)
+        step = program.module()
+        ref = np.load(s["ref"])
+        zero()
+        with torch.no_grad():
+            ys = []
+            for x in ref["feeds"]:
+                carry, y = step(variables, carry, torch.from_numpy(x).to(dev))
+                ys.append(y)
+            ys = torch.stack(ys).cpu().numpy()
+        counts = read()
+        errs = [("output", float(np.abs(ys - ref["ys"]).max()),
+                 float(np.abs(ref["ys"]).max()))]
+        for j, got in enumerate(_leaves(carry)):
+            want = ref[f"carry{j}"]
+            errs.append((f"carry leaf {j}", float(np.abs(got - want).max()),
+                         float(np.abs(want).max())))
+        results.append(dict(lines=buf.getvalue(), counts=counts,
+                            runner_counts=runner_counts, errs=errs))
+    loaded = sorted(m for m in sys.modules if m.startswith(tuple(
+        f"fastenhancer_tpu_torch.{p}" for p in ("models", "wrappers",
+                                                "train"))))
+    with open(out_path, "w") as f:
+        json.dump({"results": results, "loaded": loaded}, f)
 
 
 def spawned(fn, world, *args):

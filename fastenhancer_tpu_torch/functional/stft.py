@@ -170,14 +170,19 @@ class STFTConfig:
     def tensor(self, name: str, device: torch.device) -> Tensor:
         """float32 tensor of the numpy constant `name` (window_f32,
         synthesis_window, dft_matrix, idft_matrix) on `device`, copied once
-        per device."""
+        per device. While a trace runs (torch.export, torch.compile) the
+        tensor is made for the trace and not cached: a tensor made inside
+        a trace is the trace's own (a fake tensor under torch.export), and
+        a cache that outlived the trace would hand it to the next trace
+        and to eager calls."""
         cache = self.__dict__.setdefault("_tensors", {})
         key = (name, torch.device(device))
         t = cache.get(key)
         if t is None:
             t = torch.from_numpy(np.ascontiguousarray(getattr(self, name))
                                  ).to(device=device, dtype=torch.float32)
-            cache[key] = t
+            if not torch.compiler.is_compiling():
+                cache[key] = t
         return t
 
 

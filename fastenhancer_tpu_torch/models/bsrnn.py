@@ -59,6 +59,10 @@ class Model(torch.nn.Module):
     (configs/others/bsrnn_*.yaml). The module holds the configuration only;
     weights live in the variables tree that `init` returns."""
 
+    # no spec2spec form: the fused step is exported as wav2wav
+    # (scripts/export.py)
+    spec2spec_fused = False
+
     def __init__(
         self,
         num_channels: int = 16,

@@ -232,6 +232,10 @@ class Model(torch.nn.Module):
     weights live in the variables tree that `init` returns and every apply
     method takes."""
 
+    # model_forward_fused(variables, plan, spec, h) threads one carry
+    # value, so the spec2spec step can run it (scripts/export.py)
+    spec2spec_fused = True
+
     def __init__(
         self,
         channels: int = 64,

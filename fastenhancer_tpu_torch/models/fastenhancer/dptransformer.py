@@ -107,6 +107,10 @@ class Model(DefaultModel):
     """FastEnhancer dptransformer. Takes the reference's `model_kwargs`
     unchanged (configs/ablation/dpt_*.yaml)."""
 
+    # model_forward_fused takes the K/V caches and the slot pointer apart:
+    # no single-carry spec2spec fused step (export it as wav2wav)
+    spec2spec_fused = False
+
     def __init__(
         self,
         channels: int = 64,

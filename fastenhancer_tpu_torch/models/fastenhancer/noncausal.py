@@ -36,6 +36,8 @@ class Model(DefaultModel):
     """FastEnhancer noncausal. Takes the reference's `model_kwargs`
     unchanged (configs/fastenhancer_dns/huge_noncausal.yaml)."""
 
+    spec2spec_fused = False  # offline only: no streaming step
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         if self.pre_post_init not in (None, "linear", "linear_fixed"):

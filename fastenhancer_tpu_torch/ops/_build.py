@@ -174,6 +174,13 @@ def function(name: str, symbol: str, restype: tp.Any,
     return fn
 
 
+def check_device(t: torch.Tensor) -> None:
+    """Raise for a tensor on neither the CPU nor a CUDA device: the ops
+    have a plain version (CPU) and a kernel (CUDA) and nothing else."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a launch of csrc/<name>.cu returned a CUDA error."""
     if err:

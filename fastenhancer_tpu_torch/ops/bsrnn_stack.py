@@ -21,15 +21,18 @@ serving engine can infer.
   rounded before the recurrent half is added; the sweep's h rounded for
   its product and its output, its c kept in float32. The CPU path uses it;
   the card's checks compare the kernel against it.
-* `bsrnn_stack_step` is the wrapper: a CPU tensor goes to the plain
-  version, a CUDA tensor launches the kernel or raises; nothing falls back.
+* `bsrnn_stack_step` is the wrapper: it checks the operands and calls the
+  op `torch.ops.fastenhancer.bsrnn_stack` (ops/_library.py), whose CPU
+  implementation is the plain version (`cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back.
   The kernel has two forms, chosen by `kernel_form` from the shapes and
   dtype before launch: bfloat16 with C and H multiples of 16, C <= 64 and
   H <= 128 (BSRNN-S and -XT) runs the tensor-core form (csrc/band_tc.cuh:
   a cluster of two thread blocks per tile of 8 streams, two workspaces
   from `tc_workspace`); float32 and every other shape run the
   scalar form (one thread block per stream). `bsrnn_stack_step.launches`
-  counts launches of either form, `.tc_launches` the tensor-core form's.
+  counts launches of either form, `.tc_launches` the tensor-core form's,
+  both in `cuda_impl`.
   `launch_scalar` and `launch_tc` launch one form directly and count
   nothing (for timing one against the other).
 
@@ -343,16 +346,35 @@ def bsrnn_stack_step(plan: Params, x: Tensor, h: Tensor
     x: [F, B, C] frame activations (band-split output, frequency-major);
     h: [L, 2, F, B, H] stacked time-LSTM (h, c) carries -> (x_out [F, B, C],
     h_new like h), fresh tensors. Every operand has x's dtype (float32 or
-    bfloat16) and device and is contiguous. On the CPU this is the plain
-    version; on a CUDA device it launches the form `kernel_form` picks
-    (building the kernel on first use) and raises if it cannot.
-    `bsrnn_stack_step.launches` counts launches of either form,
-    `.tc_launches` those of the tensor-core form."""
+    bfloat16) and device and is contiguous. The op `torch.ops.fastenhancer.
+    bsrnn_stack` (ops/_library.py): on the CPU the plain version; on a CUDA
+    device it launches the form `kernel_form` picks (building the kernel on
+    first use) and raises if it cannot. `bsrnn_stack_step.launches` counts
+    launches of either form, `.tc_launches` those of the tensor-core
+    form."""
     _check(plan, x, h)
-    if x.device.type == "cpu":
-        return bsrnn_stack_reference(plan, x, h)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    return tuple(torch.ops.fastenhancer.bsrnn_stack(
+        [plan[k] for k in PLAN_KEYS], x, h))
+
+
+def cpu_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor
+             ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return bsrnn_stack_reference(dict(zip(PLAN_KEYS, plan)), x, h)
+
+
+def fake_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's shapes and types: x_out like x, h_new like h."""
+    return torch.empty_like(x), torch.empty_like(h)
+
+
+def cuda_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CUDA implementation: one launch of the form kernel_form
+    picks, counted in bsrnn_stack_step.launches (and .tc_launches)."""
+    plan = dict(zip(PLAN_KEYS, plan))
     fb, b, c = x.shape
     hd = h.shape[-1]
     if kernel_form(fb, c, hd, x.dtype) == "tc":

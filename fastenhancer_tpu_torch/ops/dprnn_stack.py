@@ -22,13 +22,16 @@ can infer.
   b_hh, in float32) is added; the sweep's h rounded for its product and
   its output and kept in float32 for the z * h term. The CPU path uses it;
   the card's checks compare the kernel against it.
-* `dprnn_stack_step` is the wrapper: a CPU tensor goes to the plain
-  version, a CUDA tensor launches the kernel or raises; nothing falls back.
+* `dprnn_stack_step` is the wrapper: it checks the operands and calls the
+  op `torch.ops.fastenhancer.dprnn_stack` (ops/_library.py), whose CPU
+  implementation is the plain version (`cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back.
   The kernel has two forms, chosen by shape alone before launch
   (`kernel_form`): the tensor-core form (csrc/dprnn_tc.cuh) for bfloat16
   with Hd <= 32 whose shared memory fits, else the scalar form (float32
   always). `dprnn_stack_step.launches` counts launches of either form,
-  `.tc_launches` those of the tensor-core form; `launch_scalar` and
+  `.tc_launches` those of the tensor-core form, both in `cuda_impl`;
+  `launch_scalar` and
   `launch_tc` launch one form directly and count nothing.
 
 What bounds the kernel on the H100, and what its design does about it, is
@@ -294,15 +297,34 @@ def dprnn_stack_step(plan: Params, x: Tensor, h: Tensor
     x: [F, B, C] frame activations (rf_pre output, frequency-major); h:
     [NB, F, B, C] stacked time-GRU carries -> (x_out [F, B, C], h_new like
     h), fresh tensors. Every operand has x's dtype (float32 or bfloat16)
-    and device and is contiguous. On the CPU this is the plain version; on
-    a CUDA device it launches the form `kernel_form` picks (building the
+    and device and is contiguous. The op `torch.ops.fastenhancer.
+    dprnn_stack` (ops/_library.py): on the CPU the plain version; on a
+    CUDA device it launches the form `kernel_form` picks (building the
     kernel on first use), one thread block per stream, and raises if it
     cannot."""
     _check(plan, x, h)
-    if x.device.type == "cpu":
-        return dprnn_stack_reference(plan, x, h)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    return tuple(torch.ops.fastenhancer.dprnn_stack(
+        [plan[k] for k in PLAN_KEYS], x, h))
+
+
+def cpu_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor
+             ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return dprnn_stack_reference(dict(zip(PLAN_KEYS, plan)), x, h)
+
+
+def fake_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's shapes and types: x_out like x, h_new like h."""
+    return torch.empty_like(x), torch.empty_like(h)
+
+
+def cuda_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CUDA implementation: one launch of the form kernel_form
+    picks, counted in dprnn_stack_step.launches (and .tc_launches)."""
+    plan = dict(zip(PLAN_KEYS, plan))
     fb, _, c = x.shape
     if kernel_form(fb, c, plan["w_fhh"].shape[-2], x.dtype) == "tc":
         out = launch_tc(plan, x, h)

@@ -32,16 +32,18 @@ activations' device, read by the kernel, so no frame waits on the host.
   with the same float32 accumulation and the same rounding points to the
   activation type. The CPU path uses it; the card's checks compare the
   kernel against it.
-* `dpt_stack_step` is the wrapper: a CPU tensor goes to the plain version,
-  a CUDA tensor launches the kernel or raises; nothing falls back. The
+* `dpt_stack_step` is the wrapper: it checks the operands and calls the op
+  `torch.ops.fastenhancer.dpt_stack` (ops/_library.py), whose CPU
+  implementation is the plain version (`cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back. The
   kernel has two forms, chosen by shape alone before launch
   (`kernel_form`): the tensor-core form (csrc/dpt_tc.cuh, the cache
   streamed through a shared-memory ring by bulk copies) for bfloat16 when
   a slot's F*C*2 bytes are a multiple of 16 and its shared memory fits,
   else the scalar form (float32 always). `dpt_stack_step.launches` counts
-  launches of either form, `.tc_launches` those of the tensor-core form;
-  `launch_scalar` and `launch_tc` launch one form directly and count
-  nothing.
+  launches of either form, `.tc_launches` those of the tensor-core form,
+  both in `cuda_impl`; `launch_scalar` and `launch_tc` launch one form
+  directly and count nothing.
 
 Both write the frame's k and v into slot `ptr` of kc and vc in place and
 return the advanced pointer as a new tensor. What bounds the kernel on the
@@ -383,14 +385,34 @@ def dpt_stack_step(plan: Params, x: Tensor, kc: Tensor, vc: Tensor,
     (x_out [B, F, C], the advanced pointer (ptr + 1) mod L), both fresh
     tensors. The frame's k and v are written into slot ptr of kc and vc in
     place. Every float operand has x's dtype (float32 or bfloat16) and
-    device and is contiguous. On the CPU this is the plain version; on a
-    CUDA device it launches the form `kernel_form` picks (building the
-    kernel on first use) and raises if it cannot."""
+    device and is contiguous. The op `torch.ops.fastenhancer.dpt_stack`
+    (ops/_library.py; kc and vc are declared mutated): on the CPU the
+    plain version; on a CUDA device it launches the form `kernel_form`
+    picks (building the kernel on first use) and raises if it cannot."""
     _check(plan, x, kc, vc, ptr, num_heads)
-    if x.device.type == "cpu":
-        return dpt_stack_reference(plan, x, kc, vc, ptr, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    return tuple(torch.ops.fastenhancer.dpt_stack(
+        [plan[k] for k in PLAN_KEYS], x, kc, vc, ptr, num_heads))
+
+
+def cpu_impl(plan: tp.List[Tensor], x: Tensor, kc: Tensor, vc: Tensor,
+             ptr: Tensor, num_heads: int) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return dpt_stack_reference(dict(zip(PLAN_KEYS, plan)), x, kc, vc, ptr,
+                               num_heads)
+
+
+def fake_impl(plan: tp.List[Tensor], x: Tensor, kc: Tensor, vc: Tensor,
+              ptr: Tensor, num_heads: int) -> tp.Tuple[Tensor, Tensor]:
+    """The op's shapes and types: x_out like x, the pointer like ptr."""
+    return torch.empty_like(x), torch.empty_like(ptr)
+
+
+def cuda_impl(plan: tp.List[Tensor], x: Tensor, kc: Tensor, vc: Tensor,
+              ptr: Tensor, num_heads: int) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CUDA implementation: one launch of the form kernel_form
+    picks, counted in dpt_stack_step.launches (and .tc_launches)."""
+    plan = dict(zip(PLAN_KEYS, plan))
     _, f, c = x.shape
     if kernel_form(f, c, num_heads, kc.shape[2], x.dtype) == "tc":
         out = launch_tc(plan, x, kc, vc, ptr, num_heads)

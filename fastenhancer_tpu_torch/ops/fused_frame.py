@@ -25,9 +25,11 @@ How the pieces map (the Pallas kernel's forms, kept in the plan):
   math, with float32 accumulation and the same rounding points to the
   activation type. The CPU path uses it; the card's checks compare the
   kernel against it.
-* `fused_frame_step` is the wrapper: a CPU tensor goes to the plain
-  version, a CUDA tensor launches the kernel or raises; nothing falls back.
-  `fused_frame_step.launches` counts kernel launches.
+* `fused_frame_step` is the wrapper: it checks the operands and calls the
+  op `torch.ops.fastenhancer.fused_frame` (ops/_library.py), whose CPU
+  implementation is the plain version (`cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back.
+  `fused_frame_step.launches` counts kernel launches, in `cuda_impl`.
 
 What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/fused_frame.cu (the bfloat16 form on the
@@ -313,25 +315,57 @@ def fused_frame_step(plan: Params, x: Tensor, h: Tensor, *, num_blocks: int,
     h: [NB, B*F', C'] stacked GRU carries, rows batch-major -> (mask8
     [B, F_enc, 2s], phase-interleaved: reshape to [B, F_enc*s, 2]; h_new),
     fresh tensors. Every operand has x's dtype (float32 or bfloat16) and
-    device and is contiguous. On the CPU this is the plain version; on a
-    CUDA device it launches the kernel (building it on first use) and
-    raises if it cannot."""
+    device and is contiguous. The op `torch.ops.fastenhancer.fused_frame`
+    (ops/_library.py): on the CPU the plain version; on a CUDA device it
+    launches the kernel (building it on first use) and raises if it
+    cannot."""
     if h.ndim != 3 or h.shape[0] != num_blocks:
         raise ValueError(f"h must be [{num_blocks}, B*F', C']; got "
                          f"{tuple(h.shape)}")
     _check(plan, x, h, num_heads, n_enc, enc_ks, f_enc, block_freq, stride,
            mask)
-    kw = dict(num_heads=num_heads, n_enc=n_enc, enc_ks=enc_ks, f_enc=f_enc,
-              block_freq=block_freq, stride=stride, resnet=resnet, mask=mask)
-    if x.device.type == "cpu":
-        return fused_frame_reference(plan, x, h, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    return tuple(torch.ops.fastenhancer.fused_frame(
+        [plan[k] for k in frame_plan_keys(n_enc)],
+        [plan["stack"][k] for k in STACK_KEYS], x, h, num_heads,
+        list(enc_ks), f_enc, block_freq, stride, resnet, mask))
+
+
+def cpu_impl(frame: tp.List[Tensor], stack: tp.List[Tensor], x: Tensor,
+             h: Tensor, num_heads: int, enc_ks: tp.List[int], f_enc: int,
+             block_freq: int, stride: int, resnet: bool,
+             mask: tp.Optional[str]) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CPU implementation: the plain version."""
+    plan = dict(zip(frame_plan_keys(len(enc_ks)), frame))
+    plan["stack"] = dict(zip(STACK_KEYS, stack))
+    return fused_frame_reference(
+        plan, x, h, num_heads=num_heads, n_enc=len(enc_ks), enc_ks=enc_ks,
+        f_enc=f_enc, block_freq=block_freq, stride=stride, resnet=resnet,
+        mask=mask)
+
+
+def fake_impl(frame: tp.List[Tensor], stack: tp.List[Tensor], x: Tensor,
+              h: Tensor, num_heads: int, enc_ks: tp.List[int], f_enc: int,
+              block_freq: int, stride: int, resnet: bool,
+              mask: tp.Optional[str]) -> tp.Tuple[Tensor, Tensor]:
+    """The op's shapes and types: mask8 [B, F_enc, 2s] in x's dtype, h_new
+    like h."""
+    return (x.new_empty(x.shape[0], f_enc, 2 * stride),
+            torch.empty_like(h))
+
+
+def cuda_impl(frame: tp.List[Tensor], stack: tp.List[Tensor], x: Tensor,
+              h: Tensor, num_heads: int, enc_ks: tp.List[int], f_enc: int,
+              block_freq: int, stride: int, resnet: bool,
+              mask: tp.Optional[str]) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CUDA implementation: one launch of the kernel, counted in
+    fused_frame_step.launches."""
     fn = _build.entry("fused_frame", x.dtype, _ARGTYPES)
+    n_enc = len(enc_ks)
     b = x.shape[0]
-    c = plan["b_enc_pre"].shape[0]
+    c = frame[frame_plan_keys(n_enc).index("b_enc_pre")].shape[0]
     cc = h.shape[-1]
-    dims = [b, f_enc, block_freq, c, cc, num_heads, num_blocks, stride,
+    dims = [b, f_enc, block_freq, c, cc, num_heads, h.shape[0], stride,
             n_enc, int(resnet), MASKS.index(mask), *enc_ks]
     c_dims = (ctypes.c_int * len(dims))(*dims)
     if x.dtype == torch.bfloat16:
@@ -347,13 +381,15 @@ def fused_frame_step(plan: Params, x: Tensor, h: Tensor, *, num_blocks: int,
             f"stream; the kernel has {MAX_SMEM_BYTES}")
     mask8 = torch.empty(b, f_enc, 2 * stride, dtype=x.dtype, device=x.device)
     h_out = torch.empty_like(h)
-    frame = [plan[k].data_ptr() for k in frame_plan_keys(n_enc)]
-    stack = [plan["stack"][k].data_ptr() for k in STACK_KEYS]
+    frame_ptrs = [t.data_ptr() for t in frame]
+    stack_ptrs = [t.data_ptr() for t in stack]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), mask8.data_ptr(),
-                 h_out.data_ptr(), (ctypes.c_void_p * len(frame))(*frame),
-                 len(frame), (ctypes.c_void_p * len(stack))(*stack),
+                 h_out.data_ptr(),
+                 (ctypes.c_void_p * len(frame_ptrs))(*frame_ptrs),
+                 len(frame_ptrs),
+                 (ctypes.c_void_p * len(stack_ptrs))(*stack_ptrs),
                  c_dims, len(dims), stream)
     _build.check_launch("fused_frame", err)
     fused_frame_step.launches += 1

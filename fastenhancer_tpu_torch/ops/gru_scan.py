@@ -13,11 +13,14 @@ where x_proj = x W_ih^T + b_ih comes from one matmul over the sequence.
   kernel's cast points: the state stays float32 across all T steps, w_hh
   and b_hh are read in float32, and only ys and h_T are rounded to the
   activation type. (nn.gru rounds h every step in bfloat16; this does not.)
-* `gru_scan` is the wrapper, the counterpart of `gru_scan_pallas`: a CPU
-  tensor goes to the plain version, a CUDA tensor launches the kernel or
-  raises; nothing falls back. The kernel has no backward, as the Pallas
-  kernel has no VJP, so a CUDA input that requires a gradient raises.
-  `gru_scan.launches` counts kernel launches. The kernel has two forms,
+* `gru_scan` is the wrapper, the counterpart of `gru_scan_pallas`: it
+  checks the operands and calls the op `torch.ops.fastenhancer.gru_scan`
+  (ops/_library.py), whose CPU implementation is the plain version
+  (`cpu_impl`, differentiable through `autograd_cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back. The
+  kernel has no backward, as the Pallas kernel has no VJP, so a CUDA
+  input that requires a gradient raises. `gru_scan.launches` counts
+  kernel launches, in `cuda_impl`. The kernel has two forms,
   chosen by `kernel_form` from the shape and type: "tc" (bfloat16 on the
   tensor cores, a thread block of `tc_warps(H)` warps per tile of 16
   rows; `gru_scan.tc_launches` counts it) and "scalar" (float32 and odd
@@ -207,15 +210,38 @@ def gru_scan(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
 
     x_proj [T, N, 3H], h0 [N, H], w_hh [3H, H], b_hh [3H], all of x_proj's
     dtype (float32 or bfloat16) and device -> (ys [T, N, H], h_T [N, H]),
-    fresh tensors. On the CPU this is the plain version; on a CUDA device
-    it launches the form `kernel_form` picks (building the kernel on first
-    use) and raises if it cannot, or if an input requires a gradient (the
-    kernel has no backward)."""
+    fresh tensors. The op `torch.ops.fastenhancer.gru_scan`
+    (ops/_library.py): on the CPU the plain version, differentiable; on a
+    CUDA device it launches the form `kernel_form` picks (building the
+    kernel on first use) and raises if it cannot, or if an input requires
+    a gradient (the kernel has no backward)."""
     _check(x_proj, h0, w_hh, b_hh)
-    if x_proj.device.type == "cpu":
-        return gru_scan_reference(x_proj, h0, w_hh, b_hh)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"unsupported device {x_proj.device}")
+    _build.check_device(x_proj)
+    if (x_proj.device.type == "cuda" and torch.is_grad_enabled()
+            and any(a.requires_grad for a in (x_proj, h0, w_hh, b_hh))):
+        raise RuntimeError("gru_scan's kernel has no backward: run it under "
+                           "torch.no_grad(), or use nn.gru to train")
+    return tuple(torch.ops.fastenhancer.gru_scan(x_proj, h0, w_hh, b_hh))
+
+
+def cpu_impl(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
+             ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return gru_scan_reference(x_proj, h0, w_hh, b_hh)
+
+
+def fake_impl(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's shapes and types: ys [T, N, H] and h_T like h0, in
+    x_proj's dtype."""
+    t, n, h3 = x_proj.shape
+    return x_proj.new_empty(t, n, h3 // 3), x_proj.new_empty(n, h3 // 3)
+
+
+def cuda_impl(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
+              ) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CUDA implementation: one launch of the form kernel_form
+    picks, counted in gru_scan.launches (and .tc_launches)."""
     n, hidden = x_proj.shape[1], x_proj.shape[-1] // 3
     if kernel_form(n, hidden, x_proj.dtype) == "tc":
         out = launch_tc(x_proj, h0, w_hh, b_hh)
@@ -224,6 +250,42 @@ def gru_scan(x_proj: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor
         out = launch_scalar(x_proj, h0, w_hh, b_hh)
     gru_scan.launches += 1
     return out
+
+
+class _PlainGradient(torch.autograd.Function):
+    """The op on the CPU with a gradient: the plain version run again with
+    autograd in backward, then differentiated. The kernel has no backward,
+    as the Pallas kernel has no VJP."""
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, w_hh, b_hh):
+        ctx.save_for_backward(x_proj, h0, w_hh, b_hh)
+        with torch._C._AutoDispatchBelowAutograd():
+            return torch.ops.fastenhancer.gru_scan(x_proj, h0, w_hh, b_hh)
+
+    @staticmethod
+    def backward(ctx, g_ys, g_h):
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = gru_scan_reference(*leaves)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wanted, (g_ys, g_h),
+                                         allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in leaves)
+
+
+def autograd_cpu_impl(x_proj: Tensor, h0: Tensor, w_hh: Tensor,
+                      b_hh: Tensor) -> tp.Tuple[Tensor, Tensor]:
+    """The op's autograd kernel on the CPU only (so that a CUDA call pays
+    no Python autograd layer): _PlainGradient where an input requires a
+    gradient, else the CPU implementation."""
+    args = (x_proj, h0, w_hh, b_hh)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _PlainGradient.apply(*args)
+    with torch._C._AutoDispatchBelowAutograd():
+        return torch.ops.fastenhancer.gru_scan(*args)
 
 
 gru_scan.launches = 0

@@ -18,10 +18,13 @@ scaled (the Pallas kernel's `stack_math(ln=True)`).
   math, with the same float32 accumulation and the same rounding points to
   the activation dtype. The CPU path uses it, and the card's checks compare
   the kernel against it.
-* `rnnformer_stack_step` is the wrapper: a CPU tensor goes to the plain
-  version, a CUDA tensor launches the kernel or raises; nothing falls back.
+* `rnnformer_stack_step` is the wrapper: it checks the operands and calls
+  the op `torch.ops.fastenhancer.rnnformer_stack` (ops/_library.py), whose
+  CPU implementation is the plain version (`cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back.
   `rnnformer_stack_step.launches` counts launches of the folded default
-  form and `rnnformer_stack_step.ln_launches` those of the LN form.
+  form and `rnnformer_stack_step.ln_launches` those of the LN form, both in
+  `cuda_impl`, so an exported program's launches count too.
 
 What bounds the kernel on the H100, and what its design does about it, is
 in the note at the top of csrc/rnnformer_stack.cu: at B=256 streams the
@@ -254,6 +257,22 @@ def _check(plan: Params, x: Tensor, h: Tensor, num_heads: int) -> None:
                              f"expected {shapes[name]}")
 
 
+def plan_tensors(plan: Params) -> tp.List[Tensor]:
+    """The plan's arrays as the op takes them: PLAN_KEYS in order, then
+    LN_KEYS for the LN form."""
+    keys = PLAN_KEYS + (LN_KEYS if "wb_fc" in plan else ())
+    return [plan[k] for k in keys]
+
+
+def _plan_dict(tensors: tp.Sequence[Tensor],
+               ln_eps: tp.Optional[float]) -> Params:
+    """plan_tensors' list (and the LN form's eps) -> the plan dict."""
+    plan = dict(zip(PLAN_KEYS + LN_KEYS, tensors))
+    if ln_eps is not None:
+        plan["ln_eps"] = ln_eps
+    return plan
+
+
 def rnnformer_stack_step(plan: Params, x: Tensor, h: Tensor,
                          num_heads: int) -> tp.Tuple[Tensor, Tensor]:
     """One streaming frame through every block.
@@ -262,14 +281,34 @@ def rnnformer_stack_step(plan: Params, x: Tensor, h: Tensor,
     GRU carries, rows batch-major -> (x_out [B, F, C], h_new [NB, B*F, C]),
     fresh tensors. Every operand has x's dtype (float32 or bfloat16) and
     device and is contiguous. A plan with wb_fc (plan_stack's ln_eps) runs
-    the LN form. On the CPU this is the plain version; on a CUDA device it
+    the LN form. The op `torch.ops.fastenhancer.rnnformer_stack`
+    (ops/_library.py): on the CPU the plain version; on a CUDA device it
     launches the kernel (building it on first use) and raises if it
     cannot."""
     _check(plan, x, h, num_heads)
-    if x.device.type == "cpu":
-        return rnnformer_stack_reference(plan, x, h, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    ln_eps = plan["ln_eps"] if "wb_fc" in plan else None
+    return tuple(torch.ops.fastenhancer.rnnformer_stack(
+        plan_tensors(plan), x, h, num_heads, ln_eps))
+
+
+def cpu_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor, num_heads: int,
+             ln_eps: tp.Optional[float]) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return rnnformer_stack_reference(_plan_dict(plan, ln_eps), x, h,
+                                     num_heads)
+
+
+def fake_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor, num_heads: int,
+              ln_eps: tp.Optional[float]) -> tp.Tuple[Tensor, Tensor]:
+    """The op's shapes and types: x_out like x, h_new like h."""
+    return torch.empty_like(x), torch.empty_like(h)
+
+
+def cuda_impl(plan: tp.List[Tensor], x: Tensor, h: Tensor, num_heads: int,
+              ln_eps: tp.Optional[float]) -> tp.Tuple[Tensor, Tensor]:
+    """The op's CUDA implementation: one launch of the kernel, counted in
+    rnnformer_stack_step.launches (ln_launches for the LN form)."""
     fn = _build.entry("rnnformer_stack", x.dtype, _ARGTYPES)
     b, f, c = x.shape
     smem = smem_bytes(f, c, num_heads, x.dtype)
@@ -277,16 +316,17 @@ def rnnformer_stack_step(plan: Params, x: Tensor, h: Tensor,
         raise ValueError(
             f"F={f}, C={c}, H={num_heads} needs {smem} bytes of shared "
             f"memory per stream; the kernel has {MAX_SMEM_BYTES}")
-    ln = "wb_fc" in plan
-    wb = [plan[k].data_ptr() if ln else None for k in LN_KEYS]
+    ln = ln_eps is not None
+    ptrs = [t.data_ptr() for t in plan]
+    if not ln:
+        ptrs += [None, None]  # no wb_fc, wb_afc
     x_out = torch.empty_like(x)
     h_out = torch.empty_like(h)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), x_out.data_ptr(),
-                 h_out.data_ptr(), *(plan[k].data_ptr() for k in PLAN_KEYS),
-                 *wb, b, f, c, num_heads, h.shape[0],
-                 plan["ln_eps"] if ln else 0.0, stream)
+                 h_out.data_ptr(), *ptrs, b, f, c, num_heads, h.shape[0],
+                 ln_eps if ln else 0.0, stream)
     _build.check_launch("rnnformer_stack", err)
     if ln:
         rnnformer_stack_step.ln_launches += 1

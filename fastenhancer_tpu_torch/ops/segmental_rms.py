@@ -11,9 +11,11 @@ shorter than one frame gives the RMS of the whole row.
   sums in float32 whatever the input type, the result in the input's type,
   as the kernel does.
 * `segmental_rms_fused` is the wrapper, the counterpart of
-  `segmental_rms_pallas`: a CPU tensor goes to the plain version, a CUDA
-  tensor launches the kernel or raises; nothing falls back.
-  `segmental_rms_fused.launches` counts kernel launches. The kernel runs
+  `segmental_rms_pallas`: it calls the op
+  `torch.ops.fastenhancer.segmental_rms` (ops/_library.py), whose CPU
+  implementation is the plain version (`cpu_impl`) and whose CUDA one
+  launches the kernel or raises (`cuda_impl`); nothing falls back.
+  `segmental_rms_fused.launches` counts kernel launches, in `cuda_impl`. The kernel runs
   a cluster of `cluster_size(B)` thread blocks per row, each on the
   frames `frame_range` deals it.
 
@@ -103,14 +105,35 @@ def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
     row.
 
     wav: [B, T] (or [B, 1, T]), float32 or bfloat16 -> [B, 1, 1] in wav's
-    dtype. On the CPU this is the plain version; on a CUDA device it
+    dtype. The op `torch.ops.fastenhancer.segmental_rms`
+    (ops/_library.py): on the CPU the plain version; on a CUDA device it
     launches the kernel (building it on first use) and raises if it
     cannot."""
-    if wav.device.type == "cpu":
-        return segmental_rms(wav, sr, window_ms, relative_threshold_db,
-                             absolute_threshold_db)
-    if wav.device.type != "cuda":
-        raise ValueError(f"unsupported device {wav.device}")
+    _build.check_device(wav)
+    return torch.ops.fastenhancer.segmental_rms(
+        wav, sr, window_ms, relative_threshold_db, absolute_threshold_db)
+
+
+def cpu_impl(wav: Tensor, sr: int, window_ms: int,
+             relative_threshold_db: float,
+             absolute_threshold_db: tp.Optional[float]) -> Tensor:
+    """The op's CPU implementation: the plain version."""
+    return segmental_rms(wav, sr, window_ms, relative_threshold_db,
+                         absolute_threshold_db)
+
+
+def fake_impl(wav: Tensor, sr: int, window_ms: int,
+              relative_threshold_db: float,
+              absolute_threshold_db: tp.Optional[float]) -> Tensor:
+    """The op's shape and type: [B, 1, 1] in wav's dtype."""
+    return wav.new_empty(wav.shape[0], 1, 1)
+
+
+def cuda_impl(wav: Tensor, sr: int, window_ms: int,
+              relative_threshold_db: float,
+              absolute_threshold_db: tp.Optional[float]) -> Tensor:
+    """The op's CUDA implementation: one launch of the kernel, counted in
+    segmental_rms_fused.launches."""
     wav, win, _ = _prep(wav, sr, window_ms)
     b, length = wav.shape
     if b == 0:
@@ -122,7 +145,7 @@ def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
             f"most {_build.MAX_SMEM_BYTES // 4}")
     fn = _build.entry("segmental_rms", wav.dtype, _ARGTYPES)
     wav = wav.contiguous()
-    out = torch.empty(b, dtype=wav.dtype, device=wav.device)
+    out = torch.empty(b, 1, 1, dtype=wav.dtype, device=wav.device)
     rel_ratio, abs_floor = _thresholds(relative_threshold_db,
                                        absolute_threshold_db)
     with torch.cuda.device(wav.device):
@@ -131,7 +154,7 @@ def segmental_rms_fused(wav: Tensor, sr: int = 16_000, window_ms: int = 100,
                  cluster_size(b), rel_ratio, abs_floor, stream)
     _build.check_launch("segmental_rms", err)
     segmental_rms_fused.launches += 1
-    return out[:, None, None]
+    return out
 
 
 segmental_rms_fused.launches = 0

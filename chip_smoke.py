@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-seven phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-eight phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -243,9 +243,30 @@ each printed on its own line:
      (`run_decompositions`: the caches cloned and copied back a frame);
      the host cost a call of #5's CUDA implementation called directly,
      through `torch.ops.fastenhancer.gru_scan` and through the wrapper,
-     1,000 calls each.
+     1,000 calls each;
+ 28. a reference PyTorch checkpoint served: each family's seeded init
+     (FE_B, LN_B, TIME_KERNEL_B, DPT-B, DPRNN-B, BSRNN-S, FSPEN,
+     LiSenNet, NONCAUSAL_HUGE) written in the reference repo's state-dict
+     layout by tests/_torch_reference_sd.py (weight norm as
+     `parametrizations.*.original0/1`, wrapped as {"model": {"module." +
+     key: tensor}}), saved with torch.save, loaded with
+     `torch.load(..., map_location="cpu", weights_only=True)` and
+     converted on the card by `utils.convert_checkpoint`: every leaf
+     bit-equal to the init's; then folded, in bf16, the converted weights
+     and the init's through the family's path (256 streams x 32 frames:
+     FE_B per frame on #1 and through the whole frame on #7, LN_B on #1's
+     LN form, TIME_KERNEL_B on #1, DPT-B on #2, DPRNN-B on #6, BSRNN-S
+     on #3, FSPEN and LiSenNet per frame and in chunks of 4 on #5; the
+     noncausal model's 4 x 4 s forward, its biGRUs on #5), outputs equal
+     within 1e-7 of the peak, the path's own kernel alone and as often as
+     phases 4-20 count it, its launch at frame 16 (#5: each input shape)
+     held against the plain version; the .pth bytes, load and convert
+     seconds, the device ms a frame and the GMAC/s from the port's
+     `models.macs.macs_for_config` printed a path; then `python -m
+     fastenhancer_tpu_torch.scripts.gen_configs --check` on configs/
+     (no pyyaml on the card) exits 0.
 
-Each of phases 4 to 27 drives a path: every kernel's launch count is set to
+Each of phases 4 to 28 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -261,7 +282,8 @@ valid and showcase forwards of phase 25 and the valid forwards of phase
 and phases 24 and 26, the whole frame's over phases 7 and 26, the BSRNN
 stack's over its serving phases and phase 24, segmental RMS's over
 phases 14, 21 and 25, each listed by path before it; phase 27's
-launches of #1, #2, #3, #5 and #6 are added to theirs);
+launches of #1, #2, #3, #5 and #6 and phase 28's of every kernel but #4
+are added to theirs);
 the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
@@ -507,7 +529,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/27] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/28] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -515,10 +537,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/27] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/28] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/27] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/28] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -639,7 +661,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/27] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/28] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -674,7 +696,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/27] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/28] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -729,7 +751,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/27] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/28] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -750,7 +772,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/27] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/28] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -794,7 +816,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/27] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/28] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -841,7 +863,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/27] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/28] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -884,7 +906,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/27] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/28] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -932,7 +954,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/27] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/28] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -949,7 +971,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/27] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/28] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -1005,7 +1027,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/27] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/28] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -1031,7 +1053,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/27] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/28] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -1069,7 +1091,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/27] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/28] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1122,7 +1144,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/27] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/28] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1241,7 +1263,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/27] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/28] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1280,7 +1302,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/27] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/28] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1337,7 +1359,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/27] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/28] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1492,7 +1514,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/27] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/28] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1540,7 +1562,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/27] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/28] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1585,7 +1607,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/27] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/28] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1649,7 +1671,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/27] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/28] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1658,7 +1680,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/27] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/28] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1696,7 +1718,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/27] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/28] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1745,7 +1767,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/27] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/28] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1835,21 +1857,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/27] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/28] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/27] {tag} bf16 Model.forward, "
+        print(f"[{phase}/28] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/27] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/28] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -2093,7 +2115,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/27] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/28] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2114,7 +2136,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/27] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/28] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2189,7 +2211,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/27] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/28] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2207,7 +2229,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/27] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/28] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2219,7 +2241,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/27] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/28] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2245,7 +2267,7 @@ def main():
                check_launches=check_launches, check_and_time=check_and_time,
                timed=timed, bound=bound, nbytes=nbytes,
                stack_flops=stack_flops, band_flops=band_flops,
-               write_corpus=write_corpus)
+               write_corpus=write_corpus, time_ms=time_ms)
     otf_root = tempfile.mkdtemp(prefix="chip_smoke_otf_")
     try:
         runs, scan_paths["on-the-fly CLI valid + PESQ (23)"] = phase_23(
@@ -2264,7 +2286,7 @@ def main():
         "gru_scan"]
     rms_paths["summaries CLI (25)"] = launches_25["segmental_rms_fused"]
     record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
-    print(f"[25/27] segmental_rms launches by path: {rms_paths}; "
+    print(f"[25/28] segmental_rms launches by path: {rms_paths}; "
           f"{record['segmental_rms_fused']['launches']} in all")
     scan_paths.update(paths["gru_scan"])
     for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
@@ -2272,20 +2294,26 @@ def main():
         by_path = {first: record[name]["launches"], **paths[name],
                    **launches_26.get(name, {})}
         record[name]["launches"] = sum(by_path.values())
-        print(f"[24/27] {name} launches by path: {by_path}; "
+        print(f"[24/28] {name} launches by path: {by_path}; "
               f"{record[name]['launches']} in all")
     by_path = {"FE_B whole frame (7)": record["fused_frame_step"][
         "launches"], **launches_26["fused_frame_step"]}
     record["fused_frame_step"]["launches"] = sum(by_path.values())
-    print(f"[26/27] fused_frame_step launches by path: {by_path}; "
+    print(f"[26/28] fused_frame_step launches by path: {by_path}; "
           f"{record['fused_frame_step']['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[24/27] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/28] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     for name, by_path in launches_27.items():
         record[name]["launches"] += sum(by_path.values())
-        print(f"[27/27] {name} launches in phase 27 by path: {by_path}; "
+        print(f"[27/28] {name} launches in phase 27 by path: {by_path}; "
+              f"{record[name]['launches']} in all")
+
+    # -- 28. a reference PyTorch checkpoint served ------------------------------
+    for name, by_path in phase_28(ctx).items():
+        record[name]["launches"] += sum(by_path.values())
+        print(f"[28/28] {name} launches in phase 28 by path: {by_path}; "
               f"{record[name]['launches']} in all")
 
     sources = {
@@ -2401,7 +2429,7 @@ def phase_22(ctx):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/27] train every family through the CLI, cuts: none of width "
+    print(f"[22/28] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
@@ -2541,7 +2569,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/27] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/28] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2606,7 +2634,7 @@ def phase_22(ctx):
         lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
                      f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
                      f"{tc:.1f} s)")
-    print(f"[22/27] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/28] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2682,7 +2710,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/27] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/28] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2696,7 +2724,7 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    print(f"[22/27] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/28] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
 
@@ -2742,7 +2770,7 @@ def phase_23(ctx, root):
     card, dev = ctx["card"], ctx["dev"]
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[23/27] the on-the-fly recipes through the CLI, cuts: none of "
+    print(f"[23/28] the on-the-fly recipes through the CLI, cuts: none of "
           f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
           f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
           f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
@@ -2921,7 +2949,7 @@ def phase_23(ctx, root):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[23/27] CLI {config} ({hps.model}, "
+            print(f"[23/28] CLI {config} ({hps.model}, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
@@ -2994,7 +3022,7 @@ def phase_23(ctx, root):
                      f"{errs[2]:.2e}"
                      + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
                         else ""))
-    print(f"[23/27] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+    print(f"[23/28] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
           f"the CPU in float32 on each run's first train batch and one set "
           f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
           f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
@@ -3017,7 +3045,7 @@ def phase_23(ctx, root):
         if "noncausal" in path:
             shapes.append((t, n, h, False, True, False, what + " backward"))
     ctx["check_and_time"](shapes, phase=23)
-    print(f"[23/27] phase wall {time.perf_counter() - t_phase:.1f} s "
+    print(f"[23/28] phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(corpus written in {corpus_s:.2f} s)")
     return runs, total_scans
 
@@ -3111,7 +3139,7 @@ def phase_24(ctx, runs):
         rel = worst_rel(y_card, y_cpu)
         _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
                "peak")
-        print(f"[24/27] enhance {dns} on {OTF_EVAL} files: the card's float32"
+        print(f"[24/28] enhance {dns} on {OTF_EVAL} files: the card's float32"
               f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
               f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
               f"launches ({batches} batches of 8, scalar form), "
@@ -3198,7 +3226,7 @@ def phase_24(ctx, runs):
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
-            print(f"[24/27] serve {config} (capacity {SERVE_CAPACITY}, a "
+            print(f"[24/28] serve {config} (capacity {SERVE_CAPACITY}, a "
                   f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
                   f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
                   f"ticks ({form} form), each held to the plain version (max "
@@ -3230,7 +3258,7 @@ def phase_24(ctx, runs):
                and all(np.isfinite(v) for v in got.values())
                and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
                f"metrics_ns card {got} vs CPU {want}")
-        print(f"[24/27] metrics_ns {dns} on {OTF_EVAL} files: "
+        print(f"[24/28] metrics_ns {dns} on {OTF_EVAL} files: "
               + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
                           for k, v in got.items())
               + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
@@ -3274,7 +3302,7 @@ def phase_24(ctx, runs):
                          ctx["nbytes"](x, h, xo, ho, *tensors),
                          torch.bfloat16),
             plain_graph=kernel is band.bsrnn_stack_step)
-        print(f"[24/27] time {kernel.__name__} {tag} {shape} bf16 (the "
+        print(f"[24/28] time {kernel.__name__} {tag} {shape} bf16 (the "
               f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
               f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
               f"bound {1e3 * rec['bound_ms']:.3f} us, "
@@ -3282,7 +3310,7 @@ def phase_24(ctx, runs):
               f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
               f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
               f"{rec['max_abs_err']:.3e}; on {card}")
-    print(f"[24/27] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[24/28] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -3541,7 +3569,7 @@ def phase_25(ctx, runs, root):
         "native shard members != the Python walker's")
     for r in history:
         tm = r["timing"]
-        print(f"[25/27] summaries CLI epoch {r['epoch']} (FE-T, shard "
+        print(f"[25/28] summaries CLI epoch {r['epoch']} (FE-T, shard "
               f"recipe, {SUM_STEPS} steps, bf16): wall {r['seconds']:.2f} "
               f"s; summarize {tm['summarize']:.3f} s ("
               f"{100 * tm['summarize'] / r['seconds']:.1f}% of the epoch; "
@@ -3552,7 +3580,7 @@ def phase_25(ctx, runs, root):
               f"{100 * tm['infer'] / r['seconds']:.1f}%; {SUM_FILES} "
               f"files); infer/sisdr {r['infer']['infer/sisdr']:.3f} dB; "
               f"on {card}")
-    print(f"[25/27] summaries CLI: step ms "
+    print(f"[25/28] summaries CLI: step ms "
           f"{', '.join(f'{ms:.1f}' for _, ms in step_ms)}; inside the "
           f"profiler window ({SUM_PROFILE}: {len(window)} step) "
           f"{', '.join(f'{ms:.1f}' for ms in window)}, outside median "
@@ -3569,7 +3597,7 @@ def phase_25(ctx, runs, root):
           f"00002.ckpt max abs err {infer_err:.3e} of the peak (tol "
           f"{INFER_REL:g}), the logged PCM16 within {pcm_err:g} step of the "
           f"card's; on {card}")
-    print(f"[25/27] native decoder: {walks} tars walked natively in the "
+    print(f"[25/28] native decoder: {walks} tars walked natively in the "
           f"run; {len(nat)} members of {len(tars)} speech tars ({mb:.1f} "
           f"MB) equal to the Python walker's bit for bit; decode MB/s in "
           f"turns (native, Python, Python, native; warm page cache): native "
@@ -3606,7 +3634,7 @@ def phase_25(ctx, runs, root):
     sisdr48, logged48 = showcase_tags(events(runs[config], "valid")[2], 2, 1)
     infer_err48, pcm_err48 = card_vs_cpu(runs[config], 2, logged48)
     tm = r48["timing"]
-    print(f"[25/27] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
+    print(f"[25/28] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
           f"wall {r48['seconds']:.2f} s; summarize {tm['summarize']:.3f} s "
           f"({100 * tm['summarize'] / r48['seconds']:.1f}%), infer_epoch "
           f"{tm['infer']:.3f} s ({100 * tm['infer'] / r48['seconds']:.1f}%;"
@@ -3617,7 +3645,7 @@ def phase_25(ctx, runs, root):
           f"{sisdr48:.3f} dB; showcase card vs CPU max abs err "
           f"{infer_err48:.3e} of the peak, the logged PCM16 within "
           f"{pcm_err48:g} step; on {card}")
-    print(f"[25/27] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[25/28] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"gru_scan": counts["gru_scan"] + counts48["gru_scan"],
             "segmental_rms_fused": counts["segmental_rms_fused"]}
 
@@ -3870,7 +3898,7 @@ def phase_26(ctx):
                 worst = max(worst, *(e for e, _ in errs))
             _check(len(kept) == 2 * len(engine.devices),
                    f"{tag} engine: {len(kept)} launches kept")
-            print(f"[26/27] (a) {kernel} in the {tag} engine: its first "
+            print(f"[26/28] (a) {kernel} in the {tag} engine: its first "
                   f"{len(kept)} launches (batch {kept[0][0].shape}) against "
                   f"the plain version, max abs err {worst:.3e} (bound "
                   f"{BF16_REL:g} of each output's peak)")
@@ -3892,7 +3920,7 @@ def phase_26(ctx):
         bitwise = all(np.array_equal(a[k], b[k]) for k in b)
         _check(err <= BF16_REL * peak,
                f"sharded vs one device ({name}): {err} > {BF16_REL * peak}")
-        print(f"[26/27] (a) FE_B bf16 fused engine, {name}, capacity "
+        print(f"[26/28] (a) FE_B bf16 fused engine, {name}, capacity "
               f"{STREAMS} over {SHARD_DEVICES} shards of "
               f"{STREAMS // SHARD_DEVICES} (the card listed twice) against "
               f"capacity {STREAMS} on one device: {SHARD_REQUESTS} requests "
@@ -4019,7 +4047,7 @@ def phase_26(ctx):
                                   f"difference {max(spread.values())}")
         for tag in results:
             history, ms, _ = results[tag]
-            print(f"[26/27] (b) {tag}: the training CLI on {DP_CONFIG} "
+            print(f"[26/28] (b) {tag}: the training CLI on {DP_CONFIG} "
                   f"(FE-B's width) float32, {DP_EPOCHS} epochs of "
                   f"{DP_TRAIN_PAIRS // DP_BATCH} steps at {DP_BATCH} x "
                   f"{DP_SECONDS[0]:g}-{DP_SECONDS[1]:g} s: step ms "
@@ -4028,7 +4056,7 @@ def phase_26(ctx):
                   f" (mag_mse); gru_scan {blocks * valid_batches * DP_EPOCHS}"
                   f" launches in the valid forwards; on {card}")
         bitwise = all(np.array_equal(nccl[p], one[p]) for p in one)
-        print(f"[26/27] (b) the group's backend {backends[0]}; checkpoint "
+        print(f"[26/28] (b) the group's backend {backends[0]}; checkpoint "
               f"{DP_EPOCHS:05d}.ckpt with the flags against without: "
               f"{'bitwise equal' if bitwise else 'not bitwise equal'}, "
               f"largest difference {max(spread.values()):.3e} over "
@@ -4097,7 +4125,7 @@ def phase_26(ctx):
                 "gru_scan"]
             ms = [s for s, _ in out["steps"]]
             share = [a / s for s, a in out["steps"]]
-            print(f"[26/27] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
+            print(f"[26/28] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
                   f" {'staged through the host by the phase' if out['staged'] else 'CUDA tensors reduced by gloo'}"
                   f"), batch {DP_BATCH // DP_WORLD}: step ms "
                   f"{', '.join(f'{x:.1f}' for x in ms)}; all-reduce share of"
@@ -4106,7 +4134,7 @@ def phase_26(ctx):
                   f"BN's sums forward and backward, the loss counts and "
                   f"values; host clock, the card synchronised around each); "
                   f"gru_scan {out['gru_scan']} launches; on {card}")
-        print(f"[26/27] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
+        print(f"[26/28] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
               f" against one process x {DP_BATCH}: {len(one)} params and BN "
               f"statistics of {DP_EPOCHS:05d}.ckpt, largest difference "
               f"{largest:.3e}, every one within {DP_ATOL:g} + {DP_RTOL:g} x "
@@ -4120,7 +4148,7 @@ def phase_26(ctx):
               f"card first: each init raised ({refused})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[26/27] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[26/28] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4305,7 +4333,7 @@ def phase_27(ctx, runs, root):
         paths.setdefault(kernel, {})[f"artifact {tag} (27)"] = (
             per_frame * EXPORT_FRAMES + row["runner_launches"])
         tick = got["lines"].split("per-tick latency ms:")[1]
-        print(f"[27/27] {tag} at {STREAMS} streams, float32: export "
+        print(f"[27/28] {tag} at {STREAMS} streams, float32: export "
               f"{row['export_s']:.2f} s, artifact {row['bytes']} bytes, "
               f"kernel nodes {row['nodes']}; export's per-tick p50 "
               f"{row['tick_p50']:.2f} ms, p99 {row['tick_p99']:.2f} ms, "
@@ -4346,7 +4374,7 @@ def phase_27(ctx, runs, root):
     cache_bytes = 2 * carry0["kc"].numel() * carry0["kc"].element_size()
     best = {k: min(v) for k, v in walls.items()}
     walls = {k: [round(w, 3) for w in v] for k, v in walls.items()}
-    print(f"[27/27] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
+    print(f"[27/28] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
           f"{COPY_FRAMES} frames at {STREAMS} streams, ms a frame (best of "
           f"two; runs in place, functional, functional, in place: "
           f"{walls}): the artifact (the op writes them in place) "
@@ -4382,7 +4410,7 @@ def phase_27(ctx, runs, root):
                                   / DISPATCH_CALLS * 1e6)
     best = {k: min(v) for k, v in per_call.items()}
     per_call = {k: [round(w, 2) for w in v] for k, v in per_call.items()}
-    print(f"[27/27] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
+    print(f"[27/28] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
           f"over {DISPATCH_CALLS} calls (best of two; runs direct, "
           f"torch.ops, wrapper, wrapper, torch.ops, direct: {per_call}): "
           f"the CUDA implementation called directly {best['direct']:.2f}, "
@@ -4390,7 +4418,7 @@ def phase_27(ctx, runs, root):
           f"(+{best['torch.ops'] - best['direct']:.2f}), through the "
           f"wrapper gru_scan {best['wrapper']:.2f} "
           f"(+{best['wrapper'] - best['direct']:.2f}); on {card}")
-    print(f"[27/27] phase wall {time.perf_counter() - t_phase:.1f} s (the "
+    print(f"[27/28] phase wall {time.perf_counter() - t_phase:.1f} s (the "
           f"runner's process {child_s:.1f} s)")
     return paths
 
@@ -4463,6 +4491,308 @@ def _phase_27_child(rank, world, coordinator, spec_path, out_path):
     with open(out_path, "w") as f:
         json.dump({"results": results, "loaded": loaded}, f)
 
+
+
+# phase 28: a reference PyTorch checkpoint served. Each family's seeded
+# init written in the reference repo's state-dict layout (DDP-wrapped, as
+# {"model": {"module." + key: tensor}}), saved as a .pth, loaded with
+# weights_only and converted on the card; then the converted weights
+# against the init's through the family's path. (tag, model, kwargs, the
+# config the preset copies, [(path, kernel, launches a call, chunk)]);
+# chunk None is the whole-frame step, 0 the offline forward
+CKPT_FRAMES = 32                 # the streams' frames, 256 streams
+CKPT_NC_STREAMS, CKPT_NC_SECONDS = 4, 4.0
+CKPT_REL = 1e-7                  # converted vs init output, of the peak
+CKPT_KEEP_AT = CKPT_FRAMES // 2  # the stack launch held to the plain one
+
+
+def ckpt_families():
+    from fastenhancer_tpu_torch.presets import (BSRNN_S, DPRNN_B, DPT_B,
+                                                FE_B, FSPEN, LISENNET, LN_B,
+                                                NONCAUSAL_HUGE,
+                                                TIME_KERNEL_B)
+
+    return [
+        ("FE_B", "fastenhancer.default", FE_B, "fastenhancer/b.yaml",
+         [("per frame", "rnnformer_stack_step", 1, 1),
+          ("whole frame", "fused_frame_step", 1, None)]),
+        ("LN_B", "fastenhancer.ln", LN_B, "ablation/ln_b.yaml",
+         [("per frame", LN_KERNEL, 1, 1)]),
+        ("TIME_KERNEL_B", "fastenhancer.time_kernel", TIME_KERNEL_B,
+         "ablation/time_kernel_b.yaml",
+         [("per frame", "rnnformer_stack_step", 1, 1)]),
+        ("DPT-B", "fastenhancer.dptransformer", DPT_B, "ablation/dpt_b.yaml",
+         [("per frame", "dpt_stack_step", 1, 1)]),
+        ("DPRNN-B", "fastenhancer.dprnn", DPRNN_B, "ablation/dprnn_b.yaml",
+         [("per frame", "dprnn_stack_step", 1, 1)]),
+        ("BSRNN-S", "bsrnn", BSRNN_S, "others/bsrnn_s.yaml",
+         [("per frame", "bsrnn_stack_step", 1, 1)]),
+        ("FSPEN", "fspen", FSPEN, "others/fspen.yaml",
+         [("per frame", "gru_scan", 30, 1), ("chunk of 4", "gru_scan", 30, 4)]),
+        ("LiSenNet", "lisennet", LISENNET, "others/lisennet.yaml",
+         [("per frame", "gru_scan", 6, 1), ("chunk of 4", "gru_scan", 6, 4)]),
+        ("NONCAUSAL_HUGE", "fastenhancer.noncausal", NONCAUSAL_HUGE,
+         "fastenhancer_dns/huge_noncausal.yaml",
+         [("offline", "gru_scan", 2 * NONCAUSAL_HUGE["rnnformer_kwargs"][
+             "num_blocks"], 0)]),
+    ]
+
+
+def phase_28(ctx):
+    """Phase 28 (see the module docstring); -> {kernel: {path: launches}}."""
+    import torch
+
+    from fastenhancer_tpu_torch.models import bsrnn as bsrnn_mod
+    from fastenhancer_tpu_torch.models import get_model
+    from fastenhancer_tpu_torch.models.fastenhancer import default as fe_mod
+    from fastenhancer_tpu_torch.models.fastenhancer import dprnn as dprnn_mod
+    from fastenhancer_tpu_torch.models.fastenhancer import (
+        dptransformer as dpt_mod)
+    from fastenhancer_tpu_torch.models.fastenhancer import (
+        time_kernel as tk_mod)
+    from fastenhancer_tpu_torch.models.macs import macs_for_config
+    from fastenhancer_tpu_torch.ops import bsrnn_stack as band
+    from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
+    from fastenhancer_tpu_torch.ops import dpt_stack as dpt
+    from fastenhancer_tpu_torch.ops import fused_frame as frame
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.ops import rnnformer_stack as stack
+    from fastenhancer_tpu_torch.utils import (cast_floating, convert_checkpoint,
+                                              tree_map, tree_paths)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from _torch_reference_sd import reference_checkpoint
+
+    card, dev = ctx["card"], ctx["dev"]
+    t_phase = time.perf_counter()
+
+    def frame_reference(plan, x, h, num_blocks, **kw):
+        return frame.fused_frame_reference(plan, x, h, **kw)
+
+    def dpt_reference(plan, x, kc, vc, ptr, heads):
+        y, p = dpt.dpt_stack_reference(plan, x, kc, vc, ptr, heads)
+        return y, p, kc, vc
+
+    # the model module through whose global each family calls its stack
+    # kernel, and kernel -> (that global's name, the plain version)
+    stack_modules = {
+        "fastenhancer.default": fe_mod, "fastenhancer.ln": fe_mod,
+        "fastenhancer.time_kernel": tk_mod,
+        "fastenhancer.dptransformer": dpt_mod,
+        "fastenhancer.dprnn": dprnn_mod, "bsrnn": bsrnn_mod}
+    plain = {"rnnformer_stack_step": ("rnnformer_stack_step",
+                                      stack.rnnformer_stack_reference),
+             LN_KERNEL: ("rnnformer_stack_step",
+                         stack.rnnformer_stack_reference),
+             "fused_frame_step": ("fused_frame_step", frame_reference),
+             "dpt_stack_step": ("dpt_stack_step", dpt_reference),
+             "dprnn_stack_step": ("dprnn_stack_step",
+                                  dprnn.dprnn_stack_reference),
+             "bsrnn_stack_step": ("bsrnn_stack_step",
+                                  band.bsrnn_stack_reference)}
+
+    def spy(real, kept, in_place):
+        """`real`, keeping its inputs (cloned before the call) and outputs
+        at launch CKPT_KEEP_AT; with in_place (#2, which writes its K/V
+        caches, args 2 and 3, in place) the caches after it too."""
+        def launch(*args, **kwargs):
+            n = kept.setdefault("n", 0)
+            kept["n"] = n + 1
+            if n != CKPT_KEEP_AT:
+                return real(*args, **kwargs)
+            before = [a.clone() if torch.is_tensor(a) else a for a in args]
+            out = real(*args, **kwargs)
+            post = [a.clone() for a in args[2:4]] if in_place else []
+            kept["launch"] = (before, kwargs,
+                              [o.clone() for o in out] + post)
+            return out
+        return launch
+
+    def run_path(model, variables, plan, wav, chunk):
+        """The family's path on `variables` -> its output (bf16)."""
+        hop = model.hop_size
+        if chunk == 0:
+            return model.forward(variables, wav)[0]
+        if chunk is None:
+            carry = model.init_streaming_carry(wav.shape[0], torch.bfloat16,
+                                               dev, fused=True)
+            outs = []
+            for i in range(wav.shape[1] // hop):
+                carry, y = model.streaming_step_fused_frame(
+                    variables, plan, carry, wav[:, i * hop:(i + 1) * hop])
+                outs.append(y)
+            return torch.cat(outs, 1)
+        if plan is not None:
+            return model.stream(variables, wav, fused_plan=plan)
+        return model.stream(variables, wav, chunk_frames=chunk)
+
+    def flat(tree):
+        return dict(tree_paths(tree))
+
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for fam_i, (tag, name, kwargs, config, fam_paths) in enumerate(
+                ckpt_families()):
+            offline = name == "fastenhancer.noncausal"
+            model = (get_model(name, **kwargs) if offline
+                     else get_model(name, **kwargs, stft_method="matmul"))
+            hop = model.hop_size
+            init = model.init(torch.Generator().manual_seed(280 + fam_i),
+                              device=dev)
+            # the reference layout, saved and loaded as a user would
+            ckpt = reference_checkpoint(
+                tree_map(lambda t: t.detach().cpu(), init), name)
+            pth = os.path.join(tmp, f"{name}.pth")
+            torch.save(ckpt, pth)
+            pth_bytes = os.path.getsize(pth)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = torch.load(pth, map_location="cpu", weights_only=True)
+            t1 = time.perf_counter()
+            conv = convert_checkpoint(loaded, name, kwargs, device=dev)
+            torch.cuda.synchronize()
+            load_s, conv_s = t1 - t0, time.perf_counter() - t1
+            want, got = flat(init), flat(conv)
+            _check(want.keys() == got.keys(), f"{tag} converted tree paths "
+                   f"differ: {sorted(want.keys() ^ got.keys())[:6]}")
+            _check(all(got[k].dtype == want[k].dtype
+                       and got[k].device == want[k].device
+                       and torch.equal(got[k], want[k]) for k in want),
+                   f"{tag}: a converted leaf differs from its init leaf")
+            try:
+                macs = macs_for_config(os.path.join(repo, "configs",
+                                                    config))["total"]
+            except ValueError:  # no calculator for this family
+                macs = None
+            folded = {}
+            for which, tree in (("init", init), ("converted", conv)):
+                folded[which] = cast_floating(model.fold(tree),
+                                              torch.bfloat16)
+            g = torch.Generator().manual_seed(28 + fam_i)
+            if offline:
+                streams, n_samples = CKPT_NC_STREAMS, int(CKPT_NC_SECONDS
+                                                          * SR)
+            else:
+                streams, n_samples = STREAMS, CKPT_FRAMES * hop
+            wav = (torch.randn(streams, n_samples, generator=g)
+                   * 0.05).to(dev, torch.bfloat16)
+            for what, kernel, per_call, chunk in fam_paths:
+                plans = {}
+                for which in folded:
+                    if chunk is None:
+                        plans[which] = model.build_frame_plan(folded[which])
+                    elif kernel == "gru_scan":
+                        plans[which] = None
+                    else:
+                        plans[which] = model.build_stack_plan(folded[which])
+                y_init = run_path(model, folded["init"], plans["init"], wav,
+                                  chunk)
+                calls = (1 if chunk == 0 else
+                         (CKPT_FRAMES if chunk is None else CKPT_FRAMES
+                          // chunk))
+                n = per_call * calls
+                kept = {}
+                attr, reference = plain.get(kernel, (None, None))
+                module = stack_modules.get(name)
+                if kernel == "gru_scan":
+                    ctx["seen_scan"].clear()
+                    ctx["record_inputs"](True)
+                else:
+                    real = getattr(module, attr)
+                    setattr(module, attr, spy(real, kept,
+                                              kernel == "dpt_stack_step"))
+                torch.cuda.synchronize()
+                ctx["zero_counts"]()
+                try:
+                    y = run_path(model, folded["converted"],
+                                 plans["converted"], wav, chunk)
+                    torch.cuda.synchronize()
+                    counts = ctx["read_counts"]()
+                finally:
+                    if kernel == "gru_scan":
+                        ctx["record_inputs"](False)
+                    else:
+                        setattr(module, attr, real)
+                ctx["check_launches"](counts, kernel, n,
+                                      f"converted {tag} {what}")
+                paths.setdefault(LN_KERNEL if kernel == LN_KERNEL
+                                 else kernel, {})[
+                    f"{tag} checkpoint {what} (28)"] = n
+                _check(tuple(y.shape) == tuple(wav.shape)
+                       and bool(torch.isfinite(y).all()),
+                       f"{tag} {what}: output {tuple(y.shape)}")
+                peak = y_init.float().abs().max().item()
+                err = (y.float() - y_init.float()).abs().max().item()
+                _check(err <= CKPT_REL * peak, f"{tag} {what}: converted vs "
+                       f"init {err:.3e} > {CKPT_REL:g} of the peak {peak:.3e}")
+                # each kernel launched on the converted weights against its
+                # plain version on the same inputs
+                held = []
+                if kernel == "gru_scan":
+                    for (shape, dtype), (_, args) in ctx[
+                            "seen_scan"].items():
+                        ys, h_t = scan.gru_scan(*args)
+                        torch.cuda.synchronize()
+                        ys_r, h_r = scan.gru_scan_reference(*args)
+                        held += ctx["compare"](
+                            f"{tag} gru_scan {shape}",
+                            ((ys, ys_r), (h_t, h_r)), dtype)
+                    n_held = f"{len(ctx['seen_scan'])} input shapes"
+                else:
+                    _check("launch" in kept, f"{tag} {what}: launch "
+                           f"{CKPT_KEEP_AT} not seen")
+                    args, kw, outs = kept["launch"]
+                    held = ctx["compare"](
+                        f"{tag} {kernel}",
+                        zip(outs, reference(*args, **kw)), torch.bfloat16)
+                    n_held = f"launch {CKPT_KEEP_AT}"
+                # device time of one call of the path (a frame, a chunk
+                # or the forward): its few hundred launches fit the card's
+                # launch queue behind the sleep kernel, a 32-frame stream's
+                # thousands would not
+                t_wav = wav if chunk == 0 else wav[:, :hop * (chunk or 1)]
+                ms, host_ms = ctx["time_ms"](
+                    lambda: run_path(model, folded["converted"],
+                                     plans["converted"], t_wav, chunk),
+                    reps=5, inner=2)
+                frames = t_wav.shape[1] // hop
+                audio_s = t_wav.shape[1] / SR * streams
+                gmacs = ("no calculator" if macs is None else
+                         f"{macs * audio_s / (ms / 1e3) / 1e9:.2f} GMAC/s "
+                         f"({macs / 1e6:.2f} M MACs a second of audio x "
+                         f"{audio_s:g} s of audio)")
+                print(f"[28/28] checkpoint {tag} ({name}, {config}) {what}: "
+                      f".pth {pth_bytes} bytes, {len(ckpt['model'])} keys; "
+                      f"torch.load {load_s:.4f} s, convert_checkpoint on the "
+                      f"card {conv_s:.4f} s; {len(want)} leaves bit-equal "
+                      f"to the init; bf16 {streams} streams x {frames} "
+                      f"frames{'' if chunk in (0, None, 1) else ' in chunks of ' + str(chunk)}: "
+                      f"{kernel} {n} launches, no other kernel; converted vs "
+                      f"init max abs diff {err:.3e} (tol "
+                      f"{CKPT_REL * peak:.3e} = {CKPT_REL:g} of the peak); "
+                      f"{n_held} held to the plain version (max abs err "
+                      f"{max(e for e, _ in held):.3e}); device "
+                      f"{ms:.4f} ms a call of {frames} frames "
+                      f"({ms / frames:.4f} ms a frame; {host_ms:.4f} ms a "
+                      f"call with the host's dispatch); {gmacs}; on {card}")
+            del init, conv, loaded, ckpt, folded
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the configs written again without pyyaml (the card has none)
+    t0 = time.perf_counter()
+    gen = subprocess.run(
+        [sys.executable, "-m", "fastenhancer_tpu_torch.scripts.gen_configs",
+         "--check"], cwd=repo, capture_output=True, text=True, timeout=300)
+    _check(gen.returncode == 0, f"gen_configs --check: rc {gen.returncode}"
+           f"\n{gen.stdout}\n{gen.stderr}")
+    print(f"[28/28] python -m fastenhancer_tpu_torch.scripts.gen_configs "
+          f"--check: rc 0 on configs/ in "
+          f"{time.perf_counter() - t0:.2f} s; phase 28 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 def spawned(fn, world, *args):
     """fn(rank, world, coordinator, *args) in `world` spawned processes,

@@ -17,7 +17,10 @@ from .stft import (
     istft_streaming_step,
     stft_streaming_chunk,
     istft_streaming_chunk,
+    stream_stft,
+    stream_istft,
 )
+from .mask import get_mask
 from .mel import mel_fbank_weights, spec_to_mel
 
 __all__ = [
@@ -25,6 +28,6 @@ __all__ = [
     "frame_signal", "overlap_add", "stft", "istft", "compress", "uncompress",
     "compressed_stft", "compressed_istft", "init_stft_carry",
     "init_istft_carry", "stft_streaming_step", "istft_streaming_step",
-    "stft_streaming_chunk", "istft_streaming_chunk", "mel_fbank_weights",
-    "spec_to_mel",
+    "stft_streaming_chunk", "istft_streaming_chunk", "stream_stft",
+    "stream_istft", "get_mask", "mel_fbank_weights", "spec_to_mel",
 ]

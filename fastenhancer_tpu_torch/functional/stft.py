@@ -6,7 +6,8 @@ dtype contract:
 * offline `stft` / `istft` over whole utterances (used by `Model.forward`);
 * magnitude compression `compress` / `uncompress`;
 * single-hop streaming `stft_streaming_step` / `istft_streaming_step` with
-  explicit rolling carries, and their multi-hop forms
+  explicit rolling carries (`stream_stft` / `stream_istft` loop them over a
+  whole signal), and their multi-hop forms
   `stft_streaming_chunk` / `istft_streaming_chunk` (C hops at once, one
   batched DFT over the C frames), which the models' streaming steps run,
   a single hop as C = 1.
@@ -208,10 +209,12 @@ def overlap_add(frames: Tensor, hop: int) -> Tensor:
         for i in range(k):
             out[:, i: i + t] += chunks[:, :, i]
         return out.reshape(b, (t + k - 1) * hop)[:, :out_len]
-    idx = (torch.arange(t, device=frames.device)[:, None] * hop
-           + torch.arange(n_fft, device=frames.device)[None, :]).reshape(-1)
-    out = frames.new_zeros(b, out_len)
-    return out.index_add_(1, idx, frames.reshape(b, -1))
+    # col2im sums each output sample's frames in one thread, in frame
+    # order: the same bits every run (an index_add_ on CUDA adds them with
+    # atomics, in whatever order they land)
+    out = F.fold(frames.transpose(1, 2), output_size=(1, out_len),
+                 kernel_size=(1, n_fft), stride=(1, hop))
+    return out.reshape(b, out_len)
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +393,33 @@ def istft_streaming_step(spec: Tensor, carry: Tensor,
     new_carry = frame[:, -cfg.cache_len:]
     return out.to(in_dtype), new_carry.to(in_dtype)
 
+
+
+def stream_stft(x: Tensor, cfg: STFTConfig) -> Tensor:
+    """`stft_streaming_step` over a [B, hop*T] signal, hop by hop ->
+    [B, n_freq, T, 2] (fastenhancer_tpu/functional/stft.py:492, which scans
+    it). Mostly used by tests to hold streaming to offline(center=False)."""
+    b, length = x.shape
+    t = length // cfg.hop_size
+    carry = init_stft_carry(cfg, b, x.dtype, x.device)
+    specs = []
+    for i in range(t):
+        spec, carry = stft_streaming_step(
+            x[:, i * cfg.hop_size:(i + 1) * cfg.hop_size], carry, cfg)
+        specs.append(spec)
+    return torch.stack(specs, dim=2)  # [B, n_freq, T, 2]
+
+
+def stream_istft(spec: Tensor, cfg: STFTConfig) -> Tensor:
+    """`istft_streaming_step` over [B, n_freq, T, 2], frame by frame ->
+    [B, hop*T] (fastenhancer_tpu/functional/stft.py:509)."""
+    b = spec.shape[0]
+    carry = init_istft_carry(cfg, b, spec.dtype, spec.device)
+    outs = []
+    for i in range(spec.shape[2]):
+        out, carry = istft_streaming_step(spec[:, :, i], carry, cfg)
+        outs.append(out)
+    return torch.cat(outs, dim=1)
 
 # ---------------------------------------------------------------------------
 # Streaming (C hops per step)

@@ -12,8 +12,9 @@ the JAX package) with the same contract:
     resume with `config_dir=None` reloads the saved copy.
 
 YAML goes through `utils/yaml_subset.py` (the card has no pyyaml), which
-reads what `configs/` holds as `yaml.safe_load` does. There is one
-process, so `is_rank_zero` is always true.
+reads what `configs/` holds as `yaml.safe_load` does and writes a run
+dir's config.yaml with the bytes the JAX package's `yaml.dump` gives.
+There is one process, so `is_rank_zero` is always true.
 """
 from __future__ import annotations
 

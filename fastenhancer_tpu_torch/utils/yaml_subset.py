@@ -1,29 +1,31 @@
 """A reader and a writer for the YAML subset of the repo's configs.
 
-The card has no pyyaml, so the port reads `configs/*.yaml` with this
-module. It covers what those files use, with PyYAML's YAML 1.1 scalar
-rules (`yaml.safe_load`), and raises ValueError on anything else:
+The card has no pyyaml, so the port reads and writes `configs/*.yaml`
+with this module. The reader covers what those files use, with PyYAML's
+YAML 1.1 scalar rules (`yaml.safe_load`), and raises ValueError on
+anything else:
 
   * block maps and block lists (a list may sit at its key's indent, and a
     list item may open a map on the dash's line: `-   key: value`);
   * flow maps and lists, nested, spanning lines;
-  * '...' and "..." strings, plain strings (regexes included);
+  * '...' and "..." strings and plain strings (regexes included), each
+    of them folded over lines;
   * null (`~`, `null`, empty), booleans (true/false, yes/no, on/off in
     their three casings), ints (decimal, 0x, 0b, leading-0 octal, base 60)
     and floats (`1.0e-05`, `.5`, `.inf`, `.nan`; `1e-5` has no dot and
     stays a string, as in YAML 1.1);
-  * `#` comments.
+  * `#` comments, and a last `...` (the end of the document).
 
 Not covered: anchors and aliases, tags, block scalars (| and >), several
-documents, multi-line plain scalars in block context, dates (which
-PyYAML reads as datetimes) and complex keys.
+documents, dates (which PyYAML reads as datetimes) and complex keys.
 
-`dump` writes a tree of dicts, lists and those scalars so that `load`
-and `yaml.safe_load` both read it back equal.
+`dump` writes a tree of dicts, lists and those scalars as PyYAML's
+`yaml.dump(data, sort_keys=False, indent=4, default_flow_style=None)`
+does, byte for byte (the repo's configs and run directories' config.yaml
+are written so), and `load` and `yaml.safe_load` both read it back equal.
 """
 from __future__ import annotations
 
-import json
 import math
 import re
 import typing as tp
@@ -40,7 +42,7 @@ _INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
     |[-+]?0x[0-9a-fA-F_]+
     |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
 _FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
-    |\.[0-9_]+(?:[eE][-+][0-9]+)?
+    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
     |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
     |[-+]?\.(?:inf|Inf|INF)
     |\.(?:nan|NaN|NAN))$""", re.X)
@@ -49,7 +51,7 @@ _DATE = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
 _ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t",
             "n": "\n", "v": "\v", "f": "\f", "r": "\r", "e": "\x1b",
             " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85",
-            "_": "\xa0", "L": " ", "P": " "}
+            "_": "\xa0", "L": "\u2028", "P": "\u2029"}
 _HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
 
 
@@ -127,46 +129,78 @@ def _quote_end(s: str, i: int) -> int:
     return -1  # unterminated (it may go on on the next line)
 
 
-def _opens_quote(s: str, i: int) -> bool:
-    """A quote starts a scalar only where a scalar may start."""
-    return s[i] in "'\"" and (i == 0 or s[i - 1] in " \t[{,")
+class _Scan:
+    """Reads a node's text line by line as PyYAML's scanner would: where a
+    quoted scalar opens (only where a node may start, not inside a plain
+    scalar), the open brackets of flow collections and the open quote
+    (both carried from line to line), and where a comment starts."""
+
+    def __init__(self):
+        self.depth, self.quote, self.expect = 0, "", True
+
+    def line(self, s: str) -> str:
+        """The line without its comment; the state moves past it."""
+        i = 0
+        while i < len(s):
+            c = s[i]
+            nxt = s[i + 1:i + 2]
+            if self.quote == "'":
+                if c == "'":
+                    if nxt == "'":
+                        i += 2
+                        continue
+                    self.quote = ""
+            elif self.quote == '"':
+                if c == "\\":
+                    i += 2
+                    continue
+                if c == '"':
+                    self.quote = ""
+            elif c in " \t":
+                pass
+            elif c == "#" and (i == 0 or s[i - 1] in " \t"):
+                return s[:i].rstrip()
+            elif c in "'\"" and self.expect:
+                self.quote, self.expect = c, False
+            elif c in "[{" and (self.expect or self.depth):
+                self.depth += 1
+                self.expect = True
+            elif c in "]}" and self.depth:
+                self.depth -= 1
+                self.expect = False
+            elif c == "," and self.depth:
+                self.expect = True
+            elif c == ":" and (nxt in ("", " ", "\t")
+                               or self.depth and nxt in ",]}"):
+                self.expect = True
+            elif not (c in "-?" and self.expect and nxt in ("", " ")):
+                self.expect = False
+            i += 1
+        return s if self.quote else s.rstrip()
+
+    @property
+    def open(self) -> bool:
+        return self.depth > 0 or bool(self.quote)
 
 
 def _strip_comment(s: str) -> str:
-    i = 0
-    while i < len(s):
-        if _opens_quote(s, i):
-            end = _quote_end(s, i)
-            if end < 0:
-                return s.rstrip()
-            i = end
-            continue
-        if s[i] == "#" and (i == 0 or s[i - 1] in " \t"):
-            return s[:i].rstrip()
-        i += 1
-    return s.rstrip()
+    return _Scan().line(s)
 
 
 def _split_key(s: str) -> tp.Optional[tp.Tuple[str, str]]:
     """'key: rest' -> (key, rest), or None when `s` is no map entry. The
-    colon must be outside quotes and brackets, followed by a space or the
-    end."""
+    key is a quoted scalar or a plain one (which may hold brackets, but no
+    ': '); its colon is followed by white space or the end. A flow
+    collection is no key."""
+    if not s or s[0] in "[{":
+        return None
     i = 0
-    if s and _opens_quote(s, 0):
+    if s[0] in "'\"":
         i = _quote_end(s, 0)
         if i < 0:
             return None
-    depth = 0
     while i < len(s):
-        c = s[i]
-        if c in "[{":
-            if i == 0:
-                return None  # a flow collection, not a key
-            depth += 1
-        elif c in "]}":
-            depth -= 1
-        elif (c == ":" and depth == 0
-              and (i + 1 == len(s) or s[i + 1] in " \t")):
+        if s[i] == ":" and (i + 1 == len(s) or s[i + 1] in " \t\n"):
             return s[:i].rstrip(), s[i + 1:].strip()
         i += 1
     return None
@@ -181,28 +215,37 @@ def _inline_value(text: str) -> str:
     return kv[1] if kv else text
 
 
-def _flow_depth(s: str) -> int:
-    """Open brackets minus closed ones, outside quotes; a quote left open
-    counts as one more level."""
-    depth, i = 0, 0
-    while i < len(s):
-        if _opens_quote(s, i):
-            end = _quote_end(s, i)
-            if end < 0:
-                return depth + 1
-            i = end
+def _owner_column(indent: int, text: str) -> int:
+    """The column of the innermost dash or key on a line: a plain scalar
+    that it holds goes on on the lines indented deeper than that."""
+    owner = col = indent
+    while text == "-" or text.startswith("- "):
+        owner = col
+        rest = text[1:].lstrip(" ")
+        col += len(text) - len(rest)
+        text = rest
+    return col if _split_key(text) is not None else owner
+
+
+def _fold(lines: tp.List[str]) -> str:
+    """A plain scalar's lines (leading white space already stripped)
+    folded as YAML folds them: one break is a space, a break followed by
+    n empty lines is n newlines."""
+    out, empties = lines[0], 0
+    for ln in lines[1:]:
+        if not ln:
+            empties += 1
             continue
-        if s[i] in "[{":
-            depth += 1
-        elif s[i] in "]}":
-            depth -= 1
-        i += 1
-    return depth
+        out += ("\n" * empties if empties else " ") + ln
+        empties = 0
+    return out
 
 
 def _logical_lines(raw: str) -> tp.List[_Line]:
-    """Non-blank lines without comments; a flow collection that spans lines
-    is joined into its first line."""
+    """Non-blank lines without comments. A flow collection or a quoted
+    scalar that spans lines is joined into its first line with its line
+    breaks kept (the flow reader folds them); a plain scalar that goes on
+    on deeper lines is folded into its first line."""
     physical = raw.splitlines()
     out: tp.List[_Line] = []
     i = 0
@@ -215,22 +258,40 @@ def _logical_lines(raw: str) -> tp.List[_Line]:
         text = _strip_comment(line)
         if not text.strip():
             continue
+        if text.strip() == "..." and not any(
+                _strip_comment(rest).strip() for rest in physical[i:]):
+            break  # the document's end marker
         if text.strip() in ("---", "..."):
             raise ValueError(f"line {number}: several documents are not "
                              "supported")
         indent = len(text) - len(text.lstrip(" "))
         text = text.strip()
         value = _inline_value(text)
-        if value[:1] in ("[", "{") or (value[:1] in ("'", '"') and
-                                        _quote_end(value, 0) < 0):
-            while _flow_depth(value) > 0:
+        if value[:1] in ("[", "{", "'", '"'):
+            scan = _Scan()
+            scan.line(value)
+            while scan.open:
                 if i >= len(physical):
                     raise ValueError(f"line {number}: unclosed flow "
                                      "collection or string")
-                more = _strip_comment(physical[i]).strip()
+                text += "\n" + scan.line(physical[i])
                 i += 1
-                text += " " + more
-                value += " " + more
+            text = text.rstrip()
+        elif value:
+            owner = _owner_column(indent, text)
+            lines, end = [text], i
+            for j in range(i, len(physical)):
+                more = _strip_comment(physical[j])
+                if more.strip() and (len(more) - len(more.lstrip(" "))
+                                     <= owner):
+                    break
+                lines.append(more.strip())
+                if more.strip():
+                    end = j + 1
+            # blank lines after the scalar's last line are not its own
+            del lines[1 + end - i:]
+            i = end
+            text = _fold(lines)
         out.append(_Line(indent, text, number))
     return out
 
@@ -245,7 +306,7 @@ class _Flow:
         return ValueError(f"line {self.number}: {msg} in {self.s!r}")
 
     def skip(self) -> None:
-        while self.i < len(self.s) and self.s[self.i] in " \t":
+        while self.i < len(self.s) and self.s[self.i] in " \t\n":
             self.i += 1
 
     def peek(self) -> str:
@@ -317,27 +378,55 @@ class _Flow:
             if c in ",[]{}":
                 break
             if c == ":" and key and (self.i + 1 == len(self.s)
-                                     or self.s[self.i + 1] in " ,]}"):
+                                     or self.s[self.i + 1] in " \n,]}"):
                 break
             self.i += 1
         text = self.s[start:self.i].strip()
         if not text:
             raise self.error(f"empty scalar at {start}")
-        return resolve(text)
+        return resolve(_fold([ln.strip() for ln in text.split("\n")]))
 
 
 def _unquote(body: str, quote: str, number: int) -> str:
-    if quote == "'":
-        return body.replace("''", "'")
-    out, i = [], 0
+    """A quoted scalar's text: its escapes decoded and its line breaks
+    folded (a break is a space, a break and n empty lines n newlines, the
+    white space around a break dropped; in "...", a backslash before a
+    break joins the lines)."""
+    out: tp.List[str] = []
+    keep = 0  # len(out) up to its last character that is not white space
+    i = 0
     while i < len(body):
         c = body[i]
-        if c != "\\":
+        if c == "\n":
+            del out[keep:]
+            empties = 0
+            while True:
+                i += 1
+                while i < len(body) and body[i] in " \t":
+                    i += 1
+                if i < len(body) and body[i] == "\n":
+                    empties += 1
+                    continue
+                break
+            out.append("\n" * empties if empties else " ")
+            keep = len(out)
+            continue
+        if quote == "'" or c != "\\":
+            if quote == "'" and c == "'":
+                i += 1  # '' is one quote
             out.append(c)
             i += 1
+            if c not in " \t":
+                keep = len(out)
             continue
         e = body[i + 1] if i + 1 < len(body) else ""
-        if e in _ESCAPES:
+        keep = len(out) + 1
+        if e == "\n":  # an escaped line break
+            i += 2
+            while i < len(body) and body[i] in " \t":
+                i += 1
+            keep -= 1
+        elif e in _ESCAPES:
             out.append(_ESCAPES[e])
             i += 2
         elif e in _HEX_ESCAPES:
@@ -467,8 +556,50 @@ def load(text: str) -> tp.Any:
 
 
 # -- writing -------------------------------------------------------------------
+#
+# `dump` writes what PyYAML 6's `yaml.dump(data, sort_keys=False, indent=4,
+# default_flow_style=None)` writes, byte for byte, for a tree of dicts,
+# lists and the scalars above: the same events through the same rules as
+# PyYAML's representer and emitter (yaml/representer.py, emitter.py), kept
+# to what such a tree needs (no tags, anchors, block scalars or complex
+# keys).
 
-_PLAIN = re.compile(r"[A-Za-z_][A-Za-z0-9_./-]*")
+_BEST_INDENT = 4
+_BEST_WIDTH = 80
+_BREAKS = "\n\x85\u2028\u2029"
+_WHITESPACE = "\0 \t\r\n\x85\u2028\u2029"
+# PyYAML's implicit resolvers (yaml/resolver.py): a plain scalar that one
+# of them matches does not read back as a string
+_RESOLVERS = [
+    ("yYnNtTfFoO", re.compile(r"""^(?:yes|Yes|YES|no|No|NO
+        |true|True|TRUE|false|False|FALSE
+        |on|On|ON|off|Off|OFF)$""", re.X)),
+    ("-+0123456789.", _FLOAT),
+    ("-+0123456789", _INT),
+    ("<", re.compile(r"^(?:<<)$")),
+    ("~nN", re.compile(r"""^(?: ~
+        |null|Null|NULL
+        | )$""", re.X)),
+    ("0123456789", re.compile(
+        r"""^(?:[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
+        |[0-9][0-9][0-9][0-9] -[0-9][0-9]? -[0-9][0-9]?
+         (?:[Tt]|[ \t]+)[0-9][0-9]?
+         :[0-9][0-9] :[0-9][0-9] (?:\.[0-9]*)?
+         (?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)$""", re.X)),
+    ("=", re.compile(r"^(?:=)$")),
+]
+_ESCAPE = {"\0": "0", "\x07": "a", "\x08": "b", "\x09": "t", "\x0A": "n",
+           "\x0B": "v", "\x0C": "f", "\x0D": "r", "\x1B": "e", '"': '"',
+           "\\": "\\", "\x85": "N", "\xA0": "_", "\u2028": "L",
+           "\u2029": "P"}
+
+
+def _reads_as_str(text: str) -> bool:
+    """Whether the plain scalar `text` resolves to a string."""
+    if text == "":
+        return False  # the null resolver's empty form
+    return not any(text[0] in first and regex.match(text)
+                   for first, regex in _RESOLVERS)
 
 
 def _float(v: float) -> str:
@@ -484,70 +615,378 @@ def _float(v: float) -> str:
     return text
 
 
-def _scalar(v: tp.Any) -> str:
+class _Scalar(tp.NamedTuple):
+    text: str
+    is_str: bool  # a string, whose style depends on its text
+
+
+def _represent(v: tp.Any) -> _Scalar:
     if v is None:
-        return "null"
+        return _Scalar("null", False)
     if isinstance(v, bool):
-        return "true" if v else "false"
+        return _Scalar("true" if v else "false", False)
     if isinstance(v, int):
-        return str(v)
+        return _Scalar(str(v), False)
     if isinstance(v, float):
-        return _float(v)
+        return _Scalar(_float(v), False)
     if isinstance(v, str):
-        if _PLAIN.fullmatch(v) and resolve(v) == v:
-            return v
-        if v.isascii() and v.isprintable():
-            return "'" + v.replace("'", "''") + "'"
-        return json.dumps(v)  # a double-quoted YAML string
+        return _Scalar(v, True)
     raise TypeError(f"cannot write {type(v).__name__} as YAML")
 
 
-def _has_block(v: tp.Any) -> bool:
-    """True where a list holds a non-empty map (written in block style)."""
-    if isinstance(v, dict):
-        return bool(v)
-    if isinstance(v, (list, tuple)):
-        return any(_has_block(x) for x in v)
-    return False
+class _Analysis(tp.NamedTuple):
+    empty: bool
+    multiline: bool
+    flow_plain: bool
+    block_plain: bool
+    single_quoted: bool
 
 
-def _flow(v: tp.Any) -> str:
-    if isinstance(v, dict):
-        return "{" + ", ".join(f"{_scalar(k)}: {_flow(x)}"
-                               for k, x in v.items()) + "}"
-    if isinstance(v, (list, tuple)):
-        return "[" + ", ".join(_flow(x) for x in v) + "]"
-    return _scalar(v)
-
-
-def _block(v: tp.Any, indent: int) -> tp.List[str]:
-    pad = " " * indent
-    out = []
-    if isinstance(v, dict):
-        for k, x in v.items():
-            if isinstance(x, dict) and x or isinstance(
-                    x, (list, tuple)) and _has_block(x):
-                out.append(f"{pad}{_scalar(k)}:")
-                out.extend(_block(x, indent + 4))
-            else:
-                out.append(f"{pad}{_scalar(k)}: {_flow(x)}")
-        return out
-    for x in v:  # a list with a map in it
-        if _has_block(x):
-            inner = _block(x, indent + 4)
-            inner[0] = pad + "-   " + inner[0][indent + 4:]
-            out.extend(inner)
+def _analyze(text: str) -> _Analysis:
+    """emitter.py's analyze_scalar with allow_unicode off."""
+    if not text:
+        return _Analysis(True, False, False, True, True)
+    block_ind = flow_ind = line_breaks = special = False
+    leading_space = leading_break = trailing_space = trailing_break = False
+    break_space = space_break = False
+    if text.startswith("---") or text.startswith("..."):
+        block_ind = flow_ind = True
+    preceded_ws = True
+    followed_ws = len(text) == 1 or text[1] in _WHITESPACE
+    prev_space = prev_break = False
+    for index, ch in enumerate(text):
+        if index == 0:
+            if ch in "#,[]{}&*!|>'\"%@`":
+                flow_ind = block_ind = True
+            if ch in "?:":
+                flow_ind = True
+                if followed_ws:
+                    block_ind = True
+            if ch == "-" and followed_ws:
+                flow_ind = block_ind = True
         else:
-            out.append(f"{pad}-   {_flow(x)}")
-    return out
+            if ch in ",?[]{}":
+                flow_ind = True
+            if ch == ":":
+                flow_ind = True
+                if followed_ws:
+                    block_ind = True
+            if ch == "#" and preceded_ws:
+                flow_ind = block_ind = True
+        if ch in _BREAKS:
+            line_breaks = True
+        if not (ch == "\n" or "\x20" <= ch <= "\x7E"):
+            special = True  # non-ASCII too: allow_unicode is off
+        if ch == " ":
+            leading_space |= index == 0
+            trailing_space |= index == len(text) - 1
+            break_space |= prev_break
+            prev_space, prev_break = True, False
+        elif ch in _BREAKS:
+            leading_break |= index == 0
+            trailing_break |= index == len(text) - 1
+            space_break |= prev_space
+            prev_space, prev_break = False, True
+        else:
+            prev_space = prev_break = False
+        preceded_ws = ch in _WHITESPACE
+        followed_ws = (index + 2 >= len(text)
+                       or text[index + 2] in _WHITESPACE)
+    flow_plain = block_plain = single = True
+    if leading_space or leading_break or trailing_space or trailing_break:
+        flow_plain = block_plain = False
+    if break_space:
+        flow_plain = block_plain = single = False
+    if space_break or special:
+        flow_plain = block_plain = single = False
+    if line_breaks:
+        flow_plain = block_plain = False
+    if flow_ind:
+        flow_plain = False
+    if block_ind:
+        block_plain = False
+    return _Analysis(False, line_breaks, flow_plain, block_plain, single)
+
+
+def _flow_style(v: tp.Any) -> bool:
+    """The representer's best style with default_flow_style=None: flow for
+    a collection that holds no collection."""
+    items = [x for kv in v.items() for x in kv] if isinstance(v, dict) else v
+    return not any(isinstance(x, (dict, list, tuple)) for x in items)
+
+
+class _Emitter:
+    """The emitter's state (position, whitespace and indention flags,
+    indents and flow level) and its writers."""
+
+    def __init__(self):
+        self.out: tp.List[str] = []
+        self.column = 0
+        self.whitespace = True
+        self.indention = True
+        self.open_ended = False
+        self.indent: tp.Optional[int] = None
+        self.indents: tp.List[tp.Optional[int]] = []
+        self.flow_level = 0
+
+    # -- low-level writers ---------------------------------------------------
+
+    def write(self, data: str) -> None:
+        self.column += len(data)
+        self.out.append(data)
+
+    def indicator(self, text: str, need_whitespace: bool,
+                  whitespace: bool = False, indention: bool = False) -> None:
+        if not (self.whitespace or not need_whitespace):
+            text = " " + text
+        self.whitespace = whitespace
+        self.indention = self.indention and indention
+        self.open_ended = False
+        self.write(text)
+
+    def line_break(self, data: str = "\n") -> None:
+        self.whitespace = self.indention = True
+        self.out.append(data)
+        self.column = 0
+
+    def write_indent(self) -> None:
+        indent = self.indent or 0
+        if (not self.indention or self.column > indent
+                or (self.column == indent and not self.whitespace)):
+            self.line_break()
+        if self.column < indent:
+            self.whitespace = True
+            self.write(" " * (indent - self.column))
+
+    def increase_indent(self, flow: bool = False,
+                        indentless: bool = False) -> None:
+        self.indents.append(self.indent)
+        if self.indent is None:
+            self.indent = _BEST_INDENT if flow else 0
+        elif not indentless:
+            self.indent += _BEST_INDENT
+
+    # -- nodes ----------------------------------------------------------------
+
+    def node(self, v: tp.Any, root: bool = False, mapping: bool = False,
+             simple_key: bool = False) -> None:
+        if isinstance(v, dict):
+            if self.flow_level or not v or _flow_style(v):
+                self.flow_mapping(v)
+            else:
+                self.block_mapping(v)
+        elif isinstance(v, (list, tuple)):
+            if self.flow_level or not v or _flow_style(v):
+                self.flow_sequence(v)
+            else:
+                self.block_sequence(v, indentless=mapping
+                                    and not self.indention)
+        else:
+            self.increase_indent(flow=True)
+            self.scalar(_represent(v), root, simple_key)
+            self.indent = self.indents.pop()
+
+    def key(self, k: tp.Any) -> None:
+        """A simple key and its ':' (a key PyYAML would write with '?' is
+        refused). PyYAML counts the tag's short form (!!str, !!int, ...)
+        into a simple key's 128 characters, though it writes no tag."""
+        s = _represent(k)
+        a = _analyze(s.text)
+        tag = 5 if isinstance(k, (str, int)) and not isinstance(k, bool) \
+            else 7 if isinstance(k, float) else 6
+        if len(s.text) + tag >= 128 or a.empty or a.multiline:
+            raise ValueError(f"cannot write {k!r} as a simple key")
+        self.node(k, mapping=True, simple_key=True)
+        self.indicator(":", False)
+
+    def flow_sequence(self, v: tp.Sequence[tp.Any]) -> None:
+        self.indicator("[", True, whitespace=True)
+        self.flow_level += 1
+        self.increase_indent(flow=True)
+        for i, x in enumerate(v):
+            if i:
+                self.indicator(",", False)
+            if self.column > _BEST_WIDTH:
+                self.write_indent()
+            self.node(x)
+        self.indent = self.indents.pop()
+        self.flow_level -= 1
+        self.indicator("]", False)
+
+    def flow_mapping(self, v: tp.Mapping[tp.Any, tp.Any]) -> None:
+        self.indicator("{", True, whitespace=True)
+        self.flow_level += 1
+        self.increase_indent(flow=True)
+        for i, (k, x) in enumerate(v.items()):
+            if i:
+                self.indicator(",", False)
+            if self.column > _BEST_WIDTH:
+                self.write_indent()
+            self.key(k)
+            self.node(x, mapping=True)
+        self.indent = self.indents.pop()
+        self.flow_level -= 1
+        self.indicator("}", False)
+
+    def block_sequence(self, v: tp.Sequence[tp.Any], indentless: bool
+                       ) -> None:
+        self.increase_indent(indentless=indentless)
+        for x in v:
+            self.write_indent()
+            self.indicator("-", True, indention=True)
+            self.node(x)
+        self.indent = self.indents.pop()
+
+    def block_mapping(self, v: tp.Mapping[tp.Any, tp.Any]) -> None:
+        self.increase_indent()
+        for k, x in v.items():
+            self.write_indent()
+            self.key(k)
+            self.node(x, mapping=True)
+        self.indent = self.indents.pop()
+
+    # -- scalars --------------------------------------------------------------
+
+    def scalar(self, s: _Scalar, root: bool, simple_key: bool) -> None:
+        a = _analyze(s.text)
+        plain_ok = a.flow_plain if self.flow_level else a.block_plain
+        split = not simple_key
+        if ((not s.is_str or _reads_as_str(s.text)) and plain_ok
+                and not (simple_key and (a.empty or a.multiline))):
+            self.plain(s.text, root, split)
+        elif a.single_quoted and not (simple_key and a.multiline):
+            self.single_quoted(s.text, split)
+        else:
+            self.double_quoted(s.text, split)
+
+    def plain(self, text: str, root: bool, split: bool) -> None:
+        if root:
+            self.open_ended = True
+        if not text:
+            return
+        if not self.whitespace:
+            self.write(" ")
+        self.whitespace = self.indention = False
+        spaces = False
+        start = end = 0
+        while end <= len(text):
+            ch = text[end] if end < len(text) else None
+            if spaces:
+                if ch != " ":
+                    if (start + 1 == end and self.column > _BEST_WIDTH
+                            and split):
+                        self.write_indent()
+                        self.whitespace = self.indention = False
+                    else:
+                        self.write(text[start:end])
+                    start = end
+            elif ch is None or ch == " ":
+                self.write(text[start:end])
+                start = end
+            if ch is not None:
+                spaces = ch == " "
+            end += 1
+
+    def single_quoted(self, text: str, split: bool) -> None:
+        self.indicator("'", True)
+        spaces = breaks = False
+        start = end = 0
+        while end <= len(text):
+            ch = text[end] if end < len(text) else None
+            if spaces:
+                if ch is None or ch != " ":
+                    if (start + 1 == end and self.column > _BEST_WIDTH
+                            and split and start != 0 and end != len(text)):
+                        self.write_indent()
+                    else:
+                        self.write(text[start:end])
+                    start = end
+            elif breaks:
+                if ch is None or ch not in _BREAKS:
+                    if text[start] == "\n":
+                        self.line_break()
+                    for br in text[start:end]:
+                        self.line_break(br)
+                    self.write_indent()
+                    start = end
+            elif ch is None or ch in " " + _BREAKS or ch == "'":
+                if start < end:
+                    self.write(text[start:end])
+                    start = end
+            if ch == "'":
+                self.write("''")
+                start = end + 1
+            if ch is not None:
+                spaces = ch == " "
+                breaks = ch in _BREAKS
+            end += 1
+        self.indicator("'", False)
+
+    def double_quoted(self, text: str, split: bool) -> None:
+        self.indicator('"', True)
+        start = end = 0
+        while end <= len(text):
+            ch = text[end] if end < len(text) else None
+            if (ch is None or ch in '"\\\x85\u2028\u2029\uFEFF'
+                    or not "\x20" <= ch <= "\x7E"):
+                if start < end:
+                    self.write(text[start:end])
+                    start = end
+                if ch is not None:
+                    if ch in _ESCAPE:
+                        data = "\\" + _ESCAPE[ch]
+                    elif ch <= "\xFF":
+                        data = "\\x%02X" % ord(ch)
+                    elif ch <= "\uFFFF":
+                        data = "\\u%04X" % ord(ch)
+                    else:
+                        data = "\\U%08X" % ord(ch)
+                    self.write(data)
+                    start = end + 1
+            if (0 < end < len(text) - 1 and (ch == " " or start >= end)
+                    and self.column + (end - start) > _BEST_WIDTH
+                    and split):
+                data = text[start:end] + "\\"
+                if start < end:
+                    start = end
+                self.write(data)
+                self.write_indent()
+                self.whitespace = self.indention = False
+                if text[start] == " ":
+                    self.write("\\")
+            end += 1
+        self.indicator('"', False)
+
+    # -- the document -----------------------------------------------------------
+
+    def document(self, data: tp.Any) -> str:
+        self.node(data, root=True)
+        self.write_indent()  # the document's end
+        if self.open_ended:  # the stream's end after a plain root scalar
+            self.indicator("...", True)
+            self.write_indent()
+        return "".join(self.out)
+
+
+def _check_tree(data: tp.Any, seen: tp.Set[int]) -> None:
+    """Refuse a collection met twice (PyYAML writes it as an anchor and an
+    alias, which `load` does not read)."""
+    if isinstance(data, (dict, list, tuple)):
+        if id(data) in seen:
+            raise ValueError("a collection appears twice in the tree; "
+                             "anchors and aliases are not supported")
+        seen.add(id(data))
+        for x in (data.values() if isinstance(data, dict) else data):
+            _check_tree(x, seen)
 
 
 def dump(data: tp.Any) -> str:
-    """YAML text of a tree of dicts, lists and scalars; `load` and
-    `yaml.safe_load` read it back equal."""
-    if _has_block(data):
-        return "\n".join(_block(data, 0)) + "\n"
-    return _flow(data) + "\n"
+    """YAML text of a tree of dicts, lists and scalars, as PyYAML's
+    `yaml.dump(data, sort_keys=False, indent=4, default_flow_style=None)`
+    writes it (tuples as lists); `load` and `yaml.safe_load` read it back
+    equal."""
+    _check_tree(data, set())
+    return _Emitter().document(data)
 
 
 __all__ = ["load", "dump", "resolve"]

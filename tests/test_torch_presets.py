@@ -59,8 +59,8 @@ def test_fe_t_shard_is_its_config():
         assert p["data"][key] == data[key], key
 
 
-def test_chip_smoke_imports_only_the_port_torch_and_numpy():
-    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+def _import_roots(path):
+    with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read())
     roots = set()
     for node in ast.walk(tree):
@@ -68,9 +68,21 @@ def test_chip_smoke_imports_only_the_port_torch_and_numpy():
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_only_the_port_torch_and_numpy():
+    """chip_smoke.py imports the port, torch, numpy, the standard library
+    and the reference state-dict writer of tests/, which imports only the
+    standard library."""
+    roots = _import_roots(os.path.join(REPO, "chip_smoke.py"))
     stdlib = {"gzip", "io", "json", "os", "shutil", "statistics",
               "subprocess", "sys", "tarfile", "tempfile", "time", "wave"}
-    assert roots - stdlib == {"numpy", "torch", "fastenhancer_tpu_torch"}
+    assert roots - stdlib == {"numpy", "torch", "fastenhancer_tpu_torch",
+                              "_torch_reference_sd"}
+    helper = _import_roots(os.path.join(REPO, "tests",
+                                        "_torch_reference_sd.py"))
+    assert helper <= {"__future__", "typing"}
 
 
 def test_all_lists_every_preset():

@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-eight phases,
+JAX anywhere) through the hand-written CUDA kernels, in twenty-nine phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -264,9 +264,32 @@ each printed on its own line:
      seconds, the device ms a frame and the GMAC/s from the port's
      `models.macs.macs_for_config` printed a path; then `python -m
      fastenhancer_tpu_torch.scripts.gen_configs --check` on configs/
-     (no pyyaml on the card) exits 0.
+     (no pyyaml on the card) exits 0;
+ 29. the corpus tools: in a temporary directory, a raw corpus (long
+     speech recordings of utterances between silences, stereo noise with a
+     silent source, 0.5 s RIRs with a DNS-style CSV, a 4-channel .mat RIR
+     bank at 48 kHz a BRUDEX room), then the port's tools, each `python -m
+     fastenhancer_tpu_torch.scripts.data.*` in its own process at -j 4
+     (spawned pools): segment_daps -> shard_speech (and again at -j 1),
+     shard_noise, shard_dns_rir, preprocess_brudex -> shard_brudex, and
+     shard_test (noise and RIR fields, its config written by
+     `utils/yaml_subset.py::dump`); each builder's cuts a second and audio
+     seconds a wall second printed; the -j 1 and -j 4 speech shards equal
+     (tar bytes, decompressed cut lists, .done text), every tar plain
+     ustar; then the training CLI's `main` in this process on
+     configs/fastenhancer_shard/t.yaml (FE-T at its width) with its
+     speech, noise and RIR inputs pointed at the built shards, CLI_STEPS
+     steps, 1 epoch: finite losses, #4 twice a step and #5 once a block in
+     every valid batch (tensor-core form), no other kernel, the reader on
+     the native walker; its load/step split beside phase 21's; the frozen
+     test set read back (fields recording/rir/noise, each tar walked
+     natively, the float32 RIR members equal to the Python walker's) and
+     mixed through DynamicMixer on the card (#4 twice), against the same
+     mix on #4's plain version (to 1e-5 of the peak) and each row against
+     the direct convolution of its speech and RIR (correlation above
+     0.9999; with the RIR dropped it must fall below).
 
-Each of phases 4 to 28 drives a path: every kernel's launch count is set to
+Each of phases 4 to 29 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -282,7 +305,8 @@ valid and showcase forwards of phase 25 and the valid forwards of phase
 and phases 24 and 26, the whole frame's over phases 7 and 26, the BSRNN
 stack's over its serving phases and phase 24, segmental RMS's over
 phases 14, 21 and 25, each listed by path before it; phase 27's
-launches of #1, #2, #3, #5 and #6 and phase 28's of every kernel but #4
+launches of #1, #2, #3, #5 and #6, phase 28's of every kernel but #4
+and phase 29's of #4 and #5
 are added to theirs);
 the last line is
 {"ok": true, "device": {...}}. Any failure raises
@@ -529,7 +553,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/28] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/29] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
 
@@ -537,10 +561,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/28] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/29] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/28] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/29] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
@@ -661,7 +685,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/28] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/29] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -696,7 +720,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/28] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/29] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -751,7 +775,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/28] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/29] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -772,7 +796,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/28] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/29] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -816,7 +840,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/28] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/29] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -863,7 +887,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/28] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/29] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -906,7 +930,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/28] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/29] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -954,7 +978,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/28] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/29] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -971,7 +995,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/28] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/29] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -1027,7 +1051,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/28] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/29] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -1053,7 +1077,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/28] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/29] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -1091,7 +1115,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/28] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/29] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1144,7 +1168,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/28] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/29] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1263,7 +1287,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/28] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/29] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1302,7 +1326,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/28] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/29] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1359,7 +1383,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/28] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/29] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1514,7 +1538,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/28] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/29] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1562,7 +1586,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/28] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/29] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1607,7 +1631,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/28] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/29] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1671,7 +1695,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/28] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/29] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1680,7 +1704,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/28] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/29] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1718,7 +1742,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/28] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/29] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1767,7 +1791,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/28] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/29] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1857,21 +1881,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/28] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/29] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/28] {tag} bf16 Model.forward, "
+        print(f"[{phase}/29] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/28] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/29] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -2115,7 +2139,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/28] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/29] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2136,7 +2160,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/28] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/29] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2211,7 +2235,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/28] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/29] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2229,7 +2253,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/28] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/29] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2241,7 +2265,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/28] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/29] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2286,7 +2310,7 @@ def main():
         "gru_scan"]
     rms_paths["summaries CLI (25)"] = launches_25["segmental_rms_fused"]
     record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
-    print(f"[25/28] segmental_rms launches by path: {rms_paths}; "
+    print(f"[25/29] segmental_rms launches by path: {rms_paths}; "
           f"{record['segmental_rms_fused']['launches']} in all")
     scan_paths.update(paths["gru_scan"])
     for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
@@ -2294,26 +2318,32 @@ def main():
         by_path = {first: record[name]["launches"], **paths[name],
                    **launches_26.get(name, {})}
         record[name]["launches"] = sum(by_path.values())
-        print(f"[24/28] {name} launches by path: {by_path}; "
+        print(f"[24/29] {name} launches by path: {by_path}; "
               f"{record[name]['launches']} in all")
     by_path = {"FE_B whole frame (7)": record["fused_frame_step"][
         "launches"], **launches_26["fused_frame_step"]}
     record["fused_frame_step"]["launches"] = sum(by_path.values())
-    print(f"[26/28] fused_frame_step launches by path: {by_path}; "
+    print(f"[26/29] fused_frame_step launches by path: {by_path}; "
           f"{record['fused_frame_step']['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[24/28] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/29] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     for name, by_path in launches_27.items():
         record[name]["launches"] += sum(by_path.values())
-        print(f"[27/28] {name} launches in phase 27 by path: {by_path}; "
+        print(f"[27/29] {name} launches in phase 27 by path: {by_path}; "
               f"{record[name]['launches']} in all")
 
     # -- 28. a reference PyTorch checkpoint served ------------------------------
     for name, by_path in phase_28(ctx).items():
         record[name]["launches"] += sum(by_path.values())
-        print(f"[28/28] {name} launches in phase 28 by path: {by_path}; "
+        print(f"[28/29] {name} launches in phase 28 by path: {by_path}; "
+              f"{record[name]['launches']} in all")
+
+    # -- 29. the corpus tools: shards built, trained on, mixed -----------------
+    for name, by_path in phase_29(dict(ctx, cli_history=history)).items():
+        record[name]["launches"] += sum(by_path.values())
+        print(f"[29/29] {name} launches in phase 29 by path: {by_path}; "
               f"{record[name]['launches']} in all")
 
     sources = {
@@ -2429,7 +2459,7 @@ def phase_22(ctx):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/28] train every family through the CLI, cuts: none of width "
+    print(f"[22/29] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
@@ -2569,7 +2599,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/28] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/29] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2634,7 +2664,7 @@ def phase_22(ctx):
         lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
                      f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
                      f"{tc:.1f} s)")
-    print(f"[22/28] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/29] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2710,7 +2740,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/28] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/29] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2724,7 +2754,7 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    print(f"[22/28] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/29] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
 
@@ -2770,7 +2800,7 @@ def phase_23(ctx, root):
     card, dev = ctx["card"], ctx["dev"]
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[23/28] the on-the-fly recipes through the CLI, cuts: none of "
+    print(f"[23/29] the on-the-fly recipes through the CLI, cuts: none of "
           f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
           f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
           f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
@@ -2949,7 +2979,7 @@ def phase_23(ctx, root):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[23/28] CLI {config} ({hps.model}, "
+            print(f"[23/29] CLI {config} ({hps.model}, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
@@ -3022,7 +3052,7 @@ def phase_23(ctx, root):
                      f"{errs[2]:.2e}"
                      + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
                         else ""))
-    print(f"[23/28] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+    print(f"[23/29] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
           f"the CPU in float32 on each run's first train batch and one set "
           f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
           f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
@@ -3045,7 +3075,7 @@ def phase_23(ctx, root):
         if "noncausal" in path:
             shapes.append((t, n, h, False, True, False, what + " backward"))
     ctx["check_and_time"](shapes, phase=23)
-    print(f"[23/28] phase wall {time.perf_counter() - t_phase:.1f} s "
+    print(f"[23/29] phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(corpus written in {corpus_s:.2f} s)")
     return runs, total_scans
 
@@ -3139,7 +3169,7 @@ def phase_24(ctx, runs):
         rel = worst_rel(y_card, y_cpu)
         _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
                "peak")
-        print(f"[24/28] enhance {dns} on {OTF_EVAL} files: the card's float32"
+        print(f"[24/29] enhance {dns} on {OTF_EVAL} files: the card's float32"
               f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
               f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
               f"launches ({batches} batches of 8, scalar form), "
@@ -3226,7 +3256,7 @@ def phase_24(ctx, runs):
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
-            print(f"[24/28] serve {config} (capacity {SERVE_CAPACITY}, a "
+            print(f"[24/29] serve {config} (capacity {SERVE_CAPACITY}, a "
                   f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
                   f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
                   f"ticks ({form} form), each held to the plain version (max "
@@ -3258,7 +3288,7 @@ def phase_24(ctx, runs):
                and all(np.isfinite(v) for v in got.values())
                and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
                f"metrics_ns card {got} vs CPU {want}")
-        print(f"[24/28] metrics_ns {dns} on {OTF_EVAL} files: "
+        print(f"[24/29] metrics_ns {dns} on {OTF_EVAL} files: "
               + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
                           for k, v in got.items())
               + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
@@ -3302,7 +3332,7 @@ def phase_24(ctx, runs):
                          ctx["nbytes"](x, h, xo, ho, *tensors),
                          torch.bfloat16),
             plain_graph=kernel is band.bsrnn_stack_step)
-        print(f"[24/28] time {kernel.__name__} {tag} {shape} bf16 (the "
+        print(f"[24/29] time {kernel.__name__} {tag} {shape} bf16 (the "
               f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
               f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
               f"bound {1e3 * rec['bound_ms']:.3f} us, "
@@ -3310,7 +3340,7 @@ def phase_24(ctx, runs):
               f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
               f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
               f"{rec['max_abs_err']:.3e}; on {card}")
-    print(f"[24/28] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[24/29] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -3569,7 +3599,7 @@ def phase_25(ctx, runs, root):
         "native shard members != the Python walker's")
     for r in history:
         tm = r["timing"]
-        print(f"[25/28] summaries CLI epoch {r['epoch']} (FE-T, shard "
+        print(f"[25/29] summaries CLI epoch {r['epoch']} (FE-T, shard "
               f"recipe, {SUM_STEPS} steps, bf16): wall {r['seconds']:.2f} "
               f"s; summarize {tm['summarize']:.3f} s ("
               f"{100 * tm['summarize'] / r['seconds']:.1f}% of the epoch; "
@@ -3580,7 +3610,7 @@ def phase_25(ctx, runs, root):
               f"{100 * tm['infer'] / r['seconds']:.1f}%; {SUM_FILES} "
               f"files); infer/sisdr {r['infer']['infer/sisdr']:.3f} dB; "
               f"on {card}")
-    print(f"[25/28] summaries CLI: step ms "
+    print(f"[25/29] summaries CLI: step ms "
           f"{', '.join(f'{ms:.1f}' for _, ms in step_ms)}; inside the "
           f"profiler window ({SUM_PROFILE}: {len(window)} step) "
           f"{', '.join(f'{ms:.1f}' for ms in window)}, outside median "
@@ -3597,7 +3627,7 @@ def phase_25(ctx, runs, root):
           f"00002.ckpt max abs err {infer_err:.3e} of the peak (tol "
           f"{INFER_REL:g}), the logged PCM16 within {pcm_err:g} step of the "
           f"card's; on {card}")
-    print(f"[25/28] native decoder: {walks} tars walked natively in the "
+    print(f"[25/29] native decoder: {walks} tars walked natively in the "
           f"run; {len(nat)} members of {len(tars)} speech tars ({mb:.1f} "
           f"MB) equal to the Python walker's bit for bit; decode MB/s in "
           f"turns (native, Python, Python, native; warm page cache): native "
@@ -3634,7 +3664,7 @@ def phase_25(ctx, runs, root):
     sisdr48, logged48 = showcase_tags(events(runs[config], "valid")[2], 2, 1)
     infer_err48, pcm_err48 = card_vs_cpu(runs[config], 2, logged48)
     tm = r48["timing"]
-    print(f"[25/28] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
+    print(f"[25/29] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
           f"wall {r48['seconds']:.2f} s; summarize {tm['summarize']:.3f} s "
           f"({100 * tm['summarize'] / r48['seconds']:.1f}%), infer_epoch "
           f"{tm['infer']:.3f} s ({100 * tm['infer'] / r48['seconds']:.1f}%;"
@@ -3645,7 +3675,7 @@ def phase_25(ctx, runs, root):
           f"{sisdr48:.3f} dB; showcase card vs CPU max abs err "
           f"{infer_err48:.3e} of the peak, the logged PCM16 within "
           f"{pcm_err48:g} step; on {card}")
-    print(f"[25/28] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[25/29] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"gru_scan": counts["gru_scan"] + counts48["gru_scan"],
             "segmental_rms_fused": counts["segmental_rms_fused"]}
 
@@ -3898,7 +3928,7 @@ def phase_26(ctx):
                 worst = max(worst, *(e for e, _ in errs))
             _check(len(kept) == 2 * len(engine.devices),
                    f"{tag} engine: {len(kept)} launches kept")
-            print(f"[26/28] (a) {kernel} in the {tag} engine: its first "
+            print(f"[26/29] (a) {kernel} in the {tag} engine: its first "
                   f"{len(kept)} launches (batch {kept[0][0].shape}) against "
                   f"the plain version, max abs err {worst:.3e} (bound "
                   f"{BF16_REL:g} of each output's peak)")
@@ -3920,7 +3950,7 @@ def phase_26(ctx):
         bitwise = all(np.array_equal(a[k], b[k]) for k in b)
         _check(err <= BF16_REL * peak,
                f"sharded vs one device ({name}): {err} > {BF16_REL * peak}")
-        print(f"[26/28] (a) FE_B bf16 fused engine, {name}, capacity "
+        print(f"[26/29] (a) FE_B bf16 fused engine, {name}, capacity "
               f"{STREAMS} over {SHARD_DEVICES} shards of "
               f"{STREAMS // SHARD_DEVICES} (the card listed twice) against "
               f"capacity {STREAMS} on one device: {SHARD_REQUESTS} requests "
@@ -4047,7 +4077,7 @@ def phase_26(ctx):
                                   f"difference {max(spread.values())}")
         for tag in results:
             history, ms, _ = results[tag]
-            print(f"[26/28] (b) {tag}: the training CLI on {DP_CONFIG} "
+            print(f"[26/29] (b) {tag}: the training CLI on {DP_CONFIG} "
                   f"(FE-B's width) float32, {DP_EPOCHS} epochs of "
                   f"{DP_TRAIN_PAIRS // DP_BATCH} steps at {DP_BATCH} x "
                   f"{DP_SECONDS[0]:g}-{DP_SECONDS[1]:g} s: step ms "
@@ -4056,7 +4086,7 @@ def phase_26(ctx):
                   f" (mag_mse); gru_scan {blocks * valid_batches * DP_EPOCHS}"
                   f" launches in the valid forwards; on {card}")
         bitwise = all(np.array_equal(nccl[p], one[p]) for p in one)
-        print(f"[26/28] (b) the group's backend {backends[0]}; checkpoint "
+        print(f"[26/29] (b) the group's backend {backends[0]}; checkpoint "
               f"{DP_EPOCHS:05d}.ckpt with the flags against without: "
               f"{'bitwise equal' if bitwise else 'not bitwise equal'}, "
               f"largest difference {max(spread.values()):.3e} over "
@@ -4125,7 +4155,7 @@ def phase_26(ctx):
                 "gru_scan"]
             ms = [s for s, _ in out["steps"]]
             share = [a / s for s, a in out["steps"]]
-            print(f"[26/28] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
+            print(f"[26/29] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
                   f" {'staged through the host by the phase' if out['staged'] else 'CUDA tensors reduced by gloo'}"
                   f"), batch {DP_BATCH // DP_WORLD}: step ms "
                   f"{', '.join(f'{x:.1f}' for x in ms)}; all-reduce share of"
@@ -4134,7 +4164,7 @@ def phase_26(ctx):
                   f"BN's sums forward and backward, the loss counts and "
                   f"values; host clock, the card synchronised around each); "
                   f"gru_scan {out['gru_scan']} launches; on {card}")
-        print(f"[26/28] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
+        print(f"[26/29] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
               f" against one process x {DP_BATCH}: {len(one)} params and BN "
               f"statistics of {DP_EPOCHS:05d}.ckpt, largest difference "
               f"{largest:.3e}, every one within {DP_ATOL:g} + {DP_RTOL:g} x "
@@ -4148,7 +4178,7 @@ def phase_26(ctx):
               f"card first: each init raised ({refused})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[26/28] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[26/29] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4333,7 +4363,7 @@ def phase_27(ctx, runs, root):
         paths.setdefault(kernel, {})[f"artifact {tag} (27)"] = (
             per_frame * EXPORT_FRAMES + row["runner_launches"])
         tick = got["lines"].split("per-tick latency ms:")[1]
-        print(f"[27/28] {tag} at {STREAMS} streams, float32: export "
+        print(f"[27/29] {tag} at {STREAMS} streams, float32: export "
               f"{row['export_s']:.2f} s, artifact {row['bytes']} bytes, "
               f"kernel nodes {row['nodes']}; export's per-tick p50 "
               f"{row['tick_p50']:.2f} ms, p99 {row['tick_p99']:.2f} ms, "
@@ -4374,7 +4404,7 @@ def phase_27(ctx, runs, root):
     cache_bytes = 2 * carry0["kc"].numel() * carry0["kc"].element_size()
     best = {k: min(v) for k, v in walls.items()}
     walls = {k: [round(w, 3) for w in v] for k, v in walls.items()}
-    print(f"[27/28] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
+    print(f"[27/29] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
           f"{COPY_FRAMES} frames at {STREAMS} streams, ms a frame (best of "
           f"two; runs in place, functional, functional, in place: "
           f"{walls}): the artifact (the op writes them in place) "
@@ -4410,7 +4440,7 @@ def phase_27(ctx, runs, root):
                                   / DISPATCH_CALLS * 1e6)
     best = {k: min(v) for k, v in per_call.items()}
     per_call = {k: [round(w, 2) for w in v] for k, v in per_call.items()}
-    print(f"[27/28] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
+    print(f"[27/29] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
           f"over {DISPATCH_CALLS} calls (best of two; runs direct, "
           f"torch.ops, wrapper, wrapper, torch.ops, direct: {per_call}): "
           f"the CUDA implementation called directly {best['direct']:.2f}, "
@@ -4418,7 +4448,7 @@ def phase_27(ctx, runs, root):
           f"(+{best['torch.ops'] - best['direct']:.2f}), through the "
           f"wrapper gru_scan {best['wrapper']:.2f} "
           f"(+{best['wrapper'] - best['direct']:.2f}); on {card}")
-    print(f"[27/28] phase wall {time.perf_counter() - t_phase:.1f} s (the "
+    print(f"[27/29] phase wall {time.perf_counter() - t_phase:.1f} s (the "
           f"runner's process {child_s:.1f} s)")
     return paths
 
@@ -4763,7 +4793,7 @@ def phase_28(ctx):
                          f"{macs * audio_s / (ms / 1e3) / 1e9:.2f} GMAC/s "
                          f"({macs / 1e6:.2f} M MACs a second of audio x "
                          f"{audio_s:g} s of audio)")
-                print(f"[28/28] checkpoint {tag} ({name}, {config}) {what}: "
+                print(f"[28/29] checkpoint {tag} ({name}, {config}) {what}: "
                       f".pth {pth_bytes} bytes, {len(ckpt['model'])} keys; "
                       f"torch.load {load_s:.4f} s, convert_checkpoint on the "
                       f"card {conv_s:.4f} s; {len(want)} leaves bit-equal "
@@ -4788,11 +4818,380 @@ def phase_28(ctx):
          "--check"], cwd=repo, capture_output=True, text=True, timeout=300)
     _check(gen.returncode == 0, f"gen_configs --check: rc {gen.returncode}"
            f"\n{gen.stdout}\n{gen.stderr}")
-    print(f"[28/28] python -m fastenhancer_tpu_torch.scripts.gen_configs "
+    print(f"[28/29] python -m fastenhancer_tpu_torch.scripts.gen_configs "
           f"--check: rc 0 on configs/ in "
           f"{time.perf_counter() - t0:.2f} s; phase 28 in "
           f"{time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+# phase 29: the corpus tools (fastenhancer_tpu_torch/scripts/data/) on a
+# synthetic raw corpus, their shards trained on and the frozen test set
+# mixed. P29_RECORDINGS speech recordings of P29_RECORDING_SECONDS, each
+# utterances of P29_UTTERANCE_SECONDS between P29_GAP_SECONDS of silence:
+# segment_daps cuts an utterance and its pads (4-5.5 s, one or two of the
+# recipe's 30 buckets; a recording's last piece under --max-dur whole),
+# ~717 s in all, so the reader's two threads fill the recipe's 128 s
+# batches; P29_NOISE_FILES stereo noise files of
+# P29_NOISE_SECONDS (one source silent; shard_noise's 10 s chunks);
+# P29_RIRS RIRs of RIR_SECONDS with a DNS-style CSV; one 4-channel .mat
+# RIR bank at 48 kHz a BRUDEX room; a test set of P29_TEST_CUTS cuts.
+# Every pooled tool runs at -j P29_JOBS (spawned workers), shards of
+# P29_SHARD_SIZE cuts
+P29_RECORDINGS, P29_RECORDING_SECONDS = 8, 90.0
+P29_UTTERANCE_SECONDS, P29_GAP_SECONDS = (3.6, 3.9), 0.6
+P29_NOISE_FILES, P29_NOISE_SECONDS = 3, 12.0
+P29_RIRS = 8
+P29_TEST_CUTS = 16
+P29_JOBS, P29_SHARD_SIZE = 4, 20
+P29_TOOL_TIMEOUT = 300
+# the test set's mix on #4 against the same mix on its plain version, of
+# the output's peak (phase 23's mixer bound, OTF_MIX_REL), and each mixed
+# row's correlation with the direct convolution of its speech and RIR
+# (tests/test_shard_test_builder.py's bound)
+P29_MIX_REL = 1e-5
+P29_CORR = 0.9999
+
+
+def phase_29(ctx):
+    """Phase 29 (see the module docstring); -> {kernel: {path: launches}}."""
+    import numpy as np
+    import torch
+    from scipy.io import savemat
+
+    from fastenhancer_tpu_torch import native
+    from fastenhancer_tpu_torch.data import DynamicMixer, batch_convolve_rir
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+    from fastenhancer_tpu_torch.data.shard import ShardSource
+    from fastenhancer_tpu_torch.ops import segmental_rms as seg
+    from fastenhancer_tpu_torch.presets import FE_T_SHARD
+    from fastenhancer_tpu_torch.utils import yaml_subset
+
+    card, dev = ctx["card"], ctx["dev"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(29)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+
+    def path(*parts):
+        p = os.path.join(tmp, *parts)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        return p
+
+    def tool(name, *args):
+        """python -m ...scripts.data.<name> ARGS in a process of its own;
+        -> its wall seconds, process start and spawned pool included."""
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", f"fastenhancer_tpu_torch.scripts.data."
+             f"{name}", *map(str, args)], cwd=repo, capture_output=True,
+            text=True, timeout=P29_TOOL_TIMEOUT)
+        wall = time.perf_counter() - t0
+        _check(p.returncode == 0 and "error" not in p.stdout.lower(),
+               f"{name} {args}: rc {p.returncode}\n{p.stdout[-3000:]}\n"
+               f"{p.stderr[-3000:]}")
+        return wall
+
+    def shard_files(d):
+        """{file: its bytes, a cut list decompressed} of one shard dir (a
+        .gz header holds the time it was written)."""
+        out = {}
+        for f in sorted(os.listdir(d)):
+            with open(os.path.join(d, f), "rb") as fh:
+                data = fh.read()
+            out[f] = gzip.decompress(data) if f.endswith(".gz") else data
+        return out
+
+    def cut_list(d):
+        return [json.loads(line) for f, data in shard_files(d).items()
+                if f.endswith(".jsonl.gz")
+                for line in data.decode().splitlines()]
+
+    rates = []
+
+    def built(what, wall, d, jobs):
+        cuts = cut_list(d)
+        audio_s = sum(m["duration"] for m in cuts)
+        tars = [f for f in os.listdir(d) if f.endswith(".tar")]
+        _check(cuts and all(ShardSource._plain_ustar(os.path.join(d, f))
+                            for f in tars),
+               f"{what}: {len(cuts)} cuts; its tars plain ustar: "
+               f"{[ShardSource._plain_ustar(os.path.join(d, f)) for f in tars]}")
+        durs = [m["duration"] for m in cuts]
+        rates.append(f"{what} -j {jobs}: {len(cuts)} cuts of "
+                     f"{min(durs):.2f}-{max(durs):.2f} s ({audio_s:.1f} s "
+                     f"of audio, {len(tars)} tars) in {wall:.2f} s wall, "
+                     f"{len(cuts) / wall:.1f} cuts/s, {audio_s / wall:.1f} "
+                     f"audio s per wall s")
+        return d
+
+    try:
+        # 1. the raw corpus
+        gap = np.zeros(int(P29_GAP_SECONDS * SR), np.float32)
+        for i in range(P29_RECORDINGS):
+            parts = [gap]
+            while sum(map(len, parts)) < P29_RECORDING_SECONDS * SR:
+                n = int(rng.uniform(*P29_UTTERANCE_SECONDS) * SR)
+                parts += [ctx["speech_like"](rng, 1, n)[0], gap]
+            write_wav(path("raw", "speech", f"s{i:02d}_script1_produced.wav"),
+                      np.concatenate(parts), SR)
+        for i in range(P29_NOISE_FILES):
+            x = rng.standard_normal((int(P29_NOISE_SECONDS * SR), 2)) * 0.05
+            if i == 0:
+                x[:, 1] = 0.0  # a silent source
+            write_wav(path("raw", "noise", f"n{i}.wav"), x, SR)
+        t = np.arange(int(RIR_SECONDS * SR))
+        rows = ["path,channel,t60,c50,is_real"]
+        for i in range(P29_RIRS):
+            t60, onset = 0.2 + 0.1 * (i % 4), int(rng.integers(0, 200))
+            r = rng.standard_normal(len(t)) * np.exp(
+                -6.9 * np.clip(t - onset, 0, None) / (t60 * SR))
+            r[:onset] = 0.0
+            r[onset] = 2.0 * np.abs(r).max()  # the direct path
+            sub = ("real", "simulated")[i % 2]
+            write_wav(path("raw", "rirs", sub, f"rir{i}.wav"),
+                      0.9 * r / np.abs(r).max(), SR)
+            rows.append(f"{sub}/rir{i}.wav,1,{t60:g},{5 + i},{1 - i % 2}")
+        with open(path("raw", "rir.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        t48 = np.arange(int(RIR_SECONDS * 48000))
+        for i, room in enumerate(("rev_low", "rev_medium", "rev_high")):
+            bank = rng.standard_normal((len(t48), 4)) * np.exp(
+                -6.9 * t48 / ((0.3 + 0.4 * i) * 48000))[:, None]
+            bank[0] = 1.0
+            savemat(path("raw", "brudex", room, "bank.mat"),
+                    {"data": bank, "fs": 48000})
+        corpus_s = time.perf_counter() - t_phase
+
+        # 2. the tools, each in its own process, pools spawned
+        seg_dir, shards = path("daps_segmented", ""), path("shards", "")
+        wall = tool("segment_daps", "--src-dir", path("raw", "speech"),
+                    "--out-dir", seg_dir, "--num-workers", P29_JOBS)
+        segs = sorted(os.listdir(seg_dir))
+        rates.append(f"segment_daps --num-workers {P29_JOBS}: "
+                     f"{P29_RECORDINGS} recordings of "
+                     f"{P29_RECORDING_SECONDS:g} s -> {len(segs)} cuts in "
+                     f"{wall:.2f} s wall, "
+                     f"{P29_RECORDINGS * P29_RECORDING_SECONDS / wall:.1f} "
+                     f"audio s per wall s")
+        speech = {}
+        for jobs in (P29_JOBS, 1):
+            wall = tool("shard_speech", "-n", f"daps-j{jobs}", "-d", seg_dir,
+                        "-s", os.path.join(shards, "speech"), "-j", jobs,
+                        "--shard-size", P29_SHARD_SIZE)
+            speech[jobs] = built("shard_speech", wall, os.path.join(
+                shards, "speech", f"daps-j{jobs}"), jobs)
+        wall = tool("shard_noise", "-n", "noise", "-d", path("raw", "noise"),
+                    "-s", os.path.join(shards, "noise"), "-j", P29_JOBS)
+        noise = built("shard_noise", wall,
+                      os.path.join(shards, "noise", "noise"), P29_JOBS)
+        wall = tool("shard_dns_rir", "-n", "dns-rir", "--csv",
+                    path("raw", "rir.csv"), "-d", path("raw", "rirs"), "-s",
+                    os.path.join(shards, "rir"), "-j", P29_JOBS)
+        dns_rir = built("shard_dns_rir", wall,
+                        os.path.join(shards, "rir", "dns-rir"), P29_JOBS)
+        brudex_16k = path("brudex_16k", "")
+        wall = tool("preprocess_brudex", "--from-dir", path("raw", "brudex"),
+                    "--to-dir", brudex_16k, "--num-workers", P29_JOBS)
+        rates.append(f"preprocess_brudex --num-workers {P29_JOBS}: 3 .mat "
+                     f"banks (4 x {RIR_SECONDS:g} s at 48 kHz) -> 16 kHz "
+                     f"wavs in {wall:.2f} s wall")
+        wall = tool("shard_brudex", "-n", "brudex", "-b", brudex_16k, "-s",
+                    os.path.join(shards, "rir"), "-j", P29_JOBS)
+        brudex = built("shard_brudex", wall,
+                       os.path.join(shards, "rir", "brudex"), P29_JOBS)
+        for f in segs[:P29_TEST_CUTS]:
+            shutil.copy(os.path.join(seg_dir, f), path("test_speech", f))
+        test_cfg = path("se_test.yaml")
+        with open(test_cfg, "w") as f:
+            f.write(yaml_subset.dump({
+                "fs": SR, "silence_length": 0.1,
+                "activity_threshold_relative": -25.0,
+                "activity_threshold_absolute": -50.0,
+                "input": {
+                    "nearend_speech": {"base_dir": path("test_speech"),
+                                       "extension": ".wav"},
+                    "nearend_noise": {"noise": {
+                        "directories_to_include": [path("raw", "noise")],
+                        "extension": "", "probability": 1.0}},
+                    "rir": {"dns": {"csv": path("raw", "rir.csv"),
+                                    "base_dir": path("raw", "rirs"),
+                                    "prob": 1.0}}},
+                "nearend": {"speech_dbFS": [-35.0, -15.0],
+                            "noise": {"snr": [0, 20, 5]},
+                            "rir": {"prob": 1.0}}}))
+        wall = tool("shard_test", "-n", "test", "-c", test_cfg, "-s",
+                    os.path.join(shards, "test"), "-j", P29_JOBS, "--seed",
+                    29, "--shard-size", P29_TEST_CUTS // 2)
+        test_dir = built("shard_test", wall,
+                         os.path.join(shards, "test", "test"), P29_JOBS)
+
+        # 3. one builder's -j 1 and -j 4 shards are the same
+        got, want = shard_files(speech[P29_JOBS]), shard_files(speech[1])
+        _check(got == want, f"shard_speech -j {P29_JOBS} != -j 1: "
+               f"{sorted(k for k in want if got.get(k) != want[k])}")
+        done = [open(os.path.join(shards, "speech", f".daps-j{j}.done")
+                     ).read() for j in (P29_JOBS, 1)]
+        _check(done[0] == done[1], f".done markers {done}")
+
+        # 4. FE-T trained through the CLI on the built shards
+        valid = [path("valid", k, "") for k in ("clean", "noisy")]
+        for i in range(CLI_WAVS):
+            clean = ctx["speech_like"](rng, 1, int(rng.uniform(2.0, 4.0)
+                                                    * SR))[0]
+            noisy = clean + rng.standard_normal(len(clean)) * 0.03
+            for d, x in zip(valid, (clean, noisy)):
+                write_wav(os.path.join(d, f"{i:03d}.wav"), x, SR)
+        inputs = {"speech": [{"shard_dir": speech[P29_JOBS]}],
+                  "noise": [{"shard_dir": noise}],
+                  "rir": [{"shard_dir": dns_rir}, {"shard_dir": brudex}]}
+        config = os.path.join(repo, "configs", "fastenhancer_shard",
+                              "t.yaml")
+        train_walks = native.shard_members.launches
+        history, counts, _ = ctx["run_cli"](
+            ["-n", "built", "-c", config, "--base_dir", path("logs", ""),
+             "-p", f"data.train.inputs={inputs!r}",
+             f"data.valid.clean_dir={valid[0]!r}",
+             f"data.valid.noisy_dir={valid[1]!r}",
+             f"data.pesq.clean_dir={valid[0]!r}",
+             f"data.pesq.noisy_dir={valid[1]!r}",
+             f"train.steps_per_epoch={CLI_STEPS}", "train.max_epochs=1",
+             f"valid.batch_size={CLI_VALID_BATCH}"])
+        train_walks = native.shard_members.launches - train_walks
+        blocks = FE_T_SHARD["model_kwargs"]["rnnformer_kwargs"]["num_blocks"]
+        valid_n = -(-CLI_WAVS // CLI_VALID_BATCH)
+        want = {k: 0 for k in ctx["counters"]}
+        want["segmental_rms_fused"] = 2 * CLI_STEPS
+        want["gru_scan"] = want[GRU_TC] = blocks * valid_n
+        _check(counts == want, f"CLI on the built shards: launches {counts} "
+               f"!= {want}")
+        _check(len(history) == 1 and all(
+            np.isfinite(v) for r in history
+            for v in list(r["train"].values()) + list(r["valid"].values())),
+            f"CLI on the built shards: {history}")
+        _check(train_walks > 0,
+               "the shard reader never took the native walker")
+
+        # 5. the frozen test set read back and mixed on the card (#4)
+        walks = native.shard_members.launches
+        cuts = sorted(ShardSource(test_dir, fields=("recording", "rir",
+                                                     "noise")).iter_cuts(0),
+                      key=lambda c: int(c.id))
+        walks = native.shard_members.launches - walks
+        n_tars = len([f for f in os.listdir(test_dir) if f.endswith(".tar")])
+        _check(len(cuts) == P29_TEST_CUTS and walks == n_tars,
+               f"test set: {len(cuts)} cuts, {walks} of {n_tars} tars "
+               "walked natively")
+        rir_tar = os.path.join(test_dir, "rir.000000.tar")
+        nat = list(ShardSource._iter_tar_audio(rir_tar))
+        os.environ["FE_NATIVE"] = "0"
+        try:
+            py = list(ShardSource._iter_tar_audio(rir_tar))
+        finally:
+            os.environ.pop("FE_NATIVE")
+        _check(len(nat) == len(py) == P29_TEST_CUTS // 2 and all(
+            a[0] == b[0] and np.array_equal(a[1], b[1])
+            for a, b in zip(nat, py)),
+            "the float32 RIR members: native != the Python walker")
+        b_rows = len(cuts)
+        t_len = min(len(c.audio) for c in cuts)
+        t_rir = int(RIR_SECONDS * SR)
+        rir = np.zeros((b_rows, 1, t_rir), np.float32)
+        for i, c in enumerate(cuts):
+            rir[i, 0, :len(c.extras["rir"])] = c.extras["rir"][:t_rir]
+
+        def rows(key):
+            return torch.from_numpy(np.stack(
+                [(c.audio if key is None else c.extras[key])[:t_len]
+                 for c in cuts])[:, None]).to(dev)
+
+        batch = dict(
+            speech=rows(None), noise=rows("noise"),
+            rir=torch.from_numpy(rir).to(dev),
+            rir_onset=torch.tensor([c.custom["rir_onset"] for c in cuts],
+                                   device=dev),
+            rir_t60=torch.tensor([c.custom["rir_t60"] for c in cuts],
+                                 dtype=torch.float32, device=dev))
+        batch["speech_clean"] = batch["speech"]
+        kw = dict(speech_dbFS=(-20.0, -20.0), snr=(60.0, 60.0),
+                  sampling_rate=SR, rir_target_type="early_rir")
+        mixer, plain = DynamicMixer(**kw), DynamicMixer(**kw)
+        plain._rms = lambda wav, thr: seg.segmental_rms(
+            wav[:, 0], sr=plain.sr, window_ms=plain.seg_window_ms,
+            relative_threshold_db=plain.seg_rel_thr,
+            absolute_threshold_db=thr)
+        torch.cuda.synchronize()
+        ctx["zero_counts"]()
+        t0 = time.perf_counter()
+        out = mixer(torch.Generator().manual_seed(29), **batch)
+        torch.cuda.synchronize()
+        mix_ms = 1e3 * (time.perf_counter() - t0)
+        mix_counts = ctx["read_counts"]()
+        ctx["check_launches"](mix_counts, "segmental_rms_fused", 2,
+                              "the test set's mix")
+        ref = plain(torch.Generator().manual_seed(29), **batch)
+        errs = {}
+        for k in ("speech", "speech_clean"):
+            peak = ref[k].abs().max().item()
+            errs[k] = (out[k] - ref[k]).abs().max().item()
+            _check(errs[k] <= P29_MIX_REL * peak, f"test-set mix {k}: "
+                   f"{errs[k]} of a peak {peak}")
+        dry = plain(torch.Generator().manual_seed(29), batch["speech"],
+                    speech_clean=batch["speech"], noise=batch["noise"])
+        direct = batch_convolve_rir(batch["speech"], batch["rir"])[:, 0]
+
+        def corr(x):
+            x, d = x[:, 0].double(), direct.double()
+            return (x * d).sum(-1) / (x.norm(dim=-1) * d.norm(dim=-1))
+
+        c_mix, c_dry = corr(out["speech"]), corr(dry["speech"])
+        _check(c_mix.min().item() > P29_CORR, f"test-set mix against the "
+               f"direct convolution: correlations {c_mix.tolist()}")
+        _check(c_dry.max().item() <= P29_CORR, "control, the RIR dropped: "
+               f"correlations {c_dry.tolist()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"[29/29] raw corpus written in {corpus_s:.2f} s; the port's "
+          f"tools, each `python -m fastenhancer_tpu_torch.scripts.data.*` in "
+          f"its own process (host only; the card idle): "
+          + "; ".join(rates) + f"; on {card}")
+    print(f"[29/29] shard_speech -j {P29_JOBS} and -j 1: the same "
+          f"{sum(f.endswith('.tar') for f in got)} tars byte for byte, the "
+          f"same decompressed cut lists and .done text; every built tar "
+          f"plain ustar")
+    tm, ref_tm = history[0]["timing"], ctx["cli_history"][0]["timing"]
+    print(f"[29/29] CLI on the built shards (FE-T, the recipe's width, "
+          f"{CLI_STEPS} steps, 1 epoch): wall {history[0]['seconds']:.2f} "
+          f"s; train_epoch load {tm['load']:.3f} s "
+          f"({100 * tm['load'] / history[0]['seconds']:.1f}% of the epoch), "
+          f"mix+step {tm['step']:.3f} s ({1e3 * tm['step'] / tm['steps']:.1f}"
+          f" ms a step); valid {tm['valid']:.3f} s; phase 21's epoch 1 on "
+          f"hand-written shards: load {ref_tm['load']:.3f} s, mix+step "
+          f"{ref_tm['step']:.3f} s ({1e3 * ref_tm['step'] / ref_tm['steps']:.1f}"
+          f" ms a step); train losses "
+          f"{', '.join(f'{k} {v:.4g}' for k, v in history[0]['train'].items())}"
+          f"; the reader walked {train_walks} tars natively; "
+          f"launches: segmental_rms {counts['segmental_rms_fused']} (2 a "
+          f"step), gru_scan {counts['gru_scan']} (tensor-core, {blocks} a "
+          f"valid batch x {valid_n}), no other kernel; on {card}")
+    print(f"[29/29] frozen test set ({P29_TEST_CUTS} cuts, fields recording/"
+          f"rir/noise; the float32 RIR members natively equal to the Python "
+          f"walker, {walks} tars walked natively) mixed on the card, "
+          f"{b_rows} x {t_len / SR:.2f} s, RIR "
+          f"{t_rir} taps, early_rir target: segmental_rms 2 launches, "
+          f"{mix_ms:.2f} ms wall for the mix; against the plain version max "
+          f"abs err speech {errs['speech']:.3e}, speech_clean "
+          f"{errs['speech_clean']:.3e} (tol {P29_MIX_REL:g} of the peak); "
+          f"correlation with the direct convolution min "
+          f"{c_mix.min().item():.7f} (bound > {P29_CORR}), the RIR dropped "
+          f"max {c_dry.max().item():.4f}; phase 29 in "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    return {"segmental_rms_fused": {
+                "CLI on built shards (29)": counts["segmental_rms_fused"],
+                "test-set mix (29)": mix_counts["segmental_rms_fused"]},
+            "gru_scan": {"CLI on built shards valid (29)": counts["gru_scan"]}}
+
 
 def spawned(fn, world, *args):
     """fn(rank, world, coordinator, *args) in `world` spawned processes,

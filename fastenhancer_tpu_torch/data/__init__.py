@@ -10,22 +10,31 @@ showcase (`infer`) loader serves every file on one rank.
 """
 from __future__ import annotations
 
+import importlib
 import typing as tp
 
-from .. import parallel
-from .audio_io import read_wav, resample, wav_duration, write_wav
-from .loader import DataLoader, collate
-from .noise_suppression import NSDataset
-from .ns_on_the_fly import (DynamicBatchLPF, NSOnTheFlyDataset, SNRMixer,
-                            batch_rir_conv)
-from .shard_mixer import (
-    DynamicMixer,
-    ShardBatch,
-    batch_convolve_rir,
-    get_early_rir,
-    get_rts_rir,
-    get_weighted_rir,
-)
+# each name is imported from its module at first use, so the host-only
+# modules (audio_io, shard) load without torch
+_MODULES = {
+    "read_wav": "audio_io", "resample": "audio_io",
+    "wav_duration": "audio_io", "write_wav": "audio_io",
+    "DataLoader": "loader", "collate": "loader",
+    "NSDataset": "noise_suppression",
+    "DynamicBatchLPF": "ns_on_the_fly", "NSOnTheFlyDataset": "ns_on_the_fly",
+    "SNRMixer": "ns_on_the_fly", "batch_rir_conv": "ns_on_the_fly",
+    "DynamicMixer": "shard_mixer", "ShardBatch": "shard_mixer",
+    "batch_convolve_rir": "shard_mixer", "get_early_rir": "shard_mixer",
+    "get_rts_rir": "shard_mixer", "get_weighted_rir": "shard_mixer",
+}
+
+
+def __getattr__(name):
+    if name not in _MODULES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{_MODULES[name]}", __name__),
+                    name)
+    globals()[name] = value
+    return value
 
 
 def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
@@ -41,6 +50,11 @@ def get_dataset_dataloader(hps, mode: str, keys: tp.List[str]
     serves this rank's stride of batches of `batch_size`, and the dataset
     shuffles length-sorted blocks of W * batch_size items, so W ranks at B
     see the items of one process at W * B."""
+    from .. import parallel
+    from .loader import DataLoader
+    from .noise_suppression import NSDataset
+    from .ns_on_the_fly import NSOnTheFlyDataset
+
     world, rank = parallel.world(), parallel.rank()
     if mode == "infer":
         world, rank = 1, 0

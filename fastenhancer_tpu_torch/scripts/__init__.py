@@ -14,8 +14,6 @@ or by the JAX package's train.py).
 import os
 import typing as tp
 
-import torch
-
 from .. import require_cuda
 
 
@@ -24,6 +22,8 @@ def load_run(name: str, base_dir: str, epoch: tp.Optional[int],
              params: tp.Optional[tp.List[str]] = None):
     """-> (hps, wrapper) of the run's checkpoint on `device` (the card
     unless named); raises FileNotFoundError without a checkpoint."""
+    import torch
+
     from ..utils.hparams import get_hparams
     from ..wrappers import get_wrapper
 

@@ -409,6 +409,24 @@ for _ in range(3):
     prof.step()
 assert prof.done and os.path.exists(prof.trace_path)
 assert native.available()
+# the corpus tools: every script of the JAX package's scripts/data/ has its
+# counterpart, and one shard_speech build is read back
+from fastenhancer_tpu_torch.data.audio_io import write_wav
+from fastenhancer_tpu_torch.data.shard import ShardSource
+from fastenhancer_tpu_torch.scripts.data import shard_speech
+tools = {f"fastenhancer_tpu_torch.scripts.data.{f[:-3]}"
+         for f in os.listdir(os.path.join("scripts", "data"))
+         if f.endswith(".py") and f != "__init__.py"}
+assert len(tools) == 19 and tools <= set(names)
+speech = os.path.join(d, "speech")
+os.makedirs(speech)
+for i in range(2):
+    write_wav(os.path.join(speech, f"{i}.wav"), 0.3 * np.sin(
+        0.05 * np.arange(16000 * (i + 1))).astype("f4"), 16000)
+shard_speech.main(["-n", "sp", "-d", speech, "-s", os.path.join(d, "shards"),
+                   "-j", "1"])
+cuts = list(ShardSource(os.path.join(d, "shards", "sp")).iter_cuts(seed=0))
+assert sorted(len(c.audio) for c in cuts) == [16000, 32000]
 assert not any(blocked(m) for m in sys.modules)
 assert {"fastenhancer_tpu_torch.scripts.enhance",
         "fastenhancer_tpu_torch.scripts.serve",
@@ -419,7 +437,8 @@ assert {"fastenhancer_tpu_torch.scripts.enhance",
         "fastenhancer_tpu_torch.utils.summarize",
         "fastenhancer_tpu_torch.utils.profiler",
         "fastenhancer_tpu_torch.utils.terminal",
-        "fastenhancer_tpu_torch.native"} <= set(names)
+        "fastenhancer_tpu_torch.native",
+        "fastenhancer_tpu_torch.scripts.audiolib"} <= set(names)
 print("OK", len(names))
 """
 
@@ -433,9 +452,11 @@ def test_port_imports_no_jax():
     on-the-fly wrapper run, and the summaries are written and read back,
     a profiler window traced and the native decoder built, with jax,
     fastenhancer_tpu, yaml, tensorboardX, matplotlib, google.protobuf and
-    PIL blocked (the card has none of them). Every port module imports,
-    the scripts (`fastenhancer_tpu_torch.scripts.*`), the summaries, the
-    profiler and the native decoder among them."""
+    PIL blocked (the card has none of them), and one shard_speech build is
+    read back. Every port module imports, the scripts
+    (`fastenhancer_tpu_torch.scripts.*`), the corpus tools (a counterpart
+    of each of scripts/data/*.py), the summaries, the profiler and the
+    native decoder among them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

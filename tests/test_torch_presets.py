@@ -72,14 +72,16 @@ def _import_roots(path):
 
 
 def test_chip_smoke_imports_only_the_port_torch_and_numpy():
-    """chip_smoke.py imports the port, torch, numpy, the standard library
-    and the reference state-dict writer of tests/, which imports only the
-    standard library."""
+    """chip_smoke.py imports the port, torch, numpy, scipy (which the
+    port's wav resampling uses; phase 29 writes its MATLAB v5 RIR banks
+    with `scipy.io.savemat`), the standard library and the reference
+    state-dict writer of tests/, which imports only the standard
+    library."""
     roots = _import_roots(os.path.join(REPO, "chip_smoke.py"))
     stdlib = {"gzip", "io", "json", "os", "shutil", "statistics",
               "subprocess", "sys", "tarfile", "tempfile", "time", "wave"}
-    assert roots - stdlib == {"numpy", "torch", "fastenhancer_tpu_torch",
-                              "_torch_reference_sd"}
+    assert roots - stdlib == {"numpy", "scipy", "torch",
+                              "fastenhancer_tpu_torch", "_torch_reference_sd"}
     helper = _import_roots(os.path.join(REPO, "tests",
                                         "_torch_reference_sd.py"))
     assert helper <= {"__future__", "typing"}

@@ -114,7 +114,13 @@ each printed on its own line:
      float32 chunked stream and offline forward on 2 x 1 s, card against
      the CPU's plain path (to 1e-4 of the peak; the forward's audio has
      silent edges, since LiSenNet's phase features sit on their branch
-     cut on a real-spectrum edge frame);
+     cut on a real-spectrum edge frame); for FSPEN, the 16 float32
+     streams with the card's largest bf16 errors run again through the
+     CPU's bf16 plain path on the same inputs and weights: both held to
+     the card's float32 stream, the card's largest error within 1.5x the
+     CPU's; and a control with FSPEN's convolutions called on their bf16
+     values (cuDNN rounds each sum before its bias) that must miss by more
+     than 1.5x the CPU's on its own 16 worst streams;
  21. train through the CLI: in a temporary directory, synthetic shards
      (speech with silent stretches, noise with a silent cut, 0.5 s RIRs;
      plain ustar tars of WAVs with gzipped cut lists) and a paired
@@ -145,12 +151,13 @@ each printed on its own line:
      2 x 1 s with silent edges (as phase 20), card against the CPU's plain
      path (loss 1e-4, grad norm 1e-3 relative); (c) train.remat on FE-L
      (configs/fastenhancer/l.yaml): one bf16 step at 16 x 2 s with and
-     without from one state, equal losses, every leaf's gradient equal
-     within 1e-3 of its norm plus 4x the card's run-to-run spread of the
-     leaf (the recompute of the backward checked) and a lower peak memory
-     with; with remat at the recipe's 64
-     x 2 s, which without remat does not fit the card. No kernel runs
-     inside any train step;
+     without from one state, each twice: the two steps of one mode
+     bit-equal in every gradient leaf and the loss (and, as a control,
+     not so with the offline overlap-add as an index_add_), equal losses
+     with and without, every leaf's gradient equal within 1e-3 of its
+     norm (the recompute of the backward checked) and a lower peak memory
+     with; with remat at the recipe's 64 x 2 s, which without remat does
+     not fit the card. No kernel runs inside any train step;
  23. train the on-the-fly recipes through the CLI: `main` in this process
      on configs/fastenhancer_dns/b.yaml (bf16), configs/fastenhancer_48khz/
      b.yaml (bf16, the dynamic low-pass at p 0.5), configs/others_dns/
@@ -176,10 +183,13 @@ each printed on its own line:
      F = 36) and BSRNN-XT (#3 at C = 16) runs, every launch held against
      the plain version and the outputs against the same checkpoint served
      unfused in float32 (to 2^-5 of the peak), tick p50/p99 and RTF
-     printed; `...scripts.metrics_ns` on the FE-B DNS run (SISDR, STOI,
-     ESTOI, PESQ finite and the card's equal to the CPU's to 1e-4); #1 at
-     F = 36 and #3 at C = 16 timed at 256 streams with the checkpoints'
-     plans;
+     printed; the float32 `enhance` and `serve` of the FE-B DNS run again
+     in a fresh process in which nothing sets a float flag (the entry
+     points turn TF32 off themselves), against the in-process runs to
+     1e-6 of the peak; `...scripts.metrics_ns` on the FE-B DNS run
+     (SISDR, STOI, ESTOI, PESQ finite and the card's equal to the CPU's
+     to 1e-4); #1 at F = 36 and #3 at C = 16 timed at 256 streams with
+     the checkpoints' plans;
  25. the training CLI's summaries, in this process: `main` on a copy of
      configs/fastenhancer_shard/t.yaml with train.profile {start: 1,
      steps: 2} (FE-T at its width, phase 21's synthetic corpus and valid
@@ -219,7 +229,8 @@ each printed on its own line:
      spawned processes, the CLI's `main` in each) at batch 32 against
      (b)'s one process at 64 on the same items: every param and BN
      statistic of the final checkpoint and every epoch's losses, each
-     step's wall and its all-reduce share, rank 1 silent; #5 once a block
+     step's wall and its all-reduce share, rank 1 silent, each rank's TF32
+     off after the CLI's main though the phase sets no flag; #5 once a block
      in each valid forward of (b) and (c); the first launches of #1 and
      #7 in each engine of (a), at the shard's batch of 128, held against
      the plain versions;
@@ -237,9 +248,17 @@ each printed on its own line:
      lines printed; the kernel once a frame, NB times for #5, and no
      other) and over 32 seeded hops from the zero carry, against the
      eager step the program was exported from on the same variables,
-     carry and hops (output and every carry leaf within 1e-5 of the peak,
-     TF32 off in both processes); #2's artifact, which writes its
-     K/V caches in place, timed against its functional form
+     carry and hops (output and every carry leaf within 1e-5 of the peak;
+     the runner's process sets no float flag, the runner's main turns
+     TF32 off); every tensor of each loaded program (parameters, buffers,
+     constants, the values its nodes were traced with), its variables,
+     carry, feed and returned carry on the card; BSRNN-XT's artifact again
+     in 5 fresh runner processes on 0.25 s of audio, each one's tick p50
+     and pipelined ms a frame against the loaded program's own ms a frame
+     in a loop there (slow above 3x), and one profiler window's costliest
+     kernels and host ops in the first slow process; #2's
+     artifact, which writes its K/V caches in place, timed against its
+     functional form
      (`run_decompositions`: the caches cloned and copied back a frame);
      the host cost a call of #5's CUDA implementation called directly,
      through `torch.ops.fastenhancer.gru_scan` and through the wrapper,
@@ -358,11 +377,15 @@ BASELINE_OFF_STREAMS, BASELINE_OFF_SECONDS = 4, 4.0
 # within BASELINE_BF16_RMS of the float32 output's RMS (measured on the
 # H100 at 256 streams x 2 s, seeds 0-1: 1.4-1.8% in both models) and its
 # largest sample within BASELINE_BF16_PEAK of the output's peak (measured:
-# FSPEN 0.040-0.129, LiSenNet 0.025-0.036; FSPEN's mask divides by the
-# full-band mask's magnitude, whose direction is ill-conditioned where
-# that magnitude is small)
+# FSPEN 0.024 with its convolutions summed in float32, 0.101 before;
+# LiSenNet 0.025-0.036; FSPEN's mask takes the full-band mask's direction,
+# which is ill-conditioned where that mask's magnitude is small); on the
+# streams with FSPEN's largest bf16 errors, the card's largest error
+# within BASELINE_CARD_CPU x that of the CPU's plain path on the same
+# inputs (the card path adds no error of its own)
 BASELINE_BF16_RMS = 2 ** -5
-BASELINE_BF16_PEAK = {"FSPEN": 2 ** -2, "LiSenNet": 2 ** -4}
+BASELINE_BF16_PEAK = {"FSPEN": 2 ** -4, "LiSenNet": 2 ** -4}
+BASELINE_CARD_CPU = 1.5
 # phase 21 (the training CLI on configs/fastenhancer_shard/t.yaml): its
 # synthetic corpus, CLI_SHARDS speech shards of CLI_SPEECH_CUTS cuts of
 # CLI_CUT_SECONDS and CLI_WAVS paired files of 2-4 s; its train steps an
@@ -1805,8 +1828,11 @@ def main():
           f"{nc_peak:.3e}); on {card}")
 
     # -- 19. FSPEN; 20. LiSenNet ---------------------------------------------
-    def baseline(name, kwargs, tag, phase, per_step):
-        """One baseline's paths; per_step: #5 launches a frame or chunk."""
+    def baseline(name, kwargs, tag, phase, per_step, cpu_picks=0):
+        """One baseline's paths; per_step: #5 launches a frame or chunk;
+        cpu_picks: the float32 streams with the largest bf16 errors whose
+        bf16 chunked stream is run again on the CPU's plain path, both
+        held to the card's float32 stream."""
         ticks, counts = serve(name, kwargs, tag, phase, fused=False)
         check_launches(counts, "gru_scan", per_step * ticks,
                        f"{tag} serving")
@@ -1845,6 +1871,66 @@ def main():
                and bf_rms <= BASELINE_BF16_RMS,
                f"{tag} bf16 vs float32 C=4: max {bf_err:.4f} of the peak, "
                f"RMS {bf_rms:.4f} of the RMS")
+        if cpu_picks:
+            # the card's bf16 path against the CPU's on the streams with
+            # the card's largest errors; then the control: the same with
+            # each convolution called on its bf16 values, so that cuDNN
+            # rounds its sum before the bias, which must miss by more
+            # than BASELINE_CARD_CPU x the CPU
+            def card_vs_cpu(y_card):
+                diff = y_card[:BASELINE_F32_STREAMS].float() - y4
+                pick = diff.abs().amax(dim=1).argsort(descending=True)[
+                    :cpu_picks].sort().values
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    y_cpu = model.stream(
+                        tree_map(lambda a: a.cpu(), folded_bf16),
+                        sub[pick].to(torch.bfloat16).cpu(), chunk_frames=4)
+                shares = {}
+                for what, y in (("card", y_card[pick]),
+                                ("CPU", y_cpu.to(dev))):
+                    d = y.float() - y4[pick]
+                    shares[what] = (
+                        (d.abs().max() / y4[pick].abs().max()).item(),
+                        (d.square().mean().sqrt()
+                         / y4[pick].square().mean().sqrt()).item())
+                return (pick.tolist(), shares,
+                        shares["card"][0] / shares["CPU"][0],
+                        time.perf_counter() - t0)
+
+            fspen_mod = sys.modules[type(model).__module__]
+            conv = fspen_mod._conv
+            fspen_mod._conv = lambda fn, p, x, **kw: fn(p, x, **kw)
+            try:
+                with torch.no_grad():
+                    y_ctl = model.stream(folded_bf16, sub.to(torch.bfloat16),
+                                         chunk_frames=4)
+            finally:
+                fspen_mod._conv = conv
+            for form, y_card in (("float32 sums", runs[4][0]),
+                                 ("control, cuDNN's bf16 sums", y_ctl)):
+                pick, shares, ratio, cpu_s = card_vs_cpu(y_card)
+                if form == "float32 sums":
+                    _check(ratio <= BASELINE_CARD_CPU, f"{tag} bf16: the "
+                           f"card's largest error {ratio:.3f}x the CPU's on "
+                           f"the same streams (tol {BASELINE_CARD_CPU:g})")
+                else:
+                    _check(ratio > BASELINE_CARD_CPU, f"{tag} bf16 control:"
+                           f" the card's largest error with cuDNN's bf16 "
+                           f"sums only {ratio:.3f}x the CPU's (the check "
+                           f"would not see that rounding)")
+                print(f"[{phase}/29] {tag} bf16 C=4 ({form}) on the "
+                      f"{cpu_picks} of the first {BASELINE_F32_STREAMS} "
+                      f"streams with the card's largest bf16 errors "
+                      f"(streams {pick}), against the card's float32 "
+                      f"stream: the card max {shares['card'][0]:.4f} of "
+                      f"the peak, RMS {shares['card'][1]:.4f} of the RMS; "
+                      f"the CPU's plain path on the same inputs and weights"
+                      f" max {shares['CPU'][0]:.4f}, RMS "
+                      f"{shares['CPU'][1]:.4f} ({cpu_s:.1f} s); card / CPU "
+                      f"peak share {ratio:.3f} (tol "
+                      f"{'<=' if form == 'float32 sums' else '>'} "
+                      f"{BASELINE_CARD_CPU:g}); on {card}")
         # the offline forward, bf16
         wav_off = (torch.randn(BASELINE_OFF_STREAMS,
                                int(BASELINE_OFF_SECONDS * SR), generator=g)
@@ -1906,7 +1992,7 @@ def main():
               f"(tol {cpu_errs[0][1]:.3e}), forward {cpu_errs[1][0]:.3e} "
               f"(tol {cpu_errs[1][1]:.3e})")
 
-    baseline("fspen", FSPEN, "FSPEN", 19, 30)
+    baseline("fspen", FSPEN, "FSPEN", 19, 30, cpu_picks=16)
     baseline("lisennet", LISENNET, "LiSenNet", 20, 6)
 
     # -- 21. train through the CLI --------------------------------------------
@@ -2388,17 +2474,28 @@ VB_SECONDS = (2.0, 2.5)                  # >= the recipe's 2 s segments
 VB_CPU_ROWS, VB_CPU_SECONDS = 2, 1.0     # 22b: card vs CPU, float32
 VB_LOSS_RTOL, VB_GNORM_RTOL = 1e-4, 1e-3
 REMAT_ROWS, REMAT_SECONDS, REMAT_RTOL = 64, 2.0, 1e-3   # 22c: FE-L
-# each leaf's gradient with remat against without: the norm of the gap
-# within REMAT_GRAD_RTOL of the leaf's norm plus REMAT_SPREAD_K x the
-# card's run-to-run spread of that leaf (two steps of one mode from one
-# state differ: the card's gradients are not reproducible bit for bit, in
-# bf16 by up to ~1e-2 of a GRU leaf, and a bias that a train-mode BN
-# follows has a gradient of float noise only)
-REMAT_GRAD_RTOL, REMAT_SPREAD_K = 1e-3, 4.0
+# two steps of one mode from one state give the same gradients bit for
+# bit; each leaf's gradient with remat against without: the norm of the
+# gap within REMAT_GRAD_RTOL of the leaf's norm (a bias that a train-mode
+# BN follows has a gradient of float noise only, so any difference in the
+# order of a sum shows there)
+REMAT_GRAD_RTOL = 1e-3
 # without remat, FE-L's bf16 step at 64 x 2 s does not fit the card's 80 GB
 # (72.8 GiB allocated above the earlier phases' when it ran out, H100 80GB
 # HBM3 at 700 W): the two are compared at 16 rows
 REMAT_CMP_ROWS = 16
+
+
+def overlap_add_atomic(frames, hop):
+    """The offline overlap-add as one index_add_ of every frame's samples
+    at their output positions (phase 22c's control)."""
+    import torch
+
+    b, t, n_fft = frames.shape
+    idx = (torch.arange(t, device=frames.device)[:, None] * hop
+           + torch.arange(n_fft, device=frames.device)[None, :]).reshape(-1)
+    out = frames.new_zeros(b, (t - 1) * hop + n_fft)
+    return out.index_add_(1, idx, frames.reshape(b, -1))
 
 
 def scans_per_forward(model):
@@ -2444,6 +2541,7 @@ def phase_22(ctx):
     import numpy as np
     import torch
 
+    import fastenhancer_tpu_torch.functional.stft  # noqa: F401
     from fastenhancer_tpu_torch.data.audio_io import write_wav
     from fastenhancer_tpu_torch.models import get_model
     from fastenhancer_tpu_torch.ops import gru_scan as scan
@@ -2454,6 +2552,8 @@ def phase_22(ctx):
     from fastenhancer_tpu_torch.wrappers import get_wrapper
     from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
 
+    # the module (the package's `functional.stft` is the function)
+    stft_mod = sys.modules["fastenhancer_tpu_torch.functional.stft"]
     card, dev = ctx["card"], ctx["dev"]
     zero_counts, read_counts = ctx["zero_counts"], ctx["read_counts"]
 
@@ -2717,26 +2817,51 @@ def phase_22(ctx):
         """Per leaf, the norm of the gap of two gradient lists."""
         return np.array([float((y - x).norm()) for x, y in zip(a, b)])
 
+    def differ(a, b):
+        """The leaves of two gradient lists that are not bit-equal."""
+        return [i for i, (x, y) in enumerate(zip(a, b))
+                if not torch.equal(x, y)]
+
     res = {False: [], True: []}
-    for remat in (False, True, False, True):   # each twice: its spread
+    for remat in (False, True, False, True):   # each twice, interleaved
         res[remat].append(remat_step(remat, REMAT_CMP_ROWS))
     (l0, g0, t0_ms, p0_gb, gr0), (l1, g1, t1_ms, p1_gb, gr1) = (
         res[False][1], res[True][1])
+    for remat, (a, b) in res.items():
+        bad = differ(a[4], b[4])
+        _check(not bad and a[0] == b[0], f"FE-L remat={remat}: two steps "
+               f"from one state differ in gradient leaves {bad} (loss "
+               f"{a[0]} vs {b[0]})")
     norm0 = np.array([float(x.norm()) for x in gr0])
-    spread = np.maximum(*(gaps(r[0][4], r[1][4]) for r in res.values()))
     gap = gaps(gr0, gr1)
-    bound = REMAT_GRAD_RTOL * norm0 + REMAT_SPREAD_K * spread
+    bound = REMAT_GRAD_RTOL * norm0
     worst = int(np.argmax(gap / np.maximum(bound, 1e-30)))
     _check(abs(l1 / l0 - 1) <= REMAT_RTOL and np.isfinite(g1),
            f"FE-L remat loss {l1} vs {l0}")
     _check(len(gr0) == len(gr1) and bool((gap <= bound).all()),
            f"FE-L remat gradients: leaf {worst} off by {gap[worst]:.3e}, "
-           f"bound {bound[worst]:.3e} (norm {norm0[worst]:.3e}, spread "
-           f"{spread[worst]:.3e})")
+           f"bound {bound[worst]:.3e} (norm {norm0[worst]:.3e})")
     rel_gap = float((gap / np.maximum(norm0, 1e-30)).max())
-    rel_spread = float((spread / np.maximum(norm0, 1e-30)).max())
+    remat_differ = len(differ(gr0, gr1))
     _check(p1_gb < p0_gb, f"FE-L remat peak {p1_gb:.2f} GiB >= {p0_gb:.2f}")
     del res, gr0, gr1
+    # the control: the offline iSTFT's overlap-add as an index_add_ (CUDA
+    # adds a sample's overlapping frames with atomics, in the order they
+    # land; FE-L's hop of 100 does not divide its n_fft of 512), the form
+    # F.fold replaced: two steps from one state then differ
+    ola = stft_mod.overlap_add
+    stft_mod.overlap_add = overlap_add_atomic
+    try:
+        atomic = [remat_step(False, REMAT_CMP_ROWS) for _ in range(2)]
+    finally:
+        stft_mod.overlap_add = ola
+    atomic_bad = differ(atomic[0][4], atomic[1][4])
+    atomic_rel = float(max(gaps(atomic[0][4], atomic[1][4])
+                           / np.maximum(norm0, 1e-30)))
+    _check(atomic_bad, "FE-L with the index_add_ overlap-add: two steps "
+           "from one state gave the same gradients (the control did not "
+           "show the atomics' order)")
+    del atomic
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
@@ -2744,10 +2869,14 @@ def phase_22(ctx):
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
-          f" / {g1:.4f}; per-leaf gradient gap up to {rel_gap:.2e} of the "
-          f"leaf's norm, run-to-run spread up to {rel_spread:.2e}, the "
-          f"worst leaf at {gap[worst] / bound[worst]:.2f} of its bound ("
-          f"{REMAT_GRAD_RTOL:g} x norm + {REMAT_SPREAD_K:g} x spread); peak "
+          f" / {g1:.4f}; two steps of each mode from one state bit-equal "
+          f"in all {len(norm0)} gradient leaves (the control with the "
+          f"offline overlap-add as an index_add_: {len(atomic_bad)} leaves "
+          f"differ, up to {atomic_rel:.2e} of a leaf's norm); with remat "
+          f"against without: {remat_differ} leaves not bit-equal, gap up to"
+          f" {rel_gap:.2e} of the leaf's norm, the worst leaf at "
+          f"{gap[worst] / max(bound[worst], 1e-30):.2f} of its bound "
+          f"({REMAT_GRAD_RTOL:g} x norm); peak "
           f"memory {p0_gb:.2f} GiB without, {p1_gb:.2f} "
           f"GiB with ({100 * (1 - p1_gb / p0_gb):.1f}% less); step "
           f"{t0_ms:.0f} ms without, {t1_ms:.0f} ms with; at the recipe's "
@@ -2780,6 +2909,11 @@ OTF_MIX_REL = 1e-5
 # tolerance)
 SERVE_CAPACITY, SERVE_STAGGER = 8, 5
 METRICS_TOL = 1e-4
+# the float32 enhance and serve run again in a fresh process in which
+# nothing sets a float flag, against the in-process runs (TF32 off): of
+# the file's peak (the same settings compute the same bits; TF32 on in one
+# of them misses this by ~100x)
+FRESH_REL = 1e-6
 
 
 def phase_23(ctx, root):
@@ -3194,7 +3328,7 @@ def phase_24(ctx, runs):
                 return out
             return launch
 
-        timing_cases = {}
+        timing_cases, f32_served = {}, {}
         for config, tag, module, kernel, reference in (
                 (dns, "FE-B DNS", fe_model, "rnnformer_stack_step",
                  stack.rnnformer_stack_reference),
@@ -3253,6 +3387,7 @@ def phase_24(ctx, runs):
             if per_tick:
                 paths["gru_scan"][f"serve float32 {tag} (24)"] = counts_f[
                     "gru_scan"]
+            f32_served[config] = y_f
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
@@ -3271,6 +3406,42 @@ def phase_24(ctx, runs):
                   f"{after(out_f, 'aggregate RTF ')}; bf16 fused vs float32 "
                   f"max abs err {rel:.2e} of the file's peak (tol "
                   f"{BF16_REL:g}); on {card}")
+
+        # 24b'. the float32 enhance and serve of the FE-B DNS run again,
+        # in a fresh process in which nothing sets a float flag: the
+        # entry points' own full float32
+        base, name = os.path.split(runs[dns])
+        serve_in = get_hparams(None, runs[dns]).data.pesq.noisy_dir
+        fresh_spec = os.path.join(out_root, "fresh.json")
+        with open(fresh_spec, "w") as f:
+            json.dump([
+                ("enhance", ["-n", name, "--base_dir", base, *io_args, "-o",
+                             os.path.join(out_root, "enh_fresh")]),
+                ("serve", ["-n", name, "--base_dir", base, "-i", serve_in,
+                           "--capacity", str(SERVE_CAPACITY), "--stagger",
+                           str(SERVE_STAGGER), "-o",
+                           os.path.join(out_root, "serve_fresh")])], f)
+        fresh_out = os.path.join(out_root, "fresh.npz")
+        spawned(_phase_24_child, 1, fresh_spec, fresh_out)
+        fresh = np.load(fresh_out)
+        at_start, after_main = (fresh["tf32_at_start"].tolist(),
+                                fresh["tf32_after"].tolist())
+        _check(after_main == [False, False], f"fresh enhance/serve: TF32 "
+               f"flags {after_main} after their mains")
+        fresh_rel = {}
+        for entry, want in (("enhance", y_card), ("serve", f32_served[dns])):
+            got = {k.split("__", 1)[1]: fresh[k] for k in fresh.files
+                   if k.startswith(entry + "__")}
+            fresh_rel[entry] = worst_rel(got, want)
+            _check(fresh_rel[entry] <= FRESH_REL, f"fresh-process float32 "
+                   f"{entry} vs in-process: {fresh_rel[entry]:.3e} of the "
+                   "peak")
+        print(f"[24/29] float32 enhance and serve (unfused) of {dns} again "
+              f"in a fresh process that sets no float flag (TF32 [matmul, "
+              f"cuDNN] {at_start} at its start, {after_main} after the "
+              f"entry points' mains) vs the in-process runs: max abs err "
+              f"{fresh_rel['enhance']:.2e} and {fresh_rel['serve']:.2e} of "
+              f"the file's peak (tol {FRESH_REL:g}); on {card}")
 
         # 24c. metrics_ns on the FE-B DNS run, card against the CPU
         pesq_n = -(-OTF_EVAL // get_hparams(None, runs[dns]).pesq.batch_size)
@@ -3342,6 +3513,40 @@ def phase_24(ctx, runs):
               f"{rec['max_abs_err']:.3e}; on {card}")
     print(f"[24/29] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+def _phase_24_child(rank, world, coordinator, spec_path, out_path):
+    """Phase 24's fresh process, in which nothing sets a float flag: each
+    (entry, argv) of spec_path through the entry point's `main`, the float
+    samples of every output kept (the wavs are PCM16) and saved to
+    out_path (npz, "<entry>__<file>"), with the TF32 flags at the start
+    and after the mains."""
+    del rank, world, coordinator
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    import fastenhancer_tpu_torch.data as data_pkg
+    from fastenhancer_tpu_torch.scripts import enhance, serve
+
+    at_start = tf32_flags()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    written, write_wav, entry = {}, data_pkg.write_wav, [None]
+
+    def keep_wav(path, x, sr):
+        written[f"{entry[0]}__{os.path.basename(path)}"] = np.array(
+            x, np.float32)
+        write_wav(path, x, sr)
+
+    data_pkg.write_wav, stdout = keep_wav, sys.stdout
+    try:
+        sys.stdout = io.StringIO()
+        for entry[0], argv in spec:
+            {"enhance": enhance, "serve": serve}[entry[0]].main(argv)
+    finally:
+        sys.stdout, data_pkg.write_wav = stdout, write_wav
+    np.savez(out_path, tf32_at_start=np.array(at_start),
+             tf32_after=np.array(tf32_flags()), **written)
 
 
 # phase 25: the training CLI's summaries, showcase, histograms, profiler
@@ -3742,8 +3947,8 @@ def phase_26_rank(rank, world, coordinator, device, argv, out_path):
     from fastenhancer_tpu_torch.train.__main__ import main as train_main
     from fastenhancer_tpu_torch.wrappers import ns as ns_wrapper
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # this process sets no float flag: the CLI's main turns TF32 off
+    tf32_at_start = tf32_flags()
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     cuda = torch.device(device).type == "cuda"
 
@@ -3802,6 +4007,7 @@ def phase_26_rank(rank, world, coordinator, device, argv, out_path):
         json.dump({"history": [{k: r[k] for k in ("epoch", "train", "valid")}
                                for r in history],
                    "steps": steps, "staged": staged,
+                   "tf32": [tf32_at_start, tf32_flags()],
                    "gru_scan": scan.gru_scan.launches,
                    "gru_scan_tc": scan.gru_scan.tc_launches}, f)
 
@@ -4153,6 +4359,8 @@ def phase_26(ctx):
                    f"rank {r}: gru_scan launches {out['gru_scan']}")
             launches["gru_scan"][f"rank {r} CLI valid (26c)"] = out[
                 "gru_scan"]
+            _check(out["tf32"][1] == [False, False],
+                   f"rank {r}: TF32 flags {out['tf32'][1]} after the CLI")
             ms = [s for s, _ in out["steps"]]
             share = [a / s for s, a in out["steps"]]
             print(f"[26/29] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
@@ -4163,7 +4371,10 @@ def phase_26(ctx):
                   f"(every all-reduce: the gradient bucket, each train-mode "
                   f"BN's sums forward and backward, the loss counts and "
                   f"values; host clock, the card synchronised around each); "
-                  f"gru_scan {out['gru_scan']} launches; on {card}")
+                  f"gru_scan {out['gru_scan']} launches; TF32 [matmul, "
+                  f"cuDNN] {out['tf32'][0]} at the rank's start (the phase "
+                  f"sets none), {out['tf32'][1]} after the CLI's main; on "
+                  f"{card}")
         print(f"[26/29] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
               f" against one process x {DP_BATCH}: {len(one)} params and BN "
               f"statistics of {DP_EPOCHS:05d}.ckpt, largest difference "
@@ -4227,6 +4438,51 @@ EXPORT_WAV_SECONDS = 0.5    # the runner's input
 EXPORT_REL = 1e-5          # float32, of the peak: artifact vs eager step
 DISPATCH_CALLS = 1000      # the op route against the CUDA implementation
 COPY_FRAMES = 64           # #2's artifact in place against functional
+# BSRNN-XT's artifact again in RUNNER_REPEATS fresh runner processes (two
+# such processes once took 95-127 ms a frame where others took 9-13): each
+# one's tick p50 against the loaded program's own ms a frame over
+# RUNNER_LOOP_FRAMES frames in a loop there, each frame fetched and the
+# input check on the first call only, as the runner runs it; a process is
+# slow at more than RUNNER_SLOW x its own loop, and the first slow one
+# takes one profiler window of RUNNER_PROFILE_FRAMES frames
+RUNNER_REPEATS, RUNNER_LOOP_FRAMES, RUNNER_SLOW = 5, 16, 3.0
+RUNNER_PROFILE_FRAMES = 8
+RUNNER_WAV_SECONDS = 0.25   # the repeats' input (the runner's 0.5 s cut)
+
+
+def tf32_flags():
+    """[matmul, cuDNN] TF32 flags of this process."""
+    import torch
+
+    return [torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32]
+
+
+def off_card(program, **trees):
+    """The tensors of a loaded program that are not on a CUDA device: its
+    parameters, buffers and constants, the values its graph's nodes were
+    traced with (program None: none), and the leaves of `trees` (what it
+    was fed, what it returned) -> a description of each."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    off = []
+    if program is not None:
+        for kind, items in (("state", program.state_dict.items()),
+                            ("constant", program.constants.items())):
+            off += [f"{kind} {name} on {t.device}" for name, t in items
+                    if torch.is_tensor(t) and t.device.type != "cuda"]
+        for node in program.graph.nodes:
+            devs = {str(t.device) for t in pytree.tree_leaves(
+                node.meta.get("val")) if torch.is_tensor(t)
+                and t.device.type != "cuda"}
+            off += [f"node {node.name} ({node.target}) on {d}"
+                    for d in sorted(devs)]
+    for name, tree in trees.items():
+        off += [f"{name} leaf {i} on {t.device}" for i, t in enumerate(
+            pytree.tree_leaves(tree)) if torch.is_tensor(t)
+            and t.device.type != "cuda"]
+    return off
 
 
 def _leaves(tree):
@@ -4363,6 +4619,9 @@ def phase_27(ctx, runs, root):
         paths.setdefault(kernel, {})[f"artifact {tag} (27)"] = (
             per_frame * EXPORT_FRAMES + row["runner_launches"])
         tick = got["lines"].split("per-tick latency ms:")[1]
+        _check(got["tf32_after_main"] == [False, False],
+               f"runner {tag}: TF32 flags {got['tf32_after_main']} after "
+               "its main")
         print(f"[27/29] {tag} at {STREAMS} streams, float32: export "
               f"{row['export_s']:.2f} s, artifact {row['bytes']} bytes, "
               f"kernel nodes {row['nodes']}; export's per-tick p50 "
@@ -4375,6 +4634,53 @@ def phase_27(ctx, runs, root):
               f"peak (tol {EXPORT_REL:g}), output and {len(got['errs']) - 1}"
               f" carry leaves; {kernel} {per_frame} a frame and no other "
               f"kernel; on {card}")
+    off = {row["tag"]: got["off_card"]
+           for row, got in zip(rows, res["results"]) if got["off_card"]}
+    print(f"[27/29] the runner's process set no float flag (TF32 [matmul, "
+          f"cuDNN] {res['results'][0]['tf32_at_start']} at its start, "
+          f"[False, False] after each main); every loaded program's "
+          f"parameters, constants, traced node values, variables, carry, "
+          f"feed and returned carry on the card: "
+          f"{'yes' if not off else off}")
+
+    # BSRNN-XT's artifact in RUNNER_REPEATS fresh runner processes, on
+    # RUNNER_WAV_SECONDS of input
+    i = [c[0] for c in EXPORT_CASES].index("BSRNN-XT wav2wav --fused")
+    sr = next(k for k, v in wavs.items() if v == specs[i]["wav"])
+    xt_wav = os.path.join(out_dir, "xt_in.wav")
+    write_wav(xt_wav, ctx["speech_like"](np.random.default_rng(27), 1, int(
+        RUNNER_WAV_SECONDS * sr))[0], sr)
+    xt_spec = os.path.join(out_dir, "xt_spec.json")
+    with open(xt_spec, "w") as f:
+        json.dump(dict(specs[i], wav=xt_wav), f)
+    repeats, profiled = [], None
+    for k in range(RUNNER_REPEATS):
+        out_k = os.path.join(out_dir, f"xt_runner{k}.json")
+        spawned(_phase_27_runner, 1, xt_spec, out_k, profiled is None)
+        with open(out_k) as f:
+            repeats.append(json.load(f))
+        if repeats[-1]["window"] is not None and profiled is None:
+            profiled = k
+        if repeats[-1]["off_card"]:
+            off[f"BSRNN-XT runner process {k}"] = repeats[-1]["off_card"]
+    p50 = [r["p50"] for r in repeats]
+    amort = [after(r["lines"], "(pipelined dispatch): ") for r in repeats]
+    slow = [k for k, r in enumerate(repeats) if r["slow"]]
+    print(f"[27/29] BSRNN-XT wav2wav --fused artifact in {RUNNER_REPEATS} "
+          f"fresh runner processes, float32, {STREAMS} streams: tick p50 ms "
+          f"{p50}, pipelined ms a frame {amort}; the loaded program in a "
+          f"loop in the same process ({RUNNER_LOOP_FRAMES} frames, each "
+          f"fetched) ms a frame {[r['loop_ms'] for r in repeats]}; slow "
+          f"(tick p50 > {RUNNER_SLOW:g} x its own loop): {slow or 'none'}; "
+          f"on {card}")
+    if profiled is not None:
+        w = repeats[profiled]["window"]
+        print(f"[27/29] BSRNN-XT runner process {profiled} (slow), one "
+              f"profiler window of {RUNNER_PROFILE_FRAMES} ticks as the "
+              f"runner's: host ms a frame {w['ms']:.3f}; costliest kernels,"
+              f" us a frame {w['top']['kernel']}; costliest host ops "
+              f"(inclusive) {w['top']['cpu_op']}")
+    _check(not off, f"tensors off the card: {off}")
 
     # #2's artifact in place (the op writes kc/vc) against its functional
     # form (run_decompositions: the caches cloned and copied back a frame)
@@ -4468,9 +4774,8 @@ def _phase_27_child(rank, world, coordinator, spec_path, out_path):
     from fastenhancer_tpu_torch.scripts import run_exported
 
     dev = require_cuda()
-    # the parent's float32 settings: TF32 off for products and convs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # this process sets no float flag: the runner's main turns TF32 off
+    tf32_at_start = tf32_flags()
     counters = kernel_counters()
 
     def zero():
@@ -4495,15 +4800,20 @@ def _phase_27_child(rank, world, coordinator, spec_path, out_path):
             sys.stdout = stdout
         torch.cuda.synchronize()
         runner_counts = read()
+        tf32_after_main = tf32_flags()
         program, variables, carry, _ = run_exported.load(
             s["artifact"], s["params"], dev)
         step = program.module()
         ref = np.load(s["ref"])
+        off = off_card(program, variables=variables, carry=carry)
         zero()
         with torch.no_grad():
             ys = []
-            for x in ref["feeds"]:
-                carry, y = step(variables, carry, torch.from_numpy(x).to(dev))
+            for i, x in enumerate(ref["feeds"]):
+                feed = torch.from_numpy(x).to(dev)
+                carry, y = step(variables, carry, feed)
+                if i == 0:
+                    off += off_card(None, feed=feed, returned=(carry, y))
                 ys.append(y)
             ys = torch.stack(ys).cpu().numpy()
         counts = read()
@@ -4514,13 +4824,98 @@ def _phase_27_child(rank, world, coordinator, spec_path, out_path):
             errs.append((f"carry leaf {j}", float(np.abs(got - want).max()),
                          float(np.abs(want).max())))
         results.append(dict(lines=buf.getvalue(), counts=counts,
-                            runner_counts=runner_counts, errs=errs))
+                            runner_counts=runner_counts, errs=errs,
+                            off_card=off, tf32_at_start=tf32_at_start,
+                            tf32_after_main=tf32_after_main))
     loaded = sorted(m for m in sys.modules if m.startswith(tuple(
         f"fastenhancer_tpu_torch.{p}" for p in ("models", "wrappers",
                                                 "train"))))
     with open(out_path, "w") as f:
         json.dump({"results": results, "loaded": loaded}, f)
 
+
+def _phase_27_runner(rank, world, coordinator, spec_path, out_path,
+                     profile):
+    """One of phase 27's repeated runner processes: the artifact through
+    the runner's main (its lines kept, its tick p50), then the loaded
+    program's ms a frame over RUNNER_LOOP_FRAMES frames, each fetched,
+    the input check on the first call only; the process is slow at more
+    than RUNNER_SLOW x that, and a slow one asked to `profile` runs
+    RUNNER_PROFILE_FRAMES ticks as the runner's (each uploaded from the
+    host and fetched) inside one `utils/profiler.py` window; writes the
+    lines, the tensors off the card, both times and the window's host ms
+    a frame and five costliest kernels and host ops (us a frame) to
+    out_path."""
+    del rank, world, coordinator
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch import require_cuda
+    from fastenhancer_tpu_torch.scripts import run_exported
+    from fastenhancer_tpu_torch.utils.profiler import StepProfiler
+
+    dev = require_cuda()
+    with open(spec_path) as f:
+        s = json.load(f)
+    buf = io.StringIO()
+    stdout, sys.stdout = sys.stdout, buf
+    try:
+        run_exported.main([s["artifact"], "--params", s["params"], "-i",
+                           s["wav"], "-o", s["out"]])
+    finally:
+        sys.stdout = stdout
+    lines = buf.getvalue()
+    p50 = float(lines.split("per-tick latency ms:")[1].split()[1])
+    program, variables, carry, _ = run_exported.load(
+        s["artifact"], s["params"], dev)
+    step = program.module()
+    feeds = np.load(s["ref"])["feeds"]
+    on_card = [torch.from_numpy(x).to(dev) for x in feeds]
+    off = off_card(program, variables=variables, carry=carry,
+                   feed=on_card[0])
+    with torch.no_grad():
+        carry, y = step(variables, carry, on_card[0])
+        y.cpu()
+        step.validate_inputs = False
+        t0 = time.perf_counter()
+        for x in on_card[1:RUNNER_LOOP_FRAMES + 1]:
+            carry, y = step(variables, carry, x)
+            y.cpu()
+        loop_ms = round((time.perf_counter() - t0)
+                        / len(on_card[1:RUNNER_LOOP_FRAMES + 1]) * 1e3, 3)
+    off += off_card(None, returned=(carry, y))
+    slow = p50 > RUNNER_SLOW * loop_ms
+    window = None
+    if slow and profile:
+        # call 1 opens the window and call RUNNER_PROFILE_FRAMES + 1
+        # closes it: it holds ticks 2 .. RUNNER_PROFILE_FRAMES + 1 (from 0)
+        prof = StepProfiler(os.path.join(os.path.dirname(out_path),
+                                         f"profile_{os.getpid()}"), start=1,
+                            steps=RUNNER_PROFILE_FRAMES + 1, cuda=True)
+        with torch.no_grad():
+            for i, x in enumerate(feeds[:RUNNER_PROFILE_FRAMES + 2]):
+                if i == 2:
+                    t0 = time.perf_counter()
+                carry, y = step(variables, carry, torch.from_numpy(
+                    np.ascontiguousarray(x, np.float32)).to(dev))
+                y.cpu().numpy()
+                prof.step()
+        window = {"ms": (time.perf_counter() - t0) / RUNNER_PROFILE_FRAMES
+                  * 1e3, "top": {}}
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        for cat in ("kernel", "cpu_op"):
+            total = {}
+            for e in events:
+                if e.get("cat") == cat:
+                    total[e["name"]] = total.get(e["name"], 0.0) + e["dur"]
+            window["top"][cat] = sorted(
+                ((round(us / RUNNER_PROFILE_FRAMES, 2), name)
+                 for name, us in total.items()), reverse=True)[:5]
+    with open(out_path, "w") as f:
+        json.dump({"lines": lines, "off_card": off, "p50": p50,
+                   "loop_ms": loop_ms, "slow": slow, "window": window}, f)
 
 
 # phase 28: a reference PyTorch checkpoint served. Each family's seeded

@@ -17,8 +17,11 @@ windowed-DFT matrix product). The DFT always runs in float32 whatever the
 activation dtype: inputs are widened to float32 first and results are cast
 back to the input dtype, at exactly the JAX package's points. The JAX
 package pins `Precision.HIGHEST` for the DFT matmul; in PyTorch a float32
-matmul is full float32 as long as `torch.backends.cuda.matmul.allow_tf32`
-is False (its default), which callers that enable TF32 must keep in mind.
+matmul is full float32 only while `torch.backends.cuda.matmul.allow_tf32`
+is False, and a float32 convolution only while
+`torch.backends.cudnn.allow_tf32` is False (PyTorch's default is True).
+The entry points turn both off; a Python caller who wants the JAX
+package's float32 calls `utils.precision.full_float32()` or sets both.
 
 The window and DFT matrices are numpy constants computed once per config
 (float64 internally) and copied to each device on first use.

@@ -3,9 +3,10 @@
 Counterpart of fastenhancer_tpu/losses.py. Each item loss maps
 (prediction, target) to a [B] tensor of per-item values (`pesq` is
 pesq_loss.py's, fed (target, prediction) as the JAX package does);
-`Losses` takes the config's {name: {weight, ...}} dict, weights and sums
-them, and keeps the epoch's running sums (`initialize`, `accumulate`,
-`get`, `reduce`).
+`<name>_loss` is the batch mean of `<name>_items`. `Losses` takes the
+config's {name: {weight, ...}} dict, weights and sums them, and keeps the
+epoch's running sums (`initialize`, `accumulate`, `get`, `print`,
+`reduce`).
 """
 from __future__ import annotations
 
@@ -39,8 +40,16 @@ def si_snr_items(wav_hat: Tensor, wav: Tensor, eps: float = 1e-7) -> Tensor:
     return -10.0 * _item_mean(snr)
 
 
+def si_snr_loss(wav_hat: Tensor, wav: Tensor, eps: float = 1e-7) -> Tensor:
+    return si_snr_items(wav_hat, wav, eps).mean()
+
+
 def wav_l1_items(wav_hat: Tensor, wav: Tensor) -> Tensor:
     return _item_mean((wav_hat - wav).abs())
+
+
+def wav_l1_loss(wav_hat: Tensor, wav: Tensor) -> Tensor:
+    return wav_l1_items(wav_hat, wav).mean()
 
 
 def mag_mse_items(spec_hat: Tensor, spec: Tensor) -> Tensor:
@@ -52,8 +61,16 @@ def mag_mse_items(spec_hat: Tensor, spec: Tensor) -> Tensor:
     return _item_mean((m1 - m2).square())
 
 
+def mag_mse_loss(spec_hat: Tensor, spec: Tensor) -> Tensor:
+    return mag_mse_items(spec_hat, spec).mean()
+
+
 def complex_mse_items(spec_hat: Tensor, spec: Tensor) -> Tensor:
     return _item_mean((spec_hat - spec).square())
+
+
+def complex_mse_loss(spec_hat: Tensor, spec: Tensor) -> Tensor:
+    return complex_mse_items(spec_hat, spec).mean()
 
 
 def _anti_wrap(x: Tensor) -> Tensor:
@@ -72,6 +89,10 @@ def phase_items(spec_hat: Tensor, spec: Tensor) -> Tensor:
     iaf = _item_mean(_anti_wrap(torch.diff(ph, dim=2)
                                 - torch.diff(ph_hat, dim=2)))
     return ip + gd + iaf
+
+
+def phase_loss(spec_hat: Tensor, spec: Tensor) -> Tensor:
+    return phase_items(spec_hat, spec).mean()
 
 
 class ConsistencyLoss:
@@ -181,6 +202,14 @@ class Losses:
         if key not in self._sums or self._n_items == 0:
             return 0.0
         return float(self._sums[key]) / self._n_items
+
+    def print(self) -> str:
+        """The running means as one line, `  name: 1.23e-02` a loss. It
+        reads the device sums, so it waits for the card: the train loop's
+        per-step progress line leaves it out."""
+        return "".join(
+            f"  {n}: {float(s) / max(self._n_items, 1):8.2e}"
+            for n, s in self._sums.items())
 
     def reduce(self) -> tp.Dict[str, float]:
         """Epoch means keyed 'loss/<name>'."""

@@ -17,6 +17,10 @@ models/fspen/model.py, a re-implementation of FSPEN, ICASSP 2024):
 * the mask: the full complex mask's direction with magnitude (sub + |full|)
   / 2.
 
+Every convolution sums in float32 (`_conv`): in bfloat16 it runs on the
+float32 values and rounds once, as the CPU and XLA do, since cuDNN's bf16
+convolution rounds its sum before the bias.
+
 In eval every GRU is the GRU-scan kernel (ops/gru_scan.py): the intra
 biGRU two launches (`bigru_fused`, N = T*B rows over the 32 bins), each
 group's time GRU one (`gru_fused`, from its carried state), so a block
@@ -41,6 +45,7 @@ import typing as tp
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import nn as fnn
 from ..functional import (
@@ -56,6 +61,42 @@ from .streaming import spectral_step, stream_hops
 
 Tensor = torch.Tensor
 Params = tp.Dict[str, tp.Any]
+
+
+# float32 copies of bfloat16 convolution parameters, each with the version
+# of the tensor it was made from
+_WIDE: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _float32(t: Tensor) -> Tensor:
+    """t as float32. A bf16 parameter's copy is made once and reused while
+    the parameter is unchanged: a stream's or an engine's every step passes
+    the same tree, and a copy a step would add two launches to each
+    convolution of a host-bound step. Where autograd or a trace must see
+    the cast, it is made each call."""
+    if (t.dtype == torch.float32 or t.requires_grad or torch.is_inference(t)
+            or torch.compiler.is_compiling()):
+        return t.float()
+    hit = _WIDE.get(t)
+    if hit is None or hit[0] != t._version:
+        hit = _WIDE[t] = (t._version, t.float())
+    return hit[1]
+
+
+def _conv(fn: tp.Callable[..., Tensor], p: Params, x: Tensor,
+          **kwargs: tp.Any) -> Tensor:
+    """fn (`nn.conv1d_cl` or `conv_transpose1d_cl`) with float32 sums: a
+    bfloat16 convolution runs on its float32 values and is rounded to bf16
+    once, after the bias, as the CPU and XLA compute it. cuDNN's bf16
+    convolution rounds its sum to bf16 before it adds the bias, and FSPEN's
+    mask takes the full-band mask's direction, which that rounding turns
+    far where a bin's sum nearly cancels its bias (on the H100,
+    `chip_smoke.py` phase 19 holds both forms against the CPU's)."""
+    if x.dtype != torch.bfloat16:
+        return fn(p, x, **kwargs)
+    return fn({k: _float32(v) for k, v in p.items()}, x.float(),
+              **kwargs).to(torch.bfloat16)
+
 
 # sub-band encoder geometry (reference :59-66):
 # (input slice start, end, left pad, right pad, kernel, stride)
@@ -210,7 +251,8 @@ class Model(torch.nn.Module):
         outs = []
         for p, (s, e, pl, pr, _, st) in zip(params, SUB_ENC):
             x = F.pad(mag[:, s:e], (pl, pr)) if pl or pr else mag[:, s:e]
-            outs.append(F.relu(fnn.conv1d_cl(p, x[:, :, None], stride=st)))
+            outs.append(F.relu(_conv(fnn.conv1d_cl, p, x[:, :, None],
+                                     stride=st)))
         return torch.cat(outs, dim=1)
 
     @staticmethod
@@ -288,18 +330,20 @@ class Model(torch.nn.Module):
         for i, (p, s) in enumerate(zip(params["fullband_encoder"],
                                        stats["fullband_encoder"])):
             k, st = self.kernel_size[i], self.stride[i]
-            x = fnn.conv1d_cl(p["conv"], x, stride=st, padding=(k - st) // 2)
+            x = _conv(fnn.conv1d_cl, p["conv"], x, stride=st,
+                      padding=(k - st) // 2)
             if s.get("bn") is not None:  # folded models have BN fused away
                 x = bn(p, s, "fullband_encoder", i, x)
             x = F.elu(x)
             enc_out.append(x)
-        x = fnn.conv1d_cl(params["fullband_encoder_post"], x)  # [BT, 32, C]
+        # [BT, 32, C]
+        x = _conv(fnn.conv1d_cl, params["fullband_encoder_post"], x)
 
         # feature merge: concat on freq -> linear over freq -> 1x1 conv
         x = torch.cat([x, x_sub1], dim=1)                    # [BT, 64, C]
         x = F.elu(torch.einsum("oF,nFc->noc",
                                params["feature_merge"]["lin"]["weight"], x))
-        x = fnn.conv1d_cl(params["feature_merge"]["conv"], x)
+        x = _conv(fnn.conv1d_cl, params["feature_merge"]["conv"], x)
 
         xb = x.reshape(b, t, dpe.freq, dpe.channels).transpose(0, 1)
         carry_out = []
@@ -310,7 +354,7 @@ class Model(torch.nn.Module):
         x = xb.transpose(0, 1).reshape(b * t, dpe.freq, dpe.channels)
 
         # feature split: 1x1 conv -> linear freq -> 64 -> ELU
-        x = fnn.conv1d_cl(params["feature_split"]["conv"], x)
+        x = _conv(fnn.conv1d_cl, params["feature_split"]["conv"], x)
         x = F.elu(torch.einsum("oF,nFc->noc",
                                params["feature_split"]["lin"]["weight"], x))
         x_full, x_sub2 = x[:, :32], x[:, 32:]
@@ -324,11 +368,12 @@ class Model(torch.nn.Module):
                                        stats["fullband_decoder"])):
             ci = len(self.channels) - 1 - i
             k, st = self.kernel_size[ci], self.stride[ci]
-            x = fnn.conv1d_cl(p["conv1"], torch.cat([x, enc_out.pop()], dim=2))
+            x = _conv(fnn.conv1d_cl, p["conv1"],
+                      torch.cat([x, enc_out.pop()], dim=2))
             if ci == 0:  # the last unit's ConvTranspose makes the mask
                 break
-            x = fnn.conv_transpose1d_cl(p["convt"], x, stride=st,
-                                        padding=(k - st) // 2)
+            x = _conv(fnn.conv_transpose1d_cl, p["convt"], x, stride=st,
+                      padding=(k - st) // 2)
             if p.get("bn") is not None and s.get("bn") is not None:
                 x = bn(p, s, "fullband_decoder", i, x)
             x = F.elu(x)  # after the BN, or the convt it was folded into
@@ -348,7 +393,7 @@ class Model(torch.nn.Module):
         b, f0, t, _ = spec.shape
         k, st = self.kernel_size[0], self.stride[0]
         mask_full = fnn.conv_transpose1d_cl(
-            {n: a.float() for n, a in convt.items()}, x.float(), stride=st,
+            {n: _float32(a) for n, a in convt.items()}, x.float(), stride=st,
             padding=(k - st) // 2, output_padding=1)
         mask_full = mask_full.reshape(b, t, f0, 2).transpose(1, 2)
         sf = spec.float()

@@ -18,9 +18,11 @@ import numpy as np
 import torch
 
 from . import add_run_args, load_run
+from ..utils.precision import full_float32
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
+    full_float32()
     ap = argparse.ArgumentParser(
         prog="python -m fastenhancer_tpu_torch.scripts.enhance")
     add_run_args(ap)

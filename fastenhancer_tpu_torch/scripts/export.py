@@ -39,6 +39,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import add_run_args, load_run
+from ..utils.precision import full_float32
 
 # the two run lengths of the per-tick slope, in frames
 SLOPE_FRAMES = (128, 640)
@@ -120,6 +121,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
          ) -> tp.Dict[str, tp.Any]:
     """The CLI; -> what it exported, for a caller in the same process:
     {"program", "step", "variables", "carry0", "feed", "model", "hps"}."""
+    full_float32()
     ap = argparse.ArgumentParser(
         prog="python -m fastenhancer_tpu_torch.scripts.export")
     add_run_args(ap)

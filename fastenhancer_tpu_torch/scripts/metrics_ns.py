@@ -17,12 +17,14 @@ import typing as tp
 import numpy as np
 
 from . import add_run_args, load_run
+from ..utils.precision import full_float32
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None
          ) -> tp.Dict[str, float]:
     """Prints the scores; returns them ({"sisdr", "stoi", "estoi", "pesq"},
     means over the scored files)."""
+    full_float32()
     ap = argparse.ArgumentParser(
         prog="python -m fastenhancer_tpu_torch.scripts.metrics_ns")
     add_run_args(ap)

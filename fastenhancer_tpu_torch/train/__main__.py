@@ -56,6 +56,7 @@ from .. import parallel, require_cuda
 from ..data import get_dataset_dataloader
 from ..utils.event_file import EventWriter
 from ..utils.hparams import get_hparams
+from ..utils.precision import full_float32
 from ..utils.summarize import summarize
 from ..wrappers import get_wrapper
 
@@ -91,6 +92,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None
     (the epoch's wall), "timing" (the wrapper's load / step / valid /
     metrics wall split, with "infer" and "summarize": the showcase's and
     the event files' walls)}."""
+    full_float32()
     args = parse_args(argv)
     joined = False
     if args.coordinator:

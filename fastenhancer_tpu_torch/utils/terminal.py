@@ -16,5 +16,16 @@ def verbose() -> bool:
     return parallel.rank() == 0
 
 
+def clear_previous_line() -> None:
+    sys.stdout.write("\033[F\033[K\r")
+
+
 def clear_current_line() -> None:
     sys.stdout.write("\033[2K\r")
+
+
+def progress(msg: str) -> None:
+    """Overwrite the current terminal line with msg (rank 0 only)."""
+    if verbose():
+        sys.stdout.write(f"\r\033[2K{msg}")
+        sys.stdout.flush()

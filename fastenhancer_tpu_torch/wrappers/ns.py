@@ -276,8 +276,10 @@ class ModelWrapper:
 
     def _after_step(self, idx: int, total: tp.Optional[int], t0: float,
                     extra: str = "") -> None:
-        """The progress line every `print_interval` steps (no wait for the
-        card), then the profiler's step."""
+        """The progress line every `print_interval` steps, then the
+        profiler's step. The JAX package's line also shows the running
+        losses (`Losses.print`); reading them waits for the card, so this
+        one leaves them out."""
         if verbose() and idx % self.print_interval == 0:
             dt = time.perf_counter() - t0
             line = f"\rEpoch {self.epoch} - Train {idx}"

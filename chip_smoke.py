@@ -91,7 +91,7 @@ each printed on its own line:
      peak);
  17. chunked, the other six served families (conv_stft at FE_B's widths,
      DPT-B, DPRNN-B, LN_B, TIME_KERNEL_B, BSRNN-S), C = 4 over 256 streams
-     of 2 s: bf16 launches (the GRU scan's tensor-core form once a block a
+     of 1 s: bf16 launches (the GRU scan's tensor-core form once a block a
      chunk where the family has a time GRU, no kernel otherwise) and RTF,
      float32 chunked against the per-frame unfused stream (to 1e-4 of its
      peak);
@@ -148,7 +148,8 @@ each printed on its own line:
      against its plain version; each step's ms, the valid ms, PESQ/STOI s,
      the epoch's wall split and the peak memory printed; (b) one float32
      train step of each of the eight families (the noncausal one too) at
-     2 x 1 s with silent edges (as phase 20), card against the CPU's plain
+     2 x 1 s (the noncausal one 2 x 0.5 s) with silent edges (as phase
+     20), card against the CPU's plain
      path (loss 1e-4, grad norm 1e-3 relative); (c) train.remat on FE-L
      (configs/fastenhancer/l.yaml): one bf16 step at 16 x 2 s with and
      without from one state, each twice: the two steps of one mode
@@ -167,7 +168,7 @@ each printed on its own line:
      steps, 1 epoch with valid, PESQ/STOI and a checkpoint, on a synthetic
      corpus at 16 and 48 kHz (speech-like clean files of 1-5 s, so that
      clips are both concatenated and cropped, one at -80 dBFS that the
-     dataset skips, noise, 16 valid/PESQ pairs of 2-2.5 s, RIRs): finite
+     dataset skips, noise, 10 valid/PESQ pairs of 2-2.5 s, RIRs): finite
      losses, #5 only in the valid and PESQ forwards and never inside
      train_epoch, each input shape it got held against its plain version;
      the step ms, the data-load share of the epoch and the peak memory
@@ -250,13 +251,14 @@ each printed on its own line:
      eager step the program was exported from on the same variables,
      carry and hops (output and every carry leaf within 1e-5 of the peak;
      the runner's process sets no float flag, the runner's main turns
-     TF32 off); every tensor of each loaded program (parameters, buffers,
+     TF32 off; each runner's tick p50, ticks 2 on, within 3x the loaded
+     program's graph on flat inputs in a loop in that process, each frame
+     fetched); every tensor of each loaded program (parameters, buffers,
      constants, the values its nodes were traced with), its variables,
      carry, feed and returned carry on the card; BSRNN-XT's artifact again
-     in 5 fresh runner processes on 0.25 s of audio, each one's tick p50
-     and pipelined ms a frame against the loaded program's own ms a frame
-     in a loop there (slow above 3x), and one profiler window's costliest
-     kernels and host ops in the first slow process; #2's
+     in 2 fresh runner processes, each one's tick p50 within 3x its own
+     loop (a slow one first takes a profiler window: its costliest
+     kernels and host ops, the host ms inflated by the tracing); #2's
      artifact, which writes its K/V caches in place, timed against its
      functional form
      (`run_decompositions`: the caches cloned and copied back a frame);
@@ -326,8 +328,8 @@ stack's over its serving phases and phase 24, segmental RMS's over
 phases 14, 21 and 25, each listed by path before it; phase 27's
 launches of #1, #2, #3, #5 and #6, phase 28's of every kernel but #4
 and phase 29's of #4 and #5
-are added to theirs);
-the last line is
+are added to theirs), and the line before it the script's wall; every
+phase prints its own wall; the last line is
 {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
 """
@@ -343,6 +345,8 @@ import tarfile
 import tempfile
 import time
 import wave
+
+T_START = time.perf_counter()
 
 F32_TOL = 1e-5      # absolute, kernel vs plain, float32
 BF16_REL = 2 ** -5  # bfloat16: of the largest magnitude (a few bf16 ulps)
@@ -362,7 +366,7 @@ RIR_SECONDS = 0.5
 MIX_SEED = 11
 VALID_ROWS, VALID_SECONDS, VALID_BATCHES = 64, 2.0, 2   # phase 15
 CHUNK_SECONDS = 5.0    # phase 16's audio per stream
-FAMILY_SECONDS = 2.0   # phase 17's audio per stream
+FAMILY_SECONDS = 1.0   # phase 17's audio per stream
 # phase 18 and its GRU-scan shape: streams and audio per stream
 NC_STREAMS, NC_SECONDS = 4, 4.0
 # phases 19-20 (FSPEN, LiSenNet): audio per stream of the 256-stream runs,
@@ -567,6 +571,17 @@ def main():
             want[TC_FORMS[name]] = n if tc is None else tc
         _check(counts == want, f"{what}: launches {counts} != {want}")
 
+    t_mark = time.perf_counter()
+
+    def phase_wall(phase, own=False):
+        """Phase `phase`'s wall, the seconds since the last phase ended;
+        printed unless the phase printed its own."""
+        nonlocal t_mark
+        now = time.perf_counter()
+        if not own:
+            print(f"[{phase}/29] phase wall {now - t_mark:.1f} s")
+        t_mark = now
+
     # -- 1. card -----------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -579,6 +594,7 @@ def main():
     print(f"[1/29] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
+    phase_wall(1)
 
     # -- 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -590,6 +606,7 @@ def main():
         print(f"[2/29] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
+    phase_wall(2)
 
     # -- 3. kernels against their plain versions ------------------------------------
     def time_ms(fn, reps=7, inner=20):
@@ -1203,6 +1220,8 @@ def main():
               f"host's dispatch: kernel {r['host_ms']:.4f} ms, plain "
               f"{r['plain_host_ms']:.4f} ms per call; on {card}")
 
+    phase_wall(3)
+
     # -- 4. serving FE_B; 6. serving DPT-B ---------------------------------------------
     def vary_norms(tree, g):
         """Every GroupNorm and LayerNorm affine pair (gn, gn1, gn2, ln) set
@@ -1322,6 +1341,7 @@ def main():
     ticks, counts = serve("fastenhancer.default", FE_B, "FE_B", 4)
     check_launches(counts, "rnnformer_stack_step", ticks, "FE_B serving")
     record["rnnformer_stack_step"]["launches"] = counts["rnnformer_stack_step"]
+    phase_wall(4)
 
     # -- 5. throughput FE_B; 8. throughput DPT-B ----------------------------------------
     def throughput(model_name, kwargs, tag, seconds, phase, kernel):
@@ -1357,10 +1377,12 @@ def main():
 
     fe_ms, fe_rtf = throughput("fastenhancer.default", FE_B, "FE_B",
                                FE_SECONDS, 5, "rnnformer_stack_step")
+    phase_wall(5)
 
     ticks, counts = serve("fastenhancer.dptransformer", DPT_B, "DPT-B", 6)
     check_launches(counts, "dpt_stack_step", ticks, "DPT-B serving")
     record["dpt_stack_step"]["launches"] = counts["dpt_stack_step"]
+    phase_wall(6)
 
     # -- 7. whole frame FE_B ---------------------------------------------------------
     model = get_model("fastenhancer.default", **FE_B, stft_method="matmul")
@@ -1416,9 +1438,11 @@ def main():
           f"{wall_stack / (audio_s * STREAMS):.4e}; phase 5: {fe_ms:.4f} ms, "
           f"RTF {fe_rtf:.4e}); outputs max abs diff {frame_err:.3e} (tol "
           f"{frame_tol:.3e}) on {card}")
+    phase_wall(7)
 
     throughput("fastenhancer.dptransformer", DPT_B, "DPT-B", DPT_SECONDS, 8,
                "dpt_stack_step")
+    phase_wall(8)
 
     # -- 9. serving BSRNN-S; 10. serving DPRNN-B; 11. throughput BSRNN-S ----------
     for model_name, kwargs, tag, phase, kernel in (
@@ -1428,8 +1452,10 @@ def main():
         ticks, counts = serve(model_name, kwargs, tag, phase)
         check_launches(counts, kernel, ticks, f"{tag} serving")
         record[kernel]["launches"] = counts[kernel]
+        phase_wall(phase)
     throughput("bsrnn", BSRNN_S, "BSRNN-S", BSRNN_SECONDS, 11,
                "bsrnn_stack_step")
+    phase_wall(11)
 
     # -- 12. serving LN_B; 13. serving TIME_KERNEL_B --------------------------
     # LN_B, its norms' affine terms drawn away from 1 and 0, through the
@@ -1438,10 +1464,12 @@ def main():
     ticks, counts = serve("fastenhancer.ln", LN_B, "LN_B", 12, norms=True)
     check_launches(counts, LN_KERNEL, ticks, "LN_B serving")
     record[LN_KERNEL]["launches"] = counts[LN_KERNEL]
+    phase_wall(12)
     ticks, counts = serve("fastenhancer.time_kernel", TIME_KERNEL_B,
                           "TIME_KERNEL_B", 13)
     check_launches(counts, "rnnformer_stack_step", ticks,
                    "TIME_KERNEL_B serving")
+    phase_wall(13)
 
     # -- 14. train FE-T on the shard recipe ---------------------------------
     def speech_like(rng, rows, n):
@@ -1619,6 +1647,8 @@ def main():
           f"(worst margin {max(p_err, s_err):.3e}); the CPU step took "
           f"{cpu_s:.1f} s")
 
+    phase_wall(14)
+
     # -- 15. valid FE-T -----------------------------------------------------
     def valid_batch(seed):
         rng = np.random.default_rng(seed)
@@ -1664,6 +1694,8 @@ def main():
           f"per valid batch; float32 valid losses card vs CPU max relative "
           f"diff {max(v_rel.values()):.3e} (tol {TRAIN_F32_RTOL:g}); on "
           f"{card}")
+
+    phase_wall(15)
 
     # -- 16. chunked FE_B -----------------------------------------------------
     def run_stream(model, variables, wav, chunk, gru, tc, what):
@@ -1732,6 +1764,8 @@ def main():
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
 
+    phase_wall(16)
+
     # -- 17. chunked, the other six served families ---------------------------
     # (model, kwargs, tag, whether its blocks run a time GRU)
     for name, kwargs, tag, has_gru in (
@@ -1773,6 +1807,8 @@ def main():
               f"kernel; float32 chunked vs the per-frame unfused stream max "
               f"abs err {f32_err:.3e} (tol {f32_tol:.3e} = {F32_OUT_REL:g} of "
               f"the output peak {y1.abs().max().item():.3e}); on {card}")
+
+    phase_wall(17)
 
     # -- 18. noncausal offline ------------------------------------------------
     model = get_model("fastenhancer.noncausal", **NONCAUSAL_HUGE)
@@ -1826,6 +1862,8 @@ def main():
           f"CPU's plain path max abs err {nc_err:.3e} (tol "
           f"{F32_OUT_REL * nc_peak:.3e} = {F32_OUT_REL:g} of the output peak "
           f"{nc_peak:.3e}); on {card}")
+
+    phase_wall(18)
 
     # -- 19. FSPEN; 20. LiSenNet ---------------------------------------------
     def baseline(name, kwargs, tag, phase, per_step, cpu_picks=0):
@@ -1993,7 +2031,9 @@ def main():
               f"(tol {cpu_errs[1][1]:.3e})")
 
     baseline("fspen", FSPEN, "FSPEN", 19, 30, cpu_picks=16)
+    phase_wall(19)
     baseline("lisennet", LISENNET, "LiSenNet", 20, 6)
+    phase_wall(20)
 
     # -- 21. train through the CLI --------------------------------------------
     def wav_bytes(x):
@@ -2362,12 +2402,15 @@ def main():
           f"to 00002.ckpt bit for bit over {len(want)} arrays, scheduler "
           f"and epoch; segmental_rms launches by path {rms_paths}")
 
+    phase_wall(21)
+
     # -- 22. train every family through the CLI ---------------------------
     scan_paths["VoiceBank CLI valid + PESQ (22)"] = phase_22(
         dict(counters=counters, zero_counts=zero_counts,
              read_counts=read_counts, run_cli=run_cli,
              record_inputs=record_inputs, seen_scan=seen_scan,
              compare=compare, speech_like=speech_like, card=card, dev=dev))
+    phase_wall(22, own=True)
 
     # -- 23. the on-the-fly recipes; 24. the entry points on their runs ------
     ctx = dict(counters=counters, zero_counts=zero_counts,
@@ -2382,15 +2425,20 @@ def main():
     try:
         runs, scan_paths["on-the-fly CLI valid + PESQ (23)"] = phase_23(
             ctx, otf_root)
+        phase_wall(23, own=True)
         paths = phase_24(ctx, runs)
+        phase_wall(24, own=True)
         # -- 25. summaries, showcase, histograms, profiler, native decoder ----
         launches_25 = phase_25(ctx, runs, otf_root)
+        phase_wall(25, own=True)
         # -- 27. the streaming step exported, run with no model code -------
         launches_27 = phase_27(ctx, runs, otf_root)
+        phase_wall(27, own=True)
     finally:
         shutil.rmtree(otf_root, ignore_errors=True)
     # -- 26. several devices: the sharded engine, NCCL and gloo ranks -----------
     launches_26 = phase_26(ctx)
+    phase_wall(26, own=True)
     scan_paths.update(launches_26["gru_scan"])
     scan_paths["summaries CLI valid + infer_epoch (25)"] = launches_25[
         "gru_scan"]
@@ -2425,12 +2473,16 @@ def main():
         record[name]["launches"] += sum(by_path.values())
         print(f"[28/29] {name} launches in phase 28 by path: {by_path}; "
               f"{record[name]['launches']} in all")
+    phase_wall(28)
 
     # -- 29. the corpus tools: shards built, trained on, mixed -----------------
     for name, by_path in phase_29(dict(ctx, cli_history=history)).items():
         record[name]["launches"] += sum(by_path.values())
         print(f"[29/29] {name} launches in phase 29 by path: {by_path}; "
               f"{record[name]['launches']} in all")
+    phase_wall(29)
+    print(f"[29/29] script wall {time.perf_counter() - T_START:.1f} s, the "
+          f"kernels' build included (limit 1200 s)")
 
     sources = {
         "rnnformer_stack_step": ("rnnformer_stack", "rnnformer_stack.py:394"),
@@ -2472,6 +2524,9 @@ VB_CONFIGS = ["fastenhancer/b.yaml", "ablation/dpt_b.yaml",
 VB_TRAIN_PAIRS, VB_EVAL_PAIRS = 128, 8   # 2 steps of the recipe's 64
 VB_SECONDS = (2.0, 2.5)                  # >= the recipe's 2 s segments
 VB_CPU_ROWS, VB_CPU_SECONDS = 2, 1.0     # 22b: card vs CPU, float32
+# 22b's noncausal step on the CPU took 50.4 s of the phase at 1 s (NVIDIA
+# H100 80GB HBM3 host): it runs on the first half of the batch's audio
+NC_CPU_SECONDS = 0.5
 VB_LOSS_RTOL, VB_GNORM_RTOL = 1e-4, 1e-3
 REMAT_ROWS, REMAT_SECONDS, REMAT_RTOL = 64, 2.0, 1e-3   # 22c: FE-L
 # two steps of one mode from one state give the same gradients bit for
@@ -2736,16 +2791,24 @@ def phase_22(ctx):
     batch = {"clean": torch.from_numpy(clean),
              "noisy": torch.from_numpy(noisy),
              "row_mask": torch.ones(VB_CPU_ROWS)}
+    nc = int(NC_CPU_SECONDS * SR)
+    nc_batch = {"clean": batch["clean"][:, :nc].contiguous(),
+                "noisy": batch["noisy"][:, :nc].contiguous(),
+                "row_mask": batch["row_mask"]}
+    for k in ("clean", "noisy"):
+        nc_batch[k][:, -257:] = 0.0
     lines = []
     for config in VB_CONFIGS + ["fastenhancer_dns/huge_noncausal.yaml"]:
         hps = config_hps(config)
+        cut = "noncausal" in config
         out = {}
         for where in ("cpu", "card"):
             w = get_wrapper("ns")(HParams(**hps), train=True,
                                   device="cpu" if where == "cpu" else dev)
             step = make_train_step(w.model, w.loss, w.optim)  # float32
             lrs = [1e-3] * w.optim.n_groups
-            b = {k: v.to(w.device) for k, v in batch.items()}
+            b = {k: v.to(w.device)
+                 for k, v in (nc_batch if cut else batch).items()}
             zero_counts()
             t0 = time.perf_counter()
             _, m = step(w.state, b, lrs)
@@ -2761,9 +2824,10 @@ def phase_22(ctx):
         _check(rel_l <= VB_LOSS_RTOL and rel_g <= VB_GNORM_RTOL,
                f"{config} card vs CPU: loss {rel_l:.3e}, grad norm "
                f"{rel_g:.3e}")
-        lines.append(f"{config.split('/')[-1][:-5]} loss {rel_l:.1e} "
-                     f"gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, CPU "
-                     f"{tc:.1f} s)")
+        lines.append(f"{config.split('/')[-1][:-5]}"
+                     f"{f' ({NC_CPU_SECONDS:g} s)' if cut else ''} loss "
+                     f"{rel_l:.1e} gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, "
+                     f"CPU {tc:.1f} s)")
     print(f"[22/29] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
@@ -2898,7 +2962,7 @@ OTF_CONFIGS = ["fastenhancer_dns/b.yaml", "fastenhancer_48khz/b.yaml",
                "fastenhancer_dns/huge_noncausal.yaml",
                "fastenhancer_dns/t.yaml (reverb)"]
 OTF_STEPS = 2
-OTF_CLEAN, OTF_NOISE, OTF_EVAL = 48, 16, 16
+OTF_CLEAN, OTF_NOISE, OTF_EVAL = 48, 16, 10
 OTF_CLEAN_SECONDS, OTF_EVAL_SECONDS = (1.0, 5.0), (2.0, 2.5)
 OTF_RIRS, OTF_RIR_SECONDS, OTF_REVERB_PROB = 4, 0.25, 0.5
 # the mixer, the RIR convolution and the low-pass on the card against the
@@ -4438,16 +4502,15 @@ EXPORT_WAV_SECONDS = 0.5    # the runner's input
 EXPORT_REL = 1e-5          # float32, of the peak: artifact vs eager step
 DISPATCH_CALLS = 1000      # the op route against the CUDA implementation
 COPY_FRAMES = 64           # #2's artifact in place against functional
-# BSRNN-XT's artifact again in RUNNER_REPEATS fresh runner processes (two
-# such processes once took 95-127 ms a frame where others took 9-13): each
-# one's tick p50 against the loaded program's own ms a frame over
-# RUNNER_LOOP_FRAMES frames in a loop there, each frame fetched and the
-# input check on the first call only, as the runner runs it; a process is
-# slow at more than RUNNER_SLOW x its own loop, and the first slow one
-# takes one profiler window of RUNNER_PROFILE_FRAMES frames
-RUNNER_REPEATS, RUNNER_LOOP_FRAMES, RUNNER_SLOW = 5, 16, 3.0
+# each artifact's runner in a fresh process, and BSRNN-XT's again in
+# RUNNER_REPEATS more: the runner's tick p50 (ticks 2 on) must stay within
+# RUNNER_SLOW x the loaded program's graph on flat inputs (`loop_ms`) over
+# RUNNER_LOOP_FRAMES frames in a loop in that process, each frame fetched
+# (until the runner took the graph's flat inputs, BSRNN-XT's ticked at
+# 5-15x its loop); the first slow repeat takes one profiler window of
+# RUNNER_PROFILE_FRAMES
+RUNNER_REPEATS, RUNNER_LOOP_FRAMES, RUNNER_SLOW = 2, 16, 3.0
 RUNNER_PROFILE_FRAMES = 8
-RUNNER_WAV_SECONDS = 0.25   # the repeats' input (the runner's 0.5 s cut)
 
 
 def tf32_flags():
@@ -4627,13 +4690,18 @@ def phase_27(ctx, runs, root):
               f"kernel nodes {row['nodes']}; export's per-tick p50 "
               f"{row['tick_p50']:.2f} ms, p99 {row['tick_p99']:.2f} ms, "
               f"slope {row['slope_us']:.1f} us/frame ({row['slope'][0]} vs "
-              f"{row['slope'][1]} frames); runner (fresh process) tick p50 "
-              f"{after(tick, 'p50')} ms, p99 {after(tick, 'p99')} ms; "
-              f"{EXPORT_FRAMES} "
+              f"{row['slope'][1]} frames); runner tick p50 "
+              f"{after(tick, 'p50')} ms, p99 {after(tick, 'p99')} ms, the "
+              f"program's graph on flat inputs in a loop in its process "
+              f"{got['loop_ms']:.3f} ms a frame (p50 / loop {got['p50'] / got['loop_ms']:.2f}, bound "
+              f"{RUNNER_SLOW:g}); {EXPORT_FRAMES} "
               f"frames against the eager step: worst {worst:.2e} of the "
               f"peak (tol {EXPORT_REL:g}), output and {len(got['errs']) - 1}"
               f" carry leaves; {kernel} {per_frame} a frame and no other "
               f"kernel; on {card}")
+        _check(got["p50"] <= RUNNER_SLOW * got["loop_ms"],
+               f"runner {tag}: tick p50 {got['p50']:.3f} ms > {RUNNER_SLOW:g}"
+               f" x its program's graph in a loop {got['loop_ms']:.3f} ms")
     off = {row["tag"]: got["off_card"]
            for row, got in zip(rows, res["results"]) if got["off_card"]}
     print(f"[27/29] the runner's process set no float flag (TF32 [matmul, "
@@ -4643,16 +4711,11 @@ def phase_27(ctx, runs, root):
           f"feed and returned carry on the card: "
           f"{'yes' if not off else off}")
 
-    # BSRNN-XT's artifact in RUNNER_REPEATS fresh runner processes, on
-    # RUNNER_WAV_SECONDS of input
+    # BSRNN-XT's artifact again in RUNNER_REPEATS fresh runner processes
     i = [c[0] for c in EXPORT_CASES].index("BSRNN-XT wav2wav --fused")
-    sr = next(k for k, v in wavs.items() if v == specs[i]["wav"])
-    xt_wav = os.path.join(out_dir, "xt_in.wav")
-    write_wav(xt_wav, ctx["speech_like"](np.random.default_rng(27), 1, int(
-        RUNNER_WAV_SECONDS * sr))[0], sr)
     xt_spec = os.path.join(out_dir, "xt_spec.json")
     with open(xt_spec, "w") as f:
-        json.dump(dict(specs[i], wav=xt_wav), f)
+        json.dump(specs[i], f)
     repeats, profiled = [], None
     for k in range(RUNNER_REPEATS):
         out_k = os.path.join(out_dir, f"xt_runner{k}.json")
@@ -4663,23 +4726,29 @@ def phase_27(ctx, runs, root):
             profiled = k
         if repeats[-1]["off_card"]:
             off[f"BSRNN-XT runner process {k}"] = repeats[-1]["off_card"]
-    p50 = [r["p50"] for r in repeats]
+    p50 = [round(r["p50"], 3) for r in repeats]
     amort = [after(r["lines"], "(pipelined dispatch): ") for r in repeats]
-    slow = [k for k, r in enumerate(repeats) if r["slow"]]
+    loops = [round(r["loop_ms"], 3) for r in repeats]
     print(f"[27/29] BSRNN-XT wav2wav --fused artifact in {RUNNER_REPEATS} "
-          f"fresh runner processes, float32, {STREAMS} streams: tick p50 ms "
-          f"{p50}, pipelined ms a frame {amort}; the loaded program in a "
-          f"loop in the same process ({RUNNER_LOOP_FRAMES} frames, each "
-          f"fetched) ms a frame {[r['loop_ms'] for r in repeats]}; slow "
-          f"(tick p50 > {RUNNER_SLOW:g} x its own loop): {slow or 'none'}; "
-          f"on {card}")
+          f"more fresh runner processes, float32, {STREAMS} streams, "
+          f"{EXPORT_WAV_SECONDS:g} s of input: tick p50 ms {p50}, pipelined "
+          f"ms a frame {amort}; the loaded program's graph on flat inputs "
+          f"in a loop in the same process ({RUNNER_LOOP_FRAMES} frames, each fetched) ms a frame "
+          f"{loops}; p50 / loop "
+          f"{[round(a / b, 2) for a, b in zip(p50, loops)]} (bound "
+          f"{RUNNER_SLOW:g}); on {card}")
     if profiled is not None:
         w = repeats[profiled]["window"]
         print(f"[27/29] BSRNN-XT runner process {profiled} (slow), one "
               f"profiler window of {RUNNER_PROFILE_FRAMES} ticks as the "
-              f"runner's: host ms a frame {w['ms']:.3f}; costliest kernels,"
-              f" us a frame {w['top']['kernel']}; costliest host ops "
-              f"(inclusive) {w['top']['cpu_op']}")
+              f"runner's: host ms a frame {w['ms']:.3f} (inflated: the "
+              f"profiler's CPU-activity tracing adds host time to each op); "
+              f"costliest kernels, us a frame {w['top']['kernel']}; "
+              f"costliest host ops (inclusive) {w['top']['cpu_op']}")
+    for k, r in enumerate(repeats):
+        _check(not r["slow"], f"BSRNN-XT runner process {k}: tick p50 "
+               f"{r['p50']:.3f} ms > {RUNNER_SLOW:g} x its program's graph "
+               f"in a loop {r['loop_ms']:.3f} ms")
     _check(not off, f"tensors off the card: {off}")
 
     # #2's artifact in place (the op writes kc/vc) against its functional
@@ -4759,12 +4828,35 @@ def phase_27(ctx, runs, root):
     return paths
 
 
+def loop_ms(step, variables, carry, feeds, dev):
+    """The program's graph on flat inputs (`run_exported.flat_call`, the
+    runner's steady tick without its upload) over RUNNER_LOOP_FRAMES of
+    `feeds` uploaded first, each output fetched -> ms a frame: the
+    yardstick of RUNNER_SLOW. The program's own forward is no yardstick:
+    its per-call flatten of every input has cost BSRNN-XT 5-15x the
+    graph's host time."""
+    import torch
+
+    from fastenhancer_tpu_torch.scripts import run_exported
+
+    run = run_exported.flat_call(step, variables)
+    xs = [torch.from_numpy(x).to(dev) for x in feeds[:RUNNER_LOOP_FRAMES]]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in xs:
+            carry, y = run(carry, x)
+            y.cpu()
+    return (time.perf_counter() - t0) / len(xs) * 1e3
+
+
 def _phase_27_child(rank, world, coordinator, spec_path, out_path):
     """Phase 27's fresh process: each artifact through the runner's main
-    (its lines and launches kept), then loaded again and run over the
-    eager step's hops from its zero carry (launches and errors kept);
-    which model, wrapper or trainer modules it loaded, written with the
-    results to out_path."""
+    (its lines, launches and tick p50 kept), then loaded again and run
+    over the eager step's hops from its zero carry (launches and errors
+    kept), then its graph on flat inputs in a loop (`loop_ms`); which
+    model, wrapper or trainer modules it loaded, written with the results
+    to out_path."""
     del rank, world, coordinator
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -4794,8 +4886,9 @@ def _phase_27_child(rank, world, coordinator, spec_path, out_path):
         zero()
         stdout, sys.stdout = sys.stdout, buf
         try:
-            run_exported.main([s["artifact"], "--params", s["params"], "-i",
-                               s["wav"], "-o", s["out"]])
+            ticks = run_exported.main([s["artifact"], "--params",
+                                       s["params"], "-i", s["wav"], "-o",
+                                       s["out"]])["ticks"]
         finally:
             sys.stdout = stdout
         torch.cuda.synchronize()
@@ -4826,7 +4919,10 @@ def _phase_27_child(rank, world, coordinator, spec_path, out_path):
         results.append(dict(lines=buf.getvalue(), counts=counts,
                             runner_counts=runner_counts, errs=errs,
                             off_card=off, tf32_at_start=tf32_at_start,
-                            tf32_after_main=tf32_after_main))
+                            tf32_after_main=tf32_after_main,
+                            p50=1e3 * float(np.median(ticks[1:])),
+                            loop_ms=loop_ms(step, variables, carry,
+                                            ref["feeds"], dev)))
     loaded = sorted(m for m in sys.modules if m.startswith(tuple(
         f"fastenhancer_tpu_torch.{p}" for p in ("models", "wrappers",
                                                 "train"))))
@@ -4838,11 +4934,11 @@ def _phase_27_runner(rank, world, coordinator, spec_path, out_path,
                      profile):
     """One of phase 27's repeated runner processes: the artifact through
     the runner's main (its lines kept, its tick p50), then the loaded
-    program's ms a frame over RUNNER_LOOP_FRAMES frames, each fetched,
-    the input check on the first call only; the process is slow at more
-    than RUNNER_SLOW x that, and a slow one asked to `profile` runs
-    RUNNER_PROFILE_FRAMES ticks as the runner's (each uploaded from the
-    host and fetched) inside one `utils/profiler.py` window; writes the
+    program's graph on flat inputs (`loop_ms`); the process is slow at
+    more than RUNNER_SLOW x that, and a slow one asked to `profile` runs
+    RUNNER_PROFILE_FRAMES ticks through the runner's call (each uploaded
+    from the host and fetched) inside one `utils/profiler.py` window;
+    writes the
     lines, the tensors off the card, both times and the window's host ms
     a frame and five costliest kernels and host ops (us a frame) to
     out_path."""
@@ -4861,31 +4957,24 @@ def _phase_27_runner(rank, world, coordinator, spec_path, out_path,
     buf = io.StringIO()
     stdout, sys.stdout = sys.stdout, buf
     try:
-        run_exported.main([s["artifact"], "--params", s["params"], "-i",
-                           s["wav"], "-o", s["out"]])
+        ticks = run_exported.main([s["artifact"], "--params", s["params"],
+                                   "-i", s["wav"], "-o", s["out"]])["ticks"]
     finally:
         sys.stdout = stdout
     lines = buf.getvalue()
-    p50 = float(lines.split("per-tick latency ms:")[1].split()[1])
+    p50 = 1e3 * float(np.median(ticks[1:]))
     program, variables, carry, _ = run_exported.load(
         s["artifact"], s["params"], dev)
     step = program.module()
     feeds = np.load(s["ref"])["feeds"]
-    on_card = [torch.from_numpy(x).to(dev) for x in feeds]
-    off = off_card(program, variables=variables, carry=carry,
-                   feed=on_card[0])
+    first = torch.from_numpy(feeds[0]).to(dev)
+    off = off_card(program, variables=variables, carry=carry, feed=first)
     with torch.no_grad():
-        carry, y = step(variables, carry, on_card[0])
+        carry, y = step(variables, carry, first)
         y.cpu()
-        step.validate_inputs = False
-        t0 = time.perf_counter()
-        for x in on_card[1:RUNNER_LOOP_FRAMES + 1]:
-            carry, y = step(variables, carry, x)
-            y.cpu()
-        loop_ms = round((time.perf_counter() - t0)
-                        / len(on_card[1:RUNNER_LOOP_FRAMES + 1]) * 1e3, 3)
     off += off_card(None, returned=(carry, y))
-    slow = p50 > RUNNER_SLOW * loop_ms
+    loop = loop_ms(step, variables, carry, feeds[1:], dev)
+    slow = p50 > RUNNER_SLOW * loop
     window = None
     if slow and profile:
         # call 1 opens the window and call RUNNER_PROFILE_FRAMES + 1
@@ -4893,12 +4982,12 @@ def _phase_27_runner(rank, world, coordinator, spec_path, out_path,
         prof = StepProfiler(os.path.join(os.path.dirname(out_path),
                                          f"profile_{os.getpid()}"), start=1,
                             steps=RUNNER_PROFILE_FRAMES + 1, cuda=True)
+        call = run_exported.make_call(step, variables, dev)
         with torch.no_grad():
             for i, x in enumerate(feeds[:RUNNER_PROFILE_FRAMES + 2]):
                 if i == 2:
                     t0 = time.perf_counter()
-                carry, y = step(variables, carry, torch.from_numpy(
-                    np.ascontiguousarray(x, np.float32)).to(dev))
+                carry, y = call(carry, x)
                 y.cpu().numpy()
                 prof.step()
         window = {"ms": (time.perf_counter() - t0) / RUNNER_PROFILE_FRAMES
@@ -4915,7 +5004,7 @@ def _phase_27_runner(rank, world, coordinator, spec_path, out_path,
                  for name, us in total.items()), reverse=True)[:5]
     with open(out_path, "w") as f:
         json.dump({"lines": lines, "off_card": off, "p50": p50,
-                   "loop_ms": loop_ms, "slow": slow, "window": window}, f)
+                   "loop_ms": loop, "slow": slow, "window": window}, f)
 
 
 # phase 28: a reference PyTorch checkpoint served. Each family's seeded

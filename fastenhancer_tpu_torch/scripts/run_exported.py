@@ -29,6 +29,7 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch.fx import _pytree as fx_pytree
 from torch.utils import _pytree as pytree
 
 from .. import require_cuda
@@ -59,7 +60,81 @@ def load(artifact: str, params: str, device: torch.device):
     return program, variables, carry, meta
 
 
-def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
+def flat_module(step) -> torch.fx.GraphModule:
+    """The program's graph as a module called on its flat inputs, in the
+    order of `step`'s input spec, returning its flat outputs: `step`'s own
+    forward flattens (variables, carry, feed) against that spec at every
+    call, in Python (torch.fx's tree_flatten_spec, ~900 calls a tick for
+    BSRNN-XT's 511 variable leaves)."""
+    graph = torch.fx.Graph()
+    graph.output(graph.graph_copy(step.graph, {}))
+    return torch.fx.GraphModule(step, graph)
+
+
+def flat_call(step, variables):
+    """-> call(carry, x) running the program's graph on flat inputs
+    (`flat_module`) for an `x` already on the device: the variables
+    flattened once here, the carry's few leaves each call; -> (carry,
+    out), as `step(variables, carry, x)` returns them."""
+    var_spec, carry_spec, _ = step._in_spec.children()[0].children()
+    var_leaves = fx_pytree.tree_flatten_spec(variables, var_spec)
+    flat = flat_module(step)
+
+    def call(carry, x):
+        outs = flat(*var_leaves,
+                    *fx_pytree.tree_flatten_spec(carry, carry_spec), x)
+        return pytree.tree_unflatten(list(outs), step._out_spec)
+
+    return call
+
+
+def make_call(step, variables, dev: torch.device):
+    """-> call(carry, feed) for one tick: the feed (host numpy, or a tensor
+    already on `dev`) uploaded, the program run; -> (carry, out). The first
+    tick runs `step` itself, which checks every input against the
+    program's signature; the later ticks run `flat_call`."""
+    run = flat_call(step, variables)
+    checked = []
+
+    def call(carry, feed):
+        x = feed if torch.is_tensor(feed) else torch.from_numpy(
+            np.ascontiguousarray(feed, np.float32)).to(dev)
+        if not checked:
+            checked.append(True)
+            return step(variables, carry, x)
+        return run(carry, x)
+
+    return call
+
+
+def tick_loop(call, carry, feeds):
+    """Each feed through `call`, its output fetched to the host (the frame
+    is delivered) -> (carry, the outputs, each tick's seconds)."""
+    outs, ticks = [], []
+    for x in feeds:
+        t1 = time.perf_counter()
+        carry, y = call(carry, x)
+        y = y.cpu().numpy()
+        ticks.append(time.perf_counter() - t1)
+        outs.append(y)
+    return carry, outs, ticks
+
+
+def wav_feeds(wav: np.ndarray, shape) -> tp.List[np.ndarray]:
+    """A mono wav -> the wav2wav feeds, one [B, hop] hop each, the input
+    replicated over the B streams the step was exported for (numpy keeps
+    the broadcast's layout, so each feed is a transposed view; `make_call`
+    hands the program a C-contiguous copy, the layout it was traced on)."""
+    _, hop = shape
+    t = len(wav) // hop * hop
+    return list(np.broadcast_to(wav[:t].reshape(-1, 1, hop),
+                                (t // hop,) + tuple(shape)).astype(np.float32))
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None
+         ) -> tp.Dict[str, tp.Any]:
+    """The CLI; -> {"ticks": each tick's seconds, "amortized_ms"} for a
+    caller in the same process."""
     full_float32()
     ap = argparse.ArgumentParser(
         prog="python -m fastenhancer_tpu_torch.scripts.run_exported")
@@ -80,21 +155,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     sr = int(meta["sr"])
     step = program.module()
 
-    def call(carry, feed: np.ndarray):
-        out = step(variables, carry, torch.from_numpy(
-            np.ascontiguousarray(feed, np.float32)).to(dev))
-        # the first tick checked every input against the program's
-        # signature (a flatten of the variables tree with each leaf's path:
-        # BSRNN-XT has 511 leaves); the inputs keep their shapes, so the
-        # later ticks skip that host work
-        step.validate_inputs = False
-        return out
+    call = make_call(step, variables, dev)
 
     shape = feed_shape(program)
     spec2spec = len(shape) == 4  # [B, F, 1, 2] vs wav2wav [B, hop]
     wav, _ = read_wav(args.input, sr=sr)
-    outs = []
-    ticks = []
     with torch.no_grad():
         if spec2spec:
             # spec-domain artifact (reference: scripts/test_onnx_spec.py):
@@ -116,14 +181,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
             feeds = [np.broadcast_to(spec[i][None, :, None, :], shape)
                      for i in range(len(idx))]
             t0 = time.perf_counter()
-            for x in feeds:
-                t1 = time.perf_counter()
-                carry, y = call(carry, x)
-                y = y.cpu().numpy()  # host fetch = the frame is delivered
-                ticks.append(time.perf_counter() - t1)
-                outs.append(y[0, :, 0, :])
+            carry, ys, ticks = tick_loop(call, carry, feeds)
             wall = time.perf_counter() - t0
-            hat = np.stack(outs)  # [T, F, 2] compressed
+            hat = np.stack([y[0, :, 0, :] for y in ys])  # [T, F, 2]
             mag = np.maximum(np.sqrt((hat ** 2).sum(-1, keepdims=True)),
                              1e-30)
             hat = hat * mag ** (1.0 / comp - 1.0)
@@ -138,24 +198,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
                 out[i: i + n_fft] += syn[j]
             # offline OLA is input-aligned (no streaming n_fft-hop delay)
         else:
-            b, hop = shape
+            hop = shape[1]
             t = len(wav) // hop * hop
-            # the step is exported for B streams; replicate the mono input
-            # (numpy keeps the broadcast's layout, so each feed is a
-            # transposed [B, hop] view; `call` hands the program a
-            # C-contiguous copy, the layout it was traced on)
-            feeds = list(np.broadcast_to(
-                wav[:t].reshape(-1, 1, hop),
-                (t // hop, b, hop)).astype(np.float32))
+            feeds = wav_feeds(wav, shape)
             t0 = time.perf_counter()
-            for x in feeds:
-                t1 = time.perf_counter()
-                carry, y = call(carry, x)
-                y = y.cpu().numpy()  # host fetch = the frame is delivered
-                ticks.append(time.perf_counter() - t1)
-                outs.append(y[0])
+            carry, ys, ticks = tick_loop(call, carry, feeds)
             wall = time.perf_counter() - t0
-            out = np.concatenate(outs)
+            out = np.concatenate([y[0] for y in ys])
         write_wav(args.output, out, sr)
         # steady state excludes the first tick (the first launches build
         # the kernels); denominator = audio processed by the steady ticks
@@ -165,7 +214,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
         if not len(steady):
             print("input too short for steady-state latency stats "
                   "(need > 2 hops)")
-            return
+            return {"ticks": ticks, "amortized_ms": None}
         rtf = float(steady.sum()) / (len(steady) * hop / sr)
         ticks_ms = np.sort(steady * 1000.0)
         budget_ms = hop / sr * 1000.0
@@ -186,13 +235,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
                 for x in feeds[:min(len(steady), 256)]]
         t0 = time.perf_counter()
         for x in pipe:
-            carry, y = step(variables, carry, x)
+            carry, y = call(carry, x)
         y.cpu()  # single host sync at the end
         amort_ms = (time.perf_counter() - t0) / len(pipe) * 1000.0
         print(f"amortized (pipelined dispatch): {amort_ms:.3f} ms/frame; "
               f"per-dispatch overhead ~{max(pct(50) - amort_ms, 0):.2f} ms "
               f"of the p50 above (the step's slope is measured by the "
               f"export script)")
+        return {"ticks": ticks, "amortized_ms": amort_ms}
 
 
 if __name__ == "__main__":

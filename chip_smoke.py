@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It drives the streaming and training paths of `fastenhancer_tpu_torch` (no
-JAX anywhere) through the hand-written CUDA kernels, in twenty-nine phases,
+JAX anywhere) through the hand-written CUDA kernels, in thirty phases,
 each printed on its own line:
 
   1. card: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -308,9 +308,27 @@ each printed on its own line:
      mixed through DynamicMixer on the card (#4 twice), against the same
      mix on #4's plain version (to 1e-5 of the peak) and each row against
      the direct convolution of its speech and RIR (correlation above
-     0.9999; with the RIR dropped it must fall below).
+     0.9999; with the RIR dropped it must fall below);
+ 30. the training demo (`python -m fastenhancer_tpu_torch.scripts.
+     train_demo`): a seeded 31 s stand-in of its bundled 48 kHz recording
+     (voiced harmonic stretches with a gliding f0 of 100-250 Hz, moving
+     formant bumps on a falling tilt, 4 Hz syllable envelopes, short
+     pauses) written to a temporary directory and named by the demo's
+     `BUNDLED`; the demo's `main` in this process on the paired recipe
+     and on the shard recipe (`P30_RUNS`' epochs), each with this
+     script's `--device`; its two children (the training CLI and
+     `metrics_ns`) run as the demo starts them, through a shim that
+     reports each child's launch counts and the first input of each
+     kernel form it ran when it exits: both runs end with code 0, the
+     demo's `corpus:` and `noisy baseline:` lines and metrics_ns's scores
+     are printed and finite, #5 ran in every child, #4 in the shard
+     recipe's training child, and no other kernel ran; each recorded
+     input (#4 on the mixer's batch, #5's tensor-core form in the bf16
+     valid pass and its scalar form in the float32 PESQ and metrics_ns
+     forwards) run here through the kernel and held against its plain
+     version at phase 3's tolerances.
 
-Each of phases 4 to 29 drives a path: every kernel's launch count is set to
+Each of phases 4 to 30 drives a path: every kernel's launch count is set to
 0 just before it and read just after, and the path fails unless its own
 kernel ran as often as the path needs it and no other kernel ran. The
 block stack's two forms are counted apart (`rnnformer_stack_step.launches`
@@ -327,7 +345,7 @@ and phases 24 and 26, the whole frame's over phases 7 and 26, the BSRNN
 stack's over its serving phases and phase 24, segmental RMS's over
 phases 14, 21 and 25, each listed by path before it; phase 27's
 launches of #1, #2, #3, #5 and #6, phase 28's of every kernel but #4
-and phase 29's of #4 and #5
+and phases 29's and 30's of #4 and #5
 are added to theirs), and the line before it the script's wall; every
 phase prints its own wall; the last line is
 {"ok": true, "device": {...}}. Any failure raises
@@ -579,7 +597,7 @@ def main():
         nonlocal t_mark
         now = time.perf_counter()
         if not own:
-            print(f"[{phase}/29] phase wall {now - t_mark:.1f} s")
+            print(f"[{phase}/30] phase wall {now - t_mark:.1f} s")
         t_mark = now
 
     # -- 1. card -----------------------------------------------------------------
@@ -591,7 +609,7 @@ def main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1/29] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
+    print(f"[1/30] card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} "
           f"| torch {torch.__version__}, CUDA {torch.version.cuda} | TF32 off "
           "for matmul and cuDNN (float32 checks run in full float32)")
     phase_wall(1)
@@ -600,10 +618,10 @@ def main():
     t0 = time.perf_counter()
     names = _build.SOURCES
     _build.build_all(names, verbose=True)
-    print(f"[2/29] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
+    print(f"[2/30] build: {', '.join(n + '.cu' for n in names)} with nvcc for "
           f"sm_90a, in parallel, in {time.perf_counter() - t0:.2f} s")
     for label, info in ptxas_summary(_build.REPORTS).items():
-        print(f"[2/29] ptxas {label}: {info['registers']} registers, "
+        print(f"[2/30] ptxas {label}: {info['registers']} registers, "
               f"{info['smem']} bytes static smem, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
     phase_wall(2)
@@ -725,7 +743,7 @@ def main():
             xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
             errs = compare(f"rnnformer_stack {name}", ((xo, xr), (ho, hr)),
                            dtype)
-            print(f"[3/29] kernel rnnformer_stack {name} B={b} F={f} C={c} "
+            print(f"[3/30] kernel rnnformer_stack {name} B={b} F={f} C={c} "
                   f"H={heads} NB={nb} {str(dtype)[6:]}: max abs err x_out "
                   f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -760,7 +778,7 @@ def main():
         xr, hr = stack.rnnformer_stack_reference(plan, x, h, heads)
         errs = compare("rnnformer_stack LN form LN_B", ((xo, xr), (ho, hr)),
                        dtype)
-        print(f"[3/29] kernel rnnformer_stack LN form LN_B B={b} F={f} "
+        print(f"[3/30] kernel rnnformer_stack LN form LN_B B={b} F={f} "
               f"C={c} H={heads} NB={nb} eps={plan['ln_eps']:g} "
               f"{str(dtype)[6:]}: max abs err x_out {errs[0][0]:.3e} (tol "
               f"{errs[0][1]:.3e}), h_new {errs[1][0]:.3e} (tol "
@@ -815,7 +833,7 @@ def main():
             torch.cuda.synchronize()
             mr, hr = frame.fused_frame_reference(plan, x, h, **kw)
             errs = compare(f"fused_frame {name}", ((mo, mr), (ho, hr)), dtype)
-            print(f"[3/29] kernel fused_frame {name} B={STREAMS} F_enc="
+            print(f"[3/30] kernel fused_frame {name} B={STREAMS} F_enc="
                   f"{model.freq} C={model.channels} F'={model.block_freq} "
                   f"C'={model.block_channels} NB={model.num_blocks} "
                   f"{str(dtype)[6:]}: max abs err mask8 {errs[0][0]:.3e} "
@@ -836,7 +854,7 @@ def main():
     def print_forms(what, rec):
         """A stack's tensor-core form beside its scalar form (timed in the
         same call, launched directly), bf16 at 256 streams."""
-        print(f"[3/29] {what} bf16 B={STREAMS}: the tensor-core form "
+        print(f"[3/30] {what} bf16 B={STREAMS}: the tensor-core form "
               f"{rec['ms']:.4f} ms, {100 * rec['bound_ms'] / rec['ms']:.2f}% "
               f"of its bound {1e3 * rec['bound_ms']:.3f} us "
               f"({rec['bound_by']}); the scalar form {rec['scalar_ms']:.4f} "
@@ -880,7 +898,7 @@ def main():
                    f"dpt_stack pointer {int(po)} / {int(pr)}")
             errs = compare(f"dpt_stack {name}",
                            ((xo, xr), (kc, kc_r), (vc, vc_r)), dtype)
-            print(f"[3/29] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/30] kernel dpt_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={heads} NB={nb} L={lb} ptr={ptr} written slots "
                   f"{written} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), k cache "
@@ -927,7 +945,7 @@ def main():
                    f"bsrnn_stack {name} {dtype} runs the {form} form")
             xr, hr = band.bsrnn_stack_reference(plan, x, h)
             errs = compare(f"bsrnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/29] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/30] kernel bsrnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"H={hd} L={nl} {str(dtype)[6:]}, {form} form: max abs err "
                   f"x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -970,7 +988,7 @@ def main():
                    f"dprnn_stack {name} {dtype} runs the {form} form")
             xr, hr = dprnn.dprnn_stack_reference(plan, x, h)
             errs = compare(f"dprnn_stack {name}", ((xo, xr), (ho, hr)), dtype)
-            print(f"[3/29] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
+            print(f"[3/30] kernel dprnn_stack {name} B={STREAMS} F={f} C={c} "
                   f"Hd={hd} NB={nb} {str(dtype)[6:]}, {form} form: max abs "
                   f"err x_out {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_new "
                   f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
@@ -1018,7 +1036,7 @@ def main():
                 torch.cuda.synchronize()
                 want = seg.segmental_rms(x, absolute_threshold_db=abs_db)
                 err, rel = rms_err(got, want, dtype, f"segmental_rms {b}x{t}")
-                print(f"[3/29] kernel segmental_rms B={b} T={t} abs floor "
+                print(f"[3/30] kernel segmental_rms B={b} T={t} abs floor "
                       f"{abs_db} {str(dtype)[6:]}, {seg.cluster_size(b)} "
                       f"blocks a row: rows +inf "
                       f"{torch.isinf(got).flatten().tolist()[:4]}, max abs "
@@ -1035,7 +1053,7 @@ def main():
                     # of 0 cycles) timed the same way, in the same call
                     rec["empty_ms"], _ = time_ms(
                         lambda: torch.cuda._sleep(0))
-                    print(f"[3/29] segmental_rms B={b} T={t} float32, a "
+                    print(f"[3/30] segmental_rms B={b} T={t} float32, a "
                           f"cluster of {seg.cluster_size(b)} blocks a row: "
                           f"{rec['ms']:.4f} ms, "
                           f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its "
@@ -1091,7 +1109,7 @@ def main():
         ys_r, h_r = scan.gru_scan_reference(*args)
         errs = compare(f"gru_scan T={t} N={n} H={h}",
                        ((ys, ys_r), (h_t, h_r)), dtype)
-        print(f"[{phase}/29] kernel gru_scan T={t} N={n} H={h} h0 "
+        print(f"[{phase}/30] kernel gru_scan T={t} N={n} H={h} h0 "
               f"{'given' if h0 else 'None'}{', time-flipped' if flip else ''}"
               f" {str(dtype)[6:]}, {form} form: max abs err ys "
               f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
@@ -1117,7 +1135,7 @@ def main():
             forms["scalar"] = time_ms(lambda: scan.launch_scalar(*args))[0]
             lib_ms, lib_host_ms = cudnn_gru(args)
             forms["cuDNN GRU"] = lib_ms
-            print(f"[3/29] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
+            print(f"[3/30] gru_scan T={t} N={n} H={h} bf16 ({scan.tc_tiles(n)}"
                   " tiles of 16 rows): " + ", ".join(
                       f"{k} {v:.4f} ms" for k, v in forms.items())
                   + f"; on {card}")
@@ -1155,7 +1173,7 @@ def main():
                             scan_bound(t, n, h, args, ys, h_t, dtype),
                             plain_graph=True)
                 rec["library_ms"], _ = cudnn_gru(args)
-                print(f"[{phase}/29] time gru_scan T={t} N={n} H={h} bf16, "
+                print(f"[{phase}/30] time gru_scan T={t} N={n} H={h} bf16, "
                       f"{path} "
                       f"({scan.tc_tiles(n)} tiles of 16 rows, "
                       f"{scan.tc_warps(h)} warps a tile): kernel "
@@ -1208,7 +1226,7 @@ def main():
     for name, r in record.items():
         lib = ("" if r.get("library_ms") is None else
                f", library {r['library_ms']:.4f} ms")
-        print(f"[3/29] time {name}: kernel {r['ms']:.4f} ms, "
+        print(f"[3/30] time {name}: kernel {r['ms']:.4f} ms, "
               f"plain PyTorch {r['plain_ms']:.4f} ms{lib} on the device "
               f"(CUDA events, median, queue kept ahead; plain timed "
               f"{r['plain_timing']}); bound "
@@ -1329,7 +1347,7 @@ def main():
                    f"{STREAM_F32_TOL}")
             f32_note = (f"fused vs unfused float32 max abs err {f32_err:.3e}"
                         f" (tol {STREAM_F32_TOL:g})")
-        print(f"[{phase}/29] serving {tag} bf16 capacity {STREAMS}: "
+        print(f"[{phase}/30] serving {tag} bf16 capacity {STREAMS}: "
               f"{len(wavs)} requests ({', '.join(f'{s:g}' for s in seconds)} "
               f"s) in {ticks} ticks, slot {slots[0]} reused, launches "
               f"{counts}; all outputs finite and full length; stream {k} vs "
@@ -1369,7 +1387,7 @@ def main():
         _check(bool(torch.isfinite(y).all()), "non-finite stream output")
         audio_s = n_samples / SR
         rtf = wall / (audio_s * STREAMS)
-        print(f"[{phase}/29] throughput {tag} bf16 Model.stream fused, "
+        print(f"[{phase}/30] throughput {tag} bf16 Model.stream fused, "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame step, per-stream RTF "
               f"{rtf:.4e} = wall/(audio s x streams) on {card}")
@@ -1428,7 +1446,7 @@ def main():
     _check(frame_err <= frame_tol, f"whole frame vs streaming_step_fused: "
                                    f"{frame_err:.3e} > {frame_tol:.3e}")
     audio_s = frames * hop / SR
-    print(f"[7/29] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
+    print(f"[7/30] whole frame FE_B bf16, {STREAMS} streams x {audio_s:g} s: "
           f"streaming_step_fused_frame {1e3 * wall_frame / frames:.4f} ms "
           f"per frame (per-stream RTF "
           f"{wall_frame / (audio_s * STREAMS):.4e}), fused_frame_step "
@@ -1589,7 +1607,7 @@ def main():
     step_med = statistics.median(step_ms[1:])
     mix_med = statistics.median(mix_ms[1:])
     audio_s = TRAIN_ROWS * TRAIN_SECONDS
-    print(f"[14/29] train FE-T shard recipe bf16 over float32 masters, "
+    print(f"[14/30] train FE-T shard recipe bf16 over float32 masters, "
           f"{TRAIN_ROWS} x {TRAIN_SECONDS:g} s ({audio_s:g} s of audio) a "
           f"step, {model.num_params(start['params'])} trainable params: "
           f"total loss {', '.join(f'{v:.5f}' for v in totals)}; grad norm "
@@ -1637,7 +1655,7 @@ def main():
     _check(p_err <= TRAIN_F32_PARAM_ATOL and s_err <= TRAIN_F32_PARAM_ATOL,
            f"float32 step card vs CPU: params {p_err:.3e}, stats "
            f"{s_err:.3e}")
-    print(f"[14/29] float32 train step (TF32 off) card vs the CPU's plain "
+    print(f"[14/30] float32 train step (TF32 off) card vs the CPU's plain "
           f"path, same variables and batch: mix {mix_err:.3e} of the peak; "
           f"loss and grad norm max relative diff {max(rel.values()):.3e} "
           f"(tol {TRAIN_F32_RTOL:g}; loss "
@@ -1684,7 +1702,7 @@ def main():
              for k in v_cpu}
     _check(max(v_rel.values()) <= TRAIN_F32_RTOL,
            f"float32 valid card vs CPU: relative {v_rel}")
-    print(f"[15/29] valid FE-T bf16, {VALID_BATCHES} batches of "
+    print(f"[15/30] valid FE-T bf16, {VALID_BATCHES} batches of "
           f"{VALID_ROWS} x {VALID_SECONDS:g} s: losses "
           f"{', '.join(f'{k} {v:.5f}' for k, v in scalars.items())}; "
           f"gru_scan launches {counts['gru_scan']} = {model.num_blocks} a "
@@ -1750,7 +1768,7 @@ def main():
     _check(f32_err <= f32_tol, f"FE_B float32 C=4 vs per frame: "
                                f"{f32_err:.3e} > {f32_tol:.3e}")
     for c, (wall, n, err) in chunk_rows.items():
-        print(f"[16/29] chunked FE_B bf16 Model.stream(chunk_frames={c}"
+        print(f"[16/30] chunked FE_B bf16 Model.stream(chunk_frames={c}"
               f"{', the per-frame unfused stream' if c == 1 else ''}), "
               f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
               f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
@@ -1759,7 +1777,7 @@ def main():
               f"form, no other kernel; vs the fused per-frame stream (block "
               f"stack kernel) max abs err {err:.3e} (tol {tol:.3e} = "
               f"2^-5 of its output peak {tol / BF16_REL:.3e}); on {card}")
-    print(f"[16/29] chunked FE_B float32 C=4 vs the per-frame unfused stream "
+    print(f"[16/30] chunked FE_B float32 C=4 vs the per-frame unfused stream "
           f"on the same input: max abs err {f32_err:.3e} (tol {f32_tol:.3e} "
           f"= {F32_OUT_REL:g} of the output peak "
           f"{y1.abs().max().item():.3e})")
@@ -1799,7 +1817,7 @@ def main():
         f32_tol = F32_OUT_REL * y1.abs().max().item()
         _check(f32_err <= f32_tol, f"{tag} float32 C=4 vs per frame: "
                                    f"{f32_err:.3e} > {f32_tol:.3e}")
-        print(f"[17/29] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
+        print(f"[17/30] chunked {tag} C=4, {STREAMS} streams x {audio_s:g} "
               f"s: bf16 wall {wall:.3f} s, {1e3 * wall / frames:.4f} ms per "
               f"frame, per-stream RTF {wall / (audio_s * STREAMS):.4e}, "
               f"gru_scan launches {n} ({'one a block a chunk, all its '
@@ -1850,7 +1868,7 @@ def main():
     _check(nc_err <= F32_OUT_REL * nc_peak, f"noncausal float32 card vs "
                                             f"CPU: {nc_err:.3e} > "
                                             f"{F32_OUT_REL * nc_peak:.3e}")
-    print(f"[18/29] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
+    print(f"[18/30] noncausal NONCAUSAL_HUGE bf16 Model.forward, "
           f"{NC_STREAMS} streams x {NC_SECONDS:g} s ({nc_frames} frames): "
           f"gru_scan launches {n} = 2 a block, all its tensor-core form at "
           f"H = {model.block_channels}, no other kernel; wall {1e3 * wall:.2f} "
@@ -1957,7 +1975,7 @@ def main():
                            f" the card's largest error with cuDNN's bf16 "
                            f"sums only {ratio:.3f}x the CPU's (the check "
                            f"would not see that rounding)")
-                print(f"[{phase}/29] {tag} bf16 C=4 ({form}) on the "
+                print(f"[{phase}/30] {tag} bf16 C=4 ({form}) on the "
                       f"{cpu_picks} of the first {BASELINE_F32_STREAMS} "
                       f"streams with the card's largest bf16 errors "
                       f"(streams {pick}), against the card's float32 "
@@ -2005,21 +2023,21 @@ def main():
                                f"{tol:.3e}")
             cpu_errs.append((err, tol))
         for c, (_, wall, n) in runs.items():
-            print(f"[{phase}/29] {tag} bf16 Model.stream(chunk_frames={c}), "
+            print(f"[{phase}/30] {tag} bf16 Model.stream(chunk_frames={c}), "
                   f"{STREAMS} streams x {audio_s:g} s: wall {wall:.3f} s, "
                   f"{1e3 * wall / frames:.4f} ms per frame, per-stream RTF "
                   f"{wall / (audio_s * STREAMS):.4e}; gru_scan launches {n}"
                   f" = {per_step} a {'chunk' if c > 1 else 'frame'} "
                   f"({n / frames:.2f} a frame), all its tensor-core form, no "
                   f"other kernel; on {card}")
-        print(f"[{phase}/29] {tag} bf16 Model.forward, "
+        print(f"[{phase}/30] {tag} bf16 Model.forward, "
               f"{BASELINE_OFF_STREAMS} streams x {BASELINE_OFF_SECONDS:g} s "
               f"({bl_frames} frames): gru_scan launches {per_step}, all "
               f"tensor-core, no other kernel; wall {1e3 * off_wall:.2f} ms "
               f"for the first timed forward, {off_ms:.3f} ms on the device "
               f"(CUDA events), {off_host_ms:.3f} ms with the host's "
               f"dispatch; on {card}")
-        print(f"[{phase}/29] {tag} float32 on {BASELINE_F32_STREAMS} "
+        print(f"[{phase}/30] {tag} float32 on {BASELINE_F32_STREAMS} "
               f"streams: C=4 vs per frame max abs err {f32_err:.3e} (tol "
               f"{F32_OUT_REL * peak:.3e} = {F32_OUT_REL:g} of the peak "
               f"{peak:.3e}); bf16 C=4 vs float32 C=4: max abs err "
@@ -2265,7 +2283,7 @@ def main():
                                    f"segmental_rms {tuple(x.shape)} from "
                                    "the CLI's mix")
             rms_worst = max(rms_worst, err)
-        print(f"[21/29] kernel segmental_rms on the {len(seen_rms)} inputs "
+        print(f"[21/30] kernel segmental_rms on the {len(seen_rms)} inputs "
               f"of the CLI's mixes (B in {batch_rows}, "
               f"{min(batch_s):.1f}-{max(batch_s):.1f} s of audio a batch, "
               f"float32): max abs err {rms_worst:.3e} (each within "
@@ -2286,7 +2304,7 @@ def main():
             ys_r, h_r = scan.gru_scan_reference(*args)
             errs = compare(f"gru_scan {shape} from the CLI",
                            ((ys, ys_r), (h_t, h_r)), dtype)
-            print(f"[21/29] kernel gru_scan T={shape[0]} N={shape[1]} "
+            print(f"[21/30] kernel gru_scan T={shape[0]} N={shape[1]} "
                   f"H={shape[2] // 3} {str(dtype)[6:]} on the CLI's own "
                   f"input ({form} form, the "
                   f"{'valid step' if form == 'tc' else 'PESQ forward'}): "
@@ -2361,7 +2379,7 @@ def main():
         _check(y_err.item() <= F32_OUT_REL * y_peak,
                f"CLI PESQ forward card vs CPU: {y_err.item()} of a peak "
                f"{y_peak}")
-        print(f"[21/29] CLI's 00003.ckpt, float32, card vs the CPU's plain "
+        print(f"[21/30] CLI's 00003.ckpt, float32, card vs the CPU's plain "
               f"path: valid losses of the first valid batch "
               f"({dev_batch['noisy'].shape[0]} x "
               f"{dev_batch['noisy'].shape[1] / SR:g} s) max relative diff "
@@ -2379,7 +2397,7 @@ def main():
                                                     + counts_r["gru_scan"])
     for r in history + resumed:
         tm = r["timing"]
-        print(f"[21/29] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
+        print(f"[21/30] CLI epoch {r['epoch']} (FE-T, the recipe's width): "
               f"wall {r['seconds']:.2f} s; train_epoch load {tm['load']:.3f}"
               f" s ({100 * tm['load'] / r['seconds']:.1f}% of the epoch), "
               f"mix+step {tm['step']:.3f} s over {tm['steps']} steps "
@@ -2391,7 +2409,7 @@ def main():
               f"{', '.join(f'{k} {v:.4g}' for k, v in r['train'].items())}"
               f"; PESQ {r['valid']['metrics/pesq']:.3f}, STOI "
               f"{r['valid']['metrics/stoi']:.4f}; on {card}")
-    print(f"[21/29] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
+    print(f"[21/30] CLI: corpus of {CLI_SHARDS * CLI_SPEECH_CUTS} speech "
           f"cuts of {CLI_CUT_SECONDS[0]:g}-{CLI_CUT_SECONDS[1]:g} s written "
           f"in {corpus_s:.2f} s; train batches of {batch_rows} cuts; "
           f"launches per "
@@ -2420,7 +2438,7 @@ def main():
                check_launches=check_launches, check_and_time=check_and_time,
                timed=timed, bound=bound, nbytes=nbytes,
                stack_flops=stack_flops, band_flops=band_flops,
-               write_corpus=write_corpus, time_ms=time_ms)
+               write_corpus=write_corpus, time_ms=time_ms, rms_err=rms_err)
     otf_root = tempfile.mkdtemp(prefix="chip_smoke_otf_")
     try:
         runs, scan_paths["on-the-fly CLI valid + PESQ (23)"] = phase_23(
@@ -2444,7 +2462,7 @@ def main():
         "gru_scan"]
     rms_paths["summaries CLI (25)"] = launches_25["segmental_rms_fused"]
     record["segmental_rms_fused"]["launches"] = sum(rms_paths.values())
-    print(f"[25/29] segmental_rms launches by path: {rms_paths}; "
+    print(f"[25/30] segmental_rms launches by path: {rms_paths}; "
           f"{record['segmental_rms_fused']['launches']} in all")
     scan_paths.update(paths["gru_scan"])
     for name, first in (("rnnformer_stack_step", "FE_B serving (4)"),
@@ -2452,36 +2470,43 @@ def main():
         by_path = {first: record[name]["launches"], **paths[name],
                    **launches_26.get(name, {})}
         record[name]["launches"] = sum(by_path.values())
-        print(f"[24/29] {name} launches by path: {by_path}; "
+        print(f"[24/30] {name} launches by path: {by_path}; "
               f"{record[name]['launches']} in all")
     by_path = {"FE_B whole frame (7)": record["fused_frame_step"][
         "launches"], **launches_26["fused_frame_step"]}
     record["fused_frame_step"]["launches"] = sum(by_path.values())
-    print(f"[26/29] fused_frame_step launches by path: {by_path}; "
+    print(f"[26/30] fused_frame_step launches by path: {by_path}; "
           f"{record['fused_frame_step']['launches']} in all")
     record["gru_scan"]["launches"] = sum(scan_paths.values())
-    print(f"[24/29] gru_scan launches by path: {scan_paths}; "
+    print(f"[24/30] gru_scan launches by path: {scan_paths}; "
           f"{record['gru_scan']['launches']} in all")
 
     for name, by_path in launches_27.items():
         record[name]["launches"] += sum(by_path.values())
-        print(f"[27/29] {name} launches in phase 27 by path: {by_path}; "
+        print(f"[27/30] {name} launches in phase 27 by path: {by_path}; "
               f"{record[name]['launches']} in all")
 
     # -- 28. a reference PyTorch checkpoint served ------------------------------
     for name, by_path in phase_28(ctx).items():
         record[name]["launches"] += sum(by_path.values())
-        print(f"[28/29] {name} launches in phase 28 by path: {by_path}; "
+        print(f"[28/30] {name} launches in phase 28 by path: {by_path}; "
               f"{record[name]['launches']} in all")
     phase_wall(28)
 
     # -- 29. the corpus tools: shards built, trained on, mixed -----------------
     for name, by_path in phase_29(dict(ctx, cli_history=history)).items():
         record[name]["launches"] += sum(by_path.values())
-        print(f"[29/29] {name} launches in phase 29 by path: {by_path}; "
+        print(f"[29/30] {name} launches in phase 29 by path: {by_path}; "
               f"{record[name]['launches']} in all")
     phase_wall(29)
-    print(f"[29/29] script wall {time.perf_counter() - T_START:.1f} s, the "
+
+    # -- 30. the training demo, both recipes, its children on the card -------
+    for name, by_path in phase_30(ctx).items():
+        record[name]["launches"] += sum(by_path.values())
+        print(f"[30/30] {name} launches in phase 30 by path: {by_path}; "
+              f"{record[name]['launches']} in all")
+    phase_wall(30)
+    print(f"[30/30] script wall {time.perf_counter() - T_START:.1f} s, the "
           f"kernels' build included (limit 1200 s)")
 
     sources = {
@@ -2614,7 +2639,7 @@ def phase_22(ctx):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[22/29] train every family through the CLI, cuts: none of width "
+    print(f"[22/30] train every family through the CLI, cuts: none of width "
           f"or the recipes' batch (64 x 2 s); {VB_TRAIN_PAIRS} synthetic "
           f"train pairs (2 steps an epoch, 1 epoch; FE-B resumed for a "
           f"second), {VB_EVAL_PAIRS} valid/PESQ pairs; FE-L with and without "
@@ -2754,7 +2779,7 @@ def phase_22(ctx):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[22/29] CLI {config} ({hps.model}, the recipe's width, "
+            print(f"[22/30] CLI {config} ({hps.model}, the recipe's width, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / SR:g} s): step ms "
@@ -2828,7 +2853,7 @@ def phase_22(ctx):
                      f"{f' ({NC_CPU_SECONDS:g} s)' if cut else ''} loss "
                      f"{rel_l:.1e} gnorm {rel_g:.1e} (card {1e3 * tg:.0f} ms, "
                      f"CPU {tc:.1f} s)")
-    print(f"[22/29] float32 train step, card vs the CPU's plain path, "
+    print(f"[22/30] float32 train step, card vs the CPU's plain path, "
           f"{VB_CPU_ROWS} x {VB_CPU_SECONDS:g} s with silent edges, same "
           f"variables and batch "
           f"(tol loss {VB_LOSS_RTOL:g}, grad norm {VB_GNORM_RTOL:g} "
@@ -2929,7 +2954,7 @@ def phase_22(ctx):
     remat_step(True, REMAT_ROWS)
     lf, gf, tf_ms, pf_gb, _ = remat_step(True, REMAT_ROWS)
     _check(np.isfinite(lf) and np.isfinite(gf), f"FE-L remat {lf}, {gf}")
-    print(f"[22/29] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
+    print(f"[22/30] train.remat FE-L (configs/fastenhancer/l.yaml, bf16, "
           f"one step from one state), {REMAT_CMP_ROWS} x {REMAT_SECONDS:g} "
           f"s: loss {l0:.6f} without, {l1:.6f} with (relative "
           f"{abs(l1 / l0 - 1):.2e}, tol {REMAT_RTOL:g}); grad norm {g0:.4f}"
@@ -2947,7 +2972,7 @@ def phase_22(ctx):
           f"{REMAT_ROWS} x {REMAT_SECONDS:g} s with remat: step {tf_ms:.0f}"
           f" ms, peak {pf_gb:.2f} GiB, loss {lf:.6f}; on {card}")
 
-    print(f"[22/29] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
+    print(f"[22/30] phase wall {time.perf_counter() - t_phase:.1f} s (CLI "
           f"runs {t_cli:.1f} s, corpus written in {corpus_s:.2f} s)")
     return total_scans
 
@@ -2998,7 +3023,7 @@ def phase_23(ctx, root):
     card, dev = ctx["card"], ctx["dev"]
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    print(f"[23/29] the on-the-fly recipes through the CLI, cuts: none of "
+    print(f"[23/30] the on-the-fly recipes through the CLI, cuts: none of "
           f"width or the recipes' batch; {OTF_STEPS} steps, 1 epoch; a "
           f"synthetic corpus a rate of {OTF_CLEAN} clean files of "
           f"{OTF_CLEAN_SECONDS[0]:g}-{OTF_CLEAN_SECONDS[1]:g} s and one at "
@@ -3177,7 +3202,7 @@ def phase_23(ctx, root):
                     - tm["metrics"])
             losses = ", ".join(f"{k[5:]} {v:.4g}" for k, v in
                                r["train"].items() if k.startswith("loss/"))
-            print(f"[23/29] CLI {config} ({hps.model}, "
+            print(f"[23/30] CLI {config} ({hps.model}, "
                   f"{'bf16' if bf16 else 'float32'} over float32 masters, "
                   f"batch {hps.train.batch_size} x "
                   f"{hps.data.train.segment_size / hps.data.sampling_rate:g}"
@@ -3250,7 +3275,7 @@ def phase_23(ctx, root):
                      f"{errs[2]:.2e}"
                      + (f", batch_rir_conv {errs[3]:.2e}" if rir is not None
                         else ""))
-    print(f"[23/29] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
+    print(f"[23/30] SNRMixer, batch_rir_conv and DynamicBatchLPF, card vs "
           f"the CPU in float32 on each run's first train batch and one set "
           f"of draws (tol {OTF_MIX_REL:g} of the peak): {'; '.join(lines)}; "
           f"the dataset skipped {sum(skipped)} of {len(skipped)} files at "
@@ -3273,7 +3298,7 @@ def phase_23(ctx, root):
         if "noncausal" in path:
             shapes.append((t, n, h, False, True, False, what + " backward"))
     ctx["check_and_time"](shapes, phase=23)
-    print(f"[23/29] phase wall {time.perf_counter() - t_phase:.1f} s "
+    print(f"[23/30] phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(corpus written in {corpus_s:.2f} s)")
     return runs, total_scans
 
@@ -3367,7 +3392,7 @@ def phase_24(ctx, runs):
         rel = worst_rel(y_card, y_cpu)
         _check(rel <= F32_OUT_REL, f"enhance card vs CPU: {rel:.3e} of the "
                "peak")
-        print(f"[24/29] enhance {dns} on {OTF_EVAL} files: the card's float32"
+        print(f"[24/30] enhance {dns} on {OTF_EVAL} files: the card's float32"
               f" outputs vs the CPU's max abs err {rel:.2e} of the file's "
               f"peak (tol {F32_OUT_REL:g}); #5 {counts['gru_scan']} "
               f"launches ({batches} batches of 8, scalar form), "
@@ -3455,7 +3480,7 @@ def phase_24(ctx, runs):
             rel = worst_rel(y_b, y_f)
             _check(rel <= BF16_REL, f"serve {tag}: bf16 fused vs float32 "
                    f"{rel:.3e} of the peak")
-            print(f"[24/29] serve {config} (capacity {SERVE_CAPACITY}, a "
+            print(f"[24/30] serve {config} (capacity {SERVE_CAPACITY}, a "
                   f"stream every {SERVE_STAGGER} ticks, {OTF_EVAL} files): "
                   f"--fused --dtype bf16 {n} launches of {kernel} in {n} "
                   f"ticks ({form} form), each held to the plain version (max "
@@ -3500,7 +3525,7 @@ def phase_24(ctx, runs):
             _check(fresh_rel[entry] <= FRESH_REL, f"fresh-process float32 "
                    f"{entry} vs in-process: {fresh_rel[entry]:.3e} of the "
                    "peak")
-        print(f"[24/29] float32 enhance and serve (unfused) of {dns} again "
+        print(f"[24/30] float32 enhance and serve (unfused) of {dns} again "
               f"in a fresh process that sets no float flag (TF32 [matmul, "
               f"cuDNN] {at_start} at its start, {after_main} after the "
               f"entry points' mains) vs the in-process runs: max abs err "
@@ -3523,7 +3548,7 @@ def phase_24(ctx, runs):
                and all(np.isfinite(v) for v in got.values())
                and all(abs(got[k] - want[k]) <= METRICS_TOL for k in want),
                f"metrics_ns card {got} vs CPU {want}")
-        print(f"[24/29] metrics_ns {dns} on {OTF_EVAL} files: "
+        print(f"[24/30] metrics_ns {dns} on {OTF_EVAL} files: "
               + ", ".join(f"{k.upper()} {v:.4f} (CPU {want[k]:.4f})"
                           for k, v in got.items())
               + f" (tol {METRICS_TOL:g}); #5 {counts['gru_scan']} launches, "
@@ -3567,7 +3592,7 @@ def phase_24(ctx, runs):
                          ctx["nbytes"](x, h, xo, ho, *tensors),
                          torch.bfloat16),
             plain_graph=kernel is band.bsrnn_stack_step)
-        print(f"[24/29] time {kernel.__name__} {tag} {shape} bf16 (the "
+        print(f"[24/30] time {kernel.__name__} {tag} {shape} bf16 (the "
               f"checkpoint's plan): kernel {rec['ms']:.4f} ms, plain "
               f"PyTorch {rec['plain_ms']:.4f} ms ({rec['plain_timing']}); "
               f"bound {1e3 * rec['bound_ms']:.3f} us, "
@@ -3575,7 +3600,7 @@ def phase_24(ctx, runs):
               f"time ({rec['bound_by']}; {rec['flops'] / 1e9:.4f} GFLOP, "
               f"{rec['bytes'] / 1e6:.4f} MB); max abs err "
               f"{rec['max_abs_err']:.3e}; on {card}")
-    print(f"[24/29] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[24/30] phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -3868,7 +3893,7 @@ def phase_25(ctx, runs, root):
         "native shard members != the Python walker's")
     for r in history:
         tm = r["timing"]
-        print(f"[25/29] summaries CLI epoch {r['epoch']} (FE-T, shard "
+        print(f"[25/30] summaries CLI epoch {r['epoch']} (FE-T, shard "
               f"recipe, {SUM_STEPS} steps, bf16): wall {r['seconds']:.2f} "
               f"s; summarize {tm['summarize']:.3f} s ("
               f"{100 * tm['summarize'] / r['seconds']:.1f}% of the epoch; "
@@ -3879,7 +3904,7 @@ def phase_25(ctx, runs, root):
               f"{100 * tm['infer'] / r['seconds']:.1f}%; {SUM_FILES} "
               f"files); infer/sisdr {r['infer']['infer/sisdr']:.3f} dB; "
               f"on {card}")
-    print(f"[25/29] summaries CLI: step ms "
+    print(f"[25/30] summaries CLI: step ms "
           f"{', '.join(f'{ms:.1f}' for _, ms in step_ms)}; inside the "
           f"profiler window ({SUM_PROFILE}: {len(window)} step) "
           f"{', '.join(f'{ms:.1f}' for ms in window)}, outside median "
@@ -3896,7 +3921,7 @@ def phase_25(ctx, runs, root):
           f"00002.ckpt max abs err {infer_err:.3e} of the peak (tol "
           f"{INFER_REL:g}), the logged PCM16 within {pcm_err:g} step of the "
           f"card's; on {card}")
-    print(f"[25/29] native decoder: {walks} tars walked natively in the "
+    print(f"[25/30] native decoder: {walks} tars walked natively in the "
           f"run; {len(nat)} members of {len(tars)} speech tars ({mb:.1f} "
           f"MB) equal to the Python walker's bit for bit; decode MB/s in "
           f"turns (native, Python, Python, native; warm page cache): native "
@@ -3933,7 +3958,7 @@ def phase_25(ctx, runs, root):
     sisdr48, logged48 = showcase_tags(events(runs[config], "valid")[2], 2, 1)
     infer_err48, pcm_err48 = card_vs_cpu(runs[config], 2, logged48)
     tm = r48["timing"]
-    print(f"[25/29] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
+    print(f"[25/30] 48 kHz FE-B (phase 23's run) epoch 2 with the showcase: "
           f"wall {r48['seconds']:.2f} s; summarize {tm['summarize']:.3f} s "
           f"({100 * tm['summarize'] / r48['seconds']:.1f}%), infer_epoch "
           f"{tm['infer']:.3f} s ({100 * tm['infer'] / r48['seconds']:.1f}%;"
@@ -3944,7 +3969,7 @@ def phase_25(ctx, runs, root):
           f"{sisdr48:.3f} dB; showcase card vs CPU max abs err "
           f"{infer_err48:.3e} of the peak, the logged PCM16 within "
           f"{pcm_err48:g} step; on {card}")
-    print(f"[25/29] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[25/30] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"gru_scan": counts["gru_scan"] + counts48["gru_scan"],
             "segmental_rms_fused": counts["segmental_rms_fused"]}
 
@@ -4198,7 +4223,7 @@ def phase_26(ctx):
                 worst = max(worst, *(e for e, _ in errs))
             _check(len(kept) == 2 * len(engine.devices),
                    f"{tag} engine: {len(kept)} launches kept")
-            print(f"[26/29] (a) {kernel} in the {tag} engine: its first "
+            print(f"[26/30] (a) {kernel} in the {tag} engine: its first "
                   f"{len(kept)} launches (batch {kept[0][0].shape}) against "
                   f"the plain version, max abs err {worst:.3e} (bound "
                   f"{BF16_REL:g} of each output's peak)")
@@ -4220,7 +4245,7 @@ def phase_26(ctx):
         bitwise = all(np.array_equal(a[k], b[k]) for k in b)
         _check(err <= BF16_REL * peak,
                f"sharded vs one device ({name}): {err} > {BF16_REL * peak}")
-        print(f"[26/29] (a) FE_B bf16 fused engine, {name}, capacity "
+        print(f"[26/30] (a) FE_B bf16 fused engine, {name}, capacity "
               f"{STREAMS} over {SHARD_DEVICES} shards of "
               f"{STREAMS // SHARD_DEVICES} (the card listed twice) against "
               f"capacity {STREAMS} on one device: {SHARD_REQUESTS} requests "
@@ -4347,7 +4372,7 @@ def phase_26(ctx):
                                   f"difference {max(spread.values())}")
         for tag in results:
             history, ms, _ = results[tag]
-            print(f"[26/29] (b) {tag}: the training CLI on {DP_CONFIG} "
+            print(f"[26/30] (b) {tag}: the training CLI on {DP_CONFIG} "
                   f"(FE-B's width) float32, {DP_EPOCHS} epochs of "
                   f"{DP_TRAIN_PAIRS // DP_BATCH} steps at {DP_BATCH} x "
                   f"{DP_SECONDS[0]:g}-{DP_SECONDS[1]:g} s: step ms "
@@ -4356,7 +4381,7 @@ def phase_26(ctx):
                   f" (mag_mse); gru_scan {blocks * valid_batches * DP_EPOCHS}"
                   f" launches in the valid forwards; on {card}")
         bitwise = all(np.array_equal(nccl[p], one[p]) for p in one)
-        print(f"[26/29] (b) the group's backend {backends[0]}; checkpoint "
+        print(f"[26/30] (b) the group's backend {backends[0]}; checkpoint "
               f"{DP_EPOCHS:05d}.ckpt with the flags against without: "
               f"{'bitwise equal' if bitwise else 'not bitwise equal'}, "
               f"largest difference {max(spread.values()):.3e} over "
@@ -4427,7 +4452,7 @@ def phase_26(ctx):
                    f"rank {r}: TF32 flags {out['tf32'][1]} after the CLI")
             ms = [s for s, _ in out["steps"]]
             share = [a / s for s, a in out["steps"]]
-            print(f"[26/29] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
+            print(f"[26/30] (c) rank {r} of {DP_WORLD} (gloo, the one card,"
                   f" {'staged through the host by the phase' if out['staged'] else 'CUDA tensors reduced by gloo'}"
                   f"), batch {DP_BATCH // DP_WORLD}: step ms "
                   f"{', '.join(f'{x:.1f}' for x in ms)}; all-reduce share of"
@@ -4439,7 +4464,7 @@ def phase_26(ctx):
                   f"cuDNN] {out['tf32'][0]} at the rank's start (the phase "
                   f"sets none), {out['tf32'][1]} after the CLI's main; on "
                   f"{card}")
-        print(f"[26/29] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
+        print(f"[26/30] (c) {DP_WORLD} ranks x batch {DP_BATCH // DP_WORLD}"
               f" against one process x {DP_BATCH}: {len(one)} params and BN "
               f"statistics of {DP_EPOCHS:05d}.ckpt, largest difference "
               f"{largest:.3e}, every one within {DP_ATOL:g} + {DP_RTOL:g} x "
@@ -4453,7 +4478,7 @@ def phase_26(ctx):
               f"card first: each init raised ({refused})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[26/29] phase wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"[26/30] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4685,7 +4710,7 @@ def phase_27(ctx, runs, root):
         _check(got["tf32_after_main"] == [False, False],
                f"runner {tag}: TF32 flags {got['tf32_after_main']} after "
                "its main")
-        print(f"[27/29] {tag} at {STREAMS} streams, float32: export "
+        print(f"[27/30] {tag} at {STREAMS} streams, float32: export "
               f"{row['export_s']:.2f} s, artifact {row['bytes']} bytes, "
               f"kernel nodes {row['nodes']}; export's per-tick p50 "
               f"{row['tick_p50']:.2f} ms, p99 {row['tick_p99']:.2f} ms, "
@@ -4704,7 +4729,7 @@ def phase_27(ctx, runs, root):
                f" x its program's graph in a loop {got['loop_ms']:.3f} ms")
     off = {row["tag"]: got["off_card"]
            for row, got in zip(rows, res["results"]) if got["off_card"]}
-    print(f"[27/29] the runner's process set no float flag (TF32 [matmul, "
+    print(f"[27/30] the runner's process set no float flag (TF32 [matmul, "
           f"cuDNN] {res['results'][0]['tf32_at_start']} at its start, "
           f"[False, False] after each main); every loaded program's "
           f"parameters, constants, traced node values, variables, carry, "
@@ -4729,7 +4754,7 @@ def phase_27(ctx, runs, root):
     p50 = [round(r["p50"], 3) for r in repeats]
     amort = [after(r["lines"], "(pipelined dispatch): ") for r in repeats]
     loops = [round(r["loop_ms"], 3) for r in repeats]
-    print(f"[27/29] BSRNN-XT wav2wav --fused artifact in {RUNNER_REPEATS} "
+    print(f"[27/30] BSRNN-XT wav2wav --fused artifact in {RUNNER_REPEATS} "
           f"more fresh runner processes, float32, {STREAMS} streams, "
           f"{EXPORT_WAV_SECONDS:g} s of input: tick p50 ms {p50}, pipelined "
           f"ms a frame {amort}; the loaded program's graph on flat inputs "
@@ -4739,7 +4764,7 @@ def phase_27(ctx, runs, root):
           f"{RUNNER_SLOW:g}); on {card}")
     if profiled is not None:
         w = repeats[profiled]["window"]
-        print(f"[27/29] BSRNN-XT runner process {profiled} (slow), one "
+        print(f"[27/30] BSRNN-XT runner process {profiled} (slow), one "
               f"profiler window of {RUNNER_PROFILE_FRAMES} ticks as the "
               f"runner's: host ms a frame {w['ms']:.3f} (inflated: the "
               f"profiler's CPU-activity tracing adds host time to each op); "
@@ -4779,7 +4804,7 @@ def phase_27(ctx, runs, root):
     cache_bytes = 2 * carry0["kc"].numel() * carry0["kc"].element_size()
     best = {k: min(v) for k, v in walls.items()}
     walls = {k: [round(w, 3) for w in v] for k, v in walls.items()}
-    print(f"[27/29] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
+    print(f"[27/30] #2's K/V caches ({cache_bytes} bytes, kc + vc) over "
           f"{COPY_FRAMES} frames at {STREAMS} streams, ms a frame (best of "
           f"two; runs in place, functional, functional, in place: "
           f"{walls}): the artifact (the op writes them in place) "
@@ -4815,7 +4840,7 @@ def phase_27(ctx, runs, root):
                                   / DISPATCH_CALLS * 1e6)
     best = {k: min(v) for k, v in per_call.items()}
     per_call = {k: [round(w, 2) for w in v] for k, v in per_call.items()}
-    print(f"[27/29] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
+    print(f"[27/30] gru_scan at [1, {n}, {3 * h}] float32, host us a call "
           f"over {DISPATCH_CALLS} calls (best of two; runs direct, "
           f"torch.ops, wrapper, wrapper, torch.ops, direct: {per_call}): "
           f"the CUDA implementation called directly {best['direct']:.2f}, "
@@ -4823,7 +4848,7 @@ def phase_27(ctx, runs, root):
           f"(+{best['torch.ops'] - best['direct']:.2f}), through the "
           f"wrapper gru_scan {best['wrapper']:.2f} "
           f"(+{best['wrapper'] - best['direct']:.2f}); on {card}")
-    print(f"[27/29] phase wall {time.perf_counter() - t_phase:.1f} s (the "
+    print(f"[27/30] phase wall {time.perf_counter() - t_phase:.1f} s (the "
           f"runner's process {child_s:.1f} s)")
     return paths
 
@@ -5277,7 +5302,7 @@ def phase_28(ctx):
                          f"{macs * audio_s / (ms / 1e3) / 1e9:.2f} GMAC/s "
                          f"({macs / 1e6:.2f} M MACs a second of audio x "
                          f"{audio_s:g} s of audio)")
-                print(f"[28/29] checkpoint {tag} ({name}, {config}) {what}: "
+                print(f"[28/30] checkpoint {tag} ({name}, {config}) {what}: "
                       f".pth {pth_bytes} bytes, {len(ckpt['model'])} keys; "
                       f"torch.load {load_s:.4f} s, convert_checkpoint on the "
                       f"card {conv_s:.4f} s; {len(want)} leaves bit-equal "
@@ -5302,7 +5327,7 @@ def phase_28(ctx):
          "--check"], cwd=repo, capture_output=True, text=True, timeout=300)
     _check(gen.returncode == 0, f"gen_configs --check: rc {gen.returncode}"
            f"\n{gen.stdout}\n{gen.stderr}")
-    print(f"[28/29] python -m fastenhancer_tpu_torch.scripts.gen_configs "
+    print(f"[28/30] python -m fastenhancer_tpu_torch.scripts.gen_configs "
           f"--check: rc 0 on configs/ in "
           f"{time.perf_counter() - t0:.2f} s; phase 28 in "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -5636,16 +5661,16 @@ def phase_29(ctx):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(f"[29/29] raw corpus written in {corpus_s:.2f} s; the port's "
+    print(f"[29/30] raw corpus written in {corpus_s:.2f} s; the port's "
           f"tools, each `python -m fastenhancer_tpu_torch.scripts.data.*` in "
           f"its own process (host only; the card idle): "
           + "; ".join(rates) + f"; on {card}")
-    print(f"[29/29] shard_speech -j {P29_JOBS} and -j 1: the same "
+    print(f"[29/30] shard_speech -j {P29_JOBS} and -j 1: the same "
           f"{sum(f.endswith('.tar') for f in got)} tars byte for byte, the "
           f"same decompressed cut lists and .done text; every built tar "
           f"plain ustar")
     tm, ref_tm = history[0]["timing"], ctx["cli_history"][0]["timing"]
-    print(f"[29/29] CLI on the built shards (FE-T, the recipe's width, "
+    print(f"[29/30] CLI on the built shards (FE-T, the recipe's width, "
           f"{CLI_STEPS} steps, 1 epoch): wall {history[0]['seconds']:.2f} "
           f"s; train_epoch load {tm['load']:.3f} s "
           f"({100 * tm['load'] / history[0]['seconds']:.1f}% of the epoch), "
@@ -5659,7 +5684,7 @@ def phase_29(ctx):
           f"launches: segmental_rms {counts['segmental_rms_fused']} (2 a "
           f"step), gru_scan {counts['gru_scan']} (tensor-core, {blocks} a "
           f"valid batch x {valid_n}), no other kernel; on {card}")
-    print(f"[29/29] frozen test set ({P29_TEST_CUTS} cuts, fields recording/"
+    print(f"[29/30] frozen test set ({P29_TEST_CUTS} cuts, fields recording/"
           f"rir/noise; the float32 RIR members natively equal to the Python "
           f"walker, {walks} tars walked natively) mixed on the card, "
           f"{b_rows} x {t_len / SR:.2f} s, RIR "
@@ -5676,6 +5701,320 @@ def phase_29(ctx):
                 "test-set mix (29)": mix_counts["segmental_rms_fused"]},
             "gru_scan": {"CLI on built shards valid (29)": counts["gru_scan"]}}
 
+
+
+# phase 30: the training demo on a stand-in of its bundled recording, its
+# two recipes at a few epochs each, its children counted through a shim
+P30_SECONDS = 31.0          # the bundled recording's length
+P30_SR = 48_000
+P30_RUNS = [("paired", 4), ("shard", 2)]
+P30_CHILD_TIMEOUT = 900
+# runs `python -m MODULE ARGS` as `python -c P30_SHIM MODULE OUT ARGS`: the
+# module as __main__, then, when the process exits, each kernel's launch
+# count written to OUT as JSON (chip_smoke.kernel_counters, from the
+# working directory, the repo root) and the kernels' first inputs to
+# OUT.pt (chip_smoke.record_first_inputs)
+P30_SHIM = """
+import atexit, json, runpy, sys
+module, out = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+from chip_smoke import kernel_counters, record_first_inputs
+first = record_first_inputs()
+
+def dump():
+    with open(out, "w") as f:
+        json.dump({k: getattr(fn, a)
+                   for k, (fn, a) in kernel_counters().items()}, f)
+    import torch
+    torch.save(first, out + ".pt")
+
+atexit.register(dump)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def record_first_inputs():
+    """In a demo child: spies on #4 as the mixer calls it and on each of
+    #5's two forms; -> {"segmental_rms": (wav, kwargs), "gru_scan tc" /
+    "gru_scan scalar": [x_proj, h0, w_hh, b_hh]}, filled with host copies
+    of each one's first input as the child runs."""
+    from fastenhancer_tpu_torch.data.shard_mixer import DynamicMixer
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+
+    first = {}
+    mixer_rms = DynamicMixer._rms
+
+    def spy_rms(self, wav, absolute_threshold_db):
+        if "segmental_rms" not in first:
+            first["segmental_rms"] = (
+                wav[:, 0].detach().to("cpu", copy=True),
+                dict(sr=self.sr, window_ms=self.seg_window_ms,
+                     relative_threshold_db=self.seg_rel_thr,
+                     absolute_threshold_db=absolute_threshold_db))
+        return mixer_rms(self, wav, absolute_threshold_db)
+
+    def spy_scan(form, launch):
+        def spied(*args):
+            if f"gru_scan {form}" not in first:
+                first[f"gru_scan {form}"] = [a.detach().to("cpu", copy=True)
+                                             for a in args]
+            return launch(*args)
+        return spied
+
+    DynamicMixer._rms = spy_rms
+    scan.launch_tc = spy_scan("tc", scan.launch_tc)
+    scan.launch_scalar = spy_scan("scalar", scan.launch_scalar)
+    return first
+
+
+def standin_recording(path, seconds=P30_SECONDS, sr=P30_SR, seed=30):
+    """A seeded speech-like wav at `sr`: voiced stretches of 1-3 s with a
+    gliding f0 (100-250 Hz), harmonics to 8 kHz on a falling tilt with two
+    formant bumps that move at each syllable, 4 Hz syllable envelopes,
+    a little breath noise, and pauses of 0.15-0.5 s between stretches."""
+    import numpy as np
+
+    from fastenhancer_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    knots = np.arange(0.0, seconds + 0.25, 0.25)   # a syllable a knot
+    f0 = np.interp(t, knots, rng.uniform(100, 250, len(knots)))
+    f1 = np.interp(t, knots, rng.uniform(300, 800, len(knots)))
+    f2 = np.interp(t, knots, rng.uniform(900, 2300, len(knots)))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = np.zeros(n)
+    for k in range(1, 64):
+        fk = k * f0
+        amp = (np.exp(-((fk - f1) / 120) ** 2)
+               + 0.6 * np.exp(-((fk - f2) / 200) ** 2) + 0.1) / k ** 0.7
+        x += np.where(fk < 8000, amp, 0.0) * np.sin(k * phase)
+    x += 0.02 * rng.standard_normal(n)
+    x *= 0.55 - 0.45 * np.cos(2 * np.pi * 4.0 * t + rng.uniform(0, 6.3))
+    voiced = np.zeros(n, bool)
+    at = 0.2
+    while at < seconds:
+        run = rng.uniform(1.0, 3.0)
+        voiced[int(at * sr):int(min(at + run, seconds) * sr)] = True
+        at += run + rng.uniform(0.15, 0.5)
+    x *= voiced
+    write_wav(path, (0.3 * x / np.abs(x).max()).astype(np.float32), sr)
+    return path
+
+
+def demo_run(argv, workdir):
+    """The demo's `main(argv)` in this process, its children through
+    P30_SHIM; -> {"rc", "lines" (what main printed), "baseline" (main's
+    return), "children": [{"module", "rc", "seconds", "counts", "inputs"
+    (record_first_inputs's), "stdout", "stderr"}], "seconds"}. The caller
+    points `train_demo.BUNDLED` at its recording."""
+    from fastenhancer_tpu_torch.scripts import train_demo
+
+    children = []
+
+    def run(cmd, **kwargs):
+        _check(cmd[1] == "-m", f"the demo's child {cmd}")
+        out = os.path.join(workdir, f"counts.{len(children)}.json")
+        t0 = time.perf_counter()
+        p = subprocess.run([cmd[0], "-c", P30_SHIM, cmd[2], out, *cmd[3:]],
+                           capture_output=True, text=True,
+                           timeout=P30_CHILD_TIMEOUT, **kwargs)
+        counts = inputs = None
+        if os.path.exists(out):
+            with open(out) as f:
+                counts = json.load(f)
+        if os.path.exists(out + ".pt"):
+            import torch
+            inputs = torch.load(out + ".pt", map_location="cpu",
+                                weights_only=True)
+        children.append(dict(module=cmd[2], rc=p.returncode,
+                             seconds=time.perf_counter() - t0, counts=counts,
+                             inputs=inputs, stdout=p.stdout,
+                             stderr=p.stderr))
+        return p
+
+    class Children:   # the demo's `subprocess`, with `run` above
+        pass
+
+    class Tee(io.TextIOBase):
+        """What the demo prints, to this script's stdout and to `buf`."""
+
+        def __init__(self, out):
+            self.out, self.buf = out, io.StringIO()
+
+        def write(self, text):
+            self.out.write(text)
+            return self.buf.write(text)
+
+        def flush(self):
+            self.out.flush()
+
+    Children.run = staticmethod(run)
+    saved = train_demo.subprocess, sys.stdout
+    train_demo.subprocess, sys.stdout = Children, Tee(sys.stdout)
+    buf = sys.stdout.buf
+    rc, baseline = 0, None
+    t0 = time.perf_counter()
+    try:
+        baseline = train_demo.main(argv)
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        train_demo.subprocess, sys.stdout = saved
+    return dict(rc=rc, lines=buf.getvalue().splitlines(), baseline=baseline,
+                children=children, seconds=time.perf_counter() - t0)
+
+
+def demo_scores(result):
+    """{"before": the noisy baseline's SISDR, STOI, PESQ as printed,
+    "after": metrics_ns's, "step_ms": the training child's mix+step ms a
+    step over its epochs, "steps"} of a demo_run."""
+    before = {}
+    for ln in result["lines"]:
+        if ln.startswith("noisy baseline: "):
+            # noisy baseline: SISDR x dB, STOI y, PESQ z
+            words = ln.replace(",", "").split()
+            before = {k.lower(): float(words[words.index(k) + 1])
+                      for k in ("SISDR", "STOI", "PESQ")}
+    after, step_s, steps = {}, 0.0, 0
+    for child in result["children"]:
+        for ln in child["stdout"].splitlines():
+            words = ln.split()
+            if (child["module"].endswith("metrics_ns") and len(words) >= 2
+                    and words[0] in ("SISDR:", "STOI:", "ESTOI:", "PESQ:")):
+                after[words[0][:-1].lower()] = float(words[1])
+            if ln.startswith("epoch ") and " timing: load " in ln:
+                # epoch N timing: load Xs mix+step Ys (S steps)
+                step_s += float(words[6].rstrip("s"))
+                steps += int(words[7].lstrip("("))
+    return dict(before=before, after=after, steps=steps,
+                step_ms=1e3 * step_s / steps if steps else None)
+
+
+def hold_first_inputs(ctx, child, what):
+    """The kernels of a demo child on its recorded first inputs (#4 where
+    it ran, each form of #5 it ran), each against its plain version at
+    phase 3's tolerances; -> one description a kernel form."""
+    import torch
+
+    from fastenhancer_tpu_torch.ops import gru_scan as scan
+    from fastenhancer_tpu_torch.ops import segmental_rms as seg
+
+    counts, inputs, dev = child["counts"], child["inputs"] or {}, ctx["dev"]
+    ran = {"segmental_rms": counts["segmental_rms_fused"],
+           "gru_scan tc": counts[GRU_TC],
+           "gru_scan scalar": counts["gru_scan"] - counts[GRU_TC]}
+    _check(set(inputs) == {k for k, n in ran.items() if n},
+           f"{what}: first inputs recorded for {sorted(inputs)}, launches "
+           f"{counts}")
+    held = []
+    for key, val in sorted(inputs.items()):
+        if key == "segmental_rms":
+            x, kw = val[0].to(dev), val[1]
+            got = seg.segmental_rms_fused(x, **kw)
+            torch.cuda.synchronize()
+            err, rel = ctx["rms_err"](got, seg.segmental_rms(x, **kw),
+                                      x.dtype, f"{what} segmental_rms "
+                                      f"{tuple(x.shape)}")
+            held.append(f"segmental_rms B={x.shape[0]} T={x.shape[1]} "
+                        f"{str(x.dtype)[6:]}, {seg.cluster_size(x.shape[0])} "
+                        f"blocks a row: max abs err {err:.3e} (each within "
+                        f"{rel:g} relative)")
+            continue
+        args = [a.to(dev) for a in val]
+        ys, h_t = scan.gru_scan(*args)
+        torch.cuda.synchronize()
+        ys_r, h_r = scan.gru_scan_reference(*args)
+        errs = ctx["compare"](f"{what} {key} {tuple(args[0].shape)}",
+                              ((ys, ys_r), (h_t, h_r)), args[0].dtype)
+        t, n, g = args[0].shape
+        held.append(f"{key} form T={t} N={n} H={g // 3} "
+                    f"{str(args[0].dtype)[6:]}: max abs err ys "
+                    f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), h_T "
+                    f"{errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+    return held
+
+
+def phase_30(ctx, runs=P30_RUNS):
+    """Phase 30 (see the module docstring); -> {kernel: {path: launches}}."""
+    import numpy as np
+    import torch
+
+    from fastenhancer_tpu_torch.scripts import train_demo
+
+    card, dev = ctx["card"], ctx["dev"]
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()   # the children share the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    saved = train_demo.BUNDLED
+    launches = {"gru_scan": {}, "segmental_rms_fused": {}}
+    try:
+        train_demo.BUNDLED = standin_recording(os.path.join(tmp, "p232.wav"))
+        for recipe, epochs in runs:
+            work = os.path.join(tmp, recipe)
+            os.makedirs(work)
+            r = demo_run(["--workdir", work, "--recipe", recipe, "--epochs",
+                          str(epochs), "--device", str(dev)], work)
+            tails = "\n".join(f"{c['module']} rc {c['rc']}:\n"
+                              f"{c['stdout'][-2000:]}\n{c['stderr'][-3000:]}"
+                              for c in r["children"])
+            _check(r["rc"] == 0 and len(r["children"]) == 2
+                   and all(c["rc"] == 0 for c in r["children"]),
+                   f"demo {recipe}: rc {r['rc']}\n{tails}")
+            sc = demo_scores(r)
+            _check(any(ln.startswith("corpus: 8 train / 2 held-out")
+                       for ln in r["lines"]), f"demo {recipe}: {r['lines']}")
+            scores = list(sc["before"].values()) + list(sc["after"].values())
+            _check(len(sc["before"]) == 3 and len(sc["after"]) == 4
+                   and np.isfinite(scores).all()
+                   and np.isfinite(list(r["baseline"].values())).all(),
+                   f"demo {recipe}: scores {sc}\n{tails}")
+            for c in r["children"]:
+                counts = c["counts"]
+                _check(counts is not None, f"demo {recipe}: {c['module']} "
+                       f"reported no counts\n{tails}")
+                train = c["module"].endswith(".train")
+                want_rms = recipe == "shard" and train
+                others = {k: v for k, v in counts.items()
+                          if k not in ("gru_scan", GRU_TC,
+                                       "segmental_rms_fused")}
+                _check(counts["gru_scan"] > 0
+                       and (counts["segmental_rms_fused"] > 0) == want_rms
+                       and not any(others.values()),
+                       f"demo {recipe} {c['module']}: launches {counts}")
+                what = "train" if train else "metrics_ns"
+                held = hold_first_inputs(ctx, c, f"demo {recipe} {what}")
+                print(f"[30/30] demo {recipe} {what}: each kernel on the "
+                      f"child's first input, against its plain version: "
+                      + "; ".join(held))
+                launches["gru_scan"][f"demo {recipe} {what} (30)"] = \
+                    counts["gru_scan"]
+                if want_rms:
+                    launches["segmental_rms_fused"][
+                        f"demo {recipe} {what} (30)"] = counts[
+                            "segmental_rms_fused"]
+            walls = ", ".join(f"{c['module'].split('.')[-1]} "
+                              f"{c['seconds']:.1f} s" for c in r["children"])
+            print(f"[30/30] demo --recipe {recipe} --epochs {epochs} "
+                  f"--device {dev}: rc 0 in {r['seconds']:.1f} s ({walls}); "
+                  f"{sc['steps']} steps at {sc['step_ms']:.1f} ms a step "
+                  f"(mix+step); SISDR {sc['before']['sisdr']:.2f} -> "
+                  f"{sc['after']['sisdr']:.2f} dB, STOI "
+                  f"{sc['before']['stoi']:.3f} -> {sc['after']['stoi']:.3f}, "
+                  f"PESQ {sc['before']['pesq']:.2f} -> "
+                  f"{sc['after']['pesq']:.2f} (noisy -> enhanced, held-out "
+                  f"pair); launches by child: "
+                  + "; ".join(f"{c['module'].split('.')[-1]} "
+                              f"{ {k: v for k, v in c['counts'].items() if v} }"
+                              for c in r["children"]) + f"; on {card}")
+    finally:
+        train_demo.BUNDLED = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[30/30] phase 30 in {time.perf_counter() - t_phase:.1f} s on "
+          f"a {P30_SECONDS:.0f} s stand-in of the demo's recording")
+    return launches
 
 def spawned(fn, world, *args):
     """fn(rank, world, coordinator, *args) in `world` spawned processes,

@@ -3,18 +3,30 @@
     python -m fastenhancer_tpu_torch.scripts.enhance     # wavs, offline graph
     python -m fastenhancer_tpu_torch.scripts.serve       # the StreamingEngine
     python -m fastenhancer_tpu_torch.scripts.metrics_ns  # SISDR/STOI/PESQ
+    python -m fastenhancer_tpu_torch.scripts.train_demo  # FE-T from scratch
 
 The counterparts of the repo's scripts/{enhance,serve,metrics_ns}.py: the
 same flags and printed lines, plus `--device` (the first CUDA card unless
 named; `--device cpu` runs the kernels' plain versions, as the CPU tests
 do). Each loads a run from {base_dir}/{name} (its config.yaml and newest
 or `--epoch` checkpoint, written by `python -m fastenhancer_tpu_torch.train`
-or by the JAX package's train.py).
+or by the JAX package's train.py). `train_demo` instead trains FE-T from
+scratch and scores it with `metrics_ns` (its docstring).
 """
+import importlib
 import os
 import typing as tp
 
 from .. import require_cuda
+
+__all__ = ["add_run_args", "load_run", "train_demo"]
+
+
+def __getattr__(name):
+    """`train_demo` on first use: importing the package imports no torch."""
+    if name != "train_demo":
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return importlib.import_module(f".{name}", __name__)
 
 
 def load_run(name: str, base_dir: str, epoch: tp.Optional[int],

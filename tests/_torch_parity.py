@@ -4,12 +4,21 @@ Inputs are made with numpy from a seed and handed to both packages; weights
 move from the JAX package to the port with
 `fastenhancer_tpu_torch.utils.bridge.from_jax`.
 """
+import contextlib
+import os
+import signal
 import sys
+import threading
 
 import numpy as np
 import jax
 import pytest
 import torch
+# once, while the test files are collected, before any test can leave a
+# stub `triton` in sys.modules (see real_triton_only): a later test in this
+# process that reaches torch._dynamo through torch.optim then finds it
+# imported, whichever files ran on its worker before it
+import torch._dynamo  # noqa: F401,E402
 
 from fastenhancer_tpu_torch.serving import StreamingEngine
 from fastenhancer_tpu_torch.utils import from_jax
@@ -290,3 +299,33 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def one_thread_env(**extra):
+    """os.environ for a test's child process, with one intra-op thread for
+    torch's and the BLAS libraries' pools (as torch_one_thread gives the
+    test process), and `extra` on top."""
+    return dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                **extra)
+
+
+@contextlib.contextmanager
+def deadline(seconds, what):
+    """TimeoutError inside the block once it has run `seconds`: a test that
+    waits on a pool of child processes fails when they hang, instead of
+    holding its xdist worker until the suite's clock runs out. SIGALRM, so
+    in the main thread only (elsewhere the block runs unbounded)."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def expire(signum, frame):
+        raise TimeoutError(f"{what}: not done in {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)

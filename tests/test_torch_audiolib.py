@@ -7,6 +7,10 @@ import pytest
 from fastenhancer_tpu_torch.scripts import audiolib as port
 from scripts import audiolib as jax_lib
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 SR = 16000
 
 

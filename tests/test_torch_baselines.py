@@ -39,7 +39,10 @@ from fastenhancer_tpu_torch.serving import StreamingEngine
 from fastenhancer_tpu_torch.utils import cast_floating
 
 from _torch_parity import (assert_trees_close, check_train_forward_runs,
-                           flatten_paths, perturb_bn_stats, port_variables)
+                           flatten_paths, perturb_bn_stats, port_variables,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5
 HOP = 256
@@ -59,12 +62,20 @@ def _wav(b, frames, seed):
 
 
 @functools.lru_cache(maxsize=None)
+def _models(name):
+    """Both models and JAX's jitted init, made once a name: the init
+    compiles once for all of the file's seeds."""
+    kw = dict(KWARGS[name], stft_method="matmul")
+    jm = jax_get_model(name, **kw)
+    return jm, get_model(name, **kw), jax.jit(jm.init)  # eager: ~10 s more
+
+
+@functools.lru_cache(maxsize=None)
 def _setup(name, seed=0):
     """Both models, the JAX variables (FSPEN: random BN statistics) and
     the port's copy."""
-    kw = dict(KWARGS[name], stft_method="matmul")
-    jm, tm = jax_get_model(name, **kw), get_model(name, **kw)
-    jv = jax.jit(jm.init)(jax.random.PRNGKey(seed))  # eager: ~10 s more
+    jm, tm, init = _models(name)
+    jv = init(jax.random.PRNGKey(seed))
     if name == "fspen":
         jv = perturb_bn_stats(jv, seed)
     jv = jax.tree.map(jnp.asarray, jv)

@@ -32,7 +32,10 @@ from fastenhancer_tpu_torch.presets import BSRNN_S
 from _torch_parity import (as_np, assert_trees_close,
                            check_engine_fused_matches_unfused,
                            check_train_forward_runs, flatten_paths,
-                           perturb_bn_stats, port_variables)
+                           perturb_bn_stats, port_variables,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5
 HOP = 256

@@ -10,6 +10,10 @@ import torch
 
 from fastenhancer_tpu_torch.ops import bsrnn_stack as band
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 BF16 = torch.bfloat16
 
 

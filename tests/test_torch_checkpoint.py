@@ -29,9 +29,10 @@ from fastenhancer_tpu_torch.wrappers import get_wrapper
 
 from _torch_parity import (TINY_KWARGS, flatten_paths,
                            real_triton_only,  # noqa: F401
-                           to_np_tree)
+                           to_np_tree,
+                           torch_one_thread)  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 HOP = TINY_KWARGS["hop_size"]
 DEAD = {("rf_post", "bn", "bias"), ("rf_blocks", "1", "attn_post_norm",

@@ -7,6 +7,8 @@ weights moved across by the bridge. Tolerances: float32 port against JAX
 the port's own per-frame stream 1e-4; bfloat16 2^-5 of the peak (a few bf16
 ulps), stated and checked with a control at the test.
 """
+import functools
+
 import numpy as np
 import pytest
 import jax
@@ -21,8 +23,11 @@ from fastenhancer_tpu_torch.ops import gru_scan as tscan
 from fastenhancer_tpu_torch.utils import cast_floating
 
 from _torch_parity import (TINY_KWARGS, assert_trees_close, perturb_bn_stats,
-                           perturb_norms, port_variables)
+                           perturb_norms, port_variables,
+                           torch_one_thread)  # noqa: F401
 from test_model_variants import DPRNN_KWARGS
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5        # float32, the port against JAX
 FRAME_ATOL = 1e-4  # float32, chunked against per-frame (the port)
@@ -59,9 +64,12 @@ GRU_FAMILIES = ["fastenhancer.default", "fastenhancer.conv_stft",
                 "fastenhancer.time_kernel"]
 
 
+@functools.lru_cache(maxsize=None)
 def _setup(name, seed=1):
     """Both models, JAX variables (random BN statistics; the ln ablation's
-    norms drawn away from init) and the port's copy."""
+    norms drawn away from init) and the port's copy, made once a (name,
+    seed) in this file (JAX's eager init of BSRNN's 31 bands alone takes
+    ~10 s)."""
     kw = dict(FAMILIES[name], stft_method="matmul")
     jm, tm = jax_get_model(name, **kw), get_model(name, **kw)
     jv = jm.init(jax.random.PRNGKey(seed))

@@ -17,10 +17,11 @@ from fastenhancer_tpu_torch.ops import segmental_rms as seg
 from fastenhancer_tpu_torch.train.__main__ import main
 from fastenhancer_tpu_torch.utils.hparams import get_hparams
 
-from _torch_parity import (TINY_KWARGS, real_triton_only,  # noqa: F401
+from _torch_parity import (TINY_KWARGS, one_thread_env,
+                           real_triton_only, torch_one_thread,  # noqa: F401
                            write_shard_dir, write_wav_pairs)
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "fastenhancer_shard", "t.yaml")
@@ -104,12 +105,12 @@ def test_cli_needs_a_card_unless_told_otherwise(tmp_path):
         [sys.executable, "-m", "fastenhancer_tpu_torch.train", "-n", "run",
          "-c", CONFIG, "--base_dir", str(tmp_path)], cwd=REPO,
         capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, PYTHONPATH=REPO))
+        env=one_thread_env(PYTHONPATH=REPO))
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
     proc = subprocess.run(
         [sys.executable, "-m", "fastenhancer_tpu_torch.train", "--help"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, PYTHONPATH=REPO))
+        env=one_thread_env(PYTHONPATH=REPO))
     assert proc.returncode == 0
     assert all(f in proc.stdout for f in ("--name", "--config", "--params",
                                           "--force_save", "--base_dir",

@@ -17,6 +17,10 @@ from fastenhancer_tpu_torch import presets
 from fastenhancer_tpu_torch.utils import yaml_subset
 from fastenhancer_tpu_torch.utils.hparams import HParams, get_hparams
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, os.path.join(REPO, "configs"))
                  for p in glob.glob(os.path.join(REPO, "configs", "**",

@@ -16,12 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import flatten_paths, to_np_tree
+from _torch_parity import (flatten_paths, to_np_tree,
+                           torch_one_thread)  # noqa: F401
 from _torch_reference_sd import reference_checkpoint, reference_state_dict
 from fastenhancer_tpu.models import get_model as jax_get_model
 from fastenhancer_tpu.utils import convert_checkpoint as jax_convert
 from fastenhancer_tpu_torch.models import get_model
 from fastenhancer_tpu_torch.utils import convert_checkpoint
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CPU = torch.device("cpu")
 SMALL = dict(channels=12, stride=4, n_fft=128, hop_size=64, win_size=128,

@@ -22,7 +22,10 @@ from fastenhancer_tpu_torch.data.noise_suppression import NSDataset
 from fastenhancer_tpu_torch.data.shard import ShardDataset
 from fastenhancer_tpu_torch.utils.hparams import HParams
 
-from _torch_parity import SR, write_shard_dir, write_wav_pairs
+from _torch_parity import (SR, write_shard_dir, write_wav_pairs,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 def _float_wav(path, x, channels=1):

@@ -32,8 +32,11 @@ from fastenhancer_tpu_torch.presets import DPRNN_B
 from _torch_parity import (as_np, assert_trees_close,
                            check_engine_fused_matches_unfused,
                            check_train_forward_runs, flatten_paths,
-                           perturb_bn_stats, port_variables, to_np_tree)
+                           perturb_bn_stats, port_variables, to_np_tree,
+                           torch_one_thread)  # noqa: F401
 from test_model_variants import DPRNN_KWARGS
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5
 HOP = DPRNN_KWARGS["hop_size"]

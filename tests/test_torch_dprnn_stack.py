@@ -10,6 +10,10 @@ import torch
 
 from fastenhancer_tpu_torch.ops import dprnn_stack as dprnn
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 BF16 = torch.bfloat16
 # the H100's shared memory a SM (228 KB), and what it reserves a block
 SM_SMEM_BYTES = 233_472

@@ -21,7 +21,10 @@ from fastenhancer_tpu_torch.models.fastenhancer.dptransformer import (
 
 from _torch_parity import (assert_trees_close, check_train_forward_runs,
                            flatten_paths, perturb_bn_stats, port_variables,
-                           to_np_tree)
+                           to_np_tree,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 HOP = 64
 N_FRAMES = 9  # beyond the lookbehind of 5

@@ -26,7 +26,10 @@ from fastenhancer_tpu_torch.models.fastenhancer.dptransformer import (
     Model as TModel)
 from fastenhancer_tpu_torch.ops import dpt_stack as tdpt
 
-from _torch_parity import as_np, perturb_bn_stats, port_variables
+from _torch_parity import (as_np, perturb_bn_stats, port_variables,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5
 LB = 5

@@ -41,8 +41,9 @@ from fastenhancer_tpu_torch.ops import (bsrnn_stack, dprnn_stack, dpt_stack,
 from fastenhancer_tpu_torch.ops import gru_scan as scan
 from fastenhancer_tpu_torch.scripts import export
 
-from _torch_parity import (TINY_KWARGS, flatten_paths, perturb_bn_stats,
-                           port_variables, real_triton_only,  # noqa: F401
+from _torch_parity import (TINY_KWARGS, flatten_paths, one_thread_env,
+                           perturb_bn_stats, port_variables,
+                           real_triton_only,  # noqa: F401
                            to_np_tree, torch_one_thread)
 from test_model_variants import DPRNN_KWARGS
 
@@ -283,7 +284,7 @@ def test_cli_export_and_model_free_runner(tmp_path, monkeypatch, capsys):
     r = subprocess.run(
         [sys.executable, "-c", RUNNER.format(wav=wav_path), *argv],
         capture_output=True, text=True, cwd=REPO, timeout=300,
-        env=dict(os.environ, PYTHONPATH=REPO))
+        env=one_thread_env(PYTHONPATH=REPO))
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.count("per-tick latency ms") == len(arts), r.stdout
     assert r.stdout.count("amortized (pipelined dispatch)") == len(arts)

@@ -23,6 +23,10 @@ from fastenhancer_tpu_torch.scripts import gen_configs
 from fastenhancer_tpu_torch.utils import yaml_subset
 from fastenhancer_tpu_torch.utils.hparams import get_hparams
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILT = build_all()
 JAX_BUILT = jax_build_all()

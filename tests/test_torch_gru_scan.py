@@ -27,7 +27,9 @@ from fastenhancer_tpu_torch.ops.gru_scan import (gru_fused, gru_scan,
                                                  gru_scan_reference)
 from fastenhancer_tpu_torch.utils import from_jax
 
-from _torch_parity import to_np_tree
+from _torch_parity import to_np_tree, torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 def _case(t, n, h, seed, h0=True):

@@ -34,9 +34,10 @@ from fastenhancer_tpu_torch.wrappers import get_wrapper
 
 from _torch_parity import (TINY_KWARGS, perturb_bn_stats,  # noqa: F401
                            port_variables, real_triton_only, to_np_tree,
-                           write_shard_dir, write_wav_pairs)
+                           write_shard_dir, write_wav_pairs,
+                           torch_one_thread)  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "fastenhancer_shard", "t.yaml")

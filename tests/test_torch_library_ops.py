@@ -20,9 +20,10 @@ from fastenhancer_tpu_torch.ops import (_build, _library, bsrnn_stack,
 from fastenhancer_tpu_torch.ops import gru_scan as scan
 from fastenhancer_tpu_torch.ops import segmental_rms as seg
 
-from _torch_parity import TINY_KWARGS, real_triton_only  # noqa: F401
+from _torch_parity import (TINY_KWARGS, real_triton_only,
+                           torch_one_thread)  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 B, HEADS = 2, 2
 

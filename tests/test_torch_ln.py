@@ -22,7 +22,10 @@ from fastenhancer_tpu_torch.ops import fused_frame
 from _torch_parity import (TINY_KWARGS, assert_trees_close,
                            check_engine_fused_matches_unfused,
                            check_train_forward_runs, flatten_paths,
-                           perturb_norms, port_variables, to_np_tree)
+                           perturb_norms, port_variables, to_np_tree,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 HOP = TINY_KWARGS["hop_size"]
 N_FRAMES = 12

@@ -10,6 +10,10 @@ import torch
 from fastenhancer_tpu import losses as jl
 from fastenhancer_tpu_torch import losses as tl
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 B, F, T, L = 3, 17, 9, 640
 CFG = {"mag_mse": {"weight": 0.3}, "complex_mse": {"weight": 0.2},
        "consistency": {"weight": 0.3, "compression": 0.3, "n_fft": 128,

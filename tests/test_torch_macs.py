@@ -17,6 +17,10 @@ import pytest
 from fastenhancer_tpu.models import macs as jax_macs
 from fastenhancer_tpu_torch.models import macs
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True)

@@ -10,6 +10,10 @@ from fastenhancer_tpu.metrics import pesq_native as jpesq
 from fastenhancer_tpu_torch import metrics
 from fastenhancer_tpu_torch.metrics import pesq_native
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 SR = 16_000
 TOL = 1e-9
 

@@ -15,6 +15,10 @@ import torch
 from fastenhancer_tpu.data import shard_mixer as jmix
 from fastenhancer_tpu_torch.data import shard_mixer as tmix
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 SR = 16_000
 B, T, T_RIR = 6, 8_000, 8_000
 T60_MAX = 0.15

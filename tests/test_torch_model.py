@@ -21,8 +21,11 @@ from fastenhancer_tpu_torch.models.fastenhancer.default import Model as TModel
 from fastenhancer_tpu_torch.utils import from_jax, to_numpy
 
 from _torch_parity import (TINY_KWARGS, as_np, assert_trees_close,
-                           flatten_paths, perturb_bn_stats, port_variables,
-                           real_triton_only, to_np_tree)  # noqa: F401
+                           flatten_paths, one_thread_env, perturb_bn_stats,
+                           port_variables, real_triton_only, to_np_tree,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOP = TINY_KWARGS["hop_size"]
@@ -427,8 +430,16 @@ shard_speech.main(["-n", "sp", "-d", speech, "-s", os.path.join(d, "shards"),
                    "-j", "1"])
 cuts = list(ShardSource(os.path.join(d, "shards", "sp")).iter_cuts(seed=0))
 assert sorted(len(c.audio) for c in cuts) == [16000, 32000]
+# the training demo's configs of both recipes, read and rewritten
+from fastenhancer_tpu_torch.scripts import train_demo
+dirs = {f"{s}_{k}": os.path.join(d, s, k) for s in ("train", "test")
+        for k in ("clean", "noisy")}
+for recipe in ("paired", "shard"):
+    cfg = train_demo.demo_config(recipe, 4, 0, dirs, {"speech": speech})
+    assert cfg["data"]["valid"]["clean_dir"] == dirs["test_clean"]
 assert not any(blocked(m) for m in sys.modules)
 assert {"fastenhancer_tpu_torch.scripts.enhance",
+        "fastenhancer_tpu_torch.scripts.train_demo",
         "fastenhancer_tpu_torch.scripts.serve",
         "fastenhancer_tpu_torch.scripts.metrics_ns",
         "fastenhancer_tpu_torch.data.ns_on_the_fly",
@@ -457,7 +468,7 @@ def test_port_imports_no_jax():
     (`fastenhancer_tpu_torch.scripts.*`), the corpus tools (a counterpart
     of each of scripts/data/*.py), the summaries, the profiler and the
     native decoder among them."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = one_thread_env(PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -19,7 +19,9 @@ from fastenhancer_tpu_torch import native
 from fastenhancer_tpu_torch.data.audio_io import _read_riff, read_wav
 from fastenhancer_tpu_torch.data.shard import ShardSource
 
-from _torch_parity import write_shard_dir
+from _torch_parity import write_shard_dir, torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 16_000

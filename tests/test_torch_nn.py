@@ -12,6 +12,10 @@ import torch
 from fastenhancer_tpu import nn as jnn
 from fastenhancer_tpu_torch import nn as tnn
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 ATOL = 1e-5
 
 

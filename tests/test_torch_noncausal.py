@@ -26,7 +26,10 @@ from fastenhancer_tpu_torch.utils import cast_floating
 
 from _torch_parity import (TINY_KWARGS, assert_trees_close,
                            check_train_forward_runs, flatten_paths,
-                           perturb_bn_stats, port_variables, to_np_tree)
+                           perturb_bn_stats, port_variables, to_np_tree,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5
 BF16_REL = 2 ** -5

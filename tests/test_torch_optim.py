@@ -20,9 +20,9 @@ from fastenhancer_tpu_torch.presets import FE_B, FE_T_SHARD
 from fastenhancer_tpu_torch.utils import tree_paths
 
 from _torch_parity import (TINY_KWARGS, flatten_paths, port_variables,
-                           real_triton_only)  # noqa: F401
+                           real_triton_only, torch_one_thread)  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 SHAPES = {"w2": (8, 5), "w3": (4, 3, 2), "b": (6,), "s": (1,)}
 

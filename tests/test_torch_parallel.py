@@ -33,7 +33,9 @@ from fastenhancer_tpu_torch.wrappers.ns_on_the_fly import ModelWrapper as TOTF
 from fastenhancer_tpu_torch.wrappers.ns_shard import ModelWrapper as TShard
 
 from _torch_dist import free_port
-from _torch_parity import SR, write_shard_dir
+from _torch_parity import SR, write_shard_dir, torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 HOP = 256
 

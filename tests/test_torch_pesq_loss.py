@@ -15,6 +15,10 @@ from fastenhancer_tpu.pesq_loss import PESQLoss as JPESQLoss
 from fastenhancer_tpu_torch import losses as tl
 from fastenhancer_tpu_torch.pesq_loss import PESQLoss
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 # configs/fastenhancer/b.yaml's losses at a 128-point STFT
 RECIPE = {"mag_mse": {"weight": 0.3}, "complex_mse": {"weight": 0.2},
           "consistency": {"weight": 0.3, "compression": 0.3, "n_fft": 128,

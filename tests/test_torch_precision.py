@@ -42,12 +42,15 @@ from fastenhancer_tpu_torch.utils import terminal as tterminal
 from _torch_parity import (TINY_KWARGS, real_triton_only,  # noqa: F401
                            torch_one_thread)
 
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 ENTRY_POINTS = ["fastenhancer_tpu_torch.train.__main__",
                 "fastenhancer_tpu_torch.scripts.serve",
                 "fastenhancer_tpu_torch.scripts.enhance",
                 "fastenhancer_tpu_torch.scripts.metrics_ns",
                 "fastenhancer_tpu_torch.scripts.export",
-                "fastenhancer_tpu_torch.scripts.run_exported"]
+                "fastenhancer_tpu_torch.scripts.run_exported",
+                "fastenhancer_tpu_torch.scripts.train_demo"]
 
 
 @pytest.fixture

@@ -15,6 +15,10 @@ from fastenhancer_tpu_torch import presets
 
 from __graft_entry__ import FLAGSHIP_KWARGS
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -24,10 +24,11 @@ from fastenhancer_tpu_torch.utils.hparams import HParams
 from fastenhancer_tpu_torch.utils.profiler import StepProfiler, make_profiler
 from fastenhancer_tpu_torch.wrappers import get_wrapper
 
-from _torch_parity import TINY_KWARGS, real_triton_only  # noqa: F401
+from _torch_parity import (TINY_KWARGS, real_triton_only,
+                           torch_one_thread)  # noqa: F401
 from _torch_train_parity import assert_grads_close, build_case, run_jax_steps
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 
 def _traces(logdir):

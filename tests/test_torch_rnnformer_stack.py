@@ -23,7 +23,10 @@ from fastenhancer_tpu_torch.models.fastenhancer.default import Model as TModel
 from fastenhancer_tpu_torch.models.fastenhancer.ln import Model as TLnModel
 from fastenhancer_tpu_torch.ops import rnnformer_stack as tstack
 
-from _torch_parity import TINY_KWARGS, as_np, perturb_norms, port_variables
+from _torch_parity import (TINY_KWARGS, as_np, perturb_norms, port_variables,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 ATOL = 1e-5
 

@@ -8,6 +8,8 @@ that forward and runs the later ticks on the graph's flat inputs, the
 variables flattened once: a steady tick flattens only the carry. Its
 outputs and carries stay bit-equal to the program's own forward.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -27,9 +29,11 @@ TICKS = 6
 FORMS = [("bsrnn", False), ("dpt", False), ("fe", False), ("fe", True)]
 
 
+@functools.lru_cache(maxsize=None)
 def _program(fam, spec2spec):
     """(the loaded program's module, variables, zero carry, feed shape) of
-    FAMILIES[fam] exported fused at B streams, on the CPU."""
+    FAMILIES[fam] exported fused at B streams, on the CPU; exported once a
+    form in this file (each caller clones the carry it steps)."""
     name, kw = FAMILIES[fam]
     model = get_model(name, **kw)
     cpu = torch.device("cpu")

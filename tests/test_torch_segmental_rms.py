@@ -19,6 +19,10 @@ from fastenhancer_tpu_torch.ops import segmental_rms as seg
 from fastenhancer_tpu_torch.ops.segmental_rms import (segmental_rms,
                                                       segmental_rms_fused)
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 SR = 16_000
 WIN = SR // 10
 

@@ -12,7 +12,12 @@ import pytest
 
 from fastenhancer_tpu_torch.data.audio_io import write_wav
 
+from _torch_parity import deadline, torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 SR = 16000
+POOL_TIMEOUT = 240  # seconds for a tool's run with its spawned pool
 
 
 def _speech(rng, seconds, sr=SR, gaps=True):
@@ -164,7 +169,8 @@ def _run_both(tmp_path, tool, write, argv):
     trees = []
     for pkg in ("scripts.data", "fastenhancer_tpu_torch.scripts.data"):
         out = str(tmp_path / pkg.split(".")[0])
-        importlib.import_module(f"{pkg}.{tool}").main(argv(src, out))
+        with deadline(POOL_TIMEOUT, f"{pkg}.{tool}"):
+            importlib.import_module(f"{pkg}.{tool}").main(argv(src, out))
         trees.append(_tree(out))
     return trees
 

@@ -22,7 +22,10 @@ from fastenhancer_tpu_torch.models.fastenhancer.default import Model as TModel
 from fastenhancer_tpu_torch.serving import StreamingEngine
 from fastenhancer_tpu_torch.utils import tree_leaves
 
-from _torch_parity import TINY_KWARGS, perturb_bn_stats, port_variables
+from _torch_parity import (TINY_KWARGS, perturb_bn_stats, port_variables,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 HOP = TINY_KWARGS["hop_size"]
 CPUS = ["cpu"] * 4

@@ -20,7 +20,12 @@ from fastenhancer_tpu_torch.data.audio_io import write_wav
 from fastenhancer_tpu_torch.data.shard import ShardSource
 from fastenhancer_tpu_torch.utils import yaml_subset
 
+from _torch_parity import deadline, torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 SR = 16000
+POOL_TIMEOUT = 240  # seconds for a tool's run with its spawned pool
 
 
 def _tone(rng, seconds, sr=SR, amp=0.2):
@@ -257,8 +262,9 @@ def test_shard_test_spawned_jobs_equal_jax(tmp_path):
     for run, main, jobs in (("jax", jax_tool.main, "1"),
                             ("port1", port.main, "1"),
                             ("port2", port.main, "2")):
-        main(["-n", "ts", "-c", config, "-s", str(tmp_path / run),
-              "--seed", "7", "--shard-size", "2", "-j", jobs])
+        with deadline(POOL_TIMEOUT, f"shard_test -j {jobs}"):
+            main(["-n", "ts", "-c", config, "-s", str(tmp_path / run),
+                  "--seed", "7", "--shard-size", "2", "-j", jobs])
         trees.append(output_tree(str(tmp_path / run)))
     assert sum(k.endswith(".tar") for k in trees[0]) == 9  # 3 shards x 3
     assert trees[1] == trees[0] and trees[2] == trees[0]

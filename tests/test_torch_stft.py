@@ -11,6 +11,10 @@ import torch
 from fastenhancer_tpu import functional as jf
 from fastenhancer_tpu_torch import functional as tf
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 ATOL = 1e-5  # float32 DFT of unit-scale frames
 
 

@@ -38,7 +38,10 @@ from fastenhancer_tpu_torch.utils.summarize import (COLORMAP,
                                                     plot_spectrogram_to_numpy,
                                                     summarize)
 
-from _torch_parity import TINY_KWARGS, port_variables
+from _torch_parity import (TINY_KWARGS, port_variables,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SR = 16_000
 

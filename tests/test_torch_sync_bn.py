@@ -20,6 +20,10 @@ from fastenhancer_tpu_torch.nn.layers import batch_norm
 
 import _torch_dist as dist_
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 WORLD, ROWS, F, C = 2, 6, 5, 4
 TOL = 1e-6
 JAX_TOL = 1e-5

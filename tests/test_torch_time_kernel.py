@@ -23,7 +23,10 @@ from fastenhancer_tpu_torch.serving import StreamingEngine
 from _torch_parity import (assert_trees_close,
                            check_engine_fused_matches_unfused,
                            check_train_forward_runs, flatten_paths,
-                           perturb_bn_stats, port_variables, to_np_tree)
+                           perturb_bn_stats, port_variables, to_np_tree,
+                           torch_one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 KWARGS = dict(
     channels=12, kernel_size_freq=[4, 3], kernel_size_time=3, stride=4,

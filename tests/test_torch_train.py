@@ -47,9 +47,10 @@ from fastenhancer_tpu_torch.wrappers import get_wrapper
 from _torch_parity import (TINY_KWARGS, assert_trees_close, flatten_paths,
                            perturb_bn_stats, port_variables,
                            real_triton_only,  # noqa: F401
-                           to_np_tree)
+                           to_np_tree,
+                           torch_one_thread)  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("real_triton_only")
+pytestmark = pytest.mark.usefixtures("real_triton_only", "torch_one_thread")
 
 HOP = TINY_KWARGS["hop_size"]
 ROW_MASK = np.array([1, 1, 0], np.float32)

@@ -14,6 +14,10 @@ from fastenhancer_tpu_torch import functional as tF
 from fastenhancer_tpu_torch.data.audio_io import read_wav, write_wav
 from fastenhancer_tpu_torch.scripts import clean_checkpoint, resample
 
+from _torch_parity import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
 
 
 def test_get_mask_equals_jax():
